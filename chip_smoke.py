@@ -9,20 +9,36 @@ Phases (each prints one JSON line; any failure exits non-zero before the
 last line):
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc compiles deepspeed_tpu_torch/csrc/fused_optim.cu for sm_90a.
+2. build: nvcc compiles deepspeed_tpu_torch/csrc/fused_optim.cu and
+   stream_attention.cu for sm_90a, one nvcc each, in parallel.
 3. tiny_parity: a tiny BERT trained 3 steps on the card and on the CPU
-   (the kernels' plain versions) from the same weights must agree.
+   (the kernels' plain versions) from the same weights must agree: at
+   seq 64 (the einsum attention), then at seq 256 with padded rows (the
+   streaming attention kernels), once with DSTPU_STREAM_BWD=fused and once
+   with split, each with its launch counts checked.
 4. train: BERT-large pretraining (seq 128, bf16, LAMB lr 4e-3 max_coeff
    0.5 min_coeff 0.08, 20 masked positions, ZeRO off, micro-batch 32,
    gas 2) through ``deepspeed_tpu_torch.initialize`` + ``train_batch`` for
    6 steps from seeded random weights; losses finite, and every LAMB step
    through the kernels (launch counts = 22 leaves x 6 steps).
-5. kernels: each kernel against its plain version on the real BERT-large
-   leaves, grads and moments after step 6, with times (CUDA events, median),
-   the least time the card could take (bound) and a library yardstick.
+5. kernels: each optimizer kernel against its plain version on the real
+   BERT-large leaves, grads and moments after step 6, with times (CUDA
+   events, median), the least time the card could take (bound) and a
+   library yardstick.
 6. profile: 3 more LAMB steps of the same engine under torch.profiler:
    device busy ms per step, busy share, top CUDA kernels by device time.
 7. adam: 2 AdamW steps of BERT-large, every step through the Adam kernel.
+8. train512: BERT-large at seq 512 (80 masked positions, padded rows,
+   micro-batch 8, gas 2, otherwise as train) for 6 steps; every attention
+   through the streaming kernels (24 layers x 2 micro-batches x 6 steps
+   forward and fused backward launches) and every LAMB step through its
+   kernels; then 3 steps of the same engine on the einsum attention
+   (DSTPU_FUSED_ATTN=0) as a yardstick, and a profile of 3 steps.
+9. attn_kernels: each attention kernel against its plain version at the
+   seq-512 shape (B=8, n=16, T=512, d=64, bf16, padded keys), with times,
+   bounds and torch's scaled_dot_product_attention as the yardstick.
+10. attn_sweep: streaming fwd+bwd against the einsum path's at seq 256,
+   512 and 1024 (16 heads, d 64, 4,096 tokens per call): times only.
 
 Then one line with the card's name and power limit, one JSON line with
 every kernel, and as the last line
@@ -32,12 +48,15 @@ fp32 matrix products run in full fp32 (TF32 off for matmul and cuDNN) so the
 fp32 comparisons hold to fp32 tolerances.
 """
 
+import contextlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -64,9 +83,64 @@ SOURCE = "deepspeed_tpu_torch/csrc/fused_optim.cu"
 # and sums the norms in another order
 RTOL, ATOL = 1e-5, 1e-6
 
+ATTN_SOURCE = "deepspeed_tpu_torch/csrc/stream_attention.cu"
+BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+SEQ512, NPRED512, MICRO512, TRAIN512_STEPS, YARDSTICK_STEPS = (512, 80, 8, 6,
+                                                              3)
+# BERT-large at seq 512, micro-batch 8: G = 8 x 16 heads, d = 64
+ATTN_SHAPE = dict(B=8, n=16, T=512, d=64)
+# product passes over T^2 d per G, and [G, T, d] operands / fp32 [G, T] rows
+# read plus written once (csrc/stream_attention.cu header)
+ATTN_KERNELS = {
+    "stream_fwd": dict(passes=2, tensors=4, rows=2,
+                       replaces="deepspeed_tpu/ops/pallas_attention.py:268"),
+    "stream_bwd_fused": dict(passes=5, tensors=7, rows=3,
+                             replaces="deepspeed_tpu/ops/pallas_attention.py"
+                                      ":371"),
+    "stream_dkv": dict(passes=4, tensors=6, rows=3,
+                       replaces="deepspeed_tpu/ops/pallas_attention.py:330"),
+    "stream_dq": dict(passes=3, tensors=5, rows=3,
+                      replaces="deepspeed_tpu/ops/pallas_attention.py:435"),
+}
+# kernel vs plain on identical bf16 inputs: |err| <= ATTN_ATOL * max|want|
+# + ATTN_RTOL * |want|.  The kernels run the online softmax over 64-row kv
+# tiles where the plain versions take the whole row, so the unnormalised
+# p is rounded to bf16 at other values, and the sums run in another order.
+ATTN_RTOL, ATTN_ATOL = 2e-2, 1e-2
+
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """``os.environ[name] = value`` inside the block (None: unset)."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def reset_launch_counts():
+    from deepspeed_tpu_torch.ops import cuda_optim
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    cuda_optim.reset_launch_counts()
+    sattn.reset_launch_counts()
+
+
+def launch_counts():
+    from deepspeed_tpu_torch.ops import cuda_optim
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    return {**cuda_optim.LAUNCHES, **sattn.LAUNCHES}
 
 
 def bert_config(opt_type, params, gas=GAS, micro=MICRO, dtype="bf16"):
@@ -80,12 +154,16 @@ def bert_config(opt_type, params, gas=GAS, micro=MICRO, dtype="bf16"):
     return cfg
 
 
-def mlm_batch(rows, seq, vocab, npred, seed=0):
-    """The masked-positions MLM batch bench.py builds (numpy, seeded)."""
+def mlm_batch(rows, seq, vocab, npred, seed=0, pad=False):
+    """The masked-positions MLM batch bench.py builds (numpy, seeded);
+    ``pad``: every third row ends in padding of a different length."""
     import numpy as np
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, vocab, size=(rows, seq)).astype(np.int32)
     mask = np.ones((rows, seq), np.int32)
+    if pad:
+        for r in range(0, rows, 3):
+            mask[r, seq - seq // 8 - 5 * r:] = 0
     tt = np.zeros((rows, seq), np.int32)
     pos = np.stack([rng.choice(seq, size=npred, replace=False)
                     for _ in range(rows)]).astype(np.int32)
@@ -112,23 +190,31 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def phase_tiny_parity(device):
-    """3 LAMB steps of a tiny fp32 BERT on ``device`` and on the CPU."""
+def phase_tiny_parity(device, seq=64, bwd_mode=None):
+    """3 LAMB steps of a tiny fp32 BERT on ``device`` and on the CPU.  From
+    seq 256 the attention runs the streaming kernels, their backward in
+    ``bwd_mode``, and the launch counts are checked."""
     import numpy as np
 
     from deepspeed_tpu_torch import weights
+    tiny = dict(TINY, max_seq_len=seq)
     cfg = bert_config("Lamb", {"lr": 1e-3, "eps": 1e-6, "max_coeff": 0.5,
                                "min_coeff": 0.08, "weight_decay": 0.01},
                       micro=4, dtype="fp32")
-    ref = make_engine(cfg, "cpu", size="tiny", **TINY)
+    ref = make_engine(cfg, "cpu", size="tiny", **tiny)
     params = weights.params_to_numpy(ref.module)
-    dev = make_engine(cfg, device, size="tiny", params=params, **TINY)
+    dev = make_engine(cfg, device, size="tiny", params=params, **tiny)
     losses = []
-    for step in range(3):
-        batch = mlm_batch(8, TINY["max_seq_len"], TINY["vocab_size"], 8,
-                          seed=100 + step)
-        losses.append((float(dev.train_batch(batch)),
-                       float(ref.train_batch(batch))))
+    with env("DSTPU_STREAM_BWD", bwd_mode):
+        sync(device)
+        reset_launch_counts()
+        for step in range(3):
+            batch = mlm_batch(8, seq, tiny["vocab_size"], 8,
+                              seed=100 + step, pad=seq > 64)
+            losses.append((float(dev.train_batch(batch)),
+                           float(ref.train_batch(batch))))
+        sync(device)
+        launches = launch_counts()
     worst = 0.0
     for k, want in ref.master.items():
         got = dev.master[k].cpu()
@@ -136,17 +222,30 @@ def phase_tiny_parity(device):
         worst = max(worst, float(err.max()))
     ok = worst <= 0 and all(
         abs(a - b) <= 1e-4 * abs(b) for a, b in losses)
-    emit("tiny_parity", losses=losses, masters_rtol=1e-4,
-         masters_atol=ATOL * 10, ok=ok)
+    # layers x micro-batches x steps
+    attn = tiny["num_layers"] * 2 * 3 if seq >= 256 else 0
+    split = bwd_mode == "split"
+    expected = {"lamb_phase1": len(ref.master) * 3,
+                "lamb_phase2": len(ref.master) * 3, "adam": 0,
+                "stream_fwd": attn, "stream_bwd_fused": 0 if split else attn,
+                "stream_dkv": attn if split else 0,
+                "stream_dq": attn if split else 0}
+    emit("tiny_parity", seq=seq, bwd_mode=bwd_mode, losses=losses,
+         masters_rtol=1e-4, masters_atol=ATOL * 10, launches=launches,
+         expected_launches=expected, ok=ok)
     if not ok or not np.isfinite(losses).all():
-        raise AssertionError("tiny BERT on the card disagrees with the CPU")
+        raise AssertionError(f"tiny BERT at seq {seq} on the card disagrees "
+                             f"with the CPU")
+    if launches != expected:
+        raise AssertionError(f"tiny BERT at seq {seq}: launches {launches}, "
+                             f"expected {expected}")
+    return launches
 
 
 def phase_train(device):
     import numpy as np
     import torch
 
-    from deepspeed_tpu_torch.ops import cuda_optim
     cfg = bert_config("Lamb", {"lr": 4e-3, "max_coeff": 0.5,
                                "min_coeff": 0.08})
     engine = make_engine(cfg, device, max_seq_len=SEQ)
@@ -155,7 +254,7 @@ def phase_train(device):
     vocab = engine.module.config.vocab_size
     batch = mlm_batch(MICRO * GAS, SEQ, vocab, NPRED)
     sync(device)
-    cuda_optim.reset_launch_counts()
+    reset_launch_counts()
     losses, step_ms = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -163,10 +262,12 @@ def phase_train(device):
         sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    launches = dict(cuda_optim.LAUNCHES)
+    launches = launch_counts()
     want = n_leaves * STEPS
+    # seq 128 is below the streaming kernels' granule: einsum attention
     ok = (np.isfinite(losses).all() and launches["lamb_phase1"] == want
-          and launches["lamb_phase2"] == want and launches["adam"] == 0)
+          and launches["lamb_phase2"] == want and launches["adam"] == 0
+          and not any(launches[k] for k in ATTN_KERNELS))
     emit("train", model="bert-large", seq=SEQ, micro_batch=MICRO, gas=GAS,
          dtype="bf16", optimizer="Lamb", params=n_params, leaves=n_leaves,
          losses=losses, step_ms=step_ms,
@@ -344,7 +445,7 @@ def phase_kernels(engine, batch, device, lamb_launches):
     return results
 
 
-def phase_profile(engine, batch, device, steps=3, top=12):
+def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
     """Where a BERT-large step spends its device time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,10 +468,12 @@ def phase_profile(engine, batch, device, steps=3, top=12):
     busy = sum(device_ms(e) for e in kernels)
     gemm = sum(device_ms(e) for e in kernels
                if "gemm" in e.key or "nvjet" in e.key)
-    emit("profile", steps=steps, step_ms_profiled=wall_ms / steps,
+    attn = sum(device_ms(e) for e in kernels if "stream_" in e.key)
+    emit(name, steps=steps, step_ms_profiled=wall_ms / steps,
          device_busy_ms_per_step=busy / steps,
          device_busy_share_profiled=busy / wall_ms,
          gemm_ms_per_step=gemm / steps,
+         stream_attention_ms_per_step=attn / steps,
          top_kernels=[{"name": e.key[:90], "calls": e.count,
                        "ms_per_step": device_ms(e) / steps}
                       for e in sorted(kernels, key=device_ms,
@@ -380,16 +483,15 @@ def phase_profile(engine, batch, device, steps=3, top=12):
 def phase_adam(device):
     import numpy as np
 
-    from deepspeed_tpu_torch.ops import cuda_optim
     cfg = bert_config("AdamW", {"lr": 1e-4, "weight_decay": 0.01})
     engine = make_engine(cfg, device, max_seq_len=SEQ)
     batch = mlm_batch(MICRO * GAS, SEQ, engine.module.config.vocab_size,
                       NPRED, seed=1)
     sync(device)
-    cuda_optim.reset_launch_counts()
+    reset_launch_counts()
     losses = [float(engine.train_batch(batch)) for _ in range(ADAM_STEPS)]
     sync(device)
-    launches = dict(cuda_optim.LAUNCHES)
+    launches = launch_counts()
     want = len(engine.master) * ADAM_STEPS
     ok = (np.isfinite(losses).all() and launches["adam"] == want
           and launches["lamb_phase1"] == 0)
@@ -398,6 +500,206 @@ def phase_adam(device):
     if not ok:
         raise AssertionError(f"adam phase failed: {losses} {launches}")
     return launches
+
+
+def phase_train512(device):
+    """BERT-large at seq 512 through the streaming attention kernels, then
+    the same engine on the einsum attention as a yardstick."""
+    import numpy as np
+    import torch
+
+    cfg = bert_config("Lamb", {"lr": 4e-3, "max_coeff": 0.5,
+                               "min_coeff": 0.08}, micro=MICRO512)
+    engine = make_engine(cfg, device, max_seq_len=SEQ512)
+    n_leaves = len(engine.master)
+    layers = engine.module.config.num_layers
+    batch = mlm_batch(MICRO512 * GAS, SEQ512, engine.module.config.vocab_size,
+                      NPRED512, pad=True)
+
+    def run(steps):
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        return losses, step_ms
+
+    def steady(step_ms):
+        return MICRO512 * GAS * (len(step_ms) - 1) / (sum(step_ms[1:]) / 1e3)
+
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with env("DSTPU_FUSED_ATTN", None), env("DSTPU_STREAM_BWD", None):
+        reset_launch_counts()
+        losses, step_ms = run(TRAIN512_STEPS)
+        launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    attn = layers * GAS * TRAIN512_STEPS     # layers x micro-batches x steps
+    expected = {"lamb_phase1": n_leaves * TRAIN512_STEPS,
+                "lamb_phase2": n_leaves * TRAIN512_STEPS, "adam": 0,
+                "stream_fwd": attn, "stream_bwd_fused": attn,
+                "stream_dkv": 0, "stream_dq": 0}
+    ok = bool(np.isfinite(losses).all()) and launches == expected
+    emit("train512", model="bert-large", seq=SEQ512, micro_batch=MICRO512,
+         gas=GAS, masked_positions=NPRED512, dtype="bf16", optimizer="Lamb",
+         activation_checkpointing=False, params=engine.num_parameters(),
+         losses=losses, step_ms=step_ms,
+         samples_per_s_steady=steady(step_ms), peak_mem_gib=peak,
+         launches=launches, expected_launches=expected, ok=ok)
+    if not ok:
+        raise AssertionError(f"train512 phase failed: losses {losses}, "
+                             f"launches {launches}, expected {expected}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    with env("DSTPU_FUSED_ATTN", "0"):
+        reset_launch_counts()
+        y_losses, y_ms = run(YARDSTICK_STEPS)
+        y_launches = launch_counts()
+    emit("train512_einsum_yardstick", steps=YARDSTICK_STEPS, losses=y_losses,
+         step_ms=y_ms, samples_per_s_steady=steady(y_ms),
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+         launches=y_launches)
+    return engine, batch, launches
+
+
+def _attn_err(got, want):
+    """(max abs err, max rel err, within tolerance) over tensor pairs, the
+    tolerance ``ATTN_ATOL * max|want| + ATTN_RTOL * |want|``."""
+    abs_err, rel_err, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        atol = ATTN_ATOL * float(w.abs().max())
+        abs_err = max(abs_err, float(diff.max()))
+        rel_err = max(rel_err, float(
+            (diff / w.abs().clamp_min(atol / ATTN_RTOL)).max()))
+        ok = ok and bool((diff <= atol + ATTN_RTOL * w.abs()).all())
+    return abs_err, rel_err, ok
+
+
+def _attn_bound(name, G, T, d, elt_bytes=2):
+    """(bound ms, bound_by): operands and rows read and written once, and
+    the products at the bf16 tensor-core peak (non-causal: every tile)."""
+    k = ATTN_KERNELS[name]
+    flops = k["passes"] * 2.0 * G * T * T * d
+    nbytes = k["tensors"] * G * T * d * elt_bytes + k["rows"] * G * T * 4
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attn_kernels(device, launches, paths):
+    """Each attention kernel against its plain version at the seq-512
+    BERT-large shape, with times, bounds and a library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    B, n, T, d = (ATTN_SHAPE[k] for k in "BnTd")
+    G = B * n
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v, do = (torch.randn((G, T, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    mask = torch.ones((B, T), device=device)
+    for r in range(0, B, 3):
+        mask[r, T - T // 8 - 5 * r:] = 0.0
+    maskg = sattn.mask_gtd(mask, B, T, n)
+    o, lse = sattn.stream_fwd_plain(q, k, v, maskg, False)
+    delta = (do.float() * o.float()).sum(-1)[:, None, :]
+    bwd = (q, k, v, maskg, do, lse, delta, False)
+    fns = {
+        "stream_fwd": (lambda: sattn.stream_fwd(q, k, v, maskg, False),
+                       lambda: sattn.stream_fwd_plain(q, k, v, maskg, False)),
+        "stream_bwd_fused": (lambda: sattn.stream_bwd_fused(*bwd),
+                             lambda: sattn.stream_bwd_plain(*bwd)),
+        "stream_dkv": (lambda: sattn.stream_dkv(*bwd),
+                       lambda: sattn.stream_dkv_plain(*bwd)),
+        "stream_dq": (lambda: (sattn.stream_dq(*bwd),),
+                      lambda: (sattn.stream_dq_plain(*bwd),)),
+    }
+
+    # yardstick: torch's fused attention with the boolean key mask, forward
+    # and the backward of a kept graph (timed only; the port never calls it)
+    def four(x):
+        return x.view(B, n, T, d)
+    keep = mask.bool()[:, None, None, :]
+    ql, kl, vl = (four(x).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
+    lib_ms = {
+        "fwd": _time_ms(lambda: F.scaled_dot_product_attention(
+            four(q), four(k), four(v), attn_mask=keep), device),
+        "bwd": _time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), four(do), retain_graph=True), device)}
+
+    results = []
+    for name, (kfn, pfn) in fns.items():
+        got, want = kfn(), pfn()
+        sync(device)
+        err = _attn_err(got, want)
+        del got, want
+        # plain, kernel, kernel, plain: compare within one call
+        plain_a = _time_ms(pfn, device)
+        kernel_a = _time_ms(kfn, device)
+        kernel_b = _time_ms(kfn, device)
+        plain_b = _time_ms(pfn, device)
+        bound, bound_by = _attn_bound(name, G, T, d)
+        results.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_KERNELS[name]["replaces"],
+            "launches": launches[name], "path": paths[name],
+            "max_abs_err": err[0], "max_rel_err": err[1], "ok": err[2],
+            "ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms["fwd" if name == "stream_fwd" else "bwd"]})
+    for r in results:
+        emit("attn_kernels", shape=ATTN_SHAPE, dtype="bf16",
+             rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
+                 "name", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err", "max_rel_err", "ok")})
+    bad = [r["name"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"attention kernels {bad} disagree with their "
+                             f"plain versions beyond rtol={ATTN_RTOL} "
+                             f"atol={ATTN_ATOL}*max|want|")
+    return results
+
+
+def phase_attn_sweep(device, tokens=4096, n=16, d=64):
+    """Streaming fwd+bwd against the einsum path's, bf16, by sequence
+    length: the data for a measured H100 dispatch threshold."""
+    import torch
+
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    rows = []
+    for T in (256, 512, 1024):
+        B = tokens // T
+        gen = torch.Generator(device=device).manual_seed(T)
+        q, k, v, do = (torch.randn((B, T, n, d), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for _ in range(4))
+        mask = torch.ones((B, T), device=device)
+
+        def path(attn):
+            def run():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                torch.autograd.grad(attn(*leaves), leaves, do)
+            return run
+        stream = path(lambda a, b, c: sattn.stream_attention(a, b, c, mask))
+        einsum = path(lambda a, b, c: L.xla_attention(
+            a, b, c, causal=False, attn_mask=mask))
+        e_a = _time_ms(einsum, device)
+        s_a = _time_ms(stream, device)
+        s_b = _time_ms(stream, device)
+        e_b = _time_ms(einsum, device)
+        rows.append({"seq": T, "batch": B, "stream_ms": min(s_a, s_b),
+                     "einsum_ms": min(e_a, e_b),
+                     "einsum_over_stream": min(e_a, e_b) / min(s_a, s_b)})
+    emit("attn_sweep", heads=n, head_dim=d, tokens=tokens, dtype="bf16",
+         causal=False, rows=rows)
 
 
 def main() -> int:
@@ -425,26 +727,50 @@ def main() -> int:
          count=torch.cuda.device_count(), tf32=False)
 
     from deepspeed_tpu_torch.ops import cuda_optim
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
     t0 = time.perf_counter()
-    cuda_optim.build()
-    emit("build", seconds=time.perf_counter() - t0, source=SOURCE,
-         flags=" ".join(cuda_optim.NVCC_FLAGS),
-         ptxas=[ln.strip() for ln in cuda_optim.build_log.splitlines()
-                if "registers" in ln or "spill" in ln])
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        for job in [pool.submit(cuda_optim.build), pool.submit(sattn.build)]:
+            job.result()
+    emit("build", seconds=time.perf_counter() - t0,
+         sources=[SOURCE, ATTN_SOURCE], flags=" ".join(cuda_optim.NVCC_FLAGS),
+         ptxas={src: [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "entry function" in ln]
+                for src, log in ((SOURCE, cuda_optim.build_log),
+                                 (ATTN_SOURCE, sattn.build_log))})
 
     phase_tiny_parity(device)
+    phase_tiny_parity(device, seq=256, bwd_mode="fused")
+    split_launches = phase_tiny_parity(device, seq=256, bwd_mode="split")
     engine, batch, lamb_launches = phase_train(device)
     kernels = phase_kernels(engine, batch, device, lamb_launches)
     phase_profile(engine, batch, device)
-    del engine
+    del engine, batch
     torch.cuda.empty_cache()
     adam_launches = phase_adam(device)
     for k in kernels:
         if k["name"] == "adam":
-            k["launches"] = adam_launches["adam"]
+            k["launches"], k["path"] = adam_launches["adam"], "adam"
+        else:
+            k["path"] = "train"
+    torch.cuda.empty_cache()
+
+    engine, batch, launches512 = phase_train512(device)
+    phase_profile(engine, batch, device, name="profile512")
+    del engine, batch
+    torch.cuda.empty_cache()
+    # the split pair runs on the seq-256 parity path; the rest on train512
+    paths = {"stream_fwd": "train512", "stream_bwd_fused": "train512",
+             "stream_dkv": "tiny_parity seq 256 split",
+             "stream_dq": "tiny_parity seq 256 split"}
+    attn_launches = {k: (launches512 if v == "train512" else
+                         split_launches)[k] for k, v in paths.items()}
+    kernels += phase_attn_kernels(device, attn_launches, paths)
+    phase_attn_sweep(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {

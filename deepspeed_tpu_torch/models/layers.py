@@ -6,19 +6,22 @@ column/row-parallel linears are ``x @ w`` with weights kept in the JAX
 ``[in, out]`` layout, and the vocab-parallel embedding, logits and
 cross-entropy act on the whole vocabulary.
 
-Attention is the port of ``deepspeed_tpu.ops.pallas_attention.xla_attention``,
-which is what the JAX package runs for BERT at seq 128 (``attention_plan``
-picks XLA off the TPU, and for non-causal seq 128 on it): fp32 scores and
-softmax, mask value -1e9, and probabilities cast to the compute dtype before
-the product with V.  The attention kernels wait for a later slice
-(ROADMAP.md, Queue 2).
+Attention follows the JAX package's ``core_attention`` and
+``attention_plan`` (``layers.py:545-600``).  ``xla_attention`` is the port of
+``pallas_attention.xla_attention`` (fp32 scores and softmax, mask value
+-1e9, probabilities cast to the compute dtype before the product with V),
+which the JAX package runs for BERT at seq 128.  From seq 256 the streaming
+kernels of ``ops/stream_attention.py`` take over (see ``attention_plan``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+
+from deepspeed_tpu_torch.ops import stream_attention as sattn
 
 
 def column_parallel_linear(x, w, b=None):
@@ -116,9 +119,9 @@ class _QKScores(torch.autograd.Function):
         return dq, dk
 
 
-def core_attention(q, k, v, *, causal, attn_mask=None):
-    """Attention on q, k, v [B, T, n, d]; ``attn_mask`` optional [B, T]
-    with 1 = attend.  Returns [B, T, n, d] in q's dtype."""
+def xla_attention(q, k, v, *, causal, attn_mask=None):
+    """The einsum path on q, k, v [B, T, n, d]; ``attn_mask`` optional
+    [B, T] with 1 = attend.  Returns [B, T, n, d] in q's dtype."""
     B, T, n, d = q.shape
     scores = _QKScores.apply(q, k) / math.sqrt(d)
     if causal:
@@ -131,6 +134,69 @@ def core_attention(q, k, v, *, causal, attn_mask=None):
         scores = torch.where(keep, scores, scores.new_tensor(-1e9))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bnts,bsnd->btnd", probs, v)
+
+
+def _attn_mode() -> str:
+    mode = os.environ.get("DSTPU_FUSED_ATTN", "auto")
+    if mode not in ("auto", "1", "0"):
+        # fail loudly, not open: "off"/"false"/"" must not silently enable
+        # the kernel the operator meant to disable
+        raise ValueError(
+            f"DSTPU_FUSED_ATTN={mode!r} is not a valid mode: use 'auto' "
+            f"(the streaming kernels wherever they take the shape), '1' "
+            f"(force a kernel), or '0' (the einsum path only)")
+    return mode
+
+
+def _block_supported(T, n, d) -> bool:
+    """The JAX package's whole-tile gate (``pallas_attention.supported``):
+    where it holds and streaming does not, the JAX plan picks "block"."""
+    hb = 8 if n % 8 == 0 else n
+    return T % 8 == 0 and d % 8 == 0 and hb * T * T * 4 <= 1024 * 1024
+
+
+def attention_plan(T, n, d, causal):
+    """(fwd_impl, bwd_impl) in {"xla", "stream"}, the port's counterpart of
+    ``attention_plan``.  ``DSTPU_FUSED_ATTN`` takes the JAX values:
+
+    * "0": the einsum path;
+    * "auto": the streaming kernels wherever ``stream_supported(T, d)``
+      holds, on the card and on the CPU (plain versions) alike, else the
+      einsum path.  The JAX package's thresholds (``STREAM_AUTO_MIN*``) are
+      v5e measurements and are not carried over; seq 256 as the start is
+      the kernels' own granule, NOT a measured H100 crossover.
+      ``chip_smoke.py``'s ``attn_sweep`` times both paths to supply one.
+    * "1": the streaming kernels where supported; a shape where the JAX
+      plan would force the whole-tile kernel raises, since that kernel and
+      the hybrid ``dispatch_attention`` are not ported yet.
+
+    ``causal`` is part of the JAX signature; the port's plan does not
+    depend on it until the whole-tile kernel lands."""
+    mode = _attn_mode()
+    if mode == "0":
+        return "xla", "xla"
+    if sattn.stream_supported(T, d):
+        return "stream", "stream"
+    if mode == "1" and _block_supported(T, n, d):
+        raise NotImplementedError(
+            f"DSTPU_FUSED_ATTN=1 at seq {T}, head dim {d}: the JAX package "
+            f"forces its whole-tile kernel here, which is not ported to "
+            f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 2: whole-tile "
+            f"_fwd_kernel + _bwd_kernel with dispatch_attention)")
+    return "xla", "xla"
+
+
+def core_attention(q, k, v, *, causal, attn_mask=None):
+    """Attention on q, k, v [B, T, n, d] by ``attention_plan``;
+    ``attn_mask`` optional [B, T] with 1 = attend.  Returns [B, T, n, d] in
+    q's dtype."""
+    B, T, n, d = q.shape
+    fwd_impl, _ = attention_plan(T, n, d, causal)
+    if fwd_impl == "stream":
+        mvec = (torch.ones((B, T), dtype=torch.float32, device=q.device)
+                if attn_mask is None else attn_mask.to(torch.float32))
+        return sattn.stream_attention(q, k, v, mvec, causal)
+    return xla_attention(q, k, v, causal=causal, attn_mask=attn_mask)
 
 
 def multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, *, n_heads,

@@ -23,20 +23,15 @@ fp32 buffer that ``make_scalars`` builds on the tensors' device:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
 from typing import Sequence, Tuple
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fused_optim.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+from deepspeed_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "fused_optim.cu"
+NVCC_FLAGS = _build.NVCC_FLAGS
 
 #: columns of a scalars row
 B1, B2, INV_SCALE, STEP_SIZE, WEIGHT_DECAY, LR = range(6)
@@ -60,40 +55,13 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     global _lib, build_log
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"fused_optim_{tag[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) building {SOURCE}:\n"
-                    f"{build_log}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+        lib, build_log = _build.build_library(SOURCE)
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_int64, ctypes.c_float)
         lib.dstt_lamb_phase1.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
@@ -104,8 +72,6 @@ def build() -> ctypes.CDLL:
                                   i32, i32, ptr]
         for fn in (lib.dstt_lamb_phase1, lib.dstt_lamb_phase2, lib.dstt_adam):
             fn.restype = i32
-        lib.dstt_error_string.argtypes = [i32]
-        lib.dstt_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
@@ -129,20 +95,6 @@ def _check(name: str, n: int, device: torch.device, **tensors) -> None:
     scal = tensors.get("scal")
     if scal is not None and scal.numel() < SCALAR_COLS:
         raise ValueError(f"{name}: scalars row needs {SCALAR_COLS} values")
-
-
-def _on_cuda(name: str, p: torch.Tensor) -> bool:
-    if p.device.type == "cpu":
-        return False
-    if p.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {p.device}")
-    return True
-
-
-def _raise_on(name: str, lib, rc: int) -> None:
-    if rc != 0:
-        msg = lib.dstt_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
 
 
 def _stream(device: torch.device) -> int:
@@ -221,7 +173,7 @@ def adam_plain(p, g, m, v, scal, *, eps, eps_inside_sqrt=False,
 
 def lamb_phase1(p, g, m, v, scal, *, eps, eps_inside_sqrt=False):
     """Returns ``(u, partials)``; m and v are updated in place."""
-    if not _on_cuda("lamb_phase1", p):
+    if not _build.on_cuda("lamb_phase1", p):
         return lamb_phase1_plain(p, g, m, v, scal, eps=eps,
                                  eps_inside_sqrt=eps_inside_sqrt)
     n = p.numel()
@@ -235,14 +187,14 @@ def lamb_phase1(p, g, m, v, scal, *, eps, eps_inside_sqrt=False):
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), u.data_ptr(),
         partials.data_ptr(), nblocks, scal.data_ptr(), n, float(eps),
         int(bool(eps_inside_sqrt)), _stream(p.device))
-    _raise_on("lamb_phase1", lib, rc)
+    _build.raise_on("lamb_phase1", lib, rc)
     LAUNCHES["lamb_phase1"] += 1
     return u, partials
 
 
 def lamb_phase2(p, u, partials, scal, *, min_coeff, max_coeff):
     """``p -= step_size * trust_ratio * u`` in place."""
-    if not _on_cuda("lamb_phase2", p):
+    if not _build.on_cuda("lamb_phase2", p):
         lamb_phase2_plain(p, u, partials, scal, min_coeff=min_coeff,
                           max_coeff=max_coeff)
         return
@@ -259,7 +211,7 @@ def lamb_phase2(p, u, partials, scal, *, min_coeff, max_coeff):
         p.data_ptr(), u.data_ptr(), partials.data_ptr(), nblocks,
         scal.data_ptr(), n, float(min_coeff), float(max_coeff),
         _stream(p.device))
-    _raise_on("lamb_phase2", lib, rc)
+    _build.raise_on("lamb_phase2", lib, rc)
     LAUNCHES["lamb_phase2"] += 1
 
 
@@ -277,7 +229,7 @@ def fused_adam_update(p, g, m, v, scal, *, eps, eps_inside_sqrt=False,
                       decoupled=False) -> None:
     """One Adam/AdamW step on one tensor, p/m/v in place: the port of
     ``deepspeed_tpu.ops.pallas_optim.fused_adam_update``."""
-    if not _on_cuda("adam", p):
+    if not _build.on_cuda("adam", p):
         adam_plain(p, g, m, v, scal, eps=eps,
                    eps_inside_sqrt=eps_inside_sqrt, decoupled=decoupled)
         return
@@ -289,5 +241,5 @@ def fused_adam_update(p, g, m, v, scal, *, eps, eps_inside_sqrt=False,
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), nblocks,
         scal.data_ptr(), n, float(eps), int(bool(eps_inside_sqrt)),
         int(bool(decoupled)), _stream(p.device))
-    _raise_on("adam", lib, rc)
+    _build.raise_on("adam", lib, rc)
     LAUNCHES["adam"] += 1

@@ -1,0 +1,333 @@
+"""Streaming (online-softmax) attention: the hand-written CUDA kernels, their
+plain PyTorch versions, and the autograd function around them.
+
+The port of the stream half of ``deepspeed_tpu/ops/pallas_attention.py``
+(``stream_attention`` and its custom VJP).  The kernels live in
+``deepspeed_tpu_torch/csrc/stream_attention.cu`` (its header says which
+Pallas kernel each replaces, what bounds it and how it is laid out);
+``build()`` compiles that file with ``nvcc`` for ``sm_90a`` into
+``build/kernels/`` at first use and loads it with ctypes.
+
+The kernels work on head-folded ``[G = B*n, T, d]`` operands with an fp32
+``[G, 1, T]`` key mask (1 = attend), logsumexp and delta.  Every wrapper
+takes the same arguments on either device:
+
+* on CUDA tensors it launches its kernel on the current stream, adds one to
+  ``LAUNCHES[name]``, and raises if the launch fails.  There is no fallback.
+* on CPU tensors it runs the plain version beside it (the CPU tests hold the
+  plain versions against the JAX package).
+
+The numerics are the Pallas kernels' (``pallas_attention.py:268-327``):
+masked scores -1e9, unnormalised probabilities cast to the input type
+before ``.V``, normalised by ``max(l, 1e-30)`` afterwards, the backward's
+``dS`` cast to the input type before the dQ/dK products, and
+``delta = rowsum(dO * O)`` in fp32 outside the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import threading
+
+import torch
+
+from deepspeed_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "stream_attention.cu"
+
+#: the stream gate's sequence granule (``pallas_attention.STREAM_TILE_MIN``)
+STREAM_TILE_MIN = 256
+#: the kernels stage the head dim in shared memory padded to 64 or 128
+#: (the port's own gate; the Pallas kernels have none)
+STREAM_MAX_HEAD_DIM = 128
+#: query/kv rows per kernel tile: the sequence must be a multiple of it
+KERNEL_TILE = 64
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: launches per kernel since the last ``reset_launch_counts()``; each
+#: wrapper adds one where it launches its kernel, and nowhere else
+LAUNCHES = {"stream_fwd": 0, "stream_bwd_fused": 0, "stream_dkv": 0,
+            "stream_dq": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+#: compiler output of the last build (ptxas register/spill lines)
+build_log = ""
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library."""
+    global _lib, build_log
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib, build_log = _build.build_library(SOURCE)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # dtype code, the pointers, then G, T, d, scale, causal, stream
+        shape = [i32, i32, i32, f32, i32, ptr]
+        lib.dstt_stream_fwd.argtypes = [i32] + [ptr] * 6 + shape
+        lib.dstt_stream_bwd_fused.argtypes = [i32] + [ptr] * 11 + shape
+        lib.dstt_stream_dkv.argtypes = [i32] + [ptr] * 9 + shape
+        lib.dstt_stream_dq.argtypes = [i32] + [ptr] * 8 + shape
+        for fn in (lib.dstt_stream_fwd, lib.dstt_stream_bwd_fused,
+                   lib.dstt_stream_dkv, lib.dstt_stream_dq):
+            fn.restype = i32
+        _lib = lib
+        return lib
+
+
+def stream_supported(seq_len: int, head_dim: int) -> bool:
+    """``pallas_attention.stream_supported`` (``:252-254``), plus the
+    kernels' head-dim limit."""
+    return (seq_len % STREAM_TILE_MIN == 0 and seq_len >= STREAM_TILE_MIN
+            and head_dim % 8 == 0 and head_dim <= STREAM_MAX_HEAD_DIM)
+
+
+def _stream_bwd_mode() -> str:
+    mode = os.environ.get("DSTPU_STREAM_BWD", "auto")
+    if mode not in ("auto", "fused", "split"):
+        raise ValueError(
+            f"DSTPU_STREAM_BWD={mode!r} is not a valid mode: use 'auto' "
+            f"(the fused single-pass backward), 'fused', or 'split' (the "
+            f"two-kernel dK/dV + dQ backward)")
+    return mode
+
+
+# ------------------------------------------------------------------ layout
+
+def fold_gtd(x: torch.Tensor) -> torch.Tensor:
+    """public [B, T, n, d] -> contiguous kernel [B*n, T, d]."""
+    B, T, n, d = x.shape
+    return x.movedim(2, 1).reshape(B * n, T, d).contiguous()
+
+
+def unfold_gtd(x: torch.Tensor, B: int, n: int) -> torch.Tensor:
+    """kernel [B*n, T, d] -> public [B, T, n, d] (a view)."""
+    G, T, d = x.shape
+    return x.reshape(B, n, T, d).movedim(1, 2)
+
+
+def mask_gtd(attn_mask: torch.Tensor, B: int, T: int, n: int):
+    """[B, T] mask -> contiguous fp32 [B*n, 1, T] (``_mask_gtd``)."""
+    return (attn_mask.to(torch.float32)[:, None, :].expand(B, n, T)
+            .reshape(B * n, 1, T).contiguous())
+
+
+# --------------------------------------------------------- plain versions
+
+def _scores(qg, kg, maskg, causal, scale):
+    """Masked fp32 scores [G, T, T]: products of the input type summed in
+    fp32 (both operands go up to fp32, where their products are exact)."""
+    s = torch.matmul(qg.float(), kg.float().transpose(1, 2)) * scale
+    s = torch.where(maskg != 0, s, s.new_tensor(-1e9))
+    if causal:
+        T = qg.shape[1]
+        keep = torch.ones((T, T), dtype=torch.bool, device=qg.device).tril()
+        s = torch.where(keep, s, s.new_tensor(-1e9))
+    return s
+
+
+def _mm(a, b, dtype):
+    """``a @ b`` with both rounded to ``dtype`` and summed in fp32."""
+    return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
+
+
+def stream_fwd_plain(qg, kg, vg, maskg, causal):
+    """``(o, lse)``: what ``stream_fwd_kernel`` computes, over the whole row
+    at once (the Pallas kernel's one-tile case, T <= 512)."""
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+    s = _scores(qg, kg, maskg, causal, scale)
+    m = torch.maximum(s.amax(dim=-1), s.new_tensor(-1e30))
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    o = _mm(p, vg, vg.dtype) / l[..., None]
+    return o.to(qg.dtype), (m + torch.log(l))[:, None, :]
+
+
+def _p_ds_plain(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``_recompute_p_ds``: fp32 probabilities from the logsumexp and dS with
+    the scale folded in, both [G, T, T]."""
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+    s = _scores(qg, kg, maskg, causal, scale)
+    p = torch.exp(s - lse.reshape(lse.shape[0], -1, 1))
+    dp = torch.matmul(dog.float(), vg.float().transpose(1, 2))
+    ds = p * (dp - delta.reshape(delta.shape[0], -1, 1)) * scale
+    return p, ds
+
+
+def stream_dkv_plain(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``(dk, dv)``: what ``stream_dkv_kernel`` computes."""
+    p, ds = _p_ds_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
+    cdt = qg.dtype
+    dk = _mm(ds.transpose(1, 2), qg, cdt)
+    dv = _mm(p.transpose(1, 2), dog, cdt)
+    return dk.to(kg.dtype), dv.to(vg.dtype)
+
+
+def stream_dq_plain(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``dq``: what ``stream_dq_kernel`` computes."""
+    _, ds = _p_ds_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
+    return _mm(ds, kg, qg.dtype).to(qg.dtype)
+
+
+def stream_bwd_plain(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``(dq, dk, dv)``: what ``stream_bwd_fused_kernel`` computes, with one
+    recompute of p and dS."""
+    p, ds = _p_ds_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
+    cdt = qg.dtype
+    dq = _mm(ds, kg, cdt)
+    dk = _mm(ds.transpose(1, 2), qg, cdt)
+    dv = _mm(p.transpose(1, 2), dog, cdt)
+    return dq.to(qg.dtype), dk.to(kg.dtype), dv.to(vg.dtype)
+
+
+# ----------------------------------------------------------------- wrappers
+
+def _check(name, qg, rows=(), **tensors):
+    """The kernels take contiguous [G, T, d] operands of one type (fp32,
+    bf16 or fp16) and fp32 [G, 1, T] row vectors, 16-byte aligned, on one
+    device."""
+    G, T, d = qg.shape
+    if qg.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: q must be float32, bfloat16 or float16, "
+                        f"got {qg.dtype}")
+    if T % KERNEL_TILE or d % 8 or d > STREAM_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the kernels take T a multiple of "
+                         f"{KERNEL_TILE} and d a multiple of 8 up to "
+                         f"{STREAM_MAX_HEAD_DIM}, got T={T}, d={d}")
+    for arg, t in tensors.items():
+        want = ((G, 1, T), torch.float32) if arg in rows else (
+            (G, T, d), qg.dtype)
+        if tuple(t.shape) != want[0] or t.dtype != want[1]:
+            raise ValueError(f"{name}: {arg} must be {want[1]} {want[0]}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be contiguous and "
+                             f"16-byte aligned")
+        if t.device != qg.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{qg.device}")
+
+
+def _launch(name, fn, qg, *ptrs, causal):
+    G, T, d = qg.shape
+    rc = fn(_DTYPE_CODE[qg.dtype], *ptrs, G, T, d, 1.0 / math.sqrt(d),
+            int(bool(causal)), torch.cuda.current_stream(qg.device).cuda_stream)
+    _build.raise_on(name, _lib, rc)
+    LAUNCHES[name] += 1
+
+
+def stream_fwd(qg, kg, vg, maskg, causal):
+    """``(o [G, T, d], lse fp32 [G, 1, T])``."""
+    if not _build.on_cuda("stream_fwd", qg):
+        return stream_fwd_plain(qg, kg, vg, maskg, causal)
+    _check("stream_fwd", qg, ("mask",), q=qg, k=kg, v=vg, mask=maskg)
+    lib = build()
+    o = torch.empty_like(qg)
+    lse = torch.empty_like(maskg)
+    _launch("stream_fwd", lib.dstt_stream_fwd, qg, qg.data_ptr(),
+            kg.data_ptr(), vg.data_ptr(), maskg.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), causal=causal)
+    return o, lse
+
+
+_BWD_ROWS = ("mask", "lse", "delta")
+
+
+def stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``(dq, dk, dv)`` in one pass; dQ is summed in an fp32 [G, T, d]
+    scratch allocated here."""
+    if not _build.on_cuda("stream_bwd_fused", qg):
+        return stream_bwd_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
+    _check("stream_bwd_fused", qg, _BWD_ROWS, q=qg, k=kg, v=vg, mask=maskg,
+           do=dog, lse=lse, delta=delta)
+    lib = build()
+    dq, dk, dv = (torch.empty_like(qg) for _ in range(3))
+    dq_acc = torch.empty(qg.shape, dtype=torch.float32, device=qg.device)
+    _launch("stream_bwd_fused", lib.dstt_stream_bwd_fused, qg, qg.data_ptr(),
+            kg.data_ptr(), vg.data_ptr(), maskg.data_ptr(), dog.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dq_acc.data_ptr(), causal=causal)
+    return dq, dk, dv
+
+
+def stream_dkv(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``(dk, dv)``, the first kernel of the split backward."""
+    if not _build.on_cuda("stream_dkv", qg):
+        return stream_dkv_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
+    _check("stream_dkv", qg, _BWD_ROWS, q=qg, k=kg, v=vg, mask=maskg,
+           do=dog, lse=lse, delta=delta)
+    lib = build()
+    dk, dv = torch.empty_like(kg), torch.empty_like(vg)
+    _launch("stream_dkv", lib.dstt_stream_dkv, qg, qg.data_ptr(),
+            kg.data_ptr(), vg.data_ptr(), maskg.data_ptr(), dog.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            causal=causal)
+    return dk, dv
+
+
+def stream_dq(qg, kg, vg, maskg, dog, lse, delta, causal):
+    """``dq``, the second kernel of the split backward."""
+    if not _build.on_cuda("stream_dq", qg):
+        return stream_dq_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
+    _check("stream_dq", qg, _BWD_ROWS, q=qg, k=kg, v=vg, mask=maskg,
+           do=dog, lse=lse, delta=delta)
+    lib = build()
+    dq = torch.empty_like(qg)
+    _launch("stream_dq", lib.dstt_stream_dq, qg, qg.data_ptr(),
+            kg.data_ptr(), vg.data_ptr(), maskg.data_ptr(), dog.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), causal=causal)
+    return dq
+
+
+def stream_backward(qg, kg, vg, maskg, o, lse, dog, causal):
+    """``_stream_bwd_impl``: delta = rowsum(dO * O) in fp32, then the fused
+    kernel (modes ``auto`` and ``fused``) or the split pair (``split``).
+    Unlike the TPU's VMEM-gated ``auto``, the fused kernel keeps its dQ sum
+    in device memory, so ``auto`` always takes it."""
+    delta = (dog.float() * o.float()).sum(dim=-1)[:, None, :]
+    if _stream_bwd_mode() == "split":
+        dk, dv = stream_dkv(qg, kg, vg, maskg, dog, lse, delta, causal)
+        return stream_dq(qg, kg, vg, maskg, dog, lse, delta, causal), dk, dv
+    return stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal)
+
+
+class StreamAttention(torch.autograd.Function):
+    """``pallas_attention.stream_attention`` with its custom VJP: q, k, v
+    [B, T, n, d], attn_mask [B, T] (1 = attend) -> [B, T, n, d].  The
+    forward saves the folded operands, ``o`` and ``lse``; the backward
+    recomputes the probabilities from ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_mask, causal):
+        B, T, n, d = q.shape
+        qg, kg, vg = fold_gtd(q), fold_gtd(k), fold_gtd(v)
+        maskg = mask_gtd(attn_mask, B, T, n)
+        o, lse = stream_fwd(qg, kg, vg, maskg, causal)
+        ctx.save_for_backward(qg, kg, vg, maskg, o, lse)
+        ctx.causal, ctx.bn = causal, (B, n)
+        return unfold_gtd(o, B, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        qg, kg, vg, maskg, o, lse = ctx.saved_tensors
+        dq, dk, dv = stream_backward(qg, kg, vg, maskg, o, lse, fold_gtd(g),
+                                     ctx.causal)
+        B, n = ctx.bn
+        # the mask is a float selector, not a trainable input
+        return (unfold_gtd(dq, B, n), unfold_gtd(dk, B, n),
+                unfold_gtd(dv, B, n), None, None)
+
+
+def stream_attention(q, k, v, attn_mask, causal=False):
+    """Streaming attention on public-layout q, k, v [B, T, n, d] with an
+    [B, T] mask; callers gate on ``stream_supported(T, d)``."""
+    return StreamAttention.apply(q, k, v, attn_mask, causal)

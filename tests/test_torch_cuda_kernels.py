@@ -1,15 +1,15 @@
-"""The CUDA optimizer kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc (they build
-``deepspeed_tpu_torch/csrc/fused_optim.cu``); without a card they skip.  On
-a machine with one, from the repository root:
+``deepspeed_tpu_torch/csrc/fused_optim.cu`` and ``stream_attention.cu``);
+without a card they skip.  On a machine with one, from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 (``--noconftest``: tests/conftest.py sets up the JAX package's CPU test rig,
-which these tests do not use.)  Tolerance: fp32 ``rtol=1e-5, atol=1e-6``;
-the kernels contract multiply-adds to FMAs and sum the norms in another
-order than the plain versions.
+which these tests do not use.)  Tolerances: optimizer fp32 ``rtol=1e-5,
+atol=1e-6``; the kernels contract multiply-adds to FMAs and sum the norms in
+another order than the plain versions.  Attention: see ``ATTN_TOL``.
 """
 
 import numpy as np
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import cuda_optim
+from deepspeed_tpu_torch.ops import stream_attention as sattn
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -120,3 +121,108 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match="partials"):
         cuda_optim.lamb_phase2(p, u, parts[:0], scal, min_coeff=0.0,
                                max_coeff=1.0)
+
+
+# ---------------------------------------------------------------- attention
+
+#: (rtol, atol as a fraction of the largest |want|).  The kernels run the
+#: online softmax over 64-row tiles (32 in fp32) where the plain versions
+#: take the whole row, so the rescaled p is rounded to bf16/fp16 at other
+#: values, and the sums run in another order.
+ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2),
+            torch.float16: (5e-3, 2e-3)}
+
+
+def attn_inputs(dev, dtype, T, d, B=2, n=2, seed=0):
+    """qg, kg, vg, dog [B*n, T, d] and the key mask [B*n, 1, T], with the
+    tail of one row's keys masked out."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.tensor(rng.normal(size=(B * n, T, d)),
+                                dtype=dtype, device=dev) for _ in range(4))
+    mask = torch.ones((B, T))
+    mask[1, T - T // 4 - 3:] = 0.0
+    return q, k, v, do, sattn.mask_gtd(mask.to(dev), B, T, n)
+
+
+def attn_close(got, want, dtype):
+    rtol, frac = ATTN_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=frac * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", [(256, 16), (256, 128), (512, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_stream_attention_kernels_match_plain(dev, dtype, T, d, causal):
+    q, k, v, do, mask = attn_inputs(dev, dtype, T, d)
+    sattn.reset_launch_counts()
+    o, lse = sattn.stream_fwd(q, k, v, mask, causal)
+    po, plse = sattn.stream_fwd_plain(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    attn_close([o], [po], dtype)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    # the backward kernels on the plain forward's o and lse
+    delta = (do.float() * po.float()).sum(-1)[:, None, :]
+    args = (q, k, v, mask, do, plse, delta, causal)
+    want = sattn.stream_bwd_plain(*args)
+    fused = sattn.stream_bwd_fused(*args)
+    dk, dv = sattn.stream_dkv(*args)
+    dq = sattn.stream_dq(*args)
+    torch.cuda.synchronize()
+    attn_close(fused, want, dtype)
+    attn_close((dq, dk, dv), want, dtype)
+    assert sattn.LAUNCHES == {"stream_fwd": 1, "stream_bwd_fused": 1,
+                              "stream_dkv": 1, "stream_dq": 1}
+
+
+def test_stream_fused_backward_is_deterministic(dev):
+    q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, 512, 64, seed=4)
+    o, lse = sattn.stream_fwd(q, k, v, mask, False)
+    delta = (do.float() * o.float()).sum(-1)[:, None, :]
+    args = (q, k, v, mask, do, lse, delta, False)
+    first = sattn.stream_bwd_fused(*args)
+    for _ in range(3):
+        for a, b in zip(first, sattn.stream_bwd_fused(*args)):
+            assert torch.equal(a, b)
+
+
+def test_stream_attention_autograd_on_the_card(dev, monkeypatch):
+    """The autograd function through the kernels (both backward modes)
+    against the same function on the CPU (plain versions)."""
+    rng = np.random.default_rng(7)
+    x = [rng.normal(size=(2, 256, 4, 32)).astype(np.float32)
+         for _ in range(4)]
+    mask = np.ones((2, 256), np.float32)
+    mask[0, 200:] = 0.0
+
+    def run(device):
+        q, k, v = (torch.tensor(a, device=device, requires_grad=True)
+                   for a in x[:3])
+        out = sattn.stream_attention(q, k, v, torch.tensor(mask,
+                                                           device=device))
+        (out * torch.tensor(x[3], device=device)).sum().backward()
+        return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+    want = run("cpu")
+    for mode in ("fused", "split"):
+        monkeypatch.setenv("DSTPU_STREAM_BWD", mode)
+        attn_close(run(dev), want, torch.float32)
+
+
+def test_stream_wrappers_refuse_bad_inputs(dev):
+    q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, 256, 32)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        sattn.stream_fwd(q.double(), k.double(), v.double(), mask, False)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        sattn.stream_fwd(q[:, :200], k[:, :200], v[:, :200],
+                         mask[..., :200].contiguous(), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sattn.stream_fwd(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         v, mask, False)
+    with pytest.raises(ValueError, match="mask must be"):
+        sattn.stream_fwd(q, k, v, mask.half(), False)
+    with pytest.raises(ValueError, match="is on cpu"):
+        sattn.stream_fwd(q, k.cpu(), v, mask, False)
