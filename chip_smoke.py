@@ -9,13 +9,18 @@ Phases (each prints one JSON line; any failure exits non-zero before the
 last line):
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc compiles deepspeed_tpu_torch/csrc/fused_optim.cu and
-   stream_attention.cu for sm_90a, one nvcc each, in parallel.
+2. build: nvcc compiles deepspeed_tpu_torch/csrc/fused_optim.cu,
+   stream_attention.cu and block_attention.cu for sm_90a, one nvcc each,
+   in parallel.
 3. tiny_parity: a tiny BERT trained 3 steps on the card and on the CPU
    (the kernels' plain versions) from the same weights must agree: at
    seq 64 (the einsum attention), then at seq 256 with padded rows (the
    streaming attention kernels), once with DSTPU_STREAM_BWD=fused and once
-   with split, each with its launch counts checked.
+   with split, each with its launch counts checked.  Then a tiny GPT-2
+   (seq 128, causal: the whole-tile kernels) the same way, 3 Adam steps.
+   dispatch: dispatch_attention on the card against the CPU for every
+   legal (forward, backward) pair of {xla, block} at seq 128 and of
+   {xla, stream} at seq 256, each with its launch counts checked.
 4. train: BERT-large pretraining (seq 128, bf16, LAMB lr 4e-3 max_coeff
    0.5 min_coeff 0.08, 20 masked positions, ZeRO off, micro-batch 32,
    gas 2) through ``deepspeed_tpu_torch.initialize`` + ``train_batch`` for
@@ -37,8 +42,20 @@ last line):
 9. attn_kernels: each attention kernel against its plain version at the
    seq-512 shape (B=8, n=16, T=512, d=64, bf16, padded keys), with times,
    bounds and torch's scaled_dot_product_attention as the yardstick.
-10. attn_sweep: streaming fwd+bwd against the einsum path's at seq 256,
-   512 and 1024 (16 heads, d 64, 4,096 tokens per call): times only.
+10. train_gpt2: GPT-2 medium causal-LM pretraining (seq 128, bf16, Adam
+   lr 1e-4, ZeRO off, micro-batch 32, gas 2) for 6 steps; every attention
+   through the whole-tile kernels (24 layers x 2 x 6 forward and backward
+   launches) and every Adam step through its kernel (16 leaves x 6); then 3
+   steps on the einsum attention as a yardstick, and a profile of 3 steps.
+11. block_kernels: each whole-tile kernel against its plain version at the
+   GPT-2 shape (B=32, n=16, T=128, d=64, bf16, causal; q, k, v views of the
+   packed qkv), and once with padded keys and a fully padded row, with
+   times, bounds and scaled_dot_product_attention(is_causal=True).
+12. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+   4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
+   non-causal and causal, and whole-tile at seq 64 and 128, causal and
+   non-causal, with the smallest seq where the kernel is >= 1.05x faster
+   (the data for the dispatch defaults in models/layers.py).
 
 Then one line with the card's name and power limit, one JSON line with
 every kernel, and as the last line
@@ -84,13 +101,15 @@ SOURCE = "deepspeed_tpu_torch/csrc/fused_optim.cu"
 RTOL, ATOL = 1e-5, 1e-6
 
 ATTN_SOURCE = "deepspeed_tpu_torch/csrc/stream_attention.cu"
+BLOCK_SOURCE = "deepspeed_tpu_torch/csrc/block_attention.cu"
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 SEQ512, NPRED512, MICRO512, TRAIN512_STEPS, YARDSTICK_STEPS = (512, 80, 8, 6,
                                                               3)
 # BERT-large at seq 512, micro-batch 8: G = 8 x 16 heads, d = 64
 ATTN_SHAPE = dict(B=8, n=16, T=512, d=64)
 # product passes over T^2 d per G, and [G, T, d] operands / fp32 [G, T] rows
-# read plus written once (csrc/stream_attention.cu header)
+# (stream) or the fp32 [B, T] mask (block) read plus written once
+# (csrc/stream_attention.cu and block_attention.cu headers)
 ATTN_KERNELS = {
     "stream_fwd": dict(passes=2, tensors=4, rows=2,
                        replaces="deepspeed_tpu/ops/pallas_attention.py:268"),
@@ -101,7 +120,17 @@ ATTN_KERNELS = {
                        replaces="deepspeed_tpu/ops/pallas_attention.py:330"),
     "stream_dq": dict(passes=3, tensors=5, rows=3,
                       replaces="deepspeed_tpu/ops/pallas_attention.py:435"),
+    "block_fwd": dict(passes=2, tensors=4, rows=0, mask=True,
+                      replaces="deepspeed_tpu/ops/pallas_attention.py:106"),
+    "block_bwd": dict(passes=5, tensors=7, rows=0, mask=True,
+                      replaces="deepspeed_tpu/ops/pallas_attention.py:122"),
 }
+# GPT-2 medium at seq 128 (bench.py's GPT-2 recipe: Adam lr 1e-4, bf16);
+# micro-batch 32 x gas 2 gives both BERT phases' 4,096 tokens per micro-step
+GPT2_SEQ, GPT2_STEPS = 128, 6
+BLOCK_SHAPE = dict(B=32, n=16, T=128, d=64)
+# the dispatch threshold rule of pallas_attention.calibrate_stream_threshold
+SWEEP_WIN = 1.05
 # kernel vs plain on identical bf16 inputs: |err| <= ATTN_ATOL * max|want|
 # + ATTN_RTOL * |want|.  The kernels run the online softmax over 64-row kv
 # tiles where the plain versions take the whole row, so the unnormalised
@@ -130,17 +159,25 @@ def env(name, value):
             os.environ[name] = old
 
 
-def reset_launch_counts():
+def _counted():
+    from deepspeed_tpu_torch.ops import block_attention as battn
     from deepspeed_tpu_torch.ops import cuda_optim
     from deepspeed_tpu_torch.ops import stream_attention as sattn
-    cuda_optim.reset_launch_counts()
-    sattn.reset_launch_counts()
+    return cuda_optim, sattn, battn
+
+
+def reset_launch_counts():
+    for mod in _counted():
+        mod.reset_launch_counts()
 
 
 def launch_counts():
-    from deepspeed_tpu_torch.ops import cuda_optim
-    from deepspeed_tpu_torch.ops import stream_attention as sattn
-    return {**cuda_optim.LAUNCHES, **sattn.LAUNCHES}
+    return {k: v for mod in _counted() for k, v in mod.LAUNCHES.items()}
+
+
+def no_launches(**counts):
+    """Every kernel's count 0 except ``counts``."""
+    return {**dict.fromkeys(launch_counts(), 0), **counts}
 
 
 def bert_config(opt_type, params, gas=GAS, micro=MICRO, dtype="bf16"):
@@ -171,14 +208,26 @@ def mlm_batch(rows, seq, vocab, npred, seed=0, pad=False):
     return (ids, mask, tt, pos, mlm_ids, np.ones((rows, npred), np.float32))
 
 
-def make_engine(cfg, device, size="large", seed=0, params=None, **over):
+def lm_batch(rows, seq, vocab, seed=0):
+    """The causal-LM batch bench.py builds (``:646-648``): tokens from
+    ``default_rng(seed)``, labels the tokens shifted by one, the last -1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(rows, seq)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    return toks, labels
+
+
+def make_engine(cfg, device, size="large", seed=0, params=None, gpt2=False,
+                **over):
     import torch
 
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import BertForPreTraining
+    from deepspeed_tpu_torch.models import GPT2, BertForPreTraining
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = BertForPreTraining.from_size(size, generator=gen, device=device,
-                                         **over)
+    model = (GPT2 if gpt2 else BertForPreTraining).from_size(
+        size, generator=gen, device=device, **over)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         config=cfg, model=model, model_parameters=params, device=device)
     return engine
@@ -215,21 +264,14 @@ def phase_tiny_parity(device, seq=64, bwd_mode=None):
                            float(ref.train_batch(batch))))
         sync(device)
         launches = launch_counts()
-    worst = 0.0
-    for k, want in ref.master.items():
-        got = dev.master[k].cpu()
-        err = (got - want).abs() - (ATOL * 10 + 1e-4 * want.abs())
-        worst = max(worst, float(err.max()))
-    ok = worst <= 0 and all(
-        abs(a - b) <= 1e-4 * abs(b) for a, b in losses)
+    ok = _engines_agree(dev, ref, losses)
     # layers x micro-batches x steps
     attn = tiny["num_layers"] * 2 * 3 if seq >= 256 else 0
     split = bwd_mode == "split"
-    expected = {"lamb_phase1": len(ref.master) * 3,
-                "lamb_phase2": len(ref.master) * 3, "adam": 0,
-                "stream_fwd": attn, "stream_bwd_fused": 0 if split else attn,
-                "stream_dkv": attn if split else 0,
-                "stream_dq": attn if split else 0}
+    expected = no_launches(
+        lamb_phase1=len(ref.master) * 3, lamb_phase2=len(ref.master) * 3,
+        stream_fwd=attn, stream_bwd_fused=0 if split else attn,
+        stream_dkv=attn if split else 0, stream_dq=attn if split else 0)
     emit("tiny_parity", seq=seq, bwd_mode=bwd_mode, losses=losses,
          masters_rtol=1e-4, masters_atol=ATOL * 10, launches=launches,
          expected_launches=expected, ok=ok)
@@ -240,6 +282,129 @@ def phase_tiny_parity(device, seq=64, bwd_mode=None):
         raise AssertionError(f"tiny BERT at seq {seq}: launches {launches}, "
                              f"expected {expected}")
     return launches
+
+
+def _engines_agree(dev, ref, losses):
+    """The card's masters within ``ATOL * 10 + 1e-4 |want|`` of the CPU's,
+    and every loss pair within ``rtol=1e-4``."""
+    worst = 0.0
+    for k, want in ref.master.items():
+        got = dev.master[k].cpu()
+        err = (got - want).abs() - (ATOL * 10 + 1e-4 * want.abs())
+        worst = max(worst, float(err.max()))
+    return worst <= 0 and all(abs(a - b) <= 1e-4 * abs(b) for a, b in losses)
+
+
+def gpt2_config(micro, dtype="bf16", lr=1e-4):
+    """bench.py's GPT-2 recipe: Adam (L2 decay 0), ZeRO off."""
+    return bert_config("Adam", {"lr": lr}, micro=micro, dtype=dtype)
+
+
+def phase_tiny_gpt2_parity(device):
+    """3 Adam steps of a tiny fp32 GPT-2 (2 layers, hidden 128, 4 heads,
+    d 32, vocab 512, seq 128, causal) on ``device`` and on the CPU: the
+    attention runs the whole-tile kernels, checked by their launch counts."""
+    import numpy as np
+
+    from deepspeed_tpu_torch import weights
+    cfg = gpt2_config(4, dtype="fp32", lr=1e-3)
+    ref = make_engine(cfg, "cpu", size="tiny", gpt2=True)
+    params = weights.params_to_numpy(ref.module)
+    dev = make_engine(cfg, device, size="tiny", gpt2=True, params=params)
+    layers, seq = ref.module.config.num_layers, ref.module.config.max_seq_len
+    losses = []
+    with env("DSTPU_FUSED_ATTN", None):
+        sync(device)
+        reset_launch_counts()
+        for step in range(3):
+            batch = lm_batch(4 * GAS, seq, ref.module.config.vocab_size,
+                             seed=100 + step)
+            losses.append((float(dev.train_batch(batch)),
+                           float(ref.train_batch(batch))))
+        sync(device)
+        launches = launch_counts()
+    ok = _engines_agree(dev, ref, losses)
+    attn = layers * GAS * 3                # layers x micro-batches x steps
+    expected = no_launches(adam=len(ref.master) * 3, block_fwd=attn,
+                           block_bwd=attn)
+    emit("tiny_gpt2_parity", seq=seq, losses=losses, masters_rtol=1e-4,
+         masters_atol=ATOL * 10, launches=launches,
+         expected_launches=expected, ok=ok)
+    if not ok or not np.isfinite(losses).all():
+        raise AssertionError("tiny GPT-2 on the card disagrees with the CPU")
+    if launches != expected:
+        raise AssertionError(f"tiny GPT-2: launches {launches}, expected "
+                             f"{expected}")
+
+
+def phase_dispatch(device):
+    """``dispatch_attention`` on the card against the same call on the CPU
+    (plain versions), fp32, output and grads of a sum(sin(.)) loss, for
+    every legal (forward, backward) pair of {xla, block} at seq 128 and of
+    {xla, stream} at seq 256 (causal, one padded key row), each with its
+    launch counts checked.  (stream, block) needs a shape both kernels take:
+    streaming starts at seq 256, the whole-tile kernels end at 128."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops import block_attention as battn
+    from deepspeed_tpu_torch.ops import dispatch_attention as dattn
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    B, n, d = 2, 4, 32
+    rows, bad = [], []
+    both = [T for T in (128, 256, 512) if battn.kernel_supported(T, d)
+            and sattn.stream_supported(T, d)]
+    cases = [(128, ("xla", "block")), (256, ("xla", "stream"))]
+    cases += [(T, ("stream", "block")) for T in both]
+    for T, impls in cases:
+        rng = np.random.default_rng(T)
+        x = [rng.normal(size=(B, T, n, d)).astype(np.float32)
+             for _ in range(3)]
+        mask = np.ones((B, T), np.float32)
+        mask[1, T - T // 4:] = 0.0
+
+        def run(dev, fwd_impl, bwd_impl):
+            q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                       for a in x)
+            out = dattn.dispatch_attention(q, k, v, torch.tensor(
+                mask, device=dev), True, fwd_impl, bwd_impl)
+            torch.sin(out).sum().backward()
+            return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+        for fwd_impl, bwd_impl in itertools.product(impls, impls):
+            if (fwd_impl, bwd_impl) == ("block", "stream"):
+                continue                    # rejected: no logsumexp
+            with env("DSTPU_STREAM_BWD", None):
+                want = run("cpu", fwd_impl, bwd_impl)
+                sync(device)
+                reset_launch_counts()
+                got = run(device, fwd_impl, bwd_impl)
+                sync(device)
+                launches = launch_counts()
+            expected = no_launches(
+                block_fwd=int(fwd_impl == "block"),
+                block_bwd=int(bwd_impl == "block"),
+                stream_fwd=int(fwd_impl == "stream"),
+                stream_bwd_fused=int(bwd_impl == "stream"))
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            ok = launches == expected and all(
+                torch.allclose(g, w, rtol=1e-4,
+                               atol=1e-5 * float(w.abs().max()))
+                for g, w in zip(got, want))
+            rows.append({"seq": T, "fwd": fwd_impl, "bwd": bwd_impl,
+                         "max_abs_err": max(errs), "launches": {
+                             k: v for k, v in launches.items() if v},
+                         "ok": ok})
+            if not ok:
+                bad.append((T, fwd_impl, bwd_impl))
+    emit("dispatch", shape=dict(B=B, n=n, d=d), dtype="float32",
+         causal=True, rtol=1e-4, atol_of_max=1e-5, rows=rows,
+         stream_block_seqs=both, ok=not bad)
+    if bad:
+        raise AssertionError(f"dispatch pairs {bad} disagree with the CPU "
+                             f"or launched other kernels")
 
 
 def phase_train(device):
@@ -446,7 +611,7 @@ def phase_kernels(engine, batch, device, lamb_launches):
 
 
 def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
-    """Where a BERT-large step spends its device time (torch.profiler)."""
+    """Where a training step spends its device time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     engine.train_batch(batch)
@@ -469,11 +634,14 @@ def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
     gemm = sum(device_ms(e) for e in kernels
                if "gemm" in e.key or "nvjet" in e.key)
     attn = sum(device_ms(e) for e in kernels if "stream_" in e.key)
+    block = sum(device_ms(e) for e in kernels
+                if "block_fwd_kernel" in e.key or "block_bwd_kernel" in e.key)
     emit(name, steps=steps, step_ms_profiled=wall_ms / steps,
          device_busy_ms_per_step=busy / steps,
          device_busy_share_profiled=busy / wall_ms,
          gemm_ms_per_step=gemm / steps,
          stream_attention_ms_per_step=attn / steps,
+         block_attention_ms_per_step=block / steps,
          top_kernels=[{"name": e.key[:90], "calls": e.count,
                        "ms_per_step": device_ms(e) / steps}
                       for e in sorted(kernels, key=device_ms,
@@ -537,10 +705,10 @@ def phase_train512(device):
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     attn = layers * GAS * TRAIN512_STEPS     # layers x micro-batches x steps
-    expected = {"lamb_phase1": n_leaves * TRAIN512_STEPS,
-                "lamb_phase2": n_leaves * TRAIN512_STEPS, "adam": 0,
-                "stream_fwd": attn, "stream_bwd_fused": attn,
-                "stream_dkv": 0, "stream_dq": 0}
+    expected = no_launches(
+        lamb_phase1=n_leaves * TRAIN512_STEPS,
+        lamb_phase2=n_leaves * TRAIN512_STEPS, stream_fwd=attn,
+        stream_bwd_fused=attn)
     ok = bool(np.isfinite(losses).all()) and launches == expected
     emit("train512", model="bert-large", seq=SEQ512, micro_batch=MICRO512,
          gas=GAS, masked_positions=NPRED512, dtype="bf16", optimizer="Lamb",
@@ -579,12 +747,15 @@ def _attn_err(got, want):
     return abs_err, rel_err, ok
 
 
-def _attn_bound(name, G, T, d, elt_bytes=2):
-    """(bound ms, bound_by): operands and rows read and written once, and
-    the products at the bf16 tensor-core peak (non-causal: every tile)."""
+def _attn_bound(name, G, T, d, elt_bytes=2, B=0):
+    """(bound ms, bound_by): operands and rows (and the block kernels'
+    [B, T] mask) read and written once, and the products at the bf16
+    tensor-core peak (every tile: the whole-tile kernels compute the whole
+    tile by their contract, and the streaming rows here are non-causal)."""
     k = ATTN_KERNELS[name]
     flops = k["passes"] * 2.0 * G * T * T * d
-    nbytes = k["tensors"] * G * T * d * elt_bytes + k["rows"] * G * T * 4
+    nbytes = (k["tensors"] * G * T * d * elt_bytes + k["rows"] * G * T * 4
+              + (B * T * 4 if k.get("mask") else 0))
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -667,15 +838,159 @@ def phase_attn_kernels(device, launches, paths):
     return results
 
 
-def phase_attn_sweep(device, tokens=4096, n=16, d=64):
-    """Streaming fwd+bwd against the einsum path's, bf16, by sequence
-    length: the data for a measured H100 dispatch threshold."""
+def phase_train_gpt2(device):
+    """GPT-2 medium causal-LM pretraining at seq 128 through the whole-tile
+    attention kernels and the Adam kernel, then the same engine on the
+    einsum attention as a yardstick."""
+    import numpy as np
+    import torch
+
+    engine = make_engine(gpt2_config(MICRO), device, size="medium",
+                         gpt2=True)
+    cfg = engine.module.config
+    batch = lm_batch(MICRO * GAS, GPT2_SEQ, cfg.vocab_size)
+
+    def run(steps):
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        return losses, step_ms
+
+    def steady(step_ms):
+        return MICRO * GAS * (len(step_ms) - 1) / (sum(step_ms[1:]) / 1e3)
+
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with env("DSTPU_FUSED_ATTN", None):
+        reset_launch_counts()
+        losses, step_ms = run(GPT2_STEPS)
+        launches = launch_counts()
+    attn = cfg.num_layers * GAS * GPT2_STEPS  # layers x micro-batches x steps
+    expected = no_launches(adam=len(engine.master) * GPT2_STEPS,
+                           block_fwd=attn, block_bwd=attn)
+    ok = bool(np.isfinite(losses).all()) and launches == expected
+    emit("train_gpt2", model="gpt2-medium", seq=GPT2_SEQ, micro_batch=MICRO,
+         gas=GAS, dtype="bf16", optimizer="Adam", lr=1e-4,
+         activation_checkpointing=False, params=engine.num_parameters(),
+         leaves=len(engine.master), losses=losses, step_ms=step_ms,
+         samples_per_s_steady=steady(step_ms),
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+         launches=launches, expected_launches=expected, ok=ok)
+    if not ok:
+        raise AssertionError(f"train_gpt2 phase failed: losses {losses}, "
+                             f"launches {launches}, expected {expected}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    with env("DSTPU_FUSED_ATTN", "0"):
+        reset_launch_counts()
+        y_losses, y_ms = run(YARDSTICK_STEPS)
+        y_launches = launch_counts()
+    emit("train_gpt2_einsum_yardstick", steps=YARDSTICK_STEPS,
+         losses=y_losses, step_ms=y_ms, samples_per_s_steady=steady(y_ms),
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+         launches=y_launches)
+    return engine, batch, launches
+
+
+def phase_block_kernels(device, launches):
+    """Each whole-tile kernel against its plain version at the GPT-2 shape
+    (q, k, v views of the packed qkv, causal, no padding as on the path,
+    and once more with padded keys and a fully padded row), with times on
+    the path's inputs, bounds and a library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import block_attention as battn
+    B, n, T, d = (BLOCK_SHAPE[k] for k in "BnTd")
+    gen = torch.Generator(device=device).manual_seed(0)
+    qkv = torch.randn((B, T, n, 3, d), generator=gen,
+                      device=device).to(torch.bfloat16)
+    q, k, v = qkv.unbind(3)
+    do = torch.randn((B, T, n, d), generator=gen,
+                     device=device).to(torch.bfloat16)
+    ones = torch.ones((B, T), device=device)
+    padded = ones.clone()
+    padded[0] = 0.0
+    for r in range(1, B, 3):
+        padded[r, T - T // 8 - 3 * r:] = 0.0
+
+    def fns(mask):
+        return {"block_fwd": (
+            lambda: (battn.block_fwd(q, k, v, mask, True),),
+            lambda: (battn.block_fwd_plain(q, k, v, mask, True),)),
+            "block_bwd": (
+            lambda: battn.block_bwd(q, k, v, mask, do, True),
+            lambda: battn.block_bwd_plain(q, k, v, mask, do, True))}
+
+    # yardstick: torch's fused causal attention on the same [B, n, T, d]
+    # views, forward and the backward of a kept graph (timed only; the port
+    # never calls it)
+    four = [x.transpose(1, 2) for x in (q, k, v)]
+    leaves = [x.detach().clone().requires_grad_() for x in four]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_ms = {
+        "block_fwd": _time_ms(lambda: F.scaled_dot_product_attention(
+            *four, is_causal=True), device),
+        "block_bwd": _time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do.transpose(1, 2), retain_graph=True),
+            device)}
+
+    results = []
+    padded_fns = fns(padded)
+    for name, (kfn, pfn) in fns(ones).items():
+        errs = []
+        for kf, pf in ((kfn, pfn), padded_fns[name]):
+            got, want = kf(), pf()
+            sync(device)
+            errs.append(_attn_err(got, want))
+            del got, want
+        # plain, kernel, kernel, plain: compare within one call
+        plain_a = _time_ms(pfn, device)
+        kernel_a = _time_ms(kfn, device)
+        kernel_b = _time_ms(kfn, device)
+        plain_b = _time_ms(pfn, device)
+        bound, bound_by = _attn_bound(name, B * n, T, d, B=B)
+        results.append({
+            "name": name, "route": "cuda", "source": BLOCK_SOURCE,
+            "replaces": ATTN_KERNELS[name]["replaces"],
+            "launches": launches[name], "path": "train_gpt2",
+            "max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs),
+            "ok": all(e[2] for e in errs),
+            "ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms[name]})
+    for r in results:
+        emit("block_kernels", shape=BLOCK_SHAPE, dtype="bf16", causal=True,
+             rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
+                 "name", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err", "max_rel_err", "ok")})
+    bad = [r["name"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"whole-tile kernels {bad} disagree with their "
+                             f"plain versions beyond rtol={ATTN_RTOL} "
+                             f"atol={ATTN_ATOL}*max|want|")
+    return results
+
+
+def phase_attn_sweep(device, kernel, causal, seqs, tokens=4096, n=16,
+                     d=64):
+    """A kernel's fwd+bwd against the einsum path's, bf16, by sequence
+    length, and the smallest length where the kernel is >= 1.05x faster:
+    the data for the dispatch defaults in models/layers.py."""
     import torch
 
     from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.ops import block_attention as battn
     from deepspeed_tpu_torch.ops import stream_attention as sattn
+    attention = {"stream": sattn.stream_attention,
+                 "block": battn.fused_attention}[kernel]
     rows = []
-    for T in (256, 512, 1024):
+    for T in seqs:
         B = tokens // T
         gen = torch.Generator(device=device).manual_seed(T)
         q, k, v, do = (torch.randn((B, T, n, d), generator=gen,
@@ -688,18 +1003,20 @@ def phase_attn_sweep(device, tokens=4096, n=16, d=64):
                 leaves = [x.detach().requires_grad_() for x in (q, k, v)]
                 torch.autograd.grad(attn(*leaves), leaves, do)
             return run
-        stream = path(lambda a, b, c: sattn.stream_attention(a, b, c, mask))
+        kern = path(lambda a, b, c: attention(a, b, c, mask, causal))
         einsum = path(lambda a, b, c: L.xla_attention(
-            a, b, c, causal=False, attn_mask=mask))
+            a, b, c, causal=causal, attn_mask=mask))
         e_a = _time_ms(einsum, device)
-        s_a = _time_ms(stream, device)
-        s_b = _time_ms(stream, device)
+        k_a = _time_ms(kern, device)
+        k_b = _time_ms(kern, device)
         e_b = _time_ms(einsum, device)
-        rows.append({"seq": T, "batch": B, "stream_ms": min(s_a, s_b),
+        rows.append({"seq": T, "batch": B, f"{kernel}_ms": min(k_a, k_b),
                      "einsum_ms": min(e_a, e_b),
-                     "einsum_over_stream": min(e_a, e_b) / min(s_a, s_b)})
-    emit("attn_sweep", heads=n, head_dim=d, tokens=tokens, dtype="bf16",
-         causal=False, rows=rows)
+                     f"einsum_over_{kernel}": min(e_a, e_b) / min(k_a, k_b)})
+    wins = [r["seq"] for r in rows if r[f"einsum_over_{kernel}"] >= SWEEP_WIN]
+    emit("attn_sweep" if kernel == "stream" else "attn_sweep_block",
+         heads=n, head_dim=d, tokens=tokens, dtype="bf16", causal=causal,
+         rows=rows, smallest_winning_seq=min(wins) if wins else None)
 
 
 def main() -> int:
@@ -726,23 +1043,23 @@ def main() -> int:
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), tf32=False)
 
-    from deepspeed_tpu_torch.ops import cuda_optim
-    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    mods = dict(zip((SOURCE, ATTN_SOURCE, BLOCK_SOURCE), _counted()))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        for job in [pool.submit(cuda_optim.build), pool.submit(sattn.build)]:
+    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source
+        for job in [pool.submit(mod.build) for mod in mods.values()]:
             job.result()
-    emit("build", seconds=time.perf_counter() - t0,
-         sources=[SOURCE, ATTN_SOURCE], flags=" ".join(cuda_optim.NVCC_FLAGS),
-         ptxas={src: [ln.strip() for ln in log.splitlines()
+    emit("build", seconds=time.perf_counter() - t0, sources=list(mods),
+         flags=" ".join(mods[SOURCE].NVCC_FLAGS),
+         ptxas={src: [ln.strip() for ln in mod.build_log.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "entry function" in ln]
-                for src, log in ((SOURCE, cuda_optim.build_log),
-                                 (ATTN_SOURCE, sattn.build_log))})
+                for src, mod in mods.items()})
 
     phase_tiny_parity(device)
     phase_tiny_parity(device, seq=256, bwd_mode="fused")
     split_launches = phase_tiny_parity(device, seq=256, bwd_mode="split")
+    phase_tiny_gpt2_parity(device)
+    phase_dispatch(device)
     engine, batch, lamb_launches = phase_train(device)
     kernels = phase_kernels(engine, batch, device, lamb_launches)
     phase_profile(engine, batch, device)
@@ -767,7 +1084,15 @@ def main() -> int:
     attn_launches = {k: (launches512 if v == "train512" else
                          split_launches)[k] for k, v in paths.items()}
     kernels += phase_attn_kernels(device, attn_launches, paths)
-    phase_attn_sweep(device)
+
+    engine, batch, gpt2_launches = phase_train_gpt2(device)
+    phase_profile(engine, batch, device, name="profile_gpt2")
+    del engine, batch
+    torch.cuda.empty_cache()
+    kernels += phase_block_kernels(device, gpt2_launches)
+    for causal in (False, True):
+        phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
+        phase_attn_sweep(device, "block", causal, (64, 128))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")

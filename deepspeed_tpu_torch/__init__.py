@@ -5,9 +5,12 @@ The same public API as the JAX package (upstream DeepSpeed's):
 and ``add_config_arguments(parser)`` adds the standard CLI flags.  The port
 imports torch and never jax, nor anything of ``deepspeed_tpu``.
 
-This slice trains BERT pretraining on one card (``models.bert``) with the
-hand-written CUDA fused LAMB/Adam kernels (``ops/cuda_optim.py``).  What it
-does not cover yet is listed in ROADMAP.md.
+It trains BERT pretraining (``models.bert``) and the GPT-2 causal LM
+(``models.gpt2``) on one card, with hand-written CUDA kernels for the fused
+LAMB/Adam updates (``ops/cuda_optim.py``) and for attention: the whole-tile
+kernels at short causal shapes (``ops/block_attention.py``) and the
+streaming ones from seq 256 (``ops/stream_attention.py``).  What it does
+not cover yet is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -51,13 +51,7 @@
 //   * The kernels with a block per tile launch 256 threads (8 warps), the
 //     fused backward 512 (16); outputs are written in the input type.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -65,37 +59,8 @@ namespace {
 // more warps than the kernels with a block per tile
 constexpr int kThreads = 256;
 constexpr int kThreadsFused = 512;
-constexpr float kMasked = -1e9f;
 constexpr float kMinInit = -1e30f;
 constexpr float kTiny = 1e-30f;
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // Shared-memory layout of one block, the same on the host (launch size) and
 // on the device (carving).  Row strides carry a 16-byte pad against bank
@@ -118,94 +83,6 @@ struct Layout {
   // the fused backward adds the dQ tile product
   static constexpr size_t bwd3 = bwd2 + acc;
 };
-
-struct Carve {
-  unsigned char* p;
-  template <typename U>
-  __device__ U* take(size_t bytes) {
-    U* out = reinterpret_cast<U*>(p);
-    p += bytes;
-    return out;
-  }
-};
-
-// C[M x N] (=, or += when ACC) op(A)[M x K] . op(B)[K x N], all in shared
-// memory.  A is stored [M][K] (or [K][M] when A_T), B is stored [K][N] (or
-// [N][K] when B_T).  C is fp32, row-major with stride ldc.  bf16/fp16 go
-// through WMMA fragments with fp32 accumulation; fp32 through FMAs.
-template <typename T, bool A_T, bool B_T, bool ACC>
-__device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
-                                   const T* Bm, int ldb, int M, int N,
-                                   int K) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-      const int r = e / N, n = e % N;
-      float s = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float a = A_T ? A[k * lda + r] : A[r * lda + k];
-        const float b = B_T ? Bm[n * ldb + k] : Bm[k * ldb + n];
-        s = fmaf(a, b, s);
-      }
-      C[r * ldc + n] = ACC ? C[r * ldc + n] + s : s;
-    }
-  } else {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<A_T, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_T, wmma::col_major,
-                                              wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    const int tn = N / 16;
-    const int tiles = (M / 16) * tn;
-    for (int t = warp; t < tiles; t += nw) {
-      const int tm = t / tn, tc = t % tn;
-      float* cp = C + tm * 16 * ldc + tc * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC)
-        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
-        wmma::load_matrix_sync(
-            a, A_T ? A + k * lda + tm * 16 : A + tm * 16 * lda + k, lda);
-        wmma::load_matrix_sync(
-            b, B_T ? Bm + tc * 16 * ldb + k : Bm + k * ldb + tc * 16, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-    }
-  }
-}
-
-// rows x d of a [.., d] row-major array (row stride d) into a shared tile
-// of stride ld, 16 bytes per thread, and zeros in columns d..DP-1.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int rows, int d) {
-  constexpr int V = 16 / int(sizeof(T));
-  const int cpr = d / V;
-  for (int e = threadIdx.x; e < rows * cpr; e += blockDim.x) {
-    const int r = e / cpr, c = (e % cpr) * V;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + size_t(r) * d + c);
-  }
-  const int pad = DP - d;
-  for (int e = threadIdx.x; e < rows * pad; e += blockDim.x) {
-    const int r = e / pad, c = d + e % pad;
-    dst[r * ld + c] = from_f<T>(0.f);
-  }
-}
-
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
-}
-
-__device__ __forceinline__ void zero(float* dst, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = 0.f;
-}
 
 // rows x d of an fp32 shared tile (stride ld) to device memory in type T.
 template <typename T>
@@ -251,7 +128,7 @@ __global__ void __launch_bounds__(kThreads) stream_fwd_kernel(Args a) {
   const T* v = static_cast<const T*>(a.v) + base;
   const float* mask = a.mask + size_t(g) * T_len;
 
-  load_tile<T, DP>(Qs, Lt::LDT, q + size_t(q0) * d, B, d);
+  load_tile<T, DP>(Qs, Lt::LDT, q + size_t(q0) * d, B, d, d);
   zero(Os, B * Lt::LDA);
   for (int r = threadIdx.x; r < B; r += blockDim.x) {
     m_s[r] = kMinInit;
@@ -264,8 +141,8 @@ __global__ void __launch_bounds__(kThreads) stream_fwd_kernel(Args a) {
   for (int j = 0; j < jend; ++j) {
     const int k0 = j * B;
     __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<T, DP>(Ks, Lt::LDT, k + size_t(k0) * d, B, d);
-    load_tile<T, DP>(Vs, Lt::LDT, v + size_t(k0) * d, B, d);
+    load_tile<T, DP>(Ks, Lt::LDT, k + size_t(k0) * d, B, d, d);
+    load_tile<T, DP>(Vs, Lt::LDT, v + size_t(k0) * d, B, d, d);
     load_vec(mk, mask + k0, B);
     __syncthreads();
     mm<T, false, true, false>(Ss, Lt::LDS, Qs, Lt::LDT, Ks, Lt::LDT, B, B,
@@ -376,9 +253,9 @@ __device__ __forceinline__ void load_q_side(const BwdSmem<T, DP, B>& s,
   using Lt = Layout<T, DP, B>;
   const int d = a.d;
   load_tile<T, DP>(s.Qs, Lt::LDT, static_cast<const T*>(a.q) + base +
-                                      size_t(q0) * d, B, d);
+                                      size_t(q0) * d, B, d, d);
   load_tile<T, DP>(s.dOs, Lt::LDT, static_cast<const T*>(a.dout) + base +
-                                       size_t(q0) * d, B, d);
+                                       size_t(q0) * d, B, d, d);
   load_vec(s.lse_s, a.lse_in + rbase + q0, B);
   load_vec(s.delta_s, a.delta + rbase + q0, B);
 }
@@ -390,9 +267,9 @@ __device__ __forceinline__ void load_kv_side(const BwdSmem<T, DP, B>& s,
   using Lt = Layout<T, DP, B>;
   const int d = a.d;
   load_tile<T, DP>(s.Ks, Lt::LDT, static_cast<const T*>(a.k) + base +
-                                      size_t(k0) * d, B, d);
+                                      size_t(k0) * d, B, d, d);
   load_tile<T, DP>(s.Vs, Lt::LDT, static_cast<const T*>(a.v) + base +
-                                      size_t(k0) * d, B, d);
+                                      size_t(k0) * d, B, d, d);
   load_vec(s.mk, a.mask + rbase + k0, B);
 }
 
@@ -514,16 +391,6 @@ __global__ void __launch_bounds__(kThreadsFused)
 // ------------------------------------------------------------------ launch
 
 enum Which { kFwd = 0, kBwdFused = 1, kDkv = 2, kDq = 3 };
-
-template <typename K>
-int launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return int(cudaGetLastError());
-}
 
 template <typename T, int DP>
 int run(int which, const Args& a, cudaStream_t stream) {

@@ -1,4 +1,6 @@
 from deepspeed_tpu_torch.models.bert import (  # noqa: F401
     BERT_SIZES, BertForPreTraining)
+from deepspeed_tpu_torch.models.gpt2 import (  # noqa: F401
+    GPT2, GPT2_SIZES, GPT2MoE)
 from deepspeed_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig)

@@ -1,0 +1,131 @@
+"""GPT-2 causal LM.
+
+The port of ``GPT2`` from ``deepspeed_tpu/models/gpt2.py`` at mp = 1:
+pre-LN causal blocks, learned position embeddings, the LM head tied to the
+token embedding, and the per-token cross-entropy averaged over labels >= 0.
+Parameter names, shapes and init distributions are the JAX pytree's
+(``wte``, ``wpe``, ``blocks.*``, ``lnf_s``, ``lnf_b``), so ``weights.py``
+copies weights across name for name.
+
+What the JAX model has and this port does not yet raises
+``NotImplementedError`` naming its ROADMAP.md item where a caller reaches
+it: tensor parallelism (mp > 1), the ZeRO-3 fields, the MoE variant and the
+serving methods.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from deepspeed_tpu_torch.models import layers as L
+from deepspeed_tpu_torch.models import transformer as T
+
+# The published GPT-2 size ladder and the reference's perf-test shapes.
+GPT2_SIZES = {
+    "tiny":   dict(num_layers=2,  hidden_size=128,  num_heads=4,
+                   max_seq_len=128, vocab_size=512),
+    "small":  dict(num_layers=12, hidden_size=768,  num_heads=12),
+    "medium": dict(num_layers=24, hidden_size=1024, num_heads=16),
+    "large":  dict(num_layers=24, hidden_size=1536, num_heads=16),
+    "xl-1.5b": dict(num_layers=48, hidden_size=1600, num_heads=25),
+    # 16 heads, not the published 25, so tensor parallelism divides evenly
+    "xl-1.5b-perf": dict(num_layers=48, hidden_size=1600, num_heads=16),
+    "4b":     dict(num_layers=64, hidden_size=2304, num_heads=24),
+    "8b":     dict(num_layers=72, hidden_size=3072, num_heads=24),
+    "20b":    dict(num_layers=111, hidden_size=3808, num_heads=32),
+}
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
+        f"{item})")
+
+
+class GPT2(nn.Module):
+    """``forward(tokens, labels)`` returns the scalar fp32 mean LM loss;
+    tokens and labels are int [B, T], labels < 0 are ignored."""
+
+    def __init__(self, config: T.TransformerConfig, generator=None,
+                 device=None):
+        super().__init__()
+        config.validate()
+        self.config = config
+        h, std = config.hidden_size, config.init_std
+
+        def normal(s, *shape):
+            t = torch.empty(shape, dtype=torch.float32, device=device)
+            return nn.Parameter(t.normal_(0.0, s, generator=generator))
+
+        self.wte = normal(std, config.vocab_size, h)
+        self.wpe = normal(std * 0.5, config.max_seq_len, h)
+        self.blocks = T.TransformerStack(config, generator, device)
+        self.lnf_s = nn.Parameter(torch.ones(h, device=device))
+        self.lnf_b = nn.Parameter(torch.zeros(h, device=device))
+
+    @classmethod
+    def from_size(cls, size: str, generator=None, device=None, **overrides):
+        kw = dict(GPT2_SIZES[size])
+        kw.update(overrides)
+        kw.setdefault("pre_ln", True)
+        kw.setdefault("causal", True)
+        return cls(T.TransformerConfig(**kw), generator=generator,
+                   device=device)
+
+    def validate(self, mp_size: int = 1):
+        """Engine hook: shape checks against the model-parallel degree."""
+        self.config.validate(mp_size)
+        if mp_size != 1:
+            raise _unported("GPT-2 tensor parallelism (mp > 1)",
+                            "Queue 1 item 10")
+
+    def with_config(self, **changes) -> None:
+        """Replace config fields (the engine's activation-checkpointing
+        override), keeping the weights."""
+        self.config = dataclasses.replace(self.config, **changes)
+
+    def forward(self, tokens, labels):
+        cfg = self.config
+        T_len = tokens.shape[1]
+        x = L.vocab_parallel_embedding(tokens, self.wte)
+        x = x + self.wpe[:T_len].to(x.dtype)[None]
+        x = T.stack_apply(x, dict(self.blocks.named_parameters()), cfg)
+        x = L.layer_norm(x, self.lnf_s, self.lnf_b, cfg.ln_eps)
+        logits = L.vocab_parallel_logits(x, self.wte)
+        loss = L.vocab_parallel_cross_entropy(logits, labels)
+        return L.masked_mean_loss(loss, labels >= 0)
+
+    # ---------------------------------------------- not in this slice yet
+
+    @property
+    def zero3_dims(self):
+        """ZeRO-3 partition dims (the JAX engine sets them at stage 3)."""
+        return None
+
+    @zero3_dims.setter
+    def zero3_dims(self, dims):
+        if dims is not None:
+            raise _unported("ZeRO-3 partitioned parameters",
+                            "Queue 1 item 11")
+
+    def zero3_min_dims(self, params):
+        raise _unported("ZeRO-3 partitioned parameters", "Queue 1 item 11")
+
+    def kv_cache_dims(self, mp_size: int = 1):
+        raise _unported("GPT-2 serving (kv_cache_dims)", "Queue 1 item 13")
+
+    def apply_extend(self, *args, **kwargs):
+        raise _unported("GPT-2 serving (apply_extend)", "Queue 1 item 13")
+
+    def apply_decode(self, *args, **kwargs):
+        raise _unported("GPT-2 serving (apply_decode)", "Queue 1 item 13")
+
+
+class GPT2MoE(GPT2):
+    """``deepspeed_tpu/models/gpt2_moe.py``'s Mixture-of-Experts GPT-2."""
+
+    def __init__(self, *args, **kwargs):
+        raise _unported("the MoE GPT-2 (GPT2MoE)", "Queue 1 item 11")

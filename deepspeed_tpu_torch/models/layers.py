@@ -7,21 +7,25 @@ column/row-parallel linears are ``x @ w`` with weights kept in the JAX
 cross-entropy act on the whole vocabulary.
 
 Attention follows the JAX package's ``core_attention`` and
-``attention_plan`` (``layers.py:545-600``).  ``xla_attention`` is the port of
-``pallas_attention.xla_attention`` (fp32 scores and softmax, mask value
--1e9, probabilities cast to the compute dtype before the product with V),
-which the JAX package runs for BERT at seq 128.  From seq 256 the streaming
-kernels of ``ops/stream_attention.py`` take over (see ``attention_plan``).
+``attention_plan`` (``layers.py:69-160``, ``:545-600``): per direction, the
+einsum path ``xla_attention`` (``ops/dispatch_attention.py``), the
+whole-tile kernels of ``ops/block_attention.py`` for short causal shapes,
+or the streaming kernels of ``ops/stream_attention.py`` from seq 256.
 """
 
 from __future__ import annotations
 
-import math
+import functools
 import os
 
 import torch
 
+from deepspeed_tpu_torch.ops import block_attention as battn
+from deepspeed_tpu_torch.ops import dispatch_attention as dattn
 from deepspeed_tpu_torch.ops import stream_attention as sattn
+# the einsum path lives with the dispatch shell; it keeps its name here
+from deepspeed_tpu_torch.ops.dispatch_attention import (  # noqa: F401
+    _QKScores, xla_attention)
 
 
 def column_parallel_linear(x, w, b=None):
@@ -95,45 +99,87 @@ def gelu(x):
     return y.to(x.dtype)
 
 
-class _QKScores(torch.autograd.Function):
-    """``q @ k^T`` scores in fp32 from low-precision q, k [B, T, n, d].
-
-    The port of ``pallas_attention._qk_scores``: products of bf16/fp16
-    values are exact in fp32, so both operands go up to fp32 and the sum
-    runs in fp32 (the JAX ``preferred_element_type=fp32``).  The backward
-    rounds the fp32 score cotangent to the compute dtype BEFORE the dq/dk
-    products, then accumulates them in fp32 and casts to the compute dtype
-    (``pallas_attention.py:670-677``).  In fp32 the casts are identities."""
-
-    @staticmethod
-    def forward(ctx, q, k):
-        ctx.save_for_backward(q, k)
-        return torch.einsum("btnd,bsnd->bnts", q.float(), k.float())
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k = ctx.saved_tensors
-        gl = g.to(q.dtype).float()
-        dq = torch.einsum("bnts,bsnd->btnd", gl, k.float()).to(q.dtype)
-        dk = torch.einsum("bnts,btnd->bsnd", gl, q.float()).to(k.dtype)
-        return dq, dk
+#: per-device-kind streaming thresholds, {"causal": (fwd_min, bwd_min),
+#: "noncausal": (fwd_min, bwd_min)}, keyed by ``torch.cuda.get_device_name()``:
+#: the smallest seq where the kernels' fwd+bwd is >= 1.05x the einsum path's
+#: (``calibrate_stream_threshold``'s rule), from ``chip_smoke.py``'s
+#: ``attn_sweep`` on an H100 (PERF.md section 6): they win from 256, the
+#: smallest seq they take, causal and not.  The JAX package's v5e entries
+#: are not carried over.  fwd == bwd until a direction-split sweep exists.
+STREAM_AUTO_MIN_BY_KIND = {
+    "NVIDIA H100 80GB HBM3": {"causal": (256, 256), "noncausal": (256, 256)},
+}
+#: the streaming default for a device not in the table (and the CPU tests):
+#: the kernels' granule ``STREAM_TILE_MIN``, not a measurement
+STREAM_AUTO_MIN = STREAM_AUTO_MIN_CAUSAL = sattn.STREAM_TILE_MIN
+#: whole-tile kernel auto threshold for causal shapes below the streaming
+#: one, measured as above (``attn_sweep_block`` on an H100, PERF.md section
+#: 6): the kernels win from 64, the smallest seq swept.  One constant,
+#: since the port has one card kind, so the CPU plan takes the card's path.
+#: Non-causal short shapes keep the einsum path, as in the JAX plan.  Env
+#: pin: DSTPU_BLOCK_ATTN_MIN_CAUSAL (0 disables).
+BLOCK_AUTO_MIN_CAUSAL = 64
 
 
-def xla_attention(q, k, v, *, causal, attn_mask=None):
-    """The einsum path on q, k, v [B, T, n, d]; ``attn_mask`` optional
-    [B, T] with 1 = attend.  Returns [B, T, n, d] in q's dtype."""
-    B, T, n, d = q.shape
-    scores = _QKScores.apply(q, k) / math.sqrt(d)
-    if causal:
-        cmask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                      device=q.device))
-        scores = torch.where(cmask[None, None], scores,
-                             scores.new_tensor(-1e9))
-    if attn_mask is not None:
-        keep = attn_mask.to(torch.bool)[:, None, None, :]
-        scores = torch.where(keep, scores, scores.new_tensor(-1e9))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bnts,bsnd->btnd", probs, v)
+def _env_int(name):
+    env = os.environ.get(name)
+    if not env:
+        return None
+    try:
+        v = int(env)
+    except ValueError:
+        raise ValueError(
+            f"{name}={env!r} is not an integer token count") from None
+    if v < 0:
+        raise ValueError(f"{name}={env!r} must be a non-negative count")
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def _device_kind():
+    return (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+            else None)
+
+
+def stream_auto_min(causal: bool = False, direction: str = "fwd") -> int:
+    """The streaming auto-dispatch threshold for the current card and the
+    given pass direction ("fwd" | "bwd").  Resolution order, as in the JAX
+    package (``layers.py:56-66``): the causal direction pin
+    ``DSTPU_STREAM_ATTN_MIN_CAUSAL_FWD|_BWD``, the causal pin, the direction
+    pin ``DSTPU_STREAM_ATTN_MIN_FWD|_BWD``, ``DSTPU_STREAM_ATTN_MIN``, the
+    per-kind table, the default."""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction must be 'fwd' or 'bwd', "
+                         f"got {direction!r}")
+    suff = direction.upper()
+    names = ((f"DSTPU_STREAM_ATTN_MIN_CAUSAL_{suff}",
+              "DSTPU_STREAM_ATTN_MIN_CAUSAL",
+              f"DSTPU_STREAM_ATTN_MIN_{suff}",
+              "DSTPU_STREAM_ATTN_MIN") if causal else
+             (f"DSTPU_STREAM_ATTN_MIN_{suff}", "DSTPU_STREAM_ATTN_MIN"))
+    for name in names:
+        v = _env_int(name)
+        if v is None:
+            continue
+        if v == 0:
+            raise ValueError(
+                f"{name}=0 is not a valid token count (use "
+                f"DSTPU_FUSED_ATTN=0 to disable kernels)")
+        return v
+    entry = STREAM_AUTO_MIN_BY_KIND.get(_device_kind())
+    if entry is None:
+        return STREAM_AUTO_MIN_CAUSAL if causal else STREAM_AUTO_MIN
+    pair = entry["causal" if causal else "noncausal"]
+    return pair[0] if direction == "fwd" else pair[1]
+
+
+def block_auto_min_causal():
+    """Whole-tile kernel auto threshold for causal shapes; None disables
+    (env pin 0)."""
+    v = _env_int("DSTPU_BLOCK_ATTN_MIN_CAUSAL")
+    if v is None:
+        v = BLOCK_AUTO_MIN_CAUSAL
+    return None if v == 0 else v
 
 
 def _attn_mode() -> str:
@@ -143,60 +189,87 @@ def _attn_mode() -> str:
         # the kernel the operator meant to disable
         raise ValueError(
             f"DSTPU_FUSED_ATTN={mode!r} is not a valid mode: use 'auto' "
-            f"(the streaming kernels wherever they take the shape), '1' "
-            f"(force a kernel), or '0' (the einsum path only)")
+            f"(the kernels from their thresholds, DSTPU_STREAM_ATTN_MIN and "
+            f"DSTPU_BLOCK_ATTN_MIN_CAUSAL), '1' (force a kernel), or '0' "
+            f"(the einsum path only)")
     return mode
 
 
-def _block_supported(T, n, d) -> bool:
-    """The JAX package's whole-tile gate (``pallas_attention.supported``):
-    where it holds and streaming does not, the JAX plan picks "block"."""
-    hb = 8 if n % 8 == 0 else n
-    return T % 8 == 0 and d % 8 == 0 and hb * T * T * 4 <= 1024 * 1024
+_KERNEL_GATES = {"stream": "stream_attention.stream_supported",
+                 "block": "block_attention.kernel_supported"}
 
 
 def attention_plan(T, n, d, causal):
-    """(fwd_impl, bwd_impl) in {"xla", "stream"}, the port's counterpart of
-    ``attention_plan``.  ``DSTPU_FUSED_ATTN`` takes the JAX values:
+    """(fwd_impl, bwd_impl), each in {"xla", "block", "stream"}: the JAX
+    package's per-direction dispatch table (``layers.py:545-573``) on the
+    port's kernels.  ``DSTPU_FUSED_ATTN`` takes the JAX values:
 
     * "0": the einsum path;
-    * "auto": the streaming kernels wherever ``stream_supported(T, d)``
-      holds, on the card and on the CPU (plain versions) alike, else the
-      einsum path.  The JAX package's thresholds (``STREAM_AUTO_MIN*``) are
-      v5e measurements and are not carried over; seq 256 as the start is
-      the kernels' own granule, NOT a measured H100 crossover.
-      ``chip_smoke.py``'s ``attn_sweep`` times both paths to supply one.
-    * "1": the streaming kernels where supported; a shape where the JAX
-      plan would force the whole-tile kernel raises, since that kernel and
-      the hybrid ``dispatch_attention`` are not ported yet.
+    * "1": the streaming kernels where the JAX gate takes the shape, else
+      the whole-tile kernels, else the einsum path, one impl for both
+      directions;
+    * "auto": per direction, streaming from ``stream_auto_min``, else the
+      whole-tile kernels for causal shapes from ``block_auto_min_causal``,
+      else the einsum path; a streaming backward after a whole-tile forward
+      becomes a whole-tile backward (no logsumexp).
 
-    ``causal`` is part of the JAX signature; the port's plan does not
-    depend on it until the whole-tile kernel lands."""
+    Where the JAX gate takes a shape and the CUDA kernels' gate refuses it,
+    "auto" treats the kernel as unsupported (the einsum path instead) and
+    "1" raises ``NotImplementedError``.  Off the card (the CPU tests) the
+    plan is the same, so the CPU runs the card's path in plain versions."""
     mode = _attn_mode()
     if mode == "0":
         return "xla", "xla"
-    if sattn.stream_supported(T, d):
-        return "stream", "stream"
-    if mode == "1" and _block_supported(T, n, d):
-        raise NotImplementedError(
-            f"DSTPU_FUSED_ATTN=1 at seq {T}, head dim {d}: the JAX package "
-            f"forces its whole-tile kernel here, which is not ported to "
-            f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 2: whole-tile "
-            f"_fwd_kernel + _bwd_kernel with dispatch_attention)")
-    return "xla", "xla"
+    # (the JAX gate, the CUDA kernels' gate) of each kernel
+    gates = {"stream": (sattn.jax_stream_supported(T, d),
+                        sattn.stream_supported(T, d)),
+             "block": (battn.supported(T, n, d), battn.kernel_supported(T, d))}
+    if mode == "1":
+        for impl, (jax_ok, kernel_ok) in gates.items():
+            if jax_ok and not kernel_ok:
+                raise NotImplementedError(
+                    f"DSTPU_FUSED_ATTN=1 at seq {T}, head dim {d}: the JAX "
+                    f"plan forces its {impl} kernel here, and the CUDA "
+                    f"kernels' gate ({_KERNEL_GATES[impl]}) refuses the "
+                    f"shape")
+            if jax_ok:
+                return impl, impl
+        return "xla", "xla"
+    stream_ok, block_ok = (all(gates[k]) for k in ("stream", "block"))
+
+    def pick(direction):
+        if stream_ok and T >= stream_auto_min(causal, direction):
+            return "stream"
+        bmin = block_auto_min_causal()
+        if block_ok and causal and bmin is not None and T >= bmin:
+            return "block"
+        return "xla"
+
+    fwd, bwd = pick("fwd"), pick("bwd")
+    if bwd == "stream" and fwd == "block":
+        # a streaming backward needs the forward's logsumexp, which the
+        # whole-tile kernel does not emit
+        bwd = "block"
+    return fwd, bwd
 
 
 def core_attention(q, k, v, *, causal, attn_mask=None):
-    """Attention on q, k, v [B, T, n, d] by ``attention_plan``;
-    ``attn_mask`` optional [B, T] with 1 = attend.  Returns [B, T, n, d] in
-    q's dtype."""
+    """Attention on q, k, v [B, T, n, d] by ``attention_plan``: the single-
+    impl pairs through the kernels' own autograd functions or the einsum
+    path, the mixed pairs through ``dispatch_attention``.  ``attn_mask``
+    optional [B, T] with 1 = attend.  Returns [B, T, n, d] in q's dtype."""
     B, T, n, d = q.shape
-    fwd_impl, _ = attention_plan(T, n, d, causal)
-    if fwd_impl == "stream":
-        mvec = (torch.ones((B, T), dtype=torch.float32, device=q.device)
-                if attn_mask is None else attn_mask.to(torch.float32))
+    fwd_impl, bwd_impl = attention_plan(T, n, d, causal)
+    if (fwd_impl, bwd_impl) == ("xla", "xla"):
+        return xla_attention(q, k, v, attn_mask, causal)
+    mvec = (torch.ones((B, T), dtype=torch.float32, device=q.device)
+            if attn_mask is None else attn_mask.to(torch.float32))
+    if fwd_impl == bwd_impl == "stream":
         return sattn.stream_attention(q, k, v, mvec, causal)
-    return xla_attention(q, k, v, causal=causal, attn_mask=attn_mask)
+    if fwd_impl == bwd_impl == "block":
+        return battn.fused_attention(q, k, v, mvec, causal)
+    return dattn.dispatch_attention(q, k, v, mvec, causal, fwd_impl,
+                                    bwd_impl)
 
 
 def multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, *, n_heads,

@@ -2,8 +2,9 @@
 library with a plain C interface, and load it with ctypes.
 
 ``nvcc`` builds for ``sm_90a`` into ``build/kernels/`` at first use; the
-library's name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Sources that
+library's name carries a hash of the source, the shared headers of
+``csrc/`` and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.  Sources that
 are built at the same time (one thread each) run their ``nvcc`` in
 parallel: the wait on the subprocess releases the GIL.
 """
@@ -39,7 +40,8 @@ def nvcc() -> str:
 def build_library(source: pathlib.Path):
     """``(ctypes.CDLL, compiler output)`` for ``source``; the output is ""
     when an earlier build of the same source and flags was loaded."""
-    src = source.read_bytes()
+    src = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"{source.stem}_{tag[:16]}.so"
     log = ""

@@ -84,11 +84,17 @@ def build() -> ctypes.CDLL:
         return lib
 
 
-def stream_supported(seq_len: int, head_dim: int) -> bool:
-    """``pallas_attention.stream_supported`` (``:252-254``), plus the
-    kernels' head-dim limit."""
+def jax_stream_supported(seq_len: int, head_dim: int) -> bool:
+    """``pallas_attention.stream_supported`` (``:252-254``): the JAX plan's
+    gate for the streaming kernels."""
     return (seq_len % STREAM_TILE_MIN == 0 and seq_len >= STREAM_TILE_MIN
-            and head_dim % 8 == 0 and head_dim <= STREAM_MAX_HEAD_DIM)
+            and head_dim % 8 == 0)
+
+
+def stream_supported(seq_len: int, head_dim: int) -> bool:
+    """The JAX gate plus the kernels' head-dim limit."""
+    return (jax_stream_supported(seq_len, head_dim)
+            and head_dim <= STREAM_MAX_HEAD_DIM)
 
 
 def _stream_bwd_mode() -> str:

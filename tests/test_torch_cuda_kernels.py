@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc (they build
-``deepspeed_tpu_torch/csrc/fused_optim.cu`` and ``stream_attention.cu``);
-without a card they skip.  On a machine with one, from the repository root:
+``deepspeed_tpu_torch/csrc/fused_optim.cu``, ``stream_attention.cu`` and
+``block_attention.cu``); without a card they skip.  On a machine with one, from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import block_attention as battn
 from deepspeed_tpu_torch.ops import cuda_optim
+from deepspeed_tpu_torch.ops import dispatch_attention as dattn
 from deepspeed_tpu_torch.ops import stream_attention as sattn
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +228,109 @@ def test_stream_wrappers_refuse_bad_inputs(dev):
         sattn.stream_fwd(q, k, v, mask.half(), False)
     with pytest.raises(ValueError, match="is on cpu"):
         sattn.stream_fwd(q, k.cpu(), v, mask, False)
+
+
+# ------------------------------------------------------ whole-tile attention
+
+#: (rtol, atol as a fraction of the largest |want|).  The kernels and the
+#: plain versions compute the same fp32 probabilities up to the order of
+#: the sums, so a bf16/fp16 cast of p or dS can round the other way.
+BLOCK_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2),
+             torch.float16: (5e-3, 2e-3)}
+
+
+def block_inputs(dev, dtype, T, d, B=2, n=3, seed=0):
+    """q, k, v as views of one packed [B, T, n, 3, d] tensor (the model's
+    layout), dO [B, T, n, d], and a [B, T] key mask with a padded tail in
+    row 1 and every key masked in row 0 (a uniform row)."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.tensor(rng.normal(size=(B, T, n, 3, d)), dtype=dtype,
+                       device=dev)
+    do = torch.tensor(rng.normal(size=(B, T, n, d)), dtype=dtype,
+                      device=dev)
+    mask = torch.ones((B, T), device=dev)
+    mask[0] = 0.0
+    mask[1, T - T // 4 - 3:] = 0.0
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :], do, mask
+
+
+def block_close(got, want, dtype):
+    rtol, frac = BLOCK_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=frac * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", [(64, 32), (128, 64), (128, 32), (48, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_block_attention_kernels_match_plain(dev, dtype, T, d, causal):
+    q, k, v, do, mask = block_inputs(dev, dtype, T, d)
+    battn.reset_launch_counts()
+    o = battn.block_fwd(q, k, v, mask, causal)
+    grads = battn.block_bwd(q, k, v, mask, do, causal)
+    want_o = battn.block_fwd_plain(q, k, v, mask, causal)
+    want = battn.block_bwd_plain(q, k, v, mask, do, causal)
+    torch.cuda.synchronize()
+    assert battn.LAUNCHES == {"block_fwd": 1, "block_bwd": 1}
+    assert o.is_contiguous() and all(g.is_contiguous() for g in grads)
+    block_close([o], [want_o], dtype)
+    block_close(grads, want, dtype)
+
+
+def test_block_backward_is_deterministic(dev):
+    q, k, v, do, mask = block_inputs(dev, torch.bfloat16, 128, 64, seed=4)
+    first = battn.block_bwd(q, k, v, mask, do, True)
+    for _ in range(3):
+        for a, b in zip(first, battn.block_bwd(q, k, v, mask, do, True)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fwd_impl,bwd_impl", [
+    ("block", "block"), ("block", "xla"), ("xla", "block")])
+def test_block_attention_autograd_on_the_card(dev, fwd_impl, bwd_impl):
+    """The autograd functions through the kernels against the same
+    functions on the CPU (plain versions)."""
+    rng = np.random.default_rng(7)
+    x = [rng.normal(size=(2, 128, 4, 32)).astype(np.float32)
+         for _ in range(4)]
+    mask = np.ones((2, 128), np.float32)
+    mask[0, 100:] = 0.0
+
+    def run(device):
+        q, k, v = (torch.tensor(a, device=device, requires_grad=True)
+                   for a in x[:3])
+        m = torch.tensor(mask, device=device)
+        if fwd_impl == bwd_impl:
+            out = battn.fused_attention(q, k, v, m, True)
+        else:
+            out = dattn.dispatch_attention(q, k, v, m, True, fwd_impl,
+                                           bwd_impl)
+        (out * torch.tensor(x[3], device=device)).sum().backward()
+        return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+    want = run("cpu")
+    battn.reset_launch_counts()
+    block_close(run(dev), want, torch.float32)
+    assert battn.LAUNCHES == {"block_fwd": int(fwd_impl == "block"),
+                              "block_bwd": int(bwd_impl == "block")}
+
+
+def test_block_wrappers_refuse_bad_inputs(dev):
+    q, k, v, do, mask = block_inputs(dev, torch.bfloat16, 128, 32)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        battn.block_fwd(q.double(), k.double(), v.double(), mask, False)
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        battn.block_fwd(q[:, :120], k[:, :120], v[:, :120],
+                        mask[:, :120].contiguous(), False)
+    with pytest.raises(ValueError, match="share one layout"):
+        battn.block_fwd(q, k.contiguous(), v, mask, False)
+    with pytest.raises(ValueError, match="do must be contiguous"):
+        battn.block_bwd(q, k, v, mask, do.transpose(1, 2).contiguous()
+                        .transpose(1, 2), False)
+    with pytest.raises(ValueError, match="mask must be"):
+        battn.block_fwd(q, k, v, mask.half(), False)
+    with pytest.raises(ValueError, match="is on cpu"):
+        battn.block_fwd(q, k, v, mask.cpu(), False)

@@ -167,9 +167,14 @@ def test_stream_bwd_mode_validation(monkeypatch):
 
 
 def test_attention_plan(monkeypatch):
-    monkeypatch.delenv("DSTPU_FUSED_ATTN", raising=False)
+    for name in ("DSTPU_FUSED_ATTN", "DSTPU_STREAM_ATTN_MIN",
+                 "DSTPU_STREAM_ATTN_MIN_CAUSAL", "DSTPU_BLOCK_ATTN_MIN_CAUSAL"):
+        monkeypatch.delenv(name, raising=False)
     for causal in (False, True):
-        assert TL.attention_plan(128, 16, 64, causal) == ("xla", "xla")
+        # seq 128: the whole-tile kernels for causal shapes (from the
+        # measured BLOCK_AUTO_MIN_CAUSAL), the einsum path otherwise
+        assert TL.attention_plan(128, 16, 64, causal) == (
+            ("block", "block") if causal else ("xla", "xla"))
         for T in (256, 512, 1024):
             assert TL.attention_plan(T, 16, 64, causal) == ("stream",
                                                              "stream")
@@ -178,8 +183,9 @@ def test_attention_plan(monkeypatch):
     assert TL.attention_plan(512, 16, 64, False) == ("xla", "xla")
     monkeypatch.setenv("DSTPU_FUSED_ATTN", "1")
     assert TL.attention_plan(512, 16, 64, False) == ("stream", "stream")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2"):
-        TL.attention_plan(128, 16, 64, False)
+    # forced at seq 128 the JAX plan takes the whole-tile kernel, and so
+    # does the port
+    assert TL.attention_plan(128, 16, 64, False) == ("block", "block")
     # where the JAX plan would fall back to XLA, so does the port
     assert TL.attention_plan(1000, 16, 64, False) == ("xla", "xla")
     monkeypatch.setenv("DSTPU_FUSED_ATTN", "off")
