@@ -27,11 +27,11 @@ last line):
    6 steps from seeded random weights; losses finite, and every LAMB step
    through the kernels (launch counts = 22 leaves x 6 steps).
 5. kernels: each optimizer kernel against its plain version on the real
-   BERT-large leaves, grads and moments after step 6, with times (CUDA
-   events, median), the least time the card could take (bound) and a
-   library yardstick.
+   BERT-large leaves, grads and moments after step 6, with times, the
+   least time the card could take (bound) and a library yardstick.
 6. profile: 3 more LAMB steps of the same engine under torch.profiler:
-   device busy ms per step, busy share, top CUDA kernels by device time.
+   device busy ms per step, busy share, top CUDA kernels by device time;
+   each kernel row's ``profile_ms`` comes from its path's profile.
 7. adam: 2 AdamW steps of BERT-large, every step through the Adam kernel.
 8. train512: BERT-large at seq 512 (80 masked positions, padded rows,
    micro-batch 8, gas 2, otherwise as train) for 6 steps; every attention
@@ -41,7 +41,8 @@ last line):
    (DSTPU_FUSED_ATTN=0) as a yardstick, and a profile of 3 steps.
 9. attn_kernels: each attention kernel against its plain version at the
    seq-512 shape (B=8, n=16, T=512, d=64, bf16, padded keys), with times,
-   bounds and torch's scaled_dot_product_attention as the yardstick.
+   bounds and torch's scaled_dot_product_attention as the yardstick (also
+   pinned to each masked backend, phase attn_library).
 10. train_gpt2: GPT-2 medium causal-LM pretraining (seq 128, bf16, Adam
    lr 1e-4, ZeRO off, micro-batch 32, gas 2) for 6 steps; every attention
    through the whole-tile kernels (24 layers x 2 x 6 forward and backward
@@ -56,6 +57,14 @@ last line):
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
    (the data for the dispatch defaults in models/layers.py).
+
+Kernel and plain times are a run of 20 back-to-back calls between one
+pair of CUDA events, over 20, the median of 5 runs (``_time_ms``), in the
+order plain, kernel, kernel, plain in one process; the library yardstick
+is the smaller of its kernels' device time in torch.profiler
+(``_device_ms``) and its event time (``_library_ms``), since a PyTorch
+call's host work can outlast its kernels; ``profile_ms`` is a kernel's
+device time in its path's training profile.
 
 Then one line with the card's name and power limit, one JSON line with
 every kernel, and as the last line
@@ -125,6 +134,16 @@ ATTN_KERNELS = {
     "block_bwd": dict(passes=5, tensors=7, rows=0, mask=True,
                       replaces="deepspeed_tpu/ops/pallas_attention.py:122"),
 }
+# the device function behind each row (its name in a profiler trace); the
+# bf16/fp16 stream forward and fused backward, not their fp32 route
+DEVICE_SYMBOL = {"lamb_phase1": "lamb_phase1_kernel",
+                 "lamb_phase2": "lamb_phase2_kernel", "adam": "adam_kernel",
+                 "stream_fwd": "stream_fwd_wg_kernel",
+                 "stream_bwd_fused": "stream_bwd_mma_kernel",
+                 "stream_dkv": "stream_dkv_kernel",
+                 "stream_dq": "stream_dq_kernel",
+                 "block_fwd": "block_fwd_kernel",
+                 "block_bwd": "block_bwd_kernel"}
 # GPT-2 medium at seq 128 (bench.py's GPT-2 recipe: Adam lr 1e-4, bf16);
 # micro-batch 32 x gas 2 gives both BERT phases' 4,096 tokens per micro-step
 GPT2_SEQ, GPT2_STEPS = 128, 6
@@ -447,27 +466,69 @@ def phase_train(device):
     return engine, batch, launches
 
 
-def _time_ms(fn, device, reps=7):
-    """Median CUDA-event time of ``fn`` (after one warm-up call)."""
+def _time_ms(fn, device, calls=20, reps=5):
+    """Time on the card of one call of ``fn``: ``calls`` back-to-back
+    calls between one pair of CUDA events, divided by ``calls``, the median
+    of ``reps`` such runs after one warm-up call.  A run of calls keeps the
+    wrapper's host work (checks, allocation, the ctypes call) off the
+    measured time once the card has work queued."""
     import torch
     fn()
-    if torch.device(device).type != "cuda":
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
+    torch.cuda.synchronize(device)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _self_device_ms(event):
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def _device_ms(fn, device, calls=20, tries=3):
+    """Device time of one call of ``fn`` from torch.profiler: every CUDA
+    kernel and memset its ``calls`` calls launched, summed, over ``calls``
+    (after one warm-up call).  The library yardsticks are timed so: a
+    PyTorch call's host work (autograd, backend selection) can outlast its
+    kernels, and the events of ``_time_ms`` then measure the host.  A trace
+    that shows no device work is taken again; None if none of ``tries``
+    shows any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(device)
+        total = sum(_self_device_ms(e) for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        if total > 0:
+            return total / calls
+    return None
+
+
+def _library_ms(fn, device):
+    """A library yardstick's times: ``library_ms``, the smaller of its
+    profiler device time and its event time (each bounds its device time
+    from above: the events also enclose host gaps, and the profiler read
+    more than the events for the fused AdamW on an H100), and both."""
+    if fn is None:
+        return {"library_ms": None, "library_device_ms": None,
+                "library_event_ms": None}
+    dev, event = _device_ms(fn, device), _time_ms(fn, device)
+    return {"library_ms": event if dev is None else min(dev, event),
+            "library_device_ms": dev, "library_event_ms": event}
 
 
 def _max_err(got, want):
@@ -595,7 +656,7 @@ def phase_kernels(engine, batch, device, lamb_launches):
                 "ms": min(kernel_a, kernel_b),
                 "plain_ms": min(plain_a, plain_b),
                 "bound_ms": _bound_ms(name, n), "bound_by": "bytes",
-                "library_ms": _time_ms(lib, device) if lib else None,
+                **_library_ms(lib, device),
                 "elements": n, "tensors": len(g)})
         del pstate, pfns, lib
         if not all(e[2] for e in errs.values()):
@@ -605,8 +666,9 @@ def phase_kernels(engine, batch, device, lamb_launches):
     outs.clear()
     for r in results:
         emit("kernels", **{k: r[k] for k in (
-            "name", "ms", "plain_ms", "bound_ms", "library_ms", "errors",
-            "elements", "tensors")})
+            "name", "ms", "plain_ms", "bound_ms", "library_ms",
+            "library_device_ms", "library_event_ms", "errors", "elements",
+            "tensors")})
     return results
 
 
@@ -624,12 +686,10 @@ def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-
+    device_ms = _self_device_ms
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
+    by_name = {e.key: (e.count, device_ms(e)) for e in kernels}
     busy = sum(device_ms(e) for e in kernels)
     gemm = sum(device_ms(e) for e in kernels
                if "gemm" in e.key or "nvjet" in e.key)
@@ -646,6 +706,19 @@ def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
                        "ms_per_step": device_ms(e) / steps}
                       for e in sorted(kernels, key=device_ms,
                                       reverse=True)[:top]])
+    return by_name
+
+
+def profile_ms(by_name, name, per_launch=True):
+    """A ported kernel's device time in a ``phase_profile`` trace: per
+    launch, or (``per_launch`` False) per step of 3 profiled steps; None
+    where the profiled path did not launch it."""
+    hits = [v for k, v in by_name.items() if DEVICE_SYMBOL[name] in k]
+    calls = sum(c for c, _ in hits)
+    if not calls:
+        return None
+    total = sum(ms for _, ms in hits)
+    return total / calls if per_launch else total / 3
 
 
 def phase_adam(device):
@@ -761,9 +834,11 @@ def _attn_bound(name, G, T, d, elt_bytes=2, B=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_attn_kernels(device, launches, paths):
+def phase_attn_kernels(device, launches, paths, prof512):
     """Each attention kernel against its plain version at the seq-512
-    BERT-large shape, with times, bounds and a library yardstick."""
+    BERT-large shape, with times, bounds, a library yardstick (and its
+    time on each of torch's fused backends that take the mask), and each
+    kernel's per-launch device time in ``profile512``'s trace."""
     import torch
     import torch.nn.functional as F
 
@@ -798,12 +873,28 @@ def phase_attn_kernels(device, launches, paths):
     keep = mask.bool()[:, None, None, :]
     ql, kl, vl = (four(x).detach().clone().requires_grad_()
                   for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
-    lib_ms = {
-        "fwd": _time_ms(lambda: F.scaled_dot_product_attention(
-            four(q), four(k), four(v), attn_mask=keep), device),
-        "bwd": _time_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), four(do), retain_graph=True), device)}
+
+    def lib_times():
+        """``_library_ms`` of each direction."""
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
+        calls = {"fwd": lambda: F.scaled_dot_product_attention(
+                     four(q), four(k), four(v), attn_mask=keep),
+                 "bwd": lambda: torch.autograd.grad(
+                     out, (ql, kl, vl), four(do), retain_graph=True)}
+        return {way: _library_ms(f, device) for way, f in calls.items()}
+    lib_ms = lib_times()
+    # the same call pinned to each backend that takes a mask: which one
+    # the default dispatch picks decides the yardstick
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    by_backend = {}
+    for backend in ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, backend)]):
+                by_backend[backend] = lib_times()
+        except RuntimeError as e:
+            by_backend[backend] = f"refused: {str(e)[:120]}"
+    emit("attn_library", shape=ATTN_SHAPE, dtype="bf16", default=lib_ms,
+         by_backend=by_backend)
 
     results = []
     for name, (kfn, pfn) in fns.items():
@@ -824,12 +915,14 @@ def phase_attn_kernels(device, launches, paths):
             "max_abs_err": err[0], "max_rel_err": err[1], "ok": err[2],
             "ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
             "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms["fwd" if name == "stream_fwd" else "bwd"]})
+            **lib_ms["fwd" if name == "stream_fwd" else "bwd"],
+            "profile_ms": profile_ms(prof512, name)})
     for r in results:
         emit("attn_kernels", shape=ATTN_SHAPE, dtype="bf16",
              rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
                  "name", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err", "max_rel_err", "ok")})
+                 "library_ms", "library_device_ms", "library_event_ms",
+                 "profile_ms", "max_abs_err", "max_rel_err", "ok")})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"attention kernels {bad} disagree with their "
@@ -896,7 +989,7 @@ def phase_train_gpt2(device):
     return engine, batch, launches
 
 
-def phase_block_kernels(device, launches):
+def phase_block_kernels(device, launches, prof_gpt2):
     """Each whole-tile kernel against its plain version at the GPT-2 shape
     (q, k, v views of the packed qkv, causal, no padding as on the path,
     and once more with padded keys and a fully padded row), with times on
@@ -932,12 +1025,12 @@ def phase_block_kernels(device, launches):
     four = [x.transpose(1, 2) for x in (q, k, v)]
     leaves = [x.detach().clone().requires_grad_() for x in four]
     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    lib_ms = {
-        "block_fwd": _time_ms(lambda: F.scaled_dot_product_attention(
-            *four, is_causal=True), device),
-        "block_bwd": _time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, do.transpose(1, 2), retain_graph=True),
-            device)}
+    lib_fns = {
+        "block_fwd": lambda: F.scaled_dot_product_attention(
+            *four, is_causal=True),
+        "block_bwd": lambda: torch.autograd.grad(
+            lib_out, leaves, do.transpose(1, 2), retain_graph=True)}
+    lib_ms = {kn: _library_ms(f, device) for kn, f in lib_fns.items()}
 
     results = []
     padded_fns = fns(padded)
@@ -963,12 +1056,13 @@ def phase_block_kernels(device, launches):
             "ok": all(e[2] for e in errs),
             "ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
             "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms[name]})
+            **lib_ms[name], "profile_ms": profile_ms(prof_gpt2, name)})
     for r in results:
         emit("block_kernels", shape=BLOCK_SHAPE, dtype="bf16", causal=True,
              rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
                  "name", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err", "max_rel_err", "ok")})
+                 "library_ms", "library_device_ms", "library_event_ms",
+                 "profile_ms", "max_abs_err", "max_rel_err", "ok")})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"whole-tile kernels {bad} disagree with their "
@@ -1062,19 +1156,23 @@ def main() -> int:
     phase_dispatch(device)
     engine, batch, lamb_launches = phase_train(device)
     kernels = phase_kernels(engine, batch, device, lamb_launches)
-    phase_profile(engine, batch, device)
+    prof = phase_profile(engine, batch, device)
     del engine, batch
     torch.cuda.empty_cache()
     adam_launches = phase_adam(device)
     for k in kernels:
         if k["name"] == "adam":
+            # the AdamW phase is not profiled
             k["launches"], k["path"] = adam_launches["adam"], "adam"
+            k["profile_ms"] = None
         else:
+            # per step: the row's ms covers all 22 leaves' launches
             k["path"] = "train"
+            k["profile_ms"] = profile_ms(prof, k["name"], per_launch=False)
     torch.cuda.empty_cache()
 
     engine, batch, launches512 = phase_train512(device)
-    phase_profile(engine, batch, device, name="profile512")
+    prof512 = phase_profile(engine, batch, device, name="profile512")
     del engine, batch
     torch.cuda.empty_cache()
     # the split pair runs on the seq-256 parity path; the rest on train512
@@ -1083,19 +1181,20 @@ def main() -> int:
              "stream_dq": "tiny_parity seq 256 split"}
     attn_launches = {k: (launches512 if v == "train512" else
                          split_launches)[k] for k, v in paths.items()}
-    kernels += phase_attn_kernels(device, attn_launches, paths)
+    kernels += phase_attn_kernels(device, attn_launches, paths, prof512)
 
     engine, batch, gpt2_launches = phase_train_gpt2(device)
-    phase_profile(engine, batch, device, name="profile_gpt2")
+    prof_gpt2 = phase_profile(engine, batch, device, name="profile_gpt2")
     del engine, batch
     torch.cuda.empty_cache()
-    kernels += phase_block_kernels(device, gpt2_launches)
+    kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "profile_ms", "path")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {

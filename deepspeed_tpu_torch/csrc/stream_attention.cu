@@ -5,10 +5,12 @@
 // first use and holds each kernel's plain PyTorch version beside it).
 //
 // What each kernel replaces (deepspeed_tpu/ops/pallas_attention.py):
-//   stream_fwd_kernel        <- _stream_fwd_kernel        (:268)
-//   stream_bwd_fused_kernel  <- _stream_bwd_fused_kernel  (:371)
-//   stream_dkv_kernel        <- _stream_dkv_kernel        (:330)
-//   stream_dq_kernel         <- _stream_dq_kernel         (:435)
+//   stream_fwd_wg_kernel      <- _stream_fwd_kernel        (:268)  bf16/fp16
+//   stream_bwd_mma_kernel     <- _stream_bwd_fused_kernel  (:371)  bf16/fp16
+//   stream_fwd_kernel         <- _stream_fwd_kernel        fp32 route
+//   stream_bwd_fused_kernel   <- _stream_bwd_fused_kernel  fp32 route
+//   stream_dkv_kernel         <- _stream_dkv_kernel        (:330)
+//   stream_dq_kernel          <- _stream_dq_kernel         (:435)
 //
 // Contract (the Pallas kernels', not the einsum path's).  Scores are
 // q.k^T * scale summed in fp32; a key whose mask entry is 0, and under
@@ -20,8 +22,8 @@
 // and ds = p * (dp - delta) * scale with dp = dO.V^T in fp32 and
 // delta = rowsum(dO * O) computed by the caller in fp32; p and ds are cast
 // to the input type before dV += p^T dO, dK += ds^T q and dQ += ds k, which
-// accumulate in fp32.  A kv tile wholly after a query tile is skipped under
-// `causal`, as the Pallas grid skips it.
+// accumulate in fp32.  A 64-key tile wholly after a 64-row query tile is
+// skipped under `causal`, as the Pallas grid skips it.
 //
 // Bound.  At BERT-large seq 512 (G = 128, T = 512, d = 64, bf16) one
 // T^2 d product pass over all G is 4.29 GFLOP, and each [G, T, d] operand
@@ -30,33 +32,74 @@
 // work at 989 TFLOP/s); the fused backward (5 passes), dkv (4) and dq (3)
 // are bound by their products (21.7, 17.4 and 13.0 us).
 //
-// Design.  A simple kernel that is right, before a fast one:
-//   * Tiles of B rows (B = 64 for bf16/fp16, 32 for fp32) replace the
-//     512-row TPU tiles; operand tiles are staged in shared memory with a
-//     16-byte row pad, the head dim zero-padded to DP (64 or 128).
-//   * bf16/fp16 products run on the tensor cores through WMMA 16x16x16
-//     fragments with fp32 accumulation; fp32 products are plain fp32 FMAs
-//     (never TF32), so the fp32 route holds to fp32 tolerances.
-//   * The Pallas grid's sequential axis becomes a loop inside the block:
-//     the forward and dq loop over kv tiles, dkv over query tiles.
-//   * The fused backward cannot carry dQ across blocks, as the TPU grid
-//     carries it across steps, and atomics would make dQ change from run
-//     to run.  So ONE block owns all tiles of its g: it visits the kv
-//     tiles in ascending j, like the Pallas grid, keeps dK/dV of the kv
-//     tile in shared memory and adds each dQ tile product into an fp32
-//     [G, T, d] scratch in device memory that the wrapper allocates
-//     (128 KB per g at seq 512, L2-resident).  Each thread adds the same
-//     elements every time, so the sum is in a fixed order and needs no
-//     atomics.  G blocks: 128 at micro-batch 8, about the card's 132 SMs.
-//   * The kernels with a block per tile launch 256 threads (8 warps), the
-//     fused backward 512 (16); outputs are written in the input type.
+// Design of the bf16/fp16 forward and fused backward (the train path):
+//   * No product goes through shared memory.  The accumulators live in
+//     registers; shared memory holds only the operand tiles and, in the
+//     backward, one dS tile.
+//   * Operand tiles arrive by cp.async into a ring of two stages, so tile
+//     j+1 (K/V in the forward, q/dO/lse/delta in the backward) loads while
+//     tile j is computed; one barrier per stage hand-over.
+//   * Forward: one block per (g, 128 query rows), two warpgroups of 64 rows
+//     (256 threads) that share each K/V tile.  S = q.k^T is a warpgroup
+//     wgmma m64n64k16 with q and k read from shared memory (no-swizzle
+//     core-matrix layout, sm90_tile.cuh); the online softmax works on the
+//     accumulator registers (row max and sum over the 4 lanes of a row by
+//     shuffles); p is packed to the input type in registers and is the
+//     register A operand of O += p.V (wgmma with V read transposed).  Under
+//     causal each warpgroup skips the tiles after its own 64 rows.
+//   * Fused backward: one block per (g, kv tile) with one warp per 16 keys:
+//     128-key tiles and 8 warps where d <= 64 and T is a multiple of 128
+//     (512 blocks at the seq-512 shape, where the fp32 route has 128),
+//     64-key
+//     tiles and 4 warps otherwise (bwd_warps).  The block keeps dK and dV
+//     of its keys in registers over its loop across 64-row query tiles.
+//     mma.sync m16n8k16 with ldmatrix(.trans) computes S^T = k.q^T and
+//     dP^T = v.dO^T per warp; p^T and dS^T are recomputed in registers and
+//     are, packed, the A operands of dV += p^T dO and dK += dS^T q.  dS^T
+//     goes to shared memory once, for dQ = dS.k.  Under causal a warp whose
+//     64 keys lie after the query tile contributes zeros (the Pallas skip).
+//   * dQ sums over kv tiles, which live in different blocks.  It stays
+//     bitwise repeatable without floating-point atomics: each block writes
+//     its fp32 dQ tile for (kv tile j, g, query tile i) into a partial
+//     buffer [n_kv, G, T, d].  After its loop, one __threadfence for all
+//     of them, it takes a ticket per visited query tile from the int
+//     counter of (g, i); the block that takes the last ticket of tile i
+//     sums its partials in ascending j (under causal only the kv tiles
+//     that visit it), the Pallas grid's order (pallas_attention.py:
+//     413-418), writes dQ in the input type and resets the counter for the
+//     next call.  The order of the sum never depends on which block does
+//     it.  Cost: n_kv G T d 4 bytes written and read once, 67 MB at the
+//     seq-512 shape with 128-key tiles (~20 us each way at 3.35 TB/s).
+//     The wrapper keeps the counters and the partials in one scratch
+//     buffer per device and stream, and zeroes the counters only when
+//     their extent grows; dstt_stream_bwd_fused_scratch gives both sizes.
+//     Measured on an H100 at the seq-512 shape (PERF.md): a fence and a
+//     ticket after every query tile cost about a third of the kernel;
+//     128-key tiles (half the partials) beat 64-key tiles with more blocks
+//     per SM; a semaphore-ordered add into one fp32 sum (block j adds
+//     after block j - 1) and a sum through distributed shared memory
+//     (the kv blocks of one g as a thread-block cluster, in step) were
+//     both slower, the cluster most under causal.
+//   * Each instantiation sets its dynamic shared-memory limit once
+//     (launch_once); every launch returns cudaGetLastError().
+//
+// The fp32 route of the forward and fused backward, and the split pair
+// (dkv, dq) for every type, are the first, simple kernels: tiles of B rows
+// (64 for bf16/fp16, 32 for fp32) staged in shared memory with a 16-byte
+// row pad, the head dim zero-padded to DP (64 or 128); WMMA 16x16x16 for
+// bf16/fp16 and plain fp32 FMAs for fp32 (never TF32, so fp32 holds to
+// fp32 tolerances); synchronous loads; accumulators in shared memory.  The
+// fp32 fused backward keeps one block per g that visits the kv tiles in
+// ascending j and adds each dQ tile into an fp32 [G, T, d] scratch with
+// the same element-to-thread map every time (no atomics).
 
 #include "attention_common.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
 
-// threads per block: the fused backward has one block per g, so it takes
-// more warps than the kernels with a block per tile
+// threads per block of the first kernels: the fp32 fused backward has one
+// block per g, so it takes more warps than the kernels with a block per tile
 constexpr int kThreads = 256;
 constexpr int kThreadsFused = 512;
 constexpr float kMinInit = -1e30f;
@@ -388,29 +431,537 @@ __global__ void __launch_bounds__(kThreadsFused)
       dq[size_t(i) * B * d + e] = from_f<T>(dq_acc[size_t(i) * B * d + e]);
 }
 
+// ------------------------------------------- bf16/fp16 forward (wgmma)
+
+constexpr int kKv = 64;             // keys per K/V tile, rows per query tile
+constexpr int kFwdRows = 128;       // query rows per forward block
+constexpr int kFwdThreads = 256;    // two warpgroups of 64 rows
+
+// The forward's shared memory: q (128 rows) and two stages of K, V (64
+// rows each) and the 64 mask entries, in the no-swizzle core-matrix
+// layout: 8-row groups of DP * 16 bytes, each 8 core matrices of 8 rows x
+// 16 bytes (the byte of row r, 8-column chunk c is at
+// (r / 8) * RB + c * 128 + (r % 8) * 16).
+template <int DP>
+struct FwdSmem {
+  static constexpr int RB = DP * 16;                 // bytes per 8-row group
+  static constexpr int TILE = kKv * DP * 2;          // one 64-row tile
+  static constexpr int STAGE = 2 * TILE + kKv * 4;   // K, V, mask
+  static constexpr int Q = 2 * TILE;
+  static constexpr size_t bytes = size_t(Q) + 2 * STAGE;
+};
+
+// `rows` rows from row r0 of a [T, d] matrix into the core-matrix layout,
+// 16 bytes a thread and consecutive threads on consecutive shared
+// addresses; columns d..DP-1 and rows past T are zero-filled.
+template <typename T, int DP>
+__device__ __forceinline__ void load_cm(unsigned char* dst, const T* src,
+                                        int r0, int rows, int T_len, int d,
+                                        int nthreads) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CPR; e += nthreads) {
+    const int r = (e / (8 * CPR)) * 8 + (e & 7), c = (e >> 3) % CPR;
+    const bool ok = r0 + r < T_len && c * 8 < d;
+    cp_async16(dst + (r >> 3) * (DP * 16) + c * 128 + (r & 7) * 16,
+               ok ? src + size_t(r0 + r) * d + c * 8 : src, ok);
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    stream_fwd_wg_kernel(Args a) {
+  using S = FwdSmem<DP>;
+  constexpr int RB = S::RB, NH = DP / 64;  // 64-column halves of O
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Qs = smem;
+  unsigned char* stages = smem + S::Q;
+  const int T_len = a.T, d = a.d;
+  const int nqb = (T_len + kFwdRows - 1) / kFwdRows;
+  const int g = blockIdx.x / nqb, q0 = (blockIdx.x % nqb) * kFwdRows;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t base = size_t(g) * T_len * d;
+  const T* q = static_cast<const T*>(a.q) + base;
+  const T* k = static_cast<const T*>(a.k) + base;
+  const T* v = static_cast<const T*>(a.v) + base;
+  const float* mask = a.mask + size_t(g) * T_len;
+  const int nk = T_len / kKv;
+  const int my_tile = q0 / kKv + wg;  // this warpgroup's 64-row query tile
+  const bool active = my_tile < nk;
+  const int jend = a.causal ? min(nk, q0 / kKv + 2) : nk;
+
+  auto load_kv = [&](int j, int s) {
+    unsigned char* st = stages + s * S::STAGE;
+    load_cm<T, DP>(st, k, j * kKv, kKv, T_len, d, kFwdThreads);
+    load_cm<T, DP>(st + S::TILE, v, j * kKv, kKv, T_len, d, kFwdThreads);
+    if (tid < kKv / 4)
+      cp_async16(st + 2 * S::TILE + tid * 16, mask + j * kKv + tid * 4, true);
+  };
+  load_cm<T, DP>(Qs, q, q0, kFwdRows, T_len, d, kFwdThreads);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  float o[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[h][e] = 0.f;
+  float m[2] = {kMinInit, kMinInit}, l[2] = {0.f, 0.f};
+  // this thread's rows: row0 and row0 + 8
+  const int row0 = my_tile * kKv + 16 * warp + gq;
+  const uint64_t qdesc = gmma_desc(Qs + wg * 8 * RB, 128, RB);
+
+  for (int j = 0; j < jend; ++j) {
+    if (j + 1 < jend) load_kv(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // q and tile j have landed
+    fence_proxy_async();
+    __syncthreads();
+    if (active && (!a.causal || j <= my_tile)) {
+      const unsigned char* Ks = stages + (j & 1) * S::STAGE;
+      const unsigned char* Vs = Ks + S::TILE;
+      const float* mk = reinterpret_cast<const float*>(Ks + 2 * S::TILE);
+      const int k0 = j * kKv;
+      float s[32] = {};  // overwritten: the first k slice does not add
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<T>(s, qdesc + ((kk * 256) >> 4),
+                    gmma_desc(Ks + kk * 256, 128, RB), kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(s);
+      // masks, then the online softmax on the accumulator registers:
+      // s[4n + e] is row row0 + 8 (e >> 1), column 8n + 2tq + (e & 1)
+      float mx[2] = {kMinInit, kMinInit};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * tq + (e & 1);
+          float x = s[4 * n + e] * a.scale;
+          if (mk[c] == 0.f) x = kMasked;
+          if (a.causal && k0 + c > row0 + 8 * (e >> 1)) x = kMasked;
+          s[4 * n + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];  // this thread's share of the row sum
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = expf(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += p;
+        s[i] = p;
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[h][i] *= alpha[(i >> 1) & 1];
+      // p (unnormalised, in the input type) as the A operand of p.V
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) reg_fence(o[h]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          wgmma_rs_t<T>(o[h], pa[kk],
+                        gmma_desc(Vs + kk * 2 * RB + h * 1024, RB, 128));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int h = 0; h < NH; ++h) reg_fence(o[h]);
+    }
+    __syncthreads();  // stage j & 1 is refilled next iteration
+  }
+  if (!active) return;
+  T* out = static_cast<T*>(a.o) + base;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], kTiny);
+  }
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int c = hh * 64 + 8 * n + 2 * tq;
+      if (c < d)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(out + size_t(row0 + 8 * h) * d + c) =
+              pack2<T>(o[hh][4 * n + 2 * h] / l[h],
+                       o[hh][4 * n + 2 * h + 1] / l[h]);
+    }
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      a.lse[size_t(g) * T_len + row0 + 8 * h] = m[h] + logf(l[h]);
+}
+
+// -------------------------------------- bf16/fp16 fused backward (mma.sync)
+
+// Warps per fused-backward block, 16 keys each: 8 (128 keys) where the
+// head dim fits 64 and T is a multiple of 128, else 4 (64 keys).
+inline int bwd_warps(int T, int d) { return d <= 64 && T % 128 == 0 ? 8 : 4; }
+
+// The fused backward's shared memory: k, v of the block's BK keys; two
+// stages of q, dO (64 rows), lse, delta; dS^T [BK keys][64 queries]; the
+// key mask; the last-ticket flags.  Row-major with a 16-byte row pad (ldmatrix
+// rows land in distinct banks).
+template <int DP, int NW>
+struct BwdMmaSmem {
+  static constexpr int BK = 16 * NW;
+  static constexpr int LD = DP + 8;    // elements per operand row
+  static constexpr int LDS = kKv + 8;  // elements per dS^T row
+  static constexpr int QT = kKv * LD * 2, KT = BK * LD * 2;
+  static constexpr int STAGE = 2 * QT + 2 * kKv * 4;
+  static constexpr int K = 0, V = KT, ST = 2 * KT;
+  static constexpr int DS = ST + 2 * STAGE;
+  static constexpr int MK = DS + BK * LDS * 2;
+  static constexpr int LAST = MK + BK * 4;
+  static constexpr size_t bytes = size_t(LAST) + 32 * NW * 4;
+};
+
+// `rows` rows from row r0 of a [T, d] matrix into a padded row-major tile
+template <typename T, int DP>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0,
+                                          int rows, int d, int nthreads) {
+  constexpr int CPR = DP / 8, LD = DP + 8;
+  for (int e = threadIdx.x; e < rows * CPR; e += nthreads) {
+    const int r = e / CPR, c = e % CPR;
+    const bool ok = c * 8 < d;
+    cp_async16(dst + r * LD + c * 8,
+               ok ? src + size_t(r0 + r) * d + c * 8 : src, ok);
+  }
+}
+
+// n floats (a multiple of 4)
+__device__ __forceinline__ void load_row_vec(float* dst, const float* src,
+                                             int n) {
+  if (int(threadIdx.x) < n / 4)
+    cp_async16(dst + threadIdx.x * 4, src + threadIdx.x * 4, true);
+}
+
+// acc[8][4] (16 rows x 64 columns of this warp, C layout) = A . B^T, with A
+// the warp's 16 rows of `As` and B the 64 rows of `Bs`, both row-major
+// [rows][DP] in shared memory with row stride LD (K = the head dim).
+template <typename T, int DP>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const T* As,
+                                        const T* Bs, int lane) {
+  constexpr int LD = DP + 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DP / 16; ++kd) {
+    uint32_t af[4];
+    ldsm_x4<false>(af, As + (lane & 15) * LD + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      const int mi = lane >> 3;
+      ldsm_x4<false>(bf, Bs + (16 * np + (mi >> 1) * 8 + (lane & 7)) * LD +
+                             kd * 16 + (mi & 1) * 8);
+      mma16816<T>(acc[2 * np], af, bf[0], bf[1]);
+      mma16816<T>(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[DP/8][4] += A . B over K = 64: A the packed [4][4] fragments of the
+// warp's 16 rows, B [64][DP] row-major in shared memory (row stride LD),
+// read transposed.
+template <typename T, int DP>
+__device__ __forceinline__ void mma_ab_regs(float (&acc)[DP / 8][4],
+                                            const uint32_t (&af)[4][4],
+                                            const T* Bs, int lane) {
+  constexpr int LD = DP + 8;
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+    for (int nd = 0; nd < DP / 16; ++nd) {
+      uint32_t bf[4];
+      ldsm_x4<true>(bf, Bs + (16 * kq + (mi & 1) * 8 + (lane & 7)) * LD +
+                            16 * nd + (mi >> 1) * 8);
+      mma16816<T>(acc[2 * nd], af[kq], bf[0], bf[1]);
+      mma16816<T>(acc[2 * nd + 1], af[kq], bf[2], bf[3]);
+    }
+}
+
+// 4-byte words of the fused backward's counters, a multiple of 4
+__host__ __device__ inline long long counter_words(int G, int T) {
+  return ((long long)G * (T / kKv) + 3) / 4 * 4;
+}
+
+template <typename T, int DP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
+    stream_bwd_mma_kernel(Args a) {
+  using S = BwdMmaSmem<DP, NW>;
+  constexpr int LD = S::LD, NT = DP / 8, BK = S::BK, NTH = 32 * NW;
+  constexpr int SUB = NW / 4;  // 64-key tiles per block
+  constexpr int CW = NW / 4;   // column groups of the dQ product
+  constexpr int NTQ = NT / CW;  // its 8-column tiles per warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem + S::K);
+  T* Vs = reinterpret_cast<T*>(smem + S::V);
+  T* dSt = reinterpret_cast<T*>(smem + S::DS);
+  float* mk = reinterpret_cast<float*>(smem + S::MK);
+  int* last = reinterpret_cast<int*>(smem + S::LAST);
+  const int T_len = a.T, d = a.d, G = a.G;
+  const int nq = T_len / kKv, nkb = T_len / BK;
+  const int g = blockIdx.x / nkb, j = blockIdx.x % nkb, k0 = j * BK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int sub = j * SUB + warp / 4;  // this warp's 64-key tile
+  const size_t base = size_t(g) * T_len * d, rbase = size_t(g) * T_len;
+  const T* q = static_cast<const T*>(a.q) + base;
+  const T* dout = static_cast<const T*>(a.dout) + base;
+  // the scratch: one int counter per (g, query tile), then the fp32
+  // partials [nkb, G, T, d] (16-byte aligned)
+  int* cnt = reinterpret_cast<int*>(a.dq_acc);
+  float* part = a.dq_acc + counter_words(G, T_len);
+
+  auto stage = [&](int s) { return smem + S::ST + s * S::STAGE; };
+  auto load_q_tile = [&](int i, int s) {
+    unsigned char* st = stage(s);
+    load_rows<T, DP>(reinterpret_cast<T*>(st), q, i * kKv, kKv, d, NTH);
+    load_rows<T, DP>(reinterpret_cast<T*>(st + S::QT), dout, i * kKv, kKv, d,
+                     NTH);
+    load_row_vec(reinterpret_cast<float*>(st + 2 * S::QT),
+                 a.lse_in + rbase + i * kKv, kKv);
+    load_row_vec(reinterpret_cast<float*>(st + 2 * S::QT + kKv * 4),
+                 a.delta + rbase + i * kKv, kKv);
+  };
+  load_rows<T, DP>(Ks, static_cast<const T*>(a.k) + base, k0, BK, d, NTH);
+  load_rows<T, DP>(Vs, static_cast<const T*>(a.v) + base, k0, BK, d, NTH);
+  load_row_vec(mk, a.mask + rbase + k0, BK);
+  const int i0 = a.causal ? j * SUB : 0;
+  load_q_tile(i0, 0);
+  cp_async_commit();
+
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int key0 = 16 * warp + gq;  // this thread's keys: key0, key0 + 8
+
+  for (int i = i0, it = 0; i < nq; ++i, ++it) {
+    if (i + 1 < nq) load_q_tile(i + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* st = stage(it & 1);
+    const T* Qs = reinterpret_cast<const T*>(st);
+    const T* dOs = reinterpret_cast<const T*>(st + S::QT);
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * S::QT);
+    const float* delta_s = lse_s + kKv;
+    const int q0 = i * kKv;
+    // under causal a warp whose 64-key tile lies after query tile i skips
+    // it (p = dS = 0), as the Pallas grid does
+    const bool skip = a.causal && sub > i;
+
+    // p^T = exp(s^T - lse) on this warp's 16 keys x 64 queries
+    float pt[8][4];
+    mma_abt<T, DP>(pt, Ks + 16 * warp * LD, Qs, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * tq + (e & 1), kr = key0 + 8 * (e >> 1);
+        float x = pt[n][e] * a.scale;
+        if (mk[kr] == 0.f) x = kMasked;
+        if (a.causal && k0 + kr > q0 + c) x = kMasked;
+        pt[n][e] = skip ? 0.f : expf(x - lse_s[c]);
+      }
+    uint32_t fa[4][4];
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        fa[kq][r] = pack2<T>(pt[2 * kq + (r >> 1)][2 * (r & 1)],
+                             pt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
+    mma_ab_regs<T, DP>(dv, fa, dOs, lane);  // dV += p^T dO
+
+    // dS^T = p^T (dP^T - delta) scale, dP^T = v.dO^T
+    float dpt[8][4];
+    mma_abt<T, DP>(dpt, Vs + 16 * warp * LD, dOs, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * tq + (e & 1);
+        dpt[n][e] = pt[n][e] * (dpt[n][e] - delta_s[c]) * a.scale;
+      }
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        fa[kq][r] = pack2<T>(dpt[2 * kq + (r >> 1)][2 * (r & 1)],
+                             dpt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
+    mma_ab_regs<T, DP>(dk, fa, Qs, lane);  // dK += dS^T q
+    // dS^T to shared memory: fa[kq][r] holds key key0 + 8 (r & 1),
+    // queries 16 kq + 8 (r >> 1) + 2 tq, +1
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<uint32_t*>(
+            dSt + (key0 + 8 * (r & 1)) * S::LDS + 16 * kq + 8 * (r >> 1) +
+            2 * tq) = fa[kq][r];
+    __syncthreads();
+
+    // this block's dQ tile, dS . k over its BK keys: warp w takes the 16
+    // queries 16 (w % 4).. and the column group w / 4
+    const int rw = warp % 4, c0 = (warp / 4) * (DP / CW);
+    float dqp[NTQ][4];
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqp[n][e] = 0.f;
+    const int mi = lane >> 3;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[4];
+      ldsm_x4<true>(af, dSt + (16 * kk + (mi >> 1) * 8 + (lane & 7)) * S::LDS +
+                            16 * rw + (mi & 1) * 8);
+#pragma unroll
+      for (int nd = 0; nd < NTQ / 2; ++nd) {
+        uint32_t bf[4];
+        ldsm_x4<true>(bf, Ks + (16 * kk + (mi & 1) * 8 + (lane & 7)) * LD +
+                              c0 + 16 * nd + (mi >> 1) * 8);
+        mma16816<T>(dqp[2 * nd], af, bf[0], bf[1]);
+        mma16816<T>(dqp[2 * nd + 1], af, bf[2], bf[3]);
+      }
+    }
+    float* prow = part + (size_t(j) * G + g) * T_len * d + size_t(q0) * d;
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n) {
+      const int c = c0 + 8 * n + 2 * tq;
+      if (c < d)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              prow + size_t(16 * rw + gq + 8 * h) * d + c) =
+              make_float2(dqp[n][2 * h], dqp[n][2 * h + 1]);
+    }
+  }
+
+  // One ticket per query tile this block visited, after one fence for all
+  // its partials; the block that takes the last ticket of tile i sums the
+  // partials of tile i in ascending kv tile and writes dQ.
+  __threadfence();
+  __syncthreads();
+  const size_t tile = size_t(kKv) * d, stride = size_t(G) * T_len * d;
+  for (int c0 = i0; c0 < nq; c0 += NTH) {
+    const int i = c0 + tid;
+    if (i < nq) {
+      const int jlast = a.causal ? i / SUB : nkb - 1;
+      last[tid] = atomicAdd(cnt + size_t(g) * nq + i, 1) == jlast;
+    }
+    __syncthreads();
+    for (int i = c0; i < min(nq, c0 + NTH); ++i) {
+      if (!last[i - c0]) continue;
+      __threadfence();
+      const int jlast = a.causal ? i / SUB : nkb - 1;
+      const float* src = part + base + size_t(i) * tile;
+      T* dq = static_cast<T*>(a.dq) + base + size_t(i) * tile;
+      for (size_t e = size_t(tid) * 4; e < tile; e += NTH * 4) {
+        float4 s4 = __ldcg(reinterpret_cast<const float4*>(src + e));
+        for (int jj = 1; jj <= jlast; ++jj) {
+          const float4 x =
+              __ldcg(reinterpret_cast<const float4*>(src + jj * stride + e));
+          s4.x += x.x, s4.y += x.y, s4.z += x.z, s4.w += x.w;
+        }
+        uint2 w;
+        w.x = pack2<T>(s4.x, s4.y);
+        w.y = pack2<T>(s4.z, s4.w);
+        *reinterpret_cast<uint2*>(dq + e) = w;
+      }
+      if (tid == 0) cnt[size_t(g) * nq + i] = 0;  // ready for the next call
+    }
+    __syncthreads();  // `last` is rewritten by the next chunk
+  }
+  T* dkp = static_cast<T*>(a.dk) + base + size_t(k0) * d;
+  T* dvp = static_cast<T*>(a.dv) + base + size_t(k0) * d;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = 8 * n + 2 * tq;
+    if (c < d)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t off = size_t(key0 + 8 * h) * d + c;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            pack2<T>(dk[n][2 * h], dk[n][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            pack2<T>(dv[n][2 * h], dv[n][2 * h + 1]);
+      }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 enum Which { kFwd = 0, kBwdFused = 1, kDkv = 2, kDq = 3 };
 
+template <typename T, int DP, int NW>
+int run_bwd(const Args& a, cudaStream_t stream) {
+  return launch_once<stream_bwd_mma_kernel<T, DP, NW>>(
+      dim3(a.G * (a.T / (16 * NW))), 32 * NW, BwdMmaSmem<DP, NW>::bytes, a,
+      stream);
+}
+
 template <typename T, int DP>
 int run(int which, const Args& a, cudaStream_t stream) {
-  constexpr int B = std::is_same<T, float>::value ? 32 : 64;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int B = kF32 ? 32 : 64;
   using Lt = Layout<T, DP, B>;
   if (a.T % B != 0) return int(cudaErrorInvalidValue);
   const dim3 tiles(a.G, a.T / B);
   switch (which) {
     case kFwd:
-      return launch(stream_fwd_kernel<T, DP, B>, tiles, kThreads, Lt::fwd, a,
-                    stream);
+      if constexpr (kF32)
+        return launch_once<stream_fwd_kernel<T, DP, B>>(tiles, kThreads,
+                                                        Lt::fwd, a, stream);
+      else
+        return launch_once<stream_fwd_wg_kernel<T, DP>>(
+            dim3(a.G * ((a.T + kFwdRows - 1) / kFwdRows)), kFwdThreads,
+            FwdSmem<DP>::bytes, a, stream);
     case kBwdFused:
-      return launch(stream_bwd_fused_kernel<T, DP, B>, dim3(a.G),
-                    kThreadsFused, Lt::bwd3, a, stream);
+      if constexpr (kF32)
+        return launch_once<stream_bwd_fused_kernel<T, DP, B>>(
+            dim3(a.G), kThreadsFused, Lt::bwd3, a, stream);
+      else {
+        if constexpr (DP == 64)
+          if (bwd_warps(a.T, a.d) == 8) return run_bwd<T, DP, 8>(a, stream);
+        return run_bwd<T, DP, 4>(a, stream);
+      }
     case kDkv:
-      return launch(stream_dkv_kernel<T, DP, B>, tiles, kThreads, Lt::bwd2, a,
-                    stream);
+      return launch_once<stream_dkv_kernel<T, DP, B>>(tiles, kThreads,
+                                                      Lt::bwd2, a, stream);
     case kDq:
-      return launch(stream_dq_kernel<T, DP, B>, tiles, kThreads, Lt::bwd2, a,
-                    stream);
+      return launch_once<stream_dq_kernel<T, DP, B>>(tiles, kThreads,
+                                                     Lt::bwd2, a, stream);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -441,7 +992,9 @@ int dispatch(int dtype, int which, const Args& a, void* stream) {
 
 // C interface.  Every pointer is a device pointer to a contiguous array:
 // q, k, v, dout, o, dq, dk, dv are [G, T, d] in the type `dtype` names;
-// mask, lse, delta are fp32 [G, T]; dq_acc is fp32 [G, T, d] scratch.
+// mask, lse, delta are fp32 [G, T]; dq_acc is the fused backward's
+// scratch of dstt_stream_bwd_fused_scratch() 4-byte words (its counters
+// zero before the first call; the kernel leaves them zero).
 // `stream` is a cudaStream_t.  Each function returns cudaGetLastError()
 // after its launch (0 = cudaSuccess), or cudaErrorInvalidValue for a shape
 // it does not take (d not a multiple of 8 or above 128, T not a multiple
@@ -494,6 +1047,20 @@ extern "C" int dstt_stream_dq(int dtype, const void* q, const void* k,
   a.delta = delta, a.dq = dq;
   a.G = G, a.T = T, a.d = d, a.scale = scale, a.causal = causal;
   return dispatch(dtype, kDq, a, stream);
+}
+
+// 4-byte words of the fused backward's scratch: fp32 [G, T, d] for fp32;
+// for bf16/fp16 one int counter per (g, 64-row query tile), padded to a
+// multiple of 4, which must be zero before the call (the kernel leaves
+// them zero), then the fp32 partials [T / BK, G, T, d] (BK = 16
+// bwd_warps(T, d) keys per block).  *counters
+// receives the counters' words (0 for fp32).
+extern "C" long long dstt_stream_bwd_fused_scratch(int dtype, int G, int T,
+                                                   int d,
+                                                   long long* counters) {
+  const long long gtd = (long long)G * T * d;
+  *counters = dtype == 0 ? 0 : counter_words(G, T);
+  return dtype == 0 ? gtd : *counters + (T / (16 * bwd_warps(T, d))) * gtd;
 }
 
 extern "C" const char* dstt_error_string(int code) {

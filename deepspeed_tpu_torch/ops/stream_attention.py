@@ -80,6 +80,9 @@ def build() -> ctypes.CDLL:
         for fn in (lib.dstt_stream_fwd, lib.dstt_stream_bwd_fused,
                    lib.dstt_stream_dkv, lib.dstt_stream_dq):
             fn.restype = i32
+        lib.dstt_stream_bwd_fused_scratch.argtypes = [i32] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.dstt_stream_bwd_fused_scratch.restype = ctypes.c_longlong
         _lib = lib
         return lib
 
@@ -248,16 +251,42 @@ def stream_fwd(qg, kg, vg, maskg, causal):
 _BWD_ROWS = ("mask", "lse", "delta")
 
 
+#: the fused backward's scratch per (device, stream): [buffer, words at its
+#: start known to be zero].  The bf16/fp16 kernel wants its int counters
+#: (at the start) zero and leaves them zero, so launches in stream order
+#: share one buffer and only a wider counter block needs a memset.
+_scratch = {}
+
+
+def _fused_scratch(lib, qg):
+    G, T, d = qg.shape
+    counters = ctypes.c_longlong(0)
+    words = lib.dstt_stream_bwd_fused_scratch(_DTYPE_CODE[qg.dtype], G, T, d,
+                                              ctypes.byref(counters))
+    key = (qg.device, torch.cuda.current_stream(qg.device).cuda_stream)
+    entry = _scratch.get(key)
+    if entry is None or entry[0].numel() < words:
+        entry = _scratch[key] = [torch.zeros(words, dtype=torch.float32,
+                                             device=qg.device), words]
+    buf, zeroed = entry
+    if counters.value > zeroed:
+        buf[:counters.value].zero_()
+    # the call overwrites whatever lies after its counters
+    entry[1] = counters.value
+    return buf
+
+
 def stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal):
     """``(dq, dk, dv)`` in one pass; dQ is summed in an fp32 [G, T, d]
-    scratch allocated here."""
+    scratch (after the bf16/fp16 kernel's counters) that stays allocated
+    between calls."""
     if not _build.on_cuda("stream_bwd_fused", qg):
         return stream_bwd_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
     _check("stream_bwd_fused", qg, _BWD_ROWS, q=qg, k=kg, v=vg, mask=maskg,
            do=dog, lse=lse, delta=delta)
     lib = build()
     dq, dk, dv = (torch.empty_like(qg) for _ in range(3))
-    dq_acc = torch.empty(qg.shape, dtype=torch.float32, device=qg.device)
+    dq_acc = _fused_scratch(lib, qg)
     _launch("stream_bwd_fused", lib.dstt_stream_bwd_fused, qg, qg.data_ptr(),
             kg.data_ptr(), vg.data_ptr(), maskg.data_ptr(), dog.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -130,7 +130,7 @@ def test_wrappers_refuse_bad_inputs(dev):
 #: (rtol, atol as a fraction of the largest |want|).  The kernels run the
 #: online softmax over 64-row tiles (32 in fp32) where the plain versions
 #: take the whole row, so the rescaled p is rounded to bf16/fp16 at other
-#: values, and the sums run in another order.
+#: values, and the sums (dQ over kv tiles too) run in another order.
 ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2),
             torch.float16: (5e-3, 2e-3)}
 
@@ -180,15 +180,98 @@ def test_stream_attention_kernels_match_plain(dev, dtype, T, d, causal):
                               "stream_dkv": 1, "stream_dq": 1}
 
 
-def test_stream_fused_backward_is_deterministic(dev):
-    q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, 512, 64, seed=4)
-    o, lse = sattn.stream_fwd(q, k, v, mask, False)
+def _fwd_and_fused(q, k, v, do, mask, causal):
+    """The forward and fused backward kernels, each against its plain
+    version (the backward on the plain forward's o and lse)."""
+    dtype = q.dtype
+    sattn.reset_launch_counts()
+    o, lse = sattn.stream_fwd(q, k, v, mask, causal)
+    po, plse = sattn.stream_fwd_plain(q, k, v, mask, causal)
+    delta = (do.float() * po.float()).sum(-1)[:, None, :]
+    args = (q, k, v, mask, do, plse, delta, causal)
+    got = sattn.stream_bwd_fused(*args)
+    want = sattn.stream_bwd_plain(*args)
+    torch.cuda.synchronize()
+    attn_close([o], [po], dtype)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    attn_close(got, want, dtype)
+    assert sattn.LAUNCHES == {"stream_fwd": 1, "stream_bwd_fused": 1,
+                              "stream_dkv": 0, "stream_dq": 0}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", [(256, 16), (256, 64), (256, 128),
+                                 (512, 16), (512, 64), (512, 128),
+                                 (1024, 16), (1024, 64), (1024, 128),
+                                 (192, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_stream_hopper_kernels_match_plain(dev, dtype, T, d, causal):
+    """The register-accumulator forward (wgmma) and fused backward
+    (mma.sync, dQ partials) over several kv tiles, both head-dim paddings
+    and a T that is not a multiple of the forward's 128-row block."""
+    _fwd_and_fused(*attn_inputs(dev, dtype, T, d, seed=T + d), causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_stream_kernels_fully_masked_row(dev, dtype):
+    """A batch row with every key masked scores -1e9 everywhere, so its
+    attention is uniform over all T keys (non-causal: under causal the
+    kernels, like the Pallas grid, visit only the tiles up to the query's,
+    where the plain versions take the whole row)."""
+    B, n, T, d = 2, 2, 512, 64
+    q, k, v, do, _ = attn_inputs(dev, dtype, T, d, B=B, n=n, seed=9)
+    mask = torch.ones((B, T), device=dev)
+    mask[0] = 0.0
+    mask[1, T // 2:] = 0.0
+    maskg = sattn.mask_gtd(mask, B, T, n)
+    _fwd_and_fused(q, k, v, do, maskg, False)
+    o, _ = sattn.stream_fwd(q, k, v, maskg, False)
+    uniform = v[:n].float().mean(dim=1, keepdim=True).expand(n, T, d)
+    attn_close([o[:n]], [uniform.to(dtype)], dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", [(512, 64), (1024, 64), (1024, 128)])
+def test_stream_fused_backward_is_deterministic(dev, T, d, causal):
+    """Bitwise repeatable dQ, summed across kv blocks through partials and
+    tickets, with 128-key blocks (d 64) and 64-key blocks (d 128)."""
+    q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, T, d, seed=4)
+    o, lse = sattn.stream_fwd(q, k, v, mask, causal)
     delta = (do.float() * o.float()).sum(-1)[:, None, :]
-    args = (q, k, v, mask, do, lse, delta, False)
+    args = (q, k, v, mask, do, lse, delta, causal)
     first = sattn.stream_bwd_fused(*args)
     for _ in range(3):
         for a, b in zip(first, sattn.stream_bwd_fused(*args)):
             assert torch.equal(a, b)
+
+
+def test_stream_fused_scratch_reused_across_shapes(dev):
+    """The fused backward's cached scratch (the int counters, then the
+    partials; the fp32 route's sum) stays right when shapes and types
+    change between calls: a wider counter block is zeroed, a narrower one
+    found zero."""
+    cases = [(torch.bfloat16, 1024, 128, 2), (torch.float16, 2048, 64, 2),
+             (torch.float32, 256, 64, 2), (torch.bfloat16, 512, 64, 2),
+             (torch.bfloat16, 1024, 128, 4), (torch.float16, 2048, 64, 2)]
+    for dtype, T, d, B in cases:
+        q, k, v, do, mask = attn_inputs(dev, dtype, T, d, B=B, seed=T)
+        _fwd_and_fused(q, k, v, do, mask, True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_stream_fp32_route_and_split_pair_match_plain(dev, causal):
+    """The kernels this design left as they were: the fp32 forward and
+    fused backward, and the split pair in every type, at T 1024."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v, do, mask = attn_inputs(dev, dtype, 1024, 64, seed=11)
+        if dtype == torch.float32:
+            _fwd_and_fused(q, k, v, do, mask, causal)
+        po, plse = sattn.stream_fwd_plain(q, k, v, mask, causal)
+        delta = (do.float() * po.float()).sum(-1)[:, None, :]
+        args = (q, k, v, mask, do, plse, delta, causal)
+        dq, (dk, dv) = sattn.stream_dq(*args), sattn.stream_dkv(*args)
+        torch.cuda.synchronize()
+        attn_close((dq, dk, dv), sattn.stream_bwd_plain(*args), dtype)
 
 
 def test_stream_attention_autograd_on_the_card(dev, monkeypatch):
