@@ -11,7 +11,8 @@ last line):
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc compiles deepspeed_tpu_torch/csrc/fused_optim.cu,
    stream_attention.cu and block_attention.cu for sm_90a, one nvcc each,
-   in parallel.
+   in parallel, and prints each kernel's registers, spills and static
+   shared memory (ptxas -v).
 3. tiny_parity: a tiny BERT trained 3 steps on the card and on the CPU
    (the kernels' plain versions) from the same weights must agree: at
    seq 64 (the einsum attention), then at seq 256 with padded rows (the
@@ -61,10 +62,10 @@ last line):
 Kernel and plain times are a run of 20 back-to-back calls between one
 pair of CUDA events, over 20, the median of 5 runs (``_time_ms``), in the
 order plain, kernel, kernel, plain in one process; the library yardstick
-is the smaller of its kernels' device time in torch.profiler
-(``_device_ms``) and its event time (``_library_ms``), since a PyTorch
-call's host work can outlast its kernels; ``profile_ms`` is a kernel's
-device time in its path's training profile.
+and the attention kernels' ``ms`` are the smaller of that event time and
+the device time in torch.profiler (``_device_ms``; ``_library_ms``,
+``_kernel_ms``), since a call's host work can outlast its kernels;
+``profile_ms`` is a kernel's device time in its path's training profile.
 
 Then one line with the card's name and power limit, one JSON line with
 every kernel, and as the last line
@@ -135,15 +136,15 @@ ATTN_KERNELS = {
                       replaces="deepspeed_tpu/ops/pallas_attention.py:122"),
 }
 # the device function behind each row (its name in a profiler trace); the
-# bf16/fp16 stream forward and fused backward, not their fp32 route
+# bf16/fp16 attention kernels, not their fp32 routes
 DEVICE_SYMBOL = {"lamb_phase1": "lamb_phase1_kernel",
                  "lamb_phase2": "lamb_phase2_kernel", "adam": "adam_kernel",
                  "stream_fwd": "stream_fwd_wg_kernel",
                  "stream_bwd_fused": "stream_bwd_mma_kernel",
                  "stream_dkv": "stream_dkv_kernel",
                  "stream_dq": "stream_dq_kernel",
-                 "block_fwd": "block_fwd_kernel",
-                 "block_bwd": "block_bwd_kernel"}
+                 "block_fwd": "block_fwd_wg_kernel",
+                 "block_bwd": "block_bwd_wg_kernel"}
 # GPT-2 medium at seq 128 (bench.py's GPT-2 recipe: Adam lr 1e-4, bf16);
 # micro-batch 32 x gas 2 gives both BERT phases' 4,096 tokens per micro-step
 GPT2_SEQ, GPT2_STEPS = 128, 6
@@ -518,17 +519,26 @@ def _device_ms(fn, device, calls=20, tries=3):
     return None
 
 
+def _kernel_ms(fn, device, event_ms):
+    """``ms``, the smaller of ``fn``'s profiler device time and its event
+    time ``event_ms`` (each bounds its device time from above: the events
+    also enclose host gaps, as a PyTorch call's host work or, at the
+    whole-tile shape, a kernel wrapper's checks, allocation and ctypes call
+    outlast the kernels; the profiler read more than the events for the
+    fused AdamW on an H100), and both."""
+    dev = _device_ms(fn, device)
+    return {"ms": event_ms if dev is None else min(dev, event_ms),
+            "device_ms": dev, "event_ms": event_ms}
+
+
 def _library_ms(fn, device):
-    """A library yardstick's times: ``library_ms``, the smaller of its
-    profiler device time and its event time (each bounds its device time
-    from above: the events also enclose host gaps, and the profiler read
-    more than the events for the fused AdamW on an H100), and both."""
+    """A library yardstick's times (``_kernel_ms``)."""
     if fn is None:
         return {"library_ms": None, "library_device_ms": None,
                 "library_event_ms": None}
-    dev, event = _device_ms(fn, device), _time_ms(fn, device)
-    return {"library_ms": event if dev is None else min(dev, event),
-            "library_device_ms": dev, "library_event_ms": event}
+    t = _kernel_ms(fn, device, _time_ms(fn, device))
+    return {"library_ms": t["ms"], "library_device_ms": t["device_ms"],
+            "library_event_ms": t["event_ms"]}
 
 
 def _max_err(got, want):
@@ -695,7 +705,8 @@ def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
                if "gemm" in e.key or "nvjet" in e.key)
     attn = sum(device_ms(e) for e in kernels if "stream_" in e.key)
     block = sum(device_ms(e) for e in kernels
-                if "block_fwd_kernel" in e.key or "block_bwd_kernel" in e.key)
+                if any(DEVICE_SYMBOL[k] in e.key
+                       for k in ("block_fwd", "block_bwd")))
     emit(name, steps=steps, step_ms_profiled=wall_ms / steps,
          device_busy_ms_per_step=busy / steps,
          device_busy_share_profiled=busy / wall_ms,
@@ -823,8 +834,9 @@ def _attn_err(got, want):
 def _attn_bound(name, G, T, d, elt_bytes=2, B=0):
     """(bound ms, bound_by): operands and rows (and the block kernels'
     [B, T] mask) read and written once, and the products at the bf16
-    tensor-core peak (every tile: the whole-tile kernels compute the whole
-    tile by their contract, and the streaming rows here are non-causal)."""
+    tensor-core peak (every tile: the streaming rows here are non-causal;
+    the whole-tile rows are causal, where the products over the whole tile
+    overstate the work, but their bytes bind by 3x and more even so)."""
     k = ATTN_KERNELS[name]
     flops = k["passes"] * 2.0 * G * T * T * d
     nbytes = (k["tensors"] * G * T * d * elt_bytes + k["rows"] * G * T * 4
@@ -913,15 +925,17 @@ def phase_attn_kernels(device, launches, paths, prof512):
             "replaces": ATTN_KERNELS[name]["replaces"],
             "launches": launches[name], "path": paths[name],
             "max_abs_err": err[0], "max_rel_err": err[1], "ok": err[2],
-            "ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
+            **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
+            "plain_ms": min(plain_a, plain_b),
             "bound_ms": bound, "bound_by": bound_by,
             **lib_ms["fwd" if name == "stream_fwd" else "bwd"],
             "profile_ms": profile_ms(prof512, name)})
     for r in results:
         emit("attn_kernels", shape=ATTN_SHAPE, dtype="bf16",
              rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
-                 "name", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "library_device_ms", "library_event_ms",
+                 "name", "ms", "device_ms", "event_ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                 "library_event_ms",
                  "profile_ms", "max_abs_err", "max_rel_err", "ok")})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
@@ -1054,14 +1068,16 @@ def phase_block_kernels(device, launches, prof_gpt2):
             "max_abs_err": max(e[0] for e in errs),
             "max_rel_err": max(e[1] for e in errs),
             "ok": all(e[2] for e in errs),
-            "ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
+            **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
+            "plain_ms": min(plain_a, plain_b),
             "bound_ms": bound, "bound_by": bound_by,
             **lib_ms[name], "profile_ms": profile_ms(prof_gpt2, name)})
     for r in results:
         emit("block_kernels", shape=BLOCK_SHAPE, dtype="bf16", causal=True,
              rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
-                 "name", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "library_device_ms", "library_event_ms",
+                 "name", "ms", "device_ms", "event_ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                 "library_event_ms",
                  "profile_ms", "max_abs_err", "max_rel_err", "ok")})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
@@ -1146,7 +1162,7 @@ def main() -> int:
          flags=" ".join(mods[SOURCE].NVCC_FLAGS),
          ptxas={src: [ln.strip() for ln in mod.build_log.splitlines()
                       if "registers" in ln or "spill" in ln
-                      or "entry function" in ln]
+                      or "smem" in ln or "entry function" in ln]
                 for src, mod in mods.items()})
 
     phase_tiny_parity(device)
@@ -1162,9 +1178,8 @@ def main() -> int:
     adam_launches = phase_adam(device)
     for k in kernels:
         if k["name"] == "adam":
-            # the AdamW phase is not profiled
-            k["launches"], k["path"] = adam_launches["adam"], "adam"
-            k["profile_ms"] = None
+            # the AdamW phase is not profiled: profile_gpt2 gives its time
+            k["launches"] = adam_launches["adam"]
         else:
             # per step: the row's ms covers all 22 leaves' launches
             k["path"] = "train"
@@ -1188,6 +1203,11 @@ def main() -> int:
     del engine, batch
     torch.cuda.empty_cache()
     kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
+    for k in kernels:
+        if k["name"] == "adam":
+            # per GPT-2 step: 16 leaves' launches (its ms: BERT-large's 22)
+            k["profile_ms"] = profile_ms(prof_gpt2, "adam", per_launch=False)
+            k["path"] = "adam; profile_ms: train_gpt2"
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))

@@ -1,9 +1,10 @@
 // Device helpers for the Hopper (sm_90a) attention kernels of
-// stream_attention.cu: asynchronous global->shared copies (cp.async), the
-// register-fragment tensor-core products (ldmatrix + mma.sync m16n8k16 and
-// the warpgroup wgmma m64n64k16), shared-memory matrix descriptors and the
-// fences between them.  attention_common.cuh keeps the older helpers that
-// block_attention.cu and the fp32/split stream kernels use.
+// stream_attention.cu and block_attention.cu: asynchronous global->shared
+// copies (cp.async), the register-fragment tensor-core products (ldmatrix
+// + mma.sync m16n8k16 and the warpgroup wgmma m64n64k16), shared-memory
+// matrix descriptors, the fences and barriers between them, and the
+// launch.  attention_common.cuh keeps the older helpers that the fp32
+// routes and the split stream kernels use.
 //
 // Fragment layouts (lane = 4 * gq + tq, gq = lane / 4, tq = lane % 4):
 //   mma.sync m16n8k16 A (16 x 16, row-major):  a[0] = A[gq][2tq..2tq+1],
@@ -204,8 +205,35 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A . B, m64n64k16: A and B from shared memory, both MN-major (A
+// stored K rows of M contiguous elements, B K rows of N: both transposed)
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DSTT_D32
+        ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : DSTT_D32_OUT(d)
+        : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DSTT_D32
+        ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : DSTT_D32_OUT(d)
+        : "l"(da), "l"(db), "r"(1));
+}
+
 #undef DSTT_D32
 #undef DSTT_D32_OUT
+
+// Barrier over the 128 threads of one warpgroup (named barrier `id`, 1-15;
+// 0 is __syncthreads').
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
 
 // ------------------------------------------------------------------ launch
 

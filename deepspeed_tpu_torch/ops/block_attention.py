@@ -41,9 +41,10 @@ SOURCE = _build.CSRC / "block_attention.cu"
 #: fp32 score-tile budget per TPU program (``pallas_attention``'s); the JAX
 #: gate ``supported`` keeps to half of it
 SCORE_TILE_BUDGET = 2 * 1024 * 1024
-#: the kernels' own gate (``kernel_supported``): a warp holds a whole score
-#: row of at most 128 keys, WMMA tiles take T in steps of 16, and the head
-#: dim is staged padded to 32 or 64 in shared memory
+#: the kernels' own gate (``kernel_supported``): a whole score row of at
+#: most 128 keys sits in registers (bf16/fp16: one quad of a warpgroup's
+#: accumulators; fp32: one warp), T comes in steps of 16 (a k16 product
+#: slice), and the head dim is staged padded to 64 (32 or 64 in fp32)
 KERNEL_MAX_SEQ = 128
 KERNEL_SEQ_GRANULE = 16
 KERNEL_MAX_HEAD_DIM = 64

@@ -119,7 +119,7 @@ def test_fused_attention_matches_jax_interpret(B, T, n, d, causal, pad,
 
 def test_fully_masked_rows_are_uniform():
     """A row whose keys are all masked attends uniformly over all T keys,
-    under causal too (the contract that forbids skipping tiles)."""
+    under causal too (so a causal tile skip must not touch such a row)."""
     q, k, v, _, mask = inputs(2, 64, 2, 16, seed=5)
     o = BA.block_fwd_plain(*(torch.tensor(x) for x in (q, k, v)),
                            torch.tensor(mask), True)
@@ -127,6 +127,29 @@ def test_fully_masked_rows_are_uniform():
     np.testing.assert_allclose(o[1].numpy(),
                                np.broadcast_to(mean_v, o[1].shape),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_causal_probs_after_the_query_are_exact_zeros(dtype):
+    """The premise of the CUDA kernels' causal skip: a row with an
+    unmasked key at or before it gives p exactly 0.0 on every later key,
+    so the products over those keys add exact zeros."""
+    B, T = 3, 128
+    q, k, _, _, _ = inputs(B, T, 2, 16, seed=3)
+    mask = np.ones((B, T), np.float32)
+    mask[1, :5] = 0.0      # rows 0-4 have no unmasked key up to them
+    mask[2, 70:] = 0.0     # a padded tail
+    p = BA._probs(torch.tensor(q).to(dtype), torch.tensor(k).to(dtype),
+                  torch.tensor(mask), True)
+    first = np.argmax(mask != 0, axis=1)
+    for b in range(B):
+        for qi in range(first[b], T):
+            assert torch.equal(p[b, :, qi, qi + 1:],
+                               torch.zeros_like(p[b, :, qi, qi + 1:]))
+        # rows before the first unmasked key stay uniform over all T keys
+        torch.testing.assert_close(
+            p[b, :, :first[b]], torch.full_like(p[b, :, :first[b]], 1 / T))
 
 
 def test_block_gates():

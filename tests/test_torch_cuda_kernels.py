@@ -12,6 +12,10 @@ atol=1e-6``; the kernels contract multiply-adds to FMAs and sum the norms in
 another order than the plain versions.  Attention: see ``ATTN_TOL``.
 """
 
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,7 @@ from deepspeed_tpu_torch.ops import dispatch_attention as dattn
 from deepspeed_tpu_torch.ops import stream_attention as sattn
 
 pytestmark = pytest.mark.cuda
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
 SIZES = [1, 3, 4, 5, 1000, 4096 * 37 + 3]
 
@@ -345,11 +350,21 @@ def block_close(got, want, dtype):
                                    atol=frac * float(w.float().abs().max()))
 
 
+#: T below one warpgroup's 64 rows (16, 48), a T that is not a multiple of
+#: 64 (48), two warpgroups (128), and head dims below, at and past a
+#: multiple of 16 (16, 32, 40, 64): the wgmma kernels pad d to 64
+BLOCK_SHAPES = [(64, 32), (128, 64), (128, 32), (48, 16)] + [
+    (T, d) for T in (16, 48, 64, 128) for d in (16, 40, 64)
+    if (T, d) not in ((128, 64), (48, 16))]
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T,d", [(64, 32), (128, 64), (128, 32), (48, 16)])
+@pytest.mark.parametrize("T,d", BLOCK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=str)
 def test_block_attention_kernels_match_plain(dev, dtype, T, d, causal):
+    """Both routes (fp32: the FMA kernels; bf16/fp16: wgmma) on padded
+    keys (under causal the exact skip) and a fully masked row."""
     q, k, v, do, mask = block_inputs(dev, dtype, T, d)
     battn.reset_launch_counts()
     o = battn.block_fwd(q, k, v, mask, causal)
@@ -363,12 +378,60 @@ def test_block_attention_kernels_match_plain(dev, dtype, T, d, causal):
     block_close(grads, want, dtype)
 
 
-def test_block_backward_is_deterministic(dev):
-    q, k, v, do, mask = block_inputs(dev, torch.bfloat16, 128, 64, seed=4)
-    first = battn.block_bwd(q, k, v, mask, do, True)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_block_backward_is_deterministic(dev, dtype, causal):
+    q, k, v, do, mask = block_inputs(dev, dtype, 128, 64, seed=4)
+    first = battn.block_bwd(q, k, v, mask, do, causal)
     for _ in range(3):
-        for a, b in zip(first, battn.block_bwd(q, k, v, mask, do, True)):
+        for a, b in zip(first, battn.block_bwd(q, k, v, mask, do, causal)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_block_causal_skip_takes_whole_rows_where_needed(dev, dtype):
+    """Causal, T 128, batch rows whose first keys are masked: with the
+    first unmasked key at 0 the first 64-row block skips the second key
+    block; at 5 and 64 it must take the whole row (its first rows are
+    uniform over all T keys); at 70 both blocks hold uniform rows."""
+    T, d = 128, 64
+    q, k, v, do, _ = block_inputs(dev, dtype, T, d, B=4, seed=6)
+    mask = torch.ones((4, T), device=dev)
+    for row, first in enumerate((0, 5, 64, 70)):
+        mask[row, :first] = 0.0
+    o = battn.block_fwd(q, k, v, mask, True)
+    grads = battn.block_bwd(q, k, v, mask, do, True)
+    want = battn.block_bwd_plain(q, k, v, mask, do, True)
+    torch.cuda.synchronize()
+    block_close([o], [battn.block_fwd_plain(q, k, v, mask, True)], dtype)
+    block_close(grads, want, dtype)
+    # row 1's first 5 queries attend uniformly over all T keys
+    uniform = v[1, :, :].float().mean(dim=0).expand(5, -1, -1)
+    block_close([o[1, :5]], [uniform.to(dtype)], dtype)
+
+
+def test_block_launch_limit_holds_for_a_later_longer_seq(dev):
+    """The bf16/fp16 kernels set their shared-memory limit once per
+    process: a first launch at T 64 must leave room for a later one at
+    T 128 (a fresh process, so these are the first launches)."""
+    script = (
+        "import torch\n"
+        "from deepspeed_tpu_torch.ops import block_attention as battn\n"
+        "dev = torch.device('cuda', 0)\n"
+        "for T in (64, 128):\n"
+        "    q, k, v, do = (torch.randn(2, T, 3, 64, device=dev,\n"
+        "                   dtype=torch.bfloat16) for _ in range(4))\n"
+        "    mask = torch.ones(2, T, device=dev)\n"
+        "    o = battn.block_fwd(q, k, v, mask, True)\n"
+        "    g = battn.block_bwd(q, k, v, mask, do, True)\n"
+        "    torch.cuda.synchronize()\n"
+        "    want = battn.block_fwd_plain(q, k, v, mask, True)\n"
+        "    assert (o.float() - want.float()).abs().max() < 0.05, T\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 @pytest.mark.parametrize("fwd_impl,bwd_impl", [
