@@ -5,8 +5,8 @@ Run from the root of the repository, with one NVIDIA Hopper card visible:
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure exits non-zero before the
-last line):
+Phases (each prints one JSON line, with the seconds since the start as
+``elapsed_s``; any failure exits non-zero before the last line):
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc compiles deepspeed_tpu_torch/csrc/fused_optim.cu,
@@ -30,30 +30,48 @@ last line):
 5. kernels: each optimizer kernel against its plain version on the real
    BERT-large leaves, grads and moments after step 6, with times, the
    least time the card could take (bound) and a library yardstick.
-6. profile: 3 more LAMB steps of the same engine under torch.profiler:
+6. profile: one more LAMB step of the same engine under torch.profiler:
    device busy ms per step, busy share, top CUDA kernels by device time;
    each kernel row's ``profile_ms`` comes from its path's profile.
 7. adam: 2 AdamW steps of BERT-large, every step through the Adam kernel.
 8. train512: BERT-large at seq 512 (80 masked positions, padded rows,
    micro-batch 8, gas 2, otherwise as train) for 6 steps; every attention
    through the streaming kernels (24 layers x 2 micro-batches x 6 steps
-   forward and fused backward launches) and every LAMB step through its
-   kernels; then 3 steps of the same engine on the einsum attention
-   (DSTPU_FUSED_ATTN=0) as a yardstick, and a profile of 3 steps.
-9. attn_kernels: each attention kernel against its plain version at the
+   forward launches, and backward launches of the kernels
+   DSTPU_STREAM_BWD=auto takes at this shape: at the committed budget of 0
+   the split pair) and every LAMB step through its kernels; then 3 steps
+   of the same engine on the einsum attention (DSTPU_FUSED_ATTN=0) as a
+   yardstick, and a profile of one step.
+9. train_gpt2_1024: GPT-2 medium at its 1024-token context (bf16, Adam
+   lr 1e-4, micro-batch 4, gas 2) for 6 steps, twice from the same weights
+   and batch: the streaming backward as the split pair
+   (DSTPU_STREAM_BWD=split: 288 forward, 288 dkv and 288 dq launches),
+   then fused (288 fused backwards); losses agree step by step within
+   1e-2 relative; a profile of one step of each (profile_gpt2_1024,
+   profile_gpt2_1024_fused).
+10. attn_kernels: each attention kernel against its plain version at the
    seq-512 shape (B=8, n=16, T=512, d=64, bf16, padded keys), with times,
    bounds and torch's scaled_dot_product_attention as the yardstick (also
-   pinned to each masked backend, phase attn_library).
-10. train_gpt2: GPT-2 medium causal-LM pretraining (seq 128, bf16, Adam
+   pinned to each masked backend, phase attn_library); the split pair
+   also causal and with a fully padded row; every stream kernel also at
+   the GPT-2 seq-1024 path's shape (causal), and there twice for bitwise
+   repeatability.
+11. bwd_sweep: the fused backward against the split pair by sequence
+   length (16 heads, d 64, 4,096 tokens per call, T 256-2048, causal and
+   not), in bf16 and in fp32, device time, the forward excluded; each
+   row's fused scratch and the mode auto takes, and the scratch budget
+   the rule of ops/stream_attention.py gives from these times, per dtype.
+12. train_gpt2: GPT-2 medium causal-LM pretraining (seq 128, bf16, Adam
    lr 1e-4, ZeRO off, micro-batch 32, gas 2) for 6 steps; every attention
    through the whole-tile kernels (24 layers x 2 x 6 forward and backward
    launches) and every Adam step through its kernel (16 leaves x 6); then 3
-   steps on the einsum attention as a yardstick, and a profile of 3 steps.
-11. block_kernels: each whole-tile kernel against its plain version at the
+   steps on the einsum attention as a yardstick, and a profile of one
+   step.
+13. block_kernels: each whole-tile kernel against its plain version at the
    GPT-2 shape (B=32, n=16, T=128, d=64, bf16, causal; q, k, v views of the
    packed qkv), and once with padded keys and a fully padded row, with
    times, bounds and scaled_dot_product_attention(is_causal=True).
-12. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+14. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
@@ -62,10 +80,11 @@ last line):
 Kernel and plain times are a run of 20 back-to-back calls between one
 pair of CUDA events, over 20, the median of 5 runs (``_time_ms``), in the
 order plain, kernel, kernel, plain in one process; the library yardstick
-and the attention kernels' ``ms`` are the smaller of that event time and
-the device time in torch.profiler (``_device_ms``; ``_library_ms``,
-``_kernel_ms``), since a call's host work can outlast its kernels;
-``profile_ms`` is a kernel's device time in its path's training profile.
+and the attention kernels' ``ms`` are device times without host work: 20
+calls captured in a CUDA graph and replayed between a pair of events
+(``_graph_ms``; ``_library_ms``, ``_kernel_ms``), with the events'
+reading beside them; ``profile_ms`` is a kernel's device time in its
+path's training profile.
 
 Then one line with the card's name and power limit, one JSON line with
 every kernel, and as the last line
@@ -115,6 +134,10 @@ BLOCK_SOURCE = "deepspeed_tpu_torch/csrc/block_attention.cu"
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 SEQ512, NPRED512, MICRO512, TRAIN512_STEPS, YARDSTICK_STEPS = (512, 80, 8, 6,
                                                               3)
+# training steps under torch.profiler a profile phase takes: its trace of
+# every host op and kernel is what costs (15-25 s for 3 steps on an H100
+# host), and a step's device time varies little from step to step
+PROFILE_STEPS = 1
 # BERT-large at seq 512, micro-batch 8: G = 8 x 16 heads, d = 64
 ATTN_SHAPE = dict(B=8, n=16, T=512, d=64)
 # product passes over T^2 d per G, and [G, T, d] operands / fp32 [G, T] rows
@@ -141,13 +164,22 @@ DEVICE_SYMBOL = {"lamb_phase1": "lamb_phase1_kernel",
                  "lamb_phase2": "lamb_phase2_kernel", "adam": "adam_kernel",
                  "stream_fwd": "stream_fwd_wg_kernel",
                  "stream_bwd_fused": "stream_bwd_mma_kernel",
-                 "stream_dkv": "stream_dkv_kernel",
-                 "stream_dq": "stream_dq_kernel",
+                 "stream_dkv": "stream_dkv_mma_kernel",
+                 "stream_dq": "stream_dq_wg_kernel",
                  "block_fwd": "block_fwd_wg_kernel",
                  "block_bwd": "block_bwd_wg_kernel"}
 # GPT-2 medium at seq 128 (bench.py's GPT-2 recipe: Adam lr 1e-4, bf16);
 # micro-batch 32 x gas 2 gives both BERT phases' 4,096 tokens per micro-step
 GPT2_SEQ, GPT2_STEPS = 128, 6
+# GPT-2 medium at its published context (n_ctx 1024), micro-batch 4 x gas 2:
+# 4,096 tokens a micro-step, as every other training phase
+GPT2_1024_SEQ, GPT2_1024_MICRO = 1024, 4
+# the split and the fused backward differ in their sums' order and bf16
+# rounding only: their runs' losses agree within this, step by step
+GPT2_1024_LOSS_RTOL = 1e-2
+# the fused backward's scratch is cached for the process's life: the
+# budget of ops/stream_attention.py never exceeds this
+SCRATCH_CAP = 256 * 2 ** 20
 BLOCK_SHAPE = dict(B=32, n=16, T=128, d=64)
 # the dispatch threshold rule of pallas_attention.calibrate_stream_threshold
 SWEEP_WIN = 1.05
@@ -158,8 +190,13 @@ SWEEP_WIN = 1.05
 ATTN_RTOL, ATTN_ATOL = 2e-2, 1e-2
 
 
+#: the script's start, for each phase line's ``elapsed_s``
+_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 @contextlib.contextmanager
@@ -198,6 +235,16 @@ def launch_counts():
 def no_launches(**counts):
     """Every kernel's count 0 except ``counts``."""
     return {**dict.fromkeys(launch_counts(), 0), **counts}
+
+
+def auto_bwd_launches(dtype, G, T, d, calls):
+    """The kernel launches of ``calls`` streaming backwards at [G, T, d] in
+    DSTPU_STREAM_BWD=auto: the fused kernel while its scratch fits
+    ``STREAM_FUSED_SCRATCH_BUDGET``, else the split pair."""
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    if sattn._fused_bwd_fits(dtype, G, T, d):
+        return {"stream_bwd_fused": calls}
+    return {"stream_dkv": calls, "stream_dq": calls}
 
 
 def bert_config(opt_type, params, gas=GAS, micro=MICRO, dtype="bf16"):
@@ -407,7 +454,8 @@ def phase_dispatch(device):
                 block_fwd=int(fwd_impl == "block"),
                 block_bwd=int(bwd_impl == "block"),
                 stream_fwd=int(fwd_impl == "stream"),
-                stream_bwd_fused=int(bwd_impl == "stream"))
+                **(auto_bwd_launches(torch.float32, B * n, T, d, 1)
+                   if bwd_impl == "stream" else {}))
             errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
             ok = launches == expected and all(
                 torch.allclose(g, w, rtol=1e-4,
@@ -494,51 +542,60 @@ def _self_device_ms(event):
                    getattr(event, "self_cuda_time_total", 0.0)) / 1e3
 
 
-def _device_ms(fn, device, calls=20, tries=3):
-    """Device time of one call of ``fn`` from torch.profiler: every CUDA
-    kernel and memset its ``calls`` calls launched, summed, over ``calls``
-    (after one warm-up call).  The library yardsticks are timed so: a
-    PyTorch call's host work (autograd, backend selection) can outlast its
-    kernels, and the events of ``_time_ms`` then measure the host.  A trace
-    that shows no device work is taken again; None if none of ``tries``
-    shows any."""
+#: the side stream of each device that ``_graph_ms`` captures on (one, so
+#: the fused backward's scratch, cached per stream, is allocated once)
+_CAPTURE_STREAMS = {}
+
+
+def _graph_ms(make, device, calls=20, reps=5):
+    """Device time of one call, with no host work in the window: ``make()``
+    runs on a side stream and returns the function to time (a library
+    backward makes its forward there, so that autograd launches the
+    backward on that stream); one warm-up call there, then ``calls`` calls
+    captured in one CUDA graph, replayed between a pair of CUDA events,
+    over ``calls``, the median of ``reps`` replays after one."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize(device)
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize(device)
-        total = sum(_self_device_ms(e) for e in prof.key_averages()
-                    if e.device_type.name == "CUDA")
-        if total > 0:
-            return total / calls
-    return None
+    s = _CAPTURE_STREAMS.setdefault(str(device), torch.cuda.Stream(device))
+    s.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(s):
+        fn = make()
+        fn()
+    s.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph, fn
+    return statistics.median(times[1:])
 
 
-def _kernel_ms(fn, device, event_ms):
-    """``ms``, the smaller of ``fn``'s profiler device time and its event
-    time ``event_ms`` (each bounds its device time from above: the events
-    also enclose host gaps, as a PyTorch call's host work or, at the
-    whole-tile shape, a kernel wrapper's checks, allocation and ctypes call
-    outlast the kernels; the profiler read more than the events for the
-    fused AdamW on an H100), and both."""
-    dev = _device_ms(fn, device)
-    return {"ms": event_ms if dev is None else min(dev, event_ms),
-            "device_ms": dev, "event_ms": event_ms}
+def _kernel_ms(fn, device, event_ms, make=None):
+    """``ms``: the graph-replay device time of ``fn`` (``_graph_ms``;
+    ``make`` as there, else ``fn`` itself), beside its event time
+    ``event_ms``.  The events also enclose host gaps (a wrapper's checks,
+    allocation and ctypes call, a PyTorch call's autograd), and after the
+    training profiles of this script torch.profiler read the attention
+    kernels at 0.58-0.69 of their graph times on an H100, so neither is
+    ``ms``."""
+    return {"ms": _graph_ms(make or (lambda: fn), device),
+            "event_ms": event_ms}
 
 
-def _library_ms(fn, device):
+def _library_ms(fn, device, make=None):
     """A library yardstick's times (``_kernel_ms``)."""
     if fn is None:
-        return {"library_ms": None, "library_device_ms": None,
-                "library_event_ms": None}
-    t = _kernel_ms(fn, device, _time_ms(fn, device))
-    return {"library_ms": t["ms"], "library_device_ms": t["device_ms"],
-            "library_event_ms": t["event_ms"]}
+        return {"library_ms": None, "library_event_ms": None}
+    t = _kernel_ms(fn, device, _time_ms(fn, device), make)
+    return {"library_ms": t["ms"], "library_event_ms": t["event_ms"]}
 
 
 def _max_err(got, want):
@@ -645,9 +702,11 @@ def phase_kernels(engine, batch, device, lamb_launches):
             lib_params = [t.clone().requires_grad_() for t in pstate[0]]
             for t, gr in zip(lib_params, g):
                 t.grad = gr
+            # capturable: its step count lives on the card, so the step
+            # can be timed in a CUDA graph (_graph_ms)
             lib = torch.optim.AdamW(lib_params, lr=opt.lr, eps=opt.eps,
                                     weight_decay=opt.weight_decay,
-                                    fused=True).step
+                                    fused=True, capturable=True).step
         for name, (kfn, pfn) in pfns.items():
             # plain, kernel, kernel, plain: compare within one call
             plain_a = _time_ms(pfn, device)
@@ -677,17 +736,17 @@ def phase_kernels(engine, batch, device, lamb_launches):
     for r in results:
         emit("kernels", **{k: r[k] for k in (
             "name", "ms", "plain_ms", "bound_ms", "library_ms",
-            "library_device_ms", "library_event_ms", "errors", "elements",
-            "tensors")})
+            "library_event_ms", "errors", "elements", "tensors")})
     return results
 
 
-def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
+def phase_profile(engine, batch, device, top=12, name="profile"):
     """Where a training step spends its device time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     engine.train_batch(batch)
     sync(device)
+    steps = PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -722,14 +781,14 @@ def phase_profile(engine, batch, device, steps=3, top=12, name="profile"):
 
 def profile_ms(by_name, name, per_launch=True):
     """A ported kernel's device time in a ``phase_profile`` trace: per
-    launch, or (``per_launch`` False) per step of 3 profiled steps; None
+    launch, or (``per_launch`` False) per profiled step; None
     where the profiled path did not launch it."""
     hits = [v for k, v in by_name.items() if DEVICE_SYMBOL[name] in k]
     calls = sum(c for c, _ in hits)
     if not calls:
         return None
     total = sum(ms for _, ms in hits)
-    return total / calls if per_launch else total / 3
+    return total / calls if per_launch else total / PROFILE_STEPS
 
 
 def phase_adam(device):
@@ -789,10 +848,12 @@ def phase_train512(device):
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     attn = layers * GAS * TRAIN512_STEPS     # layers x micro-batches x steps
+    cfg = engine.module.config
     expected = no_launches(
         lamb_phase1=n_leaves * TRAIN512_STEPS,
         lamb_phase2=n_leaves * TRAIN512_STEPS, stream_fwd=attn,
-        stream_bwd_fused=attn)
+        **auto_bwd_launches(torch.bfloat16, MICRO512 * cfg.num_heads,
+                            SEQ512, cfg.hidden_size // cfg.num_heads, attn))
     ok = bool(np.isfinite(losses).all()) and launches == expected
     emit("train512", model="bert-large", seq=SEQ512, micro_batch=MICRO512,
          gas=GAS, masked_positions=NPRED512, dtype="bf16", optimizer="Lamb",
@@ -846,11 +907,69 @@ def _attn_bound(name, G, T, d, elt_bytes=2, B=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_attn_kernels(device, launches, paths, prof512):
+def _stream_checks(device, sattn):
+    """The backward kernels against their plain versions on more inputs
+    than the row shape's: the split pair causal at that shape and with a
+    fully padded row (non-causal: under causal the kernels skip the tiles
+    after the query's, as the Pallas grid does, where the plain versions
+    take the whole row); and at the GPT-2 seq-1024 path's shape (B=4, n=16,
+    causal, no padding) every stream kernel that path runs, the forward
+    (o and lse), the split pair and the fused backward, each bitwise equal
+    across two calls.  ``(errors by case and kernel, repeatable)``."""
+    import torch
+    B, n, T, d = (ATTN_SHAPE[k] for k in "BnTd")
+    cases = {}
+    padded = torch.ones((B, T), device=device)
+    for r in range(0, B, 3):
+        padded[r, T - T // 8 - 5 * r:] = 0.0
+    full = padded.clone()
+    full[1] = 0.0
+    for case, (b, t, mask, causal) in {
+            "causal": (B, T, padded, True),
+            "fully_padded_row": (B, T, full, False),
+            "gpt2_1024": (GPT2_1024_MICRO, GPT2_1024_SEQ,
+                          torch.ones((GPT2_1024_MICRO, GPT2_1024_SEQ),
+                                     device=device), True)}.items():
+        gen = torch.Generator(device=device).manual_seed(1)
+        q, k, v, do = (torch.randn((b * n, t, d), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for _ in range(4))
+        maskg = sattn.mask_gtd(mask, b, t, n)
+        o, lse = sattn.stream_fwd_plain(q, k, v, maskg, causal)
+        delta = (do.float() * o.float()).sum(-1)[:, None, :]
+        args = (q, k, v, maskg, do, lse, delta, causal)
+        # each kernel's outputs, twice on the path's shape
+        runs = {"stream_dkv": lambda: sattn.stream_dkv(*args),
+                "stream_dq": lambda: (sattn.stream_dq(*args),)}
+        want = sattn.stream_bwd_plain(*args)
+        wants = {"stream_dkv": want[1:], "stream_dq": want[:1]}
+        if case == "gpt2_1024":
+            runs.update(
+                stream_fwd=lambda: sattn.stream_fwd(q, k, v, maskg, causal),
+                stream_bwd_fused=lambda: sattn.stream_bwd_fused(*args))
+            wants.update(stream_fwd=(o, lse), stream_bwd_fused=want)
+        got = {name: run() for name, run in runs.items()}
+        sync(device)
+        cases[case] = {name: _attn_err(got[name], wants[name])
+                       for name in runs}
+        if case == "gpt2_1024":
+            again = {name: run() for name, run in runs.items()}
+            sync(device)
+            repeatable = {name: all(torch.equal(a, b) for a, b in
+                                    zip(got[name], again[name]))
+                          for name in runs}
+            del again
+        del q, k, v, do, o, lse, delta, args, runs, want, wants, got
+    return cases, repeatable
+
+
+def phase_attn_kernels(device, launches, paths, profs):
     """Each attention kernel against its plain version at the seq-512
     BERT-large shape, with times, bounds, a library yardstick (and its
     time on each of torch's fused backends that take the mask), and each
-    kernel's per-launch device time in ``profile512``'s trace."""
+    kernel's per-launch device time in its path's trace (``profs``), and
+    the checks of ``_stream_checks``.  The split pair also: its times under
+    causal at the same shape."""
     import torch
     import torch.nn.functional as F
 
@@ -867,6 +986,12 @@ def phase_attn_kernels(device, launches, paths, prof512):
     o, lse = sattn.stream_fwd_plain(q, k, v, maskg, False)
     delta = (do.float() * o.float()).sum(-1)[:, None, :]
     bwd = (q, k, v, maskg, do, lse, delta, False)
+    o_c, lse_c = sattn.stream_fwd_plain(q, k, v, maskg, True)
+    bwd_c = (q, k, v, maskg, do, lse_c,
+             (do.float() * o_c.float()).sum(-1)[:, None, :], True)
+    del o_c
+    causal_fns = {"stream_dkv": lambda: sattn.stream_dkv(*bwd_c),
+                  "stream_dq": lambda: sattn.stream_dq(*bwd_c)}
     fns = {
         "stream_fwd": (lambda: sattn.stream_fwd(q, k, v, maskg, False),
                        lambda: sattn.stream_fwd_plain(q, k, v, maskg, False)),
@@ -883,17 +1008,22 @@ def phase_attn_kernels(device, launches, paths, prof512):
     def four(x):
         return x.view(B, n, T, d)
     keep = mask.bool()[:, None, None, :]
-    ql, kl, vl = (four(x).detach().clone().requires_grad_()
-                  for x in (q, k, v))
+
+    def backward():
+        """The backward of a kept graph, its leaves and forward made here
+        (on the stream that will run it)."""
+        leaves = [four(x).detach().clone().requires_grad_()
+                  for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+        return lambda: torch.autograd.grad(out, leaves, four(do),
+                                           retain_graph=True)
 
     def lib_times():
         """``_library_ms`` of each direction."""
-        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
-        calls = {"fwd": lambda: F.scaled_dot_product_attention(
-                     four(q), four(k), four(v), attn_mask=keep),
-                 "bwd": lambda: torch.autograd.grad(
-                     out, (ql, kl, vl), four(do), retain_graph=True)}
-        return {way: _library_ms(f, device) for way, f in calls.items()}
+        return {"fwd": _library_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        four(q), four(k), four(v), attn_mask=keep), device),
+                "bwd": _library_ms(backward(), device, make=backward)}
     lib_ms = lib_times()
     # the same call pinned to each backend that takes a mask: which one
     # the default dispatch picks decides the yardstick
@@ -908,12 +1038,25 @@ def phase_attn_kernels(device, launches, paths, prof512):
     emit("attn_library", shape=ATTN_SHAPE, dtype="bf16", default=lib_ms,
          by_backend=by_backend)
 
+    checks, repeatable = _stream_checks(device, sattn)
     results = []
     for name, (kfn, pfn) in fns.items():
         got, want = kfn(), pfn()
         sync(device)
         err = _attn_err(got, want)
         del got, want
+        mine = {case: c[name] for case, c in checks.items() if name in c}
+        errs = [err] + list(mine.values())
+        err = (max(e[0] for e in errs), max(e[1] for e in errs),
+               all(e[2] for e in errs) and repeatable[name])
+        extra = {"checks": {case: {"max_abs_err": e[0], "max_rel_err": e[1],
+                                   "ok": e[2]} for case, e in mine.items()},
+                 "bitwise_repeatable": repeatable[name]}
+        if name in causal_fns:
+            cfn = causal_fns[name]
+            ct = _kernel_ms(cfn, device, min(_time_ms(cfn, device),
+                                             _time_ms(cfn, device)))
+            extra.update(causal_ms=ct["ms"], causal_event_ms=ct["event_ms"])
         # plain, kernel, kernel, plain: compare within one call
         plain_a = _time_ms(pfn, device)
         kernel_a = _time_ms(kfn, device)
@@ -929,14 +1072,15 @@ def phase_attn_kernels(device, launches, paths, prof512):
             "plain_ms": min(plain_a, plain_b),
             "bound_ms": bound, "bound_by": bound_by,
             **lib_ms["fwd" if name == "stream_fwd" else "bwd"],
-            "profile_ms": profile_ms(prof512, name)})
+            "profile_ms": profile_ms(profs[name], name), **extra})
     for r in results:
         emit("attn_kernels", shape=ATTN_SHAPE, dtype="bf16",
              rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
-                 "name", "ms", "device_ms", "event_ms", "plain_ms",
-                 "bound_ms", "bound_by", "library_ms", "library_device_ms",
-                 "library_event_ms",
-                 "profile_ms", "max_abs_err", "max_rel_err", "ok")})
+                 "name", "ms", "event_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "library_event_ms", "profile_ms",
+                 "max_abs_err", "max_rel_err", "ok", "causal_ms",
+                 "causal_event_ms", "checks", "bitwise_repeatable")
+                 if k in r})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"attention kernels {bad} disagree with their "
@@ -1003,6 +1147,130 @@ def phase_train_gpt2(device):
     return engine, batch, launches
 
 
+def phase_train_gpt2_1024(device):
+    """GPT-2 medium at seq 1024 through the streaming kernels, twice from
+    the same seeded weights and batch: the backward as the split pair, then
+    fused, each profiled after its timed steps.  ``{mode: (launches,
+    profile)}``."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    runs, out = {}, {}
+    for mode in ("split", "fused"):
+        engine = make_engine(gpt2_config(GPT2_1024_MICRO), device,
+                             size="medium", gpt2=True,
+                             max_seq_len=GPT2_1024_SEQ)
+        cfg = engine.module.config
+        micro = GPT2_1024_MICRO
+        batch = lm_batch(micro * GAS, GPT2_1024_SEQ, cfg.vocab_size)
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, step_ms = [], []
+        with env("DSTPU_FUSED_ATTN", None), env("DSTPU_STREAM_BWD", mode):
+            reset_launch_counts()
+            for _ in range(GPT2_STEPS):
+                t0 = time.perf_counter()
+                loss = engine.train_batch(batch)
+                sync(device)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            prof = phase_profile(engine, batch, device,
+                                 name="profile_gpt2_1024" + (
+                                     "" if mode == "split" else "_fused"))
+        out[mode] = (launches, prof)
+        attn = cfg.num_layers * GAS * GPT2_STEPS
+        bwd = ({"stream_dkv": attn, "stream_dq": attn} if mode == "split"
+               else {"stream_bwd_fused": attn})
+        expected = no_launches(adam=len(engine.master) * GPT2_STEPS,
+                               stream_fwd=attn, **bwd)
+        runs[mode] = dict(
+            losses=losses, step_ms=step_ms, peak_mem_gib=peak,
+            samples_per_s_steady=(micro * GAS * (GPT2_STEPS - 1)
+                                  / (sum(step_ms[1:]) / 1e3)),
+            launches=launches, expected_launches=expected,
+            ok=bool(np.isfinite(losses).all()) and launches == expected)
+        del engine, batch
+        torch.cuda.empty_cache()
+    agree = all(abs(a - b) <= GPT2_1024_LOSS_RTOL * abs(b) for a, b in zip(
+        runs["split"]["losses"], runs["fused"]["losses"]))
+    G = GPT2_1024_MICRO * cfg.num_heads
+    d = cfg.hidden_size // cfg.num_heads
+    scratch = 4 * sattn.fused_scratch_words(torch.bfloat16, G,
+                                            GPT2_1024_SEQ, d)[0]
+    ok = runs["split"]["ok"] and runs["fused"]["ok"] and agree
+    emit("train_gpt2_1024", model="gpt2-medium", seq=GPT2_1024_SEQ,
+         micro_batch=GPT2_1024_MICRO, gas=GAS, dtype="bf16",
+         optimizer="Adam", lr=1e-4, activation_checkpointing=False,
+         steps=GPT2_STEPS, fused_scratch_bytes=scratch,
+         auto_mode=("fused" if sattn._fused_bwd_fits(torch.bfloat16, G,
+                                                      GPT2_1024_SEQ, d)
+                    else "split"),
+         loss_rtol=GPT2_1024_LOSS_RTOL, losses_agree=agree, runs=runs, ok=ok)
+    if not ok:
+        raise AssertionError(f"train_gpt2_1024 phase failed: {runs}")
+    return out
+
+
+def phase_bwd_sweep(device, seqs=(256, 512, 1024, 2048), tokens=4096, n=16,
+                    d=64):
+    """The fused backward against the split pair (dkv then dq), by sequence
+    length, causal and not, in bf16 (the Hopper kernels) and in fp32 (the
+    FMA route): ``_graph_ms`` of each (the forward excluded), in turns
+    fused, pair, pair, fused.  The budget rule of
+    ``STREAM_FUSED_SCRATCH_BUDGET``, for each dtype: the largest fused
+    scratch of the sweep such that the fused kernel is no slower than the
+    pair at every swept shape, causal and not, whose scratch is no larger
+    (0 if there is none), capped at 256 MiB.  At a fixed number of tokens
+    the fp32 scratch is the same at every seq, so there one loss gives 0."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    rows, budgets = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        # the fp32 kernels take milliseconds: fewer calls a replay
+        calls = 20 if dtype == torch.bfloat16 else 4
+        mine = []
+        for T in seqs:
+            G = tokens // T * n
+            scratch = 4 * sattn.fused_scratch_words(dtype, G, T, d)[0]
+            for causal in (False, True):
+                gen = torch.Generator(device=device).manual_seed(T)
+                q, k, v, do = (torch.randn((G, T, d), generator=gen,
+                                           device=device).to(dtype)
+                               for _ in range(4))
+                maskg = torch.ones((G, 1, T), device=device)
+                o, lse = sattn.stream_fwd(q, k, v, maskg, causal)
+                delta = (do.float() * o.float()).sum(-1)[:, None, :]
+                args = (q, k, v, maskg, do, lse, delta, causal)
+                fns = {"fused": lambda: sattn.stream_bwd_fused(*args),
+                       "pair": lambda: (sattn.stream_dkv(*args),
+                                        sattn.stream_dq(*args))}
+                ms = {name: [] for name in fns}
+                for name in ("fused", "pair", "pair", "fused"):
+                    ms[name].append(_graph_ms(lambda f=fns[name]: f, device,
+                                              calls=calls))
+                f, p = min(ms["fused"]), min(ms["pair"])
+                mine.append({"dtype": str(dtype).split(".")[-1], "seq": T,
+                             "causal": causal, "G": G, "fused_ms": f,
+                             "pair_ms": p, "pair_over_fused": p / f,
+                             "fused_scratch_bytes": scratch,
+                             "auto": "fused" if sattn._fused_bwd_fits(
+                                 dtype, G, T, d) else "split"})
+                del q, k, v, do, o, lse, delta, args, fns
+        sizes = sorted({r["fused_scratch_bytes"] for r in mine})
+        fits = [size for size in sizes if all(
+            r["fused_ms"] <= r["pair_ms"] for r in mine
+            if r["fused_scratch_bytes"] <= size)]
+        budgets[mine[0]["dtype"]] = min(max(fits, default=0), SCRATCH_CAP)
+        rows += mine
+    emit("bwd_sweep", heads=n, head_dim=d, tokens=tokens, rows=rows,
+         measured_budget=budgets,
+         committed_budget=sattn.STREAM_FUSED_SCRATCH_BUDGET)
+
+
 def phase_block_kernels(device, launches, prof_gpt2):
     """Each whole-tile kernel against its plain version at the GPT-2 shape
     (q, k, v views of the packed qkv, causal, no padding as on the path,
@@ -1037,14 +1305,19 @@ def phase_block_kernels(device, launches, prof_gpt2):
     # views, forward and the backward of a kept graph (timed only; the port
     # never calls it)
     four = [x.transpose(1, 2) for x in (q, k, v)]
-    leaves = [x.detach().clone().requires_grad_() for x in four]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    lib_fns = {
-        "block_fwd": lambda: F.scaled_dot_product_attention(
-            *four, is_causal=True),
-        "block_bwd": lambda: torch.autograd.grad(
-            lib_out, leaves, do.transpose(1, 2), retain_graph=True)}
-    lib_ms = {kn: _library_ms(f, device) for kn, f in lib_fns.items()}
+
+    def backward():
+        """The backward of a kept graph, its leaves and forward made here
+        (on the stream that will run it)."""
+        leaves = [x.detach().clone().requires_grad_() for x in four]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                           retain_graph=True)
+    lib_ms = {"block_fwd": _library_ms(
+                  lambda: F.scaled_dot_product_attention(*four,
+                                                         is_causal=True),
+                  device),
+              "block_bwd": _library_ms(backward(), device, make=backward)}
 
     results = []
     padded_fns = fns(padded)
@@ -1075,10 +1348,9 @@ def phase_block_kernels(device, launches, prof_gpt2):
     for r in results:
         emit("block_kernels", shape=BLOCK_SHAPE, dtype="bf16", causal=True,
              rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
-                 "name", "ms", "device_ms", "event_ms", "plain_ms",
-                 "bound_ms", "bound_by", "library_ms", "library_device_ms",
-                 "library_event_ms",
-                 "profile_ms", "max_abs_err", "max_rel_err", "ok")})
+                 "name", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "library_event_ms", "profile_ms",
+                 "max_abs_err", "max_rel_err", "ok")})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"whole-tile kernels {bad} disagree with their "
@@ -1167,7 +1439,7 @@ def main() -> int:
 
     phase_tiny_parity(device)
     phase_tiny_parity(device, seq=256, bwd_mode="fused")
-    split_launches = phase_tiny_parity(device, seq=256, bwd_mode="split")
+    phase_tiny_parity(device, seq=256, bwd_mode="split")
     phase_tiny_gpt2_parity(device)
     phase_dispatch(device)
     engine, batch, lamb_launches = phase_train(device)
@@ -1190,13 +1462,22 @@ def main() -> int:
     prof512 = phase_profile(engine, batch, device, name="profile512")
     del engine, batch
     torch.cuda.empty_cache()
-    # the split pair runs on the seq-256 parity path; the rest on train512
-    paths = {"stream_fwd": "train512", "stream_bwd_fused": "train512",
-             "stream_dkv": "tiny_parity seq 256 split",
-             "stream_dq": "tiny_parity seq 256 split"}
-    attn_launches = {k: (launches512 if v == "train512" else
-                         split_launches)[k] for k, v in paths.items()}
-    kernels += phase_attn_kernels(device, attn_launches, paths, prof512)
+    runs1024 = phase_train_gpt2_1024(device)
+    # the forward runs on train512, the split pair on GPT-2 at seq 1024 (and
+    # on train512 where auto takes it there), the fused backward on train512
+    # where auto takes it, else on the fused GPT-2 run
+    by_path = {"train512": (launches512, prof512),
+               "train_gpt2_1024 (split)": runs1024["split"],
+               "train_gpt2_1024 (fused)": runs1024["fused"]}
+    paths = {"stream_fwd": "train512",
+             "stream_bwd_fused": ("train512" if launches512["stream_bwd_fused"]
+                                  else "train_gpt2_1024 (fused)"),
+             "stream_dkv": "train_gpt2_1024 (split)",
+             "stream_dq": "train_gpt2_1024 (split)"}
+    attn_launches = {k: by_path[v][0][k] for k, v in paths.items()}
+    profs = {k: by_path[v][1] for k, v in paths.items()}
+    kernels += phase_attn_kernels(device, attn_launches, paths, profs)
+    phase_bwd_sweep(device)
 
     engine, batch, gpt2_launches = phase_train_gpt2(device)
     prof_gpt2 = phase_profile(engine, batch, device, name="profile_gpt2")

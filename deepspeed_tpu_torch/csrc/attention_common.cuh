@@ -1,14 +1,13 @@
 // Device helpers shared by the attention kernels (stream_attention.cu,
 // block_attention.cu): type casts, warp reductions, shared-memory carving,
-// tile loads and the shared-memory matrix product.  Each .cu file includes
-// this header and is built into its own library.
+// tile loads and the fp32 shared-memory matrix product of the fp32 routes.
+// Each .cu file includes this header and is built into its own library.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -57,53 +56,24 @@ struct Carve {
   }
 };
 
-// C[M x N] (=, or += when ACC) op(A)[M x K] . op(B)[K x N], all in shared
-// memory.  A is stored [M][K] (or [K][M] when A_T), B is stored [K][N] (or
-// [N][K] when B_T).  C is fp32, row-major with stride ldc.  bf16/fp16 go
-// through WMMA fragments with fp32 accumulation; fp32 through FMAs.
+// C[M x N] (=, or += when ACC) op(A)[M x K] . op(B)[K x N], all fp32 in
+// shared memory, by plain FMAs (never TF32).  A is stored [M][K] (or [K][M]
+// when A_T), B is stored [K][N] (or [N][K] when B_T); C is row-major with
+// stride ldc.
 template <typename T, bool A_T, bool B_T, bool ACC>
 __device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
                                    const T* Bm, int ldb, int M, int N,
                                    int K) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-      const int r = e / N, n = e % N;
-      float s = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float a = A_T ? A[k * lda + r] : A[r * lda + k];
-        const float b = B_T ? Bm[n * ldb + k] : Bm[k * ldb + n];
-        s = fmaf(a, b, s);
-      }
-      C[r * ldc + n] = ACC ? C[r * ldc + n] + s : s;
+  static_assert(std::is_same<T, float>::value, "the fp32 routes only");
+  for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
+    const int r = e / N, n = e % N;
+    float s = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float a = A_T ? A[k * lda + r] : A[r * lda + k];
+      const float b = B_T ? Bm[n * ldb + k] : Bm[k * ldb + n];
+      s = fmaf(a, b, s);
     }
-  } else {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<A_T, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_T, wmma::col_major,
-                                              wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    const int tn = N / 16;
-    const int tiles = (M / 16) * tn;
-    for (int t = warp; t < tiles; t += nw) {
-      const int tm = t / tn, tc = t % tn;
-      float* cp = C + tm * 16 * ldc + tc * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC)
-        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
-        wmma::load_matrix_sync(
-            a, A_T ? A + k * lda + tm * 16 : A + tm * 16 * lda + k, lda);
-        wmma::load_matrix_sync(
-            b, B_T ? Bm + tc * 16 * ldb + k : Bm + k * ldb + tc * 16, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-    }
+    C[r * ldc + n] = ACC ? C[r * ldc + n] + s : s;
   }
 }
 

@@ -126,7 +126,7 @@ struct Args {
 
 // Shared-memory layouts for a runtime T: the same on the host (launch size)
 // and on the device (carving).  Row strides carry a 16-byte pad and stay
-// multiples of 16 bytes, as WMMA loads need.  The fp32 score tile is reused
+// multiples of 16 bytes, as the 16-byte tile loads need.  The fp32 score tile is reused
 // for the fp32 product tile afterwards, so its stride covers both.
 template <typename T, int DP>
 struct FwdLayout {

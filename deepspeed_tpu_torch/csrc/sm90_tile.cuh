@@ -4,7 +4,7 @@
 // + mma.sync m16n8k16 and the warpgroup wgmma m64n64k16), shared-memory
 // matrix descriptors, the fences and barriers between them, and the
 // launch.  attention_common.cuh keeps the older helpers that the fp32
-// routes and the split stream kernels use.
+// routes use.
 //
 // Fragment layouts (lane = 4 * gq + tq, gq = lane / 4, tq = lane % 4):
 //   mma.sync m16n8k16 A (16 x 16, row-major):  a[0] = A[gq][2tq..2tq+1],

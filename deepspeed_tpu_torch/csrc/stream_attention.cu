@@ -7,10 +7,12 @@
 // What each kernel replaces (deepspeed_tpu/ops/pallas_attention.py):
 //   stream_fwd_wg_kernel      <- _stream_fwd_kernel        (:268)  bf16/fp16
 //   stream_bwd_mma_kernel     <- _stream_bwd_fused_kernel  (:371)  bf16/fp16
+//   stream_dkv_mma_kernel     <- _stream_dkv_kernel        (:330)  bf16/fp16
+//   stream_dq_wg_kernel       <- _stream_dq_kernel         (:435)  bf16/fp16
 //   stream_fwd_kernel         <- _stream_fwd_kernel        fp32 route
 //   stream_bwd_fused_kernel   <- _stream_bwd_fused_kernel  fp32 route
-//   stream_dkv_kernel         <- _stream_dkv_kernel        (:330)
-//   stream_dq_kernel          <- _stream_dq_kernel         (:435)
+//   stream_dkv_kernel         <- _stream_dkv_kernel        fp32 route
+//   stream_dq_kernel          <- _stream_dq_kernel         fp32 route
 //
 // Contract (the Pallas kernels', not the einsum path's).  Scores are
 // q.k^T * scale summed in fp32; a key whose mask entry is 0, and under
@@ -32,7 +34,7 @@
 // work at 989 TFLOP/s); the fused backward (5 passes), dkv (4) and dq (3)
 // are bound by their products (21.7, 17.4 and 13.0 us).
 //
-// Design of the bf16/fp16 forward and fused backward (the train path):
+// Design of the bf16/fp16 kernels (the train path):
 //   * No product goes through shared memory.  The accumulators live in
 //     registers; shared memory holds only the operand tiles and, in the
 //     backward, one dS tile.
@@ -80,18 +82,57 @@
 //     after block j - 1) and a sum through distributed shared memory
 //     (the kv blocks of one g as a thread-block cluster, in step) were
 //     both slower, the cluster most under causal.
+//   * Split pair, dkv: the fused backward without dQ (stream_dkv_mma_
+//     kernel): the same warps, ring and register dK/dV, p^T and dS^T
+//     recomputed in registers (p^T by exp2 in log2 units) as the A operands
+//     of dV += p^T dO and dK += dS^T q (kv_tile_step, shared with the fused
+//     kernel), and no dS^T store, dQ product, partials, fence or tickets:
+//     no scratch at any T.  It waits for query tile i, then (one barrier a
+//     tile) loads tile i + 1 into the stage tile i - 1 used.  Blocks of 64
+//     keys and 4 warps at every shape: 168 registers at d 64, three blocks
+//     an SM.  Measured on an H100 against variants of this file (not
+//     committed: verdicts only, PERF.md): 128-key blocks of 8 warps (208
+//     registers, one block an SM) and expf were each slower; S^T and dP^T
+//     in one interleaved loop, or a cap of 128 registers for a fourth
+//     block, spilled and were no faster at seq 1024.  It runs at several
+//     times what its products and its ldmatrix reads (each warp reads the
+//     whole q and dO tiles twice, 32 KB a 64-row tile) take by count, so
+//     latency with few warps an SM likely sets its pace (no hardware
+//     counters here to confirm it).
+//   * Split pair, dq: the forward's twin (stream_dq_wg_kernel): one block
+//     per (g, 128 query rows), a warpgroup of 64 rows each, q and dO loaded
+//     once, K/V tiles of 64 keys and their mask by the two-stage cp.async
+//     ring (one barrier a tile).  S = q.k^T and dP = dO.v^T are wgmma
+//     m64n64k16 from shared memory in one commit group, the mask read as
+//     ballot bits while they run; p = exp2(s scale log2e - lse log2e), a
+//     masked key's p the row's constant exp(-1e9 - lse) (1 in a fully
+//     masked row, as the plain version computes it), and dS = p (dP - delta)
+//     scale on the accumulator registers, lse and delta of the thread's two
+//     rows held in registers; dS packed to the input type is the register A
+//     operand of dQ += dS.k (k read MN-major, as the forward reads V).  Both
+//     warpgroups run every tile of the block, so no wgmma sits in a branch
+//     that differs per warpgroup (ptxas serialises those); under causal a
+//     tile wholly after a warpgroup's rows gives p = 0 (the Pallas skip).
+//     No online softmax and no sum across blocks: dQ is bitwise repeatable.
+//     dQ stays in registers, is packed into the warpgroup's own q rows and
+//     leaves in 16-byte stores.  127 registers at d 64 (two blocks an SM),
+//     182 at d 128 (one).
+//   * Which backward DSTPU_STREAM_BWD=auto takes (ops/stream_attention.py):
+//     the fused kernel while its scratch fits STREAM_FUSED_SCRATCH_BUDGET,
+//     else the pair.  The budget is the largest fused scratch up to which
+//     the fused kernel was no slower than the pair, causal and not, in
+//     chip_smoke.py's bwd_sweep on an H100 (capped at 256 MiB, since the
+//     scratch stays cached); the sweeps and the value are beside it.
 //   * Each instantiation sets its dynamic shared-memory limit once
 //     (launch_once); every launch returns cudaGetLastError().
 //
-// The fp32 route of the forward and fused backward, and the split pair
-// (dkv, dq) for every type, are the first, simple kernels: tiles of B rows
-// (64 for bf16/fp16, 32 for fp32) staged in shared memory with a 16-byte
-// row pad, the head dim zero-padded to DP (64 or 128); WMMA 16x16x16 for
-// bf16/fp16 and plain fp32 FMAs for fp32 (never TF32, so fp32 holds to
-// fp32 tolerances); synchronous loads; accumulators in shared memory.  The
-// fp32 fused backward keeps one block per g that visits the kv tiles in
-// ascending j and adds each dQ tile into an fp32 [G, T, d] scratch with
-// the same element-to-thread map every time (no atomics).
+// The fp32 route of all four is the first, simple design, kept so fp32
+// holds to fp32 tolerances: tiles of 32 rows staged in shared memory with
+// a 16-byte row pad, the head dim zero-padded to DP (64 or 128), plain
+// fp32 FMAs (never TF32), synchronous loads, accumulators in shared
+// memory.  Its fused backward keeps one block per g that visits the kv
+// tiles in ascending j and adds each dQ tile into an fp32 [G, T, d]
+// scratch with the same element-to-thread map every time (no atomics).
 
 #include "attention_common.cuh"
 #include "sm90_tile.cuh"
@@ -107,7 +148,7 @@ constexpr float kTiny = 1e-30f;
 
 // Shared-memory layout of one block, the same on the host (launch size) and
 // on the device (carving).  Row strides carry a 16-byte pad against bank
-// conflicts and stay multiples of 16 bytes, as WMMA loads need.
+// conflicts and stay multiples of 16 bytes, as the 16-byte tile loads need.
 template <typename T, int DP, int B>
 struct Layout {
   static constexpr int LDT = DP + 16 / int(sizeof(T));  // q/k/v/dO tiles
@@ -434,6 +475,7 @@ __global__ void __launch_bounds__(kThreadsFused)
 // ------------------------------------------- bf16/fp16 forward (wgmma)
 
 constexpr int kKv = 64;             // keys per K/V tile, rows per query tile
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kFwdRows = 128;       // query rows per forward block
 constexpr int kFwdThreads = 256;    // two warpgroups of 64 rows
 
@@ -623,11 +665,11 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
 // head dim fits 64 and T is a multiple of 128, else 4 (64 keys).
 inline int bwd_warps(int T, int d) { return d <= 64 && T % 128 == 0 ? 8 : 4; }
 
-// The fused backward's shared memory: k, v of the block's BK keys; two
-// stages of q, dO (64 rows), lse, delta; dS^T [BK keys][64 queries]; the
-// key mask; the last-ticket flags.  Row-major with a 16-byte row pad (ldmatrix
-// rows land in distinct banks).
-template <int DP, int NW>
+// The shared memory of the fused backward (DQ) and of dkv (!DQ): k, v of
+// the block's BK keys; two stages of q, dO (64 rows), lse, delta; the key
+// mask; for DQ also dS^T [BK keys][64 queries] and the last-ticket flags.
+// Row-major with a 16-byte row pad (ldmatrix rows land in distinct banks).
+template <int DP, int NW, bool DQ>
 struct BwdMmaSmem {
   static constexpr int BK = 16 * NW;
   static constexpr int LD = DP + 8;    // elements per operand row
@@ -635,10 +677,10 @@ struct BwdMmaSmem {
   static constexpr int QT = kKv * LD * 2, KT = BK * LD * 2;
   static constexpr int STAGE = 2 * QT + 2 * kKv * 4;
   static constexpr int K = 0, V = KT, ST = 2 * KT;
-  static constexpr int DS = ST + 2 * STAGE;
-  static constexpr int MK = DS + BK * LDS * 2;
-  static constexpr int LAST = MK + BK * 4;
-  static constexpr size_t bytes = size_t(LAST) + 32 * NW * 4;
+  static constexpr int MK = ST + 2 * STAGE;
+  static constexpr int DS = MK + BK * 4;
+  static constexpr int LAST = DS + (DQ ? BK * LDS * 2 : 0);
+  static constexpr size_t bytes = size_t(LAST) + (DQ ? 32 * NW * 4 : 0);
 };
 
 // `rows` rows from row r0 of a [T, d] matrix into a padded row-major tile
@@ -714,10 +756,88 @@ __host__ __device__ inline long long counter_words(int G, int T) {
   return ((long long)G * (T / kKv) + 3) / 4 * 4;
 }
 
+// One warp's share of a (kv tile, 64-row query tile) pair in the fused
+// backward and dkv: its 16 rows `Kw`, `Vw` of k and v (the thread's keys
+// key0 and key0 + 8 of the block's, whose first is key k0) against the
+// staged q, dO, lse, delta of the query tile at q0.  p^T = exp(s^T -
+// lse) (0 under `skip`, the causal skip), dV += p^T dO, dS^T = p^T (dP^T -
+// delta) scale, dK += dS^T q; dS^T is left packed in `fa` (fa[kq][r]: key
+// key0 + 8 (r & 1), queries 16 kq + 8 (r >> 1) + 2 tq, +1).
+template <typename T, int DP>
+__device__ __forceinline__ void kv_tile_step(
+    float (&dk)[DP / 8][4], float (&dv)[DP / 8][4], uint32_t (&fa)[4][4],
+    const T* Kw, const T* Vw, const T* Qs, const T* dOs, const float* lse_s,
+    const float* delta_s, const float* mk, int key0, int k0, int q0,
+    bool skip, const Args& a) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  // p^T = exp(s^T - lse) on this warp's 16 keys x 64 queries
+  float pt[8][4];
+  mma_abt<T, DP>(pt, Kw, Qs, lane);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * n + 2 * tq + (e & 1), kr = key0 + 8 * (e >> 1);
+      float x = pt[n][e] * a.scale;
+      if (mk[kr] == 0.f) x = kMasked;
+      if (a.causal && k0 + kr > q0 + c) x = kMasked;
+      pt[n][e] = skip ? 0.f : exp2f((x - lse_s[c]) * kLog2e);
+    }
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      fa[kq][r] = pack2<T>(pt[2 * kq + (r >> 1)][2 * (r & 1)],
+                           pt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
+  mma_ab_regs<T, DP>(dv, fa, dOs, lane);  // dV += p^T dO
+
+  // dS^T = p^T (dP^T - delta) scale, dP^T = v.dO^T
+  float dpt[8][4];
+  mma_abt<T, DP>(dpt, Vw, dOs, lane);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * n + 2 * tq + (e & 1);
+      dpt[n][e] = pt[n][e] * (dpt[n][e] - delta_s[c]) * a.scale;
+    }
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      fa[kq][r] = pack2<T>(dpt[2 * kq + (r >> 1)][2 * (r & 1)],
+                           dpt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
+  mma_ab_regs<T, DP>(dk, fa, Qs, lane);  // dK += dS^T q
+}
+
+// dK, dV of BK keys as packed pairs in the input type, 4-byte stores.
+template <typename T, int DP>
+__device__ __forceinline__ void store_dkv(const Args& a, size_t off0,
+                                          int key0,
+                                          const float (&dk)[DP / 8][4],
+                                          const float (&dv)[DP / 8][4]) {
+  const int d = a.d, tq = threadIdx.x & 3;
+  T* dkp = static_cast<T*>(a.dk) + off0;
+  T* dvp = static_cast<T*>(a.dv) + off0;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int c = 8 * n + 2 * tq;
+    if (c < d)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t off = size_t(key0 + 8 * h) * d + c;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            pack2<T>(dk[n][2 * h], dk[n][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            pack2<T>(dv[n][2 * h], dv[n][2 * h + 1]);
+      }
+  }
+}
+
 template <typename T, int DP, int NW>
 __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
     stream_bwd_mma_kernel(Args a) {
-  using S = BwdMmaSmem<DP, NW>;
+  using S = BwdMmaSmem<DP, NW, true>;
   constexpr int LD = S::LD, NT = DP / 8, BK = S::BK, NTH = 32 * NW;
   constexpr int SUB = NW / 4;  // 64-key tiles per block
   constexpr int CW = NW / 4;   // column groups of the dQ product
@@ -780,49 +900,11 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
     const int q0 = i * kKv;
     // under causal a warp whose 64-key tile lies after query tile i skips
     // it (p = dS = 0), as the Pallas grid does
-    const bool skip = a.causal && sub > i;
-
-    // p^T = exp(s^T - lse) on this warp's 16 keys x 64 queries
-    float pt[8][4];
-    mma_abt<T, DP>(pt, Ks + 16 * warp * LD, Qs, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * tq + (e & 1), kr = key0 + 8 * (e >> 1);
-        float x = pt[n][e] * a.scale;
-        if (mk[kr] == 0.f) x = kMasked;
-        if (a.causal && k0 + kr > q0 + c) x = kMasked;
-        pt[n][e] = skip ? 0.f : expf(x - lse_s[c]);
-      }
     uint32_t fa[4][4];
-#pragma unroll
-    for (int kq = 0; kq < 4; ++kq)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        fa[kq][r] = pack2<T>(pt[2 * kq + (r >> 1)][2 * (r & 1)],
-                             pt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
-    mma_ab_regs<T, DP>(dv, fa, dOs, lane);  // dV += p^T dO
-
-    // dS^T = p^T (dP^T - delta) scale, dP^T = v.dO^T
-    float dpt[8][4];
-    mma_abt<T, DP>(dpt, Vs + 16 * warp * LD, dOs, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * tq + (e & 1);
-        dpt[n][e] = pt[n][e] * (dpt[n][e] - delta_s[c]) * a.scale;
-      }
-#pragma unroll
-    for (int kq = 0; kq < 4; ++kq)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        fa[kq][r] = pack2<T>(dpt[2 * kq + (r >> 1)][2 * (r & 1)],
-                             dpt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
-    mma_ab_regs<T, DP>(dk, fa, Qs, lane);  // dK += dS^T q
-    // dS^T to shared memory: fa[kq][r] holds key key0 + 8 (r & 1),
-    // queries 16 kq + 8 (r >> 1) + 2 tq, +1
+    kv_tile_step<T, DP>(dk, dv, fa, Ks + 16 * warp * LD, Vs + 16 * warp * LD,
+                        Qs, dOs, lse_s, delta_s, mk, key0, k0, q0,
+                        a.causal && sub > i, a);
+    // dS^T to shared memory
 #pragma unroll
     for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
@@ -903,20 +985,246 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
     }
     __syncthreads();  // `last` is rewritten by the next chunk
   }
-  T* dkp = static_cast<T*>(a.dk) + base + size_t(k0) * d;
-  T* dvp = static_cast<T*>(a.dv) + base + size_t(k0) * d;
+  store_dkv<T, DP>(a, base + size_t(k0) * d, key0, dk, dv);
+}
+
+// ------------------------------------------- bf16/fp16 dkv (mma.sync)
+
+// The fused backward without dQ: the same warps and dK/dV loop, and no dS^T
+// store, dQ product, partials, fence or tickets (no scratch); launched
+// with 4 warps (64 keys) a block.  The ring waits for query tile i, then
+// (one barrier: every warp is done with tile i - 1) loads tile i + 1 into
+// the other stage.
+template <typename T, int DP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
+    stream_dkv_mma_kernel(Args a) {
+  using S = BwdMmaSmem<DP, NW, false>;
+  constexpr int LD = S::LD, NT = DP / 8, BK = S::BK, NTH = 32 * NW;
+  constexpr int SUB = NW / 4;  // 64-key tiles per block
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem + S::K);
+  T* Vs = reinterpret_cast<T*>(smem + S::V);
+  float* mk = reinterpret_cast<float*>(smem + S::MK);
+  const int T_len = a.T, d = a.d;
+  const int nq = T_len / kKv, nkb = T_len / BK;
+  const int g = blockIdx.x / nkb, j = blockIdx.x % nkb, k0 = j * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = j * SUB + warp / 4;  // this warp's 64-key tile
+  const size_t base = size_t(g) * T_len * d, rbase = size_t(g) * T_len;
+  const T* q = static_cast<const T*>(a.q) + base;
+  const T* dout = static_cast<const T*>(a.dout) + base;
+
+  auto stage = [&](int s) { return smem + S::ST + s * S::STAGE; };
+  auto load_q_tile = [&](int i, int s) {
+    unsigned char* st = stage(s);
+    load_rows<T, DP>(reinterpret_cast<T*>(st), q, i * kKv, kKv, d, NTH);
+    load_rows<T, DP>(reinterpret_cast<T*>(st + S::QT), dout, i * kKv, kKv, d,
+                     NTH);
+    load_row_vec(reinterpret_cast<float*>(st + 2 * S::QT),
+                 a.lse_in + rbase + i * kKv, kKv);
+    load_row_vec(reinterpret_cast<float*>(st + 2 * S::QT + kKv * 4),
+                 a.delta + rbase + i * kKv, kKv);
+  };
+  load_rows<T, DP>(Ks, static_cast<const T*>(a.k) + base, k0, BK, d, NTH);
+  load_rows<T, DP>(Vs, static_cast<const T*>(a.v) + base, k0, BK, d, NTH);
+  load_row_vec(mk, a.mask + rbase + k0, BK);
+  const int i0 = a.causal ? j * SUB : 0;
+  load_q_tile(i0, 0);
+  cp_async_commit();
+
+  float dk[NT][4], dv[NT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = 8 * n + 2 * tq;
-    if (c < d)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t off = size_t(key0 + 8 * h) * d + c;
-        *reinterpret_cast<uint32_t*>(dkp + off) =
-            pack2<T>(dk[n][2 * h], dk[n][2 * h + 1]);
-        *reinterpret_cast<uint32_t*>(dvp + off) =
-            pack2<T>(dv[n][2 * h], dv[n][2 * h + 1]);
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int key0 = 16 * warp + (lane >> 2);
+
+  for (int i = i0, it = 0; i < nq; ++i, ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < nq) load_q_tile(i + 1, (it + 1) & 1);
+    cp_async_commit();
+    const unsigned char* st = stage(it & 1);
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * S::QT);
+    uint32_t fa[4][4];
+    kv_tile_step<T, DP>(dk, dv, fa, Ks + 16 * warp * LD, Vs + 16 * warp * LD,
+                        reinterpret_cast<const T*>(st),
+                        reinterpret_cast<const T*>(st + S::QT), lse_s,
+                        lse_s + kKv, mk, key0, k0, i * kKv,
+                        a.causal && sub > i, a);
+  }
+  store_dkv<T, DP>(a, base + size_t(k0) * d, key0, dk, dv);
+}
+
+// ---------------------------------------------- bf16/fp16 dq (wgmma)
+
+// dq's shared memory: q and dO (128 rows each) and two stages of K, V (64
+// rows each) and the 64 mask entries, in the forward's core-matrix layout.
+template <int DP>
+struct DqSmem {
+  static constexpr int RB = DP * 16;                 // bytes per 8-row group
+  static constexpr int TILE = kKv * DP * 2;          // one 64-row tile
+  static constexpr int STAGE = 2 * TILE + kKv * 4;   // K, V, mask
+  static constexpr int Q = 2 * TILE, DO = 2 * TILE;
+  static constexpr size_t bytes = size_t(Q) + DO + 2 * STAGE;
+};
+
+// The forward's twin: one block per (g, 128 query rows), a warpgroup per
+// 64 rows.  Per 64-key tile, S = q.k^T and dP = dO.v^T (wgmma, one commit
+// group), p and dS on the accumulator registers, and dQ += dS.k with dS
+// packed as the register A operand (k read MN-major, as the forward reads
+// V).  Both warpgroups run every tile of the block, so no wgmma sits in a
+// branch; a tile wholly after a warpgroup's rows gives p = 0 under causal
+// (the Pallas skip).  Rows past T load as zeros with lse = delta = 0 and
+// give dS = 0; they are not stored.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads, DP == 64 ? 2 : 1)
+    stream_dq_wg_kernel(Args a) {
+  using S = DqSmem<DP>;
+  constexpr int RB = S::RB, NH = DP / 64;  // 64-column halves of dQ
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + S::Q;
+  unsigned char* stages = dOs + S::DO;
+  const int T_len = a.T, d = a.d;
+  const int nqb = (T_len + kFwdRows - 1) / kFwdRows;
+  const int g = blockIdx.x / nqb, q0 = (blockIdx.x % nqb) * kFwdRows;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t base = size_t(g) * T_len * d, rbase = size_t(g) * T_len;
+  const T* k = static_cast<const T*>(a.k) + base;
+  const T* v = static_cast<const T*>(a.v) + base;
+  const float* mask = a.mask + rbase;
+  const int nk = T_len / kKv;
+  const int my_tile = q0 / kKv + wg;  // this warpgroup's 64-row query tile
+  const int jend = a.causal ? min(nk, q0 / kKv + 2) : nk;
+
+  auto load_kv = [&](int j, int s) {
+    unsigned char* st = stages + s * S::STAGE;
+    load_cm<T, DP>(st, k, j * kKv, kKv, T_len, d, kFwdThreads);
+    load_cm<T, DP>(st + S::TILE, v, j * kKv, kKv, T_len, d, kFwdThreads);
+    if (tid < kKv / 4)
+      cp_async16(st + 2 * S::TILE + tid * 16, mask + j * kKv + tid * 4, true);
+  };
+  load_cm<T, DP>(Qs, static_cast<const T*>(a.q) + base, q0, kFwdRows, T_len,
+                 d, kFwdThreads);
+  load_cm<T, DP>(dOs, static_cast<const T*>(a.dout) + base, q0, kFwdRows,
+                 T_len, d, kFwdThreads);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this thread's rows row0 and row0 + 8: p of a masked key is the row's
+  // constant exp(-1e9 - lse) (1 in a fully masked row, else 0); an
+  // unmasked key's is exp2(s scale log2e - lse log2e)
+  const int row0 = my_tile * kKv + 16 * warp + gq;
+  const float sl = a.scale * kLog2e;
+  float nl2[2], pm[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    const float lse = r < T_len ? a.lse_in[rbase + r] : 0.f;
+    dl[h] = r < T_len ? a.delta[rbase + r] : 0.f;
+    nl2[h] = -lse * kLog2e;
+    pm[h] = exp2f((kMasked - lse) * kLog2e);
+  }
+  float dq[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[h][e] = 0.f;
+  const uint64_t qdesc = gmma_desc(Qs + wg * 8 * RB, 128, RB);
+  const uint64_t odesc = gmma_desc(dOs + wg * 8 * RB, 128, RB);
+
+  for (int j = 0; j < jend; ++j) {
+    cp_async_wait<0>();  // q, dO and tile j have landed
+    fence_proxy_async();
+    __syncthreads();     // ... for every thread; tile j - 1 is done with
+    if (j + 1 < jend) load_kv(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    const unsigned char* Ks = stages + (j & 1) * S::STAGE;
+    const unsigned char* Vs = Ks + S::TILE;
+    const float* mk = reinterpret_cast<const float*>(Ks + 2 * S::TILE);
+    const int k0 = j * kKv;
+    float s[32] = {}, dp[32] = {};  // overwritten: the first slice does not add
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<T>(s, qdesc + ((kk * 256) >> 4),
+                  gmma_desc(Ks + kk * 256, 128, RB), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<T>(dp, odesc + ((kk * 256) >> 4),
+                  gmma_desc(Vs + kk * 256, 128, RB), kk > 0);
+    wgmma_commit();
+    // the tile's key mask as bits (key 2 tq + c at bit c of keep[c >> 5])
+    // while the products run
+    const uint32_t keep[2] = {
+        __ballot_sync(0xffffffffu, mk[lane] != 0.f) >> (2 * tq),
+        __ballot_sync(0xffffffffu, mk[32 + lane] != 0.f) >> (2 * tq)};
+    wgmma_wait0();
+    reg_fence(s);
+    reg_fence(dp);
+    const bool skip = a.causal && j > my_tile;
+    // causal: key k0 + 8 n + 2 tq + e1 lies after row row0 + 8 h
+    const int rc[2] = {row0 - k0 - 2 * tq, row0 + 8 - k0 - 2 * tq};
+    // s[4n + e] is row row0 + 8 (e >> 1), key k0 + 8n + 2tq + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int n = i >> 2, e1 = i & 1, h = (i >> 1) & 1;
+      bool masked = !(keep[n >> 2] & (1u << (8 * (n & 3) + e1)));
+      if (a.causal && 8 * n + e1 > rc[h]) masked = true;
+      float p = masked ? pm[h] : exp2f(fmaf(s[i], sl, nl2[h]));
+      if (skip) p = 0.f;
+      s[i] = p * (dp[i] - dl[h]) * a.scale;  // dS
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) reg_fence(dq[h]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) reg_fence(da[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        wgmma_rs_t<T>(dq[h], da[kk],
+                      gmma_desc(Ks + kk * 2 * RB + h * 1024, RB, 128));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) reg_fence(dq[h]);
+  }
+
+  // dQ packed into this warpgroup's own q rows (only its products read
+  // them, and they are done), then 16-byte stores of whole rows
+  unsigned char* Qw = Qs + wg * 8 * RB;
+  const int rl = 16 * warp + gq;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = rl + 8 * hh;
+        *reinterpret_cast<uint32_t*>(Qw + (r >> 3) * RB + (8 * h + n) * 128 +
+                                     (r & 7) * 16 + 4 * tq) =
+            pack2<T>(dq[h][4 * n + 2 * hh], dq[h][4 * n + 2 * hh + 1]);
       }
+  wg_barrier(1 + wg);
+  constexpr int CPR = DP / 8;
+  T* out = static_cast<T*>(a.dq) + base + size_t(my_tile) * kKv * d;
+  for (int e = tid & 127; e < kKv * CPR; e += 128) {
+    const int r = (e / (8 * CPR)) * 8 + (e & 7), c = (e >> 3) % CPR;
+    if (my_tile * kKv + r < T_len && c * 8 < d)
+      *reinterpret_cast<uint4*>(out + size_t(r) * d + c * 8) =
+          *reinterpret_cast<const uint4*>(Qw + (r >> 3) * RB + c * 128 +
+                                          (r & 7) * 16);
   }
 }
 
@@ -924,46 +1232,69 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
 
 enum Which { kFwd = 0, kBwdFused = 1, kDkv = 2, kDq = 3 };
 
-template <typename T, int DP, int NW>
+// the fused backward (DQ; bwd_warps(T, d) warps a block) or dkv (4 warps,
+// 64-key blocks, at every shape)
+template <typename T, int DP, bool DQ>
 int run_bwd(const Args& a, cudaStream_t stream) {
-  return launch_once<stream_bwd_mma_kernel<T, DP, NW>>(
-      dim3(a.G * (a.T / (16 * NW))), 32 * NW, BwdMmaSmem<DP, NW>::bytes, a,
-      stream);
+  if constexpr (DQ && DP == 64)
+    if (bwd_warps(a.T, a.d) == 8)
+      return launch_once<stream_bwd_mma_kernel<T, DP, 8>>(
+          dim3(a.G * (a.T / 128)), 256, BwdMmaSmem<DP, 8, true>::bytes, a,
+          stream);
+  constexpr auto kernel = DQ ? stream_bwd_mma_kernel<T, DP, 4>
+                             : stream_dkv_mma_kernel<T, DP, 4>;
+  return launch_once<kernel>(dim3(a.G * (a.T / 64)), 128,
+                             BwdMmaSmem<DP, 4, DQ>::bytes, a, stream);
 }
 
-template <typename T, int DP>
-int run(int which, const Args& a, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int B = kF32 ? 32 : 64;
-  using Lt = Layout<T, DP, B>;
+// the fp32 route: the first kernels, 32-row tiles
+template <int DP>
+int run_f32(int which, const Args& a, cudaStream_t stream) {
+  constexpr int B = 32;
+  using Lt = Layout<float, DP, B>;
   if (a.T % B != 0) return int(cudaErrorInvalidValue);
   const dim3 tiles(a.G, a.T / B);
   switch (which) {
     case kFwd:
-      if constexpr (kF32)
-        return launch_once<stream_fwd_kernel<T, DP, B>>(tiles, kThreads,
-                                                        Lt::fwd, a, stream);
-      else
+      return launch_once<stream_fwd_kernel<float, DP, B>>(tiles, kThreads,
+                                                          Lt::fwd, a, stream);
+    case kBwdFused:
+      return launch_once<stream_bwd_fused_kernel<float, DP, B>>(
+          dim3(a.G), kThreadsFused, Lt::bwd3, a, stream);
+    case kDkv:
+      return launch_once<stream_dkv_kernel<float, DP, B>>(tiles, kThreads,
+                                                          Lt::bwd2, a, stream);
+    case kDq:
+      return launch_once<stream_dq_kernel<float, DP, B>>(tiles, kThreads,
+                                                         Lt::bwd2, a, stream);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// bf16/fp16: the Hopper kernels, each with its own grid; T a multiple of
+// the 64-row tile of the Pallas grid's causal skip
+template <typename T, int DP>
+int run(int which, const Args& a, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    return run_f32<DP>(which, a, stream);
+  } else {
+    if (a.T % 64 != 0) return int(cudaErrorInvalidValue);
+    switch (which) {
+      case kFwd:
         return launch_once<stream_fwd_wg_kernel<T, DP>>(
             dim3(a.G * ((a.T + kFwdRows - 1) / kFwdRows)), kFwdThreads,
             FwdSmem<DP>::bytes, a, stream);
-    case kBwdFused:
-      if constexpr (kF32)
-        return launch_once<stream_bwd_fused_kernel<T, DP, B>>(
-            dim3(a.G), kThreadsFused, Lt::bwd3, a, stream);
-      else {
-        if constexpr (DP == 64)
-          if (bwd_warps(a.T, a.d) == 8) return run_bwd<T, DP, 8>(a, stream);
-        return run_bwd<T, DP, 4>(a, stream);
-      }
-    case kDkv:
-      return launch_once<stream_dkv_kernel<T, DP, B>>(tiles, kThreads,
-                                                      Lt::bwd2, a, stream);
-    case kDq:
-      return launch_once<stream_dq_kernel<T, DP, B>>(tiles, kThreads,
-                                                     Lt::bwd2, a, stream);
+      case kBwdFused:
+        return run_bwd<T, DP, true>(a, stream);
+      case kDkv:
+        return run_bwd<T, DP, false>(a, stream);
+      case kDq:
+        return launch_once<stream_dq_wg_kernel<T, DP>>(
+            dim3(a.G * ((a.T + kFwdRows - 1) / kFwdRows)), kFwdThreads,
+            DqSmem<DP>::bytes, a, stream);
+    }
+    return int(cudaErrorInvalidValue);
   }
-  return int(cudaErrorInvalidValue);
 }
 
 template <typename T>

@@ -105,9 +105,59 @@ def _stream_bwd_mode() -> str:
     if mode not in ("auto", "fused", "split"):
         raise ValueError(
             f"DSTPU_STREAM_BWD={mode!r} is not a valid mode: use 'auto' "
-            f"(the fused single-pass backward), 'fused', or 'split' (the "
-            f"two-kernel dK/dV + dQ backward)")
+            f"(the fused single-pass backward while its dQ scratch fits "
+            f"STREAM_FUSED_SCRATCH_BUDGET, else the split pair), 'fused', "
+            f"or 'split' (the two-kernel dK/dV + dQ backward)")
     return mode
+
+
+#: bytes of fused-backward scratch up to which ``auto`` takes the fused
+#: kernel; past it ``auto`` takes the split pair, which needs no scratch
+#: (``pallas_attention._fused_bwd_fits`` gates on VMEM the same way).
+#:
+#: The rule: the scratch is cached per device and stream for the life of
+#: the process, so the cap is 256 MiB; below it the budget is the largest
+#: fused scratch of ``chip_smoke.py``'s ``bwd_sweep`` (16 heads, d 64,
+#: 4,096 tokens a call, T 256-2048, causal and not, bf16 and fp32;
+#: CUDA-graph device time, the forward excluded) such that the fused
+#: kernel is no slower than the pair at every swept shape whose scratch is
+#: no larger, for every dtype.  0: ``auto`` always takes the pair.
+#:
+#: The sweep, on an NVIDIA H100 80GB HBM3 at 700 W, ms fused / pair,
+#: non-causal then causal, at T 256, 512, 1024, 2048.  bf16 (fused scratch
+#: 32, 64, 128, 256 MiB and 4 KB of counters):
+#:   0.1289/0.1069 0.1092/0.08742, 0.242/0.1717 0.1752/0.1308,
+#:   0.5211/0.3043 0.3313/0.2232, 1.108/0.5826 0.6392/0.4064.
+#: fp32, the FMA route (fused scratch 16 MiB at every T):
+#:   1.405/1.714 0.8089/0.977, 3.525/3.371 1.797/1.791,
+#:   13.8/6.694 6.8/3.448, 54.71/13.33 26.23/6.742.
+#: The bf16 pair is faster at every T.  The fp32 fused kernel wins only at
+#: T 256, with the same scratch as where it loses, so no scratch size
+#: separates the two: the budget is 0 for both.
+STREAM_FUSED_SCRATCH_BUDGET = 0
+
+
+def _bwd_warps(T: int, d: int) -> int:
+    """``bwd_warps`` (csrc/stream_attention.cu): warps of 16 keys per
+    fused-backward block."""
+    return 8 if d <= 64 and T % 128 == 0 else 4
+
+
+def fused_scratch_words(dtype, G: int, T: int, d: int):
+    """``(words, counter words)`` of the fused backward's scratch, as
+    ``dstt_stream_bwd_fused_scratch`` computes them: fp32 [G, T, d] for
+    fp32; for bf16/fp16 one int counter per (g, 64-row query tile), padded
+    to a multiple of 4, then fp32 partials [T / BK, G, T, d]."""
+    gtd = G * T * d
+    if dtype == torch.float32:
+        return gtd, 0
+    counters = (G * (T // KERNEL_TILE) + 3) // 4 * 4
+    return counters + T // (16 * _bwd_warps(T, d)) * gtd, counters
+
+
+def _fused_bwd_fits(dtype, G: int, T: int, d: int) -> bool:
+    return 4 * fused_scratch_words(dtype, G, T, d)[0] <= \
+        STREAM_FUSED_SCRATCH_BUDGET
 
 
 # ------------------------------------------------------------------ layout
@@ -259,27 +309,36 @@ _scratch = {}
 
 
 def _fused_scratch(lib, qg):
+    """The scratch the library asks for at this shape; the ``auto`` gate's
+    mirror must give the same size, or the gate would misjudge it."""
     G, T, d = qg.shape
-    counters = ctypes.c_longlong(0)
+    c_counters = ctypes.c_longlong(0)
     words = lib.dstt_stream_bwd_fused_scratch(_DTYPE_CODE[qg.dtype], G, T, d,
-                                              ctypes.byref(counters))
+                                              ctypes.byref(c_counters))
+    counters = c_counters.value
+    if (words, counters) != fused_scratch_words(qg.dtype, G, T, d):
+        raise RuntimeError(
+            f"fused_scratch_words{(qg.dtype, G, T, d)} = "
+            f"{fused_scratch_words(qg.dtype, G, T, d)} disagrees with "
+            f"dstt_stream_bwd_fused_scratch = {(words, counters)}")
     key = (qg.device, torch.cuda.current_stream(qg.device).cuda_stream)
     entry = _scratch.get(key)
     if entry is None or entry[0].numel() < words:
         entry = _scratch[key] = [torch.zeros(words, dtype=torch.float32,
                                              device=qg.device), words]
     buf, zeroed = entry
-    if counters.value > zeroed:
-        buf[:counters.value].zero_()
+    if counters > zeroed:
+        buf[:counters].zero_()
     # the call overwrites whatever lies after its counters
-    entry[1] = counters.value
+    entry[1] = counters
     return buf
 
 
 def stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal):
-    """``(dq, dk, dv)`` in one pass; dQ is summed in an fp32 [G, T, d]
-    scratch (after the bf16/fp16 kernel's counters) that stays allocated
-    between calls."""
+    """``(dq, dk, dv)`` in one pass.  dQ is summed in a scratch that stays
+    allocated between calls: ``fused_scratch_words`` (fp32 [G, T, d] for
+    fp32; for bf16/fp16 the counters and the fp32 partials
+    [T / BK, G, T, d], quadratic in T)."""
     if not _build.on_cuda("stream_bwd_fused", qg):
         return stream_bwd_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
     _check("stream_bwd_fused", qg, _BWD_ROWS, q=qg, k=kg, v=vg, mask=maskg,
@@ -325,11 +384,13 @@ def stream_dq(qg, kg, vg, maskg, dog, lse, delta, causal):
 
 def stream_backward(qg, kg, vg, maskg, o, lse, dog, causal):
     """``_stream_bwd_impl``: delta = rowsum(dO * O) in fp32, then the fused
-    kernel (modes ``auto`` and ``fused``) or the split pair (``split``).
-    Unlike the TPU's VMEM-gated ``auto``, the fused kernel keeps its dQ sum
-    in device memory, so ``auto`` always takes it."""
+    kernel (``fused``; ``auto`` while its scratch fits
+    ``STREAM_FUSED_SCRATCH_BUDGET``) or the split pair (``split``; ``auto``
+    past the budget)."""
     delta = (dog.float() * o.float()).sum(dim=-1)[:, None, :]
-    if _stream_bwd_mode() == "split":
+    mode = _stream_bwd_mode()
+    if mode == "split" or (mode == "auto" and not _fused_bwd_fits(
+            qg.dtype, *qg.shape)):
         dk, dv = stream_dkv(qg, kg, vg, maskg, dog, lse, delta, causal)
         return stream_dq(qg, kg, vg, maskg, dog, lse, delta, causal), dk, dv
     return stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal)

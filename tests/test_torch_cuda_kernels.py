@@ -263,10 +263,117 @@ def test_stream_fused_scratch_reused_across_shapes(dev):
         _fwd_and_fused(q, k, v, do, mask, True)
 
 
+#: the split pair's shapes: both head-dim paddings (d 40 and 64 in 64,
+#: d 128), one to 32 kv tiles, and a dq block whose second warpgroup lies
+#: past T (T 192)
+SPLIT_SHAPES = [(T, d) for T in (256, 512, 1024, 2048) for d in (64, 128)
+                ] + [(192, 64), (256, 40)]
+
+
+def _split_pair(q, k, v, do, mask, causal):
+    """dq, dk, dv of the split pair on the plain forward's o and lse, and
+    the plain backward's."""
+    po, plse = sattn.stream_fwd_plain(q, k, v, mask, causal)
+    delta = (do.float() * po.float()).sum(-1)[:, None, :]
+    args = (q, k, v, mask, do, plse, delta, causal)
+    sattn.reset_launch_counts()
+    dk, dv = sattn.stream_dkv(*args)
+    dq = sattn.stream_dq(*args)
+    want = sattn.stream_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert sattn.LAUNCHES == {"stream_fwd": 0, "stream_bwd_fused": 0,
+                              "stream_dkv": 1, "stream_dq": 1}
+    return (dq, dk, dv), want, args
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_stream_split_pair_hopper_kernels_match_plain(dev, dtype, T, d,
+                                                       causal):
+    """The bf16/fp16 split pair (dkv: mma.sync with register dK/dV; dq:
+    wgmma with register dQ) on padded keys."""
+    got, want, _ = _split_pair(*attn_inputs(dev, dtype, T, d, seed=T + d),
+                               causal)
+    attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("T,d", [(512, 64), (1024, 128), (192, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_stream_split_pair_fully_masked_row(dev, dtype, T, d):
+    """A batch row with every key masked (its lse that of an all -1e9 row)
+    and one with half its keys masked, non-causal (under causal the
+    kernels, like the Pallas grid, skip the tiles after the query's where
+    the plain versions take the whole row)."""
+    B, n = 2, 2
+    q, k, v, do, _ = attn_inputs(dev, dtype, T, d, B=B, n=n, seed=13)
+    mask = torch.ones((B, T), device=dev)
+    mask[0] = 0.0
+    mask[1, T // 2:] = 0.0
+    got, want, _ = _split_pair(q, k, v, do, sattn.mask_gtd(mask, B, T, n),
+                               False)
+    attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", [(512, 64), (2048, 64), (1024, 128)])
+def test_stream_split_pair_is_deterministic(dev, T, d, causal):
+    """Bitwise repeatable dK, dV and dQ: every block owns its outputs."""
+    q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, T, d, seed=4)
+    first, _, args = _split_pair(q, k, v, do, mask, causal)
+    for _ in range(2):
+        again = (sattn.stream_dq(*args),) + sattn.stream_dkv(*args)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_fused_scratch_mirror_matches_the_library(dev):
+    """The port's Python mirror of the fused scratch size (the ``auto``
+    gate's, which the CPU needs too) is ``dstt_stream_bwd_fused_scratch``."""
+    import ctypes
+    lib = sattn.build()
+    for dtype, code in sattn._DTYPE_CODE.items():
+        for G in (1, 3, 32, 128):
+            for T in (64, 192, 256, 512, 1024, 2048, 8192):
+                for d in (8, 40, 64, 72, 128):
+                    counters = ctypes.c_longlong(-1)
+                    words = lib.dstt_stream_bwd_fused_scratch(
+                        code, G, T, d, ctypes.byref(counters))
+                    assert sattn.fused_scratch_words(dtype, G, T, d) == (
+                        words, counters.value), (dtype, G, T, d)
+
+
+def test_stream_backward_auto_takes_the_pair_past_the_budget(dev,
+                                                             monkeypatch):
+    """A long-T shape whose fused scratch exceeds the committed budget, in
+    ``auto``: the split pair launches, no fused scratch is allocated, and
+    the grads match the plain backward's."""
+    monkeypatch.delenv("DSTPU_STREAM_BWD", raising=False)
+    B, n, T, d = 4, 4, 4096, 64
+    q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, T, d, B=B, n=n,
+                                    seed=21)
+    assert 4 * sattn.fused_scratch_words(q.dtype, *q.shape)[0] > \
+        sattn.STREAM_FUSED_SCRATCH_BUDGET
+    po, plse = sattn.stream_fwd_plain(q, k, v, mask, True)
+    scratch = {key: (e[0].data_ptr(), e[0].numel())
+               for key, e in sattn._scratch.items()}
+    sattn.reset_launch_counts()
+    got = sattn.stream_backward(q, k, v, mask, po, plse, do, True)
+    torch.cuda.synchronize()
+    assert sattn.LAUNCHES == {"stream_fwd": 0, "stream_bwd_fused": 0,
+                              "stream_dkv": 1, "stream_dq": 1}
+    assert {key: (e[0].data_ptr(), e[0].numel())
+            for key, e in sattn._scratch.items()} == scratch
+    delta = (do.float() * po.float()).sum(-1)[:, None, :]
+    attn_close(got, sattn.stream_bwd_plain(q, k, v, mask, do, plse, delta,
+                                           True), torch.bfloat16)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_stream_fp32_route_and_split_pair_match_plain(dev, causal):
-    """The kernels this design left as they were: the fp32 forward and
-    fused backward, and the split pair in every type, at T 1024."""
+    """The fp32 forward and fused backward, and the split pair in every
+    type (fp32: the first kernels; bf16/fp16: the Hopper pair), at
+    T 1024."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, do, mask = attn_inputs(dev, dtype, 1024, 64, seed=11)
         if dtype == torch.float32:

@@ -11,13 +11,22 @@ against ``deepspeed_tpu.ops.pallas_attention``:
   ``pl.load``/``pl.store``, which this jax lacks) and against ``jax.grad``
   of ``xla_attention``;
 * the gates and the port's ``attention_plan``;
+* ``auto``'s choice between the fused backward and the split pair against
+  the fused scratch budget (``STREAM_FUSED_SCRATCH_BUDGET``), with the
+  scratch size from the port's mirror of ``dstt_stream_bwd_fused_scratch``;
 * a tiny BERT at seq 256 (the stream path) against the JAX BERT (which runs
-  ``xla_attention`` off the TPU): loss and every grad.
+  ``xla_attention`` off the TPU): loss and every grad;
+* a tiny GPT-2 at seq 256 (causal, the stream path) in ``auto`` with the
+  budget at 0 (the split pair) and at its default (the fused backward),
+  against the JAX GPT-2 with its attention through the Pallas stream
+  kernels in interpret mode under ``DSTPU_STREAM_BWD=split``: loss and
+  every grad.
 
 Tolerances: fp32 ``o``/``lse`` ``rtol=1e-5, atol=1e-5``, fp32 grads
 ``atol=2e-5``; bf16 ``rtol=atol=2e-2`` (relative to the largest value),
 because the two frameworks round the bf16 products and casts at different
-places.  The BERT test uses ``tests/test_torch_model.py``'s tolerances.
+places.  The BERT and GPT-2 tests use ``tests/test_torch_model.py``'s
+tolerances (loss ``rtol=1e-5``, grads ``rtol=1e-4, atol=1e-5``).
 """
 
 import jax
@@ -28,10 +37,13 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 import deepspeed_tpu_torch
+from deepspeed_tpu.models import GPT2 as JGPT2
 from deepspeed_tpu.models import BertForPreTraining as JBert
+from deepspeed_tpu.models import layers as JL
 from deepspeed_tpu.ops import pallas_attention as PA
 from deepspeed_tpu.parallel.topology import make_mesh
 from deepspeed_tpu_torch import weights
+from deepspeed_tpu_torch.models import GPT2 as TGPT2
 from deepspeed_tpu_torch.models import BertForPreTraining as TBert
 from deepspeed_tpu_torch.models import layers as TL
 from deepspeed_tpu_torch.ops import stream_attention as SA
@@ -142,6 +154,69 @@ def test_stream_fused_and_split_plain_versions_agree():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(dq, SA.stream_dq_plain(*args), rtol=0, atol=0)
     assert SA.LAUNCHES == dict.fromkeys(SA.LAUNCHES, 0)
+
+
+# ---------------------------------------------- the fused scratch budget
+
+def _spy_plain(monkeypatch):
+    """Counts of the backward plain versions that ``stream_backward``
+    reaches (fused: ``stream_bwd_plain``; split: dkv then dq)."""
+    calls = []
+    for name in ("stream_bwd_plain", "stream_dkv_plain", "stream_dq_plain"):
+        real = getattr(SA, name)
+        monkeypatch.setattr(SA, name, lambda *a, _n=name, _f=real: (
+            calls.append(_n), _f(*a))[1])
+    return calls
+
+
+@pytest.mark.parametrize("G,T,d,words", [
+    # bf16, d 64: 128-key blocks; counters G T / 64, then (T / 128) G T d
+    (128, 512, 64, 1024 + 4 * 128 * 512 * 64),
+    (128, 2048, 64, 4096 + 16 * 128 * 2048 * 64),
+    (64, 1024, 64, 1024 + 8 * 64 * 1024 * 64),
+    # d 128 or T not a multiple of 128: 64-key blocks; counters padded to 4
+    (8, 256, 128, 32 + 4 * 8 * 256 * 128),
+    (3, 192, 64, 12 + 3 * 3 * 192 * 64),
+    (1, 64, 8, 4 + 1 * 64 * 8)])
+def test_fused_scratch_mirror_sizes(G, T, d, words):
+    for dtype in (torch.bfloat16, torch.float16):
+        got = SA.fused_scratch_words(dtype, G, T, d)
+        assert got[0] == words and got[1] == (G * T // 64 + 3) // 4 * 4
+    assert SA.fused_scratch_words(torch.float32, G, T, d) == (G * T * d, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode,over,want", [
+    ("auto", False, "fused"), ("auto", True, "split"),
+    ("fused", True, "fused"), ("fused", False, "fused"),
+    ("split", False, "split"), ("split", True, "split")])
+def test_stream_backward_mode_respects_the_scratch_budget(
+        monkeypatch, dtype, mode, over, want):
+    """``auto`` takes the fused kernel while its scratch (the mirror's size
+    at this seq-256 shape) fits the budget and the split pair past it;
+    ``fused`` and ``split`` ignore the budget.  Both routes give the same
+    grads (the plain versions are one function split up)."""
+    q, k, v, do, mask = inputs(256, 32, B=2, seed=5)
+    qg, kg, vg, dog = (SA.fold_gtd(torch.tensor(x).to(dtype))
+                       for x in (q, k, v, do))
+    maskg = SA.mask_gtd(torch.tensor(mask), 2, 256, N_HEADS)
+    G, T, d = qg.shape
+    scratch = 4 * SA.fused_scratch_words(dtype, G, T, d)[0]
+    monkeypatch.setattr(SA, "STREAM_FUSED_SCRATCH_BUDGET",
+                        scratch - 1 if over else scratch)
+    assert SA._fused_bwd_fits(dtype, G, T, d) == (not over)
+    o, lse = SA.stream_fwd(qg, kg, vg, maskg, True)
+    monkeypatch.setenv("DSTPU_STREAM_BWD", mode)
+    calls = _spy_plain(monkeypatch)
+    SA.reset_launch_counts()
+    got = SA.stream_backward(qg, kg, vg, maskg, o, lse, dog, True)
+    assert calls == (["stream_bwd_plain"] if want == "fused" else
+                     ["stream_dkv_plain", "stream_dq_plain"])
+    assert SA.LAUNCHES == dict.fromkeys(SA.LAUNCHES, 0)
+    delta = (dog.float() * o.float()).sum(-1)[:, None, :]
+    for a, b in zip(got, SA.stream_bwd_plain(qg, kg, vg, maskg, dog, lse,
+                                             delta, True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # -------------------------------------------------------------------- gates
@@ -272,10 +347,11 @@ def test_bert_seq256_stream_path_matches_jax(monkeypatch):
 def test_train_batch_seq256_runs_the_stream_path_on_the_cpu(monkeypatch):
     """Two ``train_batch`` steps (gas 2) of the port on the CPU: the stream
     path runs once per layer per micro-batch in each direction, through
-    the plain versions, and no kernel launches."""
+    the plain versions (the backward as ``auto`` takes it at this shape:
+    the fused kernel's or the split pair's), and no kernel launches."""
     monkeypatch.delenv("DSTPU_FUSED_ATTN", raising=False)
     monkeypatch.delenv("DSTPU_STREAM_BWD", raising=False)
-    counts = {"fwd": 0, "bwd": 0}
+    counts = {"fwd": 0, "bwd": 0, "dkv": 0, "dq": 0}
 
     def spy(key, fn):
         def wrapped(*a):
@@ -287,6 +363,10 @@ def test_train_batch_seq256_runs_the_stream_path_on_the_cpu(monkeypatch):
                         spy("fwd", SA.stream_fwd_plain))
     monkeypatch.setattr(SA, "stream_bwd_plain",
                         spy("bwd", SA.stream_bwd_plain))
+    monkeypatch.setattr(SA, "stream_dkv_plain",
+                        spy("dkv", SA.stream_dkv_plain))
+    monkeypatch.setattr(SA, "stream_dq_plain",
+                        spy("dq", SA.stream_dq_plain))
     SA.reset_launch_counts()
     gas, steps = 2, 2
     cfg = {"train_batch_size": B * gas, "gradient_accumulation_steps": gas,
@@ -300,6 +380,78 @@ def test_train_batch_seq256_runs_the_stream_path_on_the_cpu(monkeypatch):
     losses = [float(engine.train_batch(bert_batch(B * gas, seed=s)))
               for s in range(steps)]
     want = TINY["num_layers"] * gas * steps
-    assert counts == {"fwd": want, "bwd": want}
+    heads = TINY["num_heads"]
+    fused = SA._fused_bwd_fits(torch.float32, B * heads, SEQ,
+                               TINY["hidden_size"] // heads)
+    assert counts == {"fwd": want, "bwd": want if fused else 0,
+                      "dkv": 0 if fused else want, "dq": 0 if fused else want}
     assert SA.LAUNCHES == dict.fromkeys(SA.LAUNCHES, 0)
     assert np.isfinite(losses).all()
+
+
+# --------------------------------------------------------- the GPT-2 slice
+
+GPT2_SEQ = 256
+
+
+def _jax_stream_interpret(q, k, v, *, causal, attn_mask=None):
+    """The JAX ``core_attention`` through the Pallas stream kernels in
+    interpret mode (off the TPU the JAX plan takes the einsum path)."""
+    B, T = q.shape[:2]
+    mvec = (jnp.ones((B, T), jnp.float32) if attn_mask is None
+            else attn_mask.astype(jnp.float32))
+    return PA.stream_attention(q, k, v, mvec, causal, True)
+
+
+@pytest.mark.parametrize("route", ["split", "fused"])
+def test_gpt2_seq256_stream_path_matches_jax_split(monkeypatch, route):
+    """A tiny causal GPT-2 at seq 256 on the port in ``auto``: with the
+    budget at 0 the backward takes the split pair, with a budget that holds
+    this shape's fused scratch the fused kernel (plain versions on the
+    CPU); the JAX GPT-2 runs its attention through the Pallas stream
+    kernels in interpret mode under ``DSTPU_STREAM_BWD=split``."""
+    monkeypatch.delenv("DSTPU_FUSED_ATTN", raising=False)
+    monkeypatch.setenv("DSTPU_STREAM_BWD", "split")
+    monkeypatch.setattr(JL, "core_attention", _jax_stream_interpret)
+    jm = JGPT2.from_size("tiny", remat=False, max_seq_len=GPT2_SEQ)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jm.init_params(jax.random.PRNGKey(0)))
+    tm = TGPT2.from_size("tiny", remat=False, max_seq_len=GPT2_SEQ)
+    weights.params_from_numpy(tm, params)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 512, size=(2, GPT2_SEQ)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, :9] = -1
+    batch = (toks, labels)
+
+    mesh = make_mesh(devices=jax.devices()[:1])
+    specs = jm.partition_specs(params)
+    fn = jax.jit(jax.shard_map(
+        lambda p, *b: jax.value_and_grad(lambda q: jm.apply(q, *b))(p),
+        mesh=mesh, in_specs=(specs,) + tuple(P() for _ in batch),
+        out_specs=(P(), specs), check_vma=False))
+    jl, jg = fn(params, *batch)
+    jg = weights.flatten_tree(jax.tree_util.tree_map(np.asarray, jg))
+
+    monkeypatch.setenv("DSTPU_STREAM_BWD", "auto")
+    cfg = tm.config
+    scratch = 4 * SA.fused_scratch_words(
+        torch.float32, toks.shape[0] * cfg.num_heads, GPT2_SEQ,
+        cfg.hidden_size // cfg.num_heads)[0]
+    monkeypatch.setattr(SA, "STREAM_FUSED_SCRATCH_BUDGET",
+                        0 if route == "split" else scratch)
+    calls = _spy_plain(monkeypatch)
+    SA.reset_launch_counts()
+    loss = tm(*(torch.from_numpy(x) for x in batch))
+    loss.backward()
+    layers = tm.config.num_layers
+    assert calls == (["stream_dkv_plain", "stream_dq_plain"] * layers
+                     if route == "split" else ["stream_bwd_plain"] * layers)
+    assert SA.LAUNCHES == dict.fromkeys(SA.LAUNCHES, 0)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    tg = {k: p.grad.numpy() for k, p in tm.named_parameters()}
+    assert tg.keys() == jg.keys() and len(tg) == 16
+    for k in jg:
+        np.testing.assert_allclose(tg[k], jg[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
