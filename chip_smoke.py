@@ -34,6 +34,22 @@ Phases (each prints one JSON line, with the seconds since the start as
    device busy ms per step, busy share, top CUDA kernels by device time;
    each kernel row's ``profile_ms`` comes from its path's profile.
 7. adam: 2 AdamW steps of BERT-large, every step through the Adam kernel.
+   closure: the main path's end, under torch.use_deterministic_algorithms
+   (CUBLAS_WORKSPACE_CONFIG=:4096:8 from the script's start).  A synthetic
+   MLM corpus (seq 128, 20 masked positions, NSP labels; 8 global batches
+   of 32 x gas 2) is written with FileDataset.save; BERT-large with NSP,
+   max_seq_len 512 and "selective" remat trains on it through
+   initialize(training_data=...) (one producer thread, the native
+   collate), LAMB with WarmupLR.  Run A takes 6 steps and saves after step
+   3 with the loader's state as client_state; run B, a fresh engine from
+   another init seed, loads it, restores the loader and takes steps 4-6.
+   Run B's losses, masters, moments, step, loss-scale state, LR and
+   counters must equal run A's bitwise (torch.equal on the card).  Then
+   BertForQuestionAnswering (same size) starts from that checkpoint
+   (load_module_tree + init_from_module_tree: every backbone leaf must
+   transfer) and fine-tunes 6 Adam steps (lr 3e-5) at seq 384, micro-batch
+   8, gas 2, on synthetic answerable spans; finite losses, and span EM/F1
+   on one eval batch as a smoke check.  Launch counts exact throughout.
 8. train512: BERT-large at seq 512 (80 masked positions, padded rows,
    micro-batch 8, gas 2, otherwise as train) for 6 steps; every attention
    through the streaming kernels (24 layers x 2 micro-batches x 6 steps
@@ -41,7 +57,12 @@ Phases (each prints one JSON line, with the seconds since the start as
    DSTPU_STREAM_BWD=auto takes at this shape: at the committed budget of 0
    the split pair) and every LAMB step through its kernels; then 3 steps
    of the same engine on the einsum attention (DSTPU_FUSED_ATTN=0) as a
-   yardstick, and a profile of one step.
+   yardstick, and a profile of one step.  train512_selective: a fresh
+   engine with "selective" remat (bench.py's seq-512 recipe) on the same
+   weights and batch for 6 steps: the remat-off run's launches plus one
+   recomputed stream forward per layer and micro-step (288), losses within
+   1e-2 relative of the remat-off run's, its peak memory beside that
+   run's.
 9. train_gpt2_1024: GPT-2 medium at its 1024-token context (bf16, Adam
    lr 1e-4, micro-batch 4, gas 2) for 6 steps, twice from the same weights
    and batch: the streaming backward as the split pair
@@ -183,6 +204,17 @@ SCRATCH_CAP = 256 * 2 ** 20
 BLOCK_SHAPE = dict(B=32, n=16, T=128, d=64)
 # the dispatch threshold rule of pallas_attention.calibrate_stream_threshold
 SWEEP_WIN = 1.05
+# the main-path closure (phase closure): BERT-large pretraining as phase
+# train, with NSP and bench.py's "selective" remat, from a file-backed corpus
+# of CLOSURE_BATCHES global batches through the data loader; a save after
+# step CLOSURE_SAVE_AT of CLOSURE_STEPS and a resume from it; then the SQuAD
+# fine-tune at BingBertSquad's max_seq_length 384 (doc stride 128), Adam
+# lr 3e-5, micro-batch 8, gas 2.  max_seq_len 512 is BERT's published
+# position table, which the fine-tune reads up to 384.
+CLOSURE_STEPS, CLOSURE_SAVE_AT, CLOSURE_BATCHES = 6, 3, 8
+CLOSURE_MAX_SEQ = 512
+FT_SEQ, FT_MICRO, FT_STEPS, FT_LR = 384, 8, 6, 3e-5
+SELECTIVE = {"enabled": True, "policy": "selective"}
 # kernel vs plain on identical bf16 inputs: |err| <= ATTN_ATOL * max|want|
 # + ATTN_RTOL * |want|.  The kernels run the online softmax over 64-row kv
 # tiles where the plain versions take the whole row, so the unnormalised
@@ -247,11 +279,12 @@ def auto_bwd_launches(dtype, G, T, d, calls):
     return {"stream_dkv": calls, "stream_dq": calls}
 
 
-def bert_config(opt_type, params, gas=GAS, micro=MICRO, dtype="bf16"):
+def bert_config(opt_type, params, gas=GAS, micro=MICRO, dtype="bf16",
+                remat=False):
     cfg = {"train_batch_size": micro * gas,
            "gradient_accumulation_steps": gas,
            "optimizer": {"type": opt_type, "params": params},
-           "activation_checkpointing": False,
+           "activation_checkpointing": remat,
            "steps_per_print": 10 ** 9}
     if dtype == "bf16":
         cfg["bf16"] = {"enabled": True}
@@ -298,6 +331,18 @@ def make_engine(cfg, device, size="large", seed=0, params=None, gpt2=False,
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         config=cfg, model=model, model_parameters=params, device=device)
     return engine
+
+
+def free(device):
+    """Release what the phase before left: its engines hold themselves in
+    reference cycles (the optimizer facade and the LR scheduler point back
+    at the engine), which only the cycle collector frees."""
+    import gc
+
+    import torch
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def sync(device):
@@ -813,14 +858,250 @@ def phase_adam(device):
     return launches
 
 
-def phase_train512(device):
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside the block (cuBLAS
+    needs CUBLAS_WORKSPACE_CONFIG, set by main() before CUDA starts)."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def closure_engine(device, seed, cfg, dataset=None, qa=False):
+    """BERT-large (NSP head, or the span model) from a seeded init,
+    through ``initialize``; with ``dataset`` also its data loader."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import (BertForPreTraining,
+                                            BertForQuestionAnswering)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if qa:
+        model = BertForQuestionAnswering.from_size(
+            "large", generator=gen, device=device,
+            max_seq_len=CLOSURE_MAX_SEQ)
+    else:
+        model = BertForPreTraining.from_size(
+            "large", use_nsp=True, generator=gen, device=device,
+            max_seq_len=CLOSURE_MAX_SEQ)
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        config=cfg, model=model, training_data=dataset, device=device)
+    return engine, loader
+
+
+def loader_step(engine, it):
+    """One optimizer step of the split API over gas micro-batches of the
+    loader; returns the last micro-step's loss (a device tensor)."""
+    loss = None
+    for _ in range(engine.gradient_accumulation_steps()):
+        loss = engine(*next(it))
+        engine.backward(loss)
+        engine.step()
+    return loss.detach()
+
+
+def _state_equal(a, b):
+    """Every master, moment, the step, the loss-scale state and the LR of
+    two engines, bitwise (``torch.equal`` on the device)."""
+    import torch
+    same = {
+        "master": all(torch.equal(a.master[k], b.master[k])
+                      for k in a.master),
+        "m": all(torch.equal(a.opt_state.m[k], b.opt_state.m[k])
+                 for k in a.master),
+        "v": all(torch.equal(a.opt_state.v[k], b.opt_state.v[k])
+                 for k in a.master),
+        "module": all(torch.equal(x, y) for x, y in zip(
+            a.module.parameters(), b.module.parameters())),
+        "step": a.opt_state.step == b.opt_state.step,
+        "loss_scale": all(torch.equal(x, y) for x, y in zip(
+            a.loss_scale_state, b.loss_scale_state)),
+        "lr": (a.optimizer.param_groups == b.optimizer.param_groups
+               and a.lr_scheduler.state_dict()
+               == b.lr_scheduler.state_dict()),
+        "counters": (a.global_steps, a.micro_steps, a.skipped_steps)
+        == (b.global_steps, b.micro_steps, b.skipped_steps),
+    }
+    return same
+
+
+def phase_closure(device):
+    """The main path's end: pretrain BERT-large through the data loader
+    with selective remat (run A), save after step 3, resume in a fresh
+    engine from another init (run B) and hold steps 4-6 bitwise against
+    run A, then fine-tune the span model from that checkpoint."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import checkpoint as ckpt
+    from deepspeed_tpu_torch import metrics, native
+    from deepspeed_tpu_torch.data import FileDataset
+    from deepspeed_tpu_torch.examples.squad_finetune import synthetic_batch
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="closure_", dir=ROOT / "build")
+    try:
+        vocab = 30528
+        rows = MICRO * GAS * CLOSURE_BATCHES
+        ids, mask, tt, pos, mlm_ids, w = mlm_batch(rows, SEQ, vocab, NPRED,
+                                                   seed=2)
+        nsp = np.random.default_rng(3).integers(0, 2, rows).astype(np.int32)
+        dataset = FileDataset(FileDataset.save(
+            os.path.join(work, "corpus"), input_ids=ids, input_mask=mask,
+            token_type_ids=tt, masked_positions=pos, masked_ids=mlm_ids,
+            masked_weights=w, nsp_labels=nsp))
+        cfg = bert_config("Lamb", {"lr": 4e-3, "max_coeff": 0.5,
+                                   "min_coeff": 0.08}, remat=SELECTIVE)
+        cfg["scheduler"] = {"type": "WarmupLR", "params": {
+            "warmup_min_lr": 0.0, "warmup_max_lr": 4e-3,
+            "warmup_num_steps": 4}}
+        ck_dir = os.path.join(work, "ckpt")
+        with deterministic():
+            a, loader_a = closure_engine(device, 0, cfg, dataset)
+            n_leaves, workers = len(a.master), loader_a.num_workers
+            it = iter(loader_a)
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            native.reset_routes()
+            reset_launch_counts()
+            losses_a, ms_a = [], []
+            for step in range(1, CLOSURE_STEPS + 1):
+                t0 = time.perf_counter()
+                losses_a.append(loader_step(a, it))
+                sync(device)
+                ms_a.append((time.perf_counter() - t0) * 1e3)
+                if step == CLOSURE_SAVE_AT:
+                    t0 = time.perf_counter()
+                    a.save_checkpoint(ck_dir, client_state={
+                        "data": loader_a.state_dict()})
+                    save_s = time.perf_counter() - t0
+                    save_bytes = a.last_save_bytes
+            sync(device)
+            launches_a = launch_counts()
+            routes = dict(native.ROUTES)
+            peak_a = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            it.close()
+
+            b, loader_b = closure_engine(device, 1, cfg, dataset)
+            sync(device)
+            t0 = time.perf_counter()
+            _, client = b.load_checkpoint(ck_dir)
+            sync(device)
+            load_s = time.perf_counter() - t0
+            loader_b.load_state_dict(client["data"])
+            it = iter(loader_b)
+            reset_launch_counts()
+            losses_b, ms_b = [], []
+            for _ in range(CLOSURE_STEPS - CLOSURE_SAVE_AT):
+                t0 = time.perf_counter()
+                losses_b.append(loader_step(b, it))
+                sync(device)
+                ms_b.append((time.perf_counter() - t0) * 1e3)
+            launches_b = launch_counts()
+            it.close()
+            bitwise = {"losses": all(torch.equal(x, y) for x, y in zip(
+                losses_a[CLOSURE_SAVE_AT:], losses_b))}
+            bitwise.update(_state_equal(a, b))
+            del a, b, loader_a, loader_b
+            free(device)
+
+            ft_cfg = bert_config("Adam", {"lr": FT_LR}, micro=FT_MICRO)
+            qa, _ = closure_engine(device, 2, ft_cfg, qa=True)
+            module = ckpt.load_module_tree(ck_dir)
+            loaded, skipped = ckpt.init_from_module_tree(qa, module)
+            del module
+            backbone = [k for k in qa.master if not k.startswith("qa_")]
+            rng = np.random.default_rng(4)
+            reset_launch_counts()
+            ft_losses, ft_ms = [], []
+            for _ in range(FT_STEPS):
+                batch = synthetic_batch(rng, FT_MICRO * GAS, FT_SEQ, vocab)
+                t0 = time.perf_counter()
+                ft_losses.append(float(qa.train_batch(batch)))
+                sync(device)
+                ft_ms.append((time.perf_counter() - t0) * 1e3)
+            ft_launches = launch_counts()
+            ids_e, attn_e, tt_e, gs, ge = synthetic_batch(
+                np.random.default_rng(999), 32, FT_SEQ, vocab)
+            sl, el = metrics.make_span_predictor(qa.module)(ids_e, attn_e,
+                                                            tt_e)
+            ps, pe = metrics.best_spans(sl, el, attn_e, max_answer_len=8)
+            eval_spans = metrics.evaluate_spans(ps, pe, gs, ge)
+            ft_leaves = len(qa.master)
+            del qa
+            free(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def steady(ms, rows_per_step):
+        return rows_per_step * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
+
+    rows_step = MICRO * GAS
+    steps_b = CLOSURE_STEPS - CLOSURE_SAVE_AT
+    want_a = no_launches(lamb_phase1=n_leaves * CLOSURE_STEPS,
+                         lamb_phase2=n_leaves * CLOSURE_STEPS)
+    want_b = no_launches(lamb_phase1=n_leaves * steps_b,
+                         lamb_phase2=n_leaves * steps_b)
+    want_ft = no_launches(adam=ft_leaves * FT_STEPS)
+    a_floats = [float(x) for x in losses_a]
+    ok = {
+        "bitwise": all(bitwise.values()),
+        "finite": bool(np.isfinite(a_floats).all()
+                       and np.isfinite(ft_losses).all()),
+        "launches": (launches_a == want_a and launches_b == want_b
+                     and ft_launches == want_ft),
+        "native_collate": routes["native"] > 0 and routes["numpy"] == 0,
+        "backbone_transferred": (sorted(loaded) == sorted(
+            "".join(f"[{p!r}]" for p in k.split(".")) for k in backbone)
+            and len(skipped) == 2),
+    }
+    # steps 2..6 of run A less the save (timed apart)
+    emit("closure", model="bert-large", use_nsp=True, seq=SEQ,
+         max_seq_len=CLOSURE_MAX_SEQ, micro_batch=MICRO, gas=GAS,
+         optimizer="Lamb", scheduler="WarmupLR", dtype="bf16",
+         activation_checkpointing="selective", corpus_rows=rows,
+         loader_workers=workers, collate_routes=routes,
+         losses_a=a_floats, losses_b=[float(x) for x in losses_b],
+         step_ms_a=ms_a, step_ms_b=ms_b,
+         samples_per_s_steady_a=steady(ms_a, rows_step),
+         samples_per_s_steady_b=steady(ms_b, rows_step),
+         peak_mem_gib_selective_seq128=peak_a,
+         save_s=save_s, load_s=load_s, save_bytes=save_bytes,
+         bitwise=bitwise, launches_a=launches_a, launches_b=launches_b,
+         expected_launches_a=want_a, expected_launches_b=want_b,
+         deterministic=True, ok=ok)
+    emit("closure_finetune", model="bert-large-qa", seq=FT_SEQ,
+         micro_batch=FT_MICRO, gas=GAS, optimizer="Adam", lr=FT_LR,
+         leaves_transferred=len(loaded), leaves_kept=sorted(skipped),
+         losses=ft_losses, step_ms=ft_ms,
+         samples_per_s_steady=steady(ft_ms, FT_MICRO * GAS),
+         launches=ft_launches, expected_launches=want_ft,
+         eval_batch=eval_spans)
+    if not all(ok.values()):
+        raise AssertionError(f"closure phase failed: {ok}, bitwise "
+                             f"{bitwise}")
+    return ft_launches
+
+
+def phase_train512(device, remat=False, off_run=None):
     """BERT-large at seq 512 through the streaming attention kernels, then
-    the same engine on the einsum attention as a yardstick."""
+    (remat off) the same engine on the einsum attention as a yardstick.
+    With ``remat`` "selective" (bench.py's seq-512 recipe) the backward
+    recomputes each layer's attention forward: one more stream_fwd launch
+    per layer and micro-step than ``off_run``, the remat-off run's
+    (losses, launches, peak), beside which it reports."""
     import numpy as np
     import torch
 
     cfg = bert_config("Lamb", {"lr": 4e-3, "max_coeff": 0.5,
-                               "min_coeff": 0.08}, micro=MICRO512)
+                               "min_coeff": 0.08}, micro=MICRO512,
+                      remat=SELECTIVE if remat else False)
     engine = make_engine(cfg, device, max_seq_len=SEQ512)
     n_leaves = len(engine.master)
     layers = engine.module.config.num_layers
@@ -851,19 +1132,37 @@ def phase_train512(device):
     cfg = engine.module.config
     expected = no_launches(
         lamb_phase1=n_leaves * TRAIN512_STEPS,
-        lamb_phase2=n_leaves * TRAIN512_STEPS, stream_fwd=attn,
+        lamb_phase2=n_leaves * TRAIN512_STEPS,
+        stream_fwd=attn * (2 if remat else 1),
         **auto_bwd_launches(torch.bfloat16, MICRO512 * cfg.num_heads,
                             SEQ512, cfg.hidden_size // cfg.num_heads, attn))
     ok = bool(np.isfinite(losses).all()) and launches == expected
-    emit("train512", model="bert-large", seq=SEQ512, micro_batch=MICRO512,
+    extra = {}
+    if remat:
+        off_losses, off_launches, off_peak = off_run
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, off_losses))
+        # the same arithmetic as the remat-off run, recomputed: its losses
+        # within the split/fused comparison's 1e-2, and its launches the
+        # remat-off run's plus one recomputed forward per layer and
+        # micro-step
+        ok = ok and rel <= GPT2_1024_LOSS_RTOL and launches == {
+            **off_launches, "stream_fwd": off_launches["stream_fwd"] + attn}
+        extra = dict(remat_off_losses=off_losses,
+                     losses_max_rel_diff=rel,
+                     losses_bitwise_equal=losses == off_losses,
+                     remat_off_peak_mem_gib=off_peak)
+    name = "train512_selective" if remat else "train512"
+    emit(name, model="bert-large", seq=SEQ512, micro_batch=MICRO512,
          gas=GAS, masked_positions=NPRED512, dtype="bf16", optimizer="Lamb",
-         activation_checkpointing=False, params=engine.num_parameters(),
-         losses=losses, step_ms=step_ms,
+         activation_checkpointing=remat or False,
+         params=engine.num_parameters(), losses=losses, step_ms=step_ms,
          samples_per_s_steady=steady(step_ms), peak_mem_gib=peak,
-         launches=launches, expected_launches=expected, ok=ok)
+         launches=launches, expected_launches=expected, ok=ok, **extra)
     if not ok:
-        raise AssertionError(f"train512 phase failed: losses {losses}, "
+        raise AssertionError(f"{name} phase failed: losses {losses}, "
                              f"launches {launches}, expected {expected}")
+    if remat:
+        return None
 
     torch.cuda.reset_peak_memory_stats(device)
     with env("DSTPU_FUSED_ATTN", "0"):
@@ -874,7 +1173,7 @@ def phase_train512(device):
          step_ms=y_ms, samples_per_s_steady=steady(y_ms),
          peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
          launches=y_launches)
-    return engine, batch, launches
+    return engine, batch, launches, (losses, launches, peak)
 
 
 def _attn_err(got, want):
@@ -1407,6 +1706,8 @@ def main() -> int:
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # the closure phase's deterministic cuBLAS: set before CUDA starts
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is visible", file=sys.stderr)
@@ -1446,8 +1747,10 @@ def main() -> int:
     kernels = phase_kernels(engine, batch, device, lamb_launches)
     prof = phase_profile(engine, batch, device)
     del engine, batch
-    torch.cuda.empty_cache()
+    free(device)
     adam_launches = phase_adam(device)
+    free(device)
+    phase_closure(device)
     for k in kernels:
         if k["name"] == "adam":
             # the AdamW phase is not profiled: profile_gpt2 gives its time
@@ -1456,12 +1759,14 @@ def main() -> int:
             # per step: the row's ms covers all 22 leaves' launches
             k["path"] = "train"
             k["profile_ms"] = profile_ms(prof, k["name"], per_launch=False)
-    torch.cuda.empty_cache()
+    free(device)
 
-    engine, batch, launches512 = phase_train512(device)
+    engine, batch, launches512, off512 = phase_train512(device)
     prof512 = phase_profile(engine, batch, device, name="profile512")
     del engine, batch
-    torch.cuda.empty_cache()
+    free(device)
+    phase_train512(device, remat="selective", off_run=off512)
+    free(device)
     runs1024 = phase_train_gpt2_1024(device)
     # the forward runs on train512, the split pair on GPT-2 at seq 1024 (and
     # on train512 where auto takes it there), the fused backward on train512
@@ -1482,7 +1787,7 @@ def main() -> int:
     engine, batch, gpt2_launches = phase_train_gpt2(device)
     prof_gpt2 = phase_profile(engine, batch, device, name="profile_gpt2")
     del engine, batch
-    torch.cuda.empty_cache()
+    free(device)
     kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
     for k in kernels:
         if k["name"] == "adam":

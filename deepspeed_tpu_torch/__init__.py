@@ -9,8 +9,11 @@ It trains BERT pretraining (``models.bert``) and the GPT-2 causal LM
 (``models.gpt2``) on one card, with hand-written CUDA kernels for the fused
 LAMB/Adam updates (``ops/cuda_optim.py``) and for attention: the whole-tile
 kernels at short causal shapes (``ops/block_attention.py``) and the
-streaming ones from seq 256 (``ops/stream_attention.py``).  What it does
-not cover yet is listed in ROADMAP.md.
+streaming ones from seq 256 (``ops/stream_attention.py``).  It loads data
+(``data.py``), saves and resumes checkpoints in the JAX package's layout
+(``checkpoint.py``) and fine-tunes the SQuAD span model
+(``models.BertForQuestionAnswering``, ``squad.py``).  What it does not
+cover yet is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"
@@ -35,7 +38,9 @@ def initialize(args=None,
 
     ``model`` is an ``nn.Module`` whose ``forward(*batch)`` returns the loss.
     ``model_parameters`` optionally loads a JAX-layout parameter tree
-    (nested dict of arrays, see ``weights.py``) into it first.  ``device``
+    (nested dict of arrays, see ``weights.py``) into it first.
+    ``training_data`` (an indexable dataset) gives the dataloader, whose
+    batches arrive on the engine's device.  ``device``
     None means the first CUDA device, and raises if there is none: pass
     ``device="cpu"`` to train on the CPU.
     """

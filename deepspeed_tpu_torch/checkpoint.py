@@ -1,0 +1,768 @@
+"""Checkpoint save and load: the one-card, ZeRO-off subset of
+``deepspeed_tpu/checkpoint.py``, in its layout and container, so that a
+checkpoint crosses between the two packages either way.
+
+* layout   ``<dir>/<tag>/mp_rank_00_model_states.pt`` and a ``latest`` file
+           naming the newest tag, published atomically after the write.
+* content  the module (compute-dtype parameters), the fp32 masters, the
+           optimizer moments and step, the loss-scale state, the LR
+           scheduler, the live param groups, the engine counters and the
+           caller's ``client_state``, under the JAX package's keys: trees
+           are the JAX parameter trees (``weights.unflatten_tree`` of the
+           port's dotted names).
+* format   the ``DSTPUCK1`` container: magic, header offset, raw array
+           payloads, then a pickled header in which each large array is a
+           chunk reference ``("__dstpu_chunk__", offset, dtype, shape)``.
+           The header loads through an unpickler that resolves numpy's
+           array machinery and builtin containers only.
+* bf16     written as its raw 16-bit payload under the dtype name
+           ``"bfloat16"``, always as a chunk, so neither side needs
+           ``ml_dtypes`` to read the port's files.  The JAX writer inlines
+           arrays of up to 512 bytes as pickled numpy arrays; reading an
+           inlined bf16 array needs ``ml_dtypes``, imported only then.
+
+ZeRO, tensor- and pipeline-parallel checkpoints raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import re
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch import precision as prec
+from deepspeed_tpu_torch import weights as weights_mod
+
+logger = logging.getLogger(__name__)
+
+MODEL_FILE = "mp_rank_{mp:02d}_model_states.pt"
+MODEL_FILE_PP = "pp_stage_{pp:02d}_mp_rank_{mp:02d}_model_states.pt"
+LATEST_FILE = "latest"
+
+_MAGIC = b"DSTPUCK1"
+_CHUNK_TAG = "__dstpu_chunk__"
+#: wraps USER tuples whose first element collides with a tag, so that a
+#: chunk reference is always the writer's own
+_ESCAPE_TAG = "__dstpu_escape__"
+_INLINE_MAX = 512          # smaller arrays stay pickled in the header
+_HEADER_PREFIX = len(_MAGIC) + 8
+_BF16 = "bfloat16"
+_ML_DTYPES = {"bfloat16", "float8_e3m4", "float8_e4m3",
+              "float8_e4m3b11fnuz", "float8_e4m3fn", "float8_e4m3fnuz",
+              "float8_e5m2", "float8_e5m2fnuz", "float8_e8m0fnu",
+              "float4_e2m1fn", "float6_e2m3fn", "float6_e3m2fn",
+              "int2", "int4", "uint2", "uint4"}
+#: the ZeRO-3 marker the JAX writer puts in place of a partitioned leaf
+_Z3_TAG = "__dstpu_zero3__"
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
+        f"{item})")
+
+
+class CheckpointReadError(RuntimeError):
+    """A chunk could not be read in full (a truncated file)."""
+
+
+class Bf16Chunk:
+    """A ``"bfloat16"`` chunk, read as its raw uint16 payload (``raw``, a
+    read-only memmap)."""
+
+    def __init__(self, raw: np.memmap):
+        self.raw = raw
+        self.shape = tuple(raw.shape)
+
+    def __repr__(self):
+        return f"Bf16Chunk(shape={self.shape})"
+
+
+# ------------------------------------------------------------- writing
+
+def _host_array(t: torch.Tensor):
+    """(numpy array, dtype name) of a tensor; bf16 as its uint16 bits."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).cpu().numpy().view(
+            np.uint16), _BF16
+    a = t.contiguous().cpu().numpy()
+    return a, a.dtype.name
+
+
+class _ChunkedWriter:
+    """Streams arrays into the payload region; ``finish(header)`` seals the
+    file (written as ``<path>.tmp`` and renamed, so a reader never sees a
+    torn file).  ``put(obj)`` walks dict/list/tuple containers and writes
+    each tensor or large array as it reaches it, so one leaf's host copy is
+    live at a time."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._tmp = path + ".tmp"
+        self._f = open(self._tmp, "wb")
+        self._f.write(_MAGIC)
+        self._f.write((0).to_bytes(8, "little"))
+        self._refs = set()     # id()s of the references this writer issued
+        self.nbytes = 0        # payload bytes written
+
+    def _chunk(self, a: np.ndarray, dtype_name: str) -> tuple:
+        a = np.ascontiguousarray(a)
+        off = self._f.tell()
+        a.tofile(self._f)
+        self.nbytes += a.nbytes
+        ref = (_CHUNK_TAG, off, dtype_name, tuple(a.shape))
+        self._refs.add(id(ref))
+        return ref
+
+    def put(self, obj):
+        if isinstance(obj, dict):
+            return {k: self.put(v) for k, v in obj.items()}
+        if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+            raise TypeError(
+                f"checkpoint state contains a namedtuple "
+                f"({type(obj).__name__}): convert it to a dict or a plain "
+                f"tuple; the restricted loader cannot rebuild it")
+        if isinstance(obj, (list, tuple)):
+            t = [self.put(v) for v in obj]
+            return t if isinstance(obj, list) else tuple(t)
+        if isinstance(obj, torch.Tensor):
+            a, name = _host_array(obj)
+            if name == _BF16 or a.nbytes > _INLINE_MAX:
+                return self._chunk(a, name)
+            return a
+        if isinstance(obj, np.ndarray) and obj.nbytes > _INLINE_MAX:
+            return self._chunk(obj, obj.dtype.name)
+        return obj
+
+    def _escape(self, obj):
+        """Wrap any header tuple that looks like a chunk reference but was
+        not issued by this writer: it is user data."""
+        if id(obj) in self._refs:
+            return obj
+        if isinstance(obj, dict):
+            return {k: self._escape(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [self._escape(v) for v in obj]
+        if isinstance(obj, tuple):
+            t = tuple(self._escape(v) for v in obj)
+            if t and isinstance(t[0], str) and t[0] in (_CHUNK_TAG,
+                                                        _ESCAPE_TAG):
+                return (_ESCAPE_TAG, t)
+            return t
+        return obj
+
+    def finish(self, header: Any) -> None:
+        header = self._escape(header)
+        off = self._f.tell()
+        pickle.dump(header, self._f, protocol=pickle.HIGHEST_PROTOCOL)
+        self._f.seek(len(_MAGIC))
+        self._f.write(off.to_bytes(8, "little"))
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        os.replace(self._tmp, self._path)
+
+    def abort(self) -> None:
+        self._f.close()
+        if os.path.exists(self._tmp):
+            os.remove(self._tmp)
+
+
+def _write_file(path: str, state: Any) -> int:
+    """Write ``state`` as one container file; returns the payload bytes."""
+    w = _ChunkedWriter(path)
+    try:
+        w.finish(w.put(state))
+    except BaseException:
+        w.abort()
+        raise
+    return w.nbytes
+
+
+# ------------------------------------------------------------- reading
+
+def _resolve_chunks(obj, path: str, payload_end: Optional[int] = None):
+    """Replace chunk references with read-only ``np.memmap`` views into
+    ``path`` (``Bf16Chunk`` for bf16).  Each reference is checked against
+    the payload region ``[_HEADER_PREFIX, payload_end)`` first: a corrupt
+    or truncated one raises ``ValueError`` naming it."""
+    if isinstance(obj, tuple) and len(obj) == 2 and obj[0] == _ESCAPE_TAG:
+        return tuple(_resolve_chunks(v, path, payload_end) for v in obj[1])
+    if isinstance(obj, tuple) and len(obj) == 4 and obj[0] == _CHUNK_TAG:
+        _, off, dtype_name, shape = obj
+        if not (isinstance(off, int) and isinstance(dtype_name, str)
+                and isinstance(shape, (tuple, list))
+                and all(isinstance(s, int) and s >= 0 for s in shape)):
+            raise ValueError(
+                f"corrupt checkpoint {path!r}: malformed chunk ref {obj!r}")
+        if dtype_name == _BF16:
+            dtype = np.dtype(np.uint16)
+        elif dtype_name in _ML_DTYPES:
+            raise ValueError(
+                f"checkpoint {path!r}: chunk dtype {dtype_name!r} has no "
+                f"counterpart in the port")
+        else:
+            try:
+                dtype = np.dtype(dtype_name)
+            except TypeError:
+                raise ValueError(
+                    f"corrupt checkpoint {path!r}: chunk ref names unknown "
+                    f"dtype {dtype_name!r}") from None
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        if off < _HEADER_PREFIX or (
+                payload_end is not None and off + nbytes > payload_end):
+            raise ValueError(
+                f"corrupt checkpoint {path!r}: chunk ref offset={off} "
+                f"size={nbytes} falls outside the payload region "
+                f"[{_HEADER_PREFIX}, {payload_end})")
+        raw = np.memmap(path, dtype=dtype, mode="r", offset=off,
+                        shape=tuple(shape))
+        return Bf16Chunk(raw) if dtype_name == _BF16 else raw
+    if isinstance(obj, dict):
+        return {k: _resolve_chunks(v, path, payload_end)
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_resolve_chunks(v, path, payload_end) for v in obj]
+    if isinstance(obj, tuple):
+        return tuple(_resolve_chunks(v, path, payload_end) for v in obj)
+    return obj
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Only numpy's array machinery and builtin containers resolve; any
+    other global (os.system, a ``__reduce__`` payload) raises."""
+
+    _SAFE = {
+        "builtins": {"dict", "list", "tuple", "set", "frozenset", "complex",
+                     "slice", "bytearray", "range"},
+        "numpy": {"ndarray", "dtype", "bool_", "number", "generic"},
+        "numpy.core.multiarray": {"_reconstruct", "scalar"},
+        "numpy._core.multiarray": {"_reconstruct", "scalar"},
+        "numpy.core.numeric": {"_frombuffer"},
+        "numpy._core.numeric": {"_frombuffer"},
+        "collections": {"OrderedDict"},
+    }
+
+    def find_class(self, module, name):
+        if module in ("numpy.dtypes", "numpy.core.numerictypes",
+                      "numpy._core.numerictypes"):
+            return super().find_class(module, name)   # dtype classes only
+        if module == "ml_dtypes" and name in _ML_DTYPES:
+            # a small bf16 array the JAX writer inlined
+            try:
+                import ml_dtypes
+            except ImportError:
+                raise pickle.UnpicklingError(
+                    f"checkpoint holds an inline {name} array (the JAX "
+                    f"writer inlines arrays of up to {_INLINE_MAX} bytes): "
+                    f"reading it needs the ml_dtypes package") from None
+            return getattr(ml_dtypes, name)
+        if name in self._SAFE.get(module, ()):
+            return super().find_class(module, name)
+        if module == "numpy" and not name.startswith("_"):
+            attr = getattr(np, name, None)
+            if isinstance(attr, type) and issubclass(attr, np.generic):
+                return attr                            # numpy scalar types
+        raise pickle.UnpicklingError(
+            f"checkpoint contains forbidden global {module}.{name}")
+
+
+def _load_obj(path: str) -> Any:
+    with open(path, "rb") as f:
+        head = f.read(len(_MAGIC))
+        if head != _MAGIC:
+            f.seek(0)         # a plain pickle (the JAX package's old format)
+            return _RestrictedUnpickler(f).load()
+        off = int.from_bytes(f.read(8), "little")
+        f.seek(off)
+        header = _RestrictedUnpickler(f).load()
+    return _resolve_chunks(header, path, payload_end=off)
+
+
+_TORCH_DTYPES = {np.dtype(k): v for k, v in (
+    ("float32", torch.float32), ("float64", torch.float64),
+    ("float16", torch.float16), ("int64", torch.int64),
+    ("int32", torch.int32), ("int16", torch.int16), ("int8", torch.int8),
+    ("uint8", torch.uint8), ("bool", torch.bool))}
+
+
+def _readinto(mm: np.memmap, out: np.ndarray) -> None:
+    """Fill ``out`` from the file region behind ``mm`` with one positioned
+    read (which releases the GIL, where a page fault on the memmap holds
+    it); a short read names the truncation."""
+    if not out.nbytes:
+        return
+    with open(mm.filename, "rb") as f:
+        f.seek(int(mm.offset))
+        got = f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
+    if got != out.nbytes:
+        raise CheckpointReadError(
+            f"truncated checkpoint chunk in {mm.filename!r}: wanted "
+            f"{out.nbytes} bytes at offset {mm.offset}, read {got}")
+
+
+def to_tensor(leaf, device=None) -> torch.Tensor:
+    """A loaded leaf (memmap, ``Bf16Chunk``, numpy array, tensor) as a
+    tensor on ``device`` (default the CPU).  The bytes go through a fresh
+    host staging tensor, pinned for a CUDA device; never through
+    ``torch.from_numpy`` on a read-only view."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device) if device is not None else leaf
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if isinstance(leaf, Bf16Chunk):
+        src, bf16 = leaf.raw, True
+    else:
+        src = np.asarray(leaf)
+        bf16 = src.dtype.name == _BF16           # an inline ml_dtypes array
+        if bf16:
+            src = src.view(np.uint16)
+    if bf16:
+        dtype, staged_as = torch.bfloat16, torch.int16
+    else:
+        dtype = _TORCH_DTYPES.get(src.dtype)
+        if dtype is None:
+            raise TypeError(f"checkpoint leaf dtype {src.dtype} has no "
+                            f"torch counterpart")
+        staged_as = dtype
+    stage = torch.empty(tuple(src.shape), dtype=staged_as, pin_memory=cuda)
+    view = stage.numpy()
+    if bf16:
+        view = view.view(np.uint16)
+    if isinstance(src, np.memmap) and getattr(src, "filename", None):
+        _readinto(src, view)
+    else:
+        view[...] = src
+    out = stage.view(dtype) if bf16 else stage
+    return out.to(device, non_blocking=True) if cuda else out
+
+
+# ------------------------------------------------------------ layout
+
+def model_file(ckpt_dir: str, tag: str, mp_rank: int = 0,
+               pp_stage: int = 0, pp_size: int = 1) -> str:
+    if pp_size > 1:
+        return os.path.join(ckpt_dir, tag,
+                            MODEL_FILE_PP.format(pp=pp_stage, mp=mp_rank))
+    return os.path.join(ckpt_dir, tag, MODEL_FILE.format(mp=mp_rank))
+
+
+def _model_probe(load_dir: str, tag: str) -> Optional[str]:
+    """The tag's canonical model-state file, or None."""
+    for mfile in (model_file(load_dir, tag),
+                  os.path.join(load_dir, tag,
+                               MODEL_FILE_PP.format(pp=0, mp=0))):
+        if os.path.exists(mfile):
+            return mfile
+    return None
+
+
+def validate_tag(load_dir: str, tag: str) -> bool:
+    """True when ``tag``'s model-state file exists and its header parses
+    (chunk payloads stay unread)."""
+    probe = _model_probe(load_dir, tag)
+    if probe is None:
+        return False
+    try:
+        _load_obj(probe)
+    except (OSError, ValueError, EOFError, pickle.UnpicklingError):
+        return False
+    return True
+
+
+def list_tags(load_dir: str) -> list:
+    """Candidate tags under ``load_dir``: each tag directory, and
+    ``emergency/<tag>`` ones."""
+    out = []
+    try:
+        entries = sorted(os.listdir(load_dir))
+    except OSError:
+        return out
+    for e in entries:
+        p = os.path.join(load_dir, e)
+        if not os.path.isdir(p):
+            continue
+        if e == "emergency":
+            try:
+                subs = sorted(os.listdir(p))
+            except OSError:
+                continue
+            out.extend(f"emergency/{s}" for s in subs
+                       if os.path.isdir(os.path.join(p, s)))
+        else:
+            out.append(e)
+    return out
+
+
+def _tag_step(tag: str) -> int:
+    """Trailing step number of a tag (``global_step12`` -> 12, else -1)."""
+    m = re.search(r"(\d+)$", tag)
+    return int(m.group(1)) if m else -1
+
+
+def find_latest_valid_tag(load_dir: str) -> Optional[str]:
+    """The newest valid tag under ``load_dir``, by model-file mtime, then
+    trailing step, then name."""
+    best = None
+    for tag in list_tags(load_dir):
+        if not validate_tag(load_dir, tag):
+            continue
+        probe = _model_probe(load_dir, tag)
+        key = (os.path.getmtime(probe), _tag_step(tag), tag)
+        if best is None or key > best[0]:
+            best = (key, tag)
+    return None if best is None else best[1]
+
+
+def _resolve_tag(load_dir: str, tag: Optional[str]) -> Optional[str]:
+    """``tag``, or the one ``latest`` names, or (``latest`` missing, empty
+    or naming an invalid tag) the newest valid tag; None if there is none."""
+    if tag is not None:
+        return tag
+    latest = os.path.join(load_dir, LATEST_FILE)
+    if os.path.exists(latest):
+        with open(latest) as f:
+            tag = f.read().strip() or None
+    if tag is not None and validate_tag(load_dir, tag):
+        return tag
+    fallback = find_latest_valid_tag(load_dir)
+    if tag is not None and fallback is not None:
+        logger.warning("checkpoint `latest` names an invalid tag %r; "
+                       "falling back to the newest valid tag %r",
+                       tag, fallback)
+    return fallback
+
+
+def _is_z3_marker(obj) -> bool:
+    return isinstance(obj, tuple) and len(obj) == 3 and obj[0] == _Z3_TAG
+
+
+def _read_model_state(load_dir: str, tag: Optional[str]):
+    """``(tag, state)`` of the tag's model-state file, or None when there
+    is no checkpoint.  Layouts this port cannot assemble raise."""
+    tag = _resolve_tag(load_dir, tag)
+    if tag is None:
+        return None
+    mfile = _model_probe(load_dir, tag)
+    if mfile is None:
+        return None
+    state = _load_obj(mfile)
+    if int(state.get("mp_world_size", 1)) > 1:
+        raise _unported("loading a tensor-parallel checkpoint (mp > 1)",
+                        "Queue 1 item 10")
+    if int(state.get("pp_world_size", 1)) > 1:
+        raise _unported("loading a pipeline checkpoint (pp > 1)",
+                        "Queue 1 item 11")
+    flat = weights_mod.flatten_tree(state["module"])
+    if state.get("zero3_native") or any(_is_z3_marker(v)
+                                        for v in flat.values()):
+        raise _unported("loading a ZeRO-3 checkpoint", "Queue 1 item 11")
+    return tag, state
+
+
+# ------------------------------------------------------------ saving
+
+class _AsyncSaver:
+    """One background writer thread; saves run in submission order."""
+
+    def __init__(self):
+        self._queue = None
+        self._thread = None
+        self._errors = []
+        self._lock = threading.Lock()
+
+    def _run(self):
+        while True:
+            fn = self._queue.get()
+            try:
+                fn()
+            except BaseException as e:        # surfaced at wait()
+                self._errors.append(e)
+            finally:
+                self._queue.task_done()
+
+    def submit(self, fn):
+        import queue
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._queue = queue.Queue()
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True, name="dstt-ckpt-writer")
+                self._thread.start()
+        self._queue.put(fn)
+
+    def wait(self):
+        """Block until every queued save is on disk; re-raise the first
+        background failure."""
+        if self._queue is not None:
+            self._queue.join()
+        if self._errors:
+            e, self._errors = self._errors[0], []
+            raise e
+
+
+ASYNC_SAVER = _AsyncSaver()
+
+
+def _reject_namedtuples(obj, where: str) -> None:
+    """Refuse namedtuples in a user state tree at call time (the restricted
+    loader cannot rebuild them; an async save would fail only later)."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        raise TypeError(
+            f"save_checkpoint: {where} contains a namedtuple "
+            f"({type(obj).__name__}): convert it to a dict or a plain tuple")
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _reject_namedtuples(v, f"{where}[{k!r}]")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _reject_namedtuples(v, f"{where}[{i}]")
+
+
+def _tree(flat: dict) -> dict:
+    return weights_mod.unflatten_tree(flat)
+
+
+def _snapshot(obj):
+    """A host copy of every tensor in ``obj`` (an async save's stall: the
+    next step may update the live tensors in place)."""
+    if isinstance(obj, dict):
+        return {k: _snapshot(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        t = [_snapshot(v) for v in obj]
+        return t if isinstance(obj, list) else tuple(t)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    return obj
+
+
+def _engine_state(engine, client_state=None) -> dict:
+    """The model-state file's content for ``engine``, with live tensors
+    (written one leaf at a time)."""
+    opt = engine.opt_state
+    lr_sched = engine.lr_scheduler
+    return {
+        "loss_scale_state": {k: v.detach().cpu().numpy()
+                             for k, v in
+                             engine.loss_scale_state._asdict().items()},
+        "loss_scale_variant": engine._ls_variant,
+        "lr_scheduler": (lr_sched.state_dict() if lr_sched is not None
+                         and hasattr(lr_sched, "state_dict") else None),
+        "param_groups": [dict(g) for g in engine.optimizer.param_groups],
+        "global_steps": engine.global_steps,
+        "skipped_steps": engine.skipped_steps,
+        "micro_steps": engine.micro_steps,
+        "zero_enabled": False,
+        "zero_stage": 0,
+        "mp_world_size": 1,
+        "pp_world_size": 1,
+        "client_state": dict(client_state or {}),
+        "mp_rank": 0,
+        "pp_stage": 0,
+        "module": _tree(dict(engine.module.named_parameters())),
+        "optimizer": {
+            "master": _tree(engine.master),
+            "opt_state": {
+                "step": np.asarray(opt.step, np.int32),
+                "m": None if opt.m is None else _tree(opt.m),
+                "v": None if opt.v is None else _tree(opt.v)},
+        },
+    }
+
+
+def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
+                    client_state: Optional[dict] = None,
+                    async_save: Optional[bool] = None) -> str:
+    """Write ``engine``'s state under ``save_dir/tag`` (default tag
+    ``global_step<N>``) and point ``latest`` at it; returns the tag's
+    directory.  ``async_save`` (default: the ``checkpoint.async_save``
+    config key) copies the state to the host now and writes it on a
+    background thread: ``checkpoint_wait()`` blocks until it is on disk.
+    ``engine.last_save_bytes`` is the payload the save wrote (0 until an
+    async write completes)."""
+    if async_save is None:
+        async_save = bool(getattr(engine.config, "checkpoint_async_save",
+                                  False))
+    ASYNC_SAVER.wait()     # one save at a time
+    _reject_namedtuples(client_state, "client_state")
+    tag = tag or f"global_step{engine.global_steps}"
+    path = os.path.join(save_dir, tag)
+    state = _engine_state(engine, client_state)
+    _reject_namedtuples(state["lr_scheduler"], "lr_scheduler.state_dict()")
+    os.makedirs(path, exist_ok=True)
+    mfile = model_file(save_dir, tag)
+    engine.last_save_bytes = 0
+
+    def write(st):
+        engine.last_save_bytes = _write_file(mfile, st)
+        _publish(save_dir, tag)
+
+    if async_save:
+        snapped = _snapshot(state)
+        ASYNC_SAVER.submit(lambda: write(snapped))
+    else:
+        write(state)
+    return path
+
+
+def _publish(save_dir: str, tag: str) -> None:
+    """Point ``latest`` at ``tag``: write a temporary file, make it
+    durable, rename it over the old pointer."""
+    latest = os.path.join(save_dir, LATEST_FILE)
+    tmp = latest + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(tag)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, latest)
+
+
+# ------------------------------------------------------------ loading
+
+def load_module_tree(load_dir: str, tag: Optional[str] = None):
+    """The checkpoint's module (a JAX-layout tree of CPU tensors) without
+    an engine: the pretrain -> fine-tune transfer read.  None when there
+    is no checkpoint under ``load_dir``."""
+    ASYNC_SAVER.wait()
+    read = _read_model_state(load_dir, tag)
+    if read is None:
+        return None
+    return _map_leaves(read[1]["module"], to_tensor)
+
+
+def load_params_only(load_dir: str, tag: Optional[str] = None, dtype=None):
+    """``(tag, tree)``: the module only, as CPU tensors, floating leaves
+    cast to ``dtype`` when given; the optimizer state stays unread.  None
+    when there is no checkpoint."""
+    ASYNC_SAVER.wait()
+    read = _read_model_state(load_dir, tag)
+    if read is None:
+        return None
+
+    def leaf(x):
+        t = to_tensor(x)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return read[0], _map_leaves(read[1]["module"], leaf)
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+@torch.no_grad()
+def _copy_into(dst: torch.Tensor, src, name: str) -> None:
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(
+            f"checkpoint restore: {name} has shape {tuple(src.shape)}, the "
+            f"engine expects {tuple(dst.shape)}")
+    dst.copy_(to_tensor(src, dst.device))
+
+
+def _load_flat(dst: dict, tree, what: str) -> None:
+    """Copy a loaded JAX-layout tree into ``{dotted name: tensor}``."""
+    flat = weights_mod.flatten_tree(tree)
+    missing, extra = set(dst) - set(flat), set(flat) - set(dst)
+    if missing or extra:
+        raise KeyError(f"checkpoint {what} names differ from the engine's: "
+                       f"missing {sorted(missing)}, unexpected "
+                       f"{sorted(extra)}")
+    for name, t in dst.items():
+        _copy_into(t, flat[name], f"{what}.{name}")
+
+
+@torch.no_grad()
+def _rederive_masters(engine) -> None:
+    """fp32 masters from the module's parameters (where they are not the
+    same tensors, as in fp32)."""
+    for name, p in engine.module.named_parameters():
+        m = engine.master[name]
+        if m.data_ptr() != p.data_ptr():
+            m.copy_(p)
+
+
+def init_from_module_tree(engine, module) -> tuple:
+    """Copy same-named, same-shaped leaves of ``module`` into the engine's
+    parameters (the pretrain -> fine-tune start; a new task head keeps its
+    init) and re-derive the masters from them.  Returns ``(loaded,
+    skipped)``: the engine's leaf paths in the JAX key form
+    (``"['blocks']['qkv_w']"``)."""
+    from deepspeed_tpu_torch.engine import _keystr
+    src = weights_mod.flatten_tree(module)
+    loaded, skipped = [], []
+    for name, p in engine.module.named_parameters():
+        new = src.get(name)
+        if new is not None and tuple(new.shape) == tuple(p.shape):
+            _copy_into(p.data, new, name)
+            loaded.append(_keystr(name))
+        else:
+            skipped.append(_keystr(name))
+    _rederive_masters(engine)
+    return loaded, skipped
+
+
+def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
+                    load_optimizer_states: bool = True,
+                    load_lr_scheduler_states: bool = True):
+    """Restore ``engine`` from ``load_dir`` (``tag``, default the one
+    ``latest`` names).  Returns ``(path, client_state)``, or ``(None,
+    None)`` when nothing is found.  With ``load_optimizer_states`` False
+    (or a checkpoint without them) the masters are re-derived from the
+    loaded module, so the next step cannot revert it."""
+    ASYNC_SAVER.wait()
+    read = _read_model_state(load_dir, tag)
+    if read is None:
+        return None, None
+    tag, state = read
+    saved_stage = int(state.get("zero_stage",
+                                1 if state.get("zero_enabled") else 0))
+    if load_optimizer_states and saved_stage in (1, 2):
+        raise _unported(
+            f"loading the ZeRO stage {saved_stage} optimizer partitions "
+            f"(pass load_optimizer_states=False for the weights only)",
+            "Queue 1 item 6")
+
+    engine.global_steps = int(state["global_steps"])
+    engine.skipped_steps = int(state["skipped_steps"])
+    engine.micro_steps = int(state["micro_steps"])
+    old_ls = engine.loss_scale_state._asdict()
+    engine.loss_scale_state = prec.LossScaleState(**{
+        k: to_tensor(np.asarray(v), old_ls[k].device).to(old_ls[k].dtype)
+        for k, v in state["loss_scale_state"].items()})
+    for live, saved in zip(engine.optimizer.param_groups,
+                           state.get("param_groups", [])):
+        live.update(saved)
+    if (load_lr_scheduler_states and engine.lr_scheduler is not None
+            and state.get("lr_scheduler") is not None
+            and hasattr(engine.lr_scheduler, "load_state_dict")):
+        engine.lr_scheduler.load_state_dict(state["lr_scheduler"])
+
+    _load_flat(dict(engine.module.named_parameters()), state["module"],
+               "module")
+    opt = state.get("optimizer")
+    if load_optimizer_states and opt is not None:
+        _load_flat(engine.master, opt["master"], "optimizer.master")
+        saved = opt["opt_state"]
+        for key in ("m", "v"):
+            live = getattr(engine.opt_state, key)
+            if (live is None) != (saved[key] is None):
+                raise ValueError(
+                    f"checkpoint optimizer moment {key!r} is "
+                    f"{'absent' if saved[key] is None else 'present'}, the "
+                    f"engine's optimizer "
+                    f"{'has' if live is not None else 'has none'}")
+            if live is not None:
+                _load_flat(live, saved[key], f"optimizer.opt_state.{key}")
+        engine.opt_state.step = int(np.asarray(saved["step"]))
+    else:
+        _rederive_masters(engine)
+    return os.path.join(load_dir, tag), state.get("client_state", {})

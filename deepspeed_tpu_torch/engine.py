@@ -20,8 +20,11 @@ of ``ops/cuda_optim.py`` on the card).  Under fp16 the host reads the
 overflow flag once per boundary, before the in-place update it may skip;
 bf16 and fp32 boundaries never wait for the device.
 
-What the JAX engine has and this slice does not yet (ZeRO, data loading,
-checkpoints, ``train_many``, telemetry, resilience, graph lint) raises
+``training_data`` becomes a ``data.DeepSpeedDataLoader`` (``deepspeed_io``)
+whose batches arrive on the engine's device; ``save_checkpoint`` /
+``load_checkpoint`` write and read the JAX package's checkpoint layout
+(``checkpoint.py``).  What the JAX engine has and this slice does not yet
+(ZeRO, ``train_many``, telemetry, resilience, graph lint) raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -115,10 +118,12 @@ class OptimizerFacade:
         return bool(self._engine.overflow)
 
     def state_dict(self):
-        raise _unported("optimizer state_dict", "Queue 1 item 8")
+        """The optimizer state, as the JAX facade's: the live tensors (as
+        ``torch.optim``'s state_dict), not copies."""
+        return self._engine._optimizer_state_dict()
 
     def load_state_dict(self, sd):
-        raise _unported("optimizer load_state_dict", "Queue 1 item 8")
+        self._engine._optimizer_load_state_dict(sd)
 
 
 class DeepSpeedTorchEngine:
@@ -148,9 +153,6 @@ class DeepSpeedTorchEngine:
                             "loss from forward(*batch)")
         if dist_init_required or getattr(args, "deepspeed_mpi", False):
             raise _unported("multi-process training", "Queue 1 item 5")
-        if training_data is not None:
-            raise _unported("the data loader (training_data)",
-                            "Queue 1 item 7")
         self.module = model
         self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
@@ -245,7 +247,9 @@ class DeepSpeedTorchEngine:
             batch_size=self.train_micro_batch_size_per_gpu(),
             num_workers=self.dp_world_size,
             steps_per_output=self.steps_per_print())
-        self.training_dataloader = None
+        self.last_save_bytes = 0
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
         self.optimizer = OptimizerFacade(self)
         self._configure_lr_scheduler()
 
@@ -435,6 +439,37 @@ class DeepSpeedTorchEngine:
 
     def is_gradient_accumulation_boundary(self):
         return (self.micro_steps + 1) % self.gradient_accumulation_steps() == 0
+
+    # ------------------------------------------------------------ data layer
+
+    def deepspeed_io(self, dataset, batch_size=None, route=C.ROUTE_TRAIN,
+                     collate_fn=None, num_local_io_workers=None,
+                     data_sampler=None):
+        """A ``DeepSpeedDataLoader`` of ``dataset`` whose batches arrive on
+        the engine's device (reference deepspeed_light.py:535-567).
+        ``num_local_io_workers`` > 0 collates on a producer thread, which
+        also stages each batch to the device (default: one for the train
+        route, none otherwise)."""
+        from deepspeed_tpu_torch.data import DeepSpeedDataLoader
+        if data_sampler is not None:
+            raise NotImplementedError(
+                "data_sampler is not supported: the loader shards and "
+                "shuffles by itself")
+        if batch_size is None:
+            batch_size = (self.train_micro_batch_size_per_gpu()
+                          * self.dp_world_size)
+        if num_local_io_workers is None:
+            num_local_io_workers = 1 if route == C.ROUTE_TRAIN else 0
+        return DeepSpeedDataLoader(
+            dataset,
+            batch_size=batch_size,
+            device=self.device,
+            route=route,
+            collate_fn=collate_fn or self.collate_fn,
+            tput_timer=self.tput_timer if route == C.ROUTE_TRAIN else None,
+            seed=self.seed,
+            num_workers=int(num_local_io_workers),
+            device_prefetch=True)
 
     # --------------------------------------------------------------- forward
 
@@ -640,13 +675,70 @@ class DeepSpeedTorchEngine:
     def train_many(self, batches):
         raise _unported("train_many", "Queue 1 item 12")
 
+    # ---------------------------------------------------------- checkpointing
+
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         async_save=None):
-        raise _unported("save_checkpoint", "Queue 1 item 8")
+        """Write a checkpoint (reference deepspeed_light.py:1048-1114) in
+        the JAX package's layout; returns its directory.  ``async_save``
+        returns after the device-to-host copy and writes on a background
+        thread: ``checkpoint_wait()`` blocks until it is on disk."""
+        from deepspeed_tpu_torch import checkpoint as ckpt_mod
+        # the save's stall is not training throughput
+        self.tput_timer.discard_window()
+        return ckpt_mod.save_checkpoint(self, save_dir, tag=tag,
+                                        client_state=client_state,
+                                        async_save=async_save)
+
+    def checkpoint_wait(self):
+        """Block until every queued async checkpoint write is on disk;
+        re-raises the first background failure."""
+        from deepspeed_tpu_torch import checkpoint as ckpt_mod
+        ckpt_mod.ASYNC_SAVER.wait()
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True):
-        raise _unported("load_checkpoint", "Queue 1 item 8")
+        """Restore from a checkpoint (reference deepspeed_light.py:974-1046);
+        returns ``(path, client_state)``, ``(None, None)`` if none."""
+        from deepspeed_tpu_torch import checkpoint as ckpt_mod
+        self.tput_timer.discard_window()
+        return ckpt_mod.load_checkpoint(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states)
+
+    def _optimizer_state_dict(self):
+        return {"opt_state": {"step": self.opt_state.step,
+                              "m": self.opt_state.m, "v": self.opt_state.v},
+                "loss_scale_state": self.loss_scale_state._asdict(),
+                "zero_enabled": False, "zero_stage": 0,
+                "master": self.master}
+
+    @torch.no_grad()
+    def _optimizer_load_state_dict(self, sd):
+        """Copy ``sd`` (an ``optimizer.state_dict()``) into the live state;
+        the compute-dtype parameters follow the masters."""
+        def load(dst, src, what):
+            if set(dst) != set(src):
+                raise KeyError(f"optimizer state_dict {what} names differ "
+                               f"from the engine's")
+            for k, t in dst.items():
+                t.copy_(src[k])
+
+        opt = sd["opt_state"]
+        for key in ("m", "v"):
+            live = getattr(self.opt_state, key)
+            if live is not None:
+                load(live, opt[key], key)
+        self.opt_state.step = int(opt["step"])
+        self.loss_scale_state = prec.LossScaleState(**{
+            k: torch.as_tensor(sd["loss_scale_state"][k]).to(
+                device=v.device, dtype=v.dtype)
+            for k, v in self.loss_scale_state._asdict().items()})
+        load(self.master, sd["master"], "master")
+        for name, p in self._params.items():
+            if p.data_ptr() != self.master[name].data_ptr():
+                p.copy_(self.master[name])
 
     # ------------------------------------------------------------- reporting
 

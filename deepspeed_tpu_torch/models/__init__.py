@@ -1,5 +1,5 @@
 from deepspeed_tpu_torch.models.bert import (  # noqa: F401
-    BERT_SIZES, BertForPreTraining)
+    BERT_SIZES, BertForPreTraining, BertForQuestionAnswering)
 from deepspeed_tpu_torch.models.gpt2 import (  # noqa: F401
     GPT2, GPT2_SIZES, GPT2MoE)
 from deepspeed_tpu_torch.models.transformer import (  # noqa: F401

@@ -1,9 +1,10 @@
-"""BERT pretraining model (MLM + optional NSP).
+"""BERT pretraining (MLM + optional NSP) and the SQuAD span model.
 
-The port of ``BertForPreTraining`` from ``deepspeed_tpu/models/bert.py`` at
-mp = 1: post-LN encoder, MLM head tied to the word embedding, both MLM
-batch formats (dense labels; masked positions ``[B, P]``), the optional NSP
-head and the ``mlm_gather_budget`` sparse head.  Parameter names and shapes
+The port of ``BertForPreTraining`` and ``BertForQuestionAnswering`` from
+``deepspeed_tpu/models/bert.py`` at mp = 1: post-LN encoder, MLM head tied
+to the word embedding, both MLM batch formats (dense labels; masked
+positions ``[B, P]``), the optional NSP head, the ``mlm_gather_budget``
+sparse head, and the span head of the fine-tune.  Parameter names and shapes
 are the JAX pytree's (``wte``, ``blocks.qkv_w``, ``mlm_bias``, ...), so
 ``weights.py`` copies weights across name for name.
 """
@@ -28,60 +29,40 @@ BERT_SIZES = {
 }
 
 
-class BertForPreTraining(nn.Module):
-    """``forward(input_ids, attention_mask, token_type_ids, *rest)`` returns
-    the scalar fp32 loss.  ``rest`` is ``mlm_labels[, nsp_labels]`` (dense
-    labels, < 0 ignored) or ``mlm_positions, mlm_ids, mlm_weights[,
-    nsp_labels]`` (masked positions, ``[B, P]`` each)."""
+class _BertBackbone(nn.Module):
+    """The embeddings (word, position, token type) and the encoder stack
+    that pretraining and fine-tuning share, under the JAX leaf names."""
 
-    def __init__(self, config: T.TransformerConfig, use_nsp: bool = False,
-                 mlm_gather_budget=None, generator=None, device=None):
+    def __init__(self, config: T.TransformerConfig, generator=None,
+                 device=None):
         super().__init__()
         config.validate()
         self.config = config
-        self.use_nsp = use_nsp
-        #: dense-labels MLM only: gather up to this many masked positions
-        #: per sequence before the vocab projection (exact while every
-        #: sequence's masked count fits; see the JAX field docstring)
-        self.mlm_gather_budget = mlm_gather_budget
-        h, std = config.hidden_size, config.init_std
-
-        def normal(*shape):
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            return nn.Parameter(t.normal_(0.0, std, generator=generator))
-
-        def const(value, *shape):
-            return nn.Parameter(torch.full(shape, value, dtype=torch.float32,
-                                           device=device))
-
-        self.wte = normal(config.vocab_size, h)
-        self.wpe = normal(config.max_seq_len, h)
-        self.wtt = normal(2, h)
-        self.ln_emb_s = const(1.0, h)
-        self.ln_emb_b = const(0.0, h)
+        h = config.hidden_size
+        self.wte = self._normal(generator, device, config.vocab_size, h)
+        self.wpe = self._normal(generator, device, config.max_seq_len, h)
+        self.wtt = self._normal(generator, device, 2, h)
+        self.ln_emb_s = self._const(device, 1.0, h)
+        self.ln_emb_b = self._const(device, 0.0, h)
         self.blocks = T.TransformerStack(config, generator, device)
-        self.mlm_dense_w = normal(h, h)
-        self.mlm_dense_b = const(0.0, h)
-        self.mlm_ln_s = const(1.0, h)
-        self.mlm_ln_b = const(0.0, h)
-        self.mlm_bias = const(0.0, config.vocab_size)
-        if use_nsp:
-            self.pool_w = normal(h, h)
-            self.pool_b = const(0.0, h)
-            self.nsp_w = const(0.0, h, 2)
-            self.nsp_b = const(0.0, 2)
 
-    @classmethod
-    def from_size(cls, size: str, use_nsp: bool = False,
-                  mlm_gather_budget=None, generator=None, device=None,
-                  **overrides):
+    def _normal(self, generator, device, *shape):
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        return nn.Parameter(t.normal_(0.0, self.config.init_std,
+                                      generator=generator))
+
+    @staticmethod
+    def _const(device, value, *shape):
+        return nn.Parameter(torch.full(shape, value, dtype=torch.float32,
+                                       device=device))
+
+    @staticmethod
+    def _size_config(size: str, overrides) -> T.TransformerConfig:
         kw = dict(BERT_SIZES[size])
         kw.update(overrides)
         kw.setdefault("pre_ln", False)   # BERT is post-LN
         kw.setdefault("causal", False)
-        return cls(T.TransformerConfig(**kw), use_nsp=use_nsp,
-                   mlm_gather_budget=mlm_gather_budget, generator=generator,
-                   device=device)
+        return T.TransformerConfig(**kw)
 
     def validate(self, mp_size: int = 1):
         """Engine hook: shape checks against the model-parallel degree."""
@@ -102,6 +83,41 @@ class BertForPreTraining(nn.Module):
         x = L.layer_norm(x, self.ln_emb_s, self.ln_emb_b, cfg.ln_eps)
         return T.stack_apply(x, dict(self.blocks.named_parameters()), cfg,
                              attn_mask=attention_mask)
+
+
+class BertForPreTraining(_BertBackbone):
+    """``forward(input_ids, attention_mask, token_type_ids, *rest)`` returns
+    the scalar fp32 loss.  ``rest`` is ``mlm_labels[, nsp_labels]`` (dense
+    labels, < 0 ignored) or ``mlm_positions, mlm_ids, mlm_weights[,
+    nsp_labels]`` (masked positions, ``[B, P]`` each)."""
+
+    def __init__(self, config: T.TransformerConfig, use_nsp: bool = False,
+                 mlm_gather_budget=None, generator=None, device=None):
+        super().__init__(config, generator, device)
+        self.use_nsp = use_nsp
+        #: dense-labels MLM only: gather up to this many masked positions
+        #: per sequence before the vocab projection (exact while every
+        #: sequence's masked count fits; see the JAX field docstring)
+        self.mlm_gather_budget = mlm_gather_budget
+        h = config.hidden_size
+        self.mlm_dense_w = self._normal(generator, device, h, h)
+        self.mlm_dense_b = self._const(device, 0.0, h)
+        self.mlm_ln_s = self._const(device, 1.0, h)
+        self.mlm_ln_b = self._const(device, 0.0, h)
+        self.mlm_bias = self._const(device, 0.0, config.vocab_size)
+        if use_nsp:
+            self.pool_w = self._normal(generator, device, h, h)
+            self.pool_b = self._const(device, 0.0, h)
+            self.nsp_w = self._const(device, 0.0, h, 2)
+            self.nsp_b = self._const(device, 0.0, 2)
+
+    @classmethod
+    def from_size(cls, size: str, use_nsp: bool = False,
+                  mlm_gather_budget=None, generator=None, device=None,
+                  **overrides):
+        return cls(cls._size_config(size, overrides), use_nsp=use_nsp,
+                   mlm_gather_budget=mlm_gather_budget, generator=generator,
+                   device=device)
 
     def _mlm_head(self, h):
         """Dense + GELU + LN + tied vocab decoder on [..., H]."""
@@ -164,3 +180,44 @@ class BertForPreTraining(nn.Module):
                 logp, 1, nsp_labels.long()[:, None])[:, 0])
             loss = loss + nsp
         return loss
+
+
+class BertForQuestionAnswering(_BertBackbone):
+    """The SQuAD span-extraction fine-tune model (the port of the JAX
+    package's ``BertForQuestionAnswering``): the backbone and a span head
+    ``qa_w [h, 2]``, ``qa_b [2]``.  ``forward(input_ids, attention_mask,
+    token_type_ids, start_positions, end_positions)`` returns the mean of
+    the start and end cross-entropies over the unpadded positions."""
+
+    def __init__(self, config: T.TransformerConfig, generator=None,
+                 device=None):
+        super().__init__(config, generator, device)
+        self.qa_w = self._normal(generator, device, config.hidden_size, 2)
+        self.qa_b = self._const(device, 0.0, 2)
+
+    @classmethod
+    def from_size(cls, size: str, generator=None, device=None, **overrides):
+        return cls(cls._size_config(size, overrides), generator=generator,
+                   device=device)
+
+    def span_logits(self, input_ids, attention_mask, token_type_ids):
+        """(start_logits, end_logits), each fp32 [B, T]."""
+        x = self._encode(input_ids, attention_mask, token_type_ids)
+        logits = (x @ self.qa_w.to(x.dtype)
+                  + self.qa_b.to(x.dtype)).float()
+        return logits[..., 0], logits[..., 1]
+
+    def forward(self, input_ids, attention_mask, token_type_ids,
+                start_positions, end_positions):
+        start_logits, end_logits = self.span_logits(
+            input_ids, attention_mask, token_type_ids)
+        valid = attention_mask.bool()
+
+        def span_loss(lg, pos):
+            lg = torch.where(valid, lg, torch.full_like(lg, -1e9))
+            logp = torch.log_softmax(lg, dim=-1)
+            return -torch.mean(torch.gather(
+                logp, 1, pos.long()[:, None])[:, 0])
+
+        return 0.5 * (span_loss(start_logits, start_positions)
+                      + span_loss(end_logits, end_positions))

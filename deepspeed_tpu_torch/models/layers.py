@@ -15,8 +15,10 @@ or the streaming kernels of ``ops/stream_attention.py`` from seq 256.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
+import threading
 
 import torch
 
@@ -28,12 +30,97 @@ from deepspeed_tpu_torch.ops.dispatch_attention import (  # noqa: F401
     _QKScores, xla_attention)
 
 
-def column_parallel_linear(x, w, b=None):
-    """x: [..., in]; w: [in, out].  Returns [..., out]."""
-    y = x @ w.to(x.dtype)
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+class _NamedLinear(torch.autograd.Function):
+    """``x @ w + b`` whose backward needs only its inputs.  Given
+    ``saved`` (the output of the same product from an earlier run) it
+    returns that and computes nothing: a recompute that replays the
+    forward gets the product's graph node without the product."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, saved):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = None if b is None else b.dtype
+        if saved is not None:
+            return saved.detach()
+        y = x @ w.to(x.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = g @ w.to(g.dtype).t()
+        if ctx.needs_input_grad[1]:
+            gw = (x.reshape(-1, x.shape[-1]).t() @ g2).to(w.dtype)
+        if ctx.b_dtype is not None and ctx.needs_input_grad[2]:
+            gb = g2.sum(0).to(ctx.b_dtype)
+        return gx, gw, gb, None
+
+
+class _NamedSaves(threading.local):
+    """The named products a selective recompute keeps (``keep``): their
+    outputs recorded in a run (``record``), or handed back in order to the
+    recompute (``replay``, consumed from ``pos``)."""
+    keep = frozenset()
+    record = None
+    replay = None
+    pos = 0
+
+
+_SAVES = _NamedSaves()
+
+
+@contextlib.contextmanager
+def named_saves(keep, replay=None):
+    """Within the block, a named linear whose name is in ``keep`` records
+    its output into the list this yields; with ``replay`` (such a list) it
+    returns the recorded output instead, in the same order, and the block
+    must consume all of them."""
+    st = _SAVES
+    prev = (st.keep, st.record, st.replay, st.pos)
+    st.keep, st.record, st.replay, st.pos = frozenset(keep), [], replay, 0
+    try:
+        yield st.record
+        if replay is not None and st.pos != len(replay):
+            raise RuntimeError(
+                f"selective recompute consumed {st.pos} of the "
+                f"{len(replay)} saved products: the block took another path "
+                f"than in its forward")
+    finally:
+        st.keep, st.record, st.replay, st.pos = prev
+
+
+def column_parallel_linear(x, w, b=None, name=None):
+    """x: [..., in]; w: [in, out].  Returns [..., out].
+
+    ``name`` is the port of ``jax.ad_checkpoint.checkpoint_name`` on the
+    product (``"qkv"``, ``"ffn1"``): a named product runs as
+    ``_NamedLinear``, whose output the ``"selective"`` remat policy saves
+    by name (``named_saves``) and whose recompute then costs nothing.  The
+    name goes on the product itself: an identity tag after it would leave
+    the product to be replayed."""
+    if name is None:
+        y = x @ w.to(x.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return y
+    st = _SAVES
+    if name not in st.keep:
+        return _NamedLinear.apply(x, w, b, None)
+    if st.replay is None:
+        y = _NamedLinear.apply(x, w, b, None)
+        st.record.append(y)
+        return y
+    if st.pos >= len(st.replay):
+        raise RuntimeError(f"selective recompute: no saved product left "
+                           f"for {name!r}")
+    saved = st.replay[st.pos]
+    st.pos += 1
+    return _NamedLinear.apply(x, w, b, saved)
 
 
 def row_parallel_linear(x, w, b=None):
@@ -279,7 +366,8 @@ def multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, *, n_heads,
     ``layers.py:627``."""
     B, T, h = x.shape
     d = h // n_heads
-    qkv = column_parallel_linear(x, qkv_w, qkv_b).reshape(B, T, n_heads, 3, d)
+    qkv = column_parallel_linear(x, qkv_w, qkv_b, name="qkv").reshape(
+        B, T, n_heads, 3, d)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     ctx = core_attention(q, k, v, causal=causal, attn_mask=attn_mask)
     return row_parallel_linear(ctx.reshape(B, T, h), proj_w, proj_b)

@@ -13,9 +13,14 @@ Rematerialisation (``TransformerConfig.remat``/``remat_policy``):
 * ``"full"``: each block under ``torch.utils.checkpoint`` (non-reentrant);
 * ``"dots"``: a selective-checkpoint policy that saves every matrix-product
   output and recomputes the rest (``jax.checkpoint_policies.dots_saveable``);
-* ``"selective"`` (save the named ``qkv`` and ``ffn1`` activations) raises:
-  PyTorch's selective checkpointing selects by operator, not by name, and a
-  policy that trained differently would be a silent change.
+* ``"selective"``: saves only the named ``qkv`` and ``ffn1`` (pre-GELU)
+  products and recomputes the rest (``save_only_these_names("qkv",
+  "ffn1")``): ``_SelectiveRemat`` runs the block without a graph, keeping
+  its input and the two named outputs (``layers.named_saves``), and its
+  backward replays the block with the saved products handed back, so it
+  replays neither product.  PyTorch's selective checkpointing would select
+  by operator through a dispatch mode in Python on every op of the block,
+  which made a BERT-large step at seq 512 2.4x slower on an H100 (PERF.md).
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from deepspeed_tpu_torch.models import layers as L
 
-REMAT_POLICIES = ("full", "dots")
+REMAT_POLICIES = ("full", "dots", "selective")
+#: the named activations the "selective" policy saves
+SELECTIVE_SAVES = frozenset({"qkv", "ffn1"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +104,7 @@ def init_block_params(cfg: TransformerConfig, generator=None,
 
 
 def _mlp(x, p):
-    y = L.gelu(L.column_parallel_linear(x, p["fc_w"], p["fc_b"]))
+    y = L.gelu(L.column_parallel_linear(x, p["fc_w"], p["fc_b"], name="ffn1"))
     return L.row_parallel_linear(y, p["fc2_w"], p["fc2_b"])
 
 
@@ -126,14 +133,40 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+class _SelectiveRemat(torch.autograd.Function):
+    """``body(x, mask, *leaves)`` run without a graph, keeping ``x``, the
+    leaves and the ``SELECTIVE_SAVES`` products; the backward re-runs it
+    with the graph, the saved products handed back, and takes the
+    gradients of its inputs from that graph."""
+
+    @staticmethod
+    def forward(ctx, body, x, mask, *leaves):
+        with L.named_saves(SELECTIVE_SAVES) as saved:
+            out = body(x, mask, *leaves)
+        ctx.body, ctx.n_saved = body, len(saved)
+        ctx.save_for_backward(x, mask, *leaves, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mask, *rest = ctx.saved_tensors
+        leaves, saved = rest[:len(rest) - ctx.n_saved], \
+            rest[len(rest) - ctx.n_saved:]
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip([x, *leaves], [ctx.needs_input_grad[1],
+                                     *ctx.needs_input_grad[3:]])]
+        with torch.enable_grad(), L.named_saves(SELECTIVE_SAVES,
+                                                replay=saved):
+            out = ctx.body(inputs[0], mask, *inputs[1:])
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad,
+                                       allow_unused=True))
+        grads = [next(got) if t.requires_grad else None for t in inputs]
+        return (None, grads[0], None, *grads[1:])
+
+
 def check_remat(cfg: TransformerConfig) -> None:
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
-        if cfg.remat_policy == "selective":
-            raise NotImplementedError(
-                "remat_policy 'selective' (save the named qkv/ffn1 "
-                "activations) is not ported to deepspeed_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 4); use 'full', 'dots' or "
-                "activation_checkpointing false")
         raise ValueError(
             f"unknown remat_policy {cfg.remat_policy!r} "
             "(expected 'full', 'dots' or 'selective')")
@@ -144,6 +177,12 @@ def remat_wrap(body, cfg: TransformerConfig):
     check_remat(cfg)
     if not cfg.remat:
         return body
+    if cfg.remat_policy == "selective":
+        def selective(x, mask, *leaves):
+            if not torch.is_grad_enabled():
+                return body(x, mask, *leaves)
+            return _SelectiveRemat.apply(body, x, mask, *leaves)
+        return selective
     kwargs = {"use_reentrant": False}
     if cfg.remat_policy == "dots":
         kwargs["context_fn"] = functools.partial(

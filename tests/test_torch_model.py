@@ -132,16 +132,14 @@ def test_remat_full_and_dots_give_the_same_grads():
     _, tm, params = bert_pair()
     batch = make_batch("positions")
     ref_l, ref_g = torch_loss_and_grads(tm, batch)
-    for remat, policy in ((False, "full"), (True, "dots")):
+    for remat, policy in ((False, "full"), (True, "dots"),
+                          (True, "selective")):
         tm.with_config(remat=remat, remat_policy=policy)
         loss, grads = torch_loss_and_grads(tm, batch)
         assert loss == ref_l
         for k in ref_g:
             np.testing.assert_allclose(grads[k], ref_g[k], rtol=1e-6,
                                        atol=1e-7, err_msg=k)
-    tm.with_config(remat=True, remat_policy="selective")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_loss_and_grads(tm, batch)
 
 
 # ------------------------------------------------------------------ layers
