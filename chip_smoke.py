@@ -92,7 +92,25 @@ Phases (each prints one JSON line, with the seconds since the start as
    GPT-2 shape (B=32, n=16, T=128, d=64, bf16, causal; q, k, v views of the
    packed qkv), and once with padded keys and a fully padded row, with
    times, bounds and scaled_dot_product_attention(is_causal=True).
-14. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+14. zero_gpt2: GPT-2 medium as train_gpt2 on a one-rank NCCL process group
+   (one card: data-parallel size 1, started through the port's
+   init_distributed), 6 steps each with ZeRO off, stage 1 with overlap_comm
+   off, stage 1 and stage 2 with it on (32 MB buckets: 43 over the
+   354,871,296-element partition, no padding): launches exact (Adam 96, 6,
+   258, 258; whole-tile 288 + 288 each; LAMB 0), the three ZeRO runs'
+   losses and flat masters bitwise equal, ZeRO against off within 1e-5
+   relative (and whether bitwise), samples/s, step ms and peak memory of
+   each.  kernels_flat_adam: the Adam kernel on the whole flat partition
+   (one launch) and as the 43-bucket loop against adam_plain, with graph
+   and event times, the bound and torch.optim.AdamW(fused=True,
+   capturable=True) on one flat tensor; the kernels line's adam row
+   carries them as ``flat_partition``.
+15. zero_ckpt: stage 2 (overlap on) under the deterministic flag: run A
+   takes 6 steps and saves after step 3 (the model-state file and one
+   ZeRO partition file), run B, from another seed, loads it and takes
+   steps 4-6; losses, flat master, moments, step, loss scale and counters
+   bitwise equal to run A's; save bytes and seconds, load seconds.
+16. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
@@ -215,6 +233,19 @@ CLOSURE_STEPS, CLOSURE_SAVE_AT, CLOSURE_BATCHES = 6, 3, 8
 CLOSURE_MAX_SEQ = 512
 FT_SEQ, FT_MICRO, FT_STEPS, FT_LR = 384, 8, 6, 3e-5
 SELECTIVE = {"enabled": True, "policy": "selective"}
+# the ZeRO phases (zero_gpt2, zero_ckpt): GPT-2 medium as train_gpt2 on a
+# one-rank NCCL group, with each zero_optimization section below (None:
+# off); overlap_comm's default bucket is 32 MB, 8,388,608 fp32 elements
+ZERO_RUNS = (("off", None),
+             ("stage1", {"stage": 1, "overlap_comm": False}),
+             ("stage1_overlap", {"stage": 1, "overlap_comm": True}),
+             ("stage2_overlap", {"stage": 2, "overlap_comm": True}))
+# ZeRO against off: the same elementwise update through the same kernel,
+# so bitwise is expected; the limit is the phase's check
+ZERO_LOSS_RTOL = 1e-5
+ZERO_SAVE_AT = 3
+ZERO_MODEL_FILE = "mp_rank_00_model_states.pt"
+ZERO_OPTIM_FILE = "zero_pp_rank_0_mp_rank_00optim_states.pt"
 # kernel vs plain on identical bf16 inputs: |err| <= ATTN_ATOL * max|want|
 # + ATTN_RTOL * |want|.  The kernels run the online softmax over 64-row kv
 # tiles where the plain versions take the whole row, so the unnormalised
@@ -1658,6 +1689,318 @@ def phase_block_kernels(device, launches, prof_gpt2):
     return results
 
 
+def process_group(device):
+    """A one-rank NCCL process group on ``device`` (a TCP rendezvous on a
+    free localhost port), started once for the ZeRO phases through the
+    port's ``init_distributed``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import topology
+    if dist.is_initialized():
+        return
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    topology.init_distributed(coordinator_address=f"tcp://127.0.0.1:{port}",
+                              num_processes=1, process_id=0, device=device)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group backend {dist.get_backend()}")
+
+
+def zero_engine(device, zero_cfg, seed=0):
+    """GPT-2 medium as phase train_gpt2 (the same weights for one seed),
+    with ``zero_cfg`` as its zero_optimization section (None: off)."""
+    cfg = gpt2_config(MICRO)
+    if zero_cfg is not None:
+        cfg["zero_optimization"] = zero_cfg
+    return make_engine(cfg, device, size="medium", seed=seed, gpt2=True)
+
+
+def flat_state(engine):
+    """The fp32 masters in the flat layout: the ZeRO engine's partition, or
+    the per-leaf masters concatenated in the flat order (ZeRO off)."""
+    import torch
+
+    from deepspeed_tpu_torch import zero
+    if engine.zero_flat:
+        return engine.master_flat
+    meta = zero.make_flat_meta(engine.master, 1)
+    return torch.cat([engine.master[k].reshape(-1) for k in meta.names])
+
+
+def phase_zero_gpt2(device):
+    """GPT-2 medium at seq 128 on a one-rank NCCL group, 6 steps each with
+    ZeRO off, stage 1 (overlap off), stage 1 and stage 2 (overlap on, 32
+    MB buckets): exact launches, the three ZeRO runs bitwise equal, ZeRO
+    against off within ZERO_LOSS_RTOL; then the Adam kernel at the flat
+    partition's shape (``phase_flat_adam``)."""
+    import numpy as np
+    import torch
+
+    process_group(device)
+    batch = None
+    runs = {}
+    for name, zero_cfg in ZERO_RUNS:
+        engine = zero_engine(device, zero_cfg)
+        cfg = engine.module.config
+        if batch is None:
+            batch = lm_batch(MICRO * GAS, GPT2_SEQ, cfg.vocab_size)
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(GPT2_STEPS):
+            t0 = time.perf_counter()
+            losses.append(engine.train_batch(batch))
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        attn = cfg.num_layers * GAS * GPT2_STEPS
+        if engine.zero_flat:
+            meta = engine.flat_meta
+            buckets = engine._comm_buckets()
+            adam = GPT2_STEPS * (len(buckets) if buckets else 1)
+            layout = {"elements": meta.total, "padded": meta.padded,
+                      "partition": meta.partition,
+                      "buckets": len(buckets) if buckets else 1,
+                      "last_bucket": (buckets[-1][1] - buckets[-1][0]
+                                      if buckets else meta.partition),
+                      "bucket_elems": engine.comm_bucket_elems}
+        else:
+            adam = GPT2_STEPS * len(engine.master)
+            layout = {"leaves": len(engine.master)}
+        expected = no_launches(adam=adam, block_fwd=attn, block_bwd=attn)
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        # kept on the host, so no later run's peak counts it
+        run = {"losses": torch.stack(losses).cpu(),
+               "state": flat_state(engine).cpu(),
+               "step_ms": step_ms,
+               "samples_per_s_steady": MICRO * GAS * (GPT2_STEPS - 1)
+               / (sum(step_ms[1:]) / 1e3),
+               "peak_mem_gib": peak,
+               "launches": launches, "expected_launches": expected,
+               "layout": layout}
+        runs[name] = run
+        if name == "stage2_overlap":
+            flat = phase_flat_adam(device, engine, launches["adam"])
+        del engine, losses
+        free(device)
+        emit("zero_gpt2_run", run=name, zero=zero_cfg, **{
+            k: run[k] for k in ("step_ms", "samples_per_s_steady",
+                                "peak_mem_gib", "launches",
+                                "expected_launches", "layout")},
+             losses=[float(x) for x in run["losses"]])
+    zero_runs = [runs[n] for n, z in ZERO_RUNS if z is not None]
+    off = runs["off"]
+    total = off["state"].numel()
+    rel = float(((zero_runs[0]["losses"] - off["losses"]).abs()
+                 / off["losses"].abs()).max())
+    checks = {
+        "launches": all(r["launches"] == r["expected_launches"]
+                        for r in runs.values()),
+        "finite": all(bool(torch.isfinite(r["losses"]).all())
+                      for r in runs.values()),
+        "zero_losses_bitwise": all(torch.equal(r["losses"],
+                                               zero_runs[0]["losses"])
+                                   for r in zero_runs),
+        "zero_masters_bitwise": all(torch.equal(r["state"],
+                                                zero_runs[0]["state"])
+                                    for r in zero_runs),
+        "zero_vs_off_losses": rel <= ZERO_LOSS_RTOL,
+        "no_padding": all(r["layout"].get("padded", total) == total
+                          for r in runs.values()),
+    }
+    bitwise_vs_off = {
+        "losses": torch.equal(zero_runs[0]["losses"], off["losses"]),
+        "masters": torch.equal(zero_runs[0]["state"][:total],
+                               off["state"])}
+    emit("zero_gpt2", model="gpt2-medium", seq=GPT2_SEQ, micro_batch=MICRO,
+         gas=GAS, dtype="bf16", optimizer="Adam", lr=1e-4, dp=1,
+         backend="nccl", checks=checks, zero_vs_off_max_rel=rel,
+         zero_vs_off_bitwise=bitwise_vs_off,
+         samples_per_s_steady={n: r["samples_per_s_steady"]
+                               for n, r in runs.items()},
+         step_ms_median={n: statistics.median(r["step_ms"][1:])
+                         for n, r in runs.items()},
+         peak_mem_gib={n: r["peak_mem_gib"] for n, r in runs.items()})
+    if not all(checks.values()):
+        raise AssertionError(f"zero_gpt2 phase failed: {checks}")
+    return flat, runs["stage2_overlap"]["launches"]
+
+
+def phase_flat_adam(device, engine, launches):
+    """The Adam kernel at the ZeRO path's shapes: one launch over the whole
+    flat partition (overlap off) and the 32 MB bucket loop (overlap on),
+    on the engine's masters and moments after its steps and seeded grads,
+    held against ``adam_plain`` on the same inputs; times, the bound and
+    ``torch.optim.AdamW(fused=True, capturable=True)`` on one flat tensor
+    of the same size."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cuda_optim
+    opt = engine.base_optimizer
+    st = engine.opt_state
+    n = engine.flat_meta.partition
+    gen = torch.Generator(device=device).manual_seed(5)
+    g = torch.randn(n, generator=gen, device=device) * 1e-3
+    ss = opt._step_size(opt.lr, st.step + 1, opt.beta1, opt.beta2)
+    scal = cuda_optim.make_scalars(
+        [(opt.beta1, opt.beta2, ss, opt.weight_decay, opt.lr)],
+        torch.tensor(1.0, device=device), device)[0]
+    buckets = engine._comm_buckets()
+
+    def fresh():
+        return [engine.master_flat.clone(), st.m["flat"].clone(),
+                st.v["flat"].clone()]
+
+    kw = dict(eps=opt.eps, eps_inside_sqrt=opt.eps_inside_sqrt,
+              decoupled=opt.decoupled_decay)
+    kst, pst = fresh(), fresh()
+    cuda_optim.fused_adam_update(kst[0], g, kst[1], kst[2], scal, **kw)
+    cuda_optim.adam_plain(pst[0], g, pst[1], pst[2], scal, **kw)
+    sync(device)
+    errs = {o: _max_err([a], [b]) for o, a, b in zip("pmv", kst, pst)}
+    bst = fresh()
+    for s, e in buckets:
+        cuda_optim.fused_adam_update(bst[0][s:e], g[s:e], bst[1][s:e],
+                                     bst[2][s:e], scal, **kw)
+    sync(device)
+    bucket_bitwise = all(torch.equal(a, b) for a, b in zip(bst, kst))
+    del kst, bst
+
+    p, m, v = pst
+
+    def whole():
+        cuda_optim.fused_adam_update(p, g, m, v, scal, **kw)
+
+    def loop():
+        for s, e in buckets:
+            cuda_optim.fused_adam_update(p[s:e], g[s:e], m[s:e], v[s:e],
+                                         scal, **kw)
+
+    def plain():
+        cuda_optim.adam_plain(p, g, m, v, scal, **kw)
+
+    plain_a = _time_ms(plain, device, calls=5, reps=3)
+    kernel_a = _time_ms(whole, device)
+    loop_a = _time_ms(loop, device)
+    kernel_b = _time_ms(whole, device)
+    loop_b = _time_ms(loop, device)
+    plain_b = _time_ms(plain, device, calls=5, reps=3)
+    graph = _graph_ms(lambda: whole, device)
+    loop_graph = _graph_ms(lambda: loop, device)
+    lib_p = p.clone().requires_grad_()
+    lib_p.grad = g
+    lib = torch.optim.AdamW([lib_p], lr=opt.lr, eps=opt.eps,
+                            weight_decay=opt.weight_decay, fused=True,
+                            capturable=True)
+    library = _library_ms(lib.step, device)
+    del lib, lib_p, p, m, v, pst
+    row = {"elements": n, "launches_overlap_on": launches,
+           "buckets": len(buckets), "event_ms": min(kernel_a, kernel_b),
+           "ms": graph, "bucket_loop_ms": loop_graph,
+           "bucket_loop_event_ms": min(loop_a, loop_b),
+           "plain_ms": min(plain_a, plain_b),
+           "bound_ms": _bound_ms("adam", n), "bound_by": "bytes",
+           **library, "max_abs_err": max(e[0] for e in errs.values()),
+           "errors": {o: {"max_abs": e[0], "max_rel": e[1], "ok": e[2]}
+                      for o, e in errs.items()},
+           "buckets_bitwise_whole": bucket_bitwise}
+    emit("kernels_flat_adam", **row)
+    if not (all(e[2] for e in errs.values()) and bucket_bitwise):
+        raise AssertionError(f"flat Adam: kernel against plain {errs}, "
+                             f"buckets bitwise {bucket_bitwise}")
+    return row
+
+
+def phase_zero_ckpt(device):
+    """ZeRO-2 (overlap on) under the deterministic flag: run A takes 6
+    steps and saves after step 3; run B, a fresh engine from another seed,
+    loads it and takes steps 4-6.  Run B's losses, flat master, moments,
+    step and loss-scale state must equal run A's bitwise."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="zero_ckpt_", dir=ROOT / "build")
+    ck_dir = os.path.join(work, "ckpt")
+    zero_cfg = dict(ZERO_RUNS)["stage2_overlap"]
+    try:
+        with deterministic():
+            a = zero_engine(device, zero_cfg)
+            batch = lm_batch(MICRO * GAS, GPT2_SEQ,
+                             a.module.config.vocab_size)
+            batches = [batch, lm_batch(MICRO * GAS, GPT2_SEQ,
+                                       a.module.config.vocab_size, seed=1)]
+            reset_launch_counts()
+            losses_a = []
+            for step in range(1, GPT2_STEPS + 1):
+                losses_a.append(a.train_batch(batches[step % 2]))
+                if step == ZERO_SAVE_AT:
+                    sync(device)
+                    t0 = time.perf_counter()
+                    path = a.save_checkpoint(ck_dir)
+                    save_s = time.perf_counter() - t0
+                    save_bytes = a.last_save_bytes
+                    files = sorted(os.listdir(path))
+                    root_files = sorted(os.listdir(ck_dir))
+            sync(device)
+            launches_a = launch_counts()
+            b = zero_engine(device, zero_cfg, seed=1)
+            sync(device)
+            t0 = time.perf_counter()
+            b.load_checkpoint(ck_dir)
+            sync(device)
+            load_s = time.perf_counter() - t0
+            reset_launch_counts()
+            losses_b = [b.train_batch(batches[step % 2]) for step in
+                        range(ZERO_SAVE_AT + 1, GPT2_STEPS + 1)]
+            sync(device)
+            launches_b = launch_counts()
+            sa, sb = a.opt_state, b.opt_state
+            bitwise = {
+                "losses": all(torch.equal(x, y) for x, y in zip(
+                    losses_a[ZERO_SAVE_AT:], losses_b)),
+                "master": torch.equal(a.master_flat, b.master_flat),
+                "m": torch.equal(sa.m["flat"], sb.m["flat"]),
+                "v": torch.equal(sa.v["flat"], sb.v["flat"]),
+                "params": torch.equal(a._params_flat, b._params_flat),
+                "step": sa.step == sb.step,
+                "loss_scale": all(torch.equal(x, y) for x, y in zip(
+                    a.loss_scale_state, b.loss_scale_state)),
+                "counters": (a.global_steps, a.micro_steps,
+                             a.skipped_steps)
+                == (b.global_steps, b.micro_steps, b.skipped_steps)}
+            buckets = len(a._comm_buckets())
+            attn = a.module.config.num_layers * GAS
+            steps_b = GPT2_STEPS - ZERO_SAVE_AT
+            del a, b
+            free(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    checks = {"bitwise": all(bitwise.values()),
+              "files": files == [ZERO_MODEL_FILE, ZERO_OPTIM_FILE]
+              and root_files == ["global_step3", "latest"],
+              "launches": (launches_a == no_launches(
+                  adam=buckets * GPT2_STEPS, block_fwd=attn * GPT2_STEPS,
+                  block_bwd=attn * GPT2_STEPS)
+                  and launches_b == no_launches(
+                      adam=buckets * steps_b, block_fwd=attn * steps_b,
+                      block_bwd=attn * steps_b))}
+    emit("zero_ckpt", model="gpt2-medium", zero=zero_cfg, deterministic=True,
+         save_after=ZERO_SAVE_AT, files=files, save_bytes=save_bytes,
+         save_s=save_s, load_s=load_s,
+         losses_a=[float(x) for x in losses_a],
+         losses_b=[float(x) for x in losses_b], bitwise=bitwise,
+         launches_a=launches_a, launches_b=launches_b, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"zero_ckpt phase failed: {checks} {bitwise}")
+
+
 def phase_attn_sweep(device, kernel, causal, seqs, tokens=4096, n=16,
                      d=64):
     """A kernel's fwd+bwd against the einsum path's, bf16, by sequence
@@ -1789,11 +2132,18 @@ def main() -> int:
     del engine, batch
     free(device)
     kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
+    flat_adam, _ = phase_zero_gpt2(device)
+    phase_zero_ckpt(device)
     for k in kernels:
         if k["name"] == "adam":
             # per GPT-2 step: 16 leaves' launches (its ms: BERT-large's 22)
             k["profile_ms"] = profile_ms(prof_gpt2, "adam", per_launch=False)
             k["path"] = "adam; profile_ms: train_gpt2"
+            # the ZeRO path's shape: one flat partition, or its buckets
+            k["flat_partition"] = {key: flat_adam[key] for key in (
+                "elements", "buckets", "launches_overlap_on", "ms",
+                "event_ms", "bucket_loop_ms", "plain_ms", "bound_ms",
+                "library_ms", "max_abs_err")}
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
@@ -1801,8 +2151,14 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "profile_ms", "path")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                   **({"flat_partition": r["flat_partition"]}
+                                      if "flat_partition" in r else {})}
+                                  for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

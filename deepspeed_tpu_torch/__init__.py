@@ -6,14 +6,15 @@ and ``add_config_arguments(parser)`` adds the standard CLI flags.  The port
 imports torch and never jax, nor anything of ``deepspeed_tpu``.
 
 It trains BERT pretraining (``models.bert``) and the GPT-2 causal LM
-(``models.gpt2``) on one card, with hand-written CUDA kernels for the fused
-LAMB/Adam updates (``ops/cuda_optim.py``) and for attention: the whole-tile
-kernels at short causal shapes (``ops/block_attention.py``) and the
-streaming ones from seq 256 (``ops/stream_attention.py``).  It loads data
-(``data.py``), saves and resumes checkpoints in the JAX package's layout
-(``checkpoint.py``) and fine-tunes the SQuAD span model
-(``models.BertForQuestionAnswering``, ``squad.py``).  What it does not
-cover yet is listed in ROADMAP.md.
+(``models.gpt2``), with hand-written CUDA kernels for the fused LAMB/Adam
+updates (``ops/cuda_optim.py``) and for attention: the whole-tile kernels
+at short causal shapes (``ops/block_attention.py``) and the streaming ones
+from seq 256 (``ops/stream_attention.py``).  It trains data-parallel over
+a ``torch.distributed`` group (``parallel/``), with ZeRO stages 1 and 2
+(``zero.py``), loads data (``data.py``), saves and resumes checkpoints in
+the JAX package's layout (``checkpoint.py``) and fine-tunes the SQuAD span
+model (``models.BertForQuestionAnswering``, ``squad.py``).  What it does
+not cover yet is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"
@@ -41,8 +42,11 @@ def initialize(args=None,
     (nested dict of arrays, see ``weights.py``) into it first.
     ``training_data`` (an indexable dataset) gives the dataloader, whose
     batches arrive on the engine's device.  ``device``
-    None means the first CUDA device, and raises if there is none: pass
-    ``device="cpu"`` to train on the CPU.
+    None means a CUDA device (``LOCAL_RANK``'s, else the current one), and
+    raises if there is none: pass ``device="cpu"`` to train on the CPU.
+    ``dist_init_required`` (or ``args.deepspeed_mpi``, or
+    ``DSTPU_COORDINATOR`` in the environment) starts the process group
+    (``parallel.topology.init_distributed``).
     """
     from deepspeed_tpu_torch.engine import DeepSpeedTorchEngine
 

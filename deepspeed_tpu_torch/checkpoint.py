@@ -1,9 +1,19 @@
-"""Checkpoint save and load: the one-card, ZeRO-off subset of
-``deepspeed_tpu/checkpoint.py``, in its layout and container, so that a
-checkpoint crosses between the two packages either way.
+"""Checkpoint save and load: the mp = pp = 1 subset of
+``deepspeed_tpu/checkpoint.py`` (data parallelism and ZeRO stages 1-2
+included), in its layout and container, so that a checkpoint crosses
+between the two packages either way.
 
-* layout   ``<dir>/<tag>/mp_rank_00_model_states.pt`` and a ``latest`` file
-           naming the newest tag, published atomically after the write.
+* layout   ``<dir>/<tag>/mp_rank_00_model_states.pt``, written by rank 0,
+           and a ``latest`` file naming the newest tag, published
+           atomically by rank 0 once every rank's writes are done (a
+           barrier before and after).  Under ZeRO 1-2 the model-state file
+           holds no optimizer state: rank ``r`` of the first partition
+           group writes ``zero_pp_rank_{r}_mp_rank_00optim_states.pt``
+           with its partition of the flat fp32 master and moments, the
+           trailing padding dropped (``partition_id``,
+           ``dp_world_size``, ``partition_count``, ``unpadded_total``,
+           ``step``, ``master``, ``m``, ``v``).  A restore re-pads for its
+           own data-parallel size, so a save at any dp loads at any dp.
 * content  the module (compute-dtype parameters), the fp32 masters, the
            optimizer moments and step, the loss-scale state, the LR
            scheduler, the live param groups, the engine counters and the
@@ -21,7 +31,7 @@ checkpoint crosses between the two packages either way.
            arrays of up to 512 bytes as pickled numpy arrays; reading an
            inlined bf16 array needs ``ml_dtypes``, imported only then.
 
-ZeRO, tensor- and pipeline-parallel checkpoints raise
+ZeRO-3, tensor- and pipeline-parallel checkpoints raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -36,6 +46,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch import weights as weights_mod
@@ -44,6 +55,7 @@ logger = logging.getLogger(__name__)
 
 MODEL_FILE = "mp_rank_{mp:02d}_model_states.pt"
 MODEL_FILE_PP = "pp_stage_{pp:02d}_mp_rank_{mp:02d}_model_states.pt"
+ZERO_FILE = "zero_pp_rank_{dp}_mp_rank_{mp:02d}optim_states.pt"
 LATEST_FILE = "latest"
 
 _MAGIC = b"DSTPUCK1"
@@ -294,14 +306,15 @@ _TORCH_DTYPES = {np.dtype(k): v for k, v in (
     ("uint8", torch.uint8), ("bool", torch.bool))}
 
 
-def _readinto(mm: np.memmap, out: np.ndarray) -> None:
-    """Fill ``out`` from the file region behind ``mm`` with one positioned
-    read (which releases the GIL, where a page fault on the memmap holds
-    it); a short read names the truncation."""
+def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0) -> None:
+    """Fill ``out`` from the file region behind ``mm``, from its element
+    ``start`` on, with one positioned read (which releases the GIL, where
+    a page fault on the memmap holds it); a short read names the
+    truncation."""
     if not out.nbytes:
         return
     with open(mm.filename, "rb") as f:
-        f.seek(int(mm.offset))
+        f.seek(int(mm.offset) + start * mm.dtype.itemsize)
         got = f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
     if got != out.nbytes:
         raise CheckpointReadError(
@@ -345,6 +358,12 @@ def to_tensor(leaf, device=None) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ layout
+
+def zero_file(ckpt_dir: str, tag: str, dp_rank: int,
+              mp_rank: int = 0) -> str:
+    return os.path.join(ckpt_dir, tag,
+                        ZERO_FILE.format(dp=dp_rank, mp=mp_rank))
+
 
 def model_file(ckpt_dir: str, tag: str, mp_rank: int = 0,
                pp_stage: int = 0, pp_size: int = 1) -> str:
@@ -545,9 +564,17 @@ def _snapshot(obj):
 
 def _engine_state(engine, client_state=None) -> dict:
     """The model-state file's content for ``engine``, with live tensors
-    (written one leaf at a time)."""
+    (written one leaf at a time).  Under ZeRO 1-2 the optimizer state is in
+    the partition files instead (``optimizer`` None)."""
     opt = engine.opt_state
     lr_sched = engine.lr_scheduler
+    optimizer = None if engine.zero_flat else {
+        "master": _tree(engine.master),
+        "opt_state": {
+            "step": np.asarray(opt.step, np.int32),
+            "m": None if opt.m is None else _tree(opt.m),
+            "v": None if opt.v is None else _tree(opt.v)},
+    }
     return {
         "loss_scale_state": {k: v.detach().cpu().numpy()
                              for k, v in
@@ -559,22 +586,43 @@ def _engine_state(engine, client_state=None) -> dict:
         "global_steps": engine.global_steps,
         "skipped_steps": engine.skipped_steps,
         "micro_steps": engine.micro_steps,
-        "zero_enabled": False,
-        "zero_stage": 0,
+        "zero_enabled": engine.zero_enabled,
+        "zero_stage": engine.zero_stage,
         "mp_world_size": 1,
         "pp_world_size": 1,
         "client_state": dict(client_state or {}),
         "mp_rank": 0,
         "pp_stage": 0,
         "module": _tree(dict(engine.module.named_parameters())),
-        "optimizer": {
-            "master": _tree(engine.master),
-            "opt_state": {
-                "step": np.asarray(opt.step, np.int32),
-                "m": None if opt.m is None else _tree(opt.m),
-                "v": None if opt.v is None else _tree(opt.v)},
-        },
+        "optimizer": optimizer,
     }
+
+
+def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
+    """``(path, state)`` of this rank's ZeRO partition file: rank r of the
+    first partition group writes partition r (the other groups hold
+    copies), the trailing padding dropped so that a restore re-pads for
+    its own topology (the JAX package's ``_zero_checkpoint_writes``)."""
+    if engine.global_rank >= engine.zero_pps:
+        return []
+    meta = engine.flat_meta
+    lo, part = engine._owned_range()
+    count = int(np.clip(meta.total - lo, 0, part))
+    opt = engine.opt_state
+    state = {
+        "partition_id": engine.topology.partition_id,
+        "mp_rank": 0,
+        "dp_world_size": engine.dp_world_size,
+        "partition_count": engine.zero_pps,
+        "mp_world_size": 1,
+        "pp_world_size": 1,
+        "unpadded_total": meta.total,
+        "step": np.asarray(opt.step, np.int32),
+        "master": engine.master_flat[:count],
+        "m": opt.m["flat"][:count],
+        "v": opt.v["flat"][:count],
+    }
+    return [(zero_file(save_dir, tag, engine.topology.partition_id), state)]
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -590,38 +638,61 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     if async_save is None:
         async_save = bool(getattr(engine.config, "checkpoint_async_save",
                                   False))
+    if async_save and engine.dp_world_size > 1:
+        logger.warning(
+            "async_save requested in a multi-process run: falling back to "
+            "synchronous saves (the publish barrier is a collective and "
+            "cannot run on the writer thread)")
+        async_save = False
     ASYNC_SAVER.wait()     # one save at a time
     _reject_namedtuples(client_state, "client_state")
     tag = tag or f"global_step{engine.global_steps}"
     path = os.path.join(save_dir, tag)
-    state = _engine_state(engine, client_state)
-    _reject_namedtuples(state["lr_scheduler"], "lr_scheduler.state_dict()")
+    writes = []
+    if engine.global_rank == 0:
+        state = _engine_state(engine, client_state)
+        _reject_namedtuples(state["lr_scheduler"],
+                            "lr_scheduler.state_dict()")
+        writes.append((model_file(save_dir, tag), state))
+    if engine.zero_flat:
+        writes.extend(_zero_checkpoint_writes(engine, save_dir, tag))
     os.makedirs(path, exist_ok=True)
-    mfile = model_file(save_dir, tag)
     engine.last_save_bytes = 0
 
-    def write(st):
-        engine.last_save_bytes = _write_file(mfile, st)
-        _publish(save_dir, tag)
+    def write(items):
+        nbytes = 0
+        for fname, st in items:
+            nbytes += _write_file(fname, st)
+        engine.last_save_bytes = nbytes
+        _publish(engine, save_dir, tag)
 
     if async_save:
-        snapped = _snapshot(state)
+        snapped = [(fname, _snapshot(st)) for fname, st in writes]
         ASYNC_SAVER.submit(lambda: write(snapped))
     else:
-        write(state)
+        write(writes)
     return path
 
 
-def _publish(save_dir: str, tag: str) -> None:
-    """Point ``latest`` at ``tag``: write a temporary file, make it
-    durable, rename it over the old pointer."""
-    latest = os.path.join(save_dir, LATEST_FILE)
-    tmp = latest + ".tmp"
-    with open(tmp, "w") as f:
-        f.write(tag)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, latest)
+def _barrier(engine) -> None:
+    if engine.dp_world_size > 1:
+        dist.barrier(group=engine.topology.group)
+
+
+def _publish(engine, save_dir: str, tag: str) -> None:
+    """Point ``latest`` at ``tag`` once every rank has written its files
+    (rank 0: a temporary file, made durable, renamed over the old
+    pointer); no rank returns before the pointer is visible."""
+    _barrier(engine)
+    if engine.global_rank == 0:
+        latest = os.path.join(save_dir, LATEST_FILE)
+        tmp = latest + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(tag)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, latest)
+    _barrier(engine)
 
 
 # ------------------------------------------------------------ loading
@@ -683,7 +754,12 @@ def _load_flat(dst: dict, tree, what: str) -> None:
 @torch.no_grad()
 def _rederive_masters(engine) -> None:
     """fp32 masters from the module's parameters (where they are not the
-    same tensors, as in fp32)."""
+    same tensors, as in fp32); under ZeRO the owned partition of the flat
+    parameters."""
+    if engine.zero_flat:
+        lo, part = engine._owned_range()
+        engine.master_flat.copy_(engine._params_flat[lo:lo + part])
+        return
     for name, p in engine.module.named_parameters():
         m = engine.master[name]
         if m.data_ptr() != p.data_ptr():
@@ -725,11 +801,19 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     tag, state = read
     saved_stage = int(state.get("zero_stage",
                                 1 if state.get("zero_enabled") else 0))
-    if load_optimizer_states and saved_stage in (1, 2):
-        raise _unported(
-            f"loading the ZeRO stage {saved_stage} optimizer partitions "
-            f"(pass load_optimizer_states=False for the weights only)",
-            "Queue 1 item 6")
+    if load_optimizer_states:
+        if engine.zero_flat and saved_stage == 3:
+            raise ValueError(
+                "checkpoint was saved at ZeRO stage 3 (optimizer state "
+                "inline, per-leaf) but this engine runs the stage-1/2 flat "
+                "layout — set zero_optimization.stage=3 (or 0) to restore "
+                "it, or pass load_optimizer_states=False")
+        if not engine.zero_flat and saved_stage in (1, 2):
+            raise ValueError(
+                "checkpoint was saved with zero_optimization stage 1/2 (its "
+                "optimizer state lives in zero_pp_rank_* shards) but this "
+                "engine runs no flat ZeRO layout — match the stage, or pass "
+                "load_optimizer_states=False for a weights-only load")
 
     engine.global_steps = int(state["global_steps"])
     engine.skipped_steps = int(state["skipped_steps"])
@@ -749,7 +833,9 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     _load_flat(dict(engine.module.named_parameters()), state["module"],
                "module")
     opt = state.get("optimizer")
-    if load_optimizer_states and opt is not None:
+    if load_optimizer_states and engine.zero_flat:
+        _load_zero_checkpoint(engine, load_dir, tag)
+    elif load_optimizer_states and opt is not None:
         _load_flat(engine.master, opt["master"], "optimizer.master")
         saved = opt["opt_state"]
         for key in ("m", "v"):
@@ -766,3 +852,62 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     else:
         _rederive_masters(engine)
     return os.path.join(load_dir, tag), state.get("client_state", {})
+
+
+@torch.no_grad()
+def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
+    """This rank's partition of the flat fp32 master and moments from the
+    partition files of a save at ANY data-parallel size, re-padded for the
+    engine's layout; then the compute-dtype parameters re-derived from the
+    restored masters (the JAX package's ``_load_zero_checkpoint``).  A
+    save at another model or pipeline parallel size raises."""
+    meta = engine.flat_meta
+    first = zero_file(load_dir, tag, 0)
+    if not os.path.exists(first):
+        raise FileNotFoundError(
+            f"no zero checkpoint shards under {load_dir}/{tag}")
+    shard0 = _load_obj(first)
+    saved_mp = int(shard0.get("mp_world_size", 1))
+    saved_pp = int(shard0.get("pp_world_size", 1))
+    if saved_mp != 1 or saved_pp != 1:
+        raise ValueError(
+            f"zero checkpoint was saved with model_parallel_size="
+            f"{saved_mp}, pipeline_parallel_size={saved_pp}; engine has "
+            f"mp=1, pp=1: ZeRO flat partitions are per-stage/shard and "
+            f"cannot be re-split (load with load_optimizer_states=False for "
+            f"a weights-only restore)")
+    # the recorded partition count, not the files present: a stale shard
+    # of an earlier save of the same tag at a larger dp must be ignored
+    saved_dp = int(shard0.get("partition_count", shard0["dp_world_size"]))
+    total = int(shard0["unpadded_total"])
+    if total != meta.total:
+        raise ValueError(
+            f"zero checkpoint has {total} elements, engine expects "
+            f"{meta.total} (different model?)")
+    shards = [shard0] + [_load_obj(zero_file(load_dir, tag, r))
+                         for r in range(1, saved_dp)]
+    starts = np.cumsum([0] + [len(sh["master"]) for sh in shards])
+    if starts[-1] != total:
+        raise ValueError(f"zero checkpoint partitions hold {starts[-1]} "
+                         f"elements, their header says {total}")
+    lo, part = engine._owned_range()
+    hi = min(lo + part, total)
+    cuda = engine.device.type == "cuda"
+    live = {"master": engine.master_flat, "m": engine.opt_state.m["flat"],
+            "v": engine.opt_state.v["flat"]}
+    for key, dst in live.items():
+        stage = torch.zeros(part, dtype=torch.float32, pin_memory=cuda)
+        view = stage.numpy()
+        for sh, s0 in zip(shards, starts[:-1]):
+            src = sh[key]
+            s, e = max(lo, s0), min(hi, s0 + len(src))
+            if s >= e:
+                continue
+            out = view[s - lo:e - lo]
+            if isinstance(src, np.memmap) and getattr(src, "filename", None):
+                _readinto(src, out, start=s - s0)
+            else:
+                out[...] = np.asarray(src)[s - s0:e - s0]
+        dst.copy_(stage, non_blocking=cuda)
+    engine.opt_state.step = int(np.asarray(shard0["step"]))
+    engine._params_from_master_flat()

@@ -1,10 +1,14 @@
 """Data loading: host-side batching, then placement on the engine's device.
 
-The port of ``deepspeed_tpu/data.py`` at one card (dp = 1, so the global
-batch is the micro-batch).  ``DeepSpeedDataLoader`` yields collated batches
-of a dataset, with the reference's shuffle, ``default_rng(seed +
-epoch).permutation(n)``, so both packages feed the same rows at each step,
-and a ``state_dict`` that resumes an epoch mid-way.  With ``num_workers``
+The port of ``deepspeed_tpu/data.py``.  ``DeepSpeedDataLoader`` yields
+collated batches of a dataset, with the reference's shuffle,
+``default_rng(seed + epoch).permutation(n)``, so both packages feed the
+same rows at each step, and a ``state_dict`` that resumes an epoch mid-way.
+Under data parallelism every rank draws the same global batch of
+``micro x dp`` rows and collates only its own: rank ``r`` gets rows ``[r *
+micro, (r + 1) * micro)``, the block of the global batch that the JAX
+loader places on device ``r`` of the ``data`` axis.  The position, and so
+the ``state_dict``, is the same on every rank.  With ``num_workers``
 > 0 a producer thread collates ahead of the consumer (``prefetch_depth``
 batches); with ``device_prefetch`` it also stages each batch in pinned host
 memory and copies it to the device without blocking, so the copy of the
@@ -109,7 +113,10 @@ class DeepSpeedDataLoader:
 
     Args:
       dataset: indexable dataset (see the module docstring).
-      batch_size: rows per batch (micro-batch x dp; dp is 1 here).
+      batch_size: rows per global batch (micro-batch x dp).
+      dp_rank, dp_size: this rank's place in the data-parallel group; each
+        batch holds rows ``[dp_rank * batch_size / dp_size, ...)`` of the
+        global batch.
       device: where batches go, as torch tensors; None keeps host numpy
         batches.
       route: 'train' shuffles each epoch; other routes are sequential.
@@ -132,9 +139,12 @@ class DeepSpeedDataLoader:
                  drop_last: bool = True,
                  num_workers: int = 0,
                  prefetch_depth: int = 2,
-                 device_prefetch: bool = False):
+                 device_prefetch: bool = False,
+                 dp_rank: int = 0,
+                 dp_size: int = 1):
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self.dp_rank, self.dp_size = int(dp_rank), int(dp_size)
         self.device = None if device is None else torch.device(device)
         self.route = route
         self.collate_fn = collate_fn or default_collate
@@ -147,6 +157,13 @@ class DeepSpeedDataLoader:
         self.device_prefetch = bool(device_prefetch)
         if self.batch_size <= 0:
             raise ValueError("batch_size must be positive")
+        if (self.dp_size <= 0 or self.batch_size % self.dp_size
+                or not 0 <= self.dp_rank < self.dp_size):
+            raise ValueError(
+                f"batch_size {self.batch_size} must split evenly over "
+                f"dp_size {self.dp_size}, and dp_rank {self.dp_rank} lie "
+                f"in [0, dp_size)")
+        self.local_batch_size = self.batch_size // self.dp_size
         n = len(dataset)
         self.len = (n // self.batch_size if drop_last
                     else (n + self.batch_size - 1) // self.batch_size)
@@ -203,9 +220,10 @@ class DeepSpeedDataLoader:
         return self.collate_fn([self.dataset[int(i)] for i in sel])
 
     def _batches(self, idx: np.ndarray, start: int):
+        lo = self.dp_rank * self.local_batch_size
         for b in range(start, self.len):
-            yield self._make_batch(idx[b * self.batch_size:
-                                       (b + 1) * self.batch_size])
+            rows = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            yield self._make_batch(rows[lo:lo + self.local_batch_size])
 
     def __iter__(self) -> Iterator[Any]:
         idx = self._indices()

@@ -20,12 +20,36 @@ of ``ops/cuda_optim.py`` on the card).  Under fp16 the host reads the
 overflow flag once per boundary, before the in-place update it may skip;
 bf16 and fp32 boundaries never wait for the device.
 
+Data parallelism (``parallel/topology.py``, ``parallel/comm.py``): one
+process per device in a ``torch.distributed`` group (NCCL on cards, gloo on
+the CPU), each feeding its own micro-batches.  Without ZeRO the accumulated
+fp32 grads are all-reduced at the boundary with the reference's knobs
+(``fp32_allreduce``, prescale, ``gradient_predivide_factor``; chunked by
+``overlap_comm``'s buckets) and every rank updates every leaf.  Under ZeRO
+stage 1 or 2 (``zero.py``; the JAX engine's ``zero_flat`` branches) the
+fp32 masters and the Adam moments live in one flat, 128-aligned layout of
+which each rank keeps its partition:
+
+* stage 1 accumulates the micro-steps' grads in a flat fp32 buffer (the
+  per-leaf accumulators are its views) and reduce-scatters it at the
+  boundary; stage 2 reduce-scatters each micro-step's grads into a
+  partition-sized accumulator and finishes the cross-sub-group sum once;
+* the global grad norm is the owned partition's sum of squares, summed
+  within one partition group, and the overflow flag a MAX over the data
+  group; the fp16 loss scale runs the MEGATRON FSM;
+* the update is the Adam kernel on the owned partition (``overlap_comm``:
+  one reduce-scatter, update and all-gather per 32 MB bucket), and the
+  all-gather writes the updated weights, cast to the compute dtype, into
+  one flat buffer of which the module's parameters are views.
+
 ``training_data`` becomes a ``data.DeepSpeedDataLoader`` (``deepspeed_io``)
-whose batches arrive on the engine's device; ``save_checkpoint`` /
-``load_checkpoint`` write and read the JAX package's checkpoint layout
+whose batches arrive on the engine's device, each rank reading its rows of
+the global batch; ``save_checkpoint`` / ``load_checkpoint`` write and read
+the JAX package's checkpoint layout, ZeRO partition files included
 (``checkpoint.py``).  What the JAX engine has and this slice does not yet
-(ZeRO, ``train_many``, telemetry, resilience, graph lint) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+(ZeRO-3, tensor and pipeline parallelism, ``train_many``, telemetry,
+resilience, graph lint) raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,19 +57,24 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from deepspeed_tpu_torch import constants as C
 from deepspeed_tpu_torch import lr_schedules as schedules_mod
 from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch import weights as weights_mod
+from deepspeed_tpu_torch import zero as zero_mod
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.ops import optim as optim_mod
-from deepspeed_tpu_torch.parallel.topology import make_topology
+from deepspeed_tpu_torch.parallel import comm
+from deepspeed_tpu_torch.parallel.topology import (init_distributed,
+                                                   make_topology)
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
 
@@ -151,8 +180,13 @@ class DeepSpeedTorchEngine:
         if not isinstance(model, nn.Module):
             raise TypeError("model must be a torch.nn.Module returning the "
                             "loss from forward(*batch)")
-        if dist_init_required or getattr(args, "deepspeed_mpi", False):
-            raise _unported("multi-process training", "Queue 1 item 5")
+        # the JAX engine's bootstrap (engine.py:332-336): an explicit
+        # request, MPI discovery, or the launcher's environment
+        use_mpi = bool(getattr(args, "deepspeed_mpi", False))
+        if dist_init_required or use_mpi or (
+                dist_init_required is None
+                and "DSTPU_COORDINATOR" in os.environ):
+            init_distributed(use_mpi=use_mpi, device=device)
         self.module = model
         self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
@@ -186,8 +220,19 @@ class DeepSpeedTorchEngine:
         self.device = self.topology.device
         self.dp_world_size = self.topology.dp
         self.mp_world_size = self.topology.mp
+        self.global_rank = self.topology.rank
         self.config = DeepSpeedConfig(cfg_src,
                                       dp_world_size=self.dp_world_size)
+        # knobs of upstream's NCCL schedule that one collective per bucket
+        # leaves without effect: accepted, with the JAX engine's warnings
+        if self.config.disable_allgather:
+            logger.warning(
+                "disable_allgather=true is a no-op: the ZeRO weight "
+                "all-gather is one collective per bucket")
+        if self.config.allgather_size != C.ALLGATHER_SIZE_DEFAULT:
+            logger.warning(
+                "allgather_size is a no-op: the all-gather's chunks are the "
+                "overlap_comm buckets")
         validate_fn = getattr(model, "validate", None)
         if validate_fn is not None:
             validate_fn(self.mp_world_size)
@@ -198,19 +243,13 @@ class DeepSpeedTorchEngine:
         self._dynamic_loss_scale = (self.config.fp16_enabled
                                     and self.config.dynamic_loss_scale)
         self._configure_optimizer()
-        if self.config.zero_enabled:
-            # the JAX engine's guard first, so LAMB + ZeRO fails the same way
-            if self.base_optimizer.name not in ("adam", "adamw"):
-                raise DeepSpeedConfigError(
-                    f"zero_optimization stage {self.config.zero_stage} is "
-                    f"only supported for Adam-family optimizers, got "
-                    f"{self.base_optimizer.name!r} (reference guard: "
-                    f"deepspeed_light.py:450-457)")
-            raise _unported("zero_optimization", "Queue 1 item 6")
+        self._configure_zero()
         self._refuse_unported()
 
-        # loss scale (INLINE variant: the MEGATRON one serves ZeRO)
-        self._ls_variant = prec.INLINE
+        # loss scale: the MEGATRON FSM under ZeRO, the INLINE one otherwise
+        # (the JAX engine's engine.py:632)
+        self._ls_variant = (prec.MEGATRON if self.zero_enabled
+                            and self._dynamic_loss_scale else prec.INLINE)
         if self.config.fp16_enabled and self.config.dynamic_loss_scale:
             self.loss_scale_state = prec.from_dynamic_args(
                 self.config.dynamic_loss_scale_args, variant=self._ls_variant,
@@ -233,13 +272,24 @@ class DeepSpeedTorchEngine:
         self._init_parameters()
         self._group_defs, self._group_ids = self._resolve_param_groups(
             param_groups)
-        self.opt_state = self.base_optimizer.init(self.master)
+        if self.zero_flat:
+            self.opt_state = optim_mod.OptimizerState(
+                step=0, m={"flat": torch.zeros_like(self.master_flat)},
+                v={"flat": torch.zeros_like(self.master_flat)})
+            lo, part = self._owned_range()
+            self._owned_segments = self.flat_meta.segments(lo, lo + part)
+        else:
+            self.opt_state = self.base_optimizer.init(self.master)
 
         self.micro_steps = 0
         self.global_steps = 0
         self.skipped_steps = 0
         self.overflow = False
-        self._acc = None            # fp32 grads summed over micro-steps
+        # fp32 grads summed over micro-steps: a {name: tensor} dict; under
+        # ZeRO stage 1 a flat [padded] buffer (``_acc_views`` its leaves),
+        # under stage 2 the owned [partition]
+        self._acc = None
+        self._acc_views = None
         self._last_loss = None
 
         self.timers = SynchronizedWallClockTimer()
@@ -304,6 +354,52 @@ class DeepSpeedTorchEngine:
             if hit:
                 raise _unported(what, item)
 
+    def _configure_zero(self):
+        """ZeRO stage, partition groups and overlap buckets (the JAX
+        engine's ``engine.py:504-586`` at mp = pp = 1)."""
+        cfg = self.config
+        self.zero_enabled = cfg.zero_enabled
+        self.zero_stage = cfg.zero_stage if self.zero_enabled else 0
+        self.zero_flat = self.zero_stage in (1, 2)
+        dp = self.dp_world_size
+        if self.zero_enabled:
+            # the reference's Adam-family guard (the flat layout is built
+            # for m + v state), with the JAX engine's message
+            if self.base_optimizer.name not in ("adam", "adamw"):
+                raise DeepSpeedConfigError(
+                    f"zero_optimization stage {cfg.zero_stage} is only "
+                    f"supported for Adam-family optimizers (Lion is admitted "
+                    f"at stage 3, where the update is per-leaf elementwise), "
+                    f"got {self.base_optimizer.name!r} (reference guard: "
+                    f"deepspeed_light.py:450-457)")
+            if self.zero_stage == 3:
+                raise _unported("zero_optimization stage 3",
+                                "Queue 1 item 11")
+            pps = cfg.zero_parameter_parallel_size
+            pps = dp if pps in (None, 0) else int(pps)
+            if pps <= 0 or dp % pps != 0:
+                raise DeepSpeedConfigError(
+                    f"zero_optimization.parameter_parallel_size={pps} must "
+                    f"divide the DP world size ({dp})")
+            self.topology = self.topology.with_subgroups(pps)
+        self.zero_pps = self.topology.pps if self.zero_flat else dp
+        # overlap_comm: the boundary's collectives and update split into
+        # 128-aligned buckets; DSTPU_OVERLAP=off|on beats the config
+        self.overlap_comm = bool(cfg.zero_overlap_comm)
+        mode = os.environ.get("DSTPU_OVERLAP", "").strip().lower()
+        if mode in ("off", "0", "false"):
+            self.overlap_comm = False
+        elif mode in ("on", "1", "true"):
+            self.overlap_comm = True
+        elif mode:
+            raise DeepSpeedConfigError(
+                f"DSTPU_OVERLAP={mode!r} is not a valid mode: use 'on' or "
+                f"'off'")
+        # bucket size in fp32 elements, floored to the 128-element tile
+        self.comm_bucket_elems = max(
+            128, (int(cfg.zero_comm_bucket_mb * (1 << 20)) // 4 // 128)
+            * 128)
+
     def _configure_optimizer(self):
         """Client optimizer beats JSON (upstream _configure_optimizer)."""
         if self.client_optimizer is not None:
@@ -328,23 +424,51 @@ class DeepSpeedTorchEngine:
     @torch.no_grad()
     def _init_parameters(self):
         """fp32 masters on the device, and the module's parameters in the
-        compute dtype (aliasing the masters in fp32)."""
+        compute dtype (aliasing the masters in fp32).  Under ZeRO 1-2 the
+        masters are this rank's partition of the flat layout
+        (``master_flat``; ``master`` is None) and the parameters are views
+        of one flat compute-dtype buffer (``_params_flat``), which the
+        boundary's all-gather writes."""
         self.module.to(self.device)
         cdt = self.policy.compute_dtype
+        self._params = dict(self.module.named_parameters())
+        if self.zero_flat:
+            self.flat_meta = zero_mod.make_flat_meta(self._params,
+                                                     self.zero_pps)
+            flat32 = zero_mod.flatten_tree(
+                {k: p.detach() for k, p in self._params.items()},
+                self.flat_meta, dtype=prec.MASTER_DTYPE)
+            lo, part = self._owned_range()
+            self.master_flat = flat32[lo:lo + part].clone()
+            self._params_flat = flat32.to(cdt)
+            del flat32
+            views = zero_mod.unflatten_tree(self._params_flat,
+                                            self.flat_meta)
+            for name, p in self._params.items():
+                p.data = views[name]
+            self.master = None
+            return
+        self.flat_meta = None
+        self.master_flat = None
         self.master = {}
-        for name, p in self.module.named_parameters():
+        for name, p in self._params.items():
             self.master[name] = p.detach().to(
                 dtype=prec.MASTER_DTYPE, copy=True).contiguous()
             p.data = (self.master[name] if cdt == prec.MASTER_DTYPE
                       else self.master[name].to(cdt))
-        self._params = dict(self.module.named_parameters())
+
+    def _owned_range(self):
+        """``(start, length)`` of this rank's partition in the flat
+        layout."""
+        part = self.flat_meta.partition
+        return self.topology.partition_id * part, part
 
     def _resolve_param_groups(self, defs):
         """Leaves join the FIRST group whose ``params`` regex matches their
         JAX pytree path (``"['blocks']['qkv_w']"``); unmatched leaves form
         group 0 with the base optimizer's hyperparameters."""
         if not defs:
-            return [{}], {k: 0 for k in self.master}
+            return [{}], {k: 0 for k in self._params}
         for d in defs:
             if "params" not in d:
                 raise DeepSpeedConfigError(
@@ -361,7 +485,7 @@ class DeepSpeedTorchEngine:
                     f"per-group 'betas' given but optimizer "
                     f"'{self.base_optimizer.name}' does not consume betas")
         pats = [re.compile(d["params"]) for d in defs]
-        paths = {k: _keystr(k) for k in self.master}
+        paths = {k: _keystr(k) for k in self._params}
         for d, pat in zip(defs, pats):
             if not any(pat.search(s) for s in paths.values()):
                 raise DeepSpeedConfigError(
@@ -408,7 +532,7 @@ class DeepSpeedTorchEngine:
         return self.config.steps_per_print
 
     def zero_optimization(self):
-        return self.config.zero_enabled
+        return self.zero_enabled
 
     def fp16_enabled(self):
         return self.config.fp16_enabled
@@ -446,7 +570,9 @@ class DeepSpeedTorchEngine:
                      collate_fn=None, num_local_io_workers=None,
                      data_sampler=None):
         """A ``DeepSpeedDataLoader`` of ``dataset`` whose batches arrive on
-        the engine's device (reference deepspeed_light.py:535-567).
+        the engine's device, this rank's rows of each global batch of
+        ``batch_size`` (default micro-batch x dp; reference
+        deepspeed_light.py:535-567).
         ``num_local_io_workers`` > 0 collates on a producer thread, which
         also stages each batch to the device (default: one for the train
         route, none otherwise)."""
@@ -469,7 +595,9 @@ class DeepSpeedTorchEngine:
             tput_timer=self.tput_timer if route == C.ROUTE_TRAIN else None,
             seed=self.seed,
             num_workers=int(num_local_io_workers),
-            device_prefetch=True)
+            device_prefetch=True,
+            dp_rank=self.global_rank,
+            dp_size=self.dp_world_size)
 
     # --------------------------------------------------------------- forward
 
@@ -522,41 +650,106 @@ class DeepSpeedTorchEngine:
         (total * (self.loss_scale_state.cur_scale / gas)).backward()
         self._last_loss = None
         with torch.no_grad():
-            if self._acc is None:
-                self._acc = {}
-            for name, p in self._params.items():
-                g = p.grad
-                if g is None:
-                    continue
-                if name in self._acc:
-                    self._acc[name].add_(g.float())
-                else:
-                    # a fp32 grad becomes the accumulator itself
-                    self._acc[name] = g.float()
-                p.grad = None
+            if self.zero_stage == 2:
+                self._accumulate_partition()
+            elif self.zero_flat:
+                self._accumulate_flat()
+            else:
+                self._accumulate_leaves()
         if wcb:
-            self.timers(BACKWARD_TIMER).stop(sync_on=list(self._acc.values()))
+            self.timers(BACKWARD_TIMER).stop(sync_on=self._acc)
         if loss is None:
             return None
         if isinstance(loss, (tuple, list)):
             return type(loss)(l.detach() / gas for l in loss)
         return loss.detach() / gas
 
+    def _accumulate_leaves(self):
+        """Add each parameter's grad, in fp32, to its accumulator."""
+        if self._acc is None:
+            self._acc = {}
+        for name, p in self._params.items():
+            g = p.grad
+            if g is None:
+                continue
+            if name in self._acc:
+                self._acc[name].add_(g.float())
+            else:
+                # a fp32 grad becomes the accumulator itself
+                self._acc[name] = g.float()
+            p.grad = None
+
+    def _flat_grads(self, out):
+        """The parameters' grads written into the leaf views of ``out`` (a
+        flat fp32 [padded] buffer, zeros where a leaf has no grad)."""
+        views = zero_mod.unflatten_tree(out, self.flat_meta)
+        for name, p in self._params.items():
+            if p.grad is not None:
+                views[name].copy_(p.grad)
+                p.grad = None
+        return views
+
+    def _accumulate_flat(self):
+        """ZeRO-1: the grads summed into one flat fp32 buffer whose leaf
+        views are the per-leaf accumulators; the boundary reduce-scatters
+        it whole."""
+        if self._acc is None:
+            self._acc = torch.zeros(self.flat_meta.padded,
+                                    dtype=torch.float32, device=self.device)
+            self._acc_views = self._flat_grads(self._acc)
+            return
+        for name, p in self._params.items():
+            if p.grad is not None:
+                self._acc_views[name].add_(p.grad)
+                p.grad = None
+
+    def _accumulate_partition(self):
+        """ZeRO-2: this micro-step's grads reduce-scatter onto the owned
+        partition (the cross-sub-group sum waits for the boundary) and add
+        up there: the accumulator is [partition], not the model."""
+        flat = torch.zeros(self.flat_meta.padded, dtype=torch.float32,
+                           device=self.device)
+        self._flat_grads(flat)
+        part = self._scatter(flat, across_subgroups=False)
+        del flat
+        if self._acc is None:
+            self._acc = part
+        else:
+            self._acc.add_(part)
+
     # ------------------------------------------------------------------- step
 
-    def _reduce(self, g):
-        """The data-parallel reduction envelope of
-        ``deepspeed_tpu.parallel.comm.scaled_reduce`` at world size 1: the
-        sum is the identity, the pre/post scaling is kept."""
-        cfg, world = self.config, float(self.dp_world_size)
-        if cfg.prescale_gradients:
-            f = cfg.gradient_predivide_factor
-            if f != 1.0:
-                g = g / f
-            if f != world:
-                g = g / (world / f)
-            return g
-        return g / world if world != 1.0 else g
+    def _reduce_knobs(self):
+        cfg = self.config
+        return dict(fp32_allreduce=cfg.fp32_allreduce,
+                    prescale_gradients=cfg.prescale_gradients,
+                    gradient_predivide_factor=cfg.gradient_predivide_factor)
+
+    def _subgroups(self):
+        return (self.topology.within, self.topology.across)
+
+    def _comm_buckets(self):
+        """Bucket bounds over the owned partition under overlap_comm;
+        None is the serial boundary (one collective, one update)."""
+        if not self.overlap_comm:
+            return None
+        return comm.bucket_bounds(self.flat_meta.partition,
+                                  self.comm_bucket_elems)
+
+    def _scatter(self, flat, across_subgroups=True):
+        """Reduce-scatter a flat fp32 [padded] gradient onto the owned
+        [partition] (the JAX engine's ``_scatter_grads_local``); ``flat``
+        may be overwritten."""
+        kw = dict(self._reduce_knobs(), partition_group_size=self.zero_pps,
+                  across_subgroups=across_subgroups,
+                  subgroups=self._subgroups())
+        bounds = self._comm_buckets()
+        topo = self.topology
+        if bounds is not None:
+            return comm.reduce_scatter_grads_bucketed(
+                flat, topo.group, self.dp_world_size, bounds, **kw)
+        return comm.reduce_scatter_grads(flat, topo.group,
+                                         self.dp_world_size, **kw)
 
     def _hypers(self):
         """(lr, beta1, beta2, weight_decay), each a float or a per-leaf
@@ -572,29 +765,41 @@ class DeepSpeedTorchEngine:
         return tuple({k: rows[gid][j] for k, gid in self._group_ids.items()}
                      for j in range(4))
 
+    def _combined_scale(self, total_norm):
+        """The unscale-and-clip divisor of the update (1.0 when neither
+        applies)."""
+        clip = self.clip_grad
+        if self.config.fp16_enabled:
+            return prec.combined_unscale_and_clip_factor(
+                total_norm, self.loss_scale_state, clip)
+        if clip > 0:
+            return prec.combined_unscale_and_clip_factor(
+                total_norm, prec.static_loss_scale_state(1.0, self.device),
+                clip)
+        return 1.0
+
     @torch.no_grad()
     def _boundary_update(self):
-        """Norm, overflow, update, loss-scale FSM; returns the overflow as
-        a host bool under fp16 (where it decides the skip) else False."""
+        """DP reduction, norm, overflow, update, loss-scale FSM; returns
+        the overflow as a host bool under fp16 (where it decides the skip)
+        else False."""
+        if self.zero_flat:
+            return self._zero_boundary_update()
         fp16 = self.config.fp16_enabled
-        grads = {k: self._reduce(g) for k, g in self._acc.items()}
+        grads = comm.allreduce_grads(
+            self._acc, self.topology.group, self.dp_world_size,
+            bucket_elems=(self.comm_bucket_elems if self.overlap_comm
+                          else None),
+            **self._reduce_knobs())
         self._acc = None
+        # the reduced grads are the same on every rank: so are the norm
+        # and the overflow flag
         norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
                              for g in grads.values()])
         sq = torch.sum(norms * norms)
         # a non-finite grad makes the squared norm non-finite
         overflow = ~torch.isfinite(sq)
-        total_norm = torch.sqrt(sq)
-        clip = self.clip_grad
-        if fp16:
-            combined = prec.combined_unscale_and_clip_factor(
-                total_norm, self.loss_scale_state, clip)
-        elif clip > 0:
-            combined = prec.combined_unscale_and_clip_factor(
-                total_norm, prec.static_loss_scale_state(1.0, self.device),
-                clip)
-        else:
-            combined = 1.0
+        combined = self._combined_scale(torch.sqrt(sq))
         skip = bool(overflow) if fp16 else False
         if not skip:
             lr, b1, b2, wd = self._hypers()
@@ -608,6 +813,74 @@ class DeepSpeedTorchEngine:
             self.loss_scale_state = prec.update_loss_scale(
                 self.loss_scale_state, overflow, variant=self._ls_variant)
         return skip
+
+    def _zero_boundary_update(self):
+        """The ZeRO-1/2 boundary (the JAX engine's ``_make_step_local``,
+        flat branch): the reduced gradient of the owned partition, the
+        overflow flag agreed over the data group, the global norm summed
+        within one partition group, then per bucket the Adam kernel on the
+        partition and the all-gather of the updated weights into the
+        module's parameters.  Under fp16 an overflow skips the update on
+        every rank (reference zero_optimizer.py:349-359)."""
+        topo = self.topology
+        if self.zero_stage == 2:
+            gpart = comm.finish_subgroup_reduce(
+                self._acc, self.dp_world_size, self.zero_pps,
+                self._subgroups())
+        else:
+            gpart = self._scatter(self._acc)
+        self._acc = self._acc_views = None
+        local = torch.linalg.vector_norm(gpart, dtype=torch.float32)
+        # a non-finite element makes the partition's norm non-finite
+        overflow = comm.overflow_any(~torch.isfinite(local), topo.group)
+        sq = (local * local).reshape(1)
+        if topo.within is not None:
+            # partitions repeat across the dp / pps sub-groups: sum within
+            # one, so each element counts once
+            dist.all_reduce(sq, group=topo.within)
+        combined = self._combined_scale(torch.sqrt(sq[0]))
+        fp16 = self.config.fp16_enabled
+        skip = bool(overflow) if fp16 else False
+        if not skip:
+            self._zero_update(gpart, combined)
+        if fp16:
+            self.loss_scale_state = prec.update_loss_scale(
+                self.loss_scale_state, overflow, variant=self._ls_variant)
+        return skip
+
+    def _zero_update(self, gpart, combined):
+        """Per bucket (the whole partition with overlap_comm off): the Adam
+        kernel on the owned partition, cut at leaf boundaries where param
+        groups differ, then the bucket's all-gather, cast to the compute
+        dtype, into ``_params_flat``."""
+        lr, b1, b2, wd = self._hypers()
+        grouped = len(self._group_defs) > 1
+        part = self.flat_meta.partition
+        topo = self.topology
+        rows = self._params_flat.view(self.zero_pps, part)
+        master, st = self.master_flat, self.opt_state
+        for s, e in self._comm_buckets() or ((0, part),):
+            if grouped:
+                segs = [(max(a, s) - s, min(b, e) - s, name)
+                        for a, b, name in self._owned_segments
+                        if a < e and b > s]
+            else:
+                segs = [(0, e - s, None)]
+            seg_state = optim_mod.OptimizerState(
+                step=st.step, m={"flat": st.m["flat"][s:e]},
+                v={"flat": st.v["flat"][s:e]})
+            self.base_optimizer.update_flat(
+                master[s:e], gpart[s:e], seg_state, segs, lr=lr, beta1=b1,
+                beta2=b2, weight_decay=wd, combined_scale=combined)
+            bucket = master[s:e].to(self.policy.compute_dtype)
+            # a [pps, w] column block is contiguous only for one row
+            out = rows[:, s:e] if self.zero_pps == 1 else None
+            block = comm.allgather_partition_bucket(
+                bucket, topo.group, self.dp_world_size, self.zero_pps,
+                self._subgroups(), out=out)
+            if out is None:
+                rows[:, s:e].copy_(block)
+        st.step += 1
 
     def _post_boundary_bookkeeping(self, overflow: bool):
         self.global_steps += 1
@@ -628,10 +901,10 @@ class DeepSpeedTorchEngine:
         if self.is_gradient_accumulation_boundary():
             assert self._acc is not None, "step() with no accumulated grads"
             self._post_boundary_bookkeeping(self._boundary_update())
-            self.tput_timer.stop(sync_on=self.master)
+            self.tput_timer.stop(sync_on=self._state_tensor())
         self.micro_steps += 1
         if wcb:
-            self.timers(STEP_TIMER).stop(sync_on=self.master)
+            self.timers(STEP_TIMER).stop(sync_on=self._state_tensor())
             self.timers.log([FORWARD_TIMER, BACKWARD_TIMER, STEP_TIMER],
                             memory_breakdown=self.config.memory_breakdown)
 
@@ -639,9 +912,12 @@ class DeepSpeedTorchEngine:
 
     def train_batch(self, batch):
         """Forward+backward over gas micro-batches, then the boundary step.
-        ``batch`` leaves carry a leading [gas * micro] axis; micro-step i
-        takes rows [i*micro, (i+1)*micro), as the JAX engine's scan does.
-        Returns the last micro-step's loss (fp32, detached)."""
+        ``batch`` is this rank's: its leaves carry a leading [gas * micro]
+        axis, and micro-step i takes rows [i*micro, (i+1)*micro), as the
+        JAX engine's scan does.  (The JAX engine takes the global
+        [dp * gas * micro] batch, of which rank r's block is rows [r * gas
+        * micro, (r + 1) * gas * micro).)  Returns the last micro-step's
+        loss (fp32, detached)."""
         assert self.training, "train_batch() requires train mode"
         batch = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
         gas = self.gradient_accumulation_steps()
@@ -650,7 +926,7 @@ class DeepSpeedTorchEngine:
             raise ValueError(
                 f"train_batch: batch leaves disagree on the leading dim "
                 f"({sorted(leads)}); every leaf must carry the same "
-                f"[gas * micro * dp] axis")
+                f"[gas * micro] axis")
         lead = leads.pop()
         if lead % gas != 0:
             raise ValueError(
@@ -707,12 +983,21 @@ class DeepSpeedTorchEngine:
             load_optimizer_states=load_optimizer_states,
             load_lr_scheduler_states=load_lr_scheduler_states)
 
+    def _state_tensor(self):
+        """The fp32 masters: what a timer synchronises on."""
+        return self.master_flat if self.zero_flat else self.master
+
     def _optimizer_state_dict(self):
-        return {"opt_state": {"step": self.opt_state.step,
-                              "m": self.opt_state.m, "v": self.opt_state.v},
-                "loss_scale_state": self.loss_scale_state._asdict(),
-                "zero_enabled": False, "zero_stage": 0,
-                "master": self.master}
+        sd = {"opt_state": {"step": self.opt_state.step,
+                            "m": self.opt_state.m, "v": self.opt_state.v},
+              "loss_scale_state": self.loss_scale_state._asdict(),
+              "zero_enabled": self.zero_enabled,
+              "zero_stage": self.zero_stage}
+        if self.zero_flat:
+            sd["master_flat"] = self.master_flat
+        else:
+            sd["master"] = self.master
+        return sd
 
     @torch.no_grad()
     def _optimizer_load_state_dict(self, sd):
@@ -735,10 +1020,24 @@ class DeepSpeedTorchEngine:
             k: torch.as_tensor(sd["loss_scale_state"][k]).to(
                 device=v.device, dtype=v.dtype)
             for k, v in self.loss_scale_state._asdict().items()})
+        if self.zero_flat:
+            self.master_flat.copy_(sd["master_flat"])
+            self._params_from_master_flat()
+            return
         load(self.master, sd["master"], "master")
         for name, p in self._params.items():
             if p.data_ptr() != self.master[name].data_ptr():
                 p.copy_(self.master[name])
+
+    @torch.no_grad()
+    def _params_from_master_flat(self):
+        """The compute-dtype parameters re-derived from the partitioned
+        master: every rank's partition, cast, all-gathered into
+        ``_params_flat`` (collective: every rank calls it)."""
+        comm.allgather_params(
+            self.master_flat.to(self.policy.compute_dtype),
+            self.topology.group, self.dp_world_size, self.zero_pps,
+            self._subgroups(), out=self._params_flat)
 
     # ------------------------------------------------------------- reporting
 
@@ -752,4 +1051,4 @@ class DeepSpeedTorchEngine:
                     step, self.skipped_steps, lr, mom)
 
     def num_parameters(self) -> int:
-        return sum(math.prod(p.shape) for p in self.master.values())
+        return sum(math.prod(p.shape) for p in self._params.values())

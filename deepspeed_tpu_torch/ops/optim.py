@@ -133,6 +133,34 @@ class Adam(Optimizer):
                            (lr, beta1, beta2, weight_decay), combined_scale,
                            leaf)
 
+    def update_flat(self, p, g, state, segments, *, lr=None, beta1=None,
+                    beta2=None, weight_decay=None, combined_scale=1.0):
+        """One step on a flat segment of the ZeRO layout, in place: ``p``,
+        ``g``, ``state.m["flat"]`` and ``state.v["flat"]`` are 1-D slices
+        of one length.  ``segments`` cuts it into ``(start, stop, name)``
+        pieces, each updated by one kernel launch with the hypers of leaf
+        ``name`` (None: the defaults); a single piece when no param groups
+        exist.  The per-element function is ``update``'s, so a leaf cut
+        at a partition or bucket boundary updates as if whole (the JAX
+        package expands per-element hyper vectors instead,
+        ``deepspeed_tpu/ops/optim.py:176-181``).  The bias correction is
+        that of step ``state.step + 1``; ``state.step`` is not advanced:
+        the caller advances it once, after the last segment of the
+        step."""
+        m, v = state.m["flat"], state.v["flat"]
+        hypers = (lr, beta1, beta2, weight_decay)
+        rows = []
+        for _, _, name in segments:
+            lr_l, b1, b2, wd = self._resolve(name, *hypers)
+            rows.append((b1, b2, self._step_size(lr_l, state.step + 1, b1,
+                                                 b2), wd, lr_l))
+        scal = cuda_optim.make_scalars(rows, combined_scale, p.device)
+        for i, (s, e, _) in enumerate(segments):
+            cuda_optim.fused_adam_update(
+                p[s:e], g[s:e], m[s:e], v[s:e], scal[i], eps=self.eps,
+                eps_inside_sqrt=self.eps_inside_sqrt,
+                decoupled=self.decoupled_decay)
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamW(Adam):

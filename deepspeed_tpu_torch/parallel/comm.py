@@ -1,0 +1,320 @@
+"""Collectives with the reference's communication knobs.
+
+The port of ``deepspeed_tpu/parallel/comm.py``.  Each function takes a
+``torch.distributed`` process group where the JAX function takes a mesh
+axis name; ``group=None`` means no process group (one process), where a
+reduction is the identity and a gather returns its input.  The knob
+semantics are the JAX package's, which are the reference's
+``allreduce_bucket`` (deepspeed_light.py:819-849): ``fp32_allreduce``
+upcasts before the sum, ``prescale_gradients`` divides by
+``gradient_predivide_factor`` before and by ``world / predivide`` after,
+and the default divides by the world size after.  ``scaled_reduce`` is the
+one owner of that order.
+
+Reductions work IN PLACE where they can: the tensor handed to
+``scaled_reduce`` or ``allreduce_grads`` may be overwritten (the engine
+hands over its own accumulators).  A division by 1 is skipped, since it
+changes no bit.
+
+Partition layout (ZeRO): a flat ``[padded]`` buffer is ``pps``
+partitions of ``padded / pps`` elements, rank ``r`` of a partition group
+owning partition ``r``; with ``partition_group_size`` (``pps``) below the
+world size the ranks form ``dp / pps`` consecutive blocks
+(``subgroup_index_groups``), each holding every partition once, and a
+rank's ``subgroups`` are its ``(within, across)`` groups
+(``topology.Topology``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """Sum ``x`` over ``group``, keeping this rank's chunk in ``out``
+    (``reduce_scatter_single`` where the installed torch has it)."""
+    fn = getattr(dist, "reduce_scatter_single", None)
+    if fn is None:
+        fn = dist.reduce_scatter_tensor
+    fn(out, x, group=group)
+
+
+def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """Gather every rank's ``x`` of ``group`` into ``out``, in rank order
+    (``all_gather_single`` where the installed torch has it)."""
+    fn = getattr(dist, "all_gather_single", None)
+    if fn is None:
+        fn = dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+def _in_place(g: torch.Tensor, fp32_allreduce: bool) -> bool:
+    """Whether ``scaled_reduce`` reduces ``g`` in place (no upcast)."""
+    return not (fp32_allreduce and g.dtype != torch.float32)
+
+
+def _sum_over(group):
+    """In-place SUM all-reduce over ``group`` (identity without one)."""
+    def reduce_fn(x):
+        if group is not None:
+            dist.all_reduce(x, group=group)
+        return x
+    return reduce_fn
+
+
+def scaled_reduce(g: torch.Tensor, reduce_fn, world_size: int,
+                  fp32_allreduce: bool = False,
+                  prescale_gradients: bool = False,
+                  gradient_predivide_factor: float = 1.0) -> torch.Tensor:
+    """The reference's scaling envelope around any sum-reduction
+    ``reduce_fn`` (which may return a new tensor, as a reduce-scatter
+    does, or reduce in place):
+
+    * ``fp32_allreduce``: upcast before the reduce, cast back after;
+    * prescale: divide by ``gradient_predivide_factor`` before the reduce,
+      then by ``world / predivide`` after;
+    * postscale (default): reduce, then divide by the world size.
+
+    ``g`` itself may be overwritten."""
+    orig_dtype = g.dtype
+    if fp32_allreduce and g.dtype != torch.float32:
+        g = g.float()
+    if prescale_gradients:
+        if gradient_predivide_factor != 1.0:
+            g.div_(gradient_predivide_factor)
+        g = reduce_fn(g)
+        if gradient_predivide_factor != world_size:
+            g.div_(world_size / gradient_predivide_factor)
+    else:
+        g = reduce_fn(g)
+        if world_size != 1:
+            g.div_(world_size)
+    if g.dtype != orig_dtype:
+        g = g.to(orig_dtype)
+    return g
+
+
+def allreduce_grads(grads, group, world_size: int,
+                    fp32_allreduce: bool = False,
+                    prescale_gradients: bool = False,
+                    gradient_predivide_factor: float = 1.0,
+                    bucket_elems: Optional[int] = None):
+    """Sum-reduce a ``{name: grad}`` dict over ``group`` and average
+    (knobs as ``scaled_reduce``); returns the reduced dict, whose tensors
+    may be the inputs, reduced in place.  ``None`` grads stay None.
+
+    ``bucket_elems`` (overlap_comm): a leaf larger than this reduces as
+    128-aligned chunks of its flat view (``bucket_bounds``), each its own
+    collective.  Chunking keeps every element's addends and their order,
+    so it is bit-exact with the whole-leaf reduce."""
+    knobs = dict(fp32_allreduce=fp32_allreduce,
+                 prescale_gradients=prescale_gradients,
+                 gradient_predivide_factor=gradient_predivide_factor)
+    reduce_fn = _sum_over(group)
+
+    def reduce_one(g):
+        if g is None:
+            return None
+        if bucket_elems is not None and g.numel() > bucket_elems:
+            flat = g.view(-1)
+            parts = [scaled_reduce(flat[s:e], reduce_fn, world_size, **knobs)
+                     for s, e in bucket_bounds(flat.numel(), bucket_elems)]
+            if _in_place(g, fp32_allreduce):
+                return g
+            return torch.cat(parts).view(g.shape)
+        return scaled_reduce(g, reduce_fn, world_size, **knobs)
+
+    return {k: reduce_one(g) for k, g in grads.items()}
+
+
+def bucket_bounds(total: int, bucket_elems: int,
+                  align: int = 128) -> Tuple[Tuple[int, int], ...]:
+    """Contiguous ``(start, stop)`` slices covering ``[0, total)``, each
+    of at most ``max(bucket_elems, align)`` elements, every boundary a
+    multiple of ``align`` (the ZeRO partition is 128-padded, so a bucket
+    of fp32 starts 512-byte aligned).  One bucket when ``bucket_elems >=
+    total``."""
+    if total <= 0:
+        return ((0, total),)
+    step = max(align, (int(bucket_elems) // align) * align)
+    return tuple((s, min(s + step, total)) for s in range(0, total, step))
+
+
+def subgroup_index_groups(world_size: int, group_size: int):
+    """Rank lists of the ZeRO parameter-parallel sub-groups (reference
+    deepspeed_light.py:63-77):
+
+    * ``within``: consecutive blocks of ``group_size`` ranks, the partition
+      owners (``[[0..g-1], [g..2g-1], ...]``);
+    * ``across``: the ranks holding the same partition in different blocks
+      (``[[p, p+g, p+2g, ...] for p in range(g)]``)."""
+    repl = world_size // group_size
+    within = [list(range(b * group_size, (b + 1) * group_size))
+              for b in range(repl)]
+    across = [[p + b * group_size for b in range(repl)]
+              for p in range(group_size)]
+    return within, across
+
+
+def _partition_groups(group, world_size, partition_group_size, subgroups):
+    """``(scatter group, its size, across group or None)``."""
+    pps = world_size if partition_group_size is None else int(
+        partition_group_size)
+    if pps == world_size:
+        return group, pps, None
+    if subgroups is None:
+        raise ValueError(f"partition_group_size={pps} < world size "
+                         f"{world_size} needs this rank's (within, across) "
+                         f"subgroups")
+    return subgroups[0], pps, subgroups[1]
+
+
+def _scatter_fn(scatter_group, pps, across, across_subgroups, out=None):
+    """A reduce-scatter over ``scatter_group`` into ``out`` (a new tensor
+    when None), then the sum across sub-groups when asked."""
+    def reduce_fn(x):
+        dst = out if out is not None else torch.empty(
+            x.numel() // pps, dtype=x.dtype, device=x.device)
+        if scatter_group is None:
+            dst.copy_(x.reshape(-1))
+        else:
+            _reduce_scatter(dst, x.reshape(-1), scatter_group)
+        if across is not None and across_subgroups:
+            dist.all_reduce(dst, group=across)
+        return dst
+    return reduce_fn
+
+
+def reduce_scatter_grads(flat_grad: torch.Tensor, group, world_size: int,
+                         fp32_allreduce: bool = False,
+                         prescale_gradients: bool = False,
+                         gradient_predivide_factor: float = 1.0,
+                         partition_group_size: Optional[int] = None,
+                         across_subgroups: bool = True,
+                         subgroups=None) -> torch.Tensor:
+    """Reduce-scatter a flat ``[padded]`` gradient over ``group``,
+    returning this rank's ``[padded / pps]`` partition (knobs as
+    ``scaled_reduce``).  ``flat_grad`` may be overwritten (the prescale
+    divides it in place).
+
+    With ``partition_group_size`` g < world the scatter runs within this
+    rank's block of g ranks and the partial sums then add up across the
+    blocks, so every rank ends with the fully reduced gradient of its
+    partition.  ``across_subgroups=False`` leaves that cross-block sum to
+    one ``finish_subgroup_reduce`` at the boundary (ZeRO-2 accumulates
+    several scatters first)."""
+    scatter_group, pps, across = _partition_groups(
+        group, world_size, partition_group_size, subgroups)
+    return scaled_reduce(
+        flat_grad, _scatter_fn(scatter_group, pps, across, across_subgroups),
+        world_size, fp32_allreduce=fp32_allreduce,
+        prescale_gradients=prescale_gradients,
+        gradient_predivide_factor=gradient_predivide_factor)
+
+
+def reduce_scatter_grads_bucketed(flat_grad: torch.Tensor, group,
+                                  world_size: int,
+                                  bounds: Sequence[Tuple[int, int]],
+                                  fp32_allreduce: bool = False,
+                                  prescale_gradients: bool = False,
+                                  gradient_predivide_factor: float = 1.0,
+                                  partition_group_size: Optional[int] = None,
+                                  across_subgroups: bool = True,
+                                  subgroups=None) -> torch.Tensor:
+    """Bucketed ``reduce_scatter_grads`` (overlap_comm): the flat
+    ``[padded]`` gradient is viewed as ``[pps, partition]`` (row r = the
+    partition rank r owns) and each column bucket ``[pps, s:e]`` of
+    ``bounds`` (slices of the partition) reduce-scatters as its own
+    collective into ``partition[s:e]``.
+
+    Bit-exact with the serial scatter: element ``(r, s + j)`` of the view
+    is flat element ``r * partition + s + j``, so each bucket reduces the
+    same addends onto the same owner as the whole scatter does, and the
+    buckets' outputs, written in place, are the rank's contiguous
+    partition."""
+    scatter_group, pps, across = _partition_groups(
+        group, world_size, partition_group_size, subgroups)
+    part = flat_grad.numel() // pps
+    flat2d = flat_grad.view(pps, part)
+    direct = _in_place(flat_grad, fp32_allreduce)
+    out = torch.empty(part, dtype=flat_grad.dtype, device=flat_grad.device)
+    for s, e in bounds:
+        # a [pps, w] column block is contiguous only for one row
+        block = flat2d[:, s:e] if pps == 1 else flat2d[:, s:e].contiguous()
+        res = scaled_reduce(
+            block, _scatter_fn(scatter_group, pps, across, across_subgroups,
+                               out[s:e] if direct else None),
+            world_size, fp32_allreduce=fp32_allreduce,
+            prescale_gradients=prescale_gradients,
+            gradient_predivide_factor=gradient_predivide_factor)
+        if res.data_ptr() != out[s:].data_ptr():
+            out[s:e].copy_(res)
+    return out
+
+
+def allgather_partition_bucket(bucket: torch.Tensor, group,
+                               world_size: Optional[int] = None,
+                               partition_group_size: Optional[int] = None,
+                               subgroups=None,
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """All-gather ONE updated bucket (a ``[w]`` slice of the owned
+    partition) into its ``[pps, w]`` block: row r is rank r's slice, so
+    block element ``(r, j)`` is flat element ``r * partition + s + j`` of
+    the serial gather's layout.  Written into ``out`` when given."""
+    gather_group, pps, _ = _partition_groups(
+        group, world_size or 1, partition_group_size, subgroups)
+    if out is None:
+        out = torch.empty((pps, bucket.numel()), dtype=bucket.dtype,
+                          device=bucket.device)
+    if gather_group is None:
+        out.view(-1).copy_(bucket)
+    else:
+        _all_gather(out.view(-1), bucket, gather_group)
+    return out
+
+
+def finish_subgroup_reduce(partition: torch.Tensor, world_size: int,
+                           partition_group_size: int,
+                           subgroups=None) -> torch.Tensor:
+    """The deferred cross-sub-group sum of ``reduce_scatter_grads(...,
+    across_subgroups=False)``, run once on the accumulated partition (in
+    place)."""
+    if partition_group_size == world_size:
+        return partition
+    dist.all_reduce(partition, group=subgroups[1])
+    return partition
+
+
+def allgather_params(partition: torch.Tensor, group,
+                     world_size: Optional[int] = None,
+                     partition_group_size: Optional[int] = None,
+                     subgroups=None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather the updated partitions of the partition group into one flat
+    ``[pps * partition]`` buffer (the ZeRO weight all-gather, reference
+    zero_optimizer.py:397-432); within this rank's block when
+    ``partition_group_size`` < world.  Written into ``out`` when given."""
+    gather_group, pps, _ = _partition_groups(
+        group, world_size or 1, partition_group_size, subgroups)
+    if out is None:
+        out = torch.empty(pps * partition.numel(), dtype=partition.dtype,
+                          device=partition.device)
+    if gather_group is None:
+        out.copy_(partition)
+    else:
+        _all_gather(out, partition, gather_group)
+    return out
+
+
+def overflow_any(local_overflow, group) -> torch.Tensor:
+    """MAX all-reduce of the overflow flag so every rank agrees (reference
+    deepspeed_utils.py:62-75); returns a bool tensor on the flag's device
+    (no host read)."""
+    f = torch.as_tensor(local_overflow).to(torch.float32).reshape(1)
+    if group is not None:
+        dist.all_reduce(f, op=dist.ReduceOp.MAX, group=group)
+    return f[0] > 0

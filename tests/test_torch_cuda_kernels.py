@@ -112,6 +112,60 @@ def test_adam_kernel_matches_plain(dev, n, offset, eps_inside_sqrt,
     close(k[:1] + k[2:], p[:1] + p[2:])
 
 
+@pytest.mark.parametrize("start,stop", [(0, 4096 * 37), (128 * 5, 128 * 900),
+                                        (37, 4096 * 11 + 5), (3, 4)])
+def test_adam_kernel_on_a_view_of_a_flat_buffer(dev, start, stop):
+    """The ZeRO update's operands: slices of one flat fp32 buffer each
+    (a 128-aligned bucket takes the float4 path, a leaf cut at any element
+    the scalar one); nothing outside the slice moves."""
+    n = 4096 * 40
+    k = state(n, dev, seed=7)
+    p = [t.clone() for t in k]
+    scal = scal_row(dev)
+    cuda_optim.reset_launch_counts()
+    cuda_optim.fused_adam_update(*(t[start:stop] for t in k), scal,
+                                 eps=1e-8, decoupled=True)
+    assert cuda_optim.LAUNCHES["adam"] == 1
+    before = [t.clone() for t in p]
+    cuda_optim.adam_plain(*(t[start:stop] for t in p), scal, eps=1e-8,
+                          decoupled=True)
+    torch.cuda.synchronize()
+    close(k[:1] + k[2:], p[:1] + p[2:])
+    for got, was in zip(k, before):
+        assert torch.equal(got[:start], was[:start])
+        assert torch.equal(got[stop:], was[stop:])
+
+
+def test_flat_update_launches_once_per_segment_with_its_row(dev):
+    """``Adam.update_flat`` on a flat partition cut at leaf boundaries:
+    one launch per segment, each with its leaf's hypers, equal to the
+    plain version run segment by segment with the same rows."""
+    from deepspeed_tpu_torch.ops import optim as optim_mod
+    n = 4096 * 9 + 77
+    p, g, m, v = state(n, dev, seed=11)
+    ref = [t.clone() for t in (p, g, m, v)]
+    segs = [(0, 1000, "a"), (1000, 1003, "b"), (1003, 4096 * 5, None),
+            (4096 * 5, n, "a")]
+    lr = {"a": 3e-3, "b": 1e-2}
+    wd = {"a": 0.1}
+    opt = optim_mod.AdamW(lr=1e-3, weight_decay=0.01)
+    st = optim_mod.OptimizerState(step=4, m={"flat": m}, v={"flat": v})
+    cuda_optim.reset_launch_counts()
+    opt.update_flat(p, g, st, segs, lr=lr, weight_decay=wd,
+                    combined_scale=torch.tensor(2.0, device=dev))
+    assert cuda_optim.LAUNCHES["adam"] == len(segs) and st.step == 4
+    rows = []
+    for _, _, name in segs:
+        lr_l, b1, b2, wd_l = opt._resolve(name, lr, None, None, wd)
+        rows.append((b1, b2, opt._step_size(lr_l, 5, b1, b2), wd_l, lr_l))
+    scal = cuda_optim.make_scalars(rows, torch.tensor(2.0, device=dev), dev)
+    for i, (a, b, _) in enumerate(segs):
+        cuda_optim.adam_plain(*(t[a:b] for t in ref), scal[i], eps=opt.eps,
+                              decoupled=True)
+    torch.cuda.synchronize()
+    close([p, m, v], [ref[0], ref[2], ref[3]])
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     p, g, m, v = state(64, dev)
     scal = scal_row(dev)

@@ -254,3 +254,63 @@ def test_build_mlm_arrays_matches_the_jax_copy():
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_per_rank_rows_equal_the_jax_shards(dp):
+    """Rank r of dp yields rows [r * micro, (r + 1) * micro) of each global
+    batch: the shard the JAX loader places on device r of the data axis,
+    step by step, over two epochs."""
+    import jax
+    from deepspeed_tpu.parallel.topology import make_mesh
+    x, y = make_arrays()
+    micro = 4
+    jl = jdata.DeepSpeedDataLoader(jdata.ArrayDataset(x, y),
+                                   batch_size=micro * dp, seed=5,
+                                   mesh=make_mesh(devices=jax.devices()[:dp]))
+    jbatches = list(jl) + list(jl)
+    devices = jax.devices()[:dp]
+    for r in range(dp):
+        tl = tdata.DeepSpeedDataLoader(tdata.ArrayDataset(x, y),
+                                       batch_size=micro * dp, seed=5,
+                                       dp_rank=r, dp_size=dp)
+        tbatches = list(tl) + list(tl)
+        assert len(tbatches) == len(jbatches) == 2 * (64 // (micro * dp))
+        for jb, tb in zip(jbatches, tbatches):
+            for jleaf, tleaf in zip(jb, tb):
+                shard = next(s for s in jleaf.addressable_shards
+                             if s.device == devices[r])
+                assert tleaf.shape[0] == micro
+                np.testing.assert_array_equal(np.asarray(shard.data), tleaf)
+
+
+def test_state_dict_resume_holds_per_rank():
+    """Each rank's loader, resumed from its own mid-epoch state, yields the
+    rows that rank would have read next; the state is the same on every
+    rank."""
+    x, y = make_arrays()
+    dp, micro = 2, 4
+    states, refs = [], []
+    for r in range(dp):
+        kw = dict(batch_size=micro * dp, seed=3, dp_rank=r, dp_size=dp)
+        ref = list(tdata.DeepSpeedDataLoader(tdata.ArrayDataset(x, y), **kw))
+        dl = tdata.DeepSpeedDataLoader(tdata.ArrayDataset(x, y), **kw)
+        it = iter(dl)
+        for _ in range(3):
+            next(it)
+        states.append(dl.state_dict())
+        it.close()
+        resumed = tdata.DeepSpeedDataLoader(tdata.ArrayDataset(x, y), **kw)
+        resumed.load_state_dict(states[-1])
+        tail = list(resumed)
+        assert len(tail) == len(ref) - 3
+        for got, want in zip(tail, ref[3:]):
+            np.testing.assert_array_equal(got[1], want[1])
+        refs.append(ref)
+    assert states[0] == states[1] == {"epoch": 0, "batch": 3, "seed": 3}
+    # the ranks read disjoint rows that together make the global batch
+    for b0, b1 in zip(*refs):
+        assert not set(b0[1]) & set(b1[1])
+    with pytest.raises(ValueError, match="split evenly"):
+        tdata.DeepSpeedDataLoader(tdata.ArrayDataset(x, y), batch_size=6,
+                                  dp_rank=0, dp_size=4)

@@ -220,7 +220,7 @@ def test_unported_configs_raise(extra, match):
                         deepspeed_tpu_torch.config.DeepSpeedConfigError),
                        match=match):
         make_torch(config("Lamb", "bf16", **extra), init_params())
-    cfg = config("AdamW", "bf16", zero_optimization={"stage": 1})
+    cfg = config("AdamW", "bf16", zero_optimization={"stage": 3})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_torch(cfg, init_params())
 
