@@ -91,7 +91,8 @@ Phases (each prints one JSON line, with the seconds since the start as
 13. block_kernels: each whole-tile kernel against its plain version at the
    GPT-2 shape (B=32, n=16, T=128, d=64, bf16, causal; q, k, v views of the
    packed qkv), and once with padded keys and a fully padded row, with
-   times, bounds and scaled_dot_product_attention(is_causal=True).
+   times, bounds and scaled_dot_product_attention(is_causal=True); both
+   checks again at tp_gpt2's shape (n=8 local heads).
 14. zero_gpt2: GPT-2 medium as train_gpt2 on a one-rank NCCL process group
    (one card: data-parallel size 1, started through the port's
    init_distributed), 6 steps each with ZeRO off, stage 1 with overlap_comm
@@ -110,7 +111,21 @@ Phases (each prints one JSON line, with the seconds since the start as
    ZeRO partition file), run B, from another seed, loads it and takes
    steps 4-6; losses, flat master, moments, step, loss scale and counters
    bitwise equal to run A's; save bytes and seconds, load seconds.
-16. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+16. tp_gpt2: GPT-2 medium as train_gpt2 at mp 2, dp 1, as two processes
+   on the one card (``chip_smoke.py --tp-child``) over a gloo model group
+   (NCCL refuses two ranks on one device, so each collective stages
+   through the host, and the step times are not TP's on NVLink), from
+   train_gpt2's seed-0 weights cut by the engine: (a) ZeRO off, (b) ZeRO-1
+   with overlap_comm (22 buckets over the 178,034,688-element local flat),
+   saved after step 3, (c) fresh processes resume that save, (d) this
+   process loads its model states into an mp 1 engine, (e) a tiny fp32
+   GPT-2 at mp 2 against mp 1.  Checks: losses bitwise equal across the
+   ranks, the 9 replicated leaves' masters too, (a) within 2e-2 of
+   train_gpt2, (b) bitwise equal to (a), (c) bitwise (losses, flat master,
+   moments, step, loss scale), (d) equal to the joined shards, (e) within
+   1e-5, launches exact per rank (whole-tile 288 + 288, Adam 96 in (a) and
+   132 in (b)); step ms, peak memory per rank, the save's file sizes.
+17. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
@@ -1474,7 +1489,7 @@ def phase_train_gpt2(device):
          losses=y_losses, step_ms=y_ms, samples_per_s_steady=steady(y_ms),
          peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
          launches=y_launches)
-    return engine, batch, launches
+    return engine, batch, launches, losses
 
 
 def phase_train_gpt2_1024(device):
@@ -1611,19 +1626,26 @@ def phase_block_kernels(device, launches, prof_gpt2):
 
     from deepspeed_tpu_torch.ops import block_attention as battn
     B, n, T, d = (BLOCK_SHAPE[k] for k in "BnTd")
-    gen = torch.Generator(device=device).manual_seed(0)
-    qkv = torch.randn((B, T, n, 3, d), generator=gen,
-                      device=device).to(torch.bfloat16)
-    q, k, v = qkv.unbind(3)
-    do = torch.randn((B, T, n, d), generator=gen,
-                     device=device).to(torch.bfloat16)
-    ones = torch.ones((B, T), device=device)
-    padded = ones.clone()
-    padded[0] = 0.0
-    for r in range(1, B, 3):
-        padded[r, T - T // 8 - 3 * r:] = 0.0
 
-    def fns(mask):
+    def inputs(n):
+        """q, k, v views of a packed qkv of ``n`` heads, the upstream
+        gradient, and the two masks (no padding, as on the path; padded
+        keys and a fully padded row)."""
+        gen = torch.Generator(device=device).manual_seed(0)
+        qkv = torch.randn((B, T, n, 3, d), generator=gen,
+                          device=device).to(torch.bfloat16)
+        do = torch.randn((B, T, n, d), generator=gen,
+                         device=device).to(torch.bfloat16)
+        ones = torch.ones((B, T), device=device)
+        padded = ones.clone()
+        padded[0] = 0.0
+        for r in range(1, B, 3):
+            padded[r, T - T // 8 - 3 * r:] = 0.0
+        return (*qkv.unbind(3), do, ones, padded)
+
+    q, k, v, do, ones, padded = inputs(n)
+
+    def fns(mask, q=q, k=k, v=v, do=do):
         return {"block_fwd": (
             lambda: (battn.block_fwd(q, k, v, mask, True),),
             lambda: (battn.block_fwd_plain(q, k, v, mask, True),)),
@@ -1651,13 +1673,18 @@ def phase_block_kernels(device, launches, prof_gpt2):
 
     results = []
     padded_fns = fns(padded)
+    # tp_gpt2's shape: n / mp local heads of each rank
+    tq, tk, tv, tdo, tones, tpadded = inputs(n // TP)
+    tp_fns = [fns(m, tq, tk, tv, tdo) for m in (tones, tpadded)]
     for name, (kfn, pfn) in fns(ones).items():
-        errs = []
-        for kf, pf in ((kfn, pfn), padded_fns[name]):
-            got, want = kf(), pf()
-            sync(device)
-            errs.append(_attn_err(got, want))
-            del got, want
+        errs, tp_errs = [], []
+        for out, pairs in ((errs, ((kfn, pfn), padded_fns[name])),
+                           (tp_errs, [f[name] for f in tp_fns])):
+            for kf, pf in pairs:
+                got, want = kf(), pf()
+                sync(device)
+                out.append(_attn_err(got, want))
+                del got, want
         # plain, kernel, kernel, plain: compare within one call
         plain_a = _time_ms(pfn, device)
         kernel_a = _time_ms(kfn, device)
@@ -1670,17 +1697,20 @@ def phase_block_kernels(device, launches, prof_gpt2):
             "launches": launches[name], "path": "train_gpt2",
             "max_abs_err": max(e[0] for e in errs),
             "max_rel_err": max(e[1] for e in errs),
-            "ok": all(e[2] for e in errs),
+            "tp_shape_max_abs_err": max(e[0] for e in tp_errs),
+            "ok": all(e[2] for e in errs + tp_errs),
             **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
             "plain_ms": min(plain_a, plain_b),
             "bound_ms": bound, "bound_by": bound_by,
             **lib_ms[name], "profile_ms": profile_ms(prof_gpt2, name)})
     for r in results:
         emit("block_kernels", shape=BLOCK_SHAPE, dtype="bf16", causal=True,
-             rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
+             rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL,
+             tp_shape=dict(BLOCK_SHAPE, n=n // TP), **{k: r[k] for k in (
                  "name", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "library_event_ms", "profile_ms",
-                 "max_abs_err", "max_rel_err", "ok")})
+                 "max_abs_err", "max_rel_err", "tp_shape_max_abs_err",
+                 "ok")})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"whole-tile kernels {bad} disagree with their "
@@ -2001,6 +2031,320 @@ def phase_zero_ckpt(device):
         raise AssertionError(f"zero_ckpt phase failed: {checks} {bitwise}")
 
 
+# the tensor-parallel phase (tp_gpt2): GPT-2 medium as train_gpt2 at mp 2,
+# dp 1, as two processes on the one card over a gloo model group (NCCL
+# refuses two ranks on one device; gloo stages each collective through the
+# host).  Runs: (a) ZeRO off, (b) ZeRO-1 with overlap_comm, saved after
+# step 3, (c) that save resumed by fresh processes, (e) a tiny fp32 GPT-2
+# at mp 2 against mp 1; (d), in the parent: the mp 2 model states loaded
+# into an mp 1 GPT-2 medium.
+TP, TP_SAVE_AT = 2, 3
+TP_ZERO = {"stage": 1, "overlap_comm": True}
+# (a) against train_gpt2: the two partial products of every row-parallel
+# layer are rounded to bf16 before their sum, which train_gpt2 does not do
+TP_LOSS_RTOL = 2e-2
+# (e) tiny fp32 GPT-2 at mp 2 against mp 1: the same arithmetic in fp32,
+# the sums split over two ranks
+TP_TINY_RTOL = 1e-5
+TP_CHILD_TIMEOUT = 600
+
+
+def tp_engine(device, zero_cfg, seed=0, mp=TP, size="medium", cfg=None):
+    """GPT-2 ``size`` from ``seed`` at ``mp`` (medium: train_gpt2's weights
+    for seed 0), its global weights cut by the engine; ``cfg`` defaults to
+    train_gpt2's."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2
+    cfg = dict(cfg or gpt2_config(MICRO))
+    if zero_cfg is not None:
+        cfg["zero_optimization"] = zero_cfg
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = GPT2.from_size(size, generator=gen, device=device)
+    mesh = deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp)
+    return deepspeed_tpu_torch.initialize(config=cfg, model=model,
+                                          device=device, mesh=mesh)[0]
+
+
+def _sha(t):
+    """sha256 of a tensor's bytes (bitwise identity across processes)."""
+    import hashlib
+    import torch
+    raw = t.detach().contiguous().view(-1)
+    if raw.dtype != torch.int32 and raw.element_size() == 4:
+        raw = raw.view(torch.int32)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+
+
+def _tp_train(engine, batch, steps, device, save_dir=None):
+    """``steps`` train_batch steps; (losses, step_ms, launches)."""
+    losses, step_ms = [], []
+    sync(device)
+    reset_launch_counts()
+    for step in range(1, steps + 1):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if save_dir is not None and step == TP_SAVE_AT:
+            engine.save_checkpoint(save_dir)
+    return losses, step_ms, launch_counts()
+
+
+def _peak_gib(device):
+    import torch
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def _reset_peak(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _zero_digest(engine):
+    st = engine.opt_state
+    return {"master": _sha(engine.master_flat), "m": _sha(st.m["flat"]),
+            "v": _sha(st.v["flat"]), "step": st.step,
+            "loss_scale": [_sha(x.float().reshape(1))
+                           for x in engine.loss_scale_state]}
+
+
+def tp_child(spec_path, rank):
+    """One rank of the tp_gpt2 phase (started by ``phase_tp_gpt2``): mode
+    "train" runs (a), (b) and (e); mode "resume" runs (c).  Writes
+    ``<mode>_<rank>.json`` beside the spec."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.parallel import topology
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    size, cfg = spec["size"], gpt2_config(spec["micro"])
+    if device.type == "cuda":
+        for mod in _counted():          # the parent's build, loaded
+            mod.build()
+    topology.init_distributed(coordinator_address=spec["coordinator"],
+                              num_processes=TP, process_id=rank,
+                              device=device, backend="gloo")
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+    with deterministic():
+        if spec["mode"] == "train":
+            a = tp_engine(device, None, size=size, cfg=cfg)
+            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                             a.module.config.vocab_size)
+            _reset_peak(device)
+            losses, step_ms, launches = _tp_train(a, batch, GPT2_STEPS,
+                                                  device)
+            specs = a._param_specs
+            repl = {k: t for k, t in a.master.items()
+                    if specs[k] is None}
+            meta = zero.make_flat_meta(a.master, 1)
+            flat_a = zero.flatten_tree(a.master, meta)[:meta.total]
+            out["a"] = {"losses": losses, "step_ms": step_ms,
+                        "launches": launches, "leaves": len(a.master),
+                        "layers": a.module.config.num_layers,
+                        "peak_mem_gib": _peak_gib(device),
+                        "local_params": a.num_parameters(),
+                        "replicated": {k: _sha(t) for k, t in repl.items()},
+                        "replicated_elements": sum(t.numel()
+                                                   for t in repl.values())}
+            del a
+            free(device)
+            b = tp_engine(device, TP_ZERO, size=size, cfg=cfg)
+            _reset_peak(device)
+            losses, step_ms, launches = _tp_train(
+                b, batch, GPT2_STEPS, device, save_dir=spec["ckpt"])
+            meta, buckets = b.flat_meta, b._comm_buckets()
+            out["b"] = {"losses": losses, "step_ms": step_ms,
+                        "launches": launches,
+                        "peak_mem_gib": _peak_gib(device),
+                        "masters_equal_a": bool(torch.equal(
+                            b.master_flat[:meta.total], flat_a)),
+                        "layout": {"elements": meta.total,
+                                   "padded": meta.padded,
+                                   "buckets": len(buckets),
+                                   "last_bucket": buckets[-1][1]
+                                   - buckets[-1][0]},
+                        **_zero_digest(b)}
+            del b, flat_a
+            free(device)
+            e = tp_engine(device, None, size="tiny",
+                          cfg=gpt2_config(4, dtype="fp32", lr=1e-3))
+            out["e"] = {"losses": [
+                float(e.train_batch(lm_batch(4 * GAS, 128, 512,
+                                             seed=100 + step)))
+                for step in range(3)]}
+            del e
+        else:
+            c = tp_engine(device, TP_ZERO, seed=1, size=size, cfg=cfg)
+            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                             c.module.config.vocab_size)
+            c.load_checkpoint(spec["ckpt"])
+            losses, step_ms, launches = _tp_train(
+                c, batch, GPT2_STEPS - TP_SAVE_AT, device)
+            out["c"] = {"losses": losses, "step_ms": step_ms,
+                        "launches": launches, **_zero_digest(c)}
+            del c
+    free(device)
+    out["seconds"] = time.perf_counter() - t_start
+    (pathlib.Path(spec_path).parent / f"{spec['mode']}_{rank}.json"
+     ).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _tp_launch(work, mode, run):
+    """Run ``mode`` in TP child processes (``run``: the spec's device,
+    checkpoint directory, model size and micro-batch); their results by
+    rank."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = work / f"{mode}.json"
+    spec.write_text(json.dumps({"mode": mode, **run,
+                                "coordinator": f"tcp://127.0.0.1:{port}"}))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--tp-child", str(spec), str(r)])
+             for r in range(TP)]
+    try:
+        deadline = time.monotonic() + TP_CHILD_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [p.returncode for p in procs if p.returncode]
+    if bad:
+        raise AssertionError(f"tp_gpt2 {mode} ranks exited {bad}")
+    return [json.loads((work / f"{mode}_{r}.json").read_text())
+            for r in range(TP)]
+
+
+def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
+    """GPT-2 medium at mp 2 on two processes over a gloo model group (see
+    TP): runs (a)-(e), the checks of each, and the exact launches per
+    rank.  ``train_losses``: train_gpt2's, for the same weights and batch
+    at mp 1."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch import checkpoint as ck
+    from deepspeed_tpu_torch import weights
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="tp_gpt2_",
+                                         dir=ROOT / "build"))
+    ck_dir = str(work / "ckpt")
+    run = {"device": str(device), "ckpt": ck_dir, "size": size,
+           "micro": micro}
+    try:
+        tr = _tp_launch(work, "train", run)
+        tag = f"global_step{TP_SAVE_AT}"
+        files = {f: os.path.getsize(os.path.join(ck_dir, tag, f))
+                 for f in sorted(os.listdir(os.path.join(ck_dir, tag)))}
+        rs = _tp_launch(work, "resume", run)
+
+        # (d): the mp 2 model states into an mp 1 GPT-2 medium
+        d = tp_engine(device, None, seed=2, mp=1, size=size,
+                      cfg=gpt2_config(micro))
+        d.load_checkpoint(ck_dir, load_optimizer_states=False)
+        shards = [{k: ck.to_tensor(v) for k, v in weights.flatten_tree(
+            ck._load_obj(ck.model_file(ck_dir, tag, m))["module"]).items()}
+            for m in range(TP)]
+        joined = weights.flatten_tree(weights.combine_local_trees(
+            shards, d._param_specs))
+        cross_mp = all(torch.equal(p.cpu(), joined[k])
+                       for k, p in d.module.named_parameters())
+        del d, shards, joined
+        free(device)
+
+        # (e): the same tiny fp32 GPT-2 at mp 1 in this process
+        e = tp_engine(device, None, mp=1, size="tiny",
+                      cfg=gpt2_config(4, dtype="fp32", lr=1e-3))
+        tiny = [float(e.train_batch(lm_batch(4 * GAS, 128, 512,
+                                             seed=100 + step)))
+                for step in range(3)]
+        del e
+        free(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    a, b, c = ([r["a"] for r in tr], [r["b"] for r in tr],
+               [r["c"] for r in rs])
+    per_step = a[0]["layers"] * GAS        # layers x micro-batches
+    rest = GPT2_STEPS - TP_SAVE_AT
+    buckets = b[0]["layout"]["buckets"]
+    expect = {"a": no_launches(adam=a[0]["leaves"] * GPT2_STEPS,
+                               block_fwd=per_step * GPT2_STEPS,
+                               block_bwd=per_step * GPT2_STEPS),
+              "b": no_launches(adam=buckets * GPT2_STEPS,
+                               block_fwd=per_step * GPT2_STEPS,
+                               block_bwd=per_step * GPT2_STEPS),
+              "c": no_launches(adam=buckets * rest,
+                               block_fwd=per_step * rest,
+                               block_bwd=per_step * rest)}
+    gap = [abs(x - y) / abs(y) for x, y in zip(a[0]["losses"], train_losses)]
+    tiny_gap = max(abs(x - y) / abs(y)
+                   for x, y in zip(tr[0]["e"]["losses"], tiny))
+    checks = {
+        "losses_equal_across_ranks": all(
+            run[0]["losses"] == run[1]["losses"] for run in (a, b, c))
+        and tr[0]["e"]["losses"] == tr[1]["e"]["losses"],
+        "replicated_masters_equal_across_ranks":
+            a[0]["replicated"] == a[1]["replicated"]
+            and len(a[0]["replicated"]) == 9,
+        "a_vs_train_gpt2": max(gap) <= TP_LOSS_RTOL,
+        "zero1_equals_off": all(x["losses"] == y["losses"]
+                                and x["masters_equal_a"]
+                                for x, y in zip(b, a)),
+        "resume_bitwise": all(
+            z["losses"] == y["losses"][TP_SAVE_AT:]
+            and all(z[k] == y[k] for k in ("master", "m", "v", "step",
+                                           "loss_scale"))
+            for z, y in zip(c, b)),
+        "cross_mp_load": cross_mp,
+        "tiny_mp2_vs_mp1": tiny_gap <= TP_TINY_RTOL,
+        "launches": all(r["launches"] == expect[k] for k, run in
+                        (("a", a), ("b", b), ("c", c)) for r in run),
+    }
+    emit("tp_gpt2", model=f"gpt2-{size}", mp=TP, dp=1, seq=GPT2_SEQ,
+         micro_batch=micro, gas=GAS, dtype="bf16", optimizer="Adam",
+         lr=1e-4, backend=tr[0]["backend"],
+         transport="gloo over the host (not NVLink)",
+         local_params=a[0]["local_params"],
+         replicated_leaves=len(a[0]["replicated"]),
+         replicated_elements=a[0]["replicated_elements"],
+         layout=b[0]["layout"], ckpt_files=files,
+         losses={"a": a[0]["losses"], "b": b[0]["losses"],
+                 "c": c[0]["losses"], "train_gpt2": train_losses,
+                 "tiny_mp2": tr[0]["e"]["losses"], "tiny_mp1": tiny},
+         a_vs_train_gpt2_rel=gap, tiny_mp2_vs_mp1_max_rel=tiny_gap,
+         launches={k: [r["launches"] for r in run]
+                   for k, run in (("a", a), ("b", b), ("c", c))},
+         expected_launches=expect,
+         step_ms_over_gloo={k: [r["step_ms"] for r in run]
+                            for k, run in (("a", a), ("b", b), ("c", c))},
+         peak_mem_gib={k: [r["peak_mem_gib"] for r in run]
+                       for k, run in (("a", a), ("b", b))},
+         child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"tp_gpt2 phase failed: {checks}")
+    return {k: [r["launches"] for r in run]
+            for k, run in (("a", a), ("b", b))}
+
+
 def phase_attn_sweep(device, kernel, causal, seqs, tokens=4096, n=16,
                      d=64):
     """A kernel's fwd+bwd against the einsum path's, bf16, by sequence
@@ -2044,6 +2388,9 @@ def phase_attn_sweep(device, kernel, causal, seqs, tokens=4096, n=16,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.path.insert(0, str(ROOT))
+        return tp_child(sys.argv[2], int(sys.argv[3]))
     if not (ROOT / "deepspeed_tpu_torch" / "csrc" / "fused_optim.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2127,13 +2474,15 @@ def main() -> int:
     kernels += phase_attn_kernels(device, attn_launches, paths, profs)
     phase_bwd_sweep(device)
 
-    engine, batch, gpt2_launches = phase_train_gpt2(device)
+    engine, batch, gpt2_launches, gpt2_losses = phase_train_gpt2(device)
     prof_gpt2 = phase_profile(engine, batch, device, name="profile_gpt2")
     del engine, batch
     free(device)
     kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
     flat_adam, _ = phase_zero_gpt2(device)
     phase_zero_ckpt(device)
+    free(device)
+    tp_launches = phase_tp_gpt2(device, gpt2_losses)
     for k in kernels:
         if k["name"] == "adam":
             # per GPT-2 step: 16 leaves' launches (its ms: BERT-large's 22)
@@ -2144,6 +2493,10 @@ def main() -> int:
                 "elements", "buckets", "launches_overlap_on", "ms",
                 "event_ms", "bucket_loop_ms", "plain_ms", "bound_ms",
                 "library_ms", "max_abs_err")}
+        if k["name"] in ("adam", "block_fwd", "block_bwd"):
+            # per rank of tp_gpt2 (mp 2): ZeRO off (a) and ZeRO-1 (b)
+            k["tp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                     for run, ranks in tp_launches.items()}
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
@@ -2155,9 +2508,9 @@ def main() -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     print(card)
+    extra = ("flat_partition", "tp_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                   **({"flat_partition": r["flat_partition"]}
-                                      if "flat_partition" in r else {})}
+                                   **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,15 @@ It trains BERT pretraining (``models.bert``) and the GPT-2 causal LM
 updates (``ops/cuda_optim.py``) and for attention: the whole-tile kernels
 at short causal shapes (``ops/block_attention.py``) and the streaming ones
 from seq 256 (``ops/stream_attention.py``).  It trains data-parallel over
-a ``torch.distributed`` group (``parallel/``), with ZeRO stages 1 and 2
-(``zero.py``), loads data (``data.py``), saves and resumes checkpoints in
-the JAX package's layout (``checkpoint.py``) and fine-tunes the SQuAD span
-model (``models.BertForQuestionAnswering``, ``squad.py``).  What it does
-not cover yet is listed in ROADMAP.md.
+a ``torch.distributed`` group (``parallel/``), tensor-parallel with the
+Megatron layers (``model_parallel_size``, ``MeshConfig``), with ZeRO
+stages 1 and 2 (``zero.py``), loads data (``data.py``), saves and resumes
+checkpoints in the JAX package's layout (``checkpoint.py``) and
+fine-tunes the SQuAD span model (``models.BertForQuestionAnswering``,
+``squad.py``).  What it does not cover yet is listed in ROADMAP.md.
 """
+
+from deepspeed_tpu_torch.parallel.topology import MeshConfig  # noqa: F401
 
 __version__ = "0.1.0"
 __version_major__, __version_minor__, __version_patch__ = (
@@ -34,7 +37,8 @@ def initialize(args=None,
                config_params=None,
                param_groups=None,
                seed=0,
-               device=None):
+               device=None,
+               mesh=None):
     """Build the engine; returns (engine, optimizer, dataloader, lr_scheduler).
 
     ``model`` is an ``nn.Module`` whose ``forward(*batch)`` returns the loss.
@@ -46,7 +50,11 @@ def initialize(args=None,
     raises if there is none: pass ``device="cpu"`` to train on the CPU.
     ``dist_init_required`` (or ``args.deepspeed_mpi``, or
     ``DSTPU_COORDINATOR`` in the environment) starts the process group
-    (``parallel.topology.init_distributed``).
+    (``parallel.topology.init_distributed``).  ``mesh`` (a
+    ``MeshConfig``) beats the config's ``model_parallel_size``: the
+    started group's ranks form ``dp x mp``, model axis innermost, and
+    ``model`` (built at its global shapes) is narrowed to this rank's
+    slices.
     """
     from deepspeed_tpu_torch.engine import DeepSpeedTorchEngine
 
@@ -62,7 +70,8 @@ def initialize(args=None,
                                   config_params=config_params,
                                   param_groups=param_groups,
                                   seed=seed,
-                                  device=device)
+                                  device=device,
+                                  mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

@@ -1,19 +1,26 @@
-"""Checkpoint save and load: the mp = pp = 1 subset of
-``deepspeed_tpu/checkpoint.py`` (data parallelism and ZeRO stages 1-2
-included), in its layout and container, so that a checkpoint crosses
-between the two packages either way.
+"""Checkpoint save and load: the pp = 1 subset of
+``deepspeed_tpu/checkpoint.py`` (data and tensor parallelism and ZeRO
+stages 1-2 included), in its layout and container, so that a checkpoint
+crosses between the two packages either way.
 
-* layout   ``<dir>/<tag>/mp_rank_00_model_states.pt``, written by rank 0,
-           and a ``latest`` file naming the newest tag, published
-           atomically by rank 0 once every rank's writes are done (a
-           barrier before and after).  Under ZeRO 1-2 the model-state file
-           holds no optimizer state: rank ``r`` of the first partition
-           group writes ``zero_pp_rank_{r}_mp_rank_00optim_states.pt``
-           with its partition of the flat fp32 master and moments, the
-           trailing padding dropped (``partition_id``,
-           ``dp_world_size``, ``partition_count``, ``unpadded_total``,
-           ``step``, ``master``, ``m``, ``v``).  A restore re-pads for its
-           own data-parallel size, so a save at any dp loads at any dp.
+* layout   ``<dir>/<tag>/mp_rank_{MP:02d}_model_states.pt``, one per model
+           rank, written by that model rank's first data rank with its
+           LOCAL slices (``mp_rank``, ``mp_world_size``), and a ``latest``
+           file naming the newest tag, published atomically by rank 0 once
+           every rank's writes are done (a barrier before and after).
+           Under ZeRO 1-2 the model-state files hold no optimizer state:
+           data rank ``r`` of model rank ``m``'s first partition group
+           writes ``zero_pp_rank_{r}_mp_rank_{m:02d}optim_states.pt`` with
+           its partition of that model rank's flat fp32 master and
+           moments, the trailing padding dropped (``partition_id``,
+           ``mp_rank``, ``dp_world_size``, ``partition_count``,
+           ``mp_world_size``, ``unpadded_total``, ``step``, ``master``,
+           ``m``, ``v``).  A restore re-pads for its own data-parallel
+           size, so a save at any dp loads at any dp; model states (and
+           the optimizer state of a save without ZeRO) load at any mp,
+           combined and re-sharded by the model's ``partition_specs()``
+           (``weights.combine_local_trees``, ``weights.shard_tree``); ZeRO
+           partitions load at the saved mp only.
 * content  the module (compute-dtype parameters), the fp32 masters, the
            optimizer moments and step, the loss-scale state, the LR
            scheduler, the live param groups, the engine counters and the
@@ -31,8 +38,8 @@ between the two packages either way.
            arrays of up to 512 bytes as pickled numpy arrays; reading an
            inlined bf16 array needs ``ml_dtypes``, imported only then.
 
-ZeRO-3, tensor- and pipeline-parallel checkpoints raise
-``NotImplementedError`` naming their ROADMAP.md item.
+ZeRO-3 and pipeline-parallel checkpoints raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -464,8 +471,9 @@ def _is_z3_marker(obj) -> bool:
 
 
 def _read_model_state(load_dir: str, tag: Optional[str]):
-    """``(tag, state)`` of the tag's model-state file, or None when there
-    is no checkpoint.  Layouts this port cannot assemble raise."""
+    """``(tag, state)`` of the tag's model-state file of model rank 0, or
+    None when there is no checkpoint.  Layouts this port cannot assemble
+    raise."""
     tag = _resolve_tag(load_dir, tag)
     if tag is None:
         return None
@@ -473,9 +481,6 @@ def _read_model_state(load_dir: str, tag: Optional[str]):
     if mfile is None:
         return None
     state = _load_obj(mfile)
-    if int(state.get("mp_world_size", 1)) > 1:
-        raise _unported("loading a tensor-parallel checkpoint (mp > 1)",
-                        "Queue 1 item 10")
     if int(state.get("pp_world_size", 1)) > 1:
         raise _unported("loading a pipeline checkpoint (pp > 1)",
                         "Queue 1 item 11")
@@ -484,6 +489,28 @@ def _read_model_state(load_dir: str, tag: Optional[str]):
                                         for v in flat.values()):
         raise _unported("loading a ZeRO-3 checkpoint", "Queue 1 item 11")
     return tag, state
+
+
+def _saved_mp(state) -> int:
+    return int(state.get("mp_world_size", 1))
+
+
+def _mp_states(load_dir: str, tag: str, state0) -> list:
+    """The model-state files of every saved model rank, in rank order
+    (``state0``, already read, is rank 0's)."""
+    return [state0] + [_load_obj(model_file(load_dir, tag, m))
+                       for m in range(1, _saved_mp(state0))]
+
+
+def _combined(trees, specs) -> dict:
+    """The global tree of the saved model ranks' local ``trees``, as CPU
+    tensors (``specs``: the model's ``partition_specs()``)."""
+    if len(trees) > 1 and specs is None:
+        raise ValueError(
+            f"checkpoint was saved at mp={len(trees)}: combining its "
+            f"model-rank files needs the saving model's partition_specs()")
+    return weights_mod.combine_local_trees(
+        [_map_leaves(t, to_tensor) for t in trees], specs or {})
 
 
 # ------------------------------------------------------------ saving
@@ -563,9 +590,10 @@ def _snapshot(obj):
 
 
 def _engine_state(engine, client_state=None) -> dict:
-    """The model-state file's content for ``engine``, with live tensors
-    (written one leaf at a time).  Under ZeRO 1-2 the optimizer state is in
-    the partition files instead (``optimizer`` None)."""
+    """The model-state file's content for ``engine``'s model rank (its
+    local slices), with live tensors (written one leaf at a time).  Under
+    ZeRO 1-2 the optimizer state is in the partition files instead
+    (``optimizer`` None)."""
     opt = engine.opt_state
     lr_sched = engine.lr_scheduler
     optimizer = None if engine.zero_flat else {
@@ -588,10 +616,10 @@ def _engine_state(engine, client_state=None) -> dict:
         "micro_steps": engine.micro_steps,
         "zero_enabled": engine.zero_enabled,
         "zero_stage": engine.zero_stage,
-        "mp_world_size": 1,
+        "mp_world_size": engine.mp_world_size,
         "pp_world_size": 1,
         "client_state": dict(client_state or {}),
-        "mp_rank": 0,
+        "mp_rank": engine.mp_rank,
         "pp_stage": 0,
         "module": _tree(dict(engine.module.named_parameters())),
         "optimizer": optimizer,
@@ -599,22 +627,24 @@ def _engine_state(engine, client_state=None) -> dict:
 
 
 def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
-    """``(path, state)`` of this rank's ZeRO partition file: rank r of the
-    first partition group writes partition r (the other groups hold
-    copies), the trailing padding dropped so that a restore re-pads for
-    its own topology (the JAX package's ``_zero_checkpoint_writes``)."""
-    if engine.global_rank >= engine.zero_pps:
+    """``(path, state)`` of this rank's ZeRO partition file: data rank r of
+    its model rank's first partition group writes partition r (the other
+    groups hold copies), the trailing padding dropped so that a restore
+    re-pads for its own topology (the JAX package's
+    ``_zero_checkpoint_writes``)."""
+    topo = engine.topology
+    if topo.dp_rank >= engine.zero_pps:
         return []
     meta = engine.flat_meta
     lo, part = engine._owned_range()
     count = int(np.clip(meta.total - lo, 0, part))
     opt = engine.opt_state
     state = {
-        "partition_id": engine.topology.partition_id,
-        "mp_rank": 0,
+        "partition_id": topo.partition_id,
+        "mp_rank": topo.mp_rank,
         "dp_world_size": engine.dp_world_size,
         "partition_count": engine.zero_pps,
-        "mp_world_size": 1,
+        "mp_world_size": engine.mp_world_size,
         "pp_world_size": 1,
         "unpadded_total": meta.total,
         "step": np.asarray(opt.step, np.int32),
@@ -622,7 +652,8 @@ def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
         "m": opt.m["flat"][:count],
         "v": opt.v["flat"][:count],
     }
-    return [(zero_file(save_dir, tag, engine.topology.partition_id), state)]
+    return [(zero_file(save_dir, tag, topo.partition_id, topo.mp_rank),
+             state)]
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -638,7 +669,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     if async_save is None:
         async_save = bool(getattr(engine.config, "checkpoint_async_save",
                                   False))
-    if async_save and engine.dp_world_size > 1:
+    if async_save and _world(engine) > 1:
         logger.warning(
             "async_save requested in a multi-process run: falling back to "
             "synchronous saves (the publish barrier is a collective and "
@@ -649,11 +680,11 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     tag = tag or f"global_step{engine.global_steps}"
     path = os.path.join(save_dir, tag)
     writes = []
-    if engine.global_rank == 0:
+    if engine.topology.dp_rank == 0:
         state = _engine_state(engine, client_state)
         _reject_namedtuples(state["lr_scheduler"],
                             "lr_scheduler.state_dict()")
-        writes.append((model_file(save_dir, tag), state))
+        writes.append((model_file(save_dir, tag, engine.mp_rank), state))
     if engine.zero_flat:
         writes.extend(_zero_checkpoint_writes(engine, save_dir, tag))
     os.makedirs(path, exist_ok=True)
@@ -674,9 +705,13 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     return path
 
 
+def _world(engine) -> int:
+    return engine.dp_world_size * engine.mp_world_size
+
+
 def _barrier(engine) -> None:
-    if engine.dp_world_size > 1:
-        dist.barrier(group=engine.topology.group)
+    if _world(engine) > 1:
+        dist.barrier()
 
 
 def _publish(engine, save_dir: str, tag: str) -> None:
@@ -697,31 +732,39 @@ def _publish(engine, save_dir: str, tag: str) -> None:
 
 # ------------------------------------------------------------ loading
 
-def load_module_tree(load_dir: str, tag: Optional[str] = None):
-    """The checkpoint's module (a JAX-layout tree of CPU tensors) without
-    an engine: the pretrain -> fine-tune transfer read.  None when there
-    is no checkpoint under ``load_dir``."""
+def _module_tree(load_dir: str, tag: Optional[str], specs):
+    """``(tag, global module tree of CPU tensors)``, or None."""
     ASYNC_SAVER.wait()
     read = _read_model_state(load_dir, tag)
     if read is None:
         return None
-    return _map_leaves(read[1]["module"], to_tensor)
+    tag, state = read
+    return tag, _combined(
+        [s["module"] for s in _mp_states(load_dir, tag, state)], specs)
 
 
-def load_params_only(load_dir: str, tag: Optional[str] = None, dtype=None):
-    """``(tag, tree)``: the module only, as CPU tensors, floating leaves
-    cast to ``dtype`` when given; the optimizer state stays unread.  None
-    when there is no checkpoint."""
-    ASYNC_SAVER.wait()
-    read = _read_model_state(load_dir, tag)
+def load_module_tree(load_dir: str, tag: Optional[str] = None, specs=None):
+    """The checkpoint's module (a global JAX-layout tree of CPU tensors)
+    without an engine: the pretrain -> fine-tune transfer read.  A save at
+    mp > 1 needs ``specs``, the saving model's ``partition_specs()``.
+    None when there is no checkpoint under ``load_dir``."""
+    read = _module_tree(load_dir, tag, specs)
+    return None if read is None else read[1]
+
+
+def load_params_only(load_dir: str, tag: Optional[str] = None, dtype=None,
+                     specs=None):
+    """``(tag, tree)``: the module only (global, as ``load_module_tree``),
+    as CPU tensors, floating leaves cast to ``dtype`` when given; the
+    optimizer state stays unread.  None when there is no checkpoint."""
+    read = _module_tree(load_dir, tag, specs)
     if read is None:
         return None
 
-    def leaf(x):
-        t = to_tensor(x)
+    def leaf(t):
         return t.to(dtype) if dtype is not None and t.is_floating_point() \
             else t
-    return read[0], _map_leaves(read[1]["module"], leaf)
+    return read[0], _map_leaves(read[1], leaf)
 
 
 def _map_leaves(tree, fn):
@@ -767,12 +810,15 @@ def _rederive_masters(engine) -> None:
 
 
 def init_from_module_tree(engine, module) -> tuple:
-    """Copy same-named, same-shaped leaves of ``module`` into the engine's
-    parameters (the pretrain -> fine-tune start; a new task head keeps its
-    init) and re-derive the masters from them.  Returns ``(loaded,
-    skipped)``: the engine's leaf paths in the JAX key form
-    (``"['blocks']['qkv_w']"``)."""
+    """Copy same-named, same-shaped leaves of ``module`` (a global tree)
+    into the engine's parameters (the pretrain -> fine-tune start; a new
+    task head keeps its init), cut to the engine's model rank first, and
+    re-derive the masters from them.  Returns ``(loaded, skipped)``: the
+    engine's leaf paths in the JAX key form (``"['blocks']['qkv_w']"``)."""
     from deepspeed_tpu_torch.engine import _keystr
+    if engine.mp_world_size > 1:
+        module = weights_mod.shard_tree(module, engine._param_specs,
+                                        engine.mp_world_size, engine.mp_rank)
     src = weights_mod.flatten_tree(module)
     loaded, skipped = [], []
     for name, p in engine.module.named_parameters():
@@ -801,7 +847,15 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     tag, state = read
     saved_stage = int(state.get("zero_stage",
                                 1 if state.get("zero_enabled") else 0))
+    saved_mp, mp = _saved_mp(state), engine.mp_world_size
     if load_optimizer_states:
+        if engine.zero_flat and saved_stage in (1, 2) and saved_mp != mp:
+            raise ValueError(
+                f"zero checkpoint was saved with model_parallel_size="
+                f"{saved_mp}, pipeline_parallel_size=1; engine has mp={mp}, "
+                f"pp=1: ZeRO flat partitions are per-stage/shard and cannot "
+                f"be re-split (load with load_optimizer_states=False for a "
+                f"weights-only restore)")
         if engine.zero_flat and saved_stage == 3:
             raise ValueError(
                 "checkpoint was saved at ZeRO stage 3 (optimizer state "
@@ -830,14 +884,34 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             and hasattr(engine.lr_scheduler, "load_state_dict")):
         engine.lr_scheduler.load_state_dict(state["lr_scheduler"])
 
-    _load_flat(dict(engine.module.named_parameters()), state["module"],
-               "module")
+    if saved_mp == mp:
+        # this model rank's own file
+        if engine.mp_rank:
+            state = _load_obj(model_file(load_dir, tag, engine.mp_rank))
+        local = lambda get: get(state)
+    else:
+        # every saved model rank's file, combined and cut for this rank
+        states = _mp_states(load_dir, tag, state)
+
+        def local(get):
+            if get(states[0]) is None:
+                return None
+            return weights_mod.shard_tree(
+                _combined([get(s) for s in states], engine._param_specs),
+                engine._param_specs or {}, mp, engine.mp_rank)
+
+    _load_flat(dict(engine.module.named_parameters()),
+               local(lambda s: s["module"]), "module")
     opt = state.get("optimizer")
     if load_optimizer_states and engine.zero_flat:
         _load_zero_checkpoint(engine, load_dir, tag)
     elif load_optimizer_states and opt is not None:
-        _load_flat(engine.master, opt["master"], "optimizer.master")
-        saved = opt["opt_state"]
+        _load_flat(engine.master, local(lambda s: s["optimizer"]["master"]),
+                   "optimizer.master")
+        saved = {key: local(lambda s, key=key:
+                            s["optimizer"]["opt_state"][key])
+                 for key in ("m", "v")}
+        saved["step"] = opt["opt_state"]["step"]
         for key in ("m", "v"):
             live = getattr(engine.opt_state, key)
             if (live is None) != (saved[key] is None):
@@ -856,24 +930,26 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
 
 @torch.no_grad()
 def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
-    """This rank's partition of the flat fp32 master and moments from the
-    partition files of a save at ANY data-parallel size, re-padded for the
-    engine's layout; then the compute-dtype parameters re-derived from the
-    restored masters (the JAX package's ``_load_zero_checkpoint``).  A
-    save at another model or pipeline parallel size raises."""
+    """This rank's partition of its model rank's flat fp32 master and
+    moments from the partition files of a save at ANY data-parallel size,
+    re-padded for the engine's layout; then the compute-dtype parameters
+    re-derived from the restored masters (the JAX package's
+    ``_load_zero_checkpoint``).  A save at another model or pipeline
+    parallel size raises."""
     meta = engine.flat_meta
-    first = zero_file(load_dir, tag, 0)
+    mp, mp_rank = engine.mp_world_size, engine.mp_rank
+    first = zero_file(load_dir, tag, 0, mp_rank)
     if not os.path.exists(first):
         raise FileNotFoundError(
             f"no zero checkpoint shards under {load_dir}/{tag}")
     shard0 = _load_obj(first)
     saved_mp = int(shard0.get("mp_world_size", 1))
     saved_pp = int(shard0.get("pp_world_size", 1))
-    if saved_mp != 1 or saved_pp != 1:
+    if saved_mp != mp or saved_pp != 1:
         raise ValueError(
             f"zero checkpoint was saved with model_parallel_size="
             f"{saved_mp}, pipeline_parallel_size={saved_pp}; engine has "
-            f"mp=1, pp=1: ZeRO flat partitions are per-stage/shard and "
+            f"mp={mp}, pp=1: ZeRO flat partitions are per-stage/shard and "
             f"cannot be re-split (load with load_optimizer_states=False for "
             f"a weights-only restore)")
     # the recorded partition count, not the files present: a stale shard
@@ -884,7 +960,7 @@ def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
         raise ValueError(
             f"zero checkpoint has {total} elements, engine expects "
             f"{meta.total} (different model?)")
-    shards = [shard0] + [_load_obj(zero_file(load_dir, tag, r))
+    shards = [shard0] + [_load_obj(zero_file(load_dir, tag, r, mp_rank))
                          for r in range(1, saved_dp)]
     starts = np.cumsum([0] + [len(sh["master"]) for sh in shards])
     if starts[-1] != total:

@@ -42,14 +42,31 @@ which each rank keeps its partition:
   all-gather writes the updated weights, cast to the compute dtype, into
   one flat buffer of which the module's parameters are views.
 
+Tensor parallelism (``model_parallel_size`` in the config, or
+``initialize(mesh=MeshConfig(model_parallel_size=mp))``): the world is
+``dp x mp`` ranks, model axis innermost (``parallel/topology.py``).  The
+engine narrows the model's parameters to this rank's slices by its
+``partition_specs()`` and hands it the model group; the Megatron layers'
+collectives (``models/layers.py``) give every leaf its TRUE gradient on
+every model rank, so, unlike the JAX engine (which psums the replicated
+leaves and divides every leaf by mp, ``engine.py:1344-1368,1447-1458``),
+nothing is rescaled here.  The overflow flag is MAX-agreed over the model
+group and the squared norm sums each sharded leaf over it, a replicated
+leaf counting once, so every rank takes the same skip, clip and loss-scale
+decision.  LAMB's trust ratio stays per local shard, as in the JAX
+boundary update inside ``shard_map`` and upstream Megatron + FusedLamb.
+Under ZeRO each model rank partitions ITS local flat layout over its data
+group.
+
 ``training_data`` becomes a ``data.DeepSpeedDataLoader`` (``deepspeed_io``)
-whose batches arrive on the engine's device, each rank reading its rows of
-the global batch; ``save_checkpoint`` / ``load_checkpoint`` write and read
-the JAX package's checkpoint layout, ZeRO partition files included
-(``checkpoint.py``).  What the JAX engine has and this slice does not yet
-(ZeRO-3, tensor and pipeline parallelism, ``train_many``, telemetry,
-resilience, graph lint) raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+whose batches arrive on the engine's device, each data rank reading its
+rows of the global batch (the model ranks of a data group read the same
+rows); ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
+package's checkpoint layout, per-model-rank and ZeRO partition files
+included (``checkpoint.py``).  What the JAX engine has and this slice does
+not yet (ZeRO-3, sequence and pipeline parallelism, ``train_many``,
+telemetry, resilience, graph lint) raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -173,7 +190,8 @@ class DeepSpeedTorchEngine:
                  config_params=None,
                  param_groups=None,
                  seed: int = 0,
-                 device=None):
+                 device=None,
+                 mesh=None):
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize: model is "
                              "required")
@@ -216,11 +234,12 @@ class DeepSpeedTorchEngine:
                 raise DeepSpeedConfigError(
                     f"Could not read DeepSpeed config file {cfg_src!r}: {e}")
 
-        self.topology = make_topology(cfg_src, device)
+        self.topology = make_topology(cfg_src, device, mesh=mesh)
         self.device = self.topology.device
         self.dp_world_size = self.topology.dp
         self.mp_world_size = self.topology.mp
         self.global_rank = self.topology.rank
+        self.mp_rank = self.topology.mp_rank
         self.config = DeepSpeedConfig(cfg_src,
                                       dp_world_size=self.dp_world_size)
         # knobs of upstream's NCCL schedule that one collective per bucket
@@ -267,6 +286,7 @@ class DeepSpeedTorchEngine:
 
         if model_parameters is not None:
             weights_mod.params_from_numpy(model, model_parameters)
+        self._configure_model_parallel()
         if param_groups is None and self.client_optimizer is None:
             param_groups = self.config.optimizer_param_groups
         self._init_parameters()
@@ -278,6 +298,14 @@ class DeepSpeedTorchEngine:
                 v={"flat": torch.zeros_like(self.master_flat)})
             lo, part = self._owned_range()
             self._owned_segments = self.flat_meta.segments(lo, lo + part)
+            if self.mp_world_size > 1:
+                weights = dict(zip(self.flat_meta.names,
+                                   zero_mod.norm_dedup_weights(
+                                       self.flat_meta, self._param_specs,
+                                       self.mp_world_size)))
+                self._segment_weights = torch.tensor(
+                    [weights.get(name, 1.0) for _, _, name in
+                     self._owned_segments], device=self.device)
         else:
             self.opt_state = self.base_optimizer.init(self.master)
 
@@ -328,6 +356,31 @@ class DeepSpeedTorchEngine:
         from deepspeed_tpu_torch.models.transformer import check_remat
         if mcfg is not None and hasattr(mcfg, "remat_policy"):
             check_remat(self.module.config)
+
+    def _configure_model_parallel(self):
+        """The model's ``partition_specs()`` (``_param_specs``, dotted name
+        -> sharded dim or None; None without the hook), and under mp > 1
+        its parameters narrowed to this rank's slices and the model group
+        handed to it."""
+        specs_fn = getattr(self.module, "partition_specs", None)
+        specs = specs_fn() if specs_fn is not None else None
+        self._param_specs = (weights_mod.flatten_tree(specs)
+                             if specs is not None else None)
+        if self.mp_world_size == 1:
+            return
+        if specs is None:
+            raise ValueError(
+                f"model_parallel_size={self.mp_world_size} needs a model "
+                f"with partition_specs() (the sharded dim of each "
+                f"parameter)")
+        weights_mod.shard_module_(self.module, specs, self.mp_world_size,
+                                  self.mp_rank)
+        self.module.model_group = self.topology.model_group
+
+    def _sharded(self, name: str) -> bool:
+        """Whether leaf ``name`` is split over the model group."""
+        return (self._param_specs is not None
+                and self._param_specs.get(name) is not None)
 
     def _refuse_unported(self):
         cfg = self.config
@@ -596,7 +649,7 @@ class DeepSpeedTorchEngine:
             seed=self.seed,
             num_workers=int(num_local_io_workers),
             device_prefetch=True,
-            dp_rank=self.global_rank,
+            dp_rank=self.topology.dp_rank,
             dp_size=self.dp_world_size)
 
     # --------------------------------------------------------------- forward
@@ -792,13 +845,9 @@ class DeepSpeedTorchEngine:
                           else None),
             **self._reduce_knobs())
         self._acc = None
-        # the reduced grads are the same on every rank: so are the norm
-        # and the overflow flag
-        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                             for g in grads.values()])
-        sq = torch.sum(norms * norms)
-        # a non-finite grad makes the squared norm non-finite
-        overflow = ~torch.isfinite(sq)
+        # the reduced grads are the same on every data rank: so are the
+        # norm and the overflow flag
+        sq, overflow = self._sqnorm_and_overflow(grads)
         combined = self._combined_scale(torch.sqrt(sq))
         skip = bool(overflow) if fp16 else False
         if not skip:
@@ -813,6 +862,32 @@ class DeepSpeedTorchEngine:
             self.loss_scale_state = prec.update_loss_scale(
                 self.loss_scale_state, overflow, variant=self._ls_variant)
         return skip
+
+    def _sqnorm_and_overflow(self, grads):
+        """The global squared grad norm and the overflow flag of the
+        data-reduced ``grads`` (the JAX ``_global_overflow_and_sqnorm``):
+        sharded leaves' squares summed over the model group, replicated
+        leaves counted once, the flag MAX-agreed over the model group."""
+        def sq_sum(names):
+            if not names:
+                return torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            norms = torch.stack([torch.linalg.vector_norm(
+                grads[k], dtype=torch.float32) for k in names])
+            return torch.sum(norms * norms)
+
+        names = [k for k, g in grads.items() if g is not None]
+        if self.mp_world_size == 1:
+            sq = sq_sum(names)
+            # a non-finite grad makes the squared norm non-finite
+            return sq, ~torch.isfinite(sq)
+        sharded = comm.model_sum_(
+            sq_sum([k for k in names if self._sharded(k)]).reshape(1),
+            self.topology.model_group)[0]
+        sq = sharded + sq_sum([k for k in names if not self._sharded(k)])
+        overflow = comm.overflow_any(~torch.isfinite(sq),
+                                     self.topology.model_group)
+        return sq, overflow
 
     def _zero_boundary_update(self):
         """The ZeRO-1/2 boundary (the JAX engine's ``_make_step_local``,
@@ -830,14 +905,26 @@ class DeepSpeedTorchEngine:
         else:
             gpart = self._scatter(self._acc)
         self._acc = self._acc_views = None
-        local = torch.linalg.vector_norm(gpart, dtype=torch.float32)
-        # a non-finite element makes the partition's norm non-finite
-        overflow = comm.overflow_any(~torch.isfinite(local), topo.group)
-        sq = (local * local).reshape(1)
+        if self.mp_world_size == 1:
+            norms = torch.linalg.vector_norm(gpart, dtype=torch.float32)
+            sq = (norms * norms).reshape(1)
+        else:
+            # per leaf piece; replicated leaves weigh 1/mp, so the model
+            # group's sum counts each once (the JAX norm_dedup_weights)
+            norms = torch.stack([torch.linalg.vector_norm(
+                gpart[s:e], dtype=torch.float32)
+                for s, e, _ in self._owned_segments])
+            sq = torch.sum(self._segment_weights * norms * norms).reshape(1)
+        # a non-finite element makes its piece's norm non-finite
+        overflow = comm.overflow_any(~torch.isfinite(norms).all(),
+                                     topo.group)
+        if topo.model_group is not None:
+            overflow = comm.overflow_any(overflow, topo.model_group)
         if topo.within is not None:
             # partitions repeat across the dp / pps sub-groups: sum within
             # one, so each element counts once
             dist.all_reduce(sq, group=topo.within)
+        comm.model_sum_(sq, topo.model_group)
         combined = self._combined_scale(torch.sqrt(sq[0]))
         fp16 = self.config.fp16_enabled
         skip = bool(overflow) if fp16 else False

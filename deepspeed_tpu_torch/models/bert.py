@@ -1,12 +1,16 @@
 """BERT pretraining (MLM + optional NSP) and the SQuAD span model.
 
 The port of ``BertForPreTraining`` and ``BertForQuestionAnswering`` from
-``deepspeed_tpu/models/bert.py`` at mp = 1: post-LN encoder, MLM head tied
-to the word embedding, both MLM batch formats (dense labels; masked
-positions ``[B, P]``), the optional NSP head, the ``mlm_gather_budget``
-sparse head, and the span head of the fine-tune.  Parameter names and shapes
-are the JAX pytree's (``wte``, ``blocks.qkv_w``, ``mlm_bias``, ...), so
-``weights.py`` copies weights across name for name.
+``deepspeed_tpu/models/bert.py``: post-LN encoder, MLM head tied to the
+word embedding, both MLM batch formats (dense labels; masked positions
+``[B, P]``), the optional NSP head, the ``mlm_gather_budget`` sparse head,
+and the span head of the fine-tune.  Parameter names and shapes are the
+JAX pytree's (``wte``, ``blocks.qkv_w``, ``mlm_bias``, ...), so
+``weights.py`` copies weights across name for name.  Under tensor
+parallelism (``partition_specs``, ``bert.py:52-57,147-156``) ``wte`` and
+``mlm_bias`` ride the vocab shard, the blocks are Megatron-sharded, and the
+pooler, NSP, MLM dense and MLM LayerNorm, the span head and the other
+embeddings are replicated.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ class _BertBackbone(nn.Module):
         self.ln_emb_s = self._const(device, 1.0, h)
         self.ln_emb_b = self._const(device, 0.0, h)
         self.blocks = T.TransformerStack(config, generator, device)
+        #: the model process group (None: one model shard); the engine
+        #: sets it after narrowing the parameters to this rank's slices
+        self.model_group = None
 
     def _normal(self, generator, device, *shape):
         t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -68,6 +75,17 @@ class _BertBackbone(nn.Module):
         """Engine hook: shape checks against the model-parallel degree."""
         self.config.validate(mp_size)
 
+    def partition_specs(self):
+        """The sharded dim of each leaf over the model group (None:
+        replicated): the vocab-parallel ``wte`` and ``mlm_bias``, the
+        Megatron blocks, every other leaf replicated."""
+        specs = {k: None for k, _ in self.named_parameters()
+                 if not k.startswith("blocks.")}
+        specs.update(wte=0, blocks=T.block_partition_specs())
+        if "mlm_bias" in specs:
+            specs["mlm_bias"] = 0
+        return specs
+
     def with_config(self, **changes) -> None:
         """Replace config fields (the engine's activation-checkpointing
         override), keeping the weights."""
@@ -76,13 +94,14 @@ class _BertBackbone(nn.Module):
     def _encode(self, input_ids, attention_mask, token_type_ids):
         cfg = self.config
         T_len = input_ids.shape[1]
-        x = L.vocab_parallel_embedding(input_ids, self.wte)
+        x = L.vocab_parallel_embedding(input_ids, self.wte, self.model_group)
         x = x + self.wpe[:T_len].to(x.dtype)[None]
         x = x + torch.nn.functional.embedding(token_type_ids.long(),
                                               self.wtt.to(x.dtype))
         x = L.layer_norm(x, self.ln_emb_s, self.ln_emb_b, cfg.ln_eps)
         return T.stack_apply(x, dict(self.blocks.named_parameters()), cfg,
-                             attn_mask=attention_mask)
+                             attn_mask=attention_mask,
+                             group=self.model_group)
 
 
 class BertForPreTraining(_BertBackbone):
@@ -124,7 +143,7 @@ class BertForPreTraining(_BertBackbone):
         g = L.gelu(h @ self.mlm_dense_w.to(h.dtype)
                    + self.mlm_dense_b.to(h.dtype))
         g = L.layer_norm(g, self.mlm_ln_s, self.mlm_ln_b, self.config.ln_eps)
-        logits = L.vocab_parallel_logits(g, self.wte)
+        logits = L.vocab_parallel_logits(g, self.wte, self.model_group)
         return logits + self.mlm_bias.to(logits.dtype)
 
     def forward(self, input_ids, attention_mask, token_type_ids, *rest):
@@ -156,16 +175,19 @@ class BertForPreTraining(_BertBackbone):
                 w, pos = w[:, :P_], pos[:, :P_]
                 ids = torch.clamp(torch.gather(mlm_labels, 1, pos), min=0)
                 logits = self._mlm_head(L.gather_positions(x, pos))
-                tok_loss = L.vocab_parallel_cross_entropy(logits, ids)
+                tok_loss = L.vocab_parallel_cross_entropy(logits, ids,
+                                                         self.model_group)
                 loss = (torch.sum(tok_loss * w)
                         / torch.clamp(torch.sum(w), min=1.0))
             else:
                 logits = self._mlm_head(x)
-                tok_loss = L.vocab_parallel_cross_entropy(logits, mlm_labels)
+                tok_loss = L.vocab_parallel_cross_entropy(
+                    logits, mlm_labels, self.model_group)
                 loss = L.masked_mean_loss(tok_loss, mlm_labels >= 0)
         else:
             logits = self._mlm_head(L.gather_positions(x, mlm_positions))
-            tok_loss = L.vocab_parallel_cross_entropy(logits, mlm_ids)
+            tok_loss = L.vocab_parallel_cross_entropy(logits, mlm_ids,
+                                                     self.model_group)
             w = mlm_weights.float()
             loss = torch.sum(tok_loss * w) / torch.clamp(torch.sum(w),
                                                          min=1.0)

@@ -1,16 +1,17 @@
 """GPT-2 causal LM.
 
-The port of ``GPT2`` from ``deepspeed_tpu/models/gpt2.py`` at mp = 1:
-pre-LN causal blocks, learned position embeddings, the LM head tied to the
-token embedding, and the per-token cross-entropy averaged over labels >= 0.
+The port of ``GPT2`` from ``deepspeed_tpu/models/gpt2.py``: pre-LN causal
+blocks, learned position embeddings, the LM head tied to the token
+embedding, and the per-token cross-entropy averaged over labels >= 0.
 Parameter names, shapes and init distributions are the JAX pytree's
 (``wte``, ``wpe``, ``blocks.*``, ``lnf_s``, ``lnf_b``), so ``weights.py``
-copies weights across name for name.
+copies weights across name for name.  Under tensor parallelism
+(``partition_specs``, ``gpt2.py:97-103``) ``wte`` is vocab-parallel, the
+blocks Megatron-sharded, and the rest replicated.
 
 What the JAX model has and this port does not yet raises
 ``NotImplementedError`` naming its ROADMAP.md item where a caller reaches
-it: tensor parallelism (mp > 1), the ZeRO-3 fields, the MoE variant and the
-serving methods.
+it: the ZeRO-3 fields, the MoE variant and the serving methods.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ class GPT2(nn.Module):
         self.blocks = T.TransformerStack(config, generator, device)
         self.lnf_s = nn.Parameter(torch.ones(h, device=device))
         self.lnf_b = nn.Parameter(torch.zeros(h, device=device))
+        #: the model process group (None: one model shard); the engine
+        #: sets it after narrowing the parameters to this rank's slices
+        self.model_group = None
 
     @classmethod
     def from_size(cls, size: str, generator=None, device=None, **overrides):
@@ -78,9 +82,12 @@ class GPT2(nn.Module):
     def validate(self, mp_size: int = 1):
         """Engine hook: shape checks against the model-parallel degree."""
         self.config.validate(mp_size)
-        if mp_size != 1:
-            raise _unported("GPT-2 tensor parallelism (mp > 1)",
-                            "Queue 1 item 10")
+
+    def partition_specs(self):
+        """The sharded dim of each leaf over the model group (None:
+        replicated)."""
+        return {"wte": 0, "wpe": None, "blocks": T.block_partition_specs(),
+                "lnf_s": None, "lnf_b": None}
 
     def with_config(self, **changes) -> None:
         """Replace config fields (the engine's activation-checkpointing
@@ -90,12 +97,14 @@ class GPT2(nn.Module):
     def forward(self, tokens, labels):
         cfg = self.config
         T_len = tokens.shape[1]
-        x = L.vocab_parallel_embedding(tokens, self.wte)
+        group = self.model_group
+        x = L.vocab_parallel_embedding(tokens, self.wte, group)
         x = x + self.wpe[:T_len].to(x.dtype)[None]
-        x = T.stack_apply(x, dict(self.blocks.named_parameters()), cfg)
+        x = T.stack_apply(x, dict(self.blocks.named_parameters()), cfg,
+                          group=group)
         x = L.layer_norm(x, self.lnf_s, self.lnf_b, cfg.ln_eps)
-        logits = L.vocab_parallel_logits(x, self.wte)
-        loss = L.vocab_parallel_cross_entropy(logits, labels)
+        logits = L.vocab_parallel_logits(x, self.wte, group)
+        loss = L.vocab_parallel_cross_entropy(logits, labels, group)
         return L.masked_mean_loss(loss, labels >= 0)
 
     # ---------------------------------------------- not in this slice yet

@@ -1,10 +1,15 @@
-"""Transformer layer primitives at model-parallel size 1.
+"""Transformer layer primitives, tensor-parallel over a model group.
 
-The port of the mp = 1 subset of ``deepspeed_tpu/models/layers.py``.  With
-one model shard every collective there is the identity, so the
-column/row-parallel linears are ``x @ w`` with weights kept in the JAX
-``[in, out]`` layout, and the vocab-parallel embedding, logits and
-cross-entropy act on the whole vocabulary.
+The port of ``deepspeed_tpu/models/layers.py`` (``:173-271``).  Weights
+keep the JAX ``[in, out]`` layout; each function takes this rank's local
+slice and the model process group (``group``; None is one model shard,
+where every collective is the identity).  Where the JAX functions psum
+over the ``model`` mesh axis inside ``shard_map``, these use the Megatron
+pair of ``parallel/comm.py``: ``copy_to_model`` in front of every
+column-parallel input and of the tied LM head, ``reduce_from_model`` after
+every row-parallel product and vocab-parallel lookup.  So autograd gives
+every leaf its true gradient on every model rank, and a replicated leaf
+the same gradient on all of them.
 
 Attention follows the JAX package's ``core_attention`` and
 ``attention_plan`` (``layers.py:69-160``, ``:545-600``): per direction, the
@@ -21,10 +26,12 @@ import os
 import threading
 
 import torch
+import torch.distributed as dist
 
 from deepspeed_tpu_torch.ops import block_attention as battn
 from deepspeed_tpu_torch.ops import dispatch_attention as dattn
 from deepspeed_tpu_torch.ops import stream_attention as sattn
+from deepspeed_tpu_torch.parallel import comm
 # the einsum path lives with the dispatch shell; it keeps its name here
 from deepspeed_tpu_torch.ops.dispatch_attention import (  # noqa: F401
     _QKScores, xla_attention)
@@ -94,8 +101,9 @@ def named_saves(keep, replay=None):
         st.keep, st.record, st.replay, st.pos = prev
 
 
-def column_parallel_linear(x, w, b=None, name=None):
-    """x: [..., in]; w: [in, out].  Returns [..., out].
+def column_parallel_linear(x, w, b=None, name=None, group=None):
+    """x: [..., in], replicated over the model group; w: [in, out / mp].
+    Returns [..., out / mp], sharded on the feature dim.
 
     ``name`` is the port of ``jax.ad_checkpoint.checkpoint_name`` on the
     product (``"qkv"``, ``"ffn1"``): a named product runs as
@@ -103,6 +111,7 @@ def column_parallel_linear(x, w, b=None, name=None):
     by name (``named_saves``) and whose recompute then costs nothing.  The
     name goes on the product itself: an identity tag after it would leave
     the product to be replayed."""
+    x = comm.copy_to_model(x, group)
     if name is None:
         y = x @ w.to(x.dtype)
         if b is not None:
@@ -123,37 +132,80 @@ def column_parallel_linear(x, w, b=None, name=None):
     return _NamedLinear.apply(x, w, b, saved)
 
 
-def row_parallel_linear(x, w, b=None):
-    """x: [..., in]; w: [in, out].  At mp = 1 the same product as
-    ``column_parallel_linear``: the JAX psum over ``model`` is the
-    identity."""
-    return column_parallel_linear(x, w, b)
+def row_parallel_linear(x, w, b=None, group=None):
+    """x: [..., in / mp]; w: [in / mp, out]; b: [out], replicated.  The
+    partial products sum over the model group in the compute dtype (the
+    JAX ``psum`` of ``x_local @ w_local.astype(x.dtype)``); the result is
+    replicated."""
+    y = comm.reduce_from_model(x @ w.to(x.dtype), group)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
 
 
-def vocab_parallel_embedding(tokens, wte):
-    """tokens: int [...]; wte: [vocab, h] -> [..., h]."""
-    return torch.nn.functional.embedding(tokens.long(), wte)
+def _vocab_start(local_vocab, group):
+    """The first vocabulary row of this rank's shard."""
+    return 0 if group is None else dist.get_rank(group) * local_vocab
 
 
-def vocab_parallel_logits(h, wte):
-    """Weight-tied LM head: h [..., hid] @ wte[vocab, hid]^T."""
-    return h @ wte.to(h.dtype).t()
+def vocab_parallel_embedding(tokens, wte, group=None):
+    """tokens: int [...]; wte: [vocab / mp, h] -> [..., h]: the masked
+    lookup of the rows this rank owns (zeros elsewhere), summed over the
+    model group (Megatron's VocabParallelEmbedding)."""
+    if group is None:
+        return torch.nn.functional.embedding(tokens.long(), wte)
+    local = wte.shape[0]
+    idx = tokens.long() - _vocab_start(local, group)
+    valid = (idx >= 0) & (idx < local)
+    emb = torch.nn.functional.embedding(torch.clamp(idx, 0, local - 1), wte)
+    emb = emb * valid[..., None].to(emb.dtype)
+    return comm.reduce_from_model(emb, group)
 
 
-def vocab_parallel_cross_entropy(logits, labels):
-    """Per-token cross-entropy in fp32; labels outside [0, vocab) get the
-    log-partition only (callers mask them out).  logits [..., vocab],
-    labels int [...] -> fp32 [...]."""
-    logits = logits.float()
-    vocab = logits.shape[-1]
-    lmax = torch.max(logits.detach(), dim=-1).values
-    shifted = logits - lmax[..., None]
-    sumexp = torch.sum(torch.exp(shifted), dim=-1)
-    labels = labels.long()
-    valid = (labels >= 0) & (labels < vocab)
-    idx = torch.clamp(labels, 0, vocab - 1)
-    tgt = torch.gather(shifted, -1, idx[..., None])[..., 0]
-    return torch.log(sumexp) - tgt * valid.float()
+def vocab_parallel_logits(h, wte, group=None):
+    """Weight-tied LM head: h [..., hid] replicated @ wte [vocab / mp,
+    hid]^T -> logits [..., vocab / mp], sharded on the vocab dim and never
+    gathered (``vocab_parallel_cross_entropy`` takes them as they are)."""
+    return comm.copy_to_model(h, group) @ wte.to(h.dtype).t()
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Megatron's vocab-parallel softmax cross-entropy in fp32: the MAX of
+    the (detached) local maxima, the SUM of the local sums of exponentials
+    and of the masked target logit.  The backward is ``(softmax_local -
+    onehot_local) * grad`` on this rank's vocab slice: no collective, and
+    the full-vocab softmax is never materialised."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        lf = logits.float()
+        local = lf.shape[-1]
+        lmax = comm.model_max_(torch.amax(lf, dim=-1), group)
+        e = torch.exp(lf - lmax[..., None])
+        sumexp = comm.model_sum_(torch.sum(e, dim=-1), group)
+        idx = labels.long() - _vocab_start(local, group)
+        valid = (idx >= 0) & (idx < local)
+        idx = torch.clamp(idx, 0, local - 1)
+        tgt = torch.gather(lf, -1, idx[..., None])[..., 0] - lmax
+        tgt = comm.model_sum_(tgt * valid.float(), group)
+        ctx.save_for_backward(e, sumexp, idx, valid)
+        ctx.dtype = logits.dtype
+        return torch.log(sumexp) - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, sumexp, idx, valid = ctx.saved_tensors
+        grad = e / sumexp[..., None]
+        grad.scatter_add_(-1, idx[..., None], -valid.float()[..., None])
+        return grad.mul_(g[..., None]).to(ctx.dtype), None, None
+
+
+def vocab_parallel_cross_entropy(logits, labels, group=None):
+    """Per-token cross-entropy in fp32 over vocab-sharded logits; labels
+    outside [0, vocab) get the log-partition only (callers mask them out).
+    logits [..., vocab / mp], labels int [...] -> fp32 [...], replicated
+    over the model group."""
+    return _VocabParallelCE.apply(logits, labels.long(), group)
 
 
 def gather_positions(x, positions):
@@ -360,14 +412,19 @@ def core_attention(q, k, v, *, causal, attn_mask=None):
 
 
 def multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, *, n_heads,
-                        causal, attn_mask=None):
-    """Multi-head attention with the packed head-major qkv projection:
-    the output dim of ``qkv_w`` [h, 3h] is laid out (n, 3, d), as in
-    ``layers.py:627``."""
+                        causal, attn_mask=None, group=None):
+    """Multi-head attention over this rank's heads, with the packed
+    head-major qkv projection: the output dim of ``qkv_w`` [h, 3h] is laid
+    out (n, 3, d), as in ``layers.py:627``, so a rank's slice [h, 3h / mp]
+    is a contiguous block of n / mp whole heads, (n / mp, 3, d), never a
+    third each of q, k and v.  ``n_heads`` is the global head count;
+    ``proj_w`` [h / mp, h] is row-parallel and ``proj_b`` replicated."""
     B, T, h = x.shape
     d = h // n_heads
-    qkv = column_parallel_linear(x, qkv_w, qkv_b, name="qkv").reshape(
-        B, T, n_heads, 3, d)
+    qkv = column_parallel_linear(x, qkv_w, qkv_b, name="qkv", group=group)
+    n_local = qkv.shape[-1] // (3 * d)
+    qkv = qkv.reshape(B, T, n_local, 3, d)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     ctx = core_attention(q, k, v, causal=causal, attn_mask=attn_mask)
-    return row_parallel_linear(ctx.reshape(B, T, h), proj_w, proj_b)
+    return row_parallel_linear(ctx.reshape(B, T, n_local * d), proj_w,
+                               proj_b, group=group)

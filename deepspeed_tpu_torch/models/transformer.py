@@ -1,6 +1,6 @@
 """The transformer stack BERT builds on.
 
-The port of ``deepspeed_tpu/models/transformer.py`` at mp = 1.  Block
+The port of ``deepspeed_tpu/models/transformer.py``.  Block
 parameters stay STACKED on a leading layer axis, one ``nn.Parameter``
 ``[L, ...]`` per weight kind, exactly the JAX leaves: LAMB's per-tensor trust
 ratio spans all L layers of a kind in both packages.  ``stack_apply`` walks
@@ -103,23 +103,40 @@ def init_block_params(cfg: TransformerConfig, generator=None,
     }
 
 
-def _mlp(x, p):
-    y = L.gelu(L.column_parallel_linear(x, p["fc_w"], p["fc_b"], name="ffn1"))
-    return L.row_parallel_linear(y, p["fc2_w"], p["fc2_b"])
+def block_partition_specs() -> Dict[str, object]:
+    """The sharded dim of each stacked block leaf (None: replicated), the
+    JAX ``block_partition_specs`` (``transformer.py:109-121``) as data;
+    dim 0 is the layer stack."""
+    return {
+        "ln1_s": None, "ln1_b": None,
+        "qkv_w": 2, "qkv_b": 1,
+        "proj_w": 1, "proj_b": None,
+        "ln2_s": None, "ln2_b": None,
+        "fc_w": 2, "fc_b": 1,
+        "fc2_w": 1, "fc2_b": None,
+    }
 
 
-def block_apply(x, p, cfg: TransformerConfig, attn_mask=None):
-    """One dense block; ``p`` leaves have no layer axis."""
+def _mlp(x, p, group=None):
+    y = L.gelu(L.column_parallel_linear(x, p["fc_w"], p["fc_b"], name="ffn1",
+                                        group=group))
+    return L.row_parallel_linear(y, p["fc2_w"], p["fc2_b"], group=group)
+
+
+def block_apply(x, p, cfg: TransformerConfig, attn_mask=None, group=None):
+    """One dense block; ``p`` leaves have no layer axis and are this
+    rank's slices of the model group ``group``."""
     attn = lambda u: L.multihead_attention(
         u, p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"],
-        n_heads=cfg.num_heads, causal=cfg.causal, attn_mask=attn_mask)
+        n_heads=cfg.num_heads, causal=cfg.causal, attn_mask=attn_mask,
+        group=group)
     ln1 = lambda u: L.layer_norm(u, p["ln1_s"], p["ln1_b"], cfg.ln_eps)
     ln2 = lambda u: L.layer_norm(u, p["ln2_s"], p["ln2_b"], cfg.ln_eps)
     if cfg.pre_ln:
         x = x + attn(ln1(x))
-        return x + _mlp(ln2(x), p)
+        return x + _mlp(ln2(x), p, group)
     x = ln1(x + attn(x))            # post-LN (BERT)
-    return ln2(x + _mlp(x, p))
+    return ln2(x + _mlp(x, p, group))
 
 
 _MATMUL_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -197,13 +214,15 @@ def remat_wrap(body, cfg: TransformerConfig):
 
 
 def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
-                attn_mask=None):
-    """All layers over the stacked [L, ...] params."""
+                attn_mask=None, group=None):
+    """All layers over the stacked [L, ...] params (this rank's slices of
+    the model group ``group``).  A recompute replays a block's forward
+    collectives, in the same order on every rank."""
     names = sorted(stacked)
     per_layer = [stacked[k].unbind(0) for k in names]
 
     def body(x_, mask_, *leaves):
-        return block_apply(x_, dict(zip(names, leaves)), cfg, mask_)
+        return block_apply(x_, dict(zip(names, leaves)), cfg, mask_, group)
 
     body = remat_wrap(body, cfg)
     for i in range(cfg.num_layers):

@@ -23,6 +23,15 @@ world size the ranks form ``dp / pps`` consecutive blocks
 (``subgroup_index_groups``), each holding every partition once, and a
 rank's ``subgroups`` are its ``(within, across)`` groups
 (``topology.Topology``).
+
+Model axis (tensor parallelism): ``copy_to_model`` (identity forward,
+all-reduce backward) and ``reduce_from_model`` (all-reduce forward,
+identity backward) are Megatron's pair of autograd functions, which give
+every leaf its true gradient on every model rank; ``model_max_`` and
+``model_sum_`` are the gradient-free reductions of the vocab-parallel
+cross-entropy and of the engine's norm and overflow agreement.
+``torch.distributed.nn.functional.all_reduce`` is neither: its backward
+all-reduces again.
 """
 
 from __future__ import annotations
@@ -318,3 +327,60 @@ def overflow_any(local_overflow, group) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(f, op=dist.ReduceOp.MAX, group=group)
     return f[0] > 0
+
+
+# ------------------------------------------------------------- model axis
+
+def model_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place SUM of ``x`` over the model group (identity without one);
+    no gradient."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def model_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place MAX of ``x`` over the model group (identity without one);
+    no gradient."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the input's gradient over the
+    model group (each rank's branch saw only its shard)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """SUM over the model group forward; identity backward (the sum's
+    gradient reaches every rank's partial unchanged)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return model_sum_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a model-sharded branch (a column-parallel input, the
+    tied LM head); ``x`` itself without a group."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partials ``x`` (a row-parallel product, a
+    vocab-parallel lookup); ``x`` itself without a group."""
+    return x if group is None else _ReduceFromModel.apply(x, group)

@@ -1,24 +1,33 @@
-"""Process groups, device resolution and the data-parallel layout.
+"""Process groups, device resolution and the data x model layout.
 
-The port of ``deepspeed_tpu/parallel/topology.py`` at mp = sp = pp = 1: the
-JAX mesh's ``data`` axis becomes the world of a ``torch.distributed``
-process group, one process per card (or per CPU rank in the tests).
+The port of ``deepspeed_tpu/parallel/topology.py`` at sp = pp = 1: the JAX
+mesh's ``data`` and ``model`` axes become ``torch.distributed`` process
+groups, one process per card (or per CPU rank in the tests).  Ranks are
+laid out as the JAX mesh lays out its devices, ``[data, pipe, seq,
+model]`` with the model axis innermost, so ``rank = dp_rank * mp +
+mp_rank``: a model group is ``mp`` consecutive ranks, a data group the
+ranks with the same ``mp_rank``.
 
 * ``init_distributed`` reads the JAX package's launch contract
   (``DSTPU_COORDINATOR``, ``DSTPU_NUM_PROCESSES``, ``DSTPU_PROCESS_ID``;
   ``LOCAL_RANK`` picks the card) or, with ``use_mpi``, the OMPI/PMI/SLURM
   variables (``mpi_discovery``), and starts the default process group:
-  NCCL for a CUDA device, gloo for the CPU.  A card without NCCL raises;
-  the port never switches a card to gloo.
-* ``make_topology`` reads the rank and the data-parallel size (the world
-  size) from the started group, or 1 when none was started.
+  by default NCCL for a CUDA device, gloo for the CPU.  A card without
+  NCCL raises; the port never switches a card to gloo by itself.  An
+  explicit ``backend="gloo"`` on a card is the caller's choice (one card
+  shared by several ranks, where NCCL refuses): its collectives stage
+  through the host.
+* ``make_topology`` reads the model-parallel size from the config or a
+  ``MeshConfig``, the rank and world size from the started group (1
+  without one), and builds every model group and data group.
 * ``Topology.with_subgroups`` builds the ZeRO ``parameter_parallel_size``
-  sub-groups of ``comm.subgroup_index_groups``: ``within`` (consecutive
-  blocks of ranks that own the partitions) and ``across`` (the ranks that
-  hold the same partition in different blocks).
+  sub-groups of ``comm.subgroup_index_groups`` inside each model rank's
+  data group: ``within`` (consecutive blocks of ranks that own the
+  partitions) and ``across`` (the ranks that hold the same partition in
+  different blocks).
 
-Tensor, sequence and pipeline parallelism (mp, sp, pp > 1) raise naming
-their ROADMAP.md items.
+Sequence and pipeline parallelism (sp, pp > 1) raise naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,14 +45,28 @@ from deepspeed_tpu_torch import constants as C
 logger = logging.getLogger(__name__)
 
 
+@dataclasses.dataclass
+class MeshConfig:
+    """A declarative layout request, as the JAX package's ``MeshConfig``
+    (``initialize(..., mesh=MeshConfig(model_parallel_size=2))``):
+    ``model_parallel_size`` ranks per model replica, the rest of the world
+    the data axis.  Context and pipeline parallel sizes above 1 raise (not
+    ported).  It has no ``devices``: the port's devices are the processes
+    of the group."""
+    model_parallel_size: int = 1
+    context_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+
+
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """The run's device, rank and data-parallel layout.
+    """The run's device, rank and data x model layout.
 
-    ``group`` is the data-parallel process group (None when no process
-    group was started: one process, no collectives).  ``pps`` is the ZeRO
-    partition group size; with ``pps < dp`` this rank's ``within`` group is
-    its block of ``pps`` consecutive ranks and ``across`` the ``dp / pps``
+    ``group`` is this rank's data-parallel process group and
+    ``model_group`` its model-parallel one; each is None where its axis has
+    size 1 (no collectives there).  ``pps`` is the ZeRO partition group
+    size; with ``pps < dp`` this rank's ``within`` group is its block of
+    ``pps`` consecutive data ranks and ``across`` the ``dp / pps`` data
     ranks holding the same partition."""
     device: torch.device
     rank: int = 0
@@ -53,17 +76,33 @@ class Topology:
     pps: int = 1
     within: Optional[object] = None
     across: Optional[object] = None
+    model_group: Optional[object] = None
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's place on the data axis."""
+        return self.rank // self.mp
+
+    @property
+    def mp_rank(self) -> int:
+        """This rank's place on the model axis."""
+        return self.rank % self.mp
 
     @property
     def partition_id(self) -> int:
         """The partition this rank owns within its sub-group."""
-        return self.rank % self.pps
+        return self.dp_rank % self.pps
+
+    def data_ranks(self, mp_rank: int) -> list:
+        """The global ranks of model rank ``mp_rank``'s data group."""
+        return [d * self.mp + mp_rank for d in range(self.dp)]
 
     def with_subgroups(self, pps: int) -> "Topology":
-        """This topology with ZeRO partition groups of ``pps`` ranks.  At
-        ``pps == dp`` the partition group is the data group itself; below
-        it every rank creates every sub-group, in the same order, and keeps
-        its own (``dist.new_group`` is collective over the world)."""
+        """This topology with ZeRO partition groups of ``pps`` data ranks.
+        At ``pps == dp`` the partition group is the data group itself;
+        below it every rank creates every sub-group of every model rank's
+        data group, in the same order, and keeps its own (``dist.new_group``
+        is collective over the world)."""
         from deepspeed_tpu_torch.parallel import comm
         if pps <= 0 or self.dp % pps != 0:
             raise ValueError(f"parameter_parallel_size={pps} must divide "
@@ -71,18 +110,26 @@ class Topology:
         if pps == self.dp:
             return dataclasses.replace(self, pps=pps, within=self.group,
                                        across=None)
-        within_ranks, across_ranks = comm.subgroup_index_groups(self.dp, pps)
-        within = across = None
-        for ranks in within_ranks:
-            g = dist.new_group(ranks)
-            if self.rank in ranks:
-                within = g
-        for ranks in across_ranks:
-            g = dist.new_group(ranks)
-            if self.rank in ranks:
-                across = g
-        return dataclasses.replace(self, pps=pps, within=within,
-                                   across=across)
+        within_idx, across_idx = comm.subgroup_index_groups(self.dp, pps)
+        mine = {"within": None, "across": None}
+        for m in range(self.mp):
+            ranks = self.data_ranks(m)
+            for kind, groups in (("within", within_idx),
+                                 ("across", across_idx)):
+                for idx in groups:
+                    members = [ranks[i] for i in idx]
+                    g = _new_group(members)
+                    if self.rank in members:
+                        mine[kind] = g
+        return dataclasses.replace(self, pps=pps, **mine)
+
+
+def _new_group(ranks):
+    """A process group of ``ranks`` (collective: every rank calls it for
+    every group, in one order); None for a single rank, where a collective
+    is the identity."""
+    g = dist.new_group(ranks)
+    return g if len(ranks) > 1 else None
 
 
 def _local_rank() -> Optional[int]:
@@ -113,9 +160,14 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+#: the backend the caller named when ``init_distributed`` started the
+#: group (None: chosen by ``backend_for``)
+_EXPLICIT_BACKEND: Optional[str] = None
+
+
 def backend_for(device: torch.device) -> str:
     """NCCL for a CUDA device, gloo for the CPU.  A card whose torch has
-    no NCCL raises: gloo on a card is never chosen."""
+    no NCCL raises: gloo on a card is never chosen by default."""
     if device.type == "cuda":
         if not dist.is_nccl_available():
             raise RuntimeError(
@@ -158,7 +210,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      use_mpi: bool = False,
-                     device=None) -> None:
+                     device=None,
+                     backend: Optional[str] = None) -> None:
     """Start the default process group (the JAX package's
     ``init_distributed``; reference deepspeed_light.py:125-130).
 
@@ -167,7 +220,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     Does nothing when a process group is already started, or for one
     process with no explicit coordinator; an explicit coordinator starts a
     group even for one process.  ``device`` (resolved as
-    ``resolve_device``) picks the backend."""
+    ``resolve_device``) picks the backend, unless ``backend`` names one;
+    ``make_topology`` accepts gloo on a card only when it was named here.
+    Nothing switches the backend by itself."""
     explicit = coordinator_address is not None
     if use_mpi:
         info = mpi_discovery()
@@ -198,35 +253,87 @@ def init_distributed(coordinator_address: Optional[str] = None,
     device = resolve_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend_for(device),
+    global _EXPLICIT_BACKEND
+    dist.init_process_group(backend or backend_for(device),
                             init_method=_init_method(coordinator_address),
                             world_size=int(num_processes),
                             rank=int(process_id))
-    logger.info("init_distributed: process %d/%d via %s", process_id,
-                num_processes, coordinator_address)
+    _EXPLICIT_BACKEND = backend
+    logger.info("init_distributed: process %d/%d via %s (%s)", process_id,
+                num_processes, coordinator_address, dist.get_backend())
 
 
-def make_topology(config: Optional[dict] = None, device=None) -> Topology:
-    """The run's topology: the device, and the rank and data-parallel size
-    of the started process group (1 without one).  Any model, sequence or
-    pipeline parallel size above 1 in ``config`` raises."""
-    config = config or {}
-    sizes = {C.MODEL_PARALLEL_SIZE: ("tensor parallelism", "10"),
-             C.CONTEXT_PARALLEL_SIZE: ("sequence parallelism", "11"),
-             C.PIPELINE_PARALLEL_SIZE: ("pipeline parallelism", "11")}
-    for key, (what, item) in sizes.items():
-        if int(config.get(key, 1) or 1) != 1:
+def _parallel_sizes(config: dict, mesh) -> int:
+    """The model-parallel size of ``mesh`` (a ``MeshConfig``, which beats
+    the config, as in the JAX engine) or of ``config``; sequence and
+    pipeline parallel sizes above 1 raise naming their ROADMAP.md item."""
+    if mesh is not None:
+        sizes = {C.MODEL_PARALLEL_SIZE: mesh.model_parallel_size,
+                 C.CONTEXT_PARALLEL_SIZE: mesh.context_parallel_size,
+                 C.PIPELINE_PARALLEL_SIZE: mesh.pipeline_parallel_size}
+    else:
+        sizes = {k: config.get(k, 1) for k in (
+            C.MODEL_PARALLEL_SIZE, C.CONTEXT_PARALLEL_SIZE,
+            C.PIPELINE_PARALLEL_SIZE)}
+    sizes = {k: int(v or 1) for k, v in sizes.items()}
+    for key, what in ((C.CONTEXT_PARALLEL_SIZE, "sequence parallelism"),
+                      (C.PIPELINE_PARALLEL_SIZE, "pipeline parallelism")):
+        if sizes[key] != 1:
             raise NotImplementedError(
-                f"{key}={config[key]}: {what} is not ported to "
-                f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item {item})")
+                f"{key}={sizes[key]}: {what} is not ported to "
+                f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 11)")
+    mp = sizes[C.MODEL_PARALLEL_SIZE]
+    if mp < 1:
+        raise ValueError(f"{C.MODEL_PARALLEL_SIZE}={mp} must be >= 1")
+    return mp
+
+
+def make_topology(config: Optional[dict] = None, device=None,
+                  mesh=None) -> Topology:
+    """The run's topology: the device, the model-parallel size (``mesh``,
+    else ``config``), and the rank and sizes of the started process group
+    (one rank without one).  Every model group and every data group is
+    built on every rank, in one order.  A CUDA device needs an NCCL group,
+    unless ``init_distributed`` was given ``backend="gloo"``: then the
+    collectives stage through the host."""
+    mp = _parallel_sizes(config or {}, mesh)
     device = resolve_device(device)
     if not dist.is_initialized():
+        if mp != 1:
+            raise ValueError(
+                f"{C.MODEL_PARALLEL_SIZE}={mp} needs {mp} processes in a "
+                f"started process group; none was started")
         return Topology(device=device)
-    backend = dist.get_backend()
-    if device.type == "cuda" and backend != "nccl":
-        raise RuntimeError(
-            f"the process group runs {backend!r} but the engine's device is "
-            f"{device}: a CUDA run needs NCCL")
-    dp = dist.get_world_size()
-    return Topology(device=device, rank=dist.get_rank(), dp=dp,
-                    group=dist.group.WORLD, pps=dp, within=dist.group.WORLD)
+    running = dist.get_backend()
+    if device.type == "cuda" and running != "nccl":
+        if _EXPLICIT_BACKEND != running:
+            raise RuntimeError(
+                f"the process group runs {running!r} but the engine's "
+                f"device is {device}: a CUDA run needs NCCL (pass "
+                f"backend={running!r} to init_distributed to run it on "
+                f"purpose)")
+        logger.info("make_topology: %s collectives on %s stage through the "
+                    "host", running, device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % mp:
+        raise ValueError(f"{C.MODEL_PARALLEL_SIZE}={mp} must divide the "
+                         f"world size {world}")
+    dp = world // mp
+    if mp == 1:
+        return Topology(device=device, rank=rank, dp=dp,
+                        group=dist.group.WORLD, pps=dp,
+                        within=dist.group.WORLD)
+    topo = Topology(device=device, rank=rank, dp=dp, mp=mp, pps=dp)
+    model_group = data_group = None
+    for d in range(dp):
+        ranks = list(range(d * mp, (d + 1) * mp))
+        g = _new_group(ranks)
+        if rank in ranks:
+            model_group = g
+    for m in range(mp):
+        ranks = topo.data_ranks(m)
+        g = _new_group(ranks) if dp > 1 else None
+        if rank in ranks:
+            data_group = g
+    return dataclasses.replace(topo, group=data_group, within=data_group,
+                               model_group=model_group)

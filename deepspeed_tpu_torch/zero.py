@@ -1,6 +1,6 @@
 """ZeRO stages 1 and 2: the flat, partitioned layout of the optimizer state.
 
-The port of ``deepspeed_tpu/zero.py`` at mp = pp = 1 (reference
+The port of ``deepspeed_tpu/zero.py`` at pp = 1 (reference
 ``FP16_DeepSpeedZeroOptimizer``, deepspeed_zero_optimizer.py): every
 parameter leaf is laid end to end in ONE flat buffer, padded so that it
 splits into ``pps`` equal partitions whose boundaries fall on multiples of
@@ -9,6 +9,13 @@ group keeps the fp32 master and the Adam moments of partition ``r`` only.
 Gradients reduce-scatter onto the owned partition, the update runs there,
 and the updated weights all-gather back into every rank's parameters
 (``engine.py``, ``parallel/comm.py``).
+
+Under tensor parallelism each model rank lays out its LOCAL slices (the
+engine's parameters after narrowing), partitioned over its own data group:
+``make_flat_meta`` of the local parameters is the JAX
+``make_local_flat_meta``.  ``norm_dedup_weights`` weighs the leaves so that
+a model-group sum of the weighted squared norms counts every parameter
+once.
 
 The leaves are laid out in the JAX package's order, that of
 ``jax.tree_util.tree_flatten`` over the nested parameter dict (keys sorted
@@ -103,3 +110,16 @@ def unflatten_tree(flat: torch.Tensor, meta: FlatMeta
     return {name: flat[off:off + size].view(shape)
             for name, shape, size, off in zip(meta.names, meta.shapes,
                                               meta.sizes, meta.offsets)}
+
+
+def norm_dedup_weights(meta: FlatMeta, specs: Optional[Dict[str, object]],
+                       mp: int) -> Tuple[float, ...]:
+    """Per leaf of ``meta`` (in its order), the weight of its squared norm
+    in the model-group sum: 1 for a leaf sharded over the model group
+    (``specs``: dotted name -> sharded dim or None), ``1 / mp`` for a
+    replicated one, which every model rank holds whole (the per-leaf form
+    of the JAX per-element ``norm_dedup_weights``, ``zero.py:144-184``;
+    reference deepspeed_utils.py:100-158)."""
+    specs = specs or {}
+    return tuple(1.0 if specs.get(name) is not None else 1.0 / mp
+                 for name in meta.names)

@@ -21,7 +21,20 @@ Scenarios:
   after ``save_after`` steps, a load before the first step.  Outputs: the
   losses, the fp32 master and moments (the owned partition under ZeRO, the
   whole flat layout otherwise), the step, skip and loss-scale counters.
-  ``runs`` lists several such runs for one process group.
+  ``runs`` lists several such runs for one process group.  With
+  ``mp`` > 1 the world is dp x mp (``model_parallel_size`` in the config,
+  or ``mesh`` with ``"mesh": true``): the weights are the global tree, each
+  rank takes its data rank's block, and the non-ZeRO state is written per
+  leaf (``master/<name>``: this model rank's local slice).  ``model``
+  ``"bert"`` trains a tiny BERT with NSP on the ``batch_keys`` inputs;
+  ``loader`` records the first batch the engine's data loader gives;
+  ``load_error`` records the ValueError a full load raises, then loads the
+  weights only.
+* ``tp_layers``: each case of ``spec["cases"]`` runs one tensor-parallel
+  layer of ``deepspeed_tpu_torch.models.layers`` on this model rank's
+  slices of its global inputs (the world is one model group), and the
+  backward of ``sum(y * dy)``; outputs ``<case>/y`` (local) and
+  ``<case>/g<i>`` (the local gradient of float argument i).
 """
 
 import json
@@ -37,11 +50,14 @@ sys.path.insert(0, str(ROOT))
 
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch import weights, zero  # noqa: E402
-from deepspeed_tpu_torch.models import GPT2  # noqa: E402
+from deepspeed_tpu_torch.models import GPT2, BertForPreTraining  # noqa: E402
+from deepspeed_tpu_torch.models import layers as L  # noqa: E402
 from deepspeed_tpu_torch.parallel import comm, topology  # noqa: E402
 
 TINY = dict(vocab_size=64, max_seq_len=16, num_layers=2, hidden_size=32,
             num_heads=4, remat=False)
+TINY_BERT = dict(vocab_size=64, max_seq_len=16, num_layers=2, hidden_size=32,
+                 num_heads=4, remat=False)
 
 
 class Fp32GPT2(GPT2):
@@ -127,6 +143,61 @@ def _flat_state(engine):
             for d in (engine.master, engine.opt_state.m, engine.opt_state.v)]
 
 
+def _leaf_state(engine):
+    """The non-ZeRO masters and moments per leaf (local slices)."""
+    out = {}
+    for key, tree in (("master", engine.master), ("m", engine.opt_state.m),
+                      ("v", engine.opt_state.v)):
+        if tree is not None:
+            out.update({f"{key}/{k}": t.numpy().copy()
+                        for k, t in tree.items()})
+    return out
+
+
+_LAYERS = {
+    "column": lambda x, w, b, group: L.column_parallel_linear(
+        x, w, b, group=group),
+    "row": lambda x, w, b, group: L.row_parallel_linear(x, w, b, group=group),
+    "embedding": L.vocab_parallel_embedding,
+    "logits": L.vocab_parallel_logits,
+    "ce": L.vocab_parallel_cross_entropy,
+    "attention": lambda x, qw, qb, pw, pb, mask, group, **kw:
+        L.multihead_attention(x, qw, qb, pw, pb, attn_mask=mask,
+                              group=group, **kw),
+}
+
+
+def run_tp_layers(spec, inputs, rank, world):
+    """Each case on this model rank's slices (the world is one model
+    group); the backward of ``sum(y * dy)`` gives every input its true
+    gradient on this rank."""
+    topology.init_distributed(device="cpu")
+    topo = topology.make_topology({"model_parallel_size": world}, "cpu")
+    assert topo.mp == world and topo.mp_rank == rank
+    out = {}
+
+    def local(key, dim):
+        x = np.array(inputs[key])
+        if dim is not None:
+            x = np.split(x, world, axis=dim)[rank]
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    for case in spec["cases"]:
+        args = [local(k, d) for k, d in zip(case["args"], case["dims"])]
+        for a in args:
+            if a.is_floating_point():
+                a.requires_grad_()
+        y = _LAYERS[case["fn"]](*args, group=topo.model_group,
+                                **case.get("kw", {}))
+        dy = local(case["dy"], case["out_dim"])
+        (y * dy).sum().backward()
+        out[f"{case['name']}/y"] = y.detach().numpy()
+        for i, a in enumerate(args):
+            if a.is_floating_point():
+                out[f"{case['name']}/g{i}"] = a.grad.numpy()
+    return out
+
+
 def run_train(spec, inputs, rank, world):
     """One engine's run (``spec``), or each of ``spec["runs"]`` in turn in
     this process, their outputs prefixed ``<i>/``."""
@@ -140,13 +211,37 @@ def run_train(spec, inputs, rank, world):
     params = weights.unflatten_tree(
         {k[len(prefix):]: inputs[k] for k in inputs.files
          if k.startswith(prefix)})
-    model = (Fp32GPT2 if spec.get("fp32_compute") else GPT2).from_size(
-        "tiny", **TINY)
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        config=spec["config"], model=model, model_parameters=params,
-        param_groups=spec.get("param_groups"), device="cpu")
-    assert engine.dp_world_size == world and engine.global_rank == rank
-    if spec.get("load"):
+    if spec.get("model") == "bert":
+        model = BertForPreTraining.from_size("tiny", use_nsp=True,
+                                             **TINY_BERT)
+    else:
+        model = (Fp32GPT2 if spec.get("fp32_compute") else GPT2).from_size(
+            "tiny", **TINY)
+    mp = spec.get("mp", 1)
+    config, mesh = dict(spec["config"]), None
+    if spec.get("mesh"):
+        mesh = deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp)
+    elif mp > 1:
+        config["model_parallel_size"] = mp
+    keys = spec.get("batch_keys", ["tokens", "labels"])
+    data = None
+    if spec.get("loader"):
+        data = list(zip(*(inputs[k][0] for k in keys)))
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        config=config, model=model, model_parameters=params,
+        param_groups=spec.get("param_groups"), device="cpu", mesh=mesh,
+        training_data=data)
+    assert engine.dp_world_size * mp == world and engine.global_rank == rank
+    dpr = engine.topology.dp_rank
+    load_error = ""
+    if spec.get("load") and spec.get("load_error"):
+        # the error a load must raise, then the weights-only load
+        try:
+            engine.load_checkpoint(spec["load"])
+        except ValueError as e:
+            load_error = str(e)
+        engine.load_checkpoint(spec["load"], load_optimizer_states=False)
+    elif spec.get("load"):
         engine.load_checkpoint(spec["load"])
     gas = engine.gradient_accumulation_steps()
     micro = engine.train_micro_batch_size_per_gpu()
@@ -155,31 +250,38 @@ def run_train(spec, inputs, rank, world):
     inject = spec.get("inject_inf")
     first = spec.get("first_batch", 0)
     for step in range(spec["steps"]):
-        toks = inputs["tokens"][first + step][rank * rows:(rank + 1) * rows]
-        labels = inputs["labels"][first + step][rank * rows:
-                                                (rank + 1) * rows]
+        batch = [inputs[k][first + step][dpr * rows:(dpr + 1) * rows]
+                 for k in keys]
         if spec.get("split"):
             for i in range(gas):
                 sl = slice(i * micro, (i + 1) * micro)
-                loss = engine(toks[sl], labels[sl])
+                loss = engine(*(x[sl] for x in batch))
                 engine.backward(loss)
                 acc = engine._acc
                 acc_numel = (acc.numel() if isinstance(acc, torch.Tensor)
                              else sum(t.numel() for t in acc.values()))
                 if (inject and inject["rank"] == rank
                         and inject["step"] == step and i == gas - 1):
-                    flat = acc if isinstance(acc, torch.Tensor) else next(
-                        iter(acc.values()))
+                    flat = acc if isinstance(acc, torch.Tensor) else acc[
+                        inject.get("leaf", next(iter(acc)))]
                     flat.view(-1)[inject.get("index", -1)] = float("inf")
                 engine.step()
         else:
-            loss = engine.train_batch((toks, labels))
+            loss = engine.train_batch(tuple(batch))
         losses.append(float(loss))
         if spec.get("save_after") == step + 1:
             engine.save_checkpoint(spec["save_dir"])
     master, m, v = _flat_state(engine)
     ls = engine.loss_scale_state
-    return {"losses": np.asarray(losses), "master": master, "m": m, "v": v,
+    extra = {} if engine.zero_flat else _leaf_state(engine)
+    extra.update({f"param/{k}": p.detach().float().numpy().copy()
+                  for k, p in engine.module.named_parameters()})
+    if loader is not None:
+        extra.update({f"loader/{i}": x.numpy()
+                      for i, x in enumerate(next(iter(loader)))})
+    return {**extra, "load_error": np.asarray(load_error),
+            "losses": np.asarray(losses), "master": master,
+            "m": m, "v": v,
             "step": np.asarray(engine.opt_state.step),
             "skipped": np.asarray(engine.skipped_steps),
             "global_steps": np.asarray(engine.global_steps),
@@ -198,7 +300,8 @@ def main():
     world = int(os.environ["DSTPU_NUM_PROCESSES"])
     torch.set_num_threads(1)
     inputs = np.load(spec["inputs"])
-    run = {"comm": run_comm, "train": run_train}[spec["scenario"]]
+    run = {"comm": run_comm, "train": run_train,
+           "tp_layers": run_tp_layers}[spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
     import torch.distributed as dist
