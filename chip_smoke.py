@@ -125,11 +125,30 @@ Phases (each prints one JSON line, with the seconds since the start as
    moments, step, loss scale), (d) equal to the joined shards, (e) within
    1e-5, launches exact per rank (whole-tile 288 + 288, Adam 96 in (a) and
    132 in (b)); step ms, peak memory per rank, the save's file sizes.
-17. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+17. zero3_gpt2: GPT-2 medium under ZeRO-3 at dp 2 (seq 128, bf16, Adam lr
+   1e-4, micro-batch 16 per rank, gas 2: train_gpt2's 64 rows a step), as
+   two processes on the one card (``chip_smoke.py --z3-child``) over a
+   gloo data group (every gather and reduce-scatter stages through the
+   host: the step times are not ZeRO-3's on NVLink), from train_gpt2's
+   seed-0 weights: (a) on-demand gathers, 6 steps, saved after step 3;
+   (b) overlap_comm (the gather prefetch) and (c) "full" remat, 3 steps
+   each, bitwise equal to (a) in losses and both ranks' master, m and v
+   shards, (c) at a lower peak; (d) ZeRO-1 at dp 2 within 1e-2 of (a);
+   fresh processes resume (a)'s save, bitwise equal to its steps 4-6;
+   this process loads the save at dp 1, stage 0 (the shard files
+   rehydrated) and takes steps 4-6 within 1e-2 of (a)'s.  Launches exact
+   per rank (Adam 16 shard leaves a step, whole-tile 48 + 48, the remat
+   replaying the forward); the layout, peak memory, step ms, the save's
+   files, save and load seconds.
+18. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
    (the data for the dispatch defaults in models/layers.py).
+19. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
+   heads, d 64, seq 256-2048, CUDA events): each seq's times, the
+   threshold it returns and the port's table's; a disagreement is
+   recorded, not a failure.
 
 Kernel and plain times are a run of 20 back-to-back calls between one
 pair of CUDA events, over 20, the median of 5 runs (``_time_ms``), in the
@@ -2201,10 +2220,10 @@ def tp_child(spec_path, rank):
     return 0
 
 
-def _tp_launch(work, mode, run):
-    """Run ``mode`` in TP child processes (``run``: the spec's device,
-    checkpoint directory, model size and micro-batch); their results by
-    rank."""
+def _tp_launch(work, mode, run, flag="--tp-child", world=TP):
+    """Run ``mode`` in ``world`` child processes (``chip_smoke.py <flag>
+    <spec> <rank>``; ``run``: the spec's device, checkpoint directory,
+    model size and micro-batch); their results by rank."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2213,8 +2232,8 @@ def _tp_launch(work, mode, run):
     spec.write_text(json.dumps({"mode": mode, **run,
                                 "coordinator": f"tcp://127.0.0.1:{port}"}))
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--tp-child", str(spec), str(r)])
-             for r in range(TP)]
+                               flag, str(spec), str(r)])
+             for r in range(world)]
     try:
         deadline = time.monotonic() + TP_CHILD_TIMEOUT
         for p in procs:
@@ -2226,9 +2245,9 @@ def _tp_launch(work, mode, run):
                 p.wait()
     bad = [p.returncode for p in procs if p.returncode]
     if bad:
-        raise AssertionError(f"tp_gpt2 {mode} ranks exited {bad}")
+        raise AssertionError(f"{flag} {mode} ranks exited {bad}")
     return [json.loads((work / f"{mode}_{r}.json").read_text())
-            for r in range(TP)]
+            for r in range(world)]
 
 
 def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
@@ -2345,6 +2364,296 @@ def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
             for k, run in (("a", a), ("b", b))}
 
 
+# the zero3_gpt2 phase: GPT-2 medium at dp 2 under ZeRO-3, as two child
+# processes on the one card over a gloo data group (NCCL refuses two ranks
+# on one device, so every gather and reduce-scatter stages through the
+# host: the step times are not ZeRO-3's on NVLink).  Micro-batch 16 per
+# rank, gas 2: each step is train_gpt2's 64 rows, rank r's 32 of them.
+Z3_DP, Z3_MICRO, Z3_SAVE_AT, Z3_SHORT_STEPS = 2, 16, 3, 3
+Z3_BASE = {"stage": 3, "overlap_comm": False}
+# (d) ZeRO-1 against (a): ZeRO-3 reduce-scatters each micro-step's bf16
+# gradient in bf16 (one more rounding of the two ranks' sum) before the
+# fp32 accumulation and the 1/world, ZeRO-1 adds the ranks' fp32
+# accumulators; the limit is the phase's check, the prediction is in
+# PERF.md
+Z3_ZERO1_RTOL = 1e-2
+# the dp 1 stage-0 load of (a)'s save against (a)'s steps 4-6 (rank 1's
+# rows are the dp 1 run's last micro-step): the same weights, then the
+# reductions of steps 5-6 in another order
+Z3_DP1_RTOL = 1e-2
+
+
+def z3_config(micro, gas, dp, zero_cfg, remat=False):
+    cfg = gpt2_config(micro)
+    cfg["train_batch_size"] = micro * gas * dp
+    cfg["gradient_accumulation_steps"] = gas
+    cfg["activation_checkpointing"] = remat
+    if zero_cfg is not None:
+        cfg["zero_optimization"] = zero_cfg
+    return cfg
+
+
+def _z3_digest(engine):
+    """sha256 of every fp32 master, m and v leaf (shards at stage 3)."""
+    import hashlib
+    h = hashlib.sha256()
+    st = engine.opt_state
+    if engine.zero_flat:
+        trees = [{"flat": engine.master_flat}, st.m, st.v]
+    else:
+        trees = [engine.master, st.m, st.v]
+    for tree in trees:
+        for k in sorted(tree):
+            h.update(_sha(tree[k]).encode())
+    return h.hexdigest()
+
+
+def z3_child(spec_path, rank):
+    """One rank of the zero3_gpt2 phase (started by
+    ``phase_zero3_gpt2``): mode "train" runs (a)-(d), mode "resume" the
+    resume of (a)'s save.  Writes ``<mode>_<rank>.json`` beside the
+    spec."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import topology
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    size, micro = spec["size"], spec["micro"]
+    if device.type == "cuda":
+        for mod in _counted():          # the parent's build, loaded
+            mod.build()
+    topology.init_distributed(coordinator_address=spec["coordinator"],
+                              num_processes=Z3_DP, process_id=rank,
+                              device=device, backend="gloo")
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+
+    def engine(zero_cfg, seed=0, remat=False):
+        return make_engine(z3_config(micro, GAS, Z3_DP, zero_cfg, remat),
+                           device, size=size, seed=seed, gpt2=True)
+
+    def run(eng, steps, save_dir=None):
+        vocab = eng.module.config.vocab_size
+        toks, labels = lm_batch(micro * GAS * Z3_DP, GPT2_SEQ, vocab)
+        rows = slice(rank * micro * GAS, (rank + 1) * micro * GAS)
+        batch = (toks[rows], labels[rows])
+        losses, step_ms, extra = [], [], {}
+        sync(device)
+        _reset_peak(device)
+        reset_launch_counts()
+        for step in range(1, steps + 1):
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch(batch)))
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if save_dir is not None and step == Z3_SAVE_AT:
+                extra["digest_at_save"] = _z3_digest(eng)
+                t0 = time.perf_counter()
+                path = eng.save_checkpoint(save_dir)
+                extra["save_s"] = time.perf_counter() - t0
+                extra["files"] = {f: os.path.getsize(os.path.join(path, f))
+                                  for f in sorted(os.listdir(path))}
+        res = {"losses": losses, "step_ms": step_ms,
+               "launches": launch_counts(), "peak_mem_gib": _peak_gib(device),
+               "digest": _z3_digest(eng), **extra}
+        if eng.zero3:
+            dims = eng._zero3_dims
+            res["layout"] = {
+                "dims": dims,
+                "partitioned_leaves": sum(d >= 0 for d in dims.values()),
+                "elements_per_rank": sum(
+                    t.numel() for k, t in eng.master.items()
+                    if dims[k] >= 0),
+                "replicated_elements": sum(
+                    t.numel() for k, t in eng.master.items()
+                    if dims[k] < 0)}
+        return res
+
+    with deterministic():
+        if spec["mode"] == "train":
+            for name, zero_cfg, remat, steps, save in (
+                    ("a", Z3_BASE, False, GPT2_STEPS, spec["ckpt"]),
+                    ("b", dict(Z3_BASE, overlap_comm=True), False,
+                     Z3_SHORT_STEPS, None),
+                    ("c", Z3_BASE, {"enabled": True, "policy": "full"},
+                     Z3_SHORT_STEPS, None),
+                    ("d", {"stage": 1, "overlap_comm": False}, False,
+                     Z3_SHORT_STEPS, None)):
+                eng = engine(zero_cfg, remat=remat)
+                out[name] = run(eng, steps, save)
+                del eng
+                free(device)
+        else:
+            eng = engine(Z3_BASE, seed=1)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(spec["ckpt"])
+            sync(device)
+            load_s = time.perf_counter() - t0
+            out["resume"] = dict(run(eng, GPT2_STEPS - Z3_SAVE_AT),
+                                 load_s=load_s)
+            del eng
+    free(device)
+    out["seconds"] = time.perf_counter() - t_start
+    (pathlib.Path(spec_path).parent / f"{spec['mode']}_{rank}.json"
+     ).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
+    """GPT-2 medium at dp 2 under ZeRO-3 on two processes over gloo (see
+    Z3_DP): (a) on-demand gathers, saved after step 3; (b) the prefetch
+    (overlap_comm) and (c) "full" remat, each bitwise equal to (a); (d)
+    ZeRO-1 at dp 2 within Z3_ZERO1_RTOL of (a); the resume of (a)'s save
+    in fresh processes, bitwise equal to (a)'s steps 4-6; and (a)'s save
+    loaded into this process at dp 1 and stage 0 (the rehydrate), whose
+    steps 4-6 are within Z3_DP1_RTOL of (a)'s.  Launches exact per rank.
+    Returns the launches by run and rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="zero3_gpt2_",
+                                         dir=ROOT / "build"))
+    ck_dir = str(work / "ckpt")
+    spec = {"device": str(device), "ckpt": ck_dir, "size": size,
+            "micro": micro}
+    try:
+        tr = _tp_launch(work, "train", spec, flag="--z3-child", world=Z3_DP)
+        rs = _tp_launch(work, "resume", spec, flag="--z3-child", world=Z3_DP)
+        # the save into one process at dp 1, stage 0, gas 4: its micro-steps
+        # are rank 0's two, then rank 1's two
+        eng = make_engine(z3_config(micro, GAS * Z3_DP, 1, None), device,
+                          size=size, seed=2, gpt2=True)
+        t0 = time.perf_counter()
+        eng.load_checkpoint(ck_dir)
+        sync(device)
+        dp1_load_s = time.perf_counter() - t0
+        batch = lm_batch(micro * GAS * Z3_DP, GPT2_SEQ,
+                         eng.module.config.vocab_size)
+        reset_launch_counts()
+        dp1 = [float(eng.train_batch(batch))
+               for _ in range(GPT2_STEPS - Z3_SAVE_AT)]
+        dp1_launches = launch_counts()
+        del eng
+        free(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    runs = {k: [r[k] for r in tr] for k in ("a", "b", "c", "d")}
+    runs["resume"] = [r["resume"] for r in rs]
+    a = runs["a"]
+    per = a[0]["layout"]
+    layers, leaves = 24 if size == "medium" else 2, len(per["dims"])
+    blk = layers * GAS                      # per step: layers x micro-steps
+    short, rest = Z3_SHORT_STEPS, GPT2_STEPS - Z3_SAVE_AT
+    expect = {"a": no_launches(adam=leaves * GPT2_STEPS,
+                               block_fwd=blk * GPT2_STEPS,
+                               block_bwd=blk * GPT2_STEPS),
+              "b": no_launches(adam=leaves * short, block_fwd=blk * short,
+                               block_bwd=blk * short),
+              # the full remat replays each block's forward in the backward
+              "c": no_launches(adam=leaves * short,
+                               block_fwd=2 * blk * short,
+                               block_bwd=blk * short),
+              "d": no_launches(adam=short, block_fwd=blk * short,
+                               block_bwd=blk * short),
+              "resume": no_launches(adam=leaves * rest, block_fwd=blk * rest,
+                                    block_bwd=blk * rest)}
+    rel = lambda x, y: [abs(p - q) / abs(q) for p, q in zip(x, y)]
+    zero1_gap = max(max(rel(d["losses"], x["losses"][:short]))
+                    for d, x in zip(runs["d"], a))
+    dp1_gap = rel(dp1, a[1]["losses"][Z3_SAVE_AT:])
+    files = a[0]["files"]
+    z3_files = {f: n for f, n in files.items()
+                if f.startswith("zero3_dp_rank_")}
+    checks = {
+        "all_leaves_partitioned_on_every_rank": all(
+            r["layout"] == per for r in a) and per["partitioned_leaves"] ==
+        leaves,
+        "prefetch_bitwise": all(
+            b["losses"] == x["losses"][:short]
+            and b["digest"] == x["digest_at_save"]
+            for b, x in zip(runs["b"], a)),
+        "full_remat_bitwise": all(
+            c["losses"] == x["losses"][:short]
+            and c["digest"] == x["digest_at_save"]
+            for c, x in zip(runs["c"], a)),
+        "full_remat_lower_peak": device.type != "cuda" or all(
+            c["peak_mem_gib"] < x["peak_mem_gib"]
+            for c, x in zip(runs["c"], a)),
+        "zero1_within_rtol": zero1_gap <= Z3_ZERO1_RTOL,
+        "resume_bitwise": all(
+            z["losses"] == x["losses"][Z3_SAVE_AT:]
+            and z["digest"] == x["digest"]
+            for z, x in zip(runs["resume"], a)),
+        "dp1_rehydrated_within_rtol": max(dp1_gap) <= Z3_DP1_RTOL,
+        "dp1_launches": dp1_launches == no_launches(
+            adam=leaves * rest, block_fwd=2 * blk * rest,
+            block_bwd=2 * blk * rest),
+        "one_shard_file_per_rank": len(z3_files) == Z3_DP,
+        "finite": all(np.isfinite(r["losses"]).all()
+                      for rr in runs.values() for r in rr),
+        "launches": all(r["launches"] == expect[k] for k, rr in runs.items()
+                        for r in rr),
+    }
+    steady = lambda ms: (micro * GAS * Z3_DP * (len(ms) - 1)
+                         / (sum(ms[1:]) / 1e3))
+    emit("zero3_gpt2", model=f"gpt2-{size}", dp=Z3_DP, seq=GPT2_SEQ,
+         micro_batch_per_rank=micro, gas=GAS, dtype="bf16", optimizer="Adam",
+         lr=1e-4, backend=tr[0]["backend"],
+         transport="gloo over the host (not NVLink)", layout=per,
+         losses={k: [r["losses"] for r in rr] for k, rr in runs.items()},
+         dp1_rehydrated_losses=dp1, dp1_vs_a_rel=dp1_gap,
+         zero1_vs_a_max_rel=zero1_gap,
+         launches={k: [r["launches"] for r in rr] for k, rr in runs.items()},
+         expected_launches=expect, dp1_launches=dp1_launches,
+         peak_mem_gib={k: [r["peak_mem_gib"] for r in rr]
+                       for k, rr in runs.items()},
+         step_ms_over_gloo={k: [r["step_ms"] for r in rr]
+                            for k, rr in runs.items()},
+         median_step_ms={k: statistics.median(rr[0]["step_ms"][1:])
+                         for k, rr in runs.items()},
+         samples_per_s_steady={k: steady(rr[0]["step_ms"])
+                               for k, rr in runs.items()},
+         ckpt_files=files, save_s=[r["save_s"] for r in a],
+         load_s=[r["load_s"] for r in runs["resume"]],
+         dp1_load_s=dp1_load_s,
+         child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"zero3_gpt2 phase failed: {checks}")
+    return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
+
+
+def phase_calibrate(device):
+    """``calibrate_stream_threshold()``: the per-seq fwd+bwd times of the
+    streaming kernels and the einsum path, the threshold it returns and
+    the one the port's table holds.  A disagreement is recorded, not a
+    failure; a raise or a time that is not finite is."""
+    import math
+
+    import torch
+
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    rows = []
+    t0 = time.perf_counter()
+    threshold = sattn.calibrate_stream_threshold(rows=rows, verbose=False)
+    entry = L.STREAM_AUTO_MIN_BY_KIND.get(torch.cuda.get_device_name(device))
+    table = min(entry["causal"]) if entry else L.STREAM_AUTO_MIN_CAUSAL
+    finite = bool(rows) and all(math.isfinite(r[k]) for r in rows
+                                for k in ("einsum_ms", "stream_ms"))
+    emit("calibrate", seconds=time.perf_counter() - t0, rows=rows,
+         threshold=threshold, table_threshold=table,
+         agrees_with_table=threshold == table, finite=finite)
+    if not finite:
+        raise AssertionError(f"calibrate phase: times not finite: {rows}")
+
+
 def phase_attn_sweep(device, kernel, causal, seqs, tokens=4096, n=16,
                      d=64):
     """A kernel's fwd+bwd against the einsum path's, bf16, by sequence
@@ -2391,6 +2700,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-child"]:
         sys.path.insert(0, str(ROOT))
         return tp_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--z3-child"]:
+        sys.path.insert(0, str(ROOT))
+        return z3_child(sys.argv[2], int(sys.argv[3]))
     if not (ROOT / "deepspeed_tpu_torch" / "csrc" / "fused_optim.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2497,9 +2809,17 @@ def main() -> int:
             # per rank of tp_gpt2 (mp 2): ZeRO off (a) and ZeRO-1 (b)
             k["tp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                      for run, ranks in tp_launches.items()}
+    free(device)
+    z3_launches = phase_zero3_gpt2(device)
+    for k in kernels:
+        if k["name"] in ("adam", "block_fwd", "block_bwd"):
+            # per rank of zero3_gpt2 (dp 2): runs (a)-(d) and the resume
+            k["zero3_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                        for run, ranks in z3_launches.items()}
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
+    phase_calibrate(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2508,7 +2828,7 @@ def main() -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     print(card)
-    extra = ("flat_partition", "tp_gpt2_launches")
+    extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

@@ -12,8 +12,9 @@ at short causal shapes (``ops/block_attention.py``) and the streaming ones
 from seq 256 (``ops/stream_attention.py``).  It trains data-parallel over
 a ``torch.distributed`` group (``parallel/``), tensor-parallel with the
 Megatron layers (``model_parallel_size``, ``MeshConfig``), with ZeRO
-stages 1 and 2 (``zero.py``), loads data (``data.py``), saves and resumes
-checkpoints in the JAX package's layout (``checkpoint.py``) and
+stages 1 and 2 (``zero.py``) and 3 (``zero3.py``), reduces row-sparse
+embedding gradients (``sparse.py``), loads data (``data.py``), saves and
+resumes checkpoints in the JAX package's layout (``checkpoint.py``) and
 fine-tunes the SQuAD span model (``models.BertForQuestionAnswering``,
 ``squad.py``).  What it does not cover yet is listed in ROADMAP.md.
 """

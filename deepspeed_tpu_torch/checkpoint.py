@@ -1,6 +1,6 @@
 """Checkpoint save and load: the pp = 1 subset of
 ``deepspeed_tpu/checkpoint.py`` (data and tensor parallelism and ZeRO
-stages 1-2 included), in its layout and container, so that a checkpoint
+stages 1-3 included), in its layout and container, so that a checkpoint
 crosses between the two packages either way.
 
 * layout   ``<dir>/<tag>/mp_rank_{MP:02d}_model_states.pt``, one per model
@@ -21,6 +21,18 @@ crosses between the two packages either way.
            combined and re-sharded by the model's ``partition_specs()``
            (``weights.combine_local_trees``, ``weights.shard_tree``); ZeRO
            partitions load at the saved mp only.
+           Under ZeRO-3 every rank writes ONLY its shards of the
+           partitioned leaves (compute-dtype param, fp32 master, ``m``,
+           ``v``) to ``zero3_dp_rank_{dp}_row_{row:02d}_states.pt`` (row
+           = the model rank), keyed by the leaf's index in the JAX
+           flatten order (dict keys sorted); the model-state files carry
+           the replicated leaves and a ``("__dstpu_zero3_part__", dim,
+           dp)`` marker in place of each partitioned one.  A read
+           rehydrates whole leaves from the shard files, so a ZeRO-3 save
+           loads at any dp and at stage 0 (stage 1-2 take its weights
+           only, as in the JAX package), and the two packages read each
+           other's files.  Publishing a save removes stale model-state and
+           ZeRO-3 shard files of an earlier save of the same tag.
 * content  the module (compute-dtype parameters), the fp32 masters, the
            optimizer moments and step, the loss-scale state, the LR
            scheduler, the live param groups, the engine counters and the
@@ -38,8 +50,8 @@ crosses between the two packages either way.
            arrays of up to 512 bytes as pickled numpy arrays; reading an
            inlined bf16 array needs ``ml_dtypes``, imported only then.
 
-ZeRO-3 and pipeline-parallel checkpoints raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Pipeline-parallel checkpoints raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,12 +69,15 @@ import torch.distributed as dist
 
 from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch import weights as weights_mod
+from deepspeed_tpu_torch import zero as zero_mod
+from deepspeed_tpu_torch import zero3 as zero3_mod
 
 logger = logging.getLogger(__name__)
 
 MODEL_FILE = "mp_rank_{mp:02d}_model_states.pt"
 MODEL_FILE_PP = "pp_stage_{pp:02d}_mp_rank_{mp:02d}_model_states.pt"
 ZERO_FILE = "zero_pp_rank_{dp}_mp_rank_{mp:02d}optim_states.pt"
+ZERO3_FILE = "zero3_dp_rank_{dp}_row_{row:02d}_states.pt"
 LATEST_FILE = "latest"
 
 _MAGIC = b"DSTPUCK1"
@@ -78,8 +93,8 @@ _ML_DTYPES = {"bfloat16", "float8_e3m4", "float8_e4m3",
               "float8_e5m2", "float8_e5m2fnuz", "float8_e8m0fnu",
               "float4_e2m1fn", "float6_e2m3fn", "float6_e3m2fn",
               "int2", "int4", "uint2", "uint4"}
-#: the ZeRO-3 marker the JAX writer puts in place of a partitioned leaf
-_Z3_TAG = "__dstpu_zero3__"
+#: the ZeRO-3 marker ``(tag, dim, dp)`` in place of a partitioned leaf
+_Z3_TAG = "__dstpu_zero3_part__"
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -372,6 +387,11 @@ def zero_file(ckpt_dir: str, tag: str, dp_rank: int,
                         ZERO_FILE.format(dp=dp_rank, mp=mp_rank))
 
 
+def zero3_file(ckpt_dir: str, tag: str, dp_rank: int, row: int) -> str:
+    return os.path.join(ckpt_dir, tag, ZERO3_FILE.format(dp=dp_rank,
+                                                         row=row))
+
+
 def model_file(ckpt_dir: str, tag: str, mp_rank: int = 0,
                pp_stage: int = 0, pp_size: int = 1) -> str:
     if pp_size > 1:
@@ -470,6 +490,65 @@ def _is_z3_marker(obj) -> bool:
     return isinstance(obj, tuple) and len(obj) == 3 and obj[0] == _Z3_TAG
 
 
+def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int):
+    """Replace the ZeRO-3 markers in model rank ``row``'s freshly read
+    state with whole leaves (CPU tensors), concatenated along the
+    recorded dim from the ``zero3_dp_rank_*_row_{row}`` shard files (the
+    JAX ``_zero3_rehydrate``).  After it the state reads as a stage-0
+    file.  The shard record of a leaf is found by its index in the JAX
+    flatten order (keystr-keyed records of older JAX files too)."""
+    if not state.get("zero3_native"):
+        return state
+    cache = {}
+
+    def shard_leaves(dp_rank):
+        if dp_rank not in cache:
+            f = zero3_file(load_dir, tag, dp_rank, row)
+            if not os.path.exists(f):
+                raise FileNotFoundError(
+                    f"stage-3 checkpoint is missing shard file {f} "
+                    f"(saved at dp={state.get('dp_world_size')})")
+            cache[dp_rank] = _load_obj(f)["leaves"]
+        return cache[dp_rank]
+
+    def whole(index, name, marker, field):
+        from deepspeed_tpu_torch.engine import _keystr
+        _, dim, dp = marker
+        chunks = []
+        for d in range(int(dp)):
+            leaves = shard_leaves(d)
+            rec = leaves.get(index)
+            if rec is None:
+                rec = leaves[_keystr(name)]
+            chunks.append(to_tensor(rec[field]))
+        return torch.cat(chunks, dim=int(dim))
+
+    def fix(tree, field):
+        if _is_z3_marker(tree):                  # a whole-tree marker
+            return whole(0, "", tree, field)
+        flat = weights_mod.flatten_tree(tree)
+        order = {n: i for i, n in
+                 enumerate(zero_mod.jax_leaf_order(flat))}
+        return weights_mod.unflatten_tree({
+            n: whole(order[n], n, v, field) if _is_z3_marker(v) else v
+            for n, v in flat.items()})
+
+    state["module"] = fix(state["module"], "param")
+    opt = state.get("optimizer")
+    if opt is not None:
+        opt["master"] = fix(opt["master"], "master")
+        for key in ("m", "v"):
+            if opt["opt_state"][key] is not None:
+                opt["opt_state"][key] = fix(opt["opt_state"][key], key)
+    return state
+
+
+def _read_state(load_dir: str, tag: str, row: int = 0):
+    """Model rank ``row``'s model-state file, ZeRO-3 leaves rehydrated."""
+    state = _load_obj(model_file(load_dir, tag, row))
+    return _zero3_rehydrate(load_dir, tag, state, row)
+
+
 def _read_model_state(load_dir: str, tag: Optional[str]):
     """``(tag, state)`` of the tag's model-state file of model rank 0, or
     None when there is no checkpoint.  Layouts this port cannot assemble
@@ -484,11 +563,7 @@ def _read_model_state(load_dir: str, tag: Optional[str]):
     if int(state.get("pp_world_size", 1)) > 1:
         raise _unported("loading a pipeline checkpoint (pp > 1)",
                         "Queue 1 item 11")
-    flat = weights_mod.flatten_tree(state["module"])
-    if state.get("zero3_native") or any(_is_z3_marker(v)
-                                        for v in flat.values()):
-        raise _unported("loading a ZeRO-3 checkpoint", "Queue 1 item 11")
-    return tag, state
+    return tag, _zero3_rehydrate(load_dir, tag, state, 0)
 
 
 def _saved_mp(state) -> int:
@@ -498,7 +573,7 @@ def _saved_mp(state) -> int:
 def _mp_states(load_dir: str, tag: str, state0) -> list:
     """The model-state files of every saved model rank, in rank order
     (``state0``, already read, is rank 0's)."""
-    return [state0] + [_load_obj(model_file(load_dir, tag, m))
+    return [state0] + [_read_state(load_dir, tag, m)
                        for m in range(1, _saved_mp(state0))]
 
 
@@ -593,17 +668,27 @@ def _engine_state(engine, client_state=None) -> dict:
     """The model-state file's content for ``engine``'s model rank (its
     local slices), with live tensors (written one leaf at a time).  Under
     ZeRO 1-2 the optimizer state is in the partition files instead
-    (``optimizer`` None)."""
+    (``optimizer`` None); under ZeRO-3 a marker stands in for each
+    partitioned leaf."""
     opt = engine.opt_state
     lr_sched = engine.lr_scheduler
+    dims = engine._zero3_dims if engine.zero3 else {}
+
+    def tree(flat):
+        return _tree({k: (_Z3_TAG, dims[k], engine.dp_world_size)
+                      if dims.get(k, -1) >= 0 else t
+                      for k, t in flat.items()})
+
     optimizer = None if engine.zero_flat else {
-        "master": _tree(engine.master),
+        "master": tree(engine.master),
         "opt_state": {
             "step": np.asarray(opt.step, np.int32),
-            "m": None if opt.m is None else _tree(opt.m),
-            "v": None if opt.v is None else _tree(opt.v)},
+            "m": None if opt.m is None else tree(opt.m),
+            "v": None if opt.v is None else tree(opt.v)},
     }
+    extra = {"zero3_native": True} if engine.zero3 else {}
     return {
+        **extra,
         "loss_scale_state": {k: v.detach().cpu().numpy()
                              for k, v in
                              engine.loss_scale_state._asdict().items()},
@@ -621,7 +706,7 @@ def _engine_state(engine, client_state=None) -> dict:
         "client_state": dict(client_state or {}),
         "mp_rank": engine.mp_rank,
         "pp_stage": 0,
-        "module": _tree(dict(engine.module.named_parameters())),
+        "module": tree(dict(engine.module.named_parameters())),
         "optimizer": optimizer,
     }
 
@@ -656,6 +741,31 @@ def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
              state)]
 
 
+def _zero3_shard_writes(engine, save_dir: str, tag: str) -> list:
+    """``(path, state)`` of this rank's ZeRO-3 shard file: its shards of
+    the partitioned leaves (param, master, m, v), keyed by the leaf's
+    index in the JAX flatten order (the JAX ``_zero3_shard_writes``)."""
+    from deepspeed_tpu_torch.engine import _keystr
+    dims = engine._zero3_dims
+    params = dict(engine.module.named_parameters())
+    opt = engine.opt_state
+    leaves = {}
+    for i, name in enumerate(zero_mod.jax_leaf_order(params)):
+        if dims[name] < 0:
+            continue
+        leaves[i] = {
+            "keystr": _keystr(name), "dim": int(dims[name]),
+            "param": params[name], "master": engine.master[name],
+            "m": None if opt.m is None else opt.m[name],
+            "v": None if opt.v is None else opt.v[name]}
+    topo = engine.topology
+    state = {"row": topo.mp_rank, "dp_rank": topo.dp_rank,
+             "dp_world_size": engine.dp_world_size,
+             "mp_world_size": engine.mp_world_size, "pp_world_size": 1,
+             "step": np.asarray(opt.step, np.int32), "leaves": leaves}
+    return [(zero3_file(save_dir, tag, topo.dp_rank, topo.mp_rank), state)]
+
+
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                     client_state: Optional[dict] = None,
                     async_save: Optional[bool] = None) -> str:
@@ -687,6 +797,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         writes.append((model_file(save_dir, tag, engine.mp_rank), state))
     if engine.zero_flat:
         writes.extend(_zero_checkpoint_writes(engine, save_dir, tag))
+    if engine.zero3:
+        writes.extend(_zero3_shard_writes(engine, save_dir, tag))
     os.makedirs(path, exist_ok=True)
     engine.last_save_bytes = 0
 
@@ -714,12 +826,31 @@ def _barrier(engine) -> None:
         dist.barrier()
 
 
+def _remove_stale(engine, path: str) -> None:
+    """Drop the model-state and ZeRO-3 shard files that an earlier save of
+    the same tag at another topology or stage left (the JAX
+    ``_publish``): a reader following ``latest`` must never pick one up.
+    The flat ZeRO partition files need not: a restore reads the
+    partition count their header records."""
+    mp, dp = engine.mp_world_size, engine.dp_world_size
+    expected = {MODEL_FILE.format(mp=m) for m in range(mp)}
+    if engine.zero3:
+        expected |= {ZERO3_FILE.format(dp=d, row=row)
+                     for d in range(dp) for row in range(mp)}
+    for f in os.listdir(path):
+        if ((f.endswith("_model_states.pt") or f.startswith("zero3_dp_rank_"))
+                and f not in expected):
+            os.remove(os.path.join(path, f))
+
+
 def _publish(engine, save_dir: str, tag: str) -> None:
     """Point ``latest`` at ``tag`` once every rank has written its files
-    (rank 0: a temporary file, made durable, renamed over the old
-    pointer); no rank returns before the pointer is visible."""
+    (rank 0: stale files of the tag removed, then a temporary file, made
+    durable, renamed over the old pointer); no rank returns before the
+    pointer is visible."""
     _barrier(engine)
     if engine.global_rank == 0:
+        _remove_stale(engine, os.path.join(save_dir, tag))
         latest = os.path.join(save_dir, LATEST_FILE)
         tmp = latest + ".tmp"
         with open(tmp, "w") as f:
@@ -809,6 +940,30 @@ def _rederive_masters(engine) -> None:
             m.copy_(p)
 
 
+def _zero3_local(engine, tree):
+    """Under ZeRO-3, this data rank's shards of a model-local ``tree``
+    (CPU tensors; a memmap leaf reads only the shard); ``tree`` itself
+    otherwise."""
+    if tree is None or not engine.zero3:
+        return tree
+    dims, dp, r = engine._zero3_dims, engine.dp_world_size, \
+        engine.topology.dp_rank
+
+    def one(name, leaf):
+        dim = dims.get(name, -1)
+        if dim < 0:
+            return leaf
+        if isinstance(leaf, Bf16Chunk):
+            raw = np.array(zero3_mod.shard(leaf.raw, dim, dp, r))
+            return torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+        if isinstance(leaf, torch.Tensor):
+            return zero3_mod.shard(leaf, dim, dp, r)
+        return np.array(zero3_mod.shard(np.asarray(leaf), dim, dp, r))
+
+    return weights_mod.unflatten_tree({
+        k: one(k, v) for k, v in weights_mod.flatten_tree(tree).items()})
+
+
 def init_from_module_tree(engine, module) -> tuple:
     """Copy same-named, same-shaped leaves of ``module`` (a global tree)
     into the engine's parameters (the pretrain -> fine-tune start; a new
@@ -819,7 +974,7 @@ def init_from_module_tree(engine, module) -> tuple:
     if engine.mp_world_size > 1:
         module = weights_mod.shard_tree(module, engine._param_specs,
                                         engine.mp_world_size, engine.mp_rank)
-    src = weights_mod.flatten_tree(module)
+    src = weights_mod.flatten_tree(_zero3_local(engine, module))
     loaded, skipped = [], []
     for name, p in engine.module.named_parameters():
         new = src.get(name)
@@ -887,8 +1042,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if saved_mp == mp:
         # this model rank's own file
         if engine.mp_rank:
-            state = _load_obj(model_file(load_dir, tag, engine.mp_rank))
-        local = lambda get: get(state)
+            state = _read_state(load_dir, tag, engine.mp_rank)
+        local = lambda get: _zero3_local(engine, get(state))
     else:
         # every saved model rank's file, combined and cut for this rank
         states = _mp_states(load_dir, tag, state)
@@ -896,9 +1051,9 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         def local(get):
             if get(states[0]) is None:
                 return None
-            return weights_mod.shard_tree(
+            return _zero3_local(engine, weights_mod.shard_tree(
                 _combined([get(s) for s in states], engine._param_specs),
-                engine._param_specs or {}, mp, engine.mp_rank)
+                engine._param_specs or {}, mp, engine.mp_rank))
 
     _load_flat(dict(engine.module.named_parameters()),
                local(lambda s: s["module"]), "module")

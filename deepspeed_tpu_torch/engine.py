@@ -58,13 +58,33 @@ boundary update inside ``shard_map`` and upstream Megatron + FusedLamb.
 Under ZeRO each model rank partitions ITS local flat layout over its data
 group.
 
+ZeRO stage 3 (``zero3.py``; the JAX engine's ``zero3`` branches): each
+parameter leaf large enough is cut along one dim over the data group
+(``zero3.choose_dims``, on the model-local shape under tensor
+parallelism), and its compute-dtype parameter, fp32 master and moments
+persist as this rank's shard; there is no flat buffer.  The model gathers
+the leaves outside its block stack at entry and each layer's weights
+inside the block body (``models/transformer.py``), and the gather's
+backward reduce-scatters the gradients in the compute dtype.  At the
+boundary the partitioned leaves' accumulated grads are divided by the
+world size and the replicated ones all-reduced with the knobs; the norm
+counts every element once (``zero3.local_sqnorm_and_finite``), the
+overflow flag is agreed over the data and model groups, and the update
+(Adam and AdamW through the CUDA kernel, or Lion) runs per leaf on the
+shards.  ``overlap_comm`` prefetches the next layer's gather.
+
+``sparse_gradients`` (ZeRO off): the leaves a model marks with its
+``sparse_grad_specs`` hook reduce as gathered (indices, values) rows with
+a dense fallback (``sparse.sparse_psum``; the reference's
+``deepspeed_light.py:884-940``).
+
 ``training_data`` becomes a ``data.DeepSpeedDataLoader`` (``deepspeed_io``)
 whose batches arrive on the engine's device, each data rank reading its
 rows of the global batch (the model ranks of a data group read the same
 rows); ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
 package's checkpoint layout, per-model-rank and ZeRO partition files
 included (``checkpoint.py``).  What the JAX engine has and this slice does
-not yet (ZeRO-3, sequence and pipeline parallelism, ``train_many``,
+not yet (sequence and pipeline parallelism, MoE, ``train_many``,
 telemetry, resilience, graph lint) raises ``NotImplementedError`` naming
 its ROADMAP.md item.
 """
@@ -87,6 +107,7 @@ from deepspeed_tpu_torch import lr_schedules as schedules_mod
 from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch import weights as weights_mod
 from deepspeed_tpu_torch import zero as zero_mod
+from deepspeed_tpu_torch import zero3 as zero3_mod
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.ops import optim as optim_mod
 from deepspeed_tpu_torch.parallel import comm
@@ -287,6 +308,8 @@ class DeepSpeedTorchEngine:
         if model_parameters is not None:
             weights_mod.params_from_numpy(model, model_parameters)
         self._configure_model_parallel()
+        self._configure_zero3()
+        self._sparse_flags = self._resolve_sparse_flags()
         if param_groups is None and self.client_optimizer is None:
             param_groups = self.config.optimizer_param_groups
         self._init_parameters()
@@ -366,6 +389,8 @@ class DeepSpeedTorchEngine:
         specs = specs_fn() if specs_fn is not None else None
         self._param_specs = (weights_mod.flatten_tree(specs)
                              if specs is not None else None)
+        self._global_shapes = {k: tuple(p.shape)
+                               for k, p in self.module.named_parameters()}
         if self.mp_world_size == 1:
             return
         if specs is None:
@@ -377,6 +402,59 @@ class DeepSpeedTorchEngine:
                                   self.mp_rank)
         self.module.model_group = self.topology.model_group
 
+    def _configure_zero3(self):
+        """Stage 3: the partition dim of each leaf (``_zero3_dims``),
+        chosen on its model-local shape, handed to the model with the data
+        group and the prefetch flag (the JAX engine's
+        ``engine.py:680-715``)."""
+        self._zero3_dims = None
+        if not self.zero3:
+            return
+        min_fn = getattr(self.module, "zero3_min_dims", None)
+        dims = zero3_mod.choose_dims(
+            self._global_shapes, self._param_specs, self.mp_world_size,
+            self.dp_world_size, min_dims=min_fn() if min_fn else None)
+        if not zero3_mod.partitioned_any(dims):
+            logger.warning(
+                "zero_optimization.stage=3: no parameter leaf is "
+                "partitionable at dp=%d (divisibility/min-size); training "
+                "proceeds with replicated parameters (stage-1-like memory)",
+                self.dp_world_size)
+        self._zero3_dims = dims
+        self.module.zero3_dims = dims
+        self.module.data_group = self.topology.group
+        self.module.zero3_prefetch = self.overlap_comm
+
+    def _resolve_sparse_flags(self):
+        """``{name: True}`` of the leaves whose gradients take the
+        row-sparse reduction, or None (all dense), with a warning whenever
+        the flag cannot apply (the JAX engine's ``engine.py:907-940``):
+        under ZeRO, without the model's ``sparse_grad_specs`` hook, or
+        when it marks nothing."""
+        if not self.config.sparse_gradients_enabled:
+            return None
+        if self.zero_enabled:
+            logger.warning(
+                "sparse_gradients is ignored under ZeRO: gradients reduce "
+                "through the flat partition buffer (reference likewise "
+                "routes ZeRO grads densely)")
+            return None
+        fn = getattr(self.module, "sparse_grad_specs", None)
+        if fn is None:
+            logger.warning(
+                "sparse_gradients=true but the model defines no "
+                "sparse_grad_specs(params) hook (the nn.Embedding "
+                "auto-marking analog); gradients stay dense")
+            return None
+        flags = {k: bool(v) for k, v in weights_mod.flatten_tree(
+            fn(dict(self.module.named_parameters()))).items() if v}
+        if not flags:
+            logger.warning(
+                "sparse_gradients=true but sparse_grad_specs marked no "
+                "leaves; gradients stay dense")
+            return None
+        return flags
+
     def _sharded(self, name: str) -> bool:
         """Whether leaf ``name`` is split over the model group."""
         return (self._param_specs is not None
@@ -387,8 +465,6 @@ class DeepSpeedTorchEngine:
         refused = [
             (cfg.train_steps_per_dispatch != 1,
              "train_steps_per_dispatch > 1 (train_many)", "Queue 1 item 12"),
-            (cfg.sparse_gradients_enabled, "sparse_gradients",
-             "Queue 1 item 11"),
             (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off"
              or cfg.analysis_concurrency_mode != "off",
              "graph lint / analysis", "Queue 1 item 14"),
@@ -414,26 +490,28 @@ class DeepSpeedTorchEngine:
         self.zero_enabled = cfg.zero_enabled
         self.zero_stage = cfg.zero_stage if self.zero_enabled else 0
         self.zero_flat = self.zero_stage in (1, 2)
+        self.zero3 = self.zero_stage == 3
         dp = self.dp_world_size
         if self.zero_enabled:
             # the reference's Adam-family guard (the flat layout is built
-            # for m + v state), with the JAX engine's message
-            if self.base_optimizer.name not in ("adam", "adamw"):
+            # for m + v state; stage 3 updates per leaf, so Lion's m-only
+            # state is admitted there), with the JAX engine's message
+            stage3_ok = ("lion",) if self.zero3 else ()
+            if self.base_optimizer.name not in ("adam", "adamw") + stage3_ok:
                 raise DeepSpeedConfigError(
                     f"zero_optimization stage {cfg.zero_stage} is only "
                     f"supported for Adam-family optimizers (Lion is admitted "
                     f"at stage 3, where the update is per-leaf elementwise), "
                     f"got {self.base_optimizer.name!r} (reference guard: "
                     f"deepspeed_light.py:450-457)")
-            if self.zero_stage == 3:
-                raise _unported("zero_optimization stage 3",
-                                "Queue 1 item 11")
             pps = cfg.zero_parameter_parallel_size
             pps = dp if pps in (None, 0) else int(pps)
             if pps <= 0 or dp % pps != 0:
                 raise DeepSpeedConfigError(
                     f"zero_optimization.parameter_parallel_size={pps} must "
                     f"divide the DP world size ({dp})")
+            if self.zero3:
+                self._check_zero3(pps)
             self.topology = self.topology.with_subgroups(pps)
         self.zero_pps = self.topology.pps if self.zero_flat else dp
         # overlap_comm: the boundary's collectives and update split into
@@ -452,6 +530,42 @@ class DeepSpeedTorchEngine:
         self.comm_bucket_elems = max(
             128, (int(cfg.zero_comm_bucket_mb * (1 << 20)) // 4 // 128)
             * 128)
+
+    def _check_zero3(self, pps: int):
+        """The JAX engine's stage-3 guards (``engine.py:587-629``)."""
+        cfg = self.config
+        if not hasattr(self.module, "zero3_dims"):
+            raise DeepSpeedConfigError(
+                "zero_optimization.stage=3 requires a model that "
+                "cooperates with parameter partitioning (a zero3_dims "
+                "attribute the engine fills and a per-layer gather in "
+                "the block scan — the built-in GPT-2/BERT/MoE family "
+                "does; see models/transformer.py zero3_enter)")
+        if pps != self.dp_world_size:
+            raise DeepSpeedConfigError(
+                "zero_optimization.parameter_parallel_size is a "
+                "stage-1/2 flat-layout knob; stage 3 partitions over "
+                "the full DP group")
+        # partitioned leaves reduce in the gather's backward (a
+        # compute-dtype reduce-scatter before the 1/world division): the
+        # knobs reach only the replicated leaves
+        inert = [k for k, dflt, v in (
+            ("fp32_allreduce", C.FP32_ALLREDUCE_DEFAULT, cfg.fp32_allreduce),
+            ("prescale_gradients", C.PRESCALE_GRADIENTS_DEFAULT,
+             cfg.prescale_gradients),
+            ("gradient_predivide_factor",
+             C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT,
+             cfg.gradient_predivide_factor)) if v != dflt]
+        if inert:
+            logger.warning(
+                "zero_optimization.stage=3: %s only affect(s) "
+                "REPLICATED leaves; partitioned leaves reduce via the "
+                "gather transpose's compute-dtype (bf16/fp16) "
+                "psum_scatter before the 1/world division, so fp16 "
+                "partial sums there can overflow where the prescaled "
+                "stage-0 path would not (dynamic loss scaling "
+                "recovers but trajectories can diverge)",
+                ", ".join(inert))
 
     def _configure_optimizer(self):
         """Client optimizer beats JSON (upstream _configure_optimizer)."""
@@ -485,6 +599,14 @@ class DeepSpeedTorchEngine:
         self.module.to(self.device)
         cdt = self.policy.compute_dtype
         self._params = dict(self.module.named_parameters())
+        if self.zero3:
+            # this data rank's shard of each partitioned leaf (a copy, so
+            # the whole leaf is freed)
+            for name, p in self._params.items():
+                dim = self._zero3_dims[name]
+                if dim >= 0:
+                    p.data = zero3_mod.shard(p.data, dim, self.dp_world_size,
+                                             self.topology.dp_rank).clone()
         if self.zero_flat:
             self.flat_meta = zero_mod.make_flat_meta(self._params,
                                                      self.zero_pps)
@@ -839,11 +961,7 @@ class DeepSpeedTorchEngine:
         if self.zero_flat:
             return self._zero_boundary_update()
         fp16 = self.config.fp16_enabled
-        grads = comm.allreduce_grads(
-            self._acc, self.topology.group, self.dp_world_size,
-            bucket_elems=(self.comm_bucket_elems if self.overlap_comm
-                          else None),
-            **self._reduce_knobs())
+        grads = self._reduce_grads(self._acc)
         self._acc = None
         # the reduced grads are the same on every data rank: so are the
         # norm and the overflow flag
@@ -863,6 +981,35 @@ class DeepSpeedTorchEngine:
                 self.loss_scale_state, overflow, variant=self._ls_variant)
         return skip
 
+    def _reduce_grads(self, acc):
+        """The data-group reduction of the accumulated per-leaf grads, in
+        place where it can be.  At stage 3 the partitioned leaves arrive
+        summed and scattered by the gather's backward and are divided by
+        the world size; the replicated ones (and every leaf below stage 1)
+        all-reduce with the knobs, the ``sparse_gradients`` leaves as
+        gathered rows (``sparse.sparse_psum``)."""
+        group, world = self.topology.group, self.dp_world_size
+        kw = dict(self._reduce_knobs(),
+                  bucket_elems=(self.comm_bucket_elems if self.overlap_comm
+                                else None))
+        special = {}
+        if self.zero3:
+            for k, g in acc.items():
+                if g is not None and self._zero3_dims[k] >= 0:
+                    special[k] = g.div_(world) if world != 1 else g
+        elif self._sparse_flags is not None:
+            from deepspeed_tpu_torch import sparse as sparse_mod
+            kw.pop("bucket_elems")
+            for k, g in acc.items():
+                if g is not None and self._sparse_flags.get(k):
+                    special[k] = sparse_mod.sparse_psum(
+                        g, group, world,
+                        self.config.sparse_gradients_max_rows, **kw)
+        dense = comm.allreduce_grads(
+            {k: g for k, g in acc.items() if k not in special}, group,
+            world, **kw)
+        return {k: special[k] if k in special else dense[k] for k in acc}
+
     def _sqnorm_and_overflow(self, grads):
         """The global squared grad norm and the overflow flag of the
         data-reduced ``grads`` (the JAX ``_global_overflow_and_sqnorm``):
@@ -877,6 +1024,21 @@ class DeepSpeedTorchEngine:
             return torch.sum(norms * norms)
 
         names = [k for k, g in grads.items() if g is not None]
+        topo = self.topology
+        if self.zero3:
+            # partitioned shards differ by data rank: sum over the data
+            # group, each element once, and agree on the flag there too
+            sq, finite = zero3_mod.local_sqnorm_and_finite(
+                grads, self._zero3_dims, self._param_specs,
+                self.dp_world_size, self.mp_world_size)
+            sq = sq.reshape(1)
+            if topo.group is not None:
+                dist.all_reduce(sq, group=topo.group)
+            overflow = comm.overflow_any(~finite, topo.group)
+            if topo.model_group is not None:
+                comm.model_sum_(sq, topo.model_group)
+                overflow = comm.overflow_any(overflow, topo.model_group)
+            return sq[0], overflow
         if self.mp_world_size == 1:
             sq = sq_sum(names)
             # a non-finite grad makes the squared norm non-finite

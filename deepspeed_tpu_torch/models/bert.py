@@ -10,7 +10,10 @@ JAX pytree's (``wte``, ``blocks.qkv_w``, ``mlm_bias``, ...), so
 parallelism (``partition_specs``, ``bert.py:52-57,147-156``) ``wte`` and
 ``mlm_bias`` ride the vocab shard, the blocks are Megatron-sharded, and the
 pooler, NSP, MLM dense and MLM LayerNorm, the span head and the other
-embeddings are replicated.
+embeddings are replicated.  Under ZeRO-3 (``zero3_dims``, set by the
+engine, ``bert.py:77-109``) the leaves outside the block stack are
+gathered at entry and each layer's weights inside the block body
+(``transformer.zero3_enter``, ``stack_apply``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,11 @@ class _BertBackbone(nn.Module):
         #: the model process group (None: one model shard); the engine
         #: sets it after narrowing the parameters to this rank's slices
         self.model_group = None
+        #: ZeRO-3 partition dims, the data group they gather over, and the
+        #: gather prefetch; the engine sets them at stage 3
+        self.zero3_dims = None
+        self.data_group = None
+        self.zero3_prefetch = False
 
     def _normal(self, generator, device, *shape):
         t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -86,22 +94,36 @@ class _BertBackbone(nn.Module):
             specs["mlm_bias"] = 0
         return specs
 
+    def zero3_min_dims(self):
+        """Engine hook (stage 3): the lowest partitionable dim per leaf.
+        Block leaves pin dim >= 1: their dim 0 is the layer stack."""
+        return T.zero3_min_dims(self)
+
     def with_config(self, **changes) -> None:
         """Replace config fields (the engine's activation-checkpointing
         override), keeping the weights."""
         self.config = dataclasses.replace(self.config, **changes)
 
-    def _encode(self, input_ids, attention_mask, token_type_ids):
+    def _enter(self):
+        """``(params, block dims)``: the parameters by dotted name, those
+        outside the block stack gathered under ZeRO-3."""
+        p, z3 = T.zero3_enter(dict(self.named_parameters()), self.zero3_dims,
+                              self.data_group)
+        return p, z3.get("blocks")
+
+    def _encode(self, p, z3, input_ids, attention_mask, token_type_ids):
         cfg = self.config
         T_len = input_ids.shape[1]
-        x = L.vocab_parallel_embedding(input_ids, self.wte, self.model_group)
-        x = x + self.wpe[:T_len].to(x.dtype)[None]
+        x = L.vocab_parallel_embedding(input_ids, p["wte"], self.model_group)
+        x = x + p["wpe"][:T_len].to(x.dtype)[None]
         x = x + torch.nn.functional.embedding(token_type_ids.long(),
-                                              self.wtt.to(x.dtype))
-        x = L.layer_norm(x, self.ln_emb_s, self.ln_emb_b, cfg.ln_eps)
-        return T.stack_apply(x, dict(self.blocks.named_parameters()), cfg,
+                                              p["wtt"].to(x.dtype))
+        x = L.layer_norm(x, p["ln_emb_s"], p["ln_emb_b"], cfg.ln_eps)
+        return T.stack_apply(x, T.subtree(p, "blocks"), cfg,
                              attn_mask=attention_mask,
-                             group=self.model_group)
+                             group=self.model_group, z3_dims=z3,
+                             z3_group=self.data_group,
+                             z3_prefetch=self.zero3_prefetch)
 
 
 class BertForPreTraining(_BertBackbone):
@@ -138,13 +160,13 @@ class BertForPreTraining(_BertBackbone):
                    mlm_gather_budget=mlm_gather_budget, generator=generator,
                    device=device)
 
-    def _mlm_head(self, h):
+    def _mlm_head(self, p, h):
         """Dense + GELU + LN + tied vocab decoder on [..., H]."""
-        g = L.gelu(h @ self.mlm_dense_w.to(h.dtype)
-                   + self.mlm_dense_b.to(h.dtype))
-        g = L.layer_norm(g, self.mlm_ln_s, self.mlm_ln_b, self.config.ln_eps)
-        logits = L.vocab_parallel_logits(g, self.wte, self.model_group)
-        return logits + self.mlm_bias.to(logits.dtype)
+        g = L.gelu(h @ p["mlm_dense_w"].to(h.dtype)
+                   + p["mlm_dense_b"].to(h.dtype))
+        g = L.layer_norm(g, p["mlm_ln_s"], p["mlm_ln_b"], self.config.ln_eps)
+        logits = L.vocab_parallel_logits(g, p["wte"], self.model_group)
+        return logits + p["mlm_bias"].to(logits.dtype)
 
     def forward(self, input_ids, attention_mask, token_type_ids, *rest):
         if len(rest) in (1, 2):
@@ -160,7 +182,8 @@ class BertForPreTraining(_BertBackbone):
                 f"mlm_positions, mlm_ids, mlm_weights[, nsp], got "
                 f"{len(rest)} trailing args")
 
-        x = self._encode(input_ids, attention_mask, token_type_ids)
+        p, z3 = self._enter()
+        x = self._encode(p, z3, input_ids, attention_mask, token_type_ids)
 
         if mlm_positions is None:
             budget = self.mlm_gather_budget
@@ -174,18 +197,18 @@ class BertForPreTraining(_BertBackbone):
                                     stable=True)
                 w, pos = w[:, :P_], pos[:, :P_]
                 ids = torch.clamp(torch.gather(mlm_labels, 1, pos), min=0)
-                logits = self._mlm_head(L.gather_positions(x, pos))
+                logits = self._mlm_head(p, L.gather_positions(x, pos))
                 tok_loss = L.vocab_parallel_cross_entropy(logits, ids,
                                                          self.model_group)
                 loss = (torch.sum(tok_loss * w)
                         / torch.clamp(torch.sum(w), min=1.0))
             else:
-                logits = self._mlm_head(x)
+                logits = self._mlm_head(p, x)
                 tok_loss = L.vocab_parallel_cross_entropy(
                     logits, mlm_labels, self.model_group)
                 loss = L.masked_mean_loss(tok_loss, mlm_labels >= 0)
         else:
-            logits = self._mlm_head(L.gather_positions(x, mlm_positions))
+            logits = self._mlm_head(p, L.gather_positions(x, mlm_positions))
             tok_loss = L.vocab_parallel_cross_entropy(logits, mlm_ids,
                                                      self.model_group)
             w = mlm_weights.float()
@@ -193,10 +216,10 @@ class BertForPreTraining(_BertBackbone):
                                                          min=1.0)
 
         if self.use_nsp and nsp_labels is not None:
-            pooled = torch.tanh(x[:, 0] @ self.pool_w.to(x.dtype)
-                                + self.pool_b.to(x.dtype))
-            nsp_logits = (pooled @ self.nsp_w.to(pooled.dtype)
-                          + self.nsp_b.to(pooled.dtype))
+            pooled = torch.tanh(x[:, 0] @ p["pool_w"].to(x.dtype)
+                                + p["pool_b"].to(x.dtype))
+            nsp_logits = (pooled @ p["nsp_w"].to(pooled.dtype)
+                          + p["nsp_b"].to(pooled.dtype))
             logp = torch.log_softmax(nsp_logits.float(), dim=-1)
             nsp = -torch.mean(torch.gather(
                 logp, 1, nsp_labels.long()[:, None])[:, 0])
@@ -224,9 +247,10 @@ class BertForQuestionAnswering(_BertBackbone):
 
     def span_logits(self, input_ids, attention_mask, token_type_ids):
         """(start_logits, end_logits), each fp32 [B, T]."""
-        x = self._encode(input_ids, attention_mask, token_type_ids)
-        logits = (x @ self.qa_w.to(x.dtype)
-                  + self.qa_b.to(x.dtype)).float()
+        p, z3 = self._enter()
+        x = self._encode(p, z3, input_ids, attention_mask, token_type_ids)
+        logits = (x @ p["qa_w"].to(x.dtype)
+                  + p["qa_b"].to(x.dtype)).float()
         return logits[..., 0], logits[..., 1]
 
     def forward(self, input_ids, attention_mask, token_type_ids,

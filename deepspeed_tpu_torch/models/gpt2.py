@@ -9,9 +9,12 @@ copies weights across name for name.  Under tensor parallelism
 (``partition_specs``, ``gpt2.py:97-103``) ``wte`` is vocab-parallel, the
 blocks Megatron-sharded, and the rest replicated.
 
-What the JAX model has and this port does not yet raises
-``NotImplementedError`` naming its ROADMAP.md item where a caller reaches
-it: the ZeRO-3 fields, the MoE variant and the serving methods.
+Under ZeRO-3 (``zero3_dims``, set by the engine, ``gpt2.py:50-58``) the
+leaves outside the block stack are gathered at entry and each layer's
+weights inside the block body (``transformer.zero3_enter``,
+``stack_apply``).  What the JAX model has and this port does not yet
+raises ``NotImplementedError`` naming its ROADMAP.md item where a caller
+reaches it: the MoE variant and the serving methods.
 """
 
 from __future__ import annotations
@@ -69,6 +72,14 @@ class GPT2(nn.Module):
         #: the model process group (None: one model shard); the engine
         #: sets it after narrowing the parameters to this rank's slices
         self.model_group = None
+        #: ZeRO-3 partition dims ({dotted name: dim}, -1 replicated) and
+        #: the data group the partitioned leaves gather over; the engine
+        #: sets both at stage 3
+        self.zero3_dims = None
+        self.data_group = None
+        #: ZeRO-3 gather prefetch (the engine's overlap_comm): layer
+        #: pairs, the second layer's gather issued before the first runs
+        self.zero3_prefetch = False
 
     @classmethod
     def from_size(cls, size: str, generator=None, device=None, **overrides):
@@ -89,6 +100,11 @@ class GPT2(nn.Module):
         return {"wte": 0, "wpe": None, "blocks": T.block_partition_specs(),
                 "lnf_s": None, "lnf_b": None}
 
+    def zero3_min_dims(self):
+        """Engine hook (stage 3): the lowest partitionable dim per leaf.
+        Block leaves pin dim >= 1: their dim 0 is the layer stack."""
+        return T.zero3_min_dims(self)
+
     def with_config(self, **changes) -> None:
         """Replace config fields (the engine's activation-checkpointing
         override), keeping the weights."""
@@ -98,30 +114,19 @@ class GPT2(nn.Module):
         cfg = self.config
         T_len = tokens.shape[1]
         group = self.model_group
-        x = L.vocab_parallel_embedding(tokens, self.wte, group)
-        x = x + self.wpe[:T_len].to(x.dtype)[None]
-        x = T.stack_apply(x, dict(self.blocks.named_parameters()), cfg,
-                          group=group)
-        x = L.layer_norm(x, self.lnf_s, self.lnf_b, cfg.ln_eps)
-        logits = L.vocab_parallel_logits(x, self.wte, group)
+        p, z3 = T.zero3_enter(dict(self.named_parameters()), self.zero3_dims,
+                              self.data_group)
+        x = L.vocab_parallel_embedding(tokens, p["wte"], group)
+        x = x + p["wpe"][:T_len].to(x.dtype)[None]
+        x = T.stack_apply(x, T.subtree(p, "blocks"), cfg, group=group,
+                          z3_dims=z3.get("blocks"), z3_group=self.data_group,
+                          z3_prefetch=self.zero3_prefetch)
+        x = L.layer_norm(x, p["lnf_s"], p["lnf_b"], cfg.ln_eps)
+        logits = L.vocab_parallel_logits(x, p["wte"], group)
         loss = L.vocab_parallel_cross_entropy(logits, labels, group)
         return L.masked_mean_loss(loss, labels >= 0)
 
     # ---------------------------------------------- not in this slice yet
-
-    @property
-    def zero3_dims(self):
-        """ZeRO-3 partition dims (the JAX engine sets them at stage 3)."""
-        return None
-
-    @zero3_dims.setter
-    def zero3_dims(self, dims):
-        if dims is not None:
-            raise _unported("ZeRO-3 partitioned parameters",
-                            "Queue 1 item 11")
-
-    def zero3_min_dims(self, params):
-        raise _unported("ZeRO-3 partitioned parameters", "Queue 1 item 11")
 
     def kv_cache_dims(self, mp_size: int = 1):
         raise _unported("GPT-2 serving (kv_cache_dims)", "Queue 1 item 13")

@@ -21,6 +21,11 @@ Rematerialisation (``TransformerConfig.remat``/``remat_policy``):
   replays neither product.  PyTorch's selective checkpointing would select
   by operator through a dispatch mode in Python on every op of the block,
   which made a BERT-large step at seq 512 2.4x slower on an H100 (PERF.md).
+
+ZeRO-3 (``zero3.py``): ``zero3_enter`` gathers the leaves outside the block
+stack at the model's entry, and ``stack_apply`` gathers each layer's slice
+of the partitioned stack inside the (rematerialised) block body, pairing
+the gathers under ``z3_prefetch``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
+from deepspeed_tpu_torch import zero3 as Z
 from deepspeed_tpu_torch.models import layers as L
 
 REMAT_POLICIES = ("full", "dots", "selective")
@@ -213,20 +219,96 @@ def remat_wrap(body, cfg: TransformerConfig):
     return wrapped
 
 
+def zero3_enter(params: Dict[str, torch.Tensor], dims, group,
+                deferred=("blocks",)):
+    """The ZeRO-3 entry gather (``deepspeed_tpu/models/transformer.py``
+    ``zero3_enter``): every partitioned leaf of ``params`` (``{dotted
+    name: tensor}``) outside the ``deferred`` subtrees gathered now, as
+    one collective; the block stacks stay partitioned for the per-layer
+    gather.  Returns ``(params, deferred_dims)``: ``deferred_dims[key]``
+    holds the dims of subtree ``key``'s STACKED leaves, by name within
+    it.  ``params`` unchanged when ``dims`` is None (stage < 3)."""
+    if dims is None:
+        return params, {}
+    deferred_dims = {key: {} for key in deferred}
+    names, shards, leaf_dims = [], [], []
+    for name, t in params.items():
+        head, _, rest = name.partition(".")
+        dim = dims.get(name, Z.REPLICATED)
+        if head in deferred_dims and rest:
+            deferred_dims[head][rest] = dim
+        elif dim >= 0:
+            names.append(name)
+            shards.append(t)
+            leaf_dims.append(dim)
+    out = dict(params)
+    out.update(zip(names, Z.gather_leaves(shards, leaf_dims, group)))
+    return out, deferred_dims
+
+
+def subtree(params: Dict[str, torch.Tensor], key: str):
+    """``{name: tensor}`` of the leaves under ``key.`` in ``params``."""
+    head = key + "."
+    return {k[len(head):]: t for k, t in params.items()
+            if k.startswith(head)}
+
+
+def zero3_min_dims(model: nn.Module) -> Dict[str, int]:
+    """The family models' ``zero3_min_dims``: 1 for the stacked block
+    leaves (dim 0 is the layer stack, which the body slices), 0 else."""
+    return {k: 1 if k.startswith("blocks.") else 0
+            for k, _ in model.named_parameters()}
+
+
 def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
-                attn_mask=None, group=None):
+                attn_mask=None, group=None, z3_dims=None, z3_group=None,
+                z3_prefetch=False):
     """All layers over the stacked [L, ...] params (this rank's slices of
     the model group ``group``).  A recompute replays a block's forward
-    collectives, in the same order on every rank."""
+    collectives, in the same order on every rank.
+
+    ZeRO-3 (``z3_dims``: the stacked leaves' partition dims over the data
+    group ``z3_group``): each layer's slice of the partitioned stack is
+    gathered INSIDE the block body, so under remat the gather replays in
+    the backward and no gathered layer is kept for it.  ``z3_prefetch``
+    (the engine's ``overlap_comm``) runs the body over pairs of layers and
+    issues layer b's gather (an async work handle) before block a runs;
+    a gather is exact, so the pair computes bitwise what two on-demand
+    bodies do.  An odd layer count falls back to on-demand, as in the JAX
+    package."""
     names = sorted(stacked)
     per_layer = [stacked[k].unbind(0) for k in names]
+    z3 = Z.partitioned_any(z3_dims) and z3_group is not None
+    if z3:
+        shifted = Z.shift_dims(z3_dims)
+        body_dims = [shifted[k] for k in names]
 
-    def body(x_, mask_, *leaves):
+    def block(x_, mask_, leaves):
         return block_apply(x_, dict(zip(names, leaves)), cfg, mask_, group)
 
-    body = remat_wrap(body, cfg)
-    for i in range(cfg.num_layers):
-        x = body(x, attn_mask, *(leaves[i] for leaves in per_layer))
+    def body(x_, mask_, *leaves):
+        if z3:
+            leaves = Z.gather_leaves(leaves, body_dims, z3_group)
+        return block(x_, mask_, leaves)
+
+    n, layers = len(names), cfg.num_layers
+    if not (z3 and z3_prefetch and layers >= 2 and layers % 2 == 0):
+        body = remat_wrap(body, cfg)
+        for i in range(layers):
+            x = body(x, attn_mask, *(leaves[i] for leaves in per_layer))
+        return x
+
+    def pair(x_, mask_, *leaves):
+        a, b = leaves[:n], leaves[n:]
+        pending = Z.start_gather(b, body_dims, z3_group)
+        x_ = block(x_, mask_, Z.gather_leaves(a, body_dims, z3_group))
+        return block(x_, mask_, Z.gather_leaves(b, body_dims, z3_group,
+                                                pending=pending))
+
+    pair = remat_wrap(pair, cfg)
+    for i in range(0, layers, 2):
+        x = pair(x, attn_mask, *(leaves[i] for leaves in per_layer),
+                 *(leaves[i + 1] for leaves in per_layer))
     return x
 
 

@@ -1,4 +1,5 @@
-"""Optimizers over fp32 masters: Adam, AdamW, LAMB and SGD.
+"""Optimizers over fp32 masters: Adam, AdamW, LAMB, SGD, Lion, RMSprop and
+Adagrad, and ``register_optimizer`` for a third party's.
 
 The port of ``deepspeed_tpu/ops/optim.py``, with the same numerics (upstream
 DeepSpeed's fused-LAMB kernel and apex FusedAdam):
@@ -18,8 +19,15 @@ per JAX pytree leaf, so LAMB's per-tensor trust ratio spans the same
 elements in both packages (the stacked ``[L, ...]`` block leaves).  Updates
 run IN PLACE on the parameter and moment tensors.  Adam, AdamW and LAMB go
 through ``ops.cuda_optim``, which launches the CUDA kernels on CUDA tensors
-and runs the plain versions on CPU tensors.  ``use_pallas`` is accepted so
-that the same JSON parses; it selects nothing here.
+and runs the plain versions on CPU tensors.  SGD, Lion, RMSprop and Adagrad
+have no kernel in the JAX package either: they are plain tensor ops on
+every device.  ``use_pallas`` is accepted so that the same JSON parses; it
+selects nothing here.
+
+The state of every optimizer is the JAX ``OptimizerState``'s: ``m`` None
+for RMSprop, Adagrad and SGD without momentum, ``v`` None for SGD and
+Lion, so the optimizer ``state_dict`` and the checkpoint files carry the
+same Nones in both packages.
 """
 
 from __future__ import annotations
@@ -215,15 +223,101 @@ class Sgd(Optimizer):
         return params, state
 
 
-#: JSON optimizer names the JAX package has and this port does not yet
-_UNPORTED = ("lion", "rmsprop", "adagrad")
+@dataclasses.dataclass(frozen=True)
+class Lion(Optimizer):
+    """Lion, EvoLved Sign Momentum (Chen et al. 2023, arXiv:2302.06675):
+    ``u = sign(b1*m + (1-b1)*g); p -= lr*(u + wd*p); m = b2*m +
+    (1-b2)*g``, the gradient divided by ``combined_scale`` before both.
+    Decay is decoupled, the state ``m`` only.  Paper defaults: lr 1e-4,
+    betas (0.9, 0.99).  Admitted at ZeRO stage 3, where the update runs
+    per leaf on the local shards."""
+    name: str = "lion"
+    lr: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.99
+
+    def init(self, params) -> OptimizerState:
+        return OptimizerState(step=0, m=_zeros_like(params), v=None)
+
+    def update(self, params, grads, state, *, lr=None, beta1=None,
+               beta2=None, weight_decay=None, combined_scale=1.0):
+        for k, p in params.items():
+            g = grads.get(k)
+            if g is None:
+                continue
+            lr_l, b1, b2, wd = self._resolve(k, lr, beta1, beta2,
+                                             weight_decay)
+            m = state.m[k]
+            sg = g.float() / combined_scale
+            u = torch.sign(b1 * m + (1.0 - b1) * sg)
+            p.sub_(lr_l * (u + wd * p))
+            m.mul_(b2).add_((1.0 - b2) * sg)
+        state.step += 1
+        return params, state
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSprop(Optimizer):
+    """``torch.optim.RMSprop`` without its momentum and centered variants:
+    ``v = alpha*v + (1-alpha)*g^2; p -= lr*g / (sqrt(v) + eps)``, L2 decay
+    added to the gradient; the state ``v`` only."""
+    name: str = "rmsprop"
+    alpha: float = 0.99
+    eps: float = 1e-8
+    uses_betas = False
+
+    def init(self, params) -> OptimizerState:
+        return OptimizerState(step=0, m=None, v=_zeros_like(params))
+
+    def _accumulate(self, v, sg):
+        v.mul_(self.alpha).add_((1.0 - self.alpha) * sg * sg)
+
+    def update(self, params, grads, state, *, lr=None, beta1=None,
+               beta2=None, weight_decay=None, combined_scale=1.0):
+        for k, p in params.items():
+            g = grads.get(k)
+            if g is None:
+                continue
+            lr_l, _, _, wd = self._resolve(k, lr, beta1, beta2,
+                                           weight_decay)
+            v = state.v[k]
+            sg = g.float() / combined_scale + wd * p
+            self._accumulate(v, sg)
+            p.sub_(lr_l * sg / (torch.sqrt(v) + self.eps))
+        state.step += 1
+        return params, state
+
+
+@dataclasses.dataclass(frozen=True)
+class Adagrad(RMSprop):
+    """``torch.optim.Adagrad``: ``v += g^2; p -= lr*g / (sqrt(v) + eps)``,
+    L2 decay added to the gradient; the state ``v`` only."""
+    name: str = "adagrad"
+    eps: float = 1e-10
+
+    def _accumulate(self, v, sg):
+        v.add_(sg * sg)
+
+
+# The reference falls through to torch.optim.<name> for an optimizer it
+# does not wrap (deepspeed_light.py:479-481); here, as in the JAX package,
+# a third party registers a factory instead.
+_REGISTRY: dict = {}
+
+
+def register_optimizer(name: str, factory) -> None:
+    """Register ``factory(**params_dict) -> Optimizer`` under a config
+    ``optimizer.type`` name (case-insensitive); ``from_config`` consults
+    it after the built-in names."""
+    _REGISTRY[name.lower()] = factory
 
 
 def from_config(name: str, params_dict: Optional[dict] = None) -> Optimizer:
     """Instantiate by config name, accepting the JAX package's spellings:
-    lr, betas, eps, weight_decay, bias_correction, momentum, use_pallas and
-    max_coeff/min_coeff (LAMB).  LAMB drops ``eps_inside_sqrt``, as the
-    JAX package does (its LAMB always uses ``sqrt(v) + eps``)."""
+    lr, betas, eps, weight_decay, bias_correction, momentum, use_pallas,
+    max_coeff/min_coeff (LAMB) and alpha (RMSprop).  LAMB drops
+    ``eps_inside_sqrt`` and Lion ``eps``, as the JAX package does; RMSprop
+    ``momentum``/``centered`` and Adagrad ``lr_decay`` raise, as there."""
     p = dict(params_dict or {})
     kw = {}
     if "lr" in p:
@@ -253,8 +347,21 @@ def from_config(name: str, params_dict: Optional[dict] = None) -> Optimizer:
         if "momentum" in p:
             kw["momentum"] = float(p.pop("momentum"))
         return Sgd(**kw)
-    if name_l in _UNPORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to deepspeed_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1 item 3)")
+    if name_l == "lion":
+        kw.pop("eps", None)
+        return Lion(**kw)
+    if name_l == "rmsprop":
+        if "alpha" in p:
+            kw["alpha"] = float(p.pop("alpha"))
+        if float(p.pop("momentum", 0) or 0) or p.pop("centered", False):
+            raise ValueError(
+                "RMSprop momentum/centered variants are not implemented — "
+                "refusing to silently train with different dynamics")
+        return RMSprop(**kw)
+    if name_l == "adagrad":
+        if float(p.pop("lr_decay", 0) or 0):
+            raise ValueError("Adagrad lr_decay is not implemented")
+        return Adagrad(**kw)
+    if name_l in _REGISTRY:
+        return _REGISTRY[name_l](**dict(params_dict or {}))
     raise ValueError(f"Unknown optimizer {name!r}")

@@ -427,3 +427,91 @@ def stream_attention(q, k, v, attn_mask, causal=False):
     """Streaming attention on public-layout q, k, v [B, T, n, d] with an
     [B, T] mask; callers gate on ``stream_supported(T, d)``."""
     return StreamAttention.apply(q, k, v, attn_mask, causal)
+
+
+# ------------------------------------------------------------ calibration
+
+#: the calibration's winning margin: the kernels' fwd+bwd must be this
+#: many times faster than the einsum path's
+CALIBRATE_WIN = 1.05
+
+
+def threshold_from_ratios(ratios, fallback: int,
+                          win: float = CALIBRATE_WIN) -> int:
+    """The rule of ``calibrate_stream_threshold``: the smallest sequence
+    length whose ``einsum_ms / kernel_ms`` in ``ratios`` ({seq: ratio}) is
+    at least ``win``, else ``fallback``."""
+    for T in sorted(ratios):
+        if ratios[T] >= win:
+            return int(T)
+    return int(fallback)
+
+
+def calibrate_stream_threshold(seq_lens=(256, 512, 1024, 2048), batch=8,
+                               n_heads=12, head_dim=64, steps=6,
+                               verbose=True, rows=None) -> int:
+    """Measure the streaming kernels' crossover against the einsum path
+    on the current CUDA device and return the smallest winning sequence
+    length (``deepspeed_tpu/ops/pallas_attention.py``
+    ``calibrate_stream_threshold``): fwd+bwd of both paths on bf16,
+    causal ``[batch, T, n_heads, head_dim]`` operands, timed between CUDA
+    events over ``steps`` calls after a warm-up, and the first length
+    where the kernels are >= 1.05x faster.  When none is, the causal entry
+    of ``models/layers.STREAM_AUTO_MIN_BY_KIND`` for this card (else the
+    default), ignoring any environment pin, as the reference does.  Pin
+    the result with ``DSTPU_STREAM_ATTN_MIN_CAUSAL``.  ``rows``: a list
+    that receives one dict per measured length.  Needs a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "calibrate_stream_threshold needs a CUDA device (the kernels "
+            "never run off the card)")
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.ops.dispatch_attention import xla_attention
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def time_ms(T, use_kernel):
+        gen = torch.Generator(device=device).manual_seed(0)
+        q, k, v = (torch.randn((batch, T, n_heads, head_dim), generator=gen,
+                               device=device).to(torch.bfloat16)
+                   for _ in range(3))
+        mask = torch.ones((batch, T), device=device)
+
+        def run():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = (stream_attention(*leaves, mask, True) if use_kernel
+                 else xla_attention(*leaves, causal=True))
+            return torch.autograd.grad((o.float() ** 2).sum(), leaves)
+
+        run()                                    # warm-up (and the build)
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        for _ in range(steps):
+            run()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / steps
+
+    ratios = {}
+    for T in sorted(seq_lens):
+        if not stream_supported(T, head_dim):
+            continue
+        t_xla, t_ker = time_ms(T, False), time_ms(T, True)
+        ratios[T] = t_xla / t_ker
+        if rows is not None:
+            rows.append({"seq": T, "einsum_ms": t_xla, "stream_ms": t_ker,
+                         "einsum_over_stream": ratios[T]})
+        if verbose:
+            print(f"seq {T}: einsum {t_xla:.3f} ms, kernels {t_ker:.3f} ms, "
+                  f"{ratios[T]:.2f}x")
+    entry = L.STREAM_AUTO_MIN_BY_KIND.get(torch.cuda.get_device_name(device))
+    fallback = (min(entry["causal"]) if entry
+                else L.STREAM_AUTO_MIN_CAUSAL)
+    threshold = threshold_from_ratios(ratios, fallback)
+    if verbose:
+        print(f"crossover at seq {threshold}: export "
+              f"DSTPU_STREAM_ATTN_MIN_CAUSAL={threshold}"
+              if threshold in ratios and ratios[threshold] >= CALIBRATE_WIN
+              else f"kernels never won >= {CALIBRATE_WIN}x; keeping "
+                   f"{threshold}")
+    return threshold

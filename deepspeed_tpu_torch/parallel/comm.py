@@ -24,6 +24,11 @@ world size the ranks form ``dp / pps`` consecutive blocks
 rank's ``subgroups`` are its ``(within, across)`` groups
 (``topology.Topology``).
 
+ZeRO-3: ``all_gather_dims`` and ``reduce_scatter_dims`` gather and
+reduce-scatter leaves along an arbitrary dim, one flat collective per
+dtype (``zero3.gather_leaves`` is their autograd pair).  A CUDA tensor on
+a gloo group (two ranks on one card) stages through host memory.
+
 Model axis (tensor parallelism): ``copy_to_model`` (identity forward,
 all-reduce backward) and ``reduce_from_model`` (all-reduce forward,
 identity backward) are Megatron's pair of autograd functions, which give
@@ -36,10 +41,19 @@ all-reduces again.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+def _through_host(x: torch.Tensor, group) -> bool:
+    """Whether a collective of ``x`` over ``group`` stages through host
+    memory: a CUDA tensor on a gloo group (two ranks sharing one card,
+    which NCCL refuses), whose backend may lack the CUDA form of the
+    collective."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -48,16 +62,129 @@ def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn = getattr(dist, "reduce_scatter_single", None)
     if fn is None:
         fn = dist.reduce_scatter_tensor
+    if _through_host(x, group):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        fn(host, x.cpu(), group=group)
+        out.copy_(host)
+        return
     fn(out, x, group=group)
 
 
-def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
+def _all_gather(out: torch.Tensor, x: torch.Tensor, group,
+                async_op: bool = False):
     """Gather every rank's ``x`` of ``group`` into ``out``, in rank order
-    (``all_gather_single`` where the installed torch has it)."""
+    (``all_gather_single`` where the installed torch has it).  With
+    ``async_op`` returns a callable that waits and finishes the copy."""
     fn = getattr(dist, "all_gather_single", None)
     if fn is None:
         fn = dist.all_gather_into_tensor
-    fn(out, x, group=group)
+    host = _through_host(x, group)
+    dst = torch.empty(out.shape, dtype=out.dtype) if host else out
+    src = x.cpu() if host else x
+    work = fn(dst, src, group=group, async_op=async_op)
+
+    def finish(_staged=src):              # the input lives until the wait
+        if work is not None:
+            work.wait()
+        if host:
+            out.copy_(dst)
+    if async_op:
+        return finish
+    finish()
+    return None
+
+
+class PendingGather:
+    """An issued ``all_gather_dims``: ``wait()`` returns the gathered
+    leaves (once)."""
+
+    def __init__(self, finish):
+        self._finish, self._out = finish, None
+
+    def wait(self) -> list:
+        if self._out is None:
+            self._out = self._finish()
+        return self._out
+
+
+def gathered_shape(shape, dim: int, world: int) -> tuple:
+    shape = list(shape)
+    shape[dim] *= world
+    return tuple(shape)
+
+
+def all_gather_dims(shards: Sequence[torch.Tensor], dims: Sequence[int],
+                    group, async_op: bool = False) -> PendingGather:
+    """All-gather each of ``shards`` along its dim ``dims[i]`` over
+    ``group``, rank r's shard at block r of that dim (the JAX
+    ``all_gather(..., axis=dim, tiled=True)``).  Leaves of one dtype go as
+    ONE flat collective (a gather is exact, so coalescing changes no
+    bit).  ``async_op`` issues it now and finishes it at ``wait()``."""
+    world = dist.get_world_size(group)
+    by_dtype = {}
+    for i, s in enumerate(shards):
+        by_dtype.setdefault(s.dtype, []).append(i)
+    finishes = []
+    for idx in by_dtype.values():
+        flat = torch.cat([shards[i].reshape(-1) for i in idx])
+        buf = torch.empty(world * flat.numel(), dtype=flat.dtype,
+                          device=flat.device)
+        finishes.append((idx, buf, _all_gather(buf, flat, group,
+                                               async_op=True)))
+
+    def finish():
+        out = [None] * len(shards)
+        for idx, buf, done in finishes:
+            done()
+            rows, off = buf.view(world, -1), 0
+            for i in idx:
+                s, d = shards[i], dims[i]
+                n = s.numel()
+                blocks = rows[:, off:off + n].unflatten(1, s.shape)
+                out[i] = blocks.movedim(0, d).reshape(
+                    gathered_shape(s.shape, d, world))
+                off += n
+        return out
+    pending = PendingGather(finish)
+    if not async_op:
+        pending.wait()
+    return pending
+
+
+def reduce_scatter_dims(grads: Sequence[torch.Tensor], dims: Sequence[int],
+                        group) -> list:
+    """SUM each of ``grads`` over ``group`` and keep this rank's block
+    along its dim ``dims[i]`` (the transpose of ``all_gather_dims``), in
+    the gradients' dtype, with no division.  Leaves of one dtype go as
+    one flat collective: the sums are elementwise."""
+    world = dist.get_world_size(group)
+    out = [None] * len(grads)
+    by_dtype = {}
+    for i, g in enumerate(grads):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        shapes = []
+        for i in idx:
+            shape = list(grads[i].shape)
+            shape[dims[i]] //= world
+            shapes.append(shape)
+        sizes = [math.prod(s) for s in shapes]
+        g0 = grads[idx[0]]
+        rows = torch.empty((world, sum(sizes)), dtype=g0.dtype,
+                           device=g0.device)
+        off = 0
+        for i, shape, n in zip(idx, shapes, sizes):
+            d = dims[i]
+            blocks = grads[i].unflatten(d, (world, shape[d])).movedim(d, 0)
+            rows[:, off:off + n].unflatten(1, shape).copy_(blocks)
+            off += n
+        mine = torch.empty(sum(sizes), dtype=g0.dtype, device=g0.device)
+        _reduce_scatter(mine, rows.view(-1), group)
+        off = 0
+        for i, shape, n in zip(idx, shapes, sizes):
+            out[i] = mine[off:off + n].view(shape)
+            off += n
+    return out
 
 
 def _in_place(g: torch.Tensor, fp32_allreduce: bool) -> bool:

@@ -70,6 +70,12 @@ def _path(name: str) -> Tuple[str, ...]:
     return tuple(name.split("."))
 
 
+def jax_leaf_order(names) -> list:
+    """``names`` (dotted) in the JAX pytree's flatten order: dict keys
+    sorted at every level."""
+    return sorted(names, key=_path)
+
+
 def make_flat_meta(params: Dict[str, torch.Tensor], dp_size: int,
                    align: int = 128) -> FlatMeta:
     """The flatten layout of ``{dotted name: tensor}`` over ``dp_size``

@@ -222,8 +222,11 @@ def test_unported_configs_raise(extra, match):
                         deepspeed_tpu_torch.config.DeepSpeedConfigError),
                        match=match):
         make_torch(config("Lamb", "bf16", **extra), init_params())
-    cfg = config("AdamW", "bf16", zero_optimization={"stage": 3})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ZeRO-3 is ported (tests/test_torch_zero3.py); LAMB stays refused
+    # at every ZeRO stage, with the JAX engine's message
+    cfg = config("Lamb", "bf16", zero_optimization={"stage": 3})
+    with pytest.raises(deepspeed_tpu_torch.config.DeepSpeedConfigError,
+                       match="Adam-family"):
         make_torch(cfg, init_params())
 
 

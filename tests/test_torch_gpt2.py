@@ -170,11 +170,11 @@ def test_unported_gpt2_paths_raise():
                  lambda: tm.apply_decode()):
         with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             call()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tm.zero3_min_dims({})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tm.zero3_dims = {"wte": 0}
-    tm.zero3_dims = None
-    assert tm.zero3_dims is None
+    # ZeRO-3 is ported (tests/test_torch_zero3.py): the fields exist, and
+    # the block leaves pin their layer axis as the JAX hook does
+    assert tm.zero3_dims is None and tm.zero3_prefetch is False
+    jm = JGPT2.from_size("tiny")
+    jmin = jm.zero3_min_dims(jm.init_params(jax.random.PRNGKey(0)))
+    assert tm.zero3_min_dims() == weights.flatten_tree(jmin)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         GPT2MoE.from_size("tiny")

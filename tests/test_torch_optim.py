@@ -236,8 +236,13 @@ def test_from_config_matches_jax_fields():
     for f in ("lr", "beta1", "beta2", "eps", "weight_decay", "max_coeff",
               "min_coeff", "eps_inside_sqrt", "bias_correction"):
         assert getattr(t, f) == getattr(j, f), f
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.from_config("Lion", {})
+    # Lion is ported (tests/test_torch_optim_extra.py): it parses as the
+    # JAX package's does, eps dropped
+    lion = {"lr": 3e-4, "betas": [0.9, 0.98], "eps": 1e-6,
+            "weight_decay": 0.01}
+    for f in ("lr", "beta1", "beta2", "eps", "weight_decay"):
+        assert (getattr(topt.from_config("Lion", lion), f)
+                == getattr(jopt.from_config("Lion", lion), f)), f
     with pytest.raises(ValueError):
         topt.from_config("nope", {})
 

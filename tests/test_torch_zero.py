@@ -305,8 +305,14 @@ def test_lamb_under_zero_raises_the_jax_message():
     with pytest.raises(DeepSpeedConfigError) as ours:
         _tiny_engine(cfg)
     assert str(ours.value) == str(theirs.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        _tiny_engine(config(1, 1, "bf16", {"stage": 3}))
+    # stage 3 is ported (tests/test_torch_zero3.py); LAMB stays refused
+    # there with the same message
+    cfg3 = dict(cfg, zero_optimization={"stage": 3})
+    with pytest.raises(JaxConfigError) as theirs:
+        jax_engine(cfg3, 1, init_params())
+    with pytest.raises(DeepSpeedConfigError) as ours:
+        _tiny_engine(cfg3)
+    assert str(ours.value) == str(theirs.value)
     with pytest.raises(DeepSpeedConfigError,
                        match="parameter_parallel_size=2 must divide"):
         _tiny_engine(config(1, 1, "bf16", {

@@ -29,7 +29,16 @@ Scenarios:
   ``"bert"`` trains a tiny BERT with NSP on the ``batch_keys`` inputs;
   ``loader`` records the first batch the engine's data loader gives;
   ``load_error`` records the ValueError a full load raises, then loads the
-  weights only.
+  weights only.  Under ZeRO-3 the per-leaf state is the rank's shards and
+  ``z3dim/<name>`` each leaf's partition dim; ``model`` ``"embedding"``
+  trains ``EmbeddingClassifier`` (the sparse-gradient model, with
+  ``sparse_grad_specs``), ``"bert_fp32"`` a BERT computing in fp32.
+  ``save_tag`` names the save's tag; ``files`` lists the tag directory
+  after the save.
+* ``sparse``: each case of ``spec["cases"]`` runs
+  ``deepspeed_tpu_torch.sparse.sparse_psum`` on this rank's row of its
+  input (bf16 with ``bf16``) with the case's ``max_rows`` and knobs; the
+  output is ``<case>``.
 * ``tp_layers``: each case of ``spec["cases"]`` runs one tensor-parallel
   layer of ``deepspeed_tpu_torch.models.layers`` on this model rank's
   slices of its global inputs (the world is one model group), and the
@@ -49,7 +58,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import deepspeed_tpu_torch  # noqa: E402
-from deepspeed_tpu_torch import weights, zero  # noqa: E402
+from deepspeed_tpu_torch import sparse, weights, zero  # noqa: E402
 from deepspeed_tpu_torch.models import GPT2, BertForPreTraining  # noqa: E402
 from deepspeed_tpu_torch.models import layers as L  # noqa: E402
 from deepspeed_tpu_torch.parallel import comm, topology  # noqa: E402
@@ -77,6 +86,43 @@ class Fp32GPT2(GPT2):
                 (tokens, labels))
         finally:
             self._upcast = False
+
+
+class Fp32Bert(BertForPreTraining):
+    """BERT computing in fp32 whatever dtype its parameters hold (as
+    ``Fp32GPT2``)."""
+
+    _upcast = False
+
+    def forward(self, *batch):
+        if self._upcast:
+            return super().forward(*batch)
+        self._upcast = True
+        try:
+            return torch.func.functional_call(
+                self, {k: p.float() for k, p in self.named_parameters()},
+                batch)
+        finally:
+            self._upcast = False
+
+
+class EmbeddingClassifier(torch.nn.Module):
+    """An untied embedding table and a linear head (the JAX tests'
+    ``EmbeddingClassifier``): few rows of the table are touched a step, so
+    its gradient is row-sparse; ``sparse_grad_specs`` marks it."""
+
+    def __init__(self, vocab=512, hidden=16, classes=4):
+        super().__init__()
+        self.emb = torch.nn.Parameter(torch.zeros(vocab, hidden))
+        self.w = torch.nn.Parameter(torch.zeros(hidden, classes))
+
+    def forward(self, toks, labels):
+        e = self.emb[toks.long()].mean(dim=1)
+        logp = torch.log_softmax(e @ self.w, dim=-1)
+        return -torch.gather(logp, 1, labels.long()[:, None]).mean()
+
+    def sparse_grad_specs(self, params=None):
+        return {"emb": True, "w": False}
 
 
 def _subgroups(world, pps, rank):
@@ -131,6 +177,20 @@ def run_comm(spec, inputs, rank, world):
     return out
 
 
+def run_sparse(spec, inputs, rank, world):
+    import torch.distributed as dist
+    topology.init_distributed(device="cpu")
+    out = {}
+    for case in spec["cases"]:
+        x = torch.from_numpy(np.array(inputs[case["input"]][rank]))
+        if case.get("bf16"):
+            x = x.to(torch.bfloat16)
+        y = sparse.sparse_psum(x, dist.group.WORLD, world, case["max_rows"],
+                               **case.get("kw", {}))
+        out[case["name"]] = y.float().numpy()
+    return out
+
+
 def _flat_state(engine):
     """(master, m, v) as flat fp32 numpy: the owned partition under ZeRO,
     the whole layout in the JAX leaf order otherwise."""
@@ -139,7 +199,8 @@ def _flat_state(engine):
         return [t.numpy().copy() for t in (engine.master_flat, st.m["flat"],
                                            st.v["flat"])]
     meta = zero.make_flat_meta(engine.master, 1)
-    return [zero.flatten_tree(d, meta)[:meta.total].numpy()
+    return [np.zeros(0, np.float32) if d is None
+            else zero.flatten_tree(d, meta)[:meta.total].numpy()
             for d in (engine.master, engine.opt_state.m, engine.opt_state.v)]
 
 
@@ -211,9 +272,11 @@ def run_train(spec, inputs, rank, world):
     params = weights.unflatten_tree(
         {k[len(prefix):]: inputs[k] for k in inputs.files
          if k.startswith(prefix)})
-    if spec.get("model") == "bert":
-        model = BertForPreTraining.from_size("tiny", use_nsp=True,
-                                             **TINY_BERT)
+    if spec.get("model") in ("bert", "bert_fp32"):
+        cls = Fp32Bert if spec["model"] == "bert_fp32" else BertForPreTraining
+        model = cls.from_size("tiny", use_nsp=True, **TINY_BERT)
+    elif spec.get("model") == "embedding":
+        model = EmbeddingClassifier()
     else:
         model = (Fp32GPT2 if spec.get("fp32_compute") else GPT2).from_size(
             "tiny", **TINY)
@@ -270,10 +333,17 @@ def run_train(spec, inputs, rank, world):
             loss = engine.train_batch(tuple(batch))
         losses.append(float(loss))
         if spec.get("save_after") == step + 1:
-            engine.save_checkpoint(spec["save_dir"])
+            path = engine.save_checkpoint(spec["save_dir"],
+                                          tag=spec.get("save_tag"))
+            files = "\n".join(sorted(os.listdir(path)))
     master, m, v = _flat_state(engine)
     ls = engine.loss_scale_state
     extra = {} if engine.zero_flat else _leaf_state(engine)
+    if engine.zero3:
+        extra.update({f"z3dim/{k}": np.asarray(d)
+                      for k, d in engine._zero3_dims.items()})
+    if spec.get("save_after"):
+        extra["files"] = np.asarray(files)
     extra.update({f"param/{k}": p.detach().float().numpy().copy()
                   for k, p in engine.module.named_parameters()})
     if loader is not None:
@@ -300,7 +370,7 @@ def main():
     world = int(os.environ["DSTPU_NUM_PROCESSES"])
     torch.set_num_threads(1)
     inputs = np.load(spec["inputs"])
-    run = {"comm": run_comm, "train": run_train,
+    run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
            "tp_layers": run_tp_layers}[spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
