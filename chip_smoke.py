@@ -140,12 +140,27 @@ Phases (each prints one JSON line, with the seconds since the start as
    per rank (Adam 16 shard leaves a step, whole-tile 48 + 48, the remat
    replaying the forward); the layout, peak memory, step ms, the save's
    files, save and load seconds.
-18. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+18. pp_gpt2: GPT-2 medium at pp 2 (12 layers a stage; seq 128, bf16,
+   Adam lr 1e-4, micro-batch 32, gas 2, 8 pipeline micro-batches of 4
+   rows, so the head is sharded over the stages), as two stage processes
+   on the one card (``chip_smoke.py --pp-child``) over a gloo pipe group
+   (activations, gradients and the stage-replicated leaves' gradient sum
+   stage through the host: the step times are not a pipeline's on
+   NVLink), from train_gpt2's seed-0 weights and batch: (a) GPipe, 6
+   steps, saved after step 3, within 2e-2 of train_gpt2's losses; (b)
+   1F1B, 3 steps, within 1e-2 of (a) at a lower peak on both stages, with
+   3 and 0 stage inputs held; (c) GPipe with ZeRO-1 (one flat Adam launch
+   a step per stage), bitwise equal to (a); (d) fresh processes resume
+   (a)'s save bitwise (losses, masters, moments).  Launches exact per
+   stage (whole-tile 192 + 192 a step; 1F1B replays the forward on stage
+   0; Adam 16 leaves a step); one model file per stage, peak memory,
+   step ms, save and load seconds.
+19. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
    (the data for the dispatch defaults in models/layers.py).
-19. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
+20. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
    heads, d 64, seq 256-2048, CUDA events): each seq's times, the
    threshold it returns and the port's table's; a disagreement is
    recorded, not a failure.
@@ -2629,6 +2644,225 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
     return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
 
 
+# the pp_gpt2 phase: GPT-2 medium at pp 2 (12 layers a stage), as two child
+# processes on the one card over a gloo pipe group (NCCL refuses two ranks
+# on one device, so every activation, gradient and the stage-replicated
+# leaves' gradient sum stage through the host: the step times are not a
+# pipeline's on NVLink).  train_gpt2's seed-0 weights and batch: micro-batch
+# 32, gas 2, 8 pipeline micro-batches of 4 rows (divisible by pp: the head
+# is sharded over the stages in both schedules).
+PP, PP_MICRO_BATCHES, PP_SAVE_AT, PP_SHORT_STEPS = 2, 8, 3, 3
+# (a) against train_gpt2: the same weights and batch, 8 micro-batches of 4
+# rows instead of one of 32 (other GEMM shapes, so other bf16 roundings),
+# the micro-batches' and the stages' gradients added in fp32
+PP_LOSS_RTOL = 2e-2
+# (b) 1F1B against (a) GPipe: the same arithmetic per micro-batch, the
+# micro-batches' gradients added in another order
+PP_1F1B_RTOL = 1e-2
+
+
+def pp_config(micro, zero_cfg=None, schedule=None):
+    cfg = gpt2_config(micro)
+    cfg["pipeline_parallel_size"] = PP
+    if zero_cfg is not None:
+        cfg["zero_optimization"] = zero_cfg
+    if schedule is not None:
+        cfg["pipeline_schedule"] = schedule
+    return cfg
+
+
+def pp_engine(device, size, micro, seed=0, **cfg):
+    """GPT-2 ``size`` from ``seed`` (medium, seed 0: train_gpt2's weights),
+    pipelined over the started group's PP stages."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2Pipelined
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = GPT2Pipelined.from_size(size, num_micro_batches=PP_MICRO_BATCHES,
+                                    generator=gen, device=device)
+    return deepspeed_tpu_torch.initialize(
+        config=pp_config(micro, **cfg), model=model, device=device)[0]
+
+
+def pp_child(spec_path, rank):
+    """One stage of the pp_gpt2 phase (started by ``phase_pp_gpt2``): mode
+    "train" runs (a) GPipe saved after step PP_SAVE_AT, (b) 1F1B and (c)
+    GPipe with ZeRO-1; mode "resume" runs (d), the resume of (a)'s save.
+    Writes ``<mode>_<rank>.json`` beside the spec."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import topology
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    size, micro = spec["size"], spec["micro"]
+    if device.type == "cuda":
+        for mod in _counted():          # the parent's build, loaded
+            mod.build()
+    topology.init_distributed(coordinator_address=spec["coordinator"],
+                              num_processes=PP, process_id=rank,
+                              device=device, backend="gloo")
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+
+    def run(eng, steps, save_dir=None):
+        batch = lm_batch(micro * GAS, GPT2_SEQ, eng.module.config.vocab_size)
+        losses, step_ms, extra = [], [], {}
+        sync(device)
+        _reset_peak(device)
+        reset_launch_counts()
+        for step in range(1, steps + 1):
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch(batch)))
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if save_dir is not None and step == PP_SAVE_AT:
+                t0 = time.perf_counter()
+                path = eng.save_checkpoint(save_dir)
+                extra["save_s"] = time.perf_counter() - t0
+                extra["files"] = {f: os.path.getsize(os.path.join(path, f))
+                                  for f in sorted(os.listdir(path))}
+        return {"losses": losses, "step_ms": step_ms,
+                "launches": launch_counts(), "peak_mem_gib": _peak_gib(device),
+                "digest": _z3_digest(eng), "stage": eng.pp_rank,
+                "leaves": len(eng._params),
+                "layers": int(eng.module.blocks.qkv_w.shape[0]),
+                "local_params": eng.num_parameters(),
+                "held": eng.module.last_pipe_stats.get("max_held_inputs"),
+                **extra}
+
+    with deterministic():
+        if spec["mode"] == "train":
+            for name, cfg, steps, save in (
+                    ("a", {}, GPT2_STEPS, spec["ckpt"]),
+                    ("b", {"schedule": "1f1b"}, PP_SHORT_STEPS, None),
+                    ("c", {"zero_cfg": {"stage": 1, "overlap_comm": False}},
+                     PP_SHORT_STEPS, None)):
+                eng = pp_engine(device, size, micro, **cfg)
+                out[name] = run(eng, steps, save)
+                del eng
+                free(device)
+        else:
+            eng = pp_engine(device, size, micro, seed=1)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(spec["ckpt"])
+            sync(device)
+            load_s = time.perf_counter() - t0
+            out["d"] = dict(run(eng, GPT2_STEPS - PP_SAVE_AT), load_s=load_s)
+            del eng
+    free(device)
+    out["seconds"] = time.perf_counter() - t_start
+    (pathlib.Path(spec_path).parent / f"{spec['mode']}_{rank}.json"
+     ).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO):
+    """GPT-2 medium at pp 2 on two processes over gloo (see PP): (a)
+    GPipe, 6 steps, saved after step 3, within PP_LOSS_RTOL of
+    ``train_losses`` (train_gpt2's, the same weights and batch at pp 1);
+    (b) 1F1B, 3 steps, within PP_1F1B_RTOL of (a) and at a lower peak on
+    both stages; (c) GPipe with ZeRO-1 (the flat Adam per stage), 3
+    steps, bitwise equal to (a); (d) fresh processes resume (a)'s save,
+    bitwise equal to (a)'s steps 4-6.  Launches exact per stage.  Returns
+    the launches by run and stage."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="pp_gpt2_",
+                                         dir=ROOT / "build"))
+    run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
+           "micro": micro}
+    try:
+        tr = _tp_launch(work, "train", run, flag="--pp-child", world=PP)
+        rs = _tp_launch(work, "resume", run, flag="--pp-child", world=PP)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    runs = {k: [r[k] for r in tr] for k in ("a", "b", "c")}
+    runs["d"] = [r["d"] for r in rs]
+    a = runs["a"]
+    short, rest = PP_SHORT_STEPS, GPT2_STEPS - PP_SAVE_AT
+    # per step and stage: the stage's layers x pipeline micro-batches x gas
+    blk = a[0]["layers"] * PP_MICRO_BATCHES * GAS
+    leaves = a[0]["leaves"]
+
+    def launches(steps, adam, fwd=blk):
+        return no_launches(adam=adam * steps, block_fwd=fwd * steps,
+                           block_bwd=blk * steps)
+    expect = {"a": [launches(GPT2_STEPS, leaves)] * PP,
+              # 1F1B replays each micro-batch's forward for its backward,
+              # except on the last stage, whose backward of a micro-batch
+              # runs in the tick of its forward
+              "b": [launches(short, leaves, 2 * blk)] * (PP - 1)
+              + [launches(short, leaves)],
+              "c": [launches(short, 1)] * PP,
+              "d": [launches(rest, leaves)] * PP}
+    rel = lambda x, y: [abs(p - q) / abs(q) for p, q in zip(x, y)]
+    gap = rel(a[0]["losses"], train_losses)
+    f1b_gap = rel(runs["b"][0]["losses"], a[0]["losses"][:short])
+    files = a[0]["files"]
+    checks = {
+        "stages": [r["stage"] for r in a] == list(range(PP)),
+        "losses_equal_across_stages": all(
+            rr[0]["losses"] == r["losses"] for rr in runs.values()
+            for r in rr),
+        "a_vs_train_gpt2": max(gap) <= PP_LOSS_RTOL,
+        "1f1b_vs_a": max(f1b_gap) <= PP_1F1B_RTOL,
+        "1f1b_lower_peak": device.type != "cuda" or all(
+            b["peak_mem_gib"] < x["peak_mem_gib"]
+            for b, x in zip(runs["b"], a)),
+        "1f1b_held_inputs": [b["held"] for b in runs["b"]] == [
+            min(PP_MICRO_BATCHES, 2 * (PP - 1 - s) + 1)
+            for s in range(PP - 1)] + [0],
+        "zero1_bitwise": all(c["losses"] == x["losses"][:short]
+                             for c, x in zip(runs["c"], a)),
+        "resume_bitwise": all(
+            d["losses"] == x["losses"][PP_SAVE_AT:]
+            and d["digest"] == x["digest"] for d, x in zip(runs["d"], a)),
+        "one_model_file_per_stage": sorted(files) == [
+            f"pp_stage_{s:02d}_mp_rank_00_model_states.pt"
+            for s in range(PP)],
+        "finite": all(np.isfinite(r["losses"]).all()
+                      for rr in runs.values() for r in rr),
+        "launches": all(r["launches"] == want for k, rr in runs.items()
+                        for r, want in zip(rr, expect[k])),
+    }
+    steady = lambda ms: (micro * GAS * (len(ms) - 1) / (sum(ms[1:]) / 1e3))
+    emit("pp_gpt2", model=f"gpt2-{size}", pp=PP, dp=1, seq=GPT2_SEQ,
+         micro_batch=micro, gas=GAS,
+         pipeline_micro_batches=PP_MICRO_BATCHES, dtype="bf16",
+         optimizer="Adam", lr=1e-4, backend=tr[0]["backend"],
+         transport="gloo over the host (not NVLink)",
+         local_params=[r["local_params"] for r in a],
+         losses={k: rr[0]["losses"] for k, rr in runs.items()},
+         train_gpt2=train_losses, a_vs_train_gpt2_rel=gap,
+         b_vs_a_rel=f1b_gap,
+         launches={k: [r["launches"] for r in rr] for k, rr in runs.items()},
+         expected_launches=expect,
+         held_inputs=[b["held"] for b in runs["b"]],
+         peak_mem_gib={k: [r["peak_mem_gib"] for r in rr]
+                       for k, rr in runs.items()},
+         step_ms_over_gloo={k: [r["step_ms"] for r in rr]
+                            for k, rr in runs.items()},
+         median_step_ms={k: statistics.median(rr[0]["step_ms"][1:])
+                         for k, rr in runs.items()},
+         samples_per_s_steady={k: steady(rr[0]["step_ms"])
+                               for k, rr in runs.items()},
+         ckpt_files=files, save_s=[r["save_s"] for r in a],
+         load_s=[r["load_s"] for r in runs["d"]],
+         child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"pp_gpt2 phase failed: {checks}")
+    return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
+
+
 def phase_calibrate(device):
     """``calibrate_stream_threshold()``: the per-seq fwd+bwd times of the
     streaming kernels and the einsum path, the threshold it returns and
@@ -2703,6 +2937,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--z3-child"]:
         sys.path.insert(0, str(ROOT))
         return z3_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--pp-child"]:
+        sys.path.insert(0, str(ROOT))
+        return pp_child(sys.argv[2], int(sys.argv[3]))
     if not (ROOT / "deepspeed_tpu_torch" / "csrc" / "fused_optim.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2816,6 +3053,13 @@ def main() -> int:
             # per rank of zero3_gpt2 (dp 2): runs (a)-(d) and the resume
             k["zero3_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                         for run, ranks in z3_launches.items()}
+    free(device)
+    pp_launches = phase_pp_gpt2(device, gpt2_losses)
+    for k in kernels:
+        if k["name"] in ("adam", "block_fwd", "block_bwd"):
+            # per stage of pp_gpt2 (pp 2): runs (a)-(d)
+            k["pp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                     for run, ranks in pp_launches.items()}
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
@@ -2828,7 +3072,8 @@ def main() -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     print(card)
-    extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches")
+    extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches",
+             "pp_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

@@ -11,7 +11,9 @@ updates (``ops/cuda_optim.py``) and for attention: the whole-tile kernels
 at short causal shapes (``ops/block_attention.py``) and the streaming ones
 from seq 256 (``ops/stream_attention.py``).  It trains data-parallel over
 a ``torch.distributed`` group (``parallel/``), tensor-parallel with the
-Megatron layers (``model_parallel_size``, ``MeshConfig``), with ZeRO
+Megatron layers (``model_parallel_size``, ``MeshConfig``),
+pipeline-parallel over stage processes (``pipeline_parallel_size``,
+``models.GPT2Pipelined``, ``parallel/pipeline.py``), with ZeRO
 stages 1 and 2 (``zero.py``) and 3 (``zero3.py``), reduces row-sparse
 embedding gradients (``sparse.py``), loads data (``data.py``), saves and
 resumes checkpoints in the JAX package's layout (``checkpoint.py``) and
@@ -19,6 +21,8 @@ fine-tunes the SQuAD span model (``models.BertForQuestionAnswering``,
 ``squad.py``).  What it does not cover yet is listed in ROADMAP.md.
 """
 
+from deepspeed_tpu_torch.models.pipeline_gpt2 import (  # noqa: F401
+    GPT2Pipelined)
 from deepspeed_tpu_torch.parallel.topology import MeshConfig  # noqa: F401
 
 __version__ = "0.1.0"
@@ -52,10 +56,10 @@ def initialize(args=None,
     ``dist_init_required`` (or ``args.deepspeed_mpi``, or
     ``DSTPU_COORDINATOR`` in the environment) starts the process group
     (``parallel.topology.init_distributed``).  ``mesh`` (a
-    ``MeshConfig``) beats the config's ``model_parallel_size``: the
-    started group's ranks form ``dp x mp``, model axis innermost, and
-    ``model`` (built at its global shapes) is narrowed to this rank's
-    slices.
+    ``MeshConfig``) beats the config's ``model_parallel_size`` and
+    ``pipeline_parallel_size``: the started group's ranks form ``dp x pp x
+    mp``, model axis innermost, and ``model`` (built at its global shapes)
+    is narrowed to this rank's slices and stage.
     """
     from deepspeed_tpu_torch.engine import DeepSpeedTorchEngine
 
@@ -75,6 +79,19 @@ def initialize(args=None,
                                   mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
+
+
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None, use_mpi=False, device=None,
+                     backend=None):
+    """Start the default process group before ``initialize()`` (the JAX
+    package's ``init_distributed``; reference deepspeed_light.py:125-130):
+    ``parallel.topology.init_distributed``, whose docstring gives the
+    arguments and the environment it reads."""
+    from deepspeed_tpu_torch.parallel.topology import init_distributed as _init
+    _init(coordinator_address=coordinator_address,
+          num_processes=num_processes, process_id=process_id,
+          use_mpi=use_mpi, device=device, backend=backend)
 
 
 def _add_core_arguments(parser):

@@ -1,26 +1,31 @@
-"""Checkpoint save and load: the pp = 1 subset of
-``deepspeed_tpu/checkpoint.py`` (data and tensor parallelism and ZeRO
-stages 1-3 included), in its layout and container, so that a checkpoint
-crosses between the two packages either way.
+"""Checkpoint save and load: ``deepspeed_tpu/checkpoint.py`` (data, tensor
+and pipeline parallelism and ZeRO stages 1-3 included), in its layout and
+container, so that a checkpoint crosses between the two packages either
+way.
 
 * layout   ``<dir>/<tag>/mp_rank_{MP:02d}_model_states.pt``, one per model
            rank, written by that model rank's first data rank with its
            LOCAL slices (``mp_rank``, ``mp_world_size``), and a ``latest``
            file naming the newest tag, published atomically by rank 0 once
            every rank's writes are done (a barrier before and after).
+           Under pipeline parallelism one file per (stage, model rank),
+           ``pp_stage_{PP:02d}_mp_rank_{MP:02d}_model_states.pt``, with
+           that stage's slice (``pp_stage``, ``pp_world_size``).
            Under ZeRO 1-2 the model-state files hold no optimizer state:
-           data rank ``r`` of model rank ``m``'s first partition group
-           writes ``zero_pp_rank_{r}_mp_rank_{m:02d}optim_states.pt`` with
-           its partition of that model rank's flat fp32 master and
-           moments, the trailing padding dropped (``partition_id``,
-           ``mp_rank``, ``dp_world_size``, ``partition_count``,
-           ``mp_world_size``, ``unpadded_total``, ``step``, ``master``,
-           ``m``, ``v``).  A restore re-pads for its own data-parallel
-           size, so a save at any dp loads at any dp; model states (and
-           the optimizer state of a save without ZeRO) load at any mp,
-           combined and re-sharded by the model's ``partition_specs()``
-           (``weights.combine_local_trees``, ``weights.shard_tree``); ZeRO
-           partitions load at the saved mp only.
+           data rank ``r`` of the first partition group of (stage, model
+           rank) row ``m = pp_stage * mp + mp_rank`` writes
+           ``zero_pp_rank_{r}_mp_rank_{m:02d}optim_states.pt`` with its
+           partition of that row's flat fp32 master and moments, the
+           trailing padding dropped (``partition_id``, ``mp_rank`` (the
+           row), ``dp_world_size``, ``partition_count``,
+           ``mp_world_size``, ``pp_world_size``, ``unpadded_total``,
+           ``step``, ``master``, ``m``, ``v``).  A restore re-pads for its
+           own data-parallel size, so a save at any dp loads at any dp;
+           model states (and the optimizer state of a save without ZeRO)
+           load at any mp and pp, combined and re-cut by the model's
+           ``partition_specs()`` and ``pipe_specs()``
+           (``weights.combine_stage_trees``, ``weights.local_tree``); ZeRO
+           partitions load at the saved mp and pp only.
            Under ZeRO-3 every rank writes ONLY its shards of the
            partitioned leaves (compute-dtype param, fp32 master, ``m``,
            ``v``) to ``zero3_dp_rank_{dp}_row_{row:02d}_states.pt`` (row
@@ -32,7 +37,8 @@ crosses between the two packages either way.
            loads at any dp and at stage 0 (stage 1-2 take its weights
            only, as in the JAX package), and the two packages read each
            other's files.  Publishing a save removes stale model-state and
-           ZeRO-3 shard files of an earlier save of the same tag.
+           ZeRO-3 shard files of an earlier save of the same tag (another
+           mp, pp or stage).
 * content  the module (compute-dtype parameters), the fp32 masters, the
            optimizer moments and step, the loss-scale state, the LR
            scheduler, the live param groups, the engine counters and the
@@ -50,8 +56,6 @@ crosses between the two packages either way.
            arrays of up to 512 bytes as pickled numpy arrays; reading an
            inlined bf16 array needs ``ml_dtypes``, imported only then.
 
-Pipeline-parallel checkpoints raise ``NotImplementedError`` naming their
-ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -95,12 +99,6 @@ _ML_DTYPES = {"bfloat16", "float8_e3m4", "float8_e4m3",
               "int2", "int4", "uint2", "uint4"}
 #: the ZeRO-3 marker ``(tag, dim, dp)`` in place of a partitioned leaf
 _Z3_TAG = "__dstpu_zero3_part__"
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
-        f"{item})")
 
 
 class CheckpointReadError(RuntimeError):
@@ -543,49 +541,54 @@ def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int):
     return state
 
 
-def _read_state(load_dir: str, tag: str, row: int = 0):
-    """Model rank ``row``'s model-state file, ZeRO-3 leaves rehydrated."""
-    state = _load_obj(model_file(load_dir, tag, row))
+def _read_state(load_dir: str, tag: str, row: int = 0, mp: int = 1,
+                pp: int = 1):
+    """The model-state file of (stage, model rank) ``row = stage * mp +
+    mp_rank`` of a save at ``mp`` and ``pp``, ZeRO-3 leaves rehydrated."""
+    state = _load_obj(model_file(load_dir, tag, row % mp, row // mp, pp))
     return _zero3_rehydrate(load_dir, tag, state, row)
 
 
 def _read_model_state(load_dir: str, tag: Optional[str]):
-    """``(tag, state)`` of the tag's model-state file of model rank 0, or
-    None when there is no checkpoint.  Layouts this port cannot assemble
-    raise."""
+    """``(tag, state)`` of the tag's model-state file of stage 0 and model
+    rank 0, or None when there is no checkpoint."""
     tag = _resolve_tag(load_dir, tag)
     if tag is None:
         return None
     mfile = _model_probe(load_dir, tag)
     if mfile is None:
         return None
-    state = _load_obj(mfile)
-    if int(state.get("pp_world_size", 1)) > 1:
-        raise _unported("loading a pipeline checkpoint (pp > 1)",
-                        "Queue 1 item 11")
-    return tag, _zero3_rehydrate(load_dir, tag, state, 0)
+    return tag, _zero3_rehydrate(load_dir, tag, _load_obj(mfile), 0)
 
 
 def _saved_mp(state) -> int:
     return int(state.get("mp_world_size", 1))
 
 
-def _mp_states(load_dir: str, tag: str, state0) -> list:
-    """The model-state files of every saved model rank, in rank order
-    (``state0``, already read, is rank 0's)."""
-    return [state0] + [_read_state(load_dir, tag, m)
-                       for m in range(1, _saved_mp(state0))]
+def _saved_pp(state) -> int:
+    return int(state.get("pp_world_size", 1))
 
 
-def _combined(trees, specs) -> dict:
-    """The global tree of the saved model ranks' local ``trees``, as CPU
-    tensors (``specs``: the model's ``partition_specs()``)."""
-    if len(trees) > 1 and specs is None:
+def _all_states(load_dir: str, tag: str, state0) -> list:
+    """The model-state files of every saved (stage, model rank), in the
+    order ``stage * mp + mp_rank`` (``state0``, already read, is the
+    first)."""
+    mp, pp = _saved_mp(state0), _saved_pp(state0)
+    return [state0] + [_read_state(load_dir, tag, r, mp, pp)
+                       for r in range(1, mp * pp)]
+
+
+def _combined(trees, specs, pipe_specs, mp: int) -> dict:
+    """The global tree of the saved (stage, model rank)s' local ``trees``
+    at model-parallel size ``mp``, as CPU tensors (``specs``: the model's
+    ``partition_specs()``, ``pipe_specs``: its ``pipe_specs()``)."""
+    if mp > 1 and specs is None:
         raise ValueError(
-            f"checkpoint was saved at mp={len(trees)}: combining its "
-            f"model-rank files needs the saving model's partition_specs()")
-    return weights_mod.combine_local_trees(
-        [_map_leaves(t, to_tensor) for t in trees], specs or {})
+            f"checkpoint was saved at mp={mp}: combining its model-rank "
+            f"files needs the saving model's partition_specs()")
+    return weights_mod.combine_stage_trees(
+        [_map_leaves(t, to_tensor) for t in trees], specs or {}, mp,
+        pipe_specs)
 
 
 # ------------------------------------------------------------ saving
@@ -702,20 +705,25 @@ def _engine_state(engine, client_state=None) -> dict:
         "zero_enabled": engine.zero_enabled,
         "zero_stage": engine.zero_stage,
         "mp_world_size": engine.mp_world_size,
-        "pp_world_size": 1,
+        "pp_world_size": engine.pp_world_size,
         "client_state": dict(client_state or {}),
         "mp_rank": engine.mp_rank,
-        "pp_stage": 0,
+        "pp_stage": engine.pp_rank,
         "module": tree(dict(engine.module.named_parameters())),
         "optimizer": optimizer,
     }
 
 
+def _row(engine) -> int:
+    """This rank's (stage, model rank) row: ``pp_stage * mp + mp_rank``."""
+    return engine.pp_rank * engine.mp_world_size + engine.mp_rank
+
+
 def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
     """``(path, state)`` of this rank's ZeRO partition file: data rank r of
-    its model rank's first partition group writes partition r (the other
-    groups hold copies), the trailing padding dropped so that a restore
-    re-pads for its own topology (the JAX package's
+    its (stage, model rank) row's first partition group writes partition r
+    (the other groups hold copies), the trailing padding dropped so that a
+    restore re-pads for its own topology (the JAX package's
     ``_zero_checkpoint_writes``)."""
     topo = engine.topology
     if topo.dp_rank >= engine.zero_pps:
@@ -726,18 +734,18 @@ def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
     opt = engine.opt_state
     state = {
         "partition_id": topo.partition_id,
-        "mp_rank": topo.mp_rank,
+        "mp_rank": _row(engine),
         "dp_world_size": engine.dp_world_size,
         "partition_count": engine.zero_pps,
         "mp_world_size": engine.mp_world_size,
-        "pp_world_size": 1,
+        "pp_world_size": engine.pp_world_size,
         "unpadded_total": meta.total,
         "step": np.asarray(opt.step, np.int32),
         "master": engine.master_flat[:count],
         "m": opt.m["flat"][:count],
         "v": opt.v["flat"][:count],
     }
-    return [(zero_file(save_dir, tag, topo.partition_id, topo.mp_rank),
+    return [(zero_file(save_dir, tag, topo.partition_id, _row(engine)),
              state)]
 
 
@@ -761,7 +769,8 @@ def _zero3_shard_writes(engine, save_dir: str, tag: str) -> list:
     topo = engine.topology
     state = {"row": topo.mp_rank, "dp_rank": topo.dp_rank,
              "dp_world_size": engine.dp_world_size,
-             "mp_world_size": engine.mp_world_size, "pp_world_size": 1,
+             "mp_world_size": engine.mp_world_size,
+             "pp_world_size": engine.pp_world_size,
              "step": np.asarray(opt.step, np.int32), "leaves": leaves}
     return [(zero3_file(save_dir, tag, topo.dp_rank, topo.mp_rank), state)]
 
@@ -794,7 +803,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         state = _engine_state(engine, client_state)
         _reject_namedtuples(state["lr_scheduler"],
                             "lr_scheduler.state_dict()")
-        writes.append((model_file(save_dir, tag, engine.mp_rank), state))
+        writes.append((model_file(save_dir, tag, engine.mp_rank,
+                                  engine.pp_rank, engine.pp_world_size),
+                       state))
     if engine.zero_flat:
         writes.extend(_zero_checkpoint_writes(engine, save_dir, tag))
     if engine.zero3:
@@ -818,7 +829,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
 
 
 def _world(engine) -> int:
-    return engine.dp_world_size * engine.mp_world_size
+    return engine.dp_world_size * engine.mp_world_size * engine.pp_world_size
 
 
 def _barrier(engine) -> None:
@@ -832,8 +843,10 @@ def _remove_stale(engine, path: str) -> None:
     ``_publish``): a reader following ``latest`` must never pick one up.
     The flat ZeRO partition files need not: a restore reads the
     partition count their header records."""
-    mp, dp = engine.mp_world_size, engine.dp_world_size
-    expected = {MODEL_FILE.format(mp=m) for m in range(mp)}
+    mp, dp, pp = (engine.mp_world_size, engine.dp_world_size,
+                  engine.pp_world_size)
+    expected = {os.path.basename(model_file(path, "", m, s, pp))
+                for s in range(pp) for m in range(mp)}
     if engine.zero3:
         expected |= {ZERO3_FILE.format(dp=d, row=row)
                      for d in range(dp) for row in range(mp)}
@@ -863,7 +876,7 @@ def _publish(engine, save_dir: str, tag: str) -> None:
 
 # ------------------------------------------------------------ loading
 
-def _module_tree(load_dir: str, tag: Optional[str], specs):
+def _module_tree(load_dir: str, tag: Optional[str], specs, pipe_specs=None):
     """``(tag, global module tree of CPU tensors)``, or None."""
     ASYNC_SAVER.wait()
     read = _read_model_state(load_dir, tag)
@@ -871,24 +884,27 @@ def _module_tree(load_dir: str, tag: Optional[str], specs):
         return None
     tag, state = read
     return tag, _combined(
-        [s["module"] for s in _mp_states(load_dir, tag, state)], specs)
+        [s["module"] for s in _all_states(load_dir, tag, state)], specs,
+        pipe_specs, _saved_mp(state))
 
 
-def load_module_tree(load_dir: str, tag: Optional[str] = None, specs=None):
+def load_module_tree(load_dir: str, tag: Optional[str] = None, specs=None,
+                     pipe_specs=None):
     """The checkpoint's module (a global JAX-layout tree of CPU tensors)
     without an engine: the pretrain -> fine-tune transfer read.  A save at
-    mp > 1 needs ``specs``, the saving model's ``partition_specs()``.
-    None when there is no checkpoint under ``load_dir``."""
-    read = _module_tree(load_dir, tag, specs)
+    mp > 1 needs ``specs``, the saving model's ``partition_specs()``, and
+    one at pp > 1 ``pipe_specs``, its ``pipe_specs()``.  None when there
+    is no checkpoint under ``load_dir``."""
+    read = _module_tree(load_dir, tag, specs, pipe_specs)
     return None if read is None else read[1]
 
 
 def load_params_only(load_dir: str, tag: Optional[str] = None, dtype=None,
-                     specs=None):
+                     specs=None, pipe_specs=None):
     """``(tag, tree)``: the module only (global, as ``load_module_tree``),
     as CPU tensors, floating leaves cast to ``dtype`` when given; the
     optimizer state stays unread.  None when there is no checkpoint."""
-    read = _module_tree(load_dir, tag, specs)
+    read = _module_tree(load_dir, tag, specs, pipe_specs)
     if read is None:
         return None
 
@@ -964,16 +980,22 @@ def _zero3_local(engine, tree):
         k: one(k, v) for k, v in weights_mod.flatten_tree(tree).items()})
 
 
+def _local(engine, tree):
+    """The engine's (stage, model rank) cut of a global ``tree``."""
+    return weights_mod.local_tree(
+        tree, engine._param_specs, engine.mp_world_size, engine.mp_rank,
+        engine._pipe_specs, engine.pp_world_size, engine.pp_rank)
+
+
 def init_from_module_tree(engine, module) -> tuple:
     """Copy same-named, same-shaped leaves of ``module`` (a global tree)
     into the engine's parameters (the pretrain -> fine-tune start; a new
-    task head keeps its init), cut to the engine's model rank first, and
-    re-derive the masters from them.  Returns ``(loaded, skipped)``: the
-    engine's leaf paths in the JAX key form (``"['blocks']['qkv_w']"``)."""
+    task head keeps its init), cut to the engine's stage and model rank
+    first, and re-derive the masters from them.  Returns ``(loaded,
+    skipped)``: the engine's leaf paths in the JAX key form
+    (``"['blocks']['qkv_w']"``)."""
     from deepspeed_tpu_torch.engine import _keystr
-    if engine.mp_world_size > 1:
-        module = weights_mod.shard_tree(module, engine._param_specs,
-                                        engine.mp_world_size, engine.mp_rank)
+    module = _local(engine, module)
     src = weights_mod.flatten_tree(_zero3_local(engine, module))
     loaded, skipped = [], []
     for name, p in engine.module.named_parameters():
@@ -1003,14 +1025,16 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     saved_stage = int(state.get("zero_stage",
                                 1 if state.get("zero_enabled") else 0))
     saved_mp, mp = _saved_mp(state), engine.mp_world_size
+    saved_pp, pp = _saved_pp(state), engine.pp_world_size
     if load_optimizer_states:
-        if engine.zero_flat and saved_stage in (1, 2) and saved_mp != mp:
+        if engine.zero_flat and saved_stage in (1, 2) and (
+                saved_mp != mp or saved_pp != pp):
             raise ValueError(
                 f"zero checkpoint was saved with model_parallel_size="
-                f"{saved_mp}, pipeline_parallel_size=1; engine has mp={mp}, "
-                f"pp=1: ZeRO flat partitions are per-stage/shard and cannot "
-                f"be re-split (load with load_optimizer_states=False for a "
-                f"weights-only restore)")
+                f"{saved_mp}, pipeline_parallel_size={saved_pp}; engine has "
+                f"mp={mp}, pp={pp}: ZeRO flat partitions are per-stage/shard "
+                f"and cannot be re-split (load with "
+                f"load_optimizer_states=False for a weights-only restore)")
         if engine.zero_flat and saved_stage == 3:
             raise ValueError(
                 "checkpoint was saved at ZeRO stage 3 (optimizer state "
@@ -1039,21 +1063,22 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             and hasattr(engine.lr_scheduler, "load_state_dict")):
         engine.lr_scheduler.load_state_dict(state["lr_scheduler"])
 
-    if saved_mp == mp:
-        # this model rank's own file
-        if engine.mp_rank:
-            state = _read_state(load_dir, tag, engine.mp_rank)
+    if saved_mp == mp and saved_pp == pp:
+        # this (stage, model rank)'s own file
+        if _row(engine):
+            state = _read_state(load_dir, tag, _row(engine), mp, pp)
         local = lambda get: _zero3_local(engine, get(state))
     else:
-        # every saved model rank's file, combined and cut for this rank
-        states = _mp_states(load_dir, tag, state)
+        # every saved (stage, model rank)'s file, combined and cut for
+        # this rank
+        states = _all_states(load_dir, tag, state)
 
         def local(get):
             if get(states[0]) is None:
                 return None
-            return _zero3_local(engine, weights_mod.shard_tree(
-                _combined([get(s) for s in states], engine._param_specs),
-                engine._param_specs or {}, mp, engine.mp_rank))
+            return _zero3_local(engine, _local(engine, _combined(
+                [get(s) for s in states], engine._param_specs,
+                engine._pipe_specs, saved_mp)))
 
     _load_flat(dict(engine.module.named_parameters()),
                local(lambda s: s["module"]), "module")
@@ -1092,21 +1117,21 @@ def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
     ``_load_zero_checkpoint``).  A save at another model or pipeline
     parallel size raises."""
     meta = engine.flat_meta
-    mp, mp_rank = engine.mp_world_size, engine.mp_rank
-    first = zero_file(load_dir, tag, 0, mp_rank)
+    mp, pp, row = engine.mp_world_size, engine.pp_world_size, _row(engine)
+    first = zero_file(load_dir, tag, 0, row)
     if not os.path.exists(first):
         raise FileNotFoundError(
             f"no zero checkpoint shards under {load_dir}/{tag}")
     shard0 = _load_obj(first)
     saved_mp = int(shard0.get("mp_world_size", 1))
     saved_pp = int(shard0.get("pp_world_size", 1))
-    if saved_mp != mp or saved_pp != 1:
+    if saved_mp != mp or saved_pp != pp:
         raise ValueError(
             f"zero checkpoint was saved with model_parallel_size="
             f"{saved_mp}, pipeline_parallel_size={saved_pp}; engine has "
-            f"mp={mp}, pp=1: ZeRO flat partitions are per-stage/shard and "
-            f"cannot be re-split (load with load_optimizer_states=False for "
-            f"a weights-only restore)")
+            f"mp={mp}, pp={pp}: ZeRO flat partitions are per-stage/shard "
+            f"and cannot be re-split (load with load_optimizer_states=False "
+            f"for a weights-only restore)")
     # the recorded partition count, not the files present: a stale shard
     # of an earlier save of the same tag at a larger dp must be ignored
     saved_dp = int(shard0.get("partition_count", shard0["dp_world_size"]))
@@ -1115,7 +1140,7 @@ def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
         raise ValueError(
             f"zero checkpoint has {total} elements, engine expects "
             f"{meta.total} (different model?)")
-    shards = [shard0] + [_load_obj(zero_file(load_dir, tag, r, mp_rank))
+    shards = [shard0] + [_load_obj(zero_file(load_dir, tag, r, row))
                          for r in range(1, saved_dp)]
     starts = np.cumsum([0] + [len(sh["master"]) for sh in shards])
     if starts[-1] != total:

@@ -73,6 +73,21 @@ overflow flag is agreed over the data and model groups, and the update
 (Adam and AdamW through the CUDA kernel, or Lion) runs per leaf on the
 shards.  ``overlap_comm`` prefetches the next layer's gather.
 
+Pipeline parallelism (``pipeline_parallel_size``, or ``MeshConfig(
+pipeline_parallel_size=pp)``): the world is ``dp x pp x mp`` ranks
+(``parallel/topology.py``), and each stage is a process.  The engine cuts
+the model's block stack along its layer dim by its ``pipe_specs()``,
+hands it its ``PipeContext`` (``parallel/pipeline.py``), and lets
+``pipeline_schedule`` override its ``schedule``.  The model's loss is the
+same on every stage, and ``backward`` runs the schedule's backward; the
+leaves every stage holds whole (embeddings, final LayerNorm) leave it
+with their gradients summed over the pipe group, so, unlike the JAX
+engine (``engine.py:1460-1468``), nothing is divided by pp.  The squared
+norm sums the stage-cut leaves over the pipe group and counts the others
+once; the overflow flag is MAX-agreed over the pipe group.  Under ZeRO-1/2
+each (stage, model rank) partitions ITS local flat layout over its data
+group.  ZeRO-3 with pp > 1 raises naming its ROADMAP.md item.
+
 ``sparse_gradients`` (ZeRO off): the leaves a model marks with its
 ``sparse_grad_specs`` hook reduce as gathered (indices, values) rows with
 a dense fallback (``sparse.sparse_psum``; the reference's
@@ -84,9 +99,9 @@ rows of the global batch (the model ranks of a data group read the same
 rows); ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
 package's checkpoint layout, per-model-rank and ZeRO partition files
 included (``checkpoint.py``).  What the JAX engine has and this slice does
-not yet (sequence and pipeline parallelism, MoE, ``train_many``,
-telemetry, resilience, graph lint) raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+not yet (sequence parallelism, MoE, ZeRO-3 with pipeline parallelism,
+``train_many``, telemetry, resilience, graph lint) raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -259,8 +274,10 @@ class DeepSpeedTorchEngine:
         self.device = self.topology.device
         self.dp_world_size = self.topology.dp
         self.mp_world_size = self.topology.mp
+        self.pp_world_size = self.topology.pp
         self.global_rank = self.topology.rank
         self.mp_rank = self.topology.mp_rank
+        self.pp_rank = self.topology.pp_rank
         self.config = DeepSpeedConfig(cfg_src,
                                       dp_world_size=self.dp_world_size)
         # knobs of upstream's NCCL schedule that one collective per bucket
@@ -321,11 +338,12 @@ class DeepSpeedTorchEngine:
                 v={"flat": torch.zeros_like(self.master_flat)})
             lo, part = self._owned_range()
             self._owned_segments = self.flat_meta.segments(lo, lo + part)
-            if self.mp_world_size > 1:
+            if self._cut_axes():
                 weights = dict(zip(self.flat_meta.names,
                                    zero_mod.norm_dedup_weights(
                                        self.flat_meta, self._param_specs,
-                                       self.mp_world_size)))
+                                       self.mp_world_size, self._pipe_specs,
+                                       self.pp_world_size)))
                 self._segment_weights = torch.tensor(
                     [weights.get(name, 1.0) for _, _, name in
                      self._owned_segments], device=self.device)
@@ -342,6 +360,10 @@ class DeepSpeedTorchEngine:
         self._acc = None
         self._acc_views = None
         self._last_loss = None
+        #: the global grad norm of the last boundary (of the loss-scaled
+        #: grads under fp16), as the JAX engine's ``_last_grad_norm``; a
+        #: device tensor, never read by the engine
+        self._last_grad_norm = None
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -375,22 +397,41 @@ class DeepSpeedTorchEngine:
         elif changes:
             self.module.with_config(**changes)
         if cfg.pipeline_schedule is not None:
-            raise _unported("pipeline_schedule", "Queue 1 item 11")
+            if hasattr(self.module, "schedule"):
+                self.module.schedule = cfg.pipeline_schedule
+            else:
+                logger.warning("pipeline_schedule set but the model exposes "
+                               "no schedule field; ignored")
         from deepspeed_tpu_torch.models.transformer import check_remat
         if mcfg is not None and hasattr(mcfg, "remat_policy"):
             check_remat(self.module.config)
 
     def _configure_model_parallel(self):
         """The model's ``partition_specs()`` (``_param_specs``, dotted name
-        -> sharded dim or None; None without the hook), and under mp > 1
-        its parameters narrowed to this rank's slices and the model group
-        handed to it."""
+        -> sharded dim or None; None without the hook) and ``pipe_specs()``
+        (``_pipe_specs``, the same over the stages); under pp > 1 its
+        parameters narrowed to this rank's stage and the pipe context
+        handed to it, under mp > 1 to its model-rank slices and the model
+        group handed to it."""
         specs_fn = getattr(self.module, "partition_specs", None)
         specs = specs_fn() if specs_fn is not None else None
         self._param_specs = (weights_mod.flatten_tree(specs)
                              if specs is not None else None)
         self._global_shapes = {k: tuple(p.shape)
                                for k, p in self.module.named_parameters()}
+        pipe_fn = getattr(self.module, "pipe_specs", None)
+        self._pipe_specs = (weights_mod.flatten_tree(pipe_fn())
+                            if pipe_fn is not None else None)
+        if self.pp_world_size > 1:
+            if pipe_fn is None:
+                raise ValueError(
+                    f"pipeline_parallel_size={self.pp_world_size} needs a "
+                    f"model with pipe_specs() (the dim each parameter is "
+                    f"cut along over the stages), e.g. GPT2Pipelined")
+            from deepspeed_tpu_torch.parallel.pipeline import PipeContext
+            weights_mod.shard_module_(self.module, pipe_fn(),
+                                      self.pp_world_size, self.pp_rank)
+            self.module.pipe = PipeContext.from_topology(self.topology)
         if self.mp_world_size == 1:
             return
         if specs is None:
@@ -460,6 +501,22 @@ class DeepSpeedTorchEngine:
         return (self._param_specs is not None
                 and self._param_specs.get(name) is not None)
 
+    def _staged(self, name: str) -> bool:
+        """Whether leaf ``name`` is cut over the pipe group."""
+        return (self._pipe_specs is not None
+                and self._pipe_specs.get(name) is not None)
+
+    def _cut_axes(self):
+        """``(is_cut(name), group, size)`` of each axis above size 1 that
+        parameters are cut over: the model axis, then the pipe axis."""
+        topo = self.topology
+        axes = []
+        if self.mp_world_size > 1:
+            axes.append((self._sharded, topo.model_group, self.mp_world_size))
+        if self.pp_world_size > 1:
+            axes.append((self._staged, topo.pipe_group, self.pp_world_size))
+        return axes
+
     def _refuse_unported(self):
         cfg = self.config
         refused = [
@@ -511,6 +568,9 @@ class DeepSpeedTorchEngine:
                     f"zero_optimization.parameter_parallel_size={pps} must "
                     f"divide the DP world size ({dp})")
             if self.zero3:
+                if self.pp_world_size > 1:
+                    raise _unported("ZeRO-3 with pipeline parallelism",
+                                    "Queue 1 item 11")
                 self._check_zero3(pps)
             self.topology = self.topology.with_subgroups(pps)
         self.zero_pps = self.topology.pps if self.zero_flat else dp
@@ -723,6 +783,52 @@ class DeepSpeedTorchEngine:
 
     def wall_clock_breakdown(self):
         return self.config.wall_clock_breakdown
+
+    def tensorboard_enabled(self):
+        return self.config.tensorboard_enabled
+
+    def sparse_gradients_enabled(self):
+        return self.config.sparse_gradients_enabled
+
+    def postscale_gradients(self):
+        return not self.config.prescale_gradients
+
+    def gradient_predivide_factor(self):
+        return self.config.gradient_predivide_factor
+
+    def memory_estimate(self) -> dict:
+        """This rank's bytes of persistent engine state (the JAX engine's
+        ``memory_estimate``, ``engine.py:2338-2380``, with its keys), from
+        the local parameter count: this rank's model slices of its stage's
+        leaves (its shards under ZeRO-3).
+
+          params           compute-dtype parameters
+          optimizer_state  fp32 master + moments; the owned partition,
+                           ``padded / min(dp, pps)``, under ZeRO-1/2
+          grad_accumulator fp32; the partition under ZeRO-2, else the
+                           local parameters (held between ``backward()``
+                           and ``step()``)
+        """
+        cdt_bytes = torch.finfo(self.policy.compute_dtype).bits // 8
+        n_params = sum(math.prod(s) for s in self._global_shapes.values())
+        local = self.num_parameters()
+        moments = ((self.opt_state.m is not None)
+                   + (self.opt_state.v is not None))
+        if self.zero_flat:
+            part = self.flat_meta.padded // self.zero_pps
+            opt_state = 4 * (1 + moments) * part
+            acc = 4 * part if self.zero_stage >= 2 else 4 * local
+        else:
+            opt_state = 4 * (1 + moments) * local
+            acc = 4 * local
+        return {
+            "params_bytes": cdt_bytes * local,
+            "optimizer_state_bytes": opt_state,
+            "grad_accumulator_bytes": acc,
+            "total_persistent_bytes": cdt_bytes * local + opt_state,
+            "n_params": n_params,
+            "zero_stage": self.zero_stage,
+        }
 
     # ----------------------------------------------------------------- modes
 
@@ -966,7 +1072,8 @@ class DeepSpeedTorchEngine:
         # the reduced grads are the same on every data rank: so are the
         # norm and the overflow flag
         sq, overflow = self._sqnorm_and_overflow(grads)
-        combined = self._combined_scale(torch.sqrt(sq))
+        self._last_grad_norm = torch.sqrt(sq)
+        combined = self._combined_scale(self._last_grad_norm)
         skip = bool(overflow) if fp16 else False
         if not skip:
             lr, b1, b2, wd = self._hypers()
@@ -1013,8 +1120,9 @@ class DeepSpeedTorchEngine:
     def _sqnorm_and_overflow(self, grads):
         """The global squared grad norm and the overflow flag of the
         data-reduced ``grads`` (the JAX ``_global_overflow_and_sqnorm``):
-        sharded leaves' squares summed over the model group, replicated
-        leaves counted once, the flag MAX-agreed over the model group."""
+        each leaf's squares summed over exactly the axes it is cut over
+        (model, pipe), a leaf held whole counted once, the flag MAX-agreed
+        over the model and pipe groups."""
         def sq_sum(names):
             if not names:
                 return torch.zeros((), dtype=torch.float32,
@@ -1039,16 +1147,26 @@ class DeepSpeedTorchEngine:
                 comm.model_sum_(sq, topo.model_group)
                 overflow = comm.overflow_any(overflow, topo.model_group)
             return sq[0], overflow
-        if self.mp_world_size == 1:
+        axes = self._cut_axes()
+        if not axes:
             sq = sq_sum(names)
             # a non-finite grad makes the squared norm non-finite
             return sq, ~torch.isfinite(sq)
-        sharded = comm.model_sum_(
-            sq_sum([k for k in names if self._sharded(k)]).reshape(1),
-            self.topology.model_group)[0]
-        sq = sharded + sq_sum([k for k in names if not self._sharded(k)])
-        overflow = comm.overflow_any(~torch.isfinite(sq),
-                                     self.topology.model_group)
+        # one partial sum per combination of the axes a leaf is cut over,
+        # each summed over those axes' groups
+        keys = {}
+        for k in names:
+            keys.setdefault(tuple(cut(k) for cut, _, _ in axes), []).append(k)
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for key in sorted(keys):
+            part = sq_sum(keys[key]).reshape(1)
+            for on, (_, group, _) in zip(key, axes):
+                if on:
+                    comm.model_sum_(part, group)
+            sq = sq + part[0]
+        overflow = ~torch.isfinite(sq)
+        for _, group, _ in axes:
+            overflow = comm.overflow_any(overflow, group)
         return sq, overflow
 
     def _zero_boundary_update(self):
@@ -1067,12 +1185,13 @@ class DeepSpeedTorchEngine:
         else:
             gpart = self._scatter(self._acc)
         self._acc = self._acc_views = None
-        if self.mp_world_size == 1:
+        if not self._cut_axes():
             norms = torch.linalg.vector_norm(gpart, dtype=torch.float32)
             sq = (norms * norms).reshape(1)
         else:
-            # per leaf piece; replicated leaves weigh 1/mp, so the model
-            # group's sum counts each once (the JAX norm_dedup_weights)
+            # per leaf piece; a leaf held whole on an axis's ranks weighs
+            # 1/size there, so the groups' sums count each once (the JAX
+            # norm_dedup_weights)
             norms = torch.stack([torch.linalg.vector_norm(
                 gpart[s:e], dtype=torch.float32)
                 for s, e, _ in self._owned_segments])
@@ -1080,14 +1199,17 @@ class DeepSpeedTorchEngine:
         # a non-finite element makes its piece's norm non-finite
         overflow = comm.overflow_any(~torch.isfinite(norms).all(),
                                      topo.group)
-        if topo.model_group is not None:
-            overflow = comm.overflow_any(overflow, topo.model_group)
+        for group in (topo.model_group, topo.pipe_group):
+            if group is not None:
+                overflow = comm.overflow_any(overflow, group)
         if topo.within is not None:
             # partitions repeat across the dp / pps sub-groups: sum within
             # one, so each element counts once
             dist.all_reduce(sq, group=topo.within)
         comm.model_sum_(sq, topo.model_group)
-        combined = self._combined_scale(torch.sqrt(sq[0]))
+        comm.model_sum_(sq, topo.pipe_group)
+        self._last_grad_norm = torch.sqrt(sq[0])
+        combined = self._combined_scale(self._last_grad_norm)
         fp16 = self.config.fp16_enabled
         skip = bool(overflow) if fp16 else False
         if not skip:

@@ -264,7 +264,8 @@ def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
                 attn_mask=None, group=None, z3_dims=None, z3_group=None,
                 z3_prefetch=False):
     """All layers over the stacked [L, ...] params (this rank's slices of
-    the model group ``group``).  A recompute replays a block's forward
+    the model group ``group``; under pipeline parallelism this stage's
+    layers).  A recompute replays a block's forward
     collectives, in the same order on every rank.
 
     ZeRO-3 (``z3_dims``: the stacked leaves' partition dims over the data
@@ -291,7 +292,8 @@ def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
             leaves = Z.gather_leaves(leaves, body_dims, z3_group)
         return block(x_, mask_, leaves)
 
-    n, layers = len(names), cfg.num_layers
+    # the stack's own depth: under pipeline parallelism this stage's layers
+    n, layers = len(names), len(per_layer[0])
     if not (z3 and z3_prefetch and layers >= 2 and layers % 2 == 0):
         body = remat_wrap(body, cfg)
         for i in range(layers):

@@ -37,6 +37,17 @@ every leaf its true gradient on every model rank; ``model_max_`` and
 cross-entropy and of the engine's norm and overflow agreement.
 ``torch.distributed.nn.functional.all_reduce`` is neither: its backward
 all-reduces again.
+
+Pipe axis (``parallel/pipeline.py``): ``pipe_isend`` and ``pipe_recv``
+move one activation or gradient between two stages (the JAX ``ppermute``
+over ``pipe``), the scatter of the finished micro-batches' row slices to
+the stages and the gather of their gradients back being such sends too;
+``pipe_sum_`` is the pipe-group SUM of the stage-replicated leaves'
+gradients (the JAX ``psum`` over ``pipe``), as one fp32 collective.  The
+schedules call them in an order fixed by the schedule, not by autograd,
+so they are plain functions and not an autograd pair.  A message's
+``tag`` names its kind (activation, gradient, head slice, head gradient),
+so that two kinds on one pair of stages never match each other.
 """
 
 from __future__ import annotations
@@ -454,6 +465,58 @@ def overflow_any(local_overflow, group) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(f, op=dist.ReduceOp.MAX, group=group)
     return f[0] > 0
+
+
+# -------------------------------------------------------------- pipe axis
+
+class PendingSend:
+    """An issued ``pipe_isend``: ``wait()`` blocks until the peer has the
+    data.  It keeps the staged host copy alive until then."""
+
+    def __init__(self, work, staged):
+        self._work, self._staged = work, staged
+
+    def wait(self) -> None:
+        if self._work is not None:
+            self._work.wait()
+        self._work = self._staged = None
+
+
+def pipe_isend(x: torch.Tensor, dst: int, group, tag: int) -> PendingSend:
+    """Send ``x`` to global rank ``dst`` of ``group`` without blocking; a
+    CUDA tensor on a gloo group goes through a host copy."""
+    src = x.detach().contiguous()
+    if _through_host(src, group):
+        src = src.cpu()
+    return PendingSend(dist.isend(src, dst, group=group, tag=tag), src)
+
+
+def pipe_recv(shape, dtype, device, src: int, group,
+              tag: int) -> torch.Tensor:
+    """Receive a ``shape``/``dtype`` tensor from global rank ``src`` of
+    ``group`` (blocking), on ``device``."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    host = _through_host(out, group)
+    buf = torch.empty(out.shape, dtype=dtype) if host else out
+    dist.recv(buf, src, group=group, tag=tag)
+    if host:
+        out.copy_(buf)
+    return out
+
+
+def pipe_sum_(tensors: Sequence[torch.Tensor], group) -> None:
+    """In-place SUM of each of ``tensors`` over ``group`` (identity
+    without one), as one fp32 collective: the leaves are laid end to end
+    and each is written back in its own dtype."""
+    if group is None or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[off:off + n].view(t.shape))
+        off += n
 
 
 # ------------------------------------------------------------- model axis

@@ -1,12 +1,14 @@
-"""Process groups, device resolution and the data x model layout.
+"""Process groups, device resolution and the data x pipe x model layout.
 
-The port of ``deepspeed_tpu/parallel/topology.py`` at sp = pp = 1: the JAX
-mesh's ``data`` and ``model`` axes become ``torch.distributed`` process
-groups, one process per card (or per CPU rank in the tests).  Ranks are
-laid out as the JAX mesh lays out its devices, ``[data, pipe, seq,
-model]`` with the model axis innermost, so ``rank = dp_rank * mp +
-mp_rank``: a model group is ``mp`` consecutive ranks, a data group the
-ranks with the same ``mp_rank``.
+The port of ``deepspeed_tpu/parallel/topology.py`` at sp = 1: the JAX
+mesh's ``data``, ``pipe`` and ``model`` axes become ``torch.distributed``
+process groups, one process per card (or per CPU rank in the tests).
+Ranks are laid out as the JAX mesh lays out its devices, ``[data, pipe,
+seq, model]`` with the model axis innermost, so ``rank = (dp_rank * pp +
+pp_rank) * mp + mp_rank``: a model group is ``mp`` consecutive ranks (one
+stage of one data replica), a pipe group the ``pp`` stages of one data
+replica and model rank, a data group the ranks of one stage and model
+rank.
 
 * ``init_distributed`` reads the JAX package's launch contract
   (``DSTPU_COORDINATOR``, ``DSTPU_NUM_PROCESSES``, ``DSTPU_PROCESS_ID``;
@@ -17,17 +19,16 @@ ranks with the same ``mp_rank``.
   explicit ``backend="gloo"`` on a card is the caller's choice (one card
   shared by several ranks, where NCCL refuses): its collectives stage
   through the host.
-* ``make_topology`` reads the model-parallel size from the config or a
-  ``MeshConfig``, the rank and world size from the started group (1
-  without one), and builds every model group and data group.
+* ``make_topology`` reads the model- and pipeline-parallel sizes from
+  the config or a ``MeshConfig``, the rank and world size from the started
+  group (1 without one), and builds every model, pipe and data group.
 * ``Topology.with_subgroups`` builds the ZeRO ``parameter_parallel_size``
-  sub-groups of ``comm.subgroup_index_groups`` inside each model rank's
-  data group: ``within`` (consecutive blocks of ranks that own the
+  sub-groups of ``comm.subgroup_index_groups`` inside each (stage, model
+  rank)'s data group: ``within`` (consecutive blocks of ranks that own the
   partitions) and ``across`` (the ranks that hold the same partition in
   different blocks).
 
-Sequence and pipeline parallelism (sp, pp > 1) raise naming their
-ROADMAP.md item.
+Sequence parallelism (sp > 1) raises naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -49,10 +50,11 @@ logger = logging.getLogger(__name__)
 class MeshConfig:
     """A declarative layout request, as the JAX package's ``MeshConfig``
     (``initialize(..., mesh=MeshConfig(model_parallel_size=2))``):
-    ``model_parallel_size`` ranks per model replica, the rest of the world
-    the data axis.  Context and pipeline parallel sizes above 1 raise (not
-    ported).  It has no ``devices``: the port's devices are the processes
-    of the group."""
+    ``model_parallel_size`` ranks per model shard group,
+    ``pipeline_parallel_size`` stages per pipeline, the rest of the world
+    the data axis.  A context parallel size above 1 raises (not ported).
+    It has no ``devices``: the port's devices are the processes of the
+    group."""
     model_parallel_size: int = 1
     context_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -60,14 +62,14 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """The run's device, rank and data x model layout.
+    """The run's device, rank and data x pipe x model layout.
 
-    ``group`` is this rank's data-parallel process group and
-    ``model_group`` its model-parallel one; each is None where its axis has
-    size 1 (no collectives there).  ``pps`` is the ZeRO partition group
-    size; with ``pps < dp`` this rank's ``within`` group is its block of
-    ``pps`` consecutive data ranks and ``across`` the ``dp / pps`` data
-    ranks holding the same partition."""
+    ``group`` is this rank's data-parallel process group, ``model_group``
+    its model-parallel one and ``pipe_group`` its pipeline one; each is
+    None where its axis has size 1 (no collectives there).  ``pps`` is the
+    ZeRO partition group size; with ``pps < dp`` this rank's ``within``
+    group is its block of ``pps`` consecutive data ranks and ``across``
+    the ``dp / pps`` data ranks holding the same partition."""
     device: torch.device
     rank: int = 0
     dp: int = 1
@@ -77,25 +79,42 @@ class Topology:
     within: Optional[object] = None
     across: Optional[object] = None
     model_group: Optional[object] = None
+    pp: int = 1
+    pipe_group: Optional[object] = None
 
     @property
     def dp_rank(self) -> int:
         """This rank's place on the data axis."""
-        return self.rank // self.mp
+        return self.rank // (self.pp * self.mp)
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return (self.rank // self.mp) % self.pp
 
     @property
     def mp_rank(self) -> int:
         """This rank's place on the model axis."""
         return self.rank % self.mp
 
+    def global_rank(self, dp_rank: int, pp_rank: int, mp_rank: int) -> int:
+        """The rank at ``(dp_rank, pp_rank, mp_rank)``."""
+        return (dp_rank * self.pp + pp_rank) * self.mp + mp_rank
+
+    def pipe_ranks(self) -> list:
+        """The global ranks of this rank's pipe group, by stage."""
+        return [self.global_rank(self.dp_rank, s, self.mp_rank)
+                for s in range(self.pp)]
+
     @property
     def partition_id(self) -> int:
         """The partition this rank owns within its sub-group."""
         return self.dp_rank % self.pps
 
-    def data_ranks(self, mp_rank: int) -> list:
-        """The global ranks of model rank ``mp_rank``'s data group."""
-        return [d * self.mp + mp_rank for d in range(self.dp)]
+    def data_ranks(self, mp_rank: int, pp_rank: int = 0) -> list:
+        """The global ranks of the data group of model rank ``mp_rank`` at
+        stage ``pp_rank``."""
+        return [self.global_rank(d, pp_rank, mp_rank) for d in range(self.dp)]
 
     def with_subgroups(self, pps: int) -> "Topology":
         """This topology with ZeRO partition groups of ``pps`` data ranks.
@@ -112,15 +131,16 @@ class Topology:
                                        across=None)
         within_idx, across_idx = comm.subgroup_index_groups(self.dp, pps)
         mine = {"within": None, "across": None}
-        for m in range(self.mp):
-            ranks = self.data_ranks(m)
-            for kind, groups in (("within", within_idx),
-                                 ("across", across_idx)):
-                for idx in groups:
-                    members = [ranks[i] for i in idx]
-                    g = _new_group(members)
-                    if self.rank in members:
-                        mine[kind] = g
+        for s in range(self.pp):
+            for m in range(self.mp):
+                ranks = self.data_ranks(m, s)
+                for kind, groups in (("within", within_idx),
+                                     ("across", across_idx)):
+                    for idx in groups:
+                        members = [ranks[i] for i in idx]
+                        g = _new_group(members)
+                        if self.rank in members:
+                            mine[kind] = g
         return dataclasses.replace(self, pps=pps, **mine)
 
 
@@ -263,10 +283,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
                 num_processes, coordinator_address, dist.get_backend())
 
 
-def _parallel_sizes(config: dict, mesh) -> int:
-    """The model-parallel size of ``mesh`` (a ``MeshConfig``, which beats
-    the config, as in the JAX engine) or of ``config``; sequence and
-    pipeline parallel sizes above 1 raise naming their ROADMAP.md item."""
+def _parallel_sizes(config: dict, mesh) -> tuple:
+    """``(mp, pp)``: the model- and pipeline-parallel sizes of ``mesh`` (a
+    ``MeshConfig``, which beats the config, as in the JAX engine) or of
+    ``config``; a sequence parallel size above 1 raises naming its
+    ROADMAP.md item."""
     if mesh is not None:
         sizes = {C.MODEL_PARALLEL_SIZE: mesh.model_parallel_size,
                  C.CONTEXT_PARALLEL_SIZE: mesh.context_parallel_size,
@@ -276,32 +297,33 @@ def _parallel_sizes(config: dict, mesh) -> int:
             C.MODEL_PARALLEL_SIZE, C.CONTEXT_PARALLEL_SIZE,
             C.PIPELINE_PARALLEL_SIZE)}
     sizes = {k: int(v or 1) for k, v in sizes.items()}
-    for key, what in ((C.CONTEXT_PARALLEL_SIZE, "sequence parallelism"),
-                      (C.PIPELINE_PARALLEL_SIZE, "pipeline parallelism")):
-        if sizes[key] != 1:
-            raise NotImplementedError(
-                f"{key}={sizes[key]}: {what} is not ported to "
-                f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 11)")
-    mp = sizes[C.MODEL_PARALLEL_SIZE]
-    if mp < 1:
-        raise ValueError(f"{C.MODEL_PARALLEL_SIZE}={mp} must be >= 1")
-    return mp
+    if sizes[C.CONTEXT_PARALLEL_SIZE] != 1:
+        raise NotImplementedError(
+            f"{C.CONTEXT_PARALLEL_SIZE}={sizes[C.CONTEXT_PARALLEL_SIZE]}: "
+            f"sequence parallelism is not ported to deepspeed_tpu_torch yet "
+            f"(ROADMAP.md, Queue 1 item 11)")
+    for key in (C.MODEL_PARALLEL_SIZE, C.PIPELINE_PARALLEL_SIZE):
+        if sizes[key] < 1:
+            raise ValueError(f"{key}={sizes[key]} must be >= 1")
+    return sizes[C.MODEL_PARALLEL_SIZE], sizes[C.PIPELINE_PARALLEL_SIZE]
 
 
 def make_topology(config: Optional[dict] = None, device=None,
                   mesh=None) -> Topology:
-    """The run's topology: the device, the model-parallel size (``mesh``,
-    else ``config``), and the rank and sizes of the started process group
-    (one rank without one).  Every model group and every data group is
-    built on every rank, in one order.  A CUDA device needs an NCCL group,
-    unless ``init_distributed`` was given ``backend="gloo"``: then the
-    collectives stage through the host."""
-    mp = _parallel_sizes(config or {}, mesh)
+    """The run's topology: the device, the model- and pipeline-parallel
+    sizes (``mesh``, else ``config``), and the rank and sizes of the
+    started process group (one rank without one).  Every model group, pipe
+    group and data group is built on every rank, in one order.  A CUDA
+    device needs an NCCL group, unless ``init_distributed`` was given
+    ``backend="gloo"``: then the collectives stage through the host."""
+    mp, pp = _parallel_sizes(config or {}, mesh)
     device = resolve_device(device)
     if not dist.is_initialized():
-        if mp != 1:
+        if mp * pp != 1:
+            key = (C.MODEL_PARALLEL_SIZE if mp != 1
+                   else C.PIPELINE_PARALLEL_SIZE)
             raise ValueError(
-                f"{C.MODEL_PARALLEL_SIZE}={mp} needs {mp} processes in a "
+                f"{key}={max(mp, pp)} needs {mp * pp} processes in a "
                 f"started process group; none was started")
         return Topology(device=device)
     running = dist.get_backend()
@@ -315,25 +337,28 @@ def make_topology(config: Optional[dict] = None, device=None,
         logger.info("make_topology: %s collectives on %s stage through the "
                     "host", running, device)
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % mp:
-        raise ValueError(f"{C.MODEL_PARALLEL_SIZE}={mp} must divide the "
-                         f"world size {world}")
-    dp = world // mp
-    if mp == 1:
+    if world % (mp * pp):
+        raise ValueError(
+            f"{C.MODEL_PARALLEL_SIZE}={mp} x {C.PIPELINE_PARALLEL_SIZE}={pp} "
+            f"must divide the world size {world}")
+    dp = world // (mp * pp)
+    if mp == pp == 1:
         return Topology(device=device, rank=rank, dp=dp,
                         group=dist.group.WORLD, pps=dp,
                         within=dist.group.WORLD)
-    topo = Topology(device=device, rank=rank, dp=dp, mp=mp, pps=dp)
-    model_group = data_group = None
-    for d in range(dp):
-        ranks = list(range(d * mp, (d + 1) * mp))
-        g = _new_group(ranks)
-        if rank in ranks:
-            model_group = g
-    for m in range(mp):
-        ranks = topo.data_ranks(m)
-        g = _new_group(ranks) if dp > 1 else None
-        if rank in ranks:
-            data_group = g
-    return dataclasses.replace(topo, group=data_group, within=data_group,
-                               model_group=model_group)
+    topo = Topology(device=device, rank=rank, dp=dp, mp=mp, pp=pp, pps=dp)
+    at, mine = topo.global_rank, {}
+
+    def build(name, rank_lists, size):
+        for ranks in rank_lists:
+            g = _new_group(ranks) if size > 1 else None
+            if rank in ranks:
+                mine[name] = g
+
+    build("model_group", ([at(d, s, m) for m in range(mp)]
+                          for d in range(dp) for s in range(pp)), mp)
+    build("pipe_group", ([at(d, s, m) for s in range(pp)]
+                         for d in range(dp) for m in range(mp)), pp)
+    build("group", ([at(d, s, m) for d in range(dp)]
+                    for s in range(pp) for m in range(mp)), dp)
+    return dataclasses.replace(topo, within=mine["group"], **mine)

@@ -11,7 +11,11 @@ is replicated) keeps the rank's contiguous 1/mp slice along that dim.
 ``shard_tree`` cuts a global tree into one rank's local tree and
 ``combine_local_trees`` joins the ranks' local trees back (the port's copy
 of ``deepspeed_tpu/zero.py:186-240``), so a JAX tree loads into any mp of
-the port, and back.
+the port, and back.  Under pipeline parallelism a stage holds its slice
+of the block stack's layer dim (the model's ``pipe_specs()``) as well:
+``local_tree`` makes the tree of a (stage, model rank) and
+``combine_stage_trees`` joins those of every (stage, model rank), stage
+major (the JAX ``combine_composite_trees``).
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ def _slice(x, dim: int, mp: int, mp_rank: int):
     n = x.shape[dim]
     if n % mp:
         raise ValueError(f"dim {dim} of shape {tuple(x.shape)} is not "
-                         f"divisible by the model-parallel size {mp}")
+                         f"divisible by the parallel size {mp}")
     size = n // mp
     index = [slice(None)] * len(x.shape)
     index[dim] = slice(mp_rank * size, (mp_rank + 1) * size)
@@ -112,6 +116,33 @@ def combine_local_trees(local_trees, specs: dict) -> dict:
             out[name] = np.concatenate([np.asarray(f[name]) for f in flats],
                                        axis=dim)
     return unflatten_tree(out)
+
+
+def local_tree(tree: dict, model_specs, mp: int, mp_rank: int,
+               pipe_specs=None, pp: int = 1, pp_rank: int = 0) -> dict:
+    """The tree of model rank ``mp_rank`` at stage ``pp_rank`` of a global
+    ``tree``: cut by ``pipe_specs`` over ``pp`` stages, then by
+    ``model_specs`` over ``mp`` ranks."""
+    if pp > 1:
+        tree = shard_tree(tree, pipe_specs, pp, pp_rank)
+    return shard_tree(tree, model_specs or {}, mp, mp_rank)
+
+
+def combine_stage_trees(local_trees, model_specs, mp: int,
+                        pipe_specs=None) -> dict:
+    """The global tree of every (stage, model rank)'s local tree, in the
+    order ``stage * mp + mp_rank``: each stage's model ranks joined, then
+    the stages."""
+    pp = len(local_trees) // mp
+    stages = [combine_local_trees(local_trees[s * mp:(s + 1) * mp],
+                                  model_specs or {}) for s in range(pp)]
+    if pp == 1:
+        return stages[0]
+    if pipe_specs is None:
+        raise ValueError(
+            f"joining {pp} pipeline stages needs the model's pipe_specs() "
+            f"(the dim each leaf is cut along over the stages)")
+    return combine_local_trees(stages, pipe_specs)
 
 
 @torch.no_grad()

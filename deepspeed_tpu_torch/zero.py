@@ -1,6 +1,6 @@
 """ZeRO stages 1 and 2: the flat, partitioned layout of the optimizer state.
 
-The port of ``deepspeed_tpu/zero.py`` at pp = 1 (reference
+The port of ``deepspeed_tpu/zero.py`` (reference
 ``FP16_DeepSpeedZeroOptimizer``, deepspeed_zero_optimizer.py): every
 parameter leaf is laid end to end in ONE flat buffer, padded so that it
 splits into ``pps`` equal partitions whose boundaries fall on multiples of
@@ -13,9 +13,10 @@ and the updated weights all-gather back into every rank's parameters
 Under tensor parallelism each model rank lays out its LOCAL slices (the
 engine's parameters after narrowing), partitioned over its own data group:
 ``make_flat_meta`` of the local parameters is the JAX
-``make_local_flat_meta``.  ``norm_dedup_weights`` weighs the leaves so that
-a model-group sum of the weighted squared norms counts every parameter
-once.
+``make_local_flat_meta``; under pipeline parallelism each (stage, model
+rank) lays out its own leaves the same way.  ``norm_dedup_weights`` weighs
+the leaves so that a model- and pipe-group sum of the weighted squared
+norms counts every parameter once.
 
 The leaves are laid out in the JAX package's order, that of
 ``jax.tree_util.tree_flatten`` over the nested parameter dict (keys sorted
@@ -119,13 +120,17 @@ def unflatten_tree(flat: torch.Tensor, meta: FlatMeta
 
 
 def norm_dedup_weights(meta: FlatMeta, specs: Optional[Dict[str, object]],
-                       mp: int) -> Tuple[float, ...]:
+                       mp: int, pipe_specs: Optional[Dict[str, object]] = None,
+                       pp: int = 1) -> Tuple[float, ...]:
     """Per leaf of ``meta`` (in its order), the weight of its squared norm
-    in the model-group sum: 1 for a leaf sharded over the model group
-    (``specs``: dotted name -> sharded dim or None), ``1 / mp`` for a
-    replicated one, which every model rank holds whole (the per-leaf form
-    of the JAX per-element ``norm_dedup_weights``, ``zero.py:144-184``;
-    reference deepspeed_utils.py:100-158)."""
-    specs = specs or {}
-    return tuple(1.0 if specs.get(name) is not None else 1.0 / mp
+    in the model- and pipe-group sum: a leaf sharded over the model group
+    (``specs``: dotted name -> sharded dim or None) weighs 1 there, one
+    every model rank holds whole ``1 / mp``; likewise over the ``pp``
+    stages by ``pipe_specs``; the factors multiply, so the sum counts
+    every parameter once (the per-leaf form of the JAX per-element
+    ``norm_dedup_weights``, ``zero.py:161-183``; reference
+    deepspeed_utils.py:100-158)."""
+    specs, pipe_specs = specs or {}, pipe_specs or {}
+    return tuple((1.0 if specs.get(name) is not None else 1.0 / mp)
+                 * (1.0 if pipe_specs.get(name) is not None else 1.0 / pp)
                  for name in meta.names)

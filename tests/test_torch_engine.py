@@ -212,9 +212,10 @@ def test_initialize_without_device_needs_a_gpu():
 
 @pytest.mark.parametrize("extra,match", [
     ({"zero_optimization": {"stage": 1}}, "Adam-family"),
-    # tensor parallelism is ported (tests/test_torch_tp_*.py); pipeline
-    # parallelism is not
-    ({"pipeline_parallel_size": 2}, "ROADMAP"),
+    # tensor and pipeline parallelism are ported (tests/test_torch_tp_*.py,
+    # test_torch_pipeline*.py); sequence parallelism is not
+    pytest.param({"context_parallel_size": 2}, "ROADMAP",
+                 id="extra1-ROADMAP"),
     ({"train_steps_per_dispatch": 4}, "ROADMAP"),
 ])
 def test_unported_configs_raise(extra, match):

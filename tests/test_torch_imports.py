@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.engine, "
             "deepspeed_tpu_torch.models, deepspeed_tpu_torch.weights, "
             "deepspeed_tpu_torch.zero3, deepspeed_tpu_torch.sparse, "
-            "deepspeed_tpu_torch.checkpoint; "
+            "deepspeed_tpu_torch.checkpoint, "
+            "deepspeed_tpu_torch.parallel.pipeline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -287,10 +287,14 @@ def test_topology_sizes_and_refusals():
     assert topology.make_topology({}, "cpu").mp == 1
     with pytest.raises(ValueError, match="needs 2 processes"):
         topology.make_topology({"model_parallel_size": 2}, "cpu")
-    for key in ("context_parallel_size", "pipeline_parallel_size"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # sequence parallelism is not ported; pipeline parallelism is
+    # (tests/test_torch_pipeline.py), and needs its processes
+    for key, error, match in (
+            ("context_parallel_size", NotImplementedError, "Queue 1 item 11"),
+            ("pipeline_parallel_size", ValueError, "needs 2 processes")):
+        with pytest.raises(error, match=match):
             topology.make_topology({key: 2}, "cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(error, match=match):
             topology.make_topology({}, "cpu", mesh=topology.MeshConfig(
                 **{key: 2}))
     # the mesh beats the config

@@ -19,7 +19,8 @@ Scenarios:
   block of each global batch (``train_batch``, or the split API with
   ``split``), optionally an inf injected into one rank's gradient, a save
   after ``save_after`` steps, a load before the first step.  Outputs: the
-  losses, the fp32 master and moments (the owned partition under ZeRO, the
+  losses, the global grad norms (``grad_norms``), the fp32 master and
+  moments (the owned partition under ZeRO, the
   whole flat layout otherwise), the step, skip and loss-scale counters.
   ``runs`` lists several such runs for one process group.  With
   ``mp`` > 1 the world is dp x mp (``model_parallel_size`` in the config,
@@ -34,11 +35,31 @@ Scenarios:
   trains ``EmbeddingClassifier`` (the sparse-gradient model, with
   ``sparse_grad_specs``), ``"bert_fp32"`` a BERT computing in fp32.
   ``save_tag`` names the save's tag; ``files`` lists the tag directory
-  after the save.
+  after the save.  With ``pp`` > 1 (``pipeline_parallel_size``, or the
+  ``mesh``) the world is dp x pp x mp and ``model`` ``"pipe"`` trains
+  ``GPT2Pipelined`` (``micro_batches``, ``schedule``; ``fp32_compute``
+  computes in fp32); ``layers`` sets the GPT-2s' depth; every rank
+  writes its local
+  leaves (its stage's, and under ZeRO-1/2 its stage's whole local layout
+  gathered over the data group, ``master/<name>``), ``mem/<key>`` of
+  ``memory_estimate()``, the live bytes (``live/params``,
+  ``live/optimizer_state``), ``held`` (1F1B's most held stage inputs),
+  the topology (``topo/coords``: dp, pp, mp rank; the global ranks of
+  ``topo/model``, ``topo/pipe``, ``topo/data``), the warnings the port
+  logged (``warnings``) and, with ``eval``, the eval-mode loss of the
+  first batch (``eval_loss``) beside the train-mode one
+  (``train_loss``).  A run of ``runs`` may name another ``scenario``.
 * ``sparse``: each case of ``spec["cases"]`` runs
   ``deepspeed_tpu_torch.sparse.sparse_psum`` on this rank's row of its
   input (bf16 with ``bf16``) with the case's ``max_rows`` and knobs; the
   output is ``<case>``.
+* ``pipe_raw``: the schedules of ``parallel.pipeline`` alone at pp =
+  world: the blocks (``blk/<name>``, cut by stage) on the micro-batches
+  ``x`` with the head ``sum(y * w)`` (the inputs named by the spec's
+  ``x`` and ``w``, by default ``x`` and ``w``); for each of
+  ``schedules``, outputs
+  ``<schedule>/loss``, ``/dx``, ``/g/<name>`` (this stage's slices) and
+  ``/held``.
 * ``tp_layers``: each case of ``spec["cases"]`` runs one tensor-parallel
   layer of ``deepspeed_tpu_torch.models.layers`` on this model rank's
   slices of its global inputs (the world is one model group), and the
@@ -59,9 +80,11 @@ sys.path.insert(0, str(ROOT))
 
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch import sparse, weights, zero  # noqa: E402
-from deepspeed_tpu_torch.models import GPT2, BertForPreTraining  # noqa: E402
+from deepspeed_tpu_torch.models import (  # noqa: E402
+    GPT2, BertForPreTraining, GPT2Pipelined)
 from deepspeed_tpu_torch.models import layers as L  # noqa: E402
-from deepspeed_tpu_torch.parallel import comm, topology  # noqa: E402
+from deepspeed_tpu_torch.models import transformer as T  # noqa: E402
+from deepspeed_tpu_torch.parallel import comm, pipeline, topology  # noqa: E402
 
 TINY = dict(vocab_size=64, max_seq_len=16, num_layers=2, hidden_size=32,
             num_heads=4, remat=False)
@@ -73,6 +96,24 @@ class Fp32GPT2(GPT2):
     """GPT-2 whose forward computes in fp32 whatever dtype its parameters
     hold: the bf16/fp16 weights are upcast on entry, and the grads reach
     them rounded to that dtype (as in the tests' JAX counterpart)."""
+
+    _upcast = False
+
+    def forward(self, tokens, labels):
+        if self._upcast:
+            return super().forward(tokens, labels)
+        self._upcast = True
+        try:
+            return torch.func.functional_call(
+                self, {k: p.float() for k, p in self.named_parameters()},
+                (tokens, labels))
+        finally:
+            self._upcast = False
+
+
+class Fp32GPT2Pipelined(GPT2Pipelined):
+    """``GPT2Pipelined`` computing in fp32 whatever dtype its parameters
+    hold (as ``Fp32GPT2``)."""
 
     _upcast = False
 
@@ -204,11 +245,26 @@ def _flat_state(engine):
             for d in (engine.master, engine.opt_state.m, engine.opt_state.v)]
 
 
-def _leaf_state(engine):
-    """The non-ZeRO masters and moments per leaf (local slices)."""
+def _zero_leaves(engine):
+    """Under ZeRO-1/2, this rank's whole local layout of the master and
+    moments, its data group's partitions gathered, per leaf."""
+    st, topo = engine.opt_state, engine.topology
     out = {}
-    for key, tree in (("master", engine.master), ("m", engine.opt_state.m),
-                      ("v", engine.opt_state.v)):
+    for key, part in (("master", engine.master_flat), ("m", st.m["flat"]),
+                      ("v", st.v["flat"])):
+        flat = comm.allgather_params(part, topo.group, engine.dp_world_size,
+                                     engine.zero_pps, engine._subgroups())
+        out[key] = zero.unflatten_tree(flat, engine.flat_meta)
+    return out
+
+
+def _leaf_state(engine):
+    """The masters and moments per leaf (local slices)."""
+    out = {}
+    trees = (_zero_leaves(engine) if engine.zero_flat else
+             {"master": engine.master, "m": engine.opt_state.m,
+              "v": engine.opt_state.v})
+    for key, tree in trees.items():
         if tree is not None:
             out.update({f"{key}/{k}": t.numpy().copy()
                         for k, t in tree.items()})
@@ -265,9 +321,26 @@ def run_train(spec, inputs, rank, world):
     if "runs" in spec:
         out = {}
         for i, run in enumerate(spec["runs"]):
-            for k, v in run_train(run, inputs, rank, world).items():
+            fn = run_pipe_raw if run.get("scenario") == "pipe_raw" \
+                else run_train
+            for k, v in fn(run, inputs, rank, world).items():
                 out[f"{i}/{k}"] = v
         return out
+    import logging
+    logged = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: logged.append(record.getMessage())
+    port_logger = logging.getLogger("deepspeed_tpu_torch")
+    port_logger.addHandler(handler)
+    try:
+        out = _train(spec, inputs, rank, world)
+    finally:
+        port_logger.removeHandler(handler)
+    out["warnings"] = np.asarray("\n".join(logged))
+    return out
+
+
+def _train(spec, inputs, rank, world):
     prefix = spec.get("weights", "w") + "/"
     params = weights.unflatten_tree(
         {k[len(prefix):]: inputs[k] for k in inputs.files
@@ -277,15 +350,26 @@ def run_train(spec, inputs, rank, world):
         model = cls.from_size("tiny", use_nsp=True, **TINY_BERT)
     elif spec.get("model") == "embedding":
         model = EmbeddingClassifier()
+    elif spec.get("model") == "pipe":
+        cls = Fp32GPT2Pipelined if spec.get("fp32_compute") else GPT2Pipelined
+        model = cls.from_size(
+            "tiny", num_micro_batches=spec.get("micro_batches", 2),
+            schedule=spec.get("schedule", "gpipe"),
+            **dict(TINY, num_layers=spec.get("layers", TINY["num_layers"])))
     else:
         model = (Fp32GPT2 if spec.get("fp32_compute") else GPT2).from_size(
-            "tiny", **TINY)
-    mp = spec.get("mp", 1)
+            "tiny", **dict(TINY, num_layers=spec.get("layers",
+                                                     TINY["num_layers"])))
+    mp, pp = spec.get("mp", 1), spec.get("pp", 1)
     config, mesh = dict(spec["config"]), None
     if spec.get("mesh"):
-        mesh = deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp)
-    elif mp > 1:
-        config["model_parallel_size"] = mp
+        mesh = deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp,
+                                              pipeline_parallel_size=pp)
+    else:
+        if mp > 1:
+            config["model_parallel_size"] = mp
+        if pp > 1:
+            config["pipeline_parallel_size"] = pp
     keys = spec.get("batch_keys", ["tokens", "labels"])
     data = None
     if spec.get("loader"):
@@ -294,7 +378,8 @@ def run_train(spec, inputs, rank, world):
         config=config, model=model, model_parameters=params,
         param_groups=spec.get("param_groups"), device="cpu", mesh=mesh,
         training_data=data)
-    assert engine.dp_world_size * mp == world and engine.global_rank == rank
+    assert (engine.dp_world_size * mp * pp == world
+            and engine.global_rank == rank)
     dpr = engine.topology.dp_rank
     load_error = ""
     if spec.get("load") and spec.get("load_error"):
@@ -309,7 +394,7 @@ def run_train(spec, inputs, rank, world):
     gas = engine.gradient_accumulation_steps()
     micro = engine.train_micro_batch_size_per_gpu()
     rows = gas * micro
-    losses, acc_numel = [], 0
+    losses, norms, acc_numel = [], [], 0
     inject = spec.get("inject_inf")
     first = spec.get("first_batch", 0)
     for step in range(spec["steps"]):
@@ -332,13 +417,46 @@ def run_train(spec, inputs, rank, world):
         else:
             loss = engine.train_batch(tuple(batch))
         losses.append(float(loss))
+        norms.append(float(engine._last_grad_norm))
         if spec.get("save_after") == step + 1:
             path = engine.save_checkpoint(spec["save_dir"],
                                           tag=spec.get("save_tag"))
             files = "\n".join(sorted(os.listdir(path)))
     master, m, v = _flat_state(engine)
     ls = engine.loss_scale_state
-    extra = {} if engine.zero_flat else _leaf_state(engine)
+    extra = ({} if engine.zero_flat and pp == 1 and not spec.get("leaves")
+             else _leaf_state(engine))
+    if spec.get("eval"):
+        batch = [inputs[k][first][dpr * micro:(dpr + 1) * micro]
+                 for k in keys]
+        extra["train_loss"] = np.asarray(float(engine(*batch)))
+        engine._last_loss = None
+        engine.eval()
+        extra["eval_loss"] = np.asarray(float(engine(*batch)))
+        engine.train()
+    extra.update({f"mem/{k}": np.asarray(v)
+                  for k, v in engine.memory_estimate().items()})
+    st = engine.opt_state
+    live = [engine.master_flat] if engine.zero_flat else list(
+        engine.master.values())
+    for moments in (st.m, st.v):
+        live += [] if moments is None else list(moments.values())
+    extra["live/optimizer_state"] = np.asarray(
+        sum(t.numel() * t.element_size() for t in live))
+    extra["live/params"] = np.asarray(
+        sum(p.numel() * p.element_size()
+            for p in engine.module.parameters()))
+    extra["held"] = np.asarray(getattr(engine.module, "last_pipe_stats",
+                                       {}).get("max_held_inputs", -1))
+    topo = engine.topology
+    extra["topo/coords"] = np.asarray([topo.dp_rank, topo.pp_rank,
+                                       topo.mp_rank])
+    for key, group in (("model", topo.model_group),
+                       ("pipe", topo.pipe_group), ("data", topo.group)):
+        extra[f"topo/{key}"] = np.asarray(
+            [rank] if group is None
+            else torch.distributed.get_process_group_ranks(group))
+    extra["schedule"] = np.asarray(getattr(engine.module, "schedule", ""))
     if engine.zero3:
         extra.update({f"z3dim/{k}": np.asarray(d)
                       for k, d in engine._zero3_dims.items()})
@@ -350,7 +468,8 @@ def run_train(spec, inputs, rank, world):
         extra.update({f"loader/{i}": x.numpy()
                       for i, x in enumerate(next(iter(loader)))})
     return {**extra, "load_error": np.asarray(load_error),
-            "losses": np.asarray(losses), "master": master,
+            "losses": np.asarray(losses), "grad_norms": np.asarray(norms),
+            "master": master,
             "m": m, "v": v,
             "step": np.asarray(engine.opt_state.step),
             "skipped": np.asarray(engine.skipped_steps),
@@ -364,6 +483,41 @@ def run_train(spec, inputs, rank, world):
                                  if engine.zero_flat else 0)}
 
 
+def run_pipe_raw(spec, inputs, rank, world):
+    """The schedules alone (see the module docstring)."""
+    topology.init_distributed(device="cpu")
+    topo = topology.make_topology({"pipeline_parallel_size": world}, "cpu")
+    pipe = pipeline.PipeContext.from_topology(topo)
+    cfg = T.TransformerConfig(**spec["config"])
+    x = torch.from_numpy(np.array(inputs[spec.get("x", "x")]))
+    w = torch.from_numpy(np.array(inputs[spec.get("w", "w")]))
+    m = x.shape[0]
+    blocks = {k[4:]: torch.from_numpy(np.array(inputs[k]))
+              for k in inputs.files if k.startswith("blk/")}
+    blocks = weights.shard_tree(blocks, {k: 0 for k in blocks}, world,
+                                pipe.stage)
+    out = {}
+    for schedule in spec["schedules"]:
+        params = {"x": x.clone().requires_grad_()}
+        params.update({f"blocks.{k}": t.clone().requires_grad_()
+                       for k, t in blocks.items()})
+        stats = {}
+        loss = pipeline.pipeline_loss(
+            pipe, schedule, params, lambda p, i: p["x"][i],
+            lambda p, u: (T.stack_apply(u, T.subtree(p, "blocks"), cfg),
+                          0.0),
+            lambda p, y, lab: torch.sum(y * lab), w, 1.0, m,
+            act_shape=x.shape[1:], act_dtype=x.dtype, replicated=["x"],
+            stats=stats)
+        loss.backward()
+        out[f"{schedule}/loss"] = loss.detach().numpy()
+        out[f"{schedule}/dx"] = params["x"].grad.numpy()
+        out[f"{schedule}/held"] = np.asarray(stats["max_held_inputs"])
+        out.update({f"{schedule}/g/{k[7:]}": t.grad.numpy()
+                    for k, t in params.items() if k.startswith("blocks.")})
+    return out
+
+
 def main():
     spec_path, rank = pathlib.Path(sys.argv[1]), int(sys.argv[2])
     spec = json.loads(spec_path.read_text())
@@ -371,7 +525,8 @@ def main():
     torch.set_num_threads(1)
     inputs = np.load(spec["inputs"])
     run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
-           "tp_layers": run_tp_layers}[spec["scenario"]]
+           "tp_layers": run_tp_layers,
+           "pipe_raw": run_pipe_raw}[spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
     import torch.distributed as dist
