@@ -111,22 +111,29 @@ Phases (each prints one JSON line, with the seconds since the start as
    ZeRO partition file), run B, from another seed, loads it and takes
    steps 4-6; losses, flat master, moments, step, loss scale and counters
    bitwise equal to run A's; save bytes and seconds, load seconds.
-16. tp_gpt2: GPT-2 medium as train_gpt2 at mp 2, dp 1, as two processes
-   on the one card (``chip_smoke.py --tp-child``) over a gloo model group
+   gpt2_reference: train_gpt2's run at EARLY_LAYERS (12) of GPT-2
+   medium's 24 layers, full width: the losses tp_gpt2 and pp_gpt2 are held
+   to, since those two-rank phases (and zero3_gpt2) run at that depth so
+   that the script stays inside its time limit with phases 19 and 20.
+16. tp_gpt2: GPT-2 medium (12 layers) as train_gpt2 at mp 2, dp 1, as two
+   processes on the one card (``chip_smoke.py --tp-child``) over a gloo
+   model group
    (NCCL refuses two ranks on one device, so each collective stages
    through the host, and the step times are not TP's on NVLink), from
    train_gpt2's seed-0 weights cut by the engine: (a) ZeRO off, (b) ZeRO-1
-   with overlap_comm (22 buckets over the 178,034,688-element local flat),
-   saved after step 3, (c) fresh processes resume that save, (d) this
+   with overlap_comm (32 MB buckets over the local flat), saved after
+   step 3, (c) fresh processes resume that save, (d) this
    process loads its model states into an mp 1 engine, (e) a tiny fp32
    GPT-2 at mp 2 against mp 1.  Checks: losses bitwise equal across the
    ranks, the 9 replicated leaves' masters too, (a) within 2e-2 of
-   train_gpt2, (b) bitwise equal to (a), (c) bitwise (losses, flat master,
-   moments, step, loss scale), (d) equal to the joined shards, (e) within
-   1e-5, launches exact per rank (whole-tile 288 + 288, Adam 96 in (a) and
-   132 in (b)); step ms, peak memory per rank, the save's file sizes.
-17. zero3_gpt2: GPT-2 medium under ZeRO-3 at dp 2 (seq 128, bf16, Adam lr
-   1e-4, micro-batch 16 per rank, gas 2: train_gpt2's 64 rows a step), as
+   gpt2_reference, (b) bitwise equal to (a), (c) bitwise (losses, flat
+   master, moments, step, loss scale), (d) equal to the joined shards, (e)
+   within 1e-5, launches exact per rank (whole-tile 144 + 144, Adam 96 in
+   (a), and the bucket count a step in (b)); step ms, peak memory per
+   rank, the save's file sizes.
+17. zero3_gpt2: GPT-2 medium (12 layers) under ZeRO-3 at dp 2 (seq 128,
+   bf16, Adam lr 1e-4, micro-batch 16 per rank, gas 2: train_gpt2's 64
+   rows a step), as
    two processes on the one card (``chip_smoke.py --z3-child``) over a
    gloo data group (every gather and reduce-scatter stages through the
    host: the step times are not ZeRO-3's on NVLink), from train_gpt2's
@@ -137,30 +144,53 @@ Phases (each prints one JSON line, with the seconds since the start as
    fresh processes resume (a)'s save, bitwise equal to its steps 4-6;
    this process loads the save at dp 1, stage 0 (the shard files
    rehydrated) and takes steps 4-6 within 1e-2 of (a)'s.  Launches exact
-   per rank (Adam 16 shard leaves a step, whole-tile 48 + 48, the remat
+   per rank (Adam 16 shard leaves a step, whole-tile 24 + 24, the remat
    replaying the forward); the layout, peak memory, step ms, the save's
    files, save and load seconds.
-18. pp_gpt2: GPT-2 medium at pp 2 (12 layers a stage; seq 128, bf16,
+18. pp_gpt2: GPT-2 medium (12 layers) at pp 2 (6 a stage; seq 128, bf16,
    Adam lr 1e-4, micro-batch 32, gas 2, 8 pipeline micro-batches of 4
    rows, so the head is sharded over the stages), as two stage processes
    on the one card (``chip_smoke.py --pp-child``) over a gloo pipe group
    (activations, gradients and the stage-replicated leaves' gradient sum
    stage through the host: the step times are not a pipeline's on
    NVLink), from train_gpt2's seed-0 weights and batch: (a) GPipe, 6
-   steps, saved after step 3, within 2e-2 of train_gpt2's losses; (b)
+   steps, saved after step 3, within 2e-2 of gpt2_reference's losses; (b)
    1F1B, 3 steps, within 1e-2 of (a) at a lower peak on both stages, with
    3 and 0 stage inputs held; (c) GPipe with ZeRO-1 (one flat Adam launch
    a step per stage), bitwise equal to (a); (d) fresh processes resume
    (a)'s save bitwise (losses, masters, moments).  Launches exact per
-   stage (whole-tile 192 + 192 a step; 1F1B replays the forward on stage
+   stage (whole-tile 96 + 96 a step; 1F1B replays the forward on stage
    0; Adam 16 leaves a step); one model file per stage, peak memory,
    step ms, save and load seconds.
-19. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+19. sp_gpt2: GPT-2 medium (24 layers) at seq 1024 and sp 2, dp 1, as two
+   seq-rank processes on the one card (``chip_smoke.py --sp-child``) over a
+   gloo seq group (the ring's shifts, Ulysses' all-to-alls and the
+   gradients' seq sum stage through the host: not NVLink's step times),
+   train_gpt2_1024's seed-0 weights and batch, 512 tokens a rank: (a)
+   ring attention, 6 steps, saved after step 3; (b) Ulysses (8 local heads
+   of 16), 3 steps; (c) fresh processes resume (a)'s save.  Checks: (a)
+   and (b) within 1e-2 of train_gpt2_1024's losses step for step and of
+   each other, (c) bitwise equal to (a)'s steps 4-6, launches exact per
+   rank (the ring: no attention kernel; Ulysses: 48 streaming forwards,
+   dkv and dq a step at G = 4 x 8, T 1024; Adam 16 leaves a step), the
+   save the files of an sp 1 save (this process loads it at sp 1 and saves
+   it again: the same names and sizes); the peak per rank, step ms.
+20. zero3_pp_gpt2: GPT-2 medium (24 layers) at seq 128 under ZeRO-3 at dp
+   2 x pp 2, as four processes (``chip_smoke.py --z3pp-child``) over gloo,
+   train_gpt2's weights and 64-row batch (a data rank's 32 rows as
+   micro-batch 16 x gas 2, 4 pipeline micro-batches of 4 rows): (a)
+   GPipe, 4 steps, saved after step 2, within 2e-2 of train_gpt2's
+   losses; (b) 1F1B, 3 steps, within 1e-2 of (a); (c) fresh processes
+   resume (a)'s save bitwise.  Each rank holds half of its stage's
+   partitioned leaves, the shard files carry the row ``pp_stage * mp +
+   mp_rank``, and launches are exact per rank (whole-tile 96 + 96 a step,
+   1F1B replaying the forward on stage 0; Adam 16 shard leaves a step).
+21. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
    (the data for the dispatch defaults in models/layers.py).
-20. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
+22. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
    heads, d 64, seq 256-2048, CUDA events): each seq's times, the
    threshold it returns and the port's table's; a disagreement is
    recorded, not a failure.
@@ -1294,7 +1324,10 @@ def _stream_checks(device, sattn):
     take the whole row); and at the GPT-2 seq-1024 path's shape (B=4, n=16,
     causal, no padding) every stream kernel that path runs, the forward
     (o and lse), the split pair and the fused backward, each bitwise equal
-    across two calls.  ``(errors by case and kernel, repeatable)``."""
+    across two calls; and at the shape sp_gpt2's Ulysses gives its local
+    attention (B=4, n=8 of the 16 heads, the whole causal sequence of 1024)
+    the forward and the split pair.  ``(errors by case and kernel,
+    repeatable)``."""
     import torch
     B, n, T, d = (ATTN_SHAPE[k] for k in "BnTd")
     cases = {}
@@ -1303,17 +1336,19 @@ def _stream_checks(device, sattn):
         padded[r, T - T // 8 - 5 * r:] = 0.0
     full = padded.clone()
     full[1] = 0.0
-    for case, (b, t, mask, causal) in {
-            "causal": (B, T, padded, True),
-            "fully_padded_row": (B, T, full, False),
-            "gpt2_1024": (GPT2_1024_MICRO, GPT2_1024_SEQ,
-                          torch.ones((GPT2_1024_MICRO, GPT2_1024_SEQ),
-                                     device=device), True)}.items():
+    ones_1024 = torch.ones((GPT2_1024_MICRO, GPT2_1024_SEQ), device=device)
+    for case, (b, t, mask, causal, heads) in {
+            "causal": (B, T, padded, True, n),
+            "fully_padded_row": (B, T, full, False, n),
+            "gpt2_1024": (GPT2_1024_MICRO, GPT2_1024_SEQ, ones_1024, True,
+                          n),
+            "ulysses_1024": (GPT2_1024_MICRO, GPT2_1024_SEQ, ones_1024,
+                             True, n // SP)}.items():
         gen = torch.Generator(device=device).manual_seed(1)
-        q, k, v, do = (torch.randn((b * n, t, d), generator=gen,
+        q, k, v, do = (torch.randn((b * heads, t, d), generator=gen,
                                    device=device).to(torch.bfloat16)
                        for _ in range(4))
-        maskg = sattn.mask_gtd(mask, b, t, n)
+        maskg = sattn.mask_gtd(mask, b, t, heads)
         o, lse = sattn.stream_fwd_plain(q, k, v, maskg, causal)
         delta = (do.float() * o.float()).sum(-1)[:, None, :]
         args = (q, k, v, maskg, do, lse, delta, causal)
@@ -1322,11 +1357,14 @@ def _stream_checks(device, sattn):
                 "stream_dq": lambda: (sattn.stream_dq(*args),)}
         want = sattn.stream_bwd_plain(*args)
         wants = {"stream_dkv": want[1:], "stream_dq": want[:1]}
+        if case in ("gpt2_1024", "ulysses_1024"):
+            runs.update(
+                stream_fwd=lambda: sattn.stream_fwd(q, k, v, maskg, causal))
+            wants.update(stream_fwd=(o, lse))
         if case == "gpt2_1024":
             runs.update(
-                stream_fwd=lambda: sattn.stream_fwd(q, k, v, maskg, causal),
                 stream_bwd_fused=lambda: sattn.stream_bwd_fused(*args))
-            wants.update(stream_fwd=(o, lse), stream_bwd_fused=want)
+            wants.update(stream_bwd_fused=want)
         got = {name: run() for name, run in runs.items()}
         sync(device)
         cases[case] = {name: _attn_err(got[name], wants[name])
@@ -1530,7 +1568,7 @@ def phase_train_gpt2_1024(device):
     """GPT-2 medium at seq 1024 through the streaming kernels, twice from
     the same seeded weights and batch: the backward as the split pair, then
     fused, each profiled after its timed steps.  ``{mode: (launches,
-    profile)}``."""
+    profile)}``, and the split run's losses under ``"split_losses"``."""
     import numpy as np
     import torch
 
@@ -1580,6 +1618,7 @@ def phase_train_gpt2_1024(device):
     scratch = 4 * sattn.fused_scratch_words(torch.bfloat16, G,
                                             GPT2_1024_SEQ, d)[0]
     ok = runs["split"]["ok"] and runs["fused"]["ok"] and agree
+    out["split_losses"] = runs["split"]["losses"]
     emit("train_gpt2_1024", model="gpt2-medium", seq=GPT2_1024_SEQ,
          micro_batch=GPT2_1024_MICRO, gas=GAS, dtype="bf16",
          optimizer="Adam", lr=1e-4, activation_checkpointing=False,
@@ -2081,12 +2120,40 @@ TP_LOSS_RTOL = 2e-2
 # the sums split over two ranks
 TP_TINY_RTOL = 1e-5
 TP_CHILD_TIMEOUT = 600
+# the depth of the two-rank phases of GPT-2 medium before sp_gpt2
+# (tp_gpt2, zero3_gpt2, pp_gpt2): 12 of its 24 layers, at its full width,
+# so that the whole script stays well inside its time limit with the two
+# full-depth phases after them; tp_gpt2 and pp_gpt2 are held to
+# gpt2_reference, train_gpt2's weights and batch at this depth
+EARLY_LAYERS = 12
 
 
-def tp_engine(device, zero_cfg, seed=0, mp=TP, size="medium", cfg=None):
-    """GPT-2 ``size`` from ``seed`` at ``mp`` (medium: train_gpt2's weights
-    for seed 0), its global weights cut by the engine; ``cfg`` defaults to
-    train_gpt2's."""
+def _depth(layers):
+    """``from_size`` overrides for a model of ``layers`` layers (None: the
+    size's own depth)."""
+    return {} if layers is None else {"num_layers": int(layers)}
+
+
+def phase_gpt2_reference(device, layers=EARLY_LAYERS):
+    """train_gpt2's run (seed-0 weights, its batch, 6 steps, mp 1, ZeRO
+    off) at ``layers`` layers: the losses the shallower two-rank phases
+    are held to."""
+    engine = make_engine(gpt2_config(MICRO), device, size="medium",
+                         gpt2=True, **_depth(layers))
+    batch = lm_batch(MICRO * GAS, GPT2_SEQ, engine.module.config.vocab_size)
+    losses = [float(engine.train_batch(batch)) for _ in range(GPT2_STEPS)]
+    emit("gpt2_reference", model="gpt2-medium", layers=layers, seq=GPT2_SEQ,
+         micro_batch=MICRO, gas=GAS, losses=losses)
+    del engine, batch
+    free(device)
+    return losses
+
+
+def tp_engine(device, zero_cfg, seed=0, mp=TP, size="medium", cfg=None,
+              layers=None):
+    """GPT-2 ``size`` (at ``layers`` layers) from ``seed`` at ``mp``
+    (medium: train_gpt2's weights for seed 0), its global weights cut by
+    the engine; ``cfg`` defaults to train_gpt2's."""
     import torch
 
     import deepspeed_tpu_torch
@@ -2095,7 +2162,8 @@ def tp_engine(device, zero_cfg, seed=0, mp=TP, size="medium", cfg=None):
     if zero_cfg is not None:
         cfg["zero_optimization"] = zero_cfg
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = GPT2.from_size(size, generator=gen, device=device)
+    model = GPT2.from_size(size, generator=gen, device=device,
+                           **_depth(layers))
     mesh = deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp)
     return deepspeed_tpu_torch.initialize(config=cfg, model=model,
                                           device=device, mesh=mesh)[0]
@@ -2171,7 +2239,8 @@ def tp_child(spec_path, rank):
     t_start = time.perf_counter()
     with deterministic():
         if spec["mode"] == "train":
-            a = tp_engine(device, None, size=size, cfg=cfg)
+            a = tp_engine(device, None, size=size, cfg=cfg,
+                          layers=spec["layers"])
             batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
                              a.module.config.vocab_size)
             _reset_peak(device)
@@ -2192,7 +2261,8 @@ def tp_child(spec_path, rank):
                                                    for t in repl.values())}
             del a
             free(device)
-            b = tp_engine(device, TP_ZERO, size=size, cfg=cfg)
+            b = tp_engine(device, TP_ZERO, size=size, cfg=cfg,
+                          layers=spec["layers"])
             _reset_peak(device)
             losses, step_ms, launches = _tp_train(
                 b, batch, GPT2_STEPS, device, save_dir=spec["ckpt"])
@@ -2218,7 +2288,8 @@ def tp_child(spec_path, rank):
                 for step in range(3)]}
             del e
         else:
-            c = tp_engine(device, TP_ZERO, seed=1, size=size, cfg=cfg)
+            c = tp_engine(device, TP_ZERO, seed=1, size=size, cfg=cfg,
+                          layers=spec["layers"])
             batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
                              c.module.config.vocab_size)
             c.load_checkpoint(spec["ckpt"])
@@ -2265,11 +2336,12 @@ def _tp_launch(work, mode, run, flag="--tp-child", world=TP):
             for r in range(world)]
 
 
-def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
-    """GPT-2 medium at mp 2 on two processes over a gloo model group (see
-    TP): runs (a)-(e), the checks of each, and the exact launches per
-    rank.  ``train_losses``: train_gpt2's, for the same weights and batch
-    at mp 1."""
+def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO,
+                  layers=None):
+    """GPT-2 medium (at ``layers`` layers) at mp 2 on two processes over a
+    gloo model group (see TP): runs (a)-(e), the checks of each, and the
+    exact launches per rank.  ``train_losses``: train_gpt2's, for the same
+    weights, depth and batch at mp 1."""
     import shutil
     import tempfile
 
@@ -2282,7 +2354,7 @@ def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
                                          dir=ROOT / "build"))
     ck_dir = str(work / "ckpt")
     run = {"device": str(device), "ckpt": ck_dir, "size": size,
-           "micro": micro}
+           "micro": micro, "layers": layers}
     try:
         tr = _tp_launch(work, "train", run)
         tag = f"global_step{TP_SAVE_AT}"
@@ -2292,7 +2364,7 @@ def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
 
         # (d): the mp 2 model states into an mp 1 GPT-2 medium
         d = tp_engine(device, None, seed=2, mp=1, size=size,
-                      cfg=gpt2_config(micro))
+                      cfg=gpt2_config(micro), layers=layers)
         d.load_checkpoint(ck_dir, load_optimizer_states=False)
         shards = [{k: ck.to_tensor(v) for k, v in weights.flatten_tree(
             ck._load_obj(ck.model_file(ck_dir, tag, m))["module"]).items()}
@@ -2353,7 +2425,8 @@ def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO):
         "launches": all(r["launches"] == expect[k] for k, run in
                         (("a", a), ("b", b), ("c", c)) for r in run),
     }
-    emit("tp_gpt2", model=f"gpt2-{size}", mp=TP, dp=1, seq=GPT2_SEQ,
+    emit("tp_gpt2", model=f"gpt2-{size}", layers=a[0]["layers"], mp=TP,
+         dp=1, seq=GPT2_SEQ,
          micro_batch=micro, gas=GAS, dtype="bf16", optimizer="Adam",
          lr=1e-4, backend=tr[0]["backend"],
          transport="gloo over the host (not NVLink)",
@@ -2448,7 +2521,8 @@ def z3_child(spec_path, rank):
 
     def engine(zero_cfg, seed=0, remat=False):
         return make_engine(z3_config(micro, GAS, Z3_DP, zero_cfg, remat),
-                           device, size=size, seed=seed, gpt2=True)
+                           device, size=size, seed=seed, gpt2=True,
+                           **_depth(spec["layers"]))
 
     def run(eng, steps, save_dir=None):
         vocab = eng.module.config.vocab_size
@@ -2473,7 +2547,8 @@ def z3_child(spec_path, rank):
                                   for f in sorted(os.listdir(path))}
         res = {"losses": losses, "step_ms": step_ms,
                "launches": launch_counts(), "peak_mem_gib": _peak_gib(device),
-               "digest": _z3_digest(eng), **extra}
+               "digest": _z3_digest(eng),
+               "layers": eng.module.config.num_layers, **extra}
         if eng.zero3:
             dims = eng._zero3_dims
             res["layout"] = {
@@ -2518,7 +2593,7 @@ def z3_child(spec_path, rank):
     return 0
 
 
-def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
+def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO, layers=None):
     """GPT-2 medium at dp 2 under ZeRO-3 on two processes over gloo (see
     Z3_DP): (a) on-demand gathers, saved after step 3; (b) the prefetch
     (overlap_comm) and (c) "full" remat, each bitwise equal to (a); (d)
@@ -2536,14 +2611,14 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
                                          dir=ROOT / "build"))
     ck_dir = str(work / "ckpt")
     spec = {"device": str(device), "ckpt": ck_dir, "size": size,
-            "micro": micro}
+            "micro": micro, "layers": layers}
     try:
         tr = _tp_launch(work, "train", spec, flag="--z3-child", world=Z3_DP)
         rs = _tp_launch(work, "resume", spec, flag="--z3-child", world=Z3_DP)
         # the save into one process at dp 1, stage 0, gas 4: its micro-steps
         # are rank 0's two, then rank 1's two
         eng = make_engine(z3_config(micro, GAS * Z3_DP, 1, None), device,
-                          size=size, seed=2, gpt2=True)
+                          size=size, seed=2, gpt2=True, **_depth(layers))
         t0 = time.perf_counter()
         eng.load_checkpoint(ck_dir)
         sync(device)
@@ -2563,7 +2638,7 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
     runs["resume"] = [r["resume"] for r in rs]
     a = runs["a"]
     per = a[0]["layout"]
-    layers, leaves = 24 if size == "medium" else 2, len(per["dims"])
+    layers, leaves = a[0]["layers"], len(per["dims"])
     blk = layers * GAS                      # per step: layers x micro-steps
     short, rest = Z3_SHORT_STEPS, GPT2_STEPS - Z3_SAVE_AT
     expect = {"a": no_launches(adam=leaves * GPT2_STEPS,
@@ -2618,7 +2693,8 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
     }
     steady = lambda ms: (micro * GAS * Z3_DP * (len(ms) - 1)
                          / (sum(ms[1:]) / 1e3))
-    emit("zero3_gpt2", model=f"gpt2-{size}", dp=Z3_DP, seq=GPT2_SEQ,
+    emit("zero3_gpt2", model=f"gpt2-{size}", layers=layers, dp=Z3_DP,
+         seq=GPT2_SEQ,
          micro_batch_per_rank=micro, gas=GAS, dtype="bf16", optimizer="Adam",
          lr=1e-4, backend=tr[0]["backend"],
          transport="gloo over the host (not NVLink)", layout=per,
@@ -2644,7 +2720,7 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO):
     return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
 
 
-# the pp_gpt2 phase: GPT-2 medium at pp 2 (12 layers a stage), as two child
+# the pp_gpt2 phase: GPT-2 medium (EARLY_LAYERS deep) at pp 2, as two child
 # processes on the one card over a gloo pipe group (NCCL refuses two ranks
 # on one device, so every activation, gradient and the stage-replicated
 # leaves' gradient sum stage through the host: the step times are not a
@@ -2671,16 +2747,18 @@ def pp_config(micro, zero_cfg=None, schedule=None):
     return cfg
 
 
-def pp_engine(device, size, micro, seed=0, **cfg):
-    """GPT-2 ``size`` from ``seed`` (medium, seed 0: train_gpt2's weights),
-    pipelined over the started group's PP stages."""
+def pp_engine(device, size, micro, seed=0, layers=None, **cfg):
+    """GPT-2 ``size`` (at ``layers`` layers) from ``seed`` (medium, seed 0:
+    train_gpt2's weights), pipelined over the started group's PP
+    stages."""
     import torch
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import GPT2Pipelined
     gen = torch.Generator(device=device).manual_seed(seed)
     model = GPT2Pipelined.from_size(size, num_micro_batches=PP_MICRO_BATCHES,
-                                    generator=gen, device=device)
+                                    generator=gen, device=device,
+                                    **_depth(layers))
     return deepspeed_tpu_torch.initialize(
         config=pp_config(micro, **cfg), model=model, device=device)[0]
 
@@ -2741,12 +2819,14 @@ def pp_child(spec_path, rank):
                     ("b", {"schedule": "1f1b"}, PP_SHORT_STEPS, None),
                     ("c", {"zero_cfg": {"stage": 1, "overlap_comm": False}},
                      PP_SHORT_STEPS, None)):
-                eng = pp_engine(device, size, micro, **cfg)
+                eng = pp_engine(device, size, micro, layers=spec["layers"],
+                                **cfg)
                 out[name] = run(eng, steps, save)
                 del eng
                 free(device)
         else:
-            eng = pp_engine(device, size, micro, seed=1)
+            eng = pp_engine(device, size, micro, seed=1,
+                            layers=spec["layers"])
             t0 = time.perf_counter()
             eng.load_checkpoint(spec["ckpt"])
             sync(device)
@@ -2761,7 +2841,8 @@ def pp_child(spec_path, rank):
     return 0
 
 
-def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO):
+def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO,
+                  layers=None):
     """GPT-2 medium at pp 2 on two processes over gloo (see PP): (a)
     GPipe, 6 steps, saved after step 3, within PP_LOSS_RTOL of
     ``train_losses`` (train_gpt2's, the same weights and batch at pp 1);
@@ -2778,7 +2859,7 @@ def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO):
     work = pathlib.Path(tempfile.mkdtemp(prefix="pp_gpt2_",
                                          dir=ROOT / "build"))
     run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
-           "micro": micro}
+           "micro": micro, "layers": layers}
     try:
         tr = _tp_launch(work, "train", run, flag="--pp-child", world=PP)
         rs = _tp_launch(work, "resume", run, flag="--pp-child", world=PP)
@@ -2835,7 +2916,8 @@ def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO):
                         for r, want in zip(rr, expect[k])),
     }
     steady = lambda ms: (micro * GAS * (len(ms) - 1) / (sum(ms[1:]) / 1e3))
-    emit("pp_gpt2", model=f"gpt2-{size}", pp=PP, dp=1, seq=GPT2_SEQ,
+    emit("pp_gpt2", model=f"gpt2-{size}", layers=PP * a[0]["layers"], pp=PP,
+         dp=1, seq=GPT2_SEQ,
          micro_batch=micro, gas=GAS,
          pipeline_micro_batches=PP_MICRO_BATCHES, dtype="bf16",
          optimizer="Adam", lr=1e-4, backend=tr[0]["backend"],
@@ -2860,6 +2942,437 @@ def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO):
          child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"pp_gpt2 phase failed: {checks}")
+    return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
+
+
+# the sp_gpt2 phase: GPT-2 medium at its 1024-token context at sp 2, dp 1,
+# as two child processes on the one card over a gloo seq group (NCCL refuses
+# two ranks on one device, so the ring's shifts, Ulysses' all-to-alls and
+# the gradients' seq sum stage through the host: the step times are not
+# sequence parallelism's on NVLink).  train_gpt2_1024's seed-0 weights and
+# batch (micro-batch 4, gas 2): each rank takes the 8 rows and its 512
+# tokens of every row.
+SP, SP_SAVE_AT, SP_SHORT_STEPS = 2, 3, 3
+# (a) ring and (b) Ulysses against train_gpt2_1024 (sp 1, the same weights
+# and batch) and against each other: the ring folds its blocks in fp32
+# tensor ops where sp 1 runs the streaming kernels in bf16, Ulysses runs
+# those kernels over the whole sequence for half the heads, and the two
+# seq ranks' gradients add in fp32
+SP_LOSS_RTOL = 1e-2
+
+
+def sp_config(micro, impl):
+    cfg = gpt2_config(micro)
+    cfg["context_parallel_size"] = SP
+    cfg["sequence_parallel_impl"] = impl
+    return cfg
+
+
+def _child_setup(spec_path, rank, world):
+    """A phase child's spec, device and (gloo) process group, the parent's
+    kernel build loaded."""
+    import torch
+
+    from deepspeed_tpu_torch.parallel import topology
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        for mod in _counted():          # the parent's build, loaded
+            mod.build()
+    topology.init_distributed(coordinator_address=spec["coordinator"],
+                              num_processes=world, process_id=rank,
+                              device=device, backend="gloo")
+    return spec, device
+
+
+def _child_run(eng, batch, steps, device, save_dir=None, save_at=None):
+    """``steps`` train_batch steps of ``eng`` on ``batch`` (this rank's
+    rows), saved after step ``save_at``; losses, step ms, the launches,
+    the peak and the state digest (and the save's files and seconds)."""
+    losses, step_ms, extra = [], [], {}
+    sync(device)
+    _reset_peak(device)
+    reset_launch_counts()
+    for step in range(1, steps + 1):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)))
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if save_dir is not None and step == save_at:
+            extra["digest_at_save"] = _z3_digest(eng)
+            t0 = time.perf_counter()
+            path = eng.save_checkpoint(save_dir)
+            extra["save_s"] = time.perf_counter() - t0
+            extra["files"] = {f: os.path.getsize(os.path.join(path, f))
+                              for f in sorted(os.listdir(path))}
+    return {"losses": losses, "step_ms": step_ms,
+            "launches": launch_counts(), "peak_mem_gib": _peak_gib(device),
+            "digest": _z3_digest(eng), "leaves": len(eng._params), **extra}
+
+
+def _child_finish(spec_path, spec, out, t_start, device):
+    import torch.distributed as dist
+    free(device)
+    out["seconds"] = time.perf_counter() - t_start
+    (pathlib.Path(spec_path).parent / f"{spec['mode']}_{out['rank']}.json"
+     ).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_child(spec_path, rank):
+    """One seq rank of the sp_gpt2 phase (started by ``phase_sp_gpt2``):
+    mode "train" runs (a) the ring, saved after step SP_SAVE_AT, and (b)
+    Ulysses; mode "resume" runs (c), the resume of (a)'s save.  Writes
+    ``<mode>_<rank>.json`` beside the spec."""
+    import torch.distributed as dist
+    spec, device = _child_setup(spec_path, rank, SP)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+    size, micro = spec["size"], spec["micro"]
+
+    def engine(impl, seed=0):
+        return make_engine(sp_config(micro, impl), device, size=size,
+                           seed=seed, gpt2=True, max_seq_len=spec["seq"])
+
+    with deterministic():
+        if spec["mode"] == "train":
+            for name, impl, steps, save in (
+                    ("a", "ring", GPT2_STEPS, spec["ckpt"]),
+                    ("b", "ulysses", SP_SHORT_STEPS, None)):
+                eng = engine(impl)
+                batch = lm_batch(micro * GAS, spec["seq"],
+                                 eng.module.config.vocab_size)
+                out[name] = dict(
+                    _child_run(eng, batch, steps, device, save, SP_SAVE_AT),
+                    sp_rank=eng.sp_rank, heads=eng.module.config.num_heads,
+                    layers=eng.module.config.num_layers)
+                del eng, batch
+                free(device)
+        else:
+            eng = engine("ring", seed=1)
+            batch = lm_batch(micro * GAS, spec["seq"],
+                             eng.module.config.vocab_size)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(spec["ckpt"])
+            sync(device)
+            load_s = time.perf_counter() - t0
+            out["c"] = dict(_child_run(eng, batch, GPT2_STEPS - SP_SAVE_AT,
+                                       device), load_s=load_s)
+            del eng
+    return _child_finish(spec_path, spec, out, t_start, device)
+
+
+def phase_sp_gpt2(device, sp1_losses, size="medium", micro=GPT2_1024_MICRO,
+                  seq=GPT2_1024_SEQ):
+    """GPT-2 medium at seq 1024, sp 2, on two processes over gloo (see
+    SP): (a) ring attention, 6 steps, saved after step 3; (b) Ulysses, 3
+    steps; each within SP_LOSS_RTOL of ``sp1_losses`` (train_gpt2_1024's,
+    the same weights and batch at sp 1) and of each other; (c) fresh
+    processes resume (a)'s save, bitwise equal to its steps 4-6.  Then this
+    process loads the save at sp 1 and saves it again: the same files, of
+    the same sizes.  Launches exact per rank: the ring is plain tensor
+    ops (no attention kernel), Ulysses runs the streaming forward and the
+    split pair once per layer and micro-step.  Returns the launches by run
+    and rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="sp_gpt2_",
+                                         dir=ROOT / "build"))
+    run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
+           "micro": micro, "seq": seq}
+    try:
+        tr = _tp_launch(work, "train", run, flag="--sp-child", world=SP)
+        rs = _tp_launch(work, "resume", run, flag="--sp-child", world=SP)
+        # the sp 2 save into one process at sp 1, saved again there
+        eng = make_engine(gpt2_config(micro), device, size=size, seed=2,
+                          gpt2=True, max_seq_len=seq)
+        t0 = time.perf_counter()
+        eng.load_checkpoint(run["ckpt"])
+        sync(device)
+        sp1_load_s = time.perf_counter() - t0
+        batch = lm_batch(micro * GAS, seq, eng.module.config.vocab_size)
+        path = eng.save_checkpoint(str(work / "sp1"))
+        sp1_files = {f: os.path.getsize(os.path.join(path, f))
+                     for f in sorted(os.listdir(path))}
+        sp1_next = float(eng.train_batch(batch))
+        del eng, batch
+        free(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    runs = {k: [r[k] for r in tr] for k in ("a", "b")}
+    runs["c"] = [r["c"] for r in rs]
+    a, b = runs["a"], runs["b"]
+    short, rest = SP_SHORT_STEPS, GPT2_STEPS - SP_SAVE_AT
+    per_step = a[0]["layers"] * GAS            # layers x micro-steps
+    leaves = a[0]["leaves"]
+    G = micro * a[0]["heads"] // SP            # Ulysses' local heads
+    expect = {"a": no_launches(adam=leaves * GPT2_STEPS),
+              "b": no_launches(adam=leaves * short,
+                               stream_fwd=per_step * short,
+                               **auto_bwd_launches(torch.bfloat16, G, seq,
+                                                   64, per_step * short)),
+              "c": no_launches(adam=leaves * rest)}
+    rel = lambda x, y: [abs(p - q) / abs(q) for p, q in zip(x, y)]
+    gaps = {"a_vs_sp1": rel(a[0]["losses"], sp1_losses),
+            "b_vs_sp1": rel(b[0]["losses"], sp1_losses[:short]),
+            "b_vs_a": rel(b[0]["losses"], a[0]["losses"][:short]),
+            "sp1_load_vs_a": rel([sp1_next], a[0]["losses"][SP_SAVE_AT:])}
+    files = a[0]["files"]
+    checks = {
+        "seq_ranks": [r["sp_rank"] for r in a] == list(range(SP)),
+        "losses_equal_across_ranks": all(
+            rr[0]["losses"] == r["losses"] for rr in runs.values()
+            for r in rr),
+        "within_rtol": all(max(g) <= SP_LOSS_RTOL for g in gaps.values()),
+        "resume_bitwise": all(
+            c["losses"] == x["losses"][SP_SAVE_AT:]
+            and c["digest"] == x["digest"] for c, x in zip(runs["c"], a)),
+        "save_is_the_sp1_save": files == sp1_files
+        and list(files) == ["mp_rank_00_model_states.pt"],
+        "finite": all(np.isfinite(r["losses"]).all()
+                      for rr in runs.values() for r in rr),
+        "launches": all(r["launches"] == expect[k] for k, rr in runs.items()
+                        for r in rr),
+    }
+    steady = lambda ms: (micro * GAS * (len(ms) - 1) / (sum(ms[1:]) / 1e3))
+    emit("sp_gpt2", model=f"gpt2-{size}", sp=SP, dp=1, seq=seq,
+         tokens_per_rank=seq // SP, micro_batch=micro, gas=GAS,
+         dtype="bf16", optimizer="Adam", lr=1e-4,
+         impls={"a": "ring", "b": "ulysses", "c": "ring (resumed)"},
+         backend=tr[0]["backend"],
+         transport="gloo over the host (not NVLink)",
+         losses={k: rr[0]["losses"] for k, rr in runs.items()},
+         train_gpt2_1024=sp1_losses, rel_gaps=gaps, sp1_load_next=sp1_next,
+         launches={k: [r["launches"] for r in rr] for k, rr in runs.items()},
+         expected_launches=expect,
+         peak_mem_gib={k: [r["peak_mem_gib"] for r in rr]
+                       for k, rr in runs.items()},
+         step_ms_over_gloo={k: [r["step_ms"] for r in rr]
+                            for k, rr in runs.items()},
+         median_step_ms={k: statistics.median(rr[0]["step_ms"][1:])
+                         for k, rr in runs.items()},
+         samples_per_s_steady={k: steady(rr[0]["step_ms"])
+                               for k, rr in runs.items()},
+         ckpt_files=files, sp1_files=sp1_files,
+         save_s=[r["save_s"] for r in a if "save_s" in r],
+         load_s=[r["load_s"] for r in runs["c"]], sp1_load_s=sp1_load_s,
+         child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"sp_gpt2 phase failed: {checks}")
+    return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
+
+
+# the zero3_pp_gpt2 phase: GPT-2 medium at seq 128 under ZeRO-3 at dp 2 x
+# pp 2 (12 layers a stage), as four child processes on the one card over
+# gloo groups (every gather, reduce-scatter, activation and gradient
+# stages through the host: the step times are not NVLink's).  train_gpt2's
+# (and pp_gpt2's) seed-0 weights and 64-row batch: each data rank takes its
+# 32 rows as micro-batch 16 x gas 2, streamed as 4 pipeline micro-batches
+# of 4 rows (the rows pp_gpt2 streams), so the head is sharded over the
+# stages.
+Z3PP_DP, Z3PP_MICRO, Z3PP_SAVE_AT = 2, 16, 2
+Z3PP_STEPS, Z3PP_SHORT_STEPS = 4, 3
+Z3PP_MICRO_BATCHES = Z3PP_MICRO // 4
+# (a) against train_gpt2 (ZeRO off, pp 1, dp 1, the same weights, depth and
+# batch, the reference pp_gpt2 (a) is held to at its own depth): the
+# gradients reduce-scatter in bf16 before their fp32 sum, the micro-batches
+# stream through two stages
+Z3PP_LOSS_RTOL = 2e-2
+# (b) 1F1B against (a) GPipe: the micro-batches' gradients add in another
+# order
+Z3PP_1F1B_RTOL = 1e-2
+
+
+def z3pp_child(spec_path, rank):
+    """One rank of the zero3_pp_gpt2 phase (started by
+    ``phase_zero3_pp_gpt2``): mode "train" runs (a) GPipe, saved after
+    step Z3PP_SAVE_AT, and (b) 1F1B; mode "resume" runs (c), the resume of
+    (a)'s save.  Writes ``<mode>_<rank>.json`` beside the spec."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2Pipelined
+    world = Z3PP_DP * PP
+    spec, device = _child_setup(spec_path, rank, world)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+    size, micro = spec["size"], spec["micro"]
+
+    def engine(schedule, seed=0):
+        cfg = z3_config(micro, GAS, Z3PP_DP, Z3_BASE)
+        cfg["pipeline_parallel_size"] = PP
+        cfg["pipeline_schedule"] = schedule
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = GPT2Pipelined.from_size(
+            size, num_micro_batches=Z3PP_MICRO_BATCHES, generator=gen,
+            device=device)
+        return deepspeed_tpu_torch.initialize(config=cfg, model=model,
+                                              device=device)[0]
+
+    def run(eng, steps, save=None):
+        toks, labels = lm_batch(micro * GAS * Z3PP_DP, GPT2_SEQ,
+                                eng.module.config.vocab_size)
+        dpr = eng.topology.dp_rank
+        rows = slice(dpr * micro * GAS, (dpr + 1) * micro * GAS)
+        res = _child_run(eng, (toks[rows], labels[rows]), steps, device,
+                         save, Z3PP_SAVE_AT)
+        dims, shapes = eng._zero3_dims, eng._global_shapes
+        # the stage's whole leaf: the block stacks cut over the pipe group
+        stage = {k: math.prod(s) // (PP if k.startswith("blocks.") else 1)
+                 for k, s in shapes.items()}
+        res.update(
+            coords=[dpr, eng.pp_rank],
+            layers=int(eng.module.blocks.qkv_w.shape[0]),
+            partitioned=sum(d >= 0 for d in dims.values()),
+            half_of_stage=all(
+                eng.master[k].numel() * Z3PP_DP == stage[k]
+                for k, d in dims.items() if d >= 0),
+            held=eng.module.last_pipe_stats.get("max_held_inputs"))
+        return res
+
+    with deterministic():
+        if spec["mode"] == "train":
+            for name, schedule, steps, save in (
+                    ("a", "gpipe", Z3PP_STEPS, spec["ckpt"]),
+                    ("b", "1f1b", Z3PP_SHORT_STEPS, None)):
+                eng = engine(schedule)
+                out[name] = run(eng, steps, save)
+                del eng
+                free(device)
+        else:
+            eng = engine("gpipe", seed=1)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(spec["ckpt"])
+            sync(device)
+            load_s = time.perf_counter() - t0
+            out["c"] = dict(run(eng, Z3PP_STEPS - Z3PP_SAVE_AT),
+                            load_s=load_s)
+            del eng
+    return _child_finish(spec_path, spec, out, t_start, device)
+
+
+def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
+                        micro=Z3PP_MICRO):
+    """GPT-2 medium under ZeRO-3 at dp 2 x pp 2 on four processes over
+    gloo (see Z3PP_DP): (a) GPipe, 4 steps, saved after step 2, within
+    Z3PP_LOSS_RTOL of ``ref_losses`` (train_gpt2's: ZeRO off at pp 1 and
+    dp 1, the same weights and batch), (b) 1F1B, 3 steps, within
+    Z3PP_1F1B_RTOL of
+    (a); (c) fresh processes resume (a)'s save, bitwise equal to (a)'s
+    steps 3-4.  Each rank holds half of its stage's partitioned leaves;
+    the shard files are keyed by the row ``pp_stage * mp + mp_rank``.
+    Launches exact per rank.  Returns the launches by run and rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deepspeed_tpu_torch import checkpoint as ck
+    world = Z3PP_DP * PP
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="zero3_pp_gpt2_",
+                                         dir=ROOT / "build"))
+    run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
+           "micro": micro}
+    try:
+        tr = _tp_launch(work, "train", run, flag="--z3pp-child", world=world)
+        tag = f"global_step{Z3PP_SAVE_AT}"
+        rows = {f: int(ck._load_obj(os.path.join(run["ckpt"], tag, f))["row"])
+                for f in sorted(os.listdir(os.path.join(run["ckpt"], tag)))
+                if f.startswith("zero3_dp_rank_")}
+        rs = _tp_launch(work, "resume", run, flag="--z3pp-child",
+                        world=world)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    runs = {k: [r[k] for r in tr] for k in ("a", "b")}
+    runs["c"] = [r["c"] for r in rs]
+    a = runs["a"]
+    short, rest = Z3PP_SHORT_STEPS, Z3PP_STEPS - Z3PP_SAVE_AT
+    # per step and rank: the stage's layers x pipeline micro-batches x gas
+    blk = a[0]["layers"] * Z3PP_MICRO_BATCHES * GAS
+    leaves = a[0]["leaves"]
+
+    def launches(steps, fwd=blk):
+        return no_launches(adam=leaves * steps, block_fwd=fwd * steps,
+                           block_bwd=blk * steps)
+    last = [r["coords"][1] == PP - 1 for r in a]
+    expect = {"a": [launches(Z3PP_STEPS)] * world,
+              # 1F1B replays each micro-batch's forward for its backward,
+              # except on the last stage
+              "b": [launches(short, blk if is_last else 2 * blk)
+                    for is_last in last],
+              "c": [launches(rest)] * world}
+    rel = lambda x, y: [abs(p - q) / abs(q) for p, q in zip(x, y)]
+    mean = lambda rr: [float(x) for x in np.mean(
+        [r["losses"] for r in rr if r["coords"][1] == 0], axis=0)]
+    gap = rel(mean(a), ref_losses[:Z3PP_STEPS])
+    f1b_gap = rel(mean(runs["b"]), mean(a)[:short])
+    files = a[0]["files"]
+    checks = {
+        "coords": sorted(tuple(r["coords"]) for r in a) == [
+            (d, s) for d in range(Z3PP_DP) for s in range(PP)],
+        "losses_equal_across_stages": all(
+            r["losses"] == x["losses"] for rr in runs.values() for r in rr
+            for x in rr if x["coords"][0] == r["coords"][0]),
+        "a_vs_train_gpt2": max(gap) <= Z3PP_LOSS_RTOL,
+        "1f1b_vs_a": max(f1b_gap) <= Z3PP_1F1B_RTOL,
+        "half_of_each_stage": all(r["half_of_stage"] and r["partitioned"]
+                                  == leaves for r in a),
+        "resume_bitwise": all(
+            c["losses"] == x["losses"][Z3PP_SAVE_AT:]
+            and c["digest"] == x["digest"] for c, x in zip(runs["c"], a)),
+        "shard_rows": rows == {
+            f"zero3_dp_rank_{d}_row_{s:02d}_states.pt": s
+            for d in range(Z3PP_DP) for s in range(PP)},
+        "model_files": sorted(f for f in files if f.endswith(
+            "_model_states.pt")) == [
+            f"pp_stage_{s:02d}_mp_rank_00_model_states.pt"
+            for s in range(PP)],
+        "finite": all(np.isfinite(r["losses"]).all()
+                      for rr in runs.values() for r in rr),
+        "launches": all(r["launches"] == want for k, rr in runs.items()
+                        for r, want in zip(rr, expect[k])),
+    }
+    steady = lambda ms: (micro * GAS * Z3PP_DP * (len(ms) - 1)
+                         / (sum(ms[1:]) / 1e3))
+    emit("zero3_pp_gpt2", model=f"gpt2-{size}", dp=Z3PP_DP, pp=PP,
+         seq=GPT2_SEQ, micro_batch_per_rank=micro, gas=GAS,
+         pipeline_micro_batches=Z3PP_MICRO_BATCHES, dtype="bf16",
+         optimizer="Adam", lr=1e-4, backend=tr[0]["backend"],
+         transport="gloo over the host (not NVLink)",
+         losses={k: mean(rr) for k, rr in runs.items()},
+         train_gpt2=ref_losses[:Z3PP_STEPS], a_vs_train_gpt2_rel=gap,
+         b_vs_a_rel=f1b_gap,
+         launches={k: [r["launches"] for r in rr] for k, rr in runs.items()},
+         expected_launches=expect,
+         coords=[r["coords"] for r in a],
+         held_inputs=[r["held"] for r in runs["b"]],
+         peak_mem_gib={k: [r["peak_mem_gib"] for r in rr]
+                       for k, rr in runs.items()},
+         step_ms_over_gloo={k: [r["step_ms"] for r in rr]
+                            for k, rr in runs.items()},
+         median_step_ms={k: statistics.median(rr[0]["step_ms"][1:])
+                         for k, rr in runs.items()},
+         samples_per_s_steady={k: steady(rr[0]["step_ms"])
+                               for k, rr in runs.items()},
+         ckpt_files=files, shard_rows=rows,
+         save_s=[r["save_s"] for r in a if "save_s" in r],
+         load_s=[r["load_s"] for r in runs["c"]],
+         child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"zero3_pp_gpt2 phase failed: {checks}")
     return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
 
 
@@ -2940,6 +3453,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--pp-child"]:
         sys.path.insert(0, str(ROOT))
         return pp_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--sp-child"]:
+        sys.path.insert(0, str(ROOT))
+        return sp_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--z3pp-child"]:
+        sys.path.insert(0, str(ROOT))
+        return z3pp_child(sys.argv[2], int(sys.argv[3]))
     if not (ROOT / "deepspeed_tpu_torch" / "csrc" / "fused_optim.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -3031,7 +3550,8 @@ def main() -> int:
     flat_adam, _ = phase_zero_gpt2(device)
     phase_zero_ckpt(device)
     free(device)
-    tp_launches = phase_tp_gpt2(device, gpt2_losses)
+    gpt2_shallow = phase_gpt2_reference(device)
+    tp_launches = phase_tp_gpt2(device, gpt2_shallow, layers=EARLY_LAYERS)
     for k in kernels:
         if k["name"] == "adam":
             # per GPT-2 step: 16 leaves' launches (its ms: BERT-large's 22)
@@ -3047,19 +3567,35 @@ def main() -> int:
             k["tp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                      for run, ranks in tp_launches.items()}
     free(device)
-    z3_launches = phase_zero3_gpt2(device)
+    z3_launches = phase_zero3_gpt2(device, layers=EARLY_LAYERS)
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # per rank of zero3_gpt2 (dp 2): runs (a)-(d) and the resume
             k["zero3_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                         for run, ranks in z3_launches.items()}
     free(device)
-    pp_launches = phase_pp_gpt2(device, gpt2_losses)
+    pp_launches = phase_pp_gpt2(device, gpt2_shallow, layers=EARLY_LAYERS)
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # per stage of pp_gpt2 (pp 2): runs (a)-(d)
             k["pp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                      for run, ranks in pp_launches.items()}
+    free(device)
+    sp_launches = phase_sp_gpt2(device, runs1024["split_losses"])
+    for k in kernels:
+        if k["name"] in ("adam", "stream_fwd", "stream_dkv", "stream_dq"):
+            # per seq rank of sp_gpt2 (sp 2): (a) ring, (b) Ulysses, (c)
+            k["sp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                     for run, ranks in sp_launches.items()}
+    free(device)
+    z3pp_launches = phase_zero3_pp_gpt2(device, gpt2_losses)
+    for k in kernels:
+        if k["name"] in ("adam", "block_fwd", "block_bwd"):
+            # per rank of zero3_pp_gpt2 (dp 2 x pp 2): (a) GPipe, (b)
+            # 1F1B, (c) the resume
+            k["zero3_pp_gpt2_launches"] = {
+                run: [r[k["name"]] for r in ranks]
+                for run, ranks in z3pp_launches.items()}
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
@@ -3073,7 +3609,8 @@ def main() -> int:
         dist.destroy_process_group()
     print(card)
     extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches",
-             "pp_gpt2_launches")
+             "pp_gpt2_launches", "sp_gpt2_launches",
+             "zero3_pp_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

@@ -29,7 +29,8 @@ way.
            Under ZeRO-3 every rank writes ONLY its shards of the
            partitioned leaves (compute-dtype param, fp32 master, ``m``,
            ``v``) to ``zero3_dp_rank_{dp}_row_{row:02d}_states.pt`` (row
-           = the model rank), keyed by the leaf's index in the JAX
+           = ``pp_stage * mp + mp_rank``), keyed by the leaf's index in the
+           JAX
            flatten order (dict keys sorted); the model-state files carry
            the replicated leaves and a ``("__dstpu_zero3_part__", dim,
            dp)`` marker in place of each partitioned one.  A read
@@ -38,7 +39,10 @@ way.
            only, as in the JAX package), and the two packages read each
            other's files.  Publishing a save removes stale model-state and
            ZeRO-3 shard files of an earlier save of the same tag (another
-           mp, pp or stage).
+           mp, pp or stage).  Under sequence parallelism the ranks of a seq
+           group are replicas: its first rank writes, and a save is the
+           files of the same save at sp 1 (no file or field per seq
+           rank), so it loads at any sp.
 * content  the module (compute-dtype parameters), the fp32 masters, the
            optimizer moments and step, the loss-scale state, the LR
            scheduler, the live param groups, the engine counters and the
@@ -726,7 +730,7 @@ def _zero_checkpoint_writes(engine, save_dir: str, tag: str) -> list:
     restore re-pads for its own topology (the JAX package's
     ``_zero_checkpoint_writes``)."""
     topo = engine.topology
-    if topo.dp_rank >= engine.zero_pps:
+    if topo.dp_rank >= engine.zero_pps or topo.sp_rank:
         return []
     meta = engine.flat_meta
     lo, part = engine._owned_range()
@@ -754,6 +758,8 @@ def _zero3_shard_writes(engine, save_dir: str, tag: str) -> list:
     the partitioned leaves (param, master, m, v), keyed by the leaf's
     index in the JAX flatten order (the JAX ``_zero3_shard_writes``)."""
     from deepspeed_tpu_torch.engine import _keystr
+    if engine.topology.sp_rank:
+        return []
     dims = engine._zero3_dims
     params = dict(engine.module.named_parameters())
     opt = engine.opt_state
@@ -767,12 +773,12 @@ def _zero3_shard_writes(engine, save_dir: str, tag: str) -> list:
             "m": None if opt.m is None else opt.m[name],
             "v": None if opt.v is None else opt.v[name]}
     topo = engine.topology
-    state = {"row": topo.mp_rank, "dp_rank": topo.dp_rank,
+    state = {"row": _row(engine), "dp_rank": topo.dp_rank,
              "dp_world_size": engine.dp_world_size,
              "mp_world_size": engine.mp_world_size,
              "pp_world_size": engine.pp_world_size,
              "step": np.asarray(opt.step, np.int32), "leaves": leaves}
-    return [(zero3_file(save_dir, tag, topo.dp_rank, topo.mp_rank), state)]
+    return [(zero3_file(save_dir, tag, topo.dp_rank, _row(engine)), state)]
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -799,7 +805,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     tag = tag or f"global_step{engine.global_steps}"
     path = os.path.join(save_dir, tag)
     writes = []
-    if engine.topology.dp_rank == 0:
+    if engine.topology.dp_rank == 0 and engine.topology.sp_rank == 0:
         state = _engine_state(engine, client_state)
         _reject_namedtuples(state["lr_scheduler"],
                             "lr_scheduler.state_dict()")
@@ -829,7 +835,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
 
 
 def _world(engine) -> int:
-    return engine.dp_world_size * engine.mp_world_size * engine.pp_world_size
+    return (engine.dp_world_size * engine.mp_world_size
+            * engine.pp_world_size * engine.sp_world_size)
 
 
 def _barrier(engine) -> None:
@@ -849,7 +856,7 @@ def _remove_stale(engine, path: str) -> None:
                 for s in range(pp) for m in range(mp)}
     if engine.zero3:
         expected |= {ZERO3_FILE.format(dp=d, row=row)
-                     for d in range(dp) for row in range(mp)}
+                     for d in range(dp) for row in range(mp * pp)}
     for f in os.listdir(path):
         if ((f.endswith("_model_states.pt") or f.startswith("zero3_dp_rank_"))
                 and f not in expected):

@@ -86,7 +86,24 @@ engine (``engine.py:1460-1468``), nothing is divided by pp.  The squared
 norm sums the stage-cut leaves over the pipe group and counts the others
 once; the overflow flag is MAX-agreed over the pipe group.  Under ZeRO-1/2
 each (stage, model rank) partitions ITS local flat layout over its data
-group.  ZeRO-3 with pp > 1 raises naming its ROADMAP.md item.
+group; under ZeRO-3 each stage partitions its leaves over its data group,
+and the stage stack gathers per layer in both schedules.
+
+Sequence (context) parallelism (``context_parallel_size``, or
+``MeshConfig(context_parallel_size=sp)``): the world is ``dp x pp x sp x
+mp`` ranks (``parallel/topology.py``), and the ranks of a seq group are
+replicas of the parameters and the optimizer state.  Every rank of a seq
+group takes its data rank's rows, and the engine cuts each batch leaf that
+the model's ``batch_specs`` marks along its sequence dim, the rank's block
+(a model without ``batch_specs`` is refused).  The model's attention runs
+ring or Ulysses (``sp_impl``; the ``sequence_parallel_impl`` key
+overrides it on an engine-owned copy of the model).  The reported loss is
+the mean over the seq group (the JAX ``pmean`` over ``seq``; the data
+average stays the caller's, as at sp 1), and the gradients are summed over
+the seq group and divided by sp before the data path (the JAX
+``engine.py:1441-1446``): the norm, clipping and overflow then see the
+same gradients on every seq rank, and nothing sums over the seq group
+again.
 
 ``sparse_gradients`` (ZeRO off): the leaves a model marks with its
 ``sparse_grad_specs`` hook reduce as gathered (indices, values) rows with
@@ -99,13 +116,13 @@ rows of the global batch (the model ranks of a data group read the same
 rows); ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
 package's checkpoint layout, per-model-rank and ZeRO partition files
 included (``checkpoint.py``).  What the JAX engine has and this slice does
-not yet (sequence parallelism, MoE, ZeRO-3 with pipeline parallelism,
-``train_many``, telemetry, resilience, graph lint) raises
+not yet (MoE, ``train_many``, telemetry, resilience, graph lint) raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import math
@@ -142,6 +159,30 @@ def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
         f"{item})")
+
+
+_NO_BATCH_SPECS = (
+    "context_parallel_size > 1 requires the model to declare "
+    "batch_specs(batch) -> pytree[PartitionSpec]: the engine "
+    "will not guess which batch dims are sequences. The "
+    "built-in model family declares this; see "
+    "models.transformer.token_batch_specs for the standard "
+    "[B, T] token-batch layout.")
+
+
+class _SeqMean(torch.autograd.Function):
+    """The mean of ``loss`` over the seq group forward; the gradient goes
+    to this rank's ``loss`` unchanged (each rank differentiates its own
+    share, and the engine sums the gradients over the group)."""
+
+    @staticmethod
+    def forward(ctx, loss, group):
+        out = comm.seq_sum_(loss.detach().float().clone(), group)
+        return out.div_(dist.get_world_size(group)).to(loss.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _keystr(name: str) -> str:
@@ -241,7 +282,7 @@ class DeepSpeedTorchEngine:
                 dist_init_required is None
                 and "DSTPU_COORDINATOR" in os.environ):
             init_distributed(use_mpi=use_mpi, device=device)
-        self.module = model
+        self.module = self._client_model = model
         self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
         self.collate_fn = collate_fn
@@ -275,9 +316,11 @@ class DeepSpeedTorchEngine:
         self.dp_world_size = self.topology.dp
         self.mp_world_size = self.topology.mp
         self.pp_world_size = self.topology.pp
+        self.sp_world_size = self.topology.sp
         self.global_rank = self.topology.rank
         self.mp_rank = self.topology.mp_rank
         self.pp_rank = self.topology.pp_rank
+        self.sp_rank = self.topology.sp_rank
         self.config = DeepSpeedConfig(cfg_src,
                                       dp_world_size=self.dp_world_size)
         # knobs of upstream's NCCL schedule that one collective per bucket
@@ -293,6 +336,9 @@ class DeepSpeedTorchEngine:
         validate_fn = getattr(model, "validate", None)
         if validate_fn is not None:
             validate_fn(self.mp_world_size)
+        if (self.sp_world_size > 1
+                and getattr(model, "batch_specs", None) is None):
+            raise DeepSpeedConfigError(_NO_BATCH_SPECS)
         self._apply_model_overrides()
 
         self.policy = prec.policy_from_config(self.config.fp16_enabled,
@@ -378,9 +424,18 @@ class DeepSpeedTorchEngine:
 
     # ------------------------------------------------------------------ setup
 
+    def _own_model(self):
+        """The engine's own shallow copy of the model, taken at the first
+        override: the caller's model object keeps its config and schedule
+        (the JAX engine's ``_own_model``, ``engine.py:426-440``)."""
+        if self.module is self._client_model:
+            self.module = copy.copy(self.module)
+        return self.module
+
     def _apply_model_overrides(self):
-        """Config beats the model's own remat / sequence-parallel fields,
-        as in the JAX engine."""
+        """Config beats the model's own remat / sequence-parallel fields
+        and its pipeline schedule, as in the JAX engine, on the engine's
+        own copy of the model; then the Ulysses head guard."""
         cfg = self.config
         mcfg = getattr(self.module, "config", None)
         changes = {}
@@ -395,16 +450,27 @@ class DeepSpeedTorchEngine:
             logger.warning("config overrides %s ignored: the model exposes "
                            "no with_config()", sorted(changes))
         elif changes:
-            self.module.with_config(**changes)
+            self._own_model().with_config(**changes)
         if cfg.pipeline_schedule is not None:
             if hasattr(self.module, "schedule"):
-                self.module.schedule = cfg.pipeline_schedule
+                self._own_model().schedule = cfg.pipeline_schedule
             else:
                 logger.warning("pipeline_schedule set but the model exposes "
                                "no schedule field; ignored")
         from deepspeed_tpu_torch.models.transformer import check_remat
         if mcfg is not None and hasattr(mcfg, "remat_policy"):
             check_remat(self.module.config)
+        mcfg = getattr(self.module, "config", None)
+        if (self.sp_world_size > 1
+                and getattr(mcfg, "sp_impl", None) == "ulysses"):
+            n_local = mcfg.num_heads // max(self.mp_world_size, 1)
+            if n_local % self.sp_world_size:
+                raise DeepSpeedConfigError(
+                    f"sequence_parallel_impl='ulysses' needs local "
+                    f"heads ({mcfg.num_heads}/{self.mp_world_size} = "
+                    f"{n_local}) divisible by context_parallel_size "
+                    f"({self.sp_world_size}); use 'ring' for "
+                    f"head-limited models")
 
     def _configure_model_parallel(self):
         """The model's ``partition_specs()`` (``_param_specs``, dotted name
@@ -432,6 +498,8 @@ class DeepSpeedTorchEngine:
             weights_mod.shard_module_(self.module, pipe_fn(),
                                       self.pp_world_size, self.pp_rank)
             self.module.pipe = PipeContext.from_topology(self.topology)
+        if self.sp_world_size > 1:
+            self.module.seq_group = self.topology.seq_group
         if self.mp_world_size == 1:
             return
         if specs is None:
@@ -568,9 +636,6 @@ class DeepSpeedTorchEngine:
                     f"zero_optimization.parameter_parallel_size={pps} must "
                     f"divide the DP world size ({dp})")
             if self.zero3:
-                if self.pp_world_size > 1:
-                    raise _unported("ZeRO-3 with pipeline parallelism",
-                                    "Queue 1 item 11")
                 self._check_zero3(pps)
             self.topology = self.topology.with_subgroups(pps)
         self.zero_pps = self.topology.pps if self.zero_flat else dp
@@ -893,19 +958,49 @@ class DeepSpeedTorchEngine:
         wcb = self.wall_clock_breakdown()
         if wcb:
             self.timers(FORWARD_TIMER).start()
-        batch = tuple(self._to_device(x) for x in inputs)
+        batch = self._seq_block(tuple(self._to_device(x) for x in inputs))
         if self.training:
-            loss = self.module(*batch)
+            loss = self._seq_mean(self.module(*batch))
         else:
             self.tput_timer.discard_window()
             with torch.no_grad():
-                loss = self.module(*batch)
+                loss = self._seq_mean(self.module(*batch))
         self._last_loss = loss
         if wcb:
             self.timers(FORWARD_TIMER).stop(sync_on=loss)
         return loss
 
     __call__ = forward
+
+    def _seq_block(self, batch):
+        """Under sequence parallelism, this rank's block of each leaf that
+        the model's ``batch_specs`` cuts along a sequence dim (the JAX
+        ``P('data', 'seq')`` leaves); the others whole."""
+        sp = self.sp_world_size
+        if sp == 1:
+            return batch
+        out = []
+        for x, dim in zip(batch, self.module.batch_specs(batch)):
+            if dim is not None:
+                if x.shape[dim] % sp:
+                    raise ValueError(
+                        f"context_parallel_size={sp} must divide the "
+                        f"sequence dim {dim} of a batch leaf of shape "
+                        f"{tuple(x.shape)}")
+                n = x.shape[dim] // sp
+                x = x.narrow(dim, self.sp_rank * n, n).contiguous()
+            out.append(x)
+        return tuple(out)
+
+    def _seq_mean(self, loss):
+        """The loss averaged over the seq group (the JAX ``pmean`` over
+        ``seq``); its gradient is this rank's own loss's."""
+        group = self.topology.seq_group
+        if group is None:
+            return loss
+        if isinstance(loss, (tuple, list)):
+            return type(loss)(self._seq_mean(l) for l in loss)
+        return _SeqMean.apply(loss, group)
 
     # --------------------------------------------------------------- backward
 
@@ -991,6 +1086,7 @@ class DeepSpeedTorchEngine:
         flat = torch.zeros(self.flat_meta.padded, dtype=torch.float32,
                            device=self.device)
         self._flat_grads(flat)
+        self._seq_reduce([flat])
         part = self._scatter(flat, across_subgroups=False)
         del flat
         if self._acc is None:
@@ -999,6 +1095,19 @@ class DeepSpeedTorchEngine:
             self._acc.add_(part)
 
     # ------------------------------------------------------------------- step
+
+    def _seq_reduce(self, grads):
+        """Under sequence parallelism, each fp32 gradient summed over the
+        seq group and divided by sp, in place, before the data path (the
+        JAX ``psum(g, 'seq') / sp``): the ranks' losses are the blocks'
+        shares of the mean, and the ring's and Ulysses' backward sent each
+        rank's share of the others' gradients to it.  One collective."""
+        group = self.topology.seq_group
+        if group is None or not grads:
+            return
+        comm.sum_fp32_(grads, group)
+        for g in grads:
+            g.div_(self.sp_world_size)
 
     def _reduce_knobs(self):
         cfg = self.config
@@ -1067,6 +1176,7 @@ class DeepSpeedTorchEngine:
         if self.zero_flat:
             return self._zero_boundary_update()
         fp16 = self.config.fp16_enabled
+        self._seq_reduce([g for g in self._acc.values() if g is not None])
         grads = self._reduce_grads(self._acc)
         self._acc = None
         # the reduced grads are the same on every data rank: so are the
@@ -1135,17 +1245,21 @@ class DeepSpeedTorchEngine:
         topo = self.topology
         if self.zero3:
             # partitioned shards differ by data rank: sum over the data
-            # group, each element once, and agree on the flag there too
+            # group, each element once, and agree on the flag there too;
+            # then over the model and pipe groups, with the leaves held
+            # whole on those counted once
             sq, finite = zero3_mod.local_sqnorm_and_finite(
                 grads, self._zero3_dims, self._param_specs,
-                self.dp_world_size, self.mp_world_size)
+                self.dp_world_size, self.mp_world_size, self._pipe_specs,
+                self.pp_world_size)
             sq = sq.reshape(1)
             if topo.group is not None:
                 dist.all_reduce(sq, group=topo.group)
             overflow = comm.overflow_any(~finite, topo.group)
-            if topo.model_group is not None:
-                comm.model_sum_(sq, topo.model_group)
-                overflow = comm.overflow_any(overflow, topo.model_group)
+            for group in (topo.model_group, topo.pipe_group):
+                if group is not None:
+                    comm.model_sum_(sq, group)
+                    overflow = comm.overflow_any(overflow, group)
             return sq[0], overflow
         axes = self._cut_axes()
         if not axes:
@@ -1183,6 +1297,7 @@ class DeepSpeedTorchEngine:
                 self._acc, self.dp_world_size, self.zero_pps,
                 self._subgroups())
         else:
+            self._seq_reduce([self._acc])
             gpart = self._scatter(self._acc)
         self._acc = self._acc_views = None
         if not self._cut_axes():

@@ -13,7 +13,12 @@ pooler, NSP, MLM dense and MLM LayerNorm, the span head and the other
 embeddings are replicated.  Under ZeRO-3 (``zero3_dims``, set by the
 engine, ``bert.py:77-109``) the leaves outside the block stack are
 gathered at entry and each layer's weights inside the block body
-(``transformer.zero3_enter``, ``stack_apply``).
+(``transformer.zero3_enter``, ``stack_apply``).  Under sequence
+parallelism (``seq_group``, set by the engine, which hands each rank its
+block of the sequence by ``batch_specs``) the encoder runs on the rank's
+block and the dense-labels MLM loss counts tokens over the seq group;
+what needs the whole sequence on one rank raises the JAX package's
+errors: the masked-positions MLM, NSP and the span logits.
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ class _BertBackbone(nn.Module):
         self.zero3_dims = None
         self.data_group = None
         self.zero3_prefetch = False
+        #: the seq process group (None: the whole sequence on this rank);
+        #: the engine sets it under context parallelism
+        self.seq_group = None
 
     def _normal(self, generator, device, *shape):
         t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -115,7 +123,8 @@ class _BertBackbone(nn.Module):
         cfg = self.config
         T_len = input_ids.shape[1]
         x = L.vocab_parallel_embedding(input_ids, p["wte"], self.model_group)
-        x = x + p["wpe"][:T_len].to(x.dtype)[None]
+        x = x + L.seq_shard_positions(p["wpe"], T_len, self.seq_group).to(
+            x.dtype)[None]
         x = x + torch.nn.functional.embedding(token_type_ids.long(),
                                               p["wtt"].to(x.dtype))
         x = L.layer_norm(x, p["ln_emb_s"], p["ln_emb_b"], cfg.ln_eps)
@@ -123,7 +132,8 @@ class _BertBackbone(nn.Module):
                              attn_mask=attention_mask,
                              group=self.model_group, z3_dims=z3,
                              z3_group=self.data_group,
-                             z3_prefetch=self.zero3_prefetch)
+                             z3_prefetch=self.zero3_prefetch,
+                             seq_group=self.seq_group)
 
 
 class BertForPreTraining(_BertBackbone):
@@ -160,6 +170,24 @@ class BertForPreTraining(_BertBackbone):
                    mlm_gather_budget=mlm_gather_budget, generator=generator,
                    device=device)
 
+    def batch_specs(self, batch):
+        """Engine hook, by batch format: the ids, mask and token types and
+        dense ``mlm_labels`` are [B, T], cut along the sequence; the
+        masked-positions leaves are [B, P] (P is not the sequence) and the
+        NSP labels [B]: every rank of the seq group takes them whole."""
+        rest = len(tuple(batch)) - 3
+        if rest in (1, 2):
+            specs = [1, 1, 1, 1]
+        elif rest in (3, 4):
+            specs = [1, 1, 1, None, None, None]
+        else:
+            raise TypeError(
+                f"BertForPreTraining batch: expected 4-7 leaves, "
+                f"got {len(tuple(batch))}")
+        if rest in (2, 4):
+            specs.append(None)
+        return tuple(specs)
+
     def _mlm_head(self, p, h):
         """Dense + GELU + LN + tied vocab decoder on [..., H]."""
         g = L.gelu(h @ p["mlm_dense_w"].to(h.dtype)
@@ -176,6 +204,10 @@ class BertForPreTraining(_BertBackbone):
         elif len(rest) in (3, 4):
             mlm_positions, mlm_ids, mlm_weights = rest[:3]
             nsp_labels = rest[3] if len(rest) == 4 else None
+            if self.seq_group is not None:
+                raise NotImplementedError(
+                    "masked-positions MLM gathers global sequence positions "
+                    "— use dense mlm_labels under context_parallel_size > 1")
         else:
             raise TypeError(
                 f"BertForPreTraining: expected mlm_labels[, nsp] or "
@@ -188,7 +220,7 @@ class BertForPreTraining(_BertBackbone):
         if mlm_positions is None:
             budget = self.mlm_gather_budget
             mlm_labels = mlm_labels.long()
-            if budget:
+            if budget and self.seq_group is None:
                 # masked positions first, in order: top_k of the 0/1 mask
                 # must be STABLE, as jax.lax.top_k is, so sort instead
                 P_ = min(int(budget), mlm_labels.shape[1])
@@ -206,7 +238,8 @@ class BertForPreTraining(_BertBackbone):
                 logits = self._mlm_head(p, x)
                 tok_loss = L.vocab_parallel_cross_entropy(
                     logits, mlm_labels, self.model_group)
-                loss = L.masked_mean_loss(tok_loss, mlm_labels >= 0)
+                loss = L.masked_mean_loss(tok_loss, mlm_labels >= 0,
+                                          self.seq_group)
         else:
             logits = self._mlm_head(p, L.gather_positions(x, mlm_positions))
             tok_loss = L.vocab_parallel_cross_entropy(logits, mlm_ids,
@@ -216,6 +249,11 @@ class BertForPreTraining(_BertBackbone):
                                                          min=1.0)
 
         if self.use_nsp and nsp_labels is not None:
+            if self.seq_group is not None:
+                raise NotImplementedError(
+                    "NSP pools the global [CLS] token, which lives only on "
+                    "sequence shard 0 — NSP is not supported under "
+                    "context_parallel_size > 1")
             pooled = torch.tanh(x[:, 0] @ p["pool_w"].to(x.dtype)
                                 + p["pool_b"].to(x.dtype))
             nsp_logits = (pooled @ p["nsp_w"].to(pooled.dtype)
@@ -245,8 +283,18 @@ class BertForQuestionAnswering(_BertBackbone):
         return cls(cls._size_config(size, overrides), generator=generator,
                    device=device)
 
+    def batch_specs(self, batch):
+        """Engine hook: the ids, mask and token types are [B, T], cut along
+        the sequence; the start and end positions are per example."""
+        return (1, 1, 1, None, None)
+
     def span_logits(self, input_ids, attention_mask, token_type_ids):
         """(start_logits, end_logits), each fp32 [B, T]."""
+        if self.seq_group is not None:
+            raise NotImplementedError(
+                "span extraction softmaxes over the FULL sequence and "
+                "indexes global positions — not supported under "
+                "context_parallel_size > 1 (fine-tune lengths don't need it)")
         p, z3 = self._enter()
         x = self._encode(p, z3, input_ids, attention_mask, token_type_ids)
         logits = (x @ p["qa_w"].to(x.dtype)

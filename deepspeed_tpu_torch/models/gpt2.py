@@ -12,7 +12,11 @@ blocks Megatron-sharded, and the rest replicated.
 Under ZeRO-3 (``zero3_dims``, set by the engine, ``gpt2.py:50-58``) the
 leaves outside the block stack are gathered at entry and each layer's
 weights inside the block body (``transformer.zero3_enter``,
-``stack_apply``).  What the JAX model has and this port does not yet
+``stack_apply``).  Under sequence parallelism (``seq_group``, set by the
+engine, which hands each rank its block of the sequence by
+``batch_specs``) the positions are the rank's block of the table and the
+loss's token count sums over the seq group.  What the JAX model has and
+this port does not yet
 raises ``NotImplementedError`` naming its ROADMAP.md item where a caller
 reaches it: the MoE variant and the serving methods.
 """
@@ -80,6 +84,9 @@ class GPT2(nn.Module):
         #: ZeRO-3 gather prefetch (the engine's overlap_comm): layer
         #: pairs, the second layer's gather issued before the first runs
         self.zero3_prefetch = False
+        #: the seq process group (None: the whole sequence on this rank);
+        #: the engine sets it under context parallelism
+        self.seq_group = None
 
     @classmethod
     def from_size(cls, size: str, generator=None, device=None, **overrides):
@@ -105,6 +112,11 @@ class GPT2(nn.Module):
         Block leaves pin dim >= 1: their dim 0 is the layer stack."""
         return T.zero3_min_dims(self)
 
+    def batch_specs(self, batch):
+        """Engine hook: tokens and labels are [B, T], cut along the
+        sequence over the seq group."""
+        return T.token_batch_specs(batch)
+
     def with_config(self, **changes) -> None:
         """Replace config fields (the engine's activation-checkpointing
         override), keeping the weights."""
@@ -117,14 +129,16 @@ class GPT2(nn.Module):
         p, z3 = T.zero3_enter(dict(self.named_parameters()), self.zero3_dims,
                               self.data_group)
         x = L.vocab_parallel_embedding(tokens, p["wte"], group)
-        x = x + p["wpe"][:T_len].to(x.dtype)[None]
+        x = x + L.seq_shard_positions(p["wpe"], T_len, self.seq_group).to(
+            x.dtype)[None]
         x = T.stack_apply(x, T.subtree(p, "blocks"), cfg, group=group,
                           z3_dims=z3.get("blocks"), z3_group=self.data_group,
-                          z3_prefetch=self.zero3_prefetch)
+                          z3_prefetch=self.zero3_prefetch,
+                          seq_group=self.seq_group)
         x = L.layer_norm(x, p["lnf_s"], p["lnf_b"], cfg.ln_eps)
         logits = L.vocab_parallel_logits(x, p["wte"], group)
         loss = L.vocab_parallel_cross_entropy(logits, labels, group)
-        return L.masked_mean_loss(loss, labels >= 0)
+        return L.masked_mean_loss(loss, labels >= 0, self.seq_group)
 
     # ---------------------------------------------- not in this slice yet
 

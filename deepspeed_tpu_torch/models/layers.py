@@ -16,6 +16,13 @@ Attention follows the JAX package's ``core_attention`` and
 einsum path ``xla_attention`` (``ops/dispatch_attention.py``), the
 whole-tile kernels of ``ops/block_attention.py`` for short causal shapes,
 or the streaming kernels of ``ops/stream_attention.py`` from seq 256.
+
+Under sequence parallelism (a seq process group ``seq_group``, the
+sequence cut over it) ``multihead_attention`` runs ring attention
+(``models/ring_attention.py``) or Ulysses (``models/ulysses.py``) by the
+model's ``sp_impl``; ``seq_shard_positions`` offsets the position table by
+the rank's block and ``masked_mean_loss`` sums the valid-token count over
+the seq group (the JAX ``layers.py:273-278``, ``:316-331``).
 """
 
 from __future__ import annotations
@@ -214,10 +221,29 @@ def gather_positions(x, positions):
     return torch.gather(x, 1, idx)
 
 
-def masked_mean_loss(loss, mask):
-    """Masked mean of a per-token loss (sequence parallel size 1)."""
+def seq_shard_positions(wpe, t_local, seq_group=None):
+    """The position embeddings of this rank's sequence block: rows
+    ``[r * t_local, (r + 1) * t_local)`` of ``wpe`` for rank ``r`` of the
+    seq group, the first ``t_local`` without one."""
+    pos0 = 0 if seq_group is None else dist.get_rank(seq_group) * t_local
+    return wpe[pos0:pos0 + t_local]
+
+
+def masked_mean_loss(loss, mask, seq_group=None):
+    """Masked mean of a per-token loss.  Under sequence parallelism the
+    value's mean over the seq group is the global masked mean (the
+    sum of the masked losses over the total valid count): the local sum
+    times ``sp`` over the count summed over the seq group, since shards may
+    hold different valid counts.  The engine's sum of the ranks' gradients
+    over ``sp`` is then the global mean's gradient."""
     mask = mask.float()
-    return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    local_sum = torch.sum(loss * mask)
+    local_cnt = torch.sum(mask)
+    if seq_group is not None:
+        sp = dist.get_world_size(seq_group)
+        total = comm.seq_sum_(local_cnt.detach().clone(), seq_group)
+        return local_sum * sp / torch.clamp(total, min=1.0)
+    return local_sum / torch.clamp(local_cnt, min=1.0)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
@@ -412,19 +438,42 @@ def core_attention(q, k, v, *, causal, attn_mask=None):
 
 
 def multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, *, n_heads,
-                        causal, attn_mask=None, group=None):
+                        causal, attn_mask=None, group=None, sp_impl="ring",
+                        seq_group=None):
     """Multi-head attention over this rank's heads, with the packed
     head-major qkv projection: the output dim of ``qkv_w`` [h, 3h] is laid
     out (n, 3, d), as in ``layers.py:627``, so a rank's slice [h, 3h / mp]
     is a contiguous block of n / mp whole heads, (n / mp, 3, d), never a
     third each of q, k and v.  ``n_heads`` is the global head count;
-    ``proj_w`` [h / mp, h] is row-parallel and ``proj_b`` replicated."""
+    ``proj_w`` [h / mp, h] is row-parallel and ``proj_b`` replicated.
+
+    With a ``seq_group`` (x is this rank's sequence block) ``sp_impl``
+    picks the sequence-parallel attention: ``"ring"`` (K/V rotation) or
+    ``"ulysses"`` (the head <-> sequence all-to-all round the plain
+    attention), as the JAX ``layers.py:604-651``."""
     B, T, h = x.shape
     d = h // n_heads
     qkv = column_parallel_linear(x, qkv_w, qkv_b, name="qkv", group=group)
     n_local = qkv.shape[-1] // (3 * d)
     qkv = qkv.reshape(B, T, n_local, 3, d)
+    if seq_group is not None and sp_impl == "ulysses":
+        # packed: one all-to-all moves q, k and v together
+        from deepspeed_tpu_torch.models.ulysses import \
+            ulysses_attention_packed
+        ctx = ulysses_attention_packed(qkv, causal=causal,
+                                       attn_mask=attn_mask, group=seq_group)
+        return row_parallel_linear(ctx.reshape(B, T, n_local * d), proj_w,
+                                   proj_b, group=group)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-    ctx = core_attention(q, k, v, causal=causal, attn_mask=attn_mask)
+    if seq_group is not None:
+        if sp_impl != "ring":
+            raise ValueError(
+                f"unknown sequence_parallel_impl {sp_impl!r} "
+                "(expected 'ring' or 'ulysses')")
+        from deepspeed_tpu_torch.models.ring_attention import ring_attention
+        ctx = ring_attention(q, k, v, causal=causal, kv_mask=attn_mask,
+                             group=seq_group)
+    else:
+        ctx = core_attention(q, k, v, causal=causal, attn_mask=attn_mask)
     return row_parallel_linear(ctx.reshape(B, T, n_local * d), proj_w,
                                proj_b, group=group)

@@ -16,6 +16,16 @@ parallelism, by ``partition_specs()``) and sets ``pipe``, this process's
 ``PipeContext``; without one the model runs as a one-stage pipeline.
 ``schedule`` is ``"gpipe"`` or ``"1f1b"``; the engine's
 ``pipeline_schedule`` config key overrides it.
+
+Under ZeRO-3 the leaves outside the block stack are gathered at entry
+(``transformer.zero3_enter``) and the stage stack gathers each layer's
+weights inside the block body, in both schedules and in 1F1B's recompute
+(the JAX ``pipeline_gpt2.py:72-111``).  Under sequence parallelism the
+pipeline streams this rank's sequence block (activations ``[mb, T / sp,
+h]``), ring or Ulysses attention runs inside the stage body, and the
+loss's token count is this block's, as in the JAX package: the engine's
+mean over the seq group is then the mean of the blocks' means (ROADMAP
+Queue 3, the pp x sp loss).
 """
 
 from __future__ import annotations
@@ -70,20 +80,19 @@ class GPT2Pipelined(GPT2):
         if self.schedule not in pipe_mod.SCHEDULES:
             raise ValueError(f"unknown pipeline schedule {self.schedule!r} "
                              f"(expected 'gpipe' or '1f1b')")
-        if self.zero3_dims is not None:
-            raise NotImplementedError(
-                "ZeRO-3 with pipeline parallelism is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 11)")
         mb, group = B // m, self.model_group
-        params = dict(self.named_parameters())
+        params, z3 = T.zero3_enter(dict(self.named_parameters()),
+                                   self.zero3_dims, self.data_group)
         toks = tokens.reshape(m, mb, T_len)
 
         def embed(p, i):
             x = L.vocab_parallel_embedding(toks[i], p["wte"], group)
-            return x + p["wpe"][:T_len].to(x.dtype)[None]
+            return x + L.seq_shard_positions(p["wpe"], T_len,
+                                             self.seq_group).to(x.dtype)[None]
 
         def stage(p, u):
-            return self._pipe_stack(u, T.subtree(p, "blocks"))
+            return self._pipe_stack(u, T.subtree(p, "blocks"),
+                                    z3_dims=z3.get("blocks"))
 
         def head(p, y, lab):
             h = L.layer_norm(y, p["lnf_s"], p["lnf_b"], cfg.ln_eps)
@@ -101,8 +110,11 @@ class GPT2Pipelined(GPT2):
             replicated=[k for k in params if not k.startswith("blocks.")],
             stats=self.last_pipe_stats)
 
-    def _pipe_stack(self, u, blocks):
+    def _pipe_stack(self, u, blocks, z3_dims=None):
         """Stage-stack hook: returns ``(y, aux)``, aux a scalar loss term
-        (0.0 here; the MoE variant adds its load-balancing term)."""
-        return T.stack_apply(u, blocks, self.config,
-                             group=self.model_group), 0.0
+        (0.0 here; the MoE variant adds its load-balancing term).  Under
+        ZeRO-3 ``z3_dims`` are the stacked leaves' partition dims."""
+        return T.stack_apply(u, blocks, self.config, group=self.model_group,
+                             z3_dims=z3_dims, z3_group=self.data_group,
+                             z3_prefetch=self.zero3_prefetch,
+                             seq_group=self.seq_group), 0.0

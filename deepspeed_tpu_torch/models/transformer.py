@@ -26,6 +26,13 @@ ZeRO-3 (``zero3.py``): ``zero3_enter`` gathers the leaves outside the block
 stack at the model's entry, and ``stack_apply`` gathers each layer's slice
 of the partitioned stack inside the (rematerialised) block body, pairing
 the gathers under ``z3_prefetch``.
+
+Sequence parallelism: ``stack_apply`` hands the seq group and
+``TransformerConfig.sp_impl`` (``"ring"`` or ``"ulysses"``) to every
+block's attention; a recompute replays the ring's shifts and Ulysses'
+all-to-alls in the same order on every rank.  ``token_batch_specs`` is the
+batch layout of the [B, T] token models: the dim of each batch leaf cut
+over the seq group.
 """
 
 from __future__ import annotations
@@ -43,6 +50,15 @@ from deepspeed_tpu_torch import zero3 as Z
 from deepspeed_tpu_torch.models import layers as L
 
 REMAT_POLICIES = ("full", "dots", "selective")
+
+
+def token_batch_specs(batch) -> tuple:
+    """The seq-sharded dim of each leaf of a token batch (the JAX
+    ``token_batch_specs``, ``transformer.py:28-47``, as data): a leaf of
+    two or more dims is ``[B, T, ...]`` and is cut along dim 1, the
+    sequence; a leaf of fewer dims is per example (None: every rank of the
+    seq group takes it whole)."""
+    return tuple(1 if x.ndim >= 2 else None for x in batch)
 #: the named activations the "selective" policy saves
 SELECTIVE_SAVES = frozenset({"qkv", "ffn1"})
 
@@ -58,7 +74,10 @@ class TransformerConfig:
     pre_ln: bool = True           # GPT-2 pre-LN; BERT uses post-LN
     causal: bool = True
     remat: bool = True            # per-block activation checkpointing
-    sp_impl: str = "ring"         # parsed for config parity; sp = 1 here
+    # sequence-parallel attention under context_parallel_size > 1: "ring"
+    # (K/V rotation) or "ulysses" (head <-> sequence all-to-all); the
+    # engine's sequence_parallel_impl key overrides it
+    sp_impl: str = "ring"
     remat_policy: str = "full"
     init_std: float = 0.02
     ln_eps: float = 1e-5
@@ -129,13 +148,16 @@ def _mlp(x, p, group=None):
     return L.row_parallel_linear(y, p["fc2_w"], p["fc2_b"], group=group)
 
 
-def block_apply(x, p, cfg: TransformerConfig, attn_mask=None, group=None):
+def block_apply(x, p, cfg: TransformerConfig, attn_mask=None, group=None,
+                seq_group=None):
     """One dense block; ``p`` leaves have no layer axis and are this
-    rank's slices of the model group ``group``."""
+    rank's slices of the model group ``group``; ``x`` is this rank's
+    sequence block of the seq group ``seq_group`` (None: the whole
+    sequence)."""
     attn = lambda u: L.multihead_attention(
         u, p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"],
         n_heads=cfg.num_heads, causal=cfg.causal, attn_mask=attn_mask,
-        group=group)
+        group=group, sp_impl=cfg.sp_impl, seq_group=seq_group)
     ln1 = lambda u: L.layer_norm(u, p["ln1_s"], p["ln1_b"], cfg.ln_eps)
     ln2 = lambda u: L.layer_norm(u, p["ln2_s"], p["ln2_b"], cfg.ln_eps)
     if cfg.pre_ln:
@@ -262,11 +284,12 @@ def zero3_min_dims(model: nn.Module) -> Dict[str, int]:
 
 def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
                 attn_mask=None, group=None, z3_dims=None, z3_group=None,
-                z3_prefetch=False):
+                z3_prefetch=False, seq_group=None):
     """All layers over the stacked [L, ...] params (this rank's slices of
     the model group ``group``; under pipeline parallelism this stage's
-    layers).  A recompute replays a block's forward
-    collectives, in the same order on every rank.
+    layers), on this rank's sequence block of ``seq_group``.  A recompute
+    replays a block's forward collectives, in the same order on every
+    rank.
 
     ZeRO-3 (``z3_dims``: the stacked leaves' partition dims over the data
     group ``z3_group``): each layer's slice of the partitioned stack is
@@ -285,7 +308,8 @@ def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
         body_dims = [shifted[k] for k in names]
 
     def block(x_, mask_, leaves):
-        return block_apply(x_, dict(zip(names, leaves)), cfg, mask_, group)
+        return block_apply(x_, dict(zip(names, leaves)), cfg, mask_, group,
+                           seq_group)
 
     def body(x_, mask_, *leaves):
         if z3:

@@ -42,12 +42,23 @@ Pipe axis (``parallel/pipeline.py``): ``pipe_isend`` and ``pipe_recv``
 move one activation or gradient between two stages (the JAX ``ppermute``
 over ``pipe``), the scatter of the finished micro-batches' row slices to
 the stages and the gather of their gradients back being such sends too;
-``pipe_sum_`` is the pipe-group SUM of the stage-replicated leaves'
-gradients (the JAX ``psum`` over ``pipe``), as one fp32 collective.  The
+``sum_fp32_`` over the pipe group is the SUM of the stage-replicated
+leaves' gradients (the JAX ``psum`` over ``pipe``), as one fp32
+collective.  The
 schedules call them in an order fixed by the schedule, not by autograd,
 so they are plain functions and not an autograd pair.  A message's
 ``tag`` names its kind (activation, gradient, head slice, head gradient),
 so that two kinds on one pair of stages never match each other.
+
+Seq axis (context parallelism, ``models/ring_attention.py`` and
+``models/ulysses.py``): ``seq_ring_shift`` (send to the next rank of the
+ring, receive from the previous; the JAX ``ppermute`` with ``perm = [(j,
+(j + 1) % sp)]``) and ``seq_all_to_all`` (the JAX ``all_to_all(...,
+tiled=True)``) are autograd functions whose backward is the transpose of
+the forward: the shift the other way, the inverse exchange.  Every rank of
+a seq group runs the same graph, so each rank's backward meets its peers'
+in the same order.  ``seq_all_gather`` (the padding mask) and ``seq_sum_``
+(the loss's valid-token count) carry no gradient.
 """
 
 from __future__ import annotations
@@ -504,11 +515,16 @@ def pipe_recv(shape, dtype, device, src: int, group,
     return out
 
 
-def pipe_sum_(tensors: Sequence[torch.Tensor], group) -> None:
+def sum_fp32_(tensors: Sequence[torch.Tensor], group) -> None:
     """In-place SUM of each of ``tensors`` over ``group`` (identity
     without one), as one fp32 collective: the leaves are laid end to end
-    and each is written back in its own dtype."""
+    and each is written back in its own dtype (one fp32 tensor is reduced
+    where it is)."""
     if group is None or not tensors:
+        return
+    if len(tensors) == 1 and tensors[0].dtype == torch.float32 \
+            and tensors[0].is_contiguous():
+        dist.all_reduce(tensors[0], group=group)
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=group)
@@ -574,3 +590,118 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of the ranks' partials ``x`` (a row-parallel product, a
     vocab-parallel lookup); ``x`` itself without a group."""
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+# --------------------------------------------------------------- seq axis
+
+#: the tags of the ring's point-to-point messages (a forward shift, the
+#: backward's shift the other way)
+_SEQ_FWD, _SEQ_BWD = 16, 17
+
+
+def _seq_peers(group):
+    """``(rank in group, size, global ranks by group rank)``."""
+    ranks = dist.get_process_group_ranks(group)
+    return dist.get_rank(group), len(ranks), ranks
+
+
+def _shift(x: torch.Tensor, group, step: int, tag: int) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` places on in the ring and receive
+    the tensor of the rank ``step`` places back (non-blocking send first,
+    so every rank can send before it receives)."""
+    me, size, ranks = _seq_peers(group)
+    pending = pipe_isend(x, ranks[(me + step) % size], group, tag)
+    out = pipe_recv(x.shape, x.dtype, x.device, ranks[(me - step) % size],
+                    group, tag)
+    pending.wait()
+    return out
+
+
+class _SeqRingShift(torch.autograd.Function):
+    """Rank r's tensor to rank r + 1 of the seq group; the backward sends
+    the gradient back to rank r - 1 (the transpose of the ppermute)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1, _SEQ_FWD)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g.contiguous(), ctx.group, -1, _SEQ_BWD), None
+
+
+def seq_ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` of the previous rank of the seq group's ring (rank ``(r - 1)
+    % sp``), this rank's ``x`` going to rank ``(r + 1) % sp``; ``x``
+    itself without a group."""
+    return x if group is None else _SeqRingShift.apply(x, group)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+                group) -> torch.Tensor:
+    """``x`` cut into ``sp`` blocks along ``split_dim``, block j sent to
+    rank j, and the blocks received joined along ``concat_dim`` in rank
+    order (``all_to_all_single`` splits dim 0 only, so the split dim goes
+    first)."""
+    size = dist.get_world_size(group)
+    blocks = x.movedim(split_dim, 0)
+    blocks = blocks.reshape(size, blocks.shape[0] // size,
+                            *blocks.shape[1:]).contiguous()
+    host = _through_host(blocks, group)
+    send = blocks.cpu() if host else blocks
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if host:
+        recv = recv.to(x.device)
+    # [sp, ...x with the split dim cut...], then the sp blocks joined
+    got = recv.movedim(1, split_dim + 1)
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    """The tiled all-to-all; the backward is the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, concat_dim, split_dim, ctx.group), None, None,
+                None)
+
+
+def seq_all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+                   group) -> torch.Tensor:
+    """The JAX ``all_to_all(x, axis, split_dim, concat_dim, tiled=True)``
+    over the seq group: ``x``'s ``split_dim`` cut into ``sp`` blocks,
+    block j to rank j, the received blocks joined along ``concat_dim`` in
+    rank order.  Differentiable; ``x`` itself without a group."""
+    if group is None:
+        return x
+    return _SeqAllToAll.apply(x, split_dim, concat_dim, group)
+
+
+@torch.no_grad()
+def seq_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` joined along ``dim`` in rank order (the JAX
+    ``all_gather(..., tiled=True)``), without a gradient; ``x`` itself
+    without a group."""
+    if group is None:
+        return x
+    size = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((size, *src.shape), dtype=src.dtype, device=src.device)
+    _all_gather(out.view(-1), src.view(-1), group)
+    return out.flatten(0, 1).movedim(0, dim)
+
+
+def seq_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place SUM of ``x`` over the seq group (identity without one); no
+    gradient."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x

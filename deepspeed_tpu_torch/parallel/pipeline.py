@@ -262,7 +262,7 @@ class _Schedule:
             if scale is not None:
                 g.mul_(scale)
             grads.append(g)
-        comm.pipe_sum_([g for n, g in zip(self.names, grads)
+        comm.sum_fp32_([g for n, g in zip(self.names, grads)
                         if n in self.replicated and self.p[n].requires_grad],
                        self.pipe.group)
         self.acc = {}

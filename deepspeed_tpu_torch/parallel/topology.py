@@ -1,14 +1,17 @@
-"""Process groups, device resolution and the data x pipe x model layout.
+"""Process groups, device resolution and the data x pipe x seq x model layout.
 
-The port of ``deepspeed_tpu/parallel/topology.py`` at sp = 1: the JAX
-mesh's ``data``, ``pipe`` and ``model`` axes become ``torch.distributed``
+The port of ``deepspeed_tpu/parallel/topology.py``: the JAX mesh's
+``data``, ``pipe``, ``seq`` and ``model`` axes become ``torch.distributed``
 process groups, one process per card (or per CPU rank in the tests).
 Ranks are laid out as the JAX mesh lays out its devices, ``[data, pipe,
-seq, model]`` with the model axis innermost, so ``rank = (dp_rank * pp +
-pp_rank) * mp + mp_rank``: a model group is ``mp`` consecutive ranks (one
-stage of one data replica), a pipe group the ``pp`` stages of one data
-replica and model rank, a data group the ranks of one stage and model
-rank.
+seq, model]`` with the model axis innermost, so ``rank = ((dp_rank * pp +
+pp_rank) * sp + sp_rank) * mp + mp_rank``: a model group is ``mp``
+consecutive ranks (one sequence shard of one stage of one data replica), a
+seq group the ``sp`` sequence shards of one stage and model rank, a pipe
+group the ``pp`` stages of one data replica, sequence shard and model
+rank, a data group the ranks of one stage, sequence shard and model rank.
+The ranks of a seq group are replicas of the parameters and the optimizer
+state, as in the JAX mesh: ZeRO partitions over the data group only.
 
 * ``init_distributed`` reads the JAX package's launch contract
   (``DSTPU_COORDINATOR``, ``DSTPU_NUM_PROCESSES``, ``DSTPU_PROCESS_ID``;
@@ -19,16 +22,15 @@ rank.
   explicit ``backend="gloo"`` on a card is the caller's choice (one card
   shared by several ranks, where NCCL refuses): its collectives stage
   through the host.
-* ``make_topology`` reads the model- and pipeline-parallel sizes from
-  the config or a ``MeshConfig``, the rank and world size from the started
-  group (1 without one), and builds every model, pipe and data group.
+* ``make_topology`` reads the model-, context- and pipeline-parallel sizes
+  from the config or a ``MeshConfig``, the rank and world size from the
+  started group (1 without one), and builds every model, seq, pipe and
+  data group.
 * ``Topology.with_subgroups`` builds the ZeRO ``parameter_parallel_size``
-  sub-groups of ``comm.subgroup_index_groups`` inside each (stage, model
-  rank)'s data group: ``within`` (consecutive blocks of ranks that own the
-  partitions) and ``across`` (the ranks that hold the same partition in
-  different blocks).
-
-Sequence parallelism (sp > 1) raises naming its ROADMAP.md item.
+  sub-groups of ``comm.subgroup_index_groups`` inside each (stage, seq
+  rank, model rank)'s data group: ``within`` (consecutive blocks of ranks
+  that own the partitions) and ``across`` (the ranks that hold the same
+  partition in different blocks).
 """
 
 from __future__ import annotations
@@ -51,10 +53,10 @@ class MeshConfig:
     """A declarative layout request, as the JAX package's ``MeshConfig``
     (``initialize(..., mesh=MeshConfig(model_parallel_size=2))``):
     ``model_parallel_size`` ranks per model shard group,
+    ``context_parallel_size`` ranks per sequence ring,
     ``pipeline_parallel_size`` stages per pipeline, the rest of the world
-    the data axis.  A context parallel size above 1 raises (not ported).
-    It has no ``devices``: the port's devices are the processes of the
-    group."""
+    the data axis.  It has no ``devices``: the port's devices are the
+    processes of the group."""
     model_parallel_size: int = 1
     context_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -62,11 +64,12 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """The run's device, rank and data x pipe x model layout.
+    """The run's device, rank and data x pipe x seq x model layout.
 
     ``group`` is this rank's data-parallel process group, ``model_group``
-    its model-parallel one and ``pipe_group`` its pipeline one; each is
-    None where its axis has size 1 (no collectives there).  ``pps`` is the
+    its model-parallel one, ``seq_group`` its sequence-parallel one and
+    ``pipe_group`` its pipeline one; each is None where its axis has size
+    1 (no collectives there).  ``pps`` is the
     ZeRO partition group size; with ``pps < dp`` this rank's ``within``
     group is its block of ``pps`` consecutive data ranks and ``across``
     the ``dp / pps`` data ranks holding the same partition."""
@@ -81,25 +84,37 @@ class Topology:
     model_group: Optional[object] = None
     pp: int = 1
     pipe_group: Optional[object] = None
+    sp: int = 1
+    seq_group: Optional[object] = None
 
     @property
     def dp_rank(self) -> int:
         """This rank's place on the data axis."""
-        return self.rank // (self.pp * self.mp)
+        return self.rank // (self.pp * self.sp * self.mp)
 
     @property
     def pp_rank(self) -> int:
         """This rank's pipeline stage."""
-        return (self.rank // self.mp) % self.pp
+        return (self.rank // (self.sp * self.mp)) % self.pp
+
+    @property
+    def sp_rank(self) -> int:
+        """This rank's sequence shard."""
+        return (self.rank // self.mp) % self.sp
 
     @property
     def mp_rank(self) -> int:
         """This rank's place on the model axis."""
         return self.rank % self.mp
 
-    def global_rank(self, dp_rank: int, pp_rank: int, mp_rank: int) -> int:
-        """The rank at ``(dp_rank, pp_rank, mp_rank)``."""
-        return (dp_rank * self.pp + pp_rank) * self.mp + mp_rank
+    def global_rank(self, dp_rank: int, pp_rank: int, mp_rank: int,
+                    sp_rank: Optional[int] = None) -> int:
+        """The rank at ``(dp_rank, pp_rank, sp_rank, mp_rank)``; this
+        rank's sequence shard when ``sp_rank`` is None."""
+        if sp_rank is None:
+            sp_rank = self.sp_rank
+        return ((dp_rank * self.pp + pp_rank) * self.sp + sp_rank) \
+            * self.mp + mp_rank
 
     def pipe_ranks(self) -> list:
         """The global ranks of this rank's pipe group, by stage."""
@@ -111,17 +126,20 @@ class Topology:
         """The partition this rank owns within its sub-group."""
         return self.dp_rank % self.pps
 
-    def data_ranks(self, mp_rank: int, pp_rank: int = 0) -> list:
+    def data_ranks(self, mp_rank: int, pp_rank: int = 0,
+                   sp_rank: Optional[int] = None) -> list:
         """The global ranks of the data group of model rank ``mp_rank`` at
-        stage ``pp_rank``."""
-        return [self.global_rank(d, pp_rank, mp_rank) for d in range(self.dp)]
+        stage ``pp_rank`` and sequence shard ``sp_rank`` (this rank's when
+        None)."""
+        return [self.global_rank(d, pp_rank, mp_rank, sp_rank)
+                for d in range(self.dp)]
 
     def with_subgroups(self, pps: int) -> "Topology":
         """This topology with ZeRO partition groups of ``pps`` data ranks.
         At ``pps == dp`` the partition group is the data group itself;
-        below it every rank creates every sub-group of every model rank's
-        data group, in the same order, and keeps its own (``dist.new_group``
-        is collective over the world)."""
+        below it every rank creates every sub-group of every (stage, seq
+        rank, model rank)'s data group, in the same order, and keeps its
+        own (``dist.new_group`` is collective over the world)."""
         from deepspeed_tpu_torch.parallel import comm
         if pps <= 0 or self.dp % pps != 0:
             raise ValueError(f"parameter_parallel_size={pps} must divide "
@@ -132,15 +150,16 @@ class Topology:
         within_idx, across_idx = comm.subgroup_index_groups(self.dp, pps)
         mine = {"within": None, "across": None}
         for s in range(self.pp):
-            for m in range(self.mp):
-                ranks = self.data_ranks(m, s)
-                for kind, groups in (("within", within_idx),
-                                     ("across", across_idx)):
-                    for idx in groups:
-                        members = [ranks[i] for i in idx]
-                        g = _new_group(members)
-                        if self.rank in members:
-                            mine[kind] = g
+            for q in range(self.sp):
+                for m in range(self.mp):
+                    ranks = self.data_ranks(m, s, q)
+                    for kind, groups in (("within", within_idx),
+                                         ("across", across_idx)):
+                        for idx in groups:
+                            members = [ranks[i] for i in idx]
+                            g = _new_group(members)
+                            if self.rank in members:
+                                mine[kind] = g
         return dataclasses.replace(self, pps=pps, **mine)
 
 
@@ -284,10 +303,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def _parallel_sizes(config: dict, mesh) -> tuple:
-    """``(mp, pp)``: the model- and pipeline-parallel sizes of ``mesh`` (a
-    ``MeshConfig``, which beats the config, as in the JAX engine) or of
-    ``config``; a sequence parallel size above 1 raises naming its
-    ROADMAP.md item."""
+    """``(mp, sp, pp)``: the model-, context- and pipeline-parallel sizes
+    of ``mesh`` (a ``MeshConfig``, which beats the config, as in the JAX
+    engine) or of ``config``."""
     if mesh is not None:
         sizes = {C.MODEL_PARALLEL_SIZE: mesh.model_parallel_size,
                  C.CONTEXT_PARALLEL_SIZE: mesh.context_parallel_size,
@@ -297,33 +315,31 @@ def _parallel_sizes(config: dict, mesh) -> tuple:
             C.MODEL_PARALLEL_SIZE, C.CONTEXT_PARALLEL_SIZE,
             C.PIPELINE_PARALLEL_SIZE)}
     sizes = {k: int(v or 1) for k, v in sizes.items()}
-    if sizes[C.CONTEXT_PARALLEL_SIZE] != 1:
-        raise NotImplementedError(
-            f"{C.CONTEXT_PARALLEL_SIZE}={sizes[C.CONTEXT_PARALLEL_SIZE]}: "
-            f"sequence parallelism is not ported to deepspeed_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1 item 11)")
-    for key in (C.MODEL_PARALLEL_SIZE, C.PIPELINE_PARALLEL_SIZE):
-        if sizes[key] < 1:
-            raise ValueError(f"{key}={sizes[key]} must be >= 1")
-    return sizes[C.MODEL_PARALLEL_SIZE], sizes[C.PIPELINE_PARALLEL_SIZE]
+    for key, size in sizes.items():
+        if size < 1:
+            raise ValueError(f"{key}={size} must be >= 1")
+    return (sizes[C.MODEL_PARALLEL_SIZE], sizes[C.CONTEXT_PARALLEL_SIZE],
+            sizes[C.PIPELINE_PARALLEL_SIZE])
 
 
 def make_topology(config: Optional[dict] = None, device=None,
                   mesh=None) -> Topology:
-    """The run's topology: the device, the model- and pipeline-parallel
-    sizes (``mesh``, else ``config``), and the rank and sizes of the
-    started process group (one rank without one).  Every model group, pipe
-    group and data group is built on every rank, in one order.  A CUDA
-    device needs an NCCL group, unless ``init_distributed`` was given
-    ``backend="gloo"``: then the collectives stage through the host."""
-    mp, pp = _parallel_sizes(config or {}, mesh)
+    """The run's topology: the device, the model-, context- and
+    pipeline-parallel sizes (``mesh``, else ``config``), and the rank and
+    sizes of the started process group (one rank without one).  Every
+    model group, seq group, pipe group and data group is built on every
+    rank, in one order.  A CUDA device needs an NCCL group, unless
+    ``init_distributed`` was given ``backend="gloo"``: then the
+    collectives stage through the host."""
+    mp, sp, pp = _parallel_sizes(config or {}, mesh)
     device = resolve_device(device)
     if not dist.is_initialized():
-        if mp * pp != 1:
-            key = (C.MODEL_PARALLEL_SIZE if mp != 1
-                   else C.PIPELINE_PARALLEL_SIZE)
+        if mp * sp * pp != 1:
+            key, size = next((k, v) for k, v in (
+                (C.MODEL_PARALLEL_SIZE, mp), (C.CONTEXT_PARALLEL_SIZE, sp),
+                (C.PIPELINE_PARALLEL_SIZE, pp)) if v != 1)
             raise ValueError(
-                f"{key}={max(mp, pp)} needs {mp * pp} processes in a "
+                f"{key}={size} needs {mp * sp * pp} processes in a "
                 f"started process group; none was started")
         return Topology(device=device)
     running = dist.get_backend()
@@ -337,16 +353,18 @@ def make_topology(config: Optional[dict] = None, device=None,
         logger.info("make_topology: %s collectives on %s stage through the "
                     "host", running, device)
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % (mp * pp):
+    if world % (mp * sp * pp):
         raise ValueError(
-            f"{C.MODEL_PARALLEL_SIZE}={mp} x {C.PIPELINE_PARALLEL_SIZE}={pp} "
-            f"must divide the world size {world}")
-    dp = world // (mp * pp)
-    if mp == pp == 1:
+            f"{C.MODEL_PARALLEL_SIZE}={mp} x {C.CONTEXT_PARALLEL_SIZE}={sp} "
+            f"x {C.PIPELINE_PARALLEL_SIZE}={pp} must divide the world size "
+            f"{world}")
+    dp = world // (mp * sp * pp)
+    if mp == sp == pp == 1:
         return Topology(device=device, rank=rank, dp=dp,
                         group=dist.group.WORLD, pps=dp,
                         within=dist.group.WORLD)
-    topo = Topology(device=device, rank=rank, dp=dp, mp=mp, pp=pp, pps=dp)
+    topo = Topology(device=device, rank=rank, dp=dp, mp=mp, pp=pp, sp=sp,
+                    pps=dp)
     at, mine = topo.global_rank, {}
 
     def build(name, rank_lists, size):
@@ -355,10 +373,16 @@ def make_topology(config: Optional[dict] = None, device=None,
             if rank in ranks:
                 mine[name] = g
 
-    build("model_group", ([at(d, s, m) for m in range(mp)]
-                          for d in range(dp) for s in range(pp)), mp)
-    build("pipe_group", ([at(d, s, m) for s in range(pp)]
-                         for d in range(dp) for m in range(mp)), pp)
-    build("group", ([at(d, s, m) for d in range(dp)]
-                    for s in range(pp) for m in range(mp)), dp)
+    build("model_group", ([at(d, s, m, q) for m in range(mp)]
+                          for d in range(dp) for s in range(pp)
+                          for q in range(sp)), mp)
+    build("seq_group", ([at(d, s, m, q) for q in range(sp)]
+                        for d in range(dp) for s in range(pp)
+                        for m in range(mp)), sp)
+    build("pipe_group", ([at(d, s, m, q) for s in range(pp)]
+                         for d in range(dp) for q in range(sp)
+                         for m in range(mp)), pp)
+    build("group", ([at(d, s, m, q) for d in range(dp)]
+                    for s in range(pp) for q in range(sp)
+                    for m in range(mp)), dp)
     return dataclasses.replace(topo, within=mine["group"], **mine)

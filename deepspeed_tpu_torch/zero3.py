@@ -107,14 +107,18 @@ def partitioned_any(dims: Optional[Dict[str, int]]) -> bool:
 def local_sqnorm_and_finite(grads: Dict[str, Optional[torch.Tensor]],
                             dims: Dict[str, int],
                             specs: Optional[Dict[str, Optional[int]]],
-                            dp: int, mp: int = 1):
+                            dp: int, mp: int = 1,
+                            pipe_specs: Optional[Dict[str, Optional[int]]]
+                            = None, pp: int = 1):
     """(sum of squares, all finite) over this rank's UNIQUE gradient
     elements, as 0-d fp32 tensors.  Partitioned shards are disjoint over
     the data group (weight 1); replicated leaves are the same on every
     data rank (weight ``1/dp``); a leaf not sharded over the model group
-    counts ``1/mp`` on top (the dedup of ``zero.norm_dedup_weights``).
-    The caller SUMs the result over the data and model groups."""
-    specs = specs or {}
+    counts ``1/mp`` on top, and one every stage holds whole ``1/pp`` (the
+    dedup of ``zero.norm_dedup_weights``).  The caller SUMs the result
+    over the data, model and pipe groups, and over no other: the
+    gradients are the same on every rank of a seq group."""
+    specs, pipe_specs = specs or {}, pipe_specs or {}
     names = [k for k, g in grads.items() if g is not None]
     if not names:
         return (torch.zeros((), dtype=torch.float32),
@@ -123,9 +127,16 @@ def local_sqnorm_and_finite(grads: Dict[str, Optional[torch.Tensor]],
     norms = torch.stack([torch.linalg.vector_norm(grads[k],
                                                   dtype=torch.float32)
                          for k in names])
-    w = torch.tensor([(1.0 if dims.get(k, REPLICATED) >= 0 else 1.0 / dp)
-                      / (mp if mp > 1 and specs.get(k) is None else 1)
-                      for k in names], dtype=torch.float32, device=device)
+
+    def weight(k):
+        w = 1.0 if dims.get(k, REPLICATED) >= 0 else 1.0 / dp
+        if mp > 1 and specs.get(k) is None:
+            w /= mp
+        if pp > 1 and pipe_specs.get(k) is None:
+            w /= pp
+        return w
+    w = torch.tensor([weight(k) for k in names], dtype=torch.float32,
+                     device=device)
     # a non-finite element makes its leaf's norm non-finite
     return torch.sum(w * norms * norms), torch.isfinite(norms).all()
 

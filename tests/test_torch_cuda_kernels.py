@@ -641,3 +641,55 @@ def test_block_wrappers_refuse_bad_inputs(dev):
         battn.block_fwd(q, k, v, mask.half(), False)
     with pytest.raises(ValueError, match="is on cpu"):
         battn.block_fwd(q, k, v, mask.cpu(), False)
+
+
+# ------------------------------------------- sequence-parallel attention
+
+def _seq_inputs(T, d, seed):
+    rng = np.random.default_rng(seed)
+    x = {n: rng.standard_normal((2, T, 4, d)).astype(np.float32)
+         for n in "qkv"}
+    x["dy"] = (rng.standard_normal((2, T, 4, d)) * 0.1).astype(np.float32)
+    mask = np.ones((2, T), np.int32)
+    mask[0, T - T // 4 - 3:] = 0
+    mask[1] = rng.random(T) > 0.2
+    x["mask"] = mask
+    return x
+
+
+def test_seq_attention_on_the_card(dev, tmp_path):
+    """Ring and Ulysses on CUDA tensors in two processes sharing the card
+    over gloo, against the same cases on the CPU (the plain versions),
+    within fp32's ``ATTN_TOL``: the ring's plain ops at seq 64; Ulysses' local
+    attention over the full sequence through the whole-tile kernels at
+    seq 64 (causal) and the streaming kernels at 256 and 512."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ranks import run_ranks
+    sattn.build()
+    battn.build()
+    inp, cases = {}, []
+    for T, impl, causal, masked in ((64, "ring", True, True),
+                                    (64, "ring", False, True),
+                                    (64, "ulysses", True, False),
+                                    (256, "ulysses", True, False),
+                                    (512, "ulysses", False, True)):
+        pre = f"T{T}"
+        if f"{pre}/q" not in inp:
+            inp.update({f"{pre}/{k}": v
+                        for k, v in _seq_inputs(T, 64, T).items()})
+        cases.append(dict(name=f"{impl}-{T}-{causal}", impl=impl,
+                          causal=causal, masked=masked, input=pre))
+    spec = {"scenario": "seq_attn", "cases": cases}
+    cpu = run_ranks(tmp_path / "cpu", 2, spec, inp)
+    gpu = run_ranks(tmp_path / "gpu", 2, dict(spec, device="cuda"), inp,
+                    cuda=True)
+    for c, g in zip(cpu, gpu):
+        for key, want in c.items():
+            if not key.startswith("launches/"):
+                attn_close([torch.from_numpy(g[key])],
+                           [torch.from_numpy(want)], torch.float32)
+        # each rank's Ulysses runs: one forward and one backward each
+        assert g["launches/block_fwd"] == g["launches/block_bwd"] == 1
+        assert g["launches/stream_fwd"] == 2
+        assert g["launches/stream_dkv"] + g[
+            "launches/stream_bwd_fused"] == 2

@@ -212,9 +212,11 @@ def test_initialize_without_device_needs_a_gpu():
 
 @pytest.mark.parametrize("extra,match", [
     ({"zero_optimization": {"stage": 1}}, "Adam-family"),
-    # tensor and pipeline parallelism are ported (tests/test_torch_tp_*.py,
-    # test_torch_pipeline*.py); sequence parallelism is not
-    pytest.param({"context_parallel_size": 2}, "ROADMAP",
+    # tensor, pipeline and sequence parallelism are ported
+    # (tests/test_torch_tp_*.py, test_torch_pipeline*.py, test_torch_sp_*.py:
+    # one process at context_parallel_size 2 is test_topology_sizes_and_
+    # refusals's); the host-side subsystems of item 12 are not
+    pytest.param({"tensorboard": {"enabled": True}}, "ROADMAP",
                  id="extra1-ROADMAP"),
     ({"train_steps_per_dispatch": 4}, "ROADMAP"),
 ])

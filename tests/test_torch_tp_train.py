@@ -225,8 +225,8 @@ def test_fp16_overflow_in_one_shard_skips_every_rank(port_mp2):
 
 
 def test_model_parallel_refusals():
-    """mp > 1 (and pp > 1) needs that many processes in a started group;
-    sequence parallelism still raises naming its ROADMAP.md item."""
+    """mp > 1 (and pp > 1, and sp > 1) needs that many processes in a
+    started group."""
     with pytest.raises(ValueError, match="needs 2 processes"):
         deepspeed_tpu_torch.initialize(
             config=config("Adam"), model=GPT2.from_size("tiny", **TINY),
@@ -234,8 +234,7 @@ def test_model_parallel_refusals():
             mesh=deepspeed_tpu_torch.MeshConfig(model_parallel_size=2))
     for key, error, match in (
             ("pipeline_parallel_size", ValueError, "needs 2 processes"),
-            ("context_parallel_size", NotImplementedError,
-             "Queue 1 item 11")):
+            ("context_parallel_size", ValueError, "needs 2 processes")):
         with pytest.raises(error, match=match):
             deepspeed_tpu_torch.initialize(
                 config=config("Adam", **{key: 2}),

@@ -65,6 +65,24 @@ Scenarios:
   slices of its global inputs (the world is one model group), and the
   backward of ``sum(y * dy)``; outputs ``<case>/y`` (local) and
   ``<case>/g<i>`` (the local gradient of float argument i).
+* ``seq_attn``: the world is one seq group; each case of ``spec["cases"]``
+  runs ``ring_attention`` or ``ulysses_attention`` (``impl``) on this
+  rank's sequence block of the global ``q``, ``k``, ``v`` (and ``mask``
+  with ``masked``) of its ``input`` prefix, and the backward of ``sum(y *
+  dy)``; outputs ``<case>/y`` and ``<case>/dq``, ``/dk``, ``/dv`` (this
+  rank's blocks) and the attention kernels' launch counts
+  (``launches/<kernel>``).  ``device`` "cuda" runs it on the card.
+
+With ``sp`` > 1 (``context_parallel_size``, or the ``mesh``) the train
+scenario's world is dp x pp x sp x mp: every rank of a seq group takes its
+data rank's rows, the engine cuts the sequence; ``topo/coords`` then ends
+with the seq rank and ``topo/seq`` lists the seq group.  ``model``
+``"bert_dense"`` trains a tiny fp32-computing BERT without NSP on dense
+MLM labels (``ids``, ``mask``, ``tt``, ``mlm``), ``"squad"`` the tiny
+span model; ``model_kw`` overrides the GPT-2s' sizes.  ``expect``
+``"init"`` or ``"forward"``: the run must raise there (at
+``initialize``, or in the first forward), and its only output is
+``error``, the exception's type and message.
 """
 
 import json
@@ -81,7 +99,7 @@ sys.path.insert(0, str(ROOT))
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch import sparse, weights, zero  # noqa: E402
 from deepspeed_tpu_torch.models import (  # noqa: E402
-    GPT2, BertForPreTraining, GPT2Pipelined)
+    GPT2, BertForPreTraining, BertForQuestionAnswering, GPT2Pipelined)
 from deepspeed_tpu_torch.models import layers as L  # noqa: E402
 from deepspeed_tpu_torch.models import transformer as T  # noqa: E402
 from deepspeed_tpu_torch.parallel import comm, pipeline, topology  # noqa: E402
@@ -348,6 +366,10 @@ def _train(spec, inputs, rank, world):
     if spec.get("model") in ("bert", "bert_fp32"):
         cls = Fp32Bert if spec["model"] == "bert_fp32" else BertForPreTraining
         model = cls.from_size("tiny", use_nsp=True, **TINY_BERT)
+    elif spec.get("model") == "bert_dense":
+        model = Fp32Bert.from_size("tiny", use_nsp=False, **TINY_BERT)
+    elif spec.get("model") == "squad":
+        model = BertForQuestionAnswering.from_size("tiny", **TINY_BERT)
     elif spec.get("model") == "embedding":
         model = EmbeddingClassifier()
     elif spec.get("model") == "pipe":
@@ -359,26 +381,41 @@ def _train(spec, inputs, rank, world):
     else:
         model = (Fp32GPT2 if spec.get("fp32_compute") else GPT2).from_size(
             "tiny", **dict(TINY, num_layers=spec.get("layers",
-                                                     TINY["num_layers"])))
-    mp, pp = spec.get("mp", 1), spec.get("pp", 1)
+                                                     TINY["num_layers"]),
+                           **spec.get("model_kw", {})))
+    mp, pp, sp = spec.get("mp", 1), spec.get("pp", 1), spec.get("sp", 1)
     config, mesh = dict(spec["config"]), None
     if spec.get("mesh"):
         mesh = deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp,
-                                              pipeline_parallel_size=pp)
+                                              pipeline_parallel_size=pp,
+                                              context_parallel_size=sp)
     else:
         if mp > 1:
             config["model_parallel_size"] = mp
         if pp > 1:
             config["pipeline_parallel_size"] = pp
+        if sp > 1:
+            config["context_parallel_size"] = sp
     keys = spec.get("batch_keys", ["tokens", "labels"])
     data = None
     if spec.get("loader"):
         data = list(zip(*(inputs[k][0] for k in keys)))
-    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
-        config=config, model=model, model_parameters=params,
-        param_groups=spec.get("param_groups"), device="cpu", mesh=mesh,
-        training_data=data)
-    assert (engine.dp_world_size * mp * pp == world
+    expect = spec.get("expect")
+    try:
+        engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+            config=config, model=model, model_parameters=params or None,
+            param_groups=spec.get("param_groups"), device="cpu", mesh=mesh,
+            training_data=data)
+        if expect == "forward":
+            engine(*(inputs[k][0][:engine.train_micro_batch_size_per_gpu()]
+                     for k in keys))
+    except Exception as e:      # the error the run expects, recorded
+        if expect is None:
+            raise
+        return {"error": np.asarray(f"{type(e).__name__}: {e}")}
+    if expect is not None:
+        raise AssertionError(f"the run did not raise at {expect}")
+    assert (engine.dp_world_size * mp * pp * sp == world
             and engine.global_rank == rank)
     dpr = engine.topology.dp_rank
     load_error = ""
@@ -450,9 +487,11 @@ def _train(spec, inputs, rank, world):
                                        {}).get("max_held_inputs", -1))
     topo = engine.topology
     extra["topo/coords"] = np.asarray([topo.dp_rank, topo.pp_rank,
-                                       topo.mp_rank])
+                                       topo.mp_rank] + (
+        [topo.sp_rank] if sp > 1 else []))
     for key, group in (("model", topo.model_group),
-                       ("pipe", topo.pipe_group), ("data", topo.group)):
+                       ("pipe", topo.pipe_group), ("data", topo.group),
+                       ("seq", topo.seq_group)):
         extra[f"topo/{key}"] = np.asarray(
             [rank] if group is None
             else torch.distributed.get_process_group_ranks(group))
@@ -518,6 +557,45 @@ def run_pipe_raw(spec, inputs, rank, world):
     return out
 
 
+def run_seq_attn(spec, inputs, rank, world):
+    """Ring or Ulysses attention on this rank's sequence blocks (see the
+    module docstring)."""
+    from deepspeed_tpu_torch.models.ring_attention import ring_attention
+    from deepspeed_tpu_torch.models.ulysses import ulysses_attention
+    device = torch.device(spec.get("device", "cpu"))
+    topology.init_distributed(device=device, backend="gloo")
+    topo = topology.make_topology({"context_parallel_size": world}, device)
+    assert topo.sp == world and topo.sp_rank == rank
+    out = {}
+
+    def block(key):
+        x = np.array(inputs[key])
+        n = x.shape[1] // world
+        return torch.from_numpy(np.ascontiguousarray(
+            x[:, rank * n:(rank + 1) * n])).to(device)
+
+    for case in spec["cases"]:
+        pre = case["input"]
+        q, k, v = (block(f"{pre}/{n}").requires_grad_() for n in "qkv")
+        mask = block(f"{pre}/mask") if case.get("masked") else None
+        if case["impl"] == "ring":
+            y = ring_attention(q, k, v, causal=case["causal"], kv_mask=mask,
+                               group=topo.seq_group)
+        else:
+            y = ulysses_attention(q, k, v, causal=case["causal"],
+                                  attn_mask=mask, group=topo.seq_group)
+        (y.float() * block(f"{pre}/dy")).sum().backward()
+        name = case["name"]
+        out[f"{name}/y"] = y.detach().float().cpu().numpy()
+        for n, t in zip("qkv", (q, k, v)):
+            out[f"{name}/d{n}"] = t.grad.float().cpu().numpy()
+    from deepspeed_tpu_torch.ops import block_attention, stream_attention
+    for mod in (stream_attention, block_attention):
+        out.update({f"launches/{k}": np.asarray(n)
+                    for k, n in mod.LAUNCHES.items()})
+    return out
+
+
 def main():
     spec_path, rank = pathlib.Path(sys.argv[1]), int(sys.argv[2])
     spec = json.loads(spec_path.read_text())
@@ -525,7 +603,7 @@ def main():
     torch.set_num_threads(1)
     inputs = np.load(spec["inputs"])
     run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
-           "tp_layers": run_tp_layers,
+           "tp_layers": run_tp_layers, "seq_attn": run_seq_attn,
            "pipe_raw": run_pipe_raw}[spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)

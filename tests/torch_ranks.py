@@ -7,6 +7,8 @@ package's launch contract and a ``file://`` rendezvous in that directory,
 waits for all of them under a hard timeout that kills the rest, and
 returns each rank's ``out_<rank>.npz`` as a dict.  The children import
 torch and the port only; they do not pass through ``tests/conftest.py``.
+They see no card unless ``cuda`` is set (the card tests' ranks share it
+over gloo).
 """
 
 import json
@@ -21,7 +23,7 @@ import numpy as np
 WORKER = pathlib.Path(__file__).resolve().parent / "torch_rank_worker.py"
 
 
-def run_ranks(workdir, world, spec, inputs, timeout=150):
+def run_ranks(workdir, world, spec, inputs, timeout=150, cuda=False):
     workdir = pathlib.Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     np.savez(workdir / "inputs.npz", **inputs)
@@ -33,7 +35,9 @@ def run_ranks(workdir, world, spec, inputs, timeout=150):
         rdv.unlink()
     env = dict(os.environ, DSTPU_COORDINATOR=f"file://{rdv}",
                DSTPU_NUM_PROCESSES=str(world), OMP_NUM_THREADS="1",
-               CUDA_VISIBLE_DEVICES="", PYTHONWARNINGS="ignore")
+               PYTHONWARNINGS="ignore")
+    if not cuda:
+        env["CUDA_VISIBLE_DEVICES"] = ""
     procs = []
     try:
         for rank in range(world):
