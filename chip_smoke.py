@@ -111,11 +111,13 @@ Phases (each prints one JSON line, with the seconds since the start as
    ZeRO partition file), run B, from another seed, loads it and takes
    steps 4-6; losses, flat master, moments, step, loss scale and counters
    bitwise equal to run A's; save bytes and seconds, load seconds.
-   gpt2_reference: train_gpt2's run at EARLY_LAYERS (12) of GPT-2
-   medium's 24 layers, full width: the losses tp_gpt2 and pp_gpt2 are held
-   to, since those two-rank phases (and zero3_gpt2) run at that depth so
-   that the script stays inside its time limit with phases 19 and 20.
-16. tp_gpt2: GPT-2 medium (12 layers) as train_gpt2 at mp 2, dp 1, as two
+   gpt2_reference: train_gpt2's run at EARLY_LAYERS (6) of GPT-2
+   medium's 24 layers, full width: the losses tp_gpt2, pp_gpt2 and
+   zero3_pp_gpt2 are held to, since the multi-rank phases 16-20 run at
+   that depth so that the script stays inside its time limit with phase
+   21.  gpt2_1024_reference: train_gpt2_1024's run at that depth, for
+   sp_gpt2.
+16. tp_gpt2: GPT-2 medium (6 layers) as train_gpt2 at mp 2, dp 1, as two
    processes on the one card (``chip_smoke.py --tp-child``) over a gloo
    model group
    (NCCL refuses two ranks on one device, so each collective stages
@@ -131,7 +133,7 @@ Phases (each prints one JSON line, with the seconds since the start as
    within 1e-5, launches exact per rank (whole-tile 144 + 144, Adam 96 in
    (a), and the bucket count a step in (b)); step ms, peak memory per
    rank, the save's file sizes.
-17. zero3_gpt2: GPT-2 medium (12 layers) under ZeRO-3 at dp 2 (seq 128,
+17. zero3_gpt2: GPT-2 medium (6 layers) under ZeRO-3 at dp 2 (seq 128,
    bf16, Adam lr 1e-4, micro-batch 16 per rank, gas 2: train_gpt2's 64
    rows a step), as
    two processes on the one card (``chip_smoke.py --z3-child``) over a
@@ -147,7 +149,7 @@ Phases (each prints one JSON line, with the seconds since the start as
    per rank (Adam 16 shard leaves a step, whole-tile 24 + 24, the remat
    replaying the forward); the layout, peak memory, step ms, the save's
    files, save and load seconds.
-18. pp_gpt2: GPT-2 medium (12 layers) at pp 2 (6 a stage; seq 128, bf16,
+18. pp_gpt2: GPT-2 medium (6 layers) at pp 2 (3 a stage; seq 128, bf16,
    Adam lr 1e-4, micro-batch 32, gas 2, 8 pipeline micro-batches of 4
    rows, so the head is sharded over the stages), as two stage processes
    on the one card (``chip_smoke.py --pp-child``) over a gloo pipe group
@@ -162,35 +164,64 @@ Phases (each prints one JSON line, with the seconds since the start as
    stage (whole-tile 96 + 96 a step; 1F1B replays the forward on stage
    0; Adam 16 leaves a step); one model file per stage, peak memory,
    step ms, save and load seconds.
-19. sp_gpt2: GPT-2 medium (24 layers) at seq 1024 and sp 2, dp 1, as two
+19. sp_gpt2: GPT-2 medium (6 layers) at seq 1024 and sp 2, dp 1, as two
    seq-rank processes on the one card (``chip_smoke.py --sp-child``) over a
    gloo seq group (the ring's shifts, Ulysses' all-to-alls and the
    gradients' seq sum stage through the host: not NVLink's step times),
    train_gpt2_1024's seed-0 weights and batch, 512 tokens a rank: (a)
    ring attention, 6 steps, saved after step 3; (b) Ulysses (8 local heads
    of 16), 3 steps; (c) fresh processes resume (a)'s save.  Checks: (a)
-   and (b) within 1e-2 of train_gpt2_1024's losses step for step and of
-   each other, (c) bitwise equal to (a)'s steps 4-6, launches exact per
-   rank (the ring: no attention kernel; Ulysses: 48 streaming forwards,
+   and (b) within 1e-2 of gpt2_1024_reference's losses step for step and
+   of each other, (c) bitwise equal to (a)'s steps 4-6, launches exact per
+   rank (the ring: no attention kernel; Ulysses: 12 streaming forwards,
    dkv and dq a step at G = 4 x 8, T 1024; Adam 16 leaves a step), the
    save the files of an sp 1 save (this process loads it at sp 1 and saves
    it again: the same names and sizes); the peak per rank, step ms.
-20. zero3_pp_gpt2: GPT-2 medium (24 layers) at seq 128 under ZeRO-3 at dp
+20. zero3_pp_gpt2: GPT-2 medium (6 layers) at seq 128 under ZeRO-3 at dp
    2 x pp 2, as four processes (``chip_smoke.py --z3pp-child``) over gloo,
    train_gpt2's weights and 64-row batch (a data rank's 32 rows as
    micro-batch 16 x gas 2, 4 pipeline micro-batches of 4 rows): (a)
-   GPipe, 4 steps, saved after step 2, within 2e-2 of train_gpt2's
+   GPipe, 4 steps, saved after step 2, within 2e-2 of gpt2_reference's
    losses; (b) 1F1B, 3 steps, within 1e-2 of (a); (c) fresh processes
    resume (a)'s save bitwise.  Each rank holds half of its stage's
    partitioned leaves, the shard files carry the row ``pp_stage * mp +
-   mp_rank``, and launches are exact per rank (whole-tile 96 + 96 a step,
+   mp_rank``, and launches are exact per rank (whole-tile 24 + 24 a step,
    1F1B replaying the forward on stage 0; Adam 16 shard leaves a step).
-21. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
+21. moe_gpt2: GPT2MoE at GPT-2 medium's width with 8 experts a layer
+   (top-1, capacity 1.25, aux weight 0.01; seq 128, bf16, Adam lr 1e-4,
+   micro-batch 16, gas 2, seeded weights and batch, ZeRO off): (a) all 24
+   layers (1,765,214,208 parameters, 17 leaves), 6 steps, each step's
+   weighted aux term printed; the Adam kernel on the 805,306,368-element
+   expert leaf against adam_plain, with its time and bound; (b) top-2, 3
+   steps; (c) moe_reference: (a) at MID_LAYERS (12), 6 steps; (d) that model
+   at ep 2 (mp 2) as two processes on the one card (``chip_smoke.py
+   --moe-child``) over gloo, ZeRO-1, 6 steps, saved after step 3 (free
+   space in build/ checked first), 4 experts a rank, within 2e-2 of (c)
+   step for step; (e) fresh processes resume the save, bitwise equal
+   (losses, flat master, moments).  Launches exact (Adam 17 leaves a step
+   at ZeRO off, one flat launch a step at ep 2; whole-tile 48 + 48 a step
+   at 24 layers, 24 + 24 a rank at 12); peaks, step ms, file sizes.
+   multistep_gpt2: GPT-2 medium at MID_LAYERS under the deterministic
+   flag, 8 batches as 8 ``train_batch`` calls and as two ``train_many``
+   blocks of 4 fed by ``BlockPrefetcher(place=...)``: masters, moments,
+   counters and the last loss bitwise equal; then in fp16 with a NaN loss
+   at step 2 (``chaos.poison_batch`` on a float batch leaf the loss is
+   multiplied by), one skip both ways; the second block's step ms both
+   ways and exact launches.
+   resume_gpt2: ``resilience.run_resumable`` over ``train_many`` blocks of
+   2 in child processes (``chip_smoke.py --resume-child``; GPT-2 medium at
+   MID_LAYERS, the watchdog armed): an unbroken child to step 8; a child
+   SIGTERM'd by chaos at step 3 drains at step 4, writes an emergency tag
+   and exits RESUME_EXIT_CODE; a relaunch resumes to step 8, its masters
+   bitwise equal to the unbroken child's (one restart, no watchdog fire).
+   ``chip_smoke.py --only moe_gpt2,multistep_gpt2,resume_gpt2`` runs the
+   build and the named phases of these three alone, with no result line.
+22. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
    (the data for the dispatch defaults in models/layers.py).
-22. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
+23. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
    heads, d 64, seq 256-2048, CUDA events): each seq's times, the
    threshold it returns and the port's table's; a disagreement is
    recorded, not a failure.
@@ -2120,12 +2151,18 @@ TP_LOSS_RTOL = 2e-2
 # the sums split over two ranks
 TP_TINY_RTOL = 1e-5
 TP_CHILD_TIMEOUT = 600
-# the depth of the two-rank phases of GPT-2 medium before sp_gpt2
-# (tp_gpt2, zero3_gpt2, pp_gpt2): 12 of its 24 layers, at its full width,
-# so that the whole script stays well inside its time limit with the two
-# full-depth phases after them; tp_gpt2 and pp_gpt2 are held to
-# gpt2_reference, train_gpt2's weights and batch at this depth
-EARLY_LAYERS = 12
+# the depth of the multi-rank phases of GPT-2 medium before this slice's
+# (tp_gpt2, zero3_gpt2, pp_gpt2, sp_gpt2, zero3_pp_gpt2): 6 of its 24
+# layers, at its full width, so that the whole script stays inside its
+# time limit with moe_gpt2, multistep_gpt2 and resume_gpt2 after them (at
+# 12 layers the script took 1,147 s of its 1,200); tp_gpt2, pp_gpt2 and
+# zero3_pp_gpt2 are held to gpt2_reference, sp_gpt2 to
+# gpt2_1024_reference, train_gpt2's and train_gpt2_1024's weights and
+# batches at this depth
+EARLY_LAYERS = 6
+# the depth of moe_gpt2's ep 2 runs and their reference, multistep_gpt2
+# and resume_gpt2: 12 of the 24 layers, full width
+MID_LAYERS = 12
 
 
 def _depth(layers):
@@ -2134,16 +2171,19 @@ def _depth(layers):
     return {} if layers is None else {"num_layers": int(layers)}
 
 
-def phase_gpt2_reference(device, layers=EARLY_LAYERS):
+def phase_gpt2_reference(device, layers=EARLY_LAYERS, micro=MICRO,
+                         seq=GPT2_SEQ, name="gpt2_reference"):
     """train_gpt2's run (seed-0 weights, its batch, 6 steps, mp 1, ZeRO
-    off) at ``layers`` layers: the losses the shallower two-rank phases
-    are held to."""
-    engine = make_engine(gpt2_config(MICRO), device, size="medium",
-                         gpt2=True, **_depth(layers))
-    batch = lm_batch(MICRO * GAS, GPT2_SEQ, engine.module.config.vocab_size)
+    off) at ``layers`` layers, or at ``seq`` 1024 train_gpt2_1024's
+    (``micro`` 4): the losses the shallower multi-rank phases are held
+    to."""
+    over = {} if seq == GPT2_SEQ else {"max_seq_len": seq}
+    engine = make_engine(gpt2_config(micro), device, size="medium",
+                         gpt2=True, **_depth(layers), **over)
+    batch = lm_batch(micro * GAS, seq, engine.module.config.vocab_size)
     losses = [float(engine.train_batch(batch)) for _ in range(GPT2_STEPS)]
-    emit("gpt2_reference", model="gpt2-medium", layers=layers, seq=GPT2_SEQ,
-         micro_batch=MICRO, gas=GAS, losses=losses)
+    emit(name, model="gpt2-medium", layers=layers, seq=seq,
+         micro_batch=micro, gas=GAS, losses=losses)
     del engine, batch
     free(device)
     return losses
@@ -3035,7 +3075,8 @@ def sp_child(spec_path, rank):
 
     def engine(impl, seed=0):
         return make_engine(sp_config(micro, impl), device, size=size,
-                           seed=seed, gpt2=True, max_seq_len=spec["seq"])
+                           seed=seed, gpt2=True, max_seq_len=spec["seq"],
+                           **_depth(spec["layers"]))
 
     with deterministic():
         if spec["mode"] == "train":
@@ -3066,7 +3107,7 @@ def sp_child(spec_path, rank):
 
 
 def phase_sp_gpt2(device, sp1_losses, size="medium", micro=GPT2_1024_MICRO,
-                  seq=GPT2_1024_SEQ):
+                  seq=GPT2_1024_SEQ, layers=None):
     """GPT-2 medium at seq 1024, sp 2, on two processes over gloo (see
     SP): (a) ring attention, 6 steps, saved after step 3; (b) Ulysses, 3
     steps; each within SP_LOSS_RTOL of ``sp1_losses`` (train_gpt2_1024's,
@@ -3086,13 +3127,13 @@ def phase_sp_gpt2(device, sp1_losses, size="medium", micro=GPT2_1024_MICRO,
     work = pathlib.Path(tempfile.mkdtemp(prefix="sp_gpt2_",
                                          dir=ROOT / "build"))
     run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
-           "micro": micro, "seq": seq}
+           "micro": micro, "seq": seq, "layers": layers}
     try:
         tr = _tp_launch(work, "train", run, flag="--sp-child", world=SP)
         rs = _tp_launch(work, "resume", run, flag="--sp-child", world=SP)
         # the sp 2 save into one process at sp 1, saved again there
         eng = make_engine(gpt2_config(micro), device, size=size, seed=2,
-                          gpt2=True, max_seq_len=seq)
+                          gpt2=True, max_seq_len=seq, **_depth(layers))
         t0 = time.perf_counter()
         eng.load_checkpoint(run["ckpt"])
         sync(device)
@@ -3171,13 +3212,13 @@ def phase_sp_gpt2(device, sp1_losses, size="medium", micro=GPT2_1024_MICRO,
 
 
 # the zero3_pp_gpt2 phase: GPT-2 medium at seq 128 under ZeRO-3 at dp 2 x
-# pp 2 (12 layers a stage), as four child processes on the one card over
-# gloo groups (every gather, reduce-scatter, activation and gradient
-# stages through the host: the step times are not NVLink's).  train_gpt2's
-# (and pp_gpt2's) seed-0 weights and 64-row batch: each data rank takes its
-# 32 rows as micro-batch 16 x gas 2, streamed as 4 pipeline micro-batches
-# of 4 rows (the rows pp_gpt2 streams), so the head is sharded over the
-# stages.
+# pp 2 (EARLY_LAYERS / 2 layers a stage), as four child processes on the
+# one card over gloo groups (every gather, reduce-scatter, activation and
+# gradient stages through the host: the step times are not NVLink's).
+# train_gpt2's (and pp_gpt2's) seed-0 weights and 64-row batch: each data
+# rank takes its 32 rows as micro-batch 16 x gas 2, streamed as 4 pipeline
+# micro-batches of 4 rows (the rows pp_gpt2 streams), so the head is
+# sharded over the stages.
 Z3PP_DP, Z3PP_MICRO, Z3PP_SAVE_AT = 2, 16, 2
 Z3PP_STEPS, Z3PP_SHORT_STEPS = 4, 3
 Z3PP_MICRO_BATCHES = Z3PP_MICRO // 4
@@ -3216,7 +3257,7 @@ def z3pp_child(spec_path, rank):
         gen = torch.Generator(device=device).manual_seed(seed)
         model = GPT2Pipelined.from_size(
             size, num_micro_batches=Z3PP_MICRO_BATCHES, generator=gen,
-            device=device)
+            device=device, **_depth(spec["layers"]))
         return deepspeed_tpu_torch.initialize(config=cfg, model=model,
                                               device=device)[0]
 
@@ -3263,11 +3304,12 @@ def z3pp_child(spec_path, rank):
 
 
 def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
-                        micro=Z3PP_MICRO):
+                        micro=Z3PP_MICRO, layers=None):
     """GPT-2 medium under ZeRO-3 at dp 2 x pp 2 on four processes over
     gloo (see Z3PP_DP): (a) GPipe, 4 steps, saved after step 2, within
-    Z3PP_LOSS_RTOL of ``ref_losses`` (train_gpt2's: ZeRO off at pp 1 and
-    dp 1, the same weights and batch), (b) 1F1B, 3 steps, within
+    Z3PP_LOSS_RTOL of ``ref_losses`` (gpt2_reference's at ``layers``:
+    ZeRO off at pp 1 and dp 1, the same weights and batch), (b) 1F1B, 3
+    steps, within
     Z3PP_1F1B_RTOL of
     (a); (c) fresh processes resume (a)'s save, bitwise equal to (a)'s
     steps 3-4.  Each rank holds half of its stage's partitioned leaves;
@@ -3284,7 +3326,7 @@ def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
     work = pathlib.Path(tempfile.mkdtemp(prefix="zero3_pp_gpt2_",
                                          dir=ROOT / "build"))
     run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
-           "micro": micro}
+           "micro": micro, "layers": layers}
     try:
         tr = _tp_launch(work, "train", run, flag="--z3pp-child", world=world)
         tag = f"global_step{Z3PP_SAVE_AT}"
@@ -3376,6 +3418,578 @@ def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
     return {k: [r["launches"] for r in rr] for k, rr in runs.items()}
 
 
+# the moe_gpt2 phase: GPT-2 medium with 8 experts a layer (GPT2MoE, the
+# JAX gpt2_moe.py: top-1 Switch routing at capacity 1.25), seq 128, bf16,
+# Adam lr 1e-4, micro-batch 16, gas 2, from seeded weights and batch.
+# (a) top-1 at its full 24 layers, (b) top-2, (c) moe_reference: (a) at
+# MID_LAYERS, (d) the 12-layer model at ep 2 (mp 2) as two child
+# processes on the one card over gloo, ZeRO-1, saved after step 3, (e)
+# fresh processes resume (d)'s save
+MOE_EXPERTS, MOE_MICRO, MOE_SAVE_AT, MOE_TOP2_STEPS, MOE_EP = 8, 16, 3, 3, 2
+MOE_ZERO = {"stage": 1, "overlap_comm": False}
+# (d) at ep 2 against (c) at ep 1: the same routing, the combine's two
+# partial sums and the row-parallel products rounded to bf16 before their
+# sum, which (c) does not do (tp_gpt2's limit)
+MOE_EP_RTOL = 2e-2
+# bytes a save of the ep 2 model takes per parameter: the bf16 module and
+# the fp32 master and two moments, with a margin
+MOE_SAVE_BYTES_PER_PARAM = 14 * 1.25
+
+
+def moe_engine(device, top_k=1, seed=0, layers=None, zero=None, mp=1,
+               micro=MOE_MICRO, size="medium"):
+    """GPT-2 medium MoE (``layers`` deep) from ``seed`` through
+    ``initialize``; its model records each forward's weighted aux term in
+    ``aux_terms``."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2MoE
+
+    class RecordedMoE(GPT2MoE):
+        aux_terms = []
+
+        def _stack(self, x, blocks, z3_dims=None):
+            x, aux = super()._stack(x, blocks, z3_dims)
+            self.aux_terms.append(aux.detach())
+            return x, aux
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = RecordedMoE.from_size(size, num_experts=MOE_EXPERTS,
+                                  router_top_k=top_k, generator=gen,
+                                  device=device, **_depth(layers))
+    cfg = gpt2_config(micro)
+    if zero is not None:
+        cfg["zero_optimization"] = zero
+    mesh = (deepspeed_tpu_torch.MeshConfig(model_parallel_size=mp)
+            if mp > 1 else None)
+    return deepspeed_tpu_torch.initialize(config=cfg, model=model,
+                                          device=device, mesh=mesh)[0]
+
+
+def _moe_run(eng, batch, steps, device):
+    """``steps`` train_batch steps: losses, step ms, the weighted aux term
+    of each step's last micro-step, launches, peak."""
+    losses, step_ms, aux = [], [], []
+    sync(device)
+    _reset_peak(device)
+    reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)))
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        aux.append(float(eng.module.aux_terms[-1]))
+        eng.module.aux_terms.clear()
+    return {"losses": losses, "step_ms": step_ms, "aux": aux,
+            "launches": launch_counts(), "peak_mem_gib": _peak_gib(device)}
+
+
+def moe_child(spec_path, rank):
+    """One rank of moe_gpt2's ep 2 runs (started by ``phase_moe_gpt2``):
+    mode "train" runs (d), saved after step MOE_SAVE_AT; mode "resume" runs
+    (e).  Writes ``<mode>_<rank>.json`` beside the spec."""
+    import torch.distributed as dist
+    spec, device = _child_setup(spec_path, rank, MOE_EP)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+    with deterministic():
+        if spec["mode"] == "train":
+            eng = moe_engine(device, layers=spec["layers"], zero=MOE_ZERO,
+                             mp=MOE_EP, micro=spec["micro"],
+                             size=spec["size"])
+            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                             eng.module.config.vocab_size)
+            out["d"] = dict(
+                _child_run(eng, batch, GPT2_STEPS, device, spec["ckpt"],
+                           MOE_SAVE_AT),
+                local_params=eng.num_parameters(),
+                local_experts=eng.module.blocks.exp1_w.shape[1],
+                expert_leaf=list(eng.module.blocks.exp1_w.shape))
+        else:
+            eng = moe_engine(device, seed=1, layers=spec["layers"],
+                             zero=MOE_ZERO, mp=MOE_EP, micro=spec["micro"],
+                             size=spec["size"])
+            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                             eng.module.config.vocab_size)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(spec["ckpt"])
+            sync(device)
+            load_s = time.perf_counter() - t0
+            out["e"] = dict(_child_run(eng, batch, GPT2_STEPS - MOE_SAVE_AT,
+                                       device), load_s=load_s)
+        del eng
+    return _child_finish(spec_path, spec, out, t_start, device)
+
+
+def _expert_leaf_adam(engine, device):
+    """The Adam kernel on the MoE's largest leaf (``blocks.exp1_w``, [L, E,
+    h, 4h]) against ``adam_plain`` on the engine's master and moments and
+    seeded grads; times and the bound (bytes at HBM_BYTES_PER_S)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cuda_optim
+    opt, st = engine.base_optimizer, engine.opt_state
+    name = "blocks.exp1_w"
+    p0 = engine.master[name]
+    n = p0.numel()
+    gen = torch.Generator(device=device).manual_seed(7)
+    g = torch.randn(p0.shape, generator=gen, device=device) * 1e-3
+    ss = opt._step_size(opt.lr, st.step + 1, opt.beta1, opt.beta2)
+    scal = cuda_optim.make_scalars(
+        [(opt.beta1, opt.beta2, ss, opt.weight_decay, opt.lr)],
+        torch.tensor(1.0, device=device), device)[0]
+    kw = dict(eps=opt.eps, eps_inside_sqrt=opt.eps_inside_sqrt,
+              decoupled=opt.decoupled_decay)
+    kst = [p0.clone(), st.m[name].clone(), st.v[name].clone()]
+    cuda_optim.fused_adam_update(kst[0], g, kst[1], kst[2], scal, **kw)
+    sync(device)
+    pst = [p0.clone(), st.m[name].clone(), st.v[name].clone()]
+    cuda_optim.adam_plain(pst[0], g, pst[1], pst[2], scal, **kw)
+    sync(device)
+    errs = {o: _max_err([a], [b]) for o, a, b in zip("pmv", kst, pst)}
+    del pst
+    p, m, v = kst
+
+    def kernel():
+        cuda_optim.fused_adam_update(p, g, m, v, scal, **kw)
+
+    def plain():
+        cuda_optim.adam_plain(p, g, m, v, scal, **kw)
+
+    ms = plain_ms = None            # a CPU rehearsal times nothing
+    if device.type == "cuda":
+        ms = min(_time_ms(kernel, device, calls=5, reps=3),
+                 _time_ms(kernel, device, calls=5, reps=3))
+        plain_ms = _time_ms(plain, device, calls=2, reps=3)
+    del kst, p, m, v, g
+    free(device)
+    return {"leaf": name, "shape": list(p0.shape), "elements": n,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": _bound_ms("adam", n),
+            "bound_by": "bytes",
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "errors": {o: {"max_abs": e[0], "max_rel": e[1], "ok": e[2]}
+                       for o, e in errs.items()},
+            "ok": all(e[2] for e in errs.values())}
+
+
+def phase_moe_gpt2(device, size="medium", micro=MOE_MICRO, layers=None,
+                   ep_layers=MID_LAYERS):
+    """GPT-2 ``size`` with 8 experts (see MOE_EXPERTS): (a) top-1 at
+    ``layers`` (None: all of them), 6 steps, with the expert leaf's Adam
+    check; (b) top-2, 3 steps; (c) moe_reference at ``ep_layers``; (d),
+    (e) at ep 2 in child processes.  Returns the launches of each run and
+    the expert leaf's check.  ``phase_moe_gpt2(torch.device("cpu"),
+    size="tiny", micro=2, ep_layers=2)`` rehearses it on the CPU (the
+    kernel checks fail there by design)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    kw = dict(micro=micro, size=size)
+    # (a) top-1 at full depth
+    eng = moe_engine(device, layers=layers, **kw)
+    cfg = eng.module.config
+    batch = lm_batch(micro * GAS, GPT2_SEQ, cfg.vocab_size)
+    leaves = len(eng.master)
+    a = dict(_moe_run(eng, batch, GPT2_STEPS, device),
+             params=eng.num_parameters(), leaves=leaves,
+             layers=cfg.num_layers)
+    leaf = _expert_leaf_adam(eng, device)
+    del eng
+    free(device)
+    # (b) top-2
+    eng = moe_engine(device, top_k=2, layers=layers, **kw)
+    b = _moe_run(eng, batch, MOE_TOP2_STEPS, device)
+    del eng
+    free(device)
+    # (c) moe_reference: top-1 at the ep 2 runs' depth
+    eng = moe_engine(device, layers=ep_layers, **kw)
+    c = dict(_moe_run(eng, batch, GPT2_STEPS, device),
+             params=eng.num_parameters())
+    del eng
+    free(device)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    need = c["params"] * MOE_SAVE_BYTES_PER_PARAM
+    have = shutil.disk_usage(ROOT / "build").free
+    if have < need:
+        raise AssertionError(f"moe_gpt2: build/ has {have} bytes free, the "
+                             f"ep 2 save needs about {need:.0f}")
+    work = pathlib.Path(tempfile.mkdtemp(prefix="moe_gpt2_",
+                                         dir=ROOT / "build"))
+    run = {"device": str(device), "ckpt": str(work / "ckpt"),
+           "layers": ep_layers, **kw}
+    try:
+        tr = _tp_launch(work, "train", run, flag="--moe-child",
+                        world=MOE_EP)
+        rs = _tp_launch(work, "resume", run, flag="--moe-child",
+                        world=MOE_EP)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    d, e = [r["d"] for r in tr], [r["e"] for r in rs]
+
+    def attn(nl, steps):
+        return nl * GAS * steps
+    rest = GPT2_STEPS - MOE_SAVE_AT
+    expect = {
+        "a": no_launches(adam=leaves * GPT2_STEPS,
+                         block_fwd=attn(a["layers"], GPT2_STEPS),
+                         block_bwd=attn(a["layers"], GPT2_STEPS)),
+        "b": no_launches(adam=leaves * MOE_TOP2_STEPS,
+                         block_fwd=attn(a["layers"], MOE_TOP2_STEPS),
+                         block_bwd=attn(a["layers"], MOE_TOP2_STEPS)),
+        "c": no_launches(adam=leaves * GPT2_STEPS,
+                         block_fwd=attn(ep_layers, GPT2_STEPS),
+                         block_bwd=attn(ep_layers, GPT2_STEPS)),
+        # ZeRO-1 with overlap off: one flat launch a step
+        "d": no_launches(adam=GPT2_STEPS,
+                         block_fwd=attn(ep_layers, GPT2_STEPS),
+                         block_bwd=attn(ep_layers, GPT2_STEPS)),
+        "e": no_launches(adam=rest, block_fwd=attn(ep_layers, rest),
+                         block_bwd=attn(ep_layers, rest))}
+    gap = [abs(x - y) / abs(y) for x, y in zip(d[0]["losses"], c["losses"])]
+    checks = {
+        "finite": all(np.isfinite(r["losses"]).all() and
+                      np.isfinite(r["aux"]).all() for r in (a, b, c)),
+        "expert_leaf_adam": leaf["ok"],
+        "ep2_losses_equal_across_ranks": d[0]["losses"] == d[1]["losses"]
+        and e[0]["losses"] == e[1]["losses"],
+        "ep2_vs_ep1": max(gap) <= MOE_EP_RTOL,
+        "four_experts_a_rank": all(r["local_experts"] == MOE_EXPERTS
+                                   // MOE_EP for r in d),
+        "resume_bitwise": all(
+            z["losses"] == y["losses"][MOE_SAVE_AT:]
+            and z["digest"] == y["digest"] for z, y in zip(e, d)),
+        "launches": all(r["launches"] == expect[k] for k, r in
+                        (("a", a), ("b", b), ("c", c)))
+        and all(r["launches"] == expect["d"] for r in d)
+        and all(r["launches"] == expect["e"] for r in e)}
+    emit("moe_gpt2", model=f"gpt2-{size}-moe", experts=MOE_EXPERTS,
+         capacity_factor=1.25, aux_weight=0.01, seq=GPT2_SEQ,
+         micro_batch=micro, gas=GAS, dtype="bf16", optimizer="Adam",
+         lr=1e-4, params=a["params"], leaves=leaves, layers=a["layers"],
+         ep_layers=ep_layers, ep=MOE_EP, ep_zero=MOE_ZERO,
+         ep_transport="gloo over the host (not NVLink)",
+         ep_local_params=d[0]["local_params"],
+         ep_expert_leaf=d[0]["expert_leaf"],
+         losses={"a_top1": a["losses"], "b_top2": b["losses"],
+                 "c_reference": c["losses"], "d_ep2": d[0]["losses"],
+                 "e_resumed": e[0]["losses"]},
+         aux_weighted={"a_top1": a["aux"], "b_top2": b["aux"],
+                       "c_reference": c["aux"]},
+         ep2_vs_ep1_rel=gap, step_ms={"a_top1": a["step_ms"],
+                                      "b_top2": b["step_ms"],
+                                      "c_reference": c["step_ms"]},
+         step_ms_over_gloo={"d": [r["step_ms"] for r in d],
+                            "e": [r["step_ms"] for r in e]},
+         samples_per_s_steady={
+             k: micro * GAS * (len(r["step_ms"]) - 1)
+             / (sum(r["step_ms"][1:]) / 1e3)
+             for k, r in (("a_top1", a), ("b_top2", b), ("c_reference", c))},
+         peak_mem_gib={"a_top1": a["peak_mem_gib"],
+                       "b_top2": b["peak_mem_gib"],
+                       "c_reference": c["peak_mem_gib"],
+                       "d": [r["peak_mem_gib"] for r in d],
+                       "e": [r["peak_mem_gib"] for r in e]},
+         ckpt_files=d[0]["files"], save_s=[r["save_s"] for r in d],
+         load_s=[r["load_s"] for r in e], expert_leaf_adam=leaf,
+         launches={"a": a["launches"], "b": b["launches"],
+                   "c": c["launches"], "d": [r["launches"] for r in d],
+                   "e": [r["launches"] for r in e]},
+         expected_launches=expect,
+         child_seconds=[r["seconds"] for r in tr + rs], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"moe_gpt2 phase failed: {checks}")
+    return {"launches": {"a": a["launches"], "b": b["launches"],
+                         "c": c["launches"],
+                         "d": [r["launches"] for r in d],
+                         "e": [r["launches"] for r in e]},
+            "expert_leaf": leaf}
+
+
+# the multistep_gpt2 phase: GPT-2 medium at MID_LAYERS, seq 128, under the
+# deterministic flag; MULTI_BLOCKS blocks of MULTI_K batches as train_batch
+# calls and as train_many blocks fed by BlockPrefetcher(place=...), in bf16
+# and in fp16 with a chaos non-finite loss at step 2 (that block replays).
+# The step times are the last block's: the first carries the warm-up.
+MULTI_K, MULTI_BLOCKS = 4, 2
+
+
+def chaos_gpt2_engine(device, cfg, layers, seed=0, size="medium"):
+    """GPT-2 medium whose batch carries a float ``poison`` leaf [rows]: the
+    loss is multiplied by ``1 + mean(poison)`` (exactly the loss for zeros;
+    NaN everywhere once ``chaos.poison_batch`` fills it with NaN)."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2
+
+    class ChaosGPT2(GPT2):
+        def forward(self, tokens, labels, poison):
+            loss = super().forward(tokens, labels)
+            return loss * (1.0 + poison.float().mean())
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = ChaosGPT2.from_size(size, generator=gen, device=device,
+                                **_depth(layers))
+    return deepspeed_tpu_torch.initialize(config=cfg, model=model,
+                                          device=device)[0]
+
+
+def phase_multistep_gpt2(device, size="medium", micro=MICRO,
+                         layers=MID_LAYERS):
+    """(a) MULTI_BLOCKS x MULTI_K train_batch calls and (b) as many
+    train_many blocks of the same batches (BlockPrefetcher staging them to
+    the device), bitwise equal; (c) the same in fp16 with a NaN loss at
+    step 2 (one skip both ways).  Returns the launches of each run.
+    ``phase_multistep_gpt2(torch.device("cpu"), size="tiny", micro=2,
+    layers=2)`` rehearses it on the CPU (the launch check fails there by
+    design)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.data import BlockPrefetcher, device_placer
+    from deepspeed_tpu_torch.resilience import chaos
+    rows, n = micro * GAS, MULTI_K * MULTI_BLOCKS
+
+    def batches(vocab):
+        out = []
+        for i in range(n):
+            toks, labels = lm_batch(rows, GPT2_SEQ, vocab, seed=10 + i)
+            out.append((toks, labels, np.zeros(rows, np.float32)))
+        return out
+
+    def serial(eng, bs):
+        sync(device)
+        reset_launch_counts()
+        losses, step_ms = [], []
+        for b in bs:
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch(b)))
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"losses": losses, "step_ms": step_ms,
+                "last_block_step_ms": sum(step_ms[-MULTI_K:]) / MULTI_K,
+                "launches": launch_counts()}
+
+    def blocks(eng, bs):
+        sync(device)
+        reset_launch_counts()
+        block_ms, last = [], None
+        t0 = time.perf_counter()
+        for blk in BlockPrefetcher(iter(bs), MULTI_K,
+                                   place=device_placer(device)):
+            last = float(eng.train_many(blk))
+            sync(device)
+            t1 = time.perf_counter()
+            block_ms.append((t1 - t0) * 1e3)
+            t0 = t1
+        return {"last_loss": last, "block_ms": block_ms,
+                "last_block_step_ms": block_ms[-1] / MULTI_K,
+                "launches": launch_counts()}
+
+    def state(eng):
+        ls = eng.loss_scale_state
+        return {"digest": _z3_digest(eng), "step": eng.opt_state.step,
+                "global_steps": eng.global_steps,
+                "skipped": eng.skipped_steps,
+                "loss_scale": float(ls.cur_scale)}
+
+    out = {}
+    with deterministic():
+        for prec_name in ("bf16", "fp16"):
+            cfg = gpt2_config(micro)
+            if prec_name == "fp16":
+                cfg.pop("bf16")
+                # 2^16: the default 2^32 overflows the first boundaries
+                cfg["fp16"] = {"enabled": True, "initial_scale_power": 16}
+            eng = chaos_gpt2_engine(device, cfg, layers, size=size)
+            bs = batches(eng.module.config.vocab_size)
+            if prec_name == "fp16":
+                bs[1] = chaos.poison_batch(bs[1])   # a NaN loss at step 2
+            leaves = len(eng.master)
+            s = dict(serial(eng, bs), **state(eng))
+            del eng
+            free(device)
+            eng = chaos_gpt2_engine(device, cfg, layers, size=size)
+            m = dict(blocks(eng, bs), **state(eng))
+            del eng
+            free(device)
+            out[prec_name] = (s, m)
+    attn = layers * GAS * n
+    (sb, mb), (sf, mf) = out["bf16"], out["fp16"]
+    # fp16: the skipped boundary launches no Adam; the first block's
+    # optimistic pass launches every boundary's, then its replay the
+    # serial count
+    expect = {"bf16_serial": no_launches(adam=leaves * n, block_fwd=attn,
+                                         block_bwd=attn),
+              "bf16_block": no_launches(adam=leaves * n, block_fwd=attn,
+                                        block_bwd=attn),
+              "fp16_serial": no_launches(adam=leaves * (n - 1),
+                                         block_fwd=attn, block_bwd=attn),
+              "fp16_block": no_launches(
+                  adam=leaves * (n + MULTI_K - 1),
+                  block_fwd=attn + attn // MULTI_BLOCKS,
+                  block_bwd=attn + attn // MULTI_BLOCKS)}
+    got = {"bf16_serial": sb["launches"], "bf16_block": mb["launches"],
+           "fp16_serial": sf["launches"], "fp16_block": mf["launches"]}
+    keys = ("digest", "step", "global_steps", "skipped", "loss_scale")
+    checks = {
+        "bf16_bitwise": all(sb[k] == mb[k] for k in keys)
+        and sb["losses"][-1] == mb["last_loss"],
+        "fp16_bitwise": all(sf[k] == mf[k] for k in keys)
+        and sf["losses"][-1] == mf["last_loss"],
+        "fp16_one_skip": sf["skipped"] == mf["skipped"] == 1,
+        "launches": got == expect}
+    emit("multistep_gpt2", model=f"gpt2-{size}", layers=layers,
+         seq=GPT2_SEQ, micro_batch=micro, gas=GAS, k=MULTI_K,
+         blocks=MULTI_BLOCKS, optimizer="Adam", lr=1e-4, deterministic=True,
+         leaves=leaves, losses={"bf16": sb["losses"], "fp16": sf["losses"]},
+         step_ms={"bf16_train_batch": sb["step_ms"],
+                  "fp16_train_batch": sf["step_ms"]},
+         block_ms={"bf16": mb["block_ms"], "fp16": mf["block_ms"]},
+         last_block_step_ms={
+             "bf16_train_batch": sb["last_block_step_ms"],
+             "bf16_train_many": mb["last_block_step_ms"],
+             "fp16_train_batch": sf["last_block_step_ms"],
+             "fp16_train_many": mf["last_block_step_ms"]},
+         skipped={"fp16_serial": sf["skipped"], "fp16_block": mf["skipped"]},
+         loss_scale={"fp16": sf["loss_scale"]}, launches=got,
+         expected_launches=expect, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"multistep_gpt2 phase failed: {checks}")
+    return got
+
+
+# the resume_gpt2 phase: resilience.run_resumable over train_many blocks of
+# RESUME_K in child processes (GPT-2 medium at MID_LAYERS, the watchdog
+# armed): an unbroken child to RESUME_STEPS; a child SIGTERM'd by chaos at
+# step RESUME_SIGTERM_AT, drained at the next K boundary; a relaunch
+RESUME_K, RESUME_STEPS, RESUME_SIGTERM_AT = 2, 8, 3
+RESUME_WATCHDOG_S = 300.0
+
+
+def resume_child(spec_path):
+    """One process of the resume_gpt2 phase: ``run_resumable`` to
+    RESUME_STEPS in train_many blocks; writes ``<name>.json`` beside the
+    spec and exits with ``run_resumable``'s code."""
+    import torch
+
+    from deepspeed_tpu_torch import resilience
+    from deepspeed_tpu_torch.resilience import chaos
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        for mod in _counted():          # the parent's build, loaded
+            mod.build()
+    cfg = dict(gpt2_config(spec["micro"]), train_steps_per_dispatch=RESUME_K,
+               resilience={"watchdog_timeout_s": RESUME_WATCHDOG_S})
+    vocab = []
+
+    def factory():
+        eng = make_engine(cfg, device, size=spec["size"], gpt2=True,
+                          **_depth(spec["layers"]))
+        vocab.append(eng.module.config.vocab_size)
+        return eng
+
+    def k_block(eng, _batch):
+        start = eng.global_steps
+        for j in range(RESUME_K):
+            chaos.step_point(start + j)     # the SIGTERM lands mid-block
+        eng.train_many([lm_batch(spec["micro"] * GAS, GPT2_SEQ, vocab[-1],
+                                 seed=100 + start + j)
+                        for j in range(RESUME_K)])
+
+    out = {"name": spec["name"]}
+    t0 = time.perf_counter()
+    code = 0
+    with deterministic():
+        try:
+            eng = resilience.run_resumable(factory, k_block,
+                                           steps=RESUME_STEPS,
+                                           save_dir=spec["ckpt"])
+            out.update(digest=_z3_digest(eng),
+                       global_steps=eng.global_steps,
+                       watchdog_fired=bool(eng._watchdog.fired))
+        except SystemExit as e:
+            code = int(e.code)
+            out["tags"] = sorted(os.listdir(os.path.join(spec["ckpt"],
+                                                         "emergency")))
+    out.update(exit=code, counters=resilience.COUNTERS.as_dict(),
+               seconds=time.perf_counter() - t0)
+    (pathlib.Path(spec_path).parent / f"{spec['name']}.json").write_text(
+        json.dumps(out))
+    return code
+
+
+def phase_resume_gpt2(device, size="medium", micro=MICRO,
+                      layers=MID_LAYERS):
+    """run_resumable in three child processes (see RESUME_K): unbroken,
+    SIGTERM'd by chaos and drained at the K boundary, relaunched; the
+    relaunch's masters bitwise equal to the unbroken run's.
+    ``phase_resume_gpt2(torch.device("cpu"), size="tiny", micro=2,
+    layers=2)`` rehearses it on the CPU."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.resilience import RESUME_EXIT_CODE
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="resume_gpt2_",
+                                         dir=ROOT / "build"))
+
+    def child(name, ckpt, sigterm=None):
+        spec = work / f"{name}.spec.json"
+        spec.write_text(json.dumps({"name": name, "device": str(device),
+                                    "ckpt": str(work / ckpt),
+                                    "layers": layers, "size": size,
+                                    "micro": micro}))
+        env_ = dict(os.environ)
+        env_.pop("DSTPU_CHAOS_SIGTERM_STEP", None)
+        if sigterm is not None:
+            env_["DSTPU_CHAOS_SIGTERM_STEP"] = str(sigterm)
+        p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--resume-child", str(spec)], env=env_,
+                           timeout=TP_CHILD_TIMEOUT)
+        res = json.loads((work / f"{name}.json").read_text())
+        return p.returncode, res
+
+    try:
+        rc_u, unbroken = child("unbroken", "u")
+        rc_b, broken = child("broken", "r", sigterm=RESUME_SIGTERM_AT)
+        rc_r, resumed = child("relaunch", "r")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    drain = (RESUME_SIGTERM_AT // RESUME_K + 1) * RESUME_K
+    checks = {
+        "unbroken_exit_0": rc_u == 0 and unbroken["global_steps"]
+        == RESUME_STEPS,
+        "broken_drained_at_k_boundary": rc_b == RESUME_EXIT_CODE
+        and broken["tags"] == [f"global_step{drain}"]
+        and broken["counters"]["preemptions"] == 1,
+        "relaunch_resumed": rc_r == 0 and resumed["global_steps"]
+        == RESUME_STEPS and resumed["counters"]["restarts"] == 1,
+        "masters_bitwise": resumed["digest"] == unbroken["digest"],
+        "no_watchdog_fire": not unbroken["watchdog_fired"]
+        and not resumed["watchdog_fired"]
+        and all(r["counters"]["watchdog_fires"] == 0
+                for r in (unbroken, broken, resumed))}
+    emit("resume_gpt2", model=f"gpt2-{size}", layers=layers, seq=GPT2_SEQ,
+         micro_batch=micro, gas=GAS, k=RESUME_K, steps=RESUME_STEPS,
+         sigterm_at=RESUME_SIGTERM_AT, drained_at=drain,
+         watchdog_timeout_s=RESUME_WATCHDOG_S,
+         exit_codes={"unbroken": rc_u, "broken": rc_b, "relaunch": rc_r},
+         counters={r["name"]: r["counters"]
+                   for r in (unbroken, broken, resumed)},
+         child_seconds={r["name"]: r["seconds"]
+                        for r in (unbroken, broken, resumed)},
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"resume_gpt2 phase failed: {checks}")
+
+
 def phase_calibrate(device):
     """``calibrate_stream_threshold()``: the per-seq fwd+bwd times of the
     streaming kernels and the einsum path, the threshold it returns and
@@ -3459,6 +4073,22 @@ def main() -> int:
     if sys.argv[1:2] == ["--z3pp-child"]:
         sys.path.insert(0, str(ROOT))
         return z3pp_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--moe-child"]:
+        sys.path.insert(0, str(ROOT))
+        return moe_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--resume-child"]:
+        sys.path.insert(0, str(ROOT))
+        return resume_child(sys.argv[2])
+    # --only moe_gpt2,multistep_gpt2,resume_gpt2: the build and those of
+    # this slice's phases alone (a quick check; no kernels line, no result)
+    only = None
+    if sys.argv[1:2] == ["--only"]:
+        only = set(sys.argv[2].split(","))
+        unknown = only - {"moe_gpt2", "multistep_gpt2", "resume_gpt2"}
+        if unknown:
+            print(f"chip_smoke.py: --only takes moe_gpt2, multistep_gpt2 "
+                  f"and resume_gpt2, not {sorted(unknown)}", file=sys.stderr)
+            return 2
     if not (ROOT / "deepspeed_tpu_torch" / "csrc" / "fused_optim.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -3495,6 +4125,15 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln
                       or "smem" in ln or "entry function" in ln]
                 for src, mod in mods.items()})
+
+    if only is not None:
+        for name, fn in (("moe_gpt2", phase_moe_gpt2),
+                         ("multistep_gpt2", phase_multistep_gpt2),
+                         ("resume_gpt2", phase_resume_gpt2)):
+            if name in only:
+                fn(device)
+                free(device)
+        return 0
 
     phase_tiny_parity(device)
     phase_tiny_parity(device, seq=256, bwd_mode="fused")
@@ -3581,14 +4220,19 @@ def main() -> int:
             k["pp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                      for run, ranks in pp_launches.items()}
     free(device)
-    sp_launches = phase_sp_gpt2(device, runs1024["split_losses"])
+    sp1_shallow = phase_gpt2_reference(device, micro=GPT2_1024_MICRO,
+                                       seq=GPT2_1024_SEQ,
+                                       name="gpt2_1024_reference")
+    free(device)
+    sp_launches = phase_sp_gpt2(device, sp1_shallow, layers=EARLY_LAYERS)
     for k in kernels:
         if k["name"] in ("adam", "stream_fwd", "stream_dkv", "stream_dq"):
             # per seq rank of sp_gpt2 (sp 2): (a) ring, (b) Ulysses, (c)
             k["sp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                      for run, ranks in sp_launches.items()}
     free(device)
-    z3pp_launches = phase_zero3_pp_gpt2(device, gpt2_losses)
+    z3pp_launches = phase_zero3_pp_gpt2(device, gpt2_shallow,
+                                        layers=EARLY_LAYERS)
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # per rank of zero3_pp_gpt2 (dp 2 x pp 2): (a) GPipe, (b)
@@ -3596,6 +4240,28 @@ def main() -> int:
             k["zero3_pp_gpt2_launches"] = {
                 run: [r[k["name"]] for r in ranks]
                 for run, ranks in z3pp_launches.items()}
+    free(device)
+    moe = phase_moe_gpt2(device)
+    free(device)
+    multi_launches = phase_multistep_gpt2(device)
+    free(device)
+    phase_resume_gpt2(device)
+    free(device)
+    for k in kernels:
+        if k["name"] in ("adam", "block_fwd", "block_bwd"):
+            # moe_gpt2 (a) top-1 at 24 layers, (b) top-2, (c) the 12-layer
+            # reference, (d) ep 2 per rank, (e) its resume per rank; and
+            # multistep_gpt2's train_batch / train_many runs
+            k["moe_gpt2_launches"] = {
+                run: ([r[k["name"]] for r in v] if isinstance(v, list)
+                      else v[k["name"]])
+                for run, v in moe["launches"].items()}
+            k["multistep_gpt2_launches"] = {
+                run: v[k["name"]] for run, v in multi_launches.items()}
+        if k["name"] == "adam":
+            # the MoE's expert leaf [24, 8, 1024, 4096], one launch
+            k["moe_expert_leaf"] = {key: moe["expert_leaf"][key] for key in (
+                "elements", "ms", "plain_ms", "bound_ms", "max_abs_err")}
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
@@ -3610,7 +4276,8 @@ def main() -> int:
     print(card)
     extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches",
              "pp_gpt2_launches", "sp_gpt2_launches",
-             "zero3_pp_gpt2_launches")
+             "zero3_pp_gpt2_launches", "moe_gpt2_launches",
+             "multistep_gpt2_launches", "moe_expert_leaf")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

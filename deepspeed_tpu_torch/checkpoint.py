@@ -59,6 +59,12 @@ way.
            ``ml_dtypes`` to read the port's files.  The JAX writer inlines
            arrays of up to 512 bytes as pickled numpy arrays; reading an
            inlined bf16 array needs ``ml_dtypes``, imported only then.
+* faults   every file's write passes the chaos write point
+           (``resilience.save_with_retry`` retries the whole save), every
+           leaf read the chaos read point inside ``io_retry`` with the
+           engine's ``resilience.io_retries``;
+           ``find_latest_valid_tag(exclude=)`` skips the tags a resume
+           could not load.
 
 """
 
@@ -79,6 +85,8 @@ from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch import weights as weights_mod
 from deepspeed_tpu_torch import zero as zero_mod
 from deepspeed_tpu_torch import zero3 as zero3_mod
+from deepspeed_tpu_torch.resilience import chaos as _chaos
+from deepspeed_tpu_torch.resilience.retry import io_retry
 
 logger = logging.getLogger(__name__)
 
@@ -196,6 +204,7 @@ class _ChunkedWriter:
         return obj
 
     def finish(self, header: Any) -> None:
+        _chaos.io_point("ckpt_write")   # the chaos tier's Nth-write failure
         header = self._escape(header)
         off = self._f.tell()
         pickle.dump(header, self._f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -330,16 +339,27 @@ _TORCH_DTYPES = {np.dtype(k): v for k, v in (
     ("uint8", torch.uint8), ("bool", torch.bool))}
 
 
+#: retries of a chunk read (``io_retry``); ``load_checkpoint`` sets it from
+#: the engine's ``resilience.io_retries``
+READ_RETRIES = 3
+
+
 def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0) -> None:
     """Fill ``out`` from the file region behind ``mm``, from its element
     ``start`` on, with one positioned read (which releases the GIL, where
-    a page fault on the memmap holds it); a short read names the
-    truncation."""
+    a page fault on the memmap holds it), through the chaos read point and
+    ``io_retry`` (``READ_RETRIES``); a short read names the truncation."""
     if not out.nbytes:
         return
-    with open(mm.filename, "rb") as f:
-        f.seek(int(mm.offset) + start * mm.dtype.itemsize)
-        got = f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
+
+    def read():
+        _chaos.read_point("ckpt_read")  # the chaos tier's Nth-read failure
+        with open(mm.filename, "rb") as f:
+            f.seek(int(mm.offset) + start * mm.dtype.itemsize)
+            return f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
+
+    got = io_retry(read, retries=READ_RETRIES,
+                   what=f"checkpoint chunk read ({mm.filename}@{mm.offset})")
     if got != out.nbytes:
         raise CheckpointReadError(
             f"truncated checkpoint chunk in {mm.filename!r}: wanted "
@@ -376,7 +396,11 @@ def to_tensor(leaf, device=None) -> torch.Tensor:
     if isinstance(src, np.memmap) and getattr(src, "filename", None):
         _readinto(src, view)
     else:
-        view[...] = src
+        def fill():
+            # an inline leaf counts as a read too, as in the JAX restore
+            _chaos.read_point("ckpt_read")
+            view[...] = src
+        io_retry(fill, retries=READ_RETRIES, what="checkpoint leaf read")
     out = stage.view(dtype) if bf16 else stage
     return out.to(device, non_blocking=True) if cuda else out
 
@@ -455,12 +479,17 @@ def _tag_step(tag: str) -> int:
     return int(m.group(1)) if m else -1
 
 
-def find_latest_valid_tag(load_dir: str) -> Optional[str]:
+def find_latest_valid_tag(load_dir: str, exclude=()) -> Optional[str]:
     """The newest valid tag under ``load_dir``, by model-file mtime, then
-    trailing step, then name."""
+    trailing step, then name, over regular and ``emergency/`` tags.  Tags
+    in ``exclude`` are skipped: the resume driver passes those whose full
+    load failed (a mid-save kill can leave a tag whose model header parses
+    but whose ZeRO files are missing), so discovery falls back to the
+    next-newest one (the JAX ``find_latest_valid_tag``)."""
     best = None
+    excluded = set(exclude)
     for tag in list_tags(load_dir):
-        if not validate_tag(load_dir, tag):
+        if tag in excluded or not validate_tag(load_dir, tag):
             continue
         probe = _model_probe(load_dir, tag)
         key = (os.path.getmtime(probe), _tag_step(tag), tag)
@@ -1025,6 +1054,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     (or a checkpoint without them) the masters are re-derived from the
     loaded module, so the next step cannot revert it."""
     ASYNC_SAVER.wait()
+    global READ_RETRIES
+    READ_RETRIES = int(getattr(engine.config, "resilience_io_retries", 3))
     read = _read_model_state(load_dir, tag)
     if read is None:
         return None, None

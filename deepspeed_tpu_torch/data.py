@@ -12,7 +12,8 @@ the ``state_dict``, is the same on every rank.  With ``num_workers``
 > 0 a producer thread collates ahead of the consumer (``prefetch_depth``
 batches); with ``device_prefetch`` it also stages each batch in pinned host
 memory and copies it to the device without blocking, so the copy of the
-next batch overlaps the current step.
+next batch overlaps the current step.  ``BlockPrefetcher`` groups batches
+into the K-blocks of ``engine.train_many``.
 
 Dataset protocol: anything indexable with ``len()`` whose items are tuples,
 lists or dicts of numpy-convertible leaves, or arrays.  ``ArrayDataset``
@@ -251,6 +252,62 @@ class DeepSpeedDataLoader:
                 yield self._place(batch)
         self.epoch += 1
         self._batch_pos = 0
+
+
+def device_placer(device) -> Callable:
+    """A ``place`` for ``BlockPrefetcher``: every leaf of a batch staged
+    to ``device`` (``to_device``: pinned memory, a non-blocking copy)."""
+    return lambda batch: _tree_map(lambda x: to_device(x, device), batch)
+
+
+class BlockPrefetcher:
+    """Group a batch iterator into K-blocks for ``engine.train_many``,
+    staging block i + 1 on a producer thread while block i trains (the
+    JAX ``data.BlockPrefetcher``).
+
+    Each yielded block is a LIST of K batches, the ``train_many``
+    argument.  With ``place`` (a callable on one batch, e.g.
+    ``device_placer(engine.device)``) every batch is staged to the device
+    ON THE PRODUCER thread, from pinned host memory with non-blocking
+    copies, so with ``depth >= 2`` the next block's copies overlap the
+    current block's steps.  A trailing partial block (fewer than K batches
+    left) is yielded as is; ``drop_last=True`` discards it.  One-shot: a
+    second iteration raises ``RuntimeError``, as in the JAX package."""
+
+    def __init__(self, batch_iter, k: int, place: Optional[Callable] = None,
+                 depth: int = 2, drop_last: bool = False):
+        if k < 1:
+            raise ValueError(f"BlockPrefetcher: k must be >= 1, got {k}")
+        self.batch_iter = iter(batch_iter)
+        self.k = int(k)
+        self.place = place
+        self.depth = max(1, int(depth))
+        self.drop_last = bool(drop_last)
+        self._consumed = False
+
+    def _blocks(self):
+        block = []
+        for batch in self.batch_iter:
+            if self.place is not None:
+                batch = self.place(batch)
+            block.append(batch)
+            if len(block) == self.k:
+                yield block
+                block = []
+        if block and not self.drop_last:
+            yield block
+
+    def __iter__(self) -> Iterator[list]:
+        # one-shot: the producer thread consumes the upstream iterator; a
+        # second producer over it would make block membership racy
+        if self._consumed:
+            raise RuntimeError(
+                "BlockPrefetcher is one-shot: its upstream batch "
+                "iterator is already (being) consumed — construct a new "
+                "prefetcher over a fresh iterator")
+        self._consumed = True
+        return _iter_prefetched(self._blocks(), self.depth,
+                                "dstpu-block-prefetch")
 
 
 class FileDataset:

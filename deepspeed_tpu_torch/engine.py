@@ -16,9 +16,10 @@ arithmetic:
   with ``skipped_steps``, the loss-scale FSM and the LR scheduler step.
 
 Optimizer updates run in place on the masters and moments (the CUDA kernels
-of ``ops/cuda_optim.py`` on the card).  Under fp16 the host reads the
-overflow flag once per boundary, before the in-place update it may skip;
-bf16 and fp32 boundaries never wait for the device.
+of ``ops/cuda_optim.py`` on the card).  Under fp16 (and under the NaN
+sentinel at any precision) the host reads the overflow flag once per
+boundary, before the in-place update it may skip; other bf16 and fp32
+boundaries never wait for the device.
 
 Data parallelism (``parallel/topology.py``, ``parallel/comm.py``): one
 process per device in a ``torch.distributed`` group (NCCL on cards, gloo on
@@ -110,18 +111,39 @@ again.
 a dense fallback (``sparse.sparse_psum``; the reference's
 ``deepspeed_light.py:884-940``).
 
+``train_many(batches)`` runs K ``train_batch``-format batches, bitwise
+equal to K ``train_batch`` calls (the JAX ``engine.py:2986-3140``): all K
+are staged to the device up front with non-blocking copies, and the host
+reads at most one fence per block.  Without a skip contract (bf16 or fp32
+without the NaN sentinel) it reads nothing.  Under fp16 or the sentinel
+the block runs on the assumption that no boundary skips, with the skip
+flags left on the device, after a snapshot of the optimizer state; the one
+read is the block's skip vector at the end, and if any boundary skipped,
+the state is restored and the block replayed with a host read per
+boundary, which is what ``train_batch`` does.  (The JAX package instead
+gates each boundary's update on its flag inside the compiled program.)
+
+Resilience (``deepspeed_tpu_torch/resilience/``, the ``resilience``
+config block): the hang watchdog armed around ``backward``, ``step``,
+``train_batch``, ``train_many`` (deadline times K), ``save_checkpoint``
+and ``load_checkpoint``; the NaN sentinel (a non-finite boundary is
+skipped under any precision, and counted in ``COUNTERS.nan_skips``
+outside fp16); the chaos stall point inside the armed boundary;
+``resilience_counters()``.
+
 ``training_data`` becomes a ``data.DeepSpeedDataLoader`` (``deepspeed_io``)
 whose batches arrive on the engine's device, each data rank reading its
 rows of the global batch (the model ranks of a data group read the same
 rows); ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
 package's checkpoint layout, per-model-rank and ZeRO partition files
 included (``checkpoint.py``).  What the JAX engine has and this slice does
-not yet (MoE, ``train_many``, telemetry, resilience, graph lint) raises
+not yet (telemetry, tensorboard, the profiler, graph lint) raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -145,6 +167,8 @@ from deepspeed_tpu_torch.ops import optim as optim_mod
 from deepspeed_tpu_torch.parallel import comm
 from deepspeed_tpu_torch.parallel.topology import (init_distributed,
                                                    make_topology)
+from deepspeed_tpu_torch.resilience import COUNTERS
+from deepspeed_tpu_torch.resilience import chaos as _chaos
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
 
@@ -348,6 +372,22 @@ class DeepSpeedTorchEngine:
         self._configure_optimizer()
         self._configure_zero()
         self._refuse_unported()
+
+        # resilience: the NaN/Inf sentinel extends the fp16 skip-on-overflow
+        # contract to bf16 and fp32 boundaries; the hang watchdog arms
+        # around every blocking engine call
+        self._nan_sentinel = bool(self.config.resilience_nan_sentinel)
+        self._watchdog = None
+        self._watchdog_busy = False
+        if self.config.resilience_watchdog_timeout_s > 0:
+            from deepspeed_tpu_torch.resilience import Watchdog
+            self._watchdog = Watchdog(
+                self.config.resilience_watchdog_timeout_s,
+                abort=self.config.resilience_watchdog_abort)
+        #: train_many's optimistic block: boundaries update without a host
+        #: read of their skip flag, which stays on the device
+        self._defer_skip = False
+        self._last_overflow = None
 
         # loss scale: the MEGATRON FSM under ZeRO, the INLINE one otherwise
         # (the JAX engine's engine.py:632)
@@ -588,16 +628,12 @@ class DeepSpeedTorchEngine:
     def _refuse_unported(self):
         cfg = self.config
         refused = [
-            (cfg.train_steps_per_dispatch != 1,
-             "train_steps_per_dispatch > 1 (train_many)", "Queue 1 item 12"),
             (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off"
              or cfg.analysis_concurrency_mode != "off",
              "graph lint / analysis", "Queue 1 item 14"),
             (cfg.observability_report_window > 0
              or cfg.observability_trace_num_steps > 0,
              "observability", "Queue 1 item 12"),
-            (cfg.resilience_watchdog_timeout_s > 0
-             or cfg.resilience_nan_sentinel, "resilience", "Queue 1 item 12"),
             (cfg.tensorboard_enabled, "tensorboard", "Queue 1 item 12"),
             (cfg.profile_enabled, "profile", "Queue 1 item 12"),
             (cfg.compile_cache_dir is not None, "compile_cache",
@@ -1023,15 +1059,16 @@ class DeepSpeedTorchEngine:
             total = sum(l.float() for l in out)
         else:
             total = out.float()
-        (total * (self.loss_scale_state.cur_scale / gas)).backward()
-        self._last_loss = None
-        with torch.no_grad():
-            if self.zero_stage == 2:
-                self._accumulate_partition()
-            elif self.zero_flat:
-                self._accumulate_flat()
-            else:
-                self._accumulate_leaves()
+        with self._armed("backward (fused fwd+bwd)"):
+            (total * (self.loss_scale_state.cur_scale / gas)).backward()
+            self._last_loss = None
+            with torch.no_grad():
+                if self.zero_stage == 2:
+                    self._accumulate_partition()
+                elif self.zero_flat:
+                    self._accumulate_flat()
+                else:
+                    self._accumulate_leaves()
         if wcb:
             self.timers(BACKWARD_TIMER).stop(sync_on=self._acc)
         if loss is None:
@@ -1184,7 +1221,7 @@ class DeepSpeedTorchEngine:
         sq, overflow = self._sqnorm_and_overflow(grads)
         self._last_grad_norm = torch.sqrt(sq)
         combined = self._combined_scale(self._last_grad_norm)
-        skip = bool(overflow) if fp16 else False
+        skip = self._skip(overflow)
         if not skip:
             lr, b1, b2, wd = self._hypers()
             self.base_optimizer.update(
@@ -1197,6 +1234,18 @@ class DeepSpeedTorchEngine:
             self.loss_scale_state = prec.update_loss_scale(
                 self.loss_scale_state, overflow, variant=self._ls_variant)
         return skip
+
+    def _skip(self, overflow) -> bool:
+        """Whether this boundary skips its update: under the skip contract
+        (fp16, or the NaN sentinel at any precision) the host reads the
+        agreed overflow flag; ``train_many``'s optimistic block
+        (``_defer_skip``) leaves it on the device in ``_last_overflow``
+        and updates."""
+        self._last_overflow = overflow
+        if not (self.config.fp16_enabled or self._nan_sentinel) \
+                or self._defer_skip:
+            return False
+        return bool(overflow)
 
     def _reduce_grads(self, acc):
         """The data-group reduction of the accumulated per-leaf grads, in
@@ -1326,7 +1375,7 @@ class DeepSpeedTorchEngine:
         self._last_grad_norm = torch.sqrt(sq[0])
         combined = self._combined_scale(self._last_grad_norm)
         fp16 = self.config.fp16_enabled
-        skip = bool(overflow) if fp16 else False
+        skip = self._skip(overflow)
         if not skip:
             self._zero_update(gpart, combined)
         if fp16:
@@ -1373,6 +1422,14 @@ class DeepSpeedTorchEngine:
         self.overflow = overflow
         if overflow:
             self.skipped_steps += 1
+            if self._nan_sentinel and not self.config.fp16_enabled:
+                # under fp16 an overflow is the loss-scale FSM's routine
+                # calibration: nan_skips counts only the sentinel's skips
+                COUNTERS.nan_skips += 1
+                logger.warning(
+                    "resilience: non-finite gradients at global step %d — "
+                    "optimizer boundary skipped (nan_sentinel)",
+                    self.global_steps)
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
         if self.global_steps % self.steps_per_print() == 0:
@@ -1386,7 +1443,9 @@ class DeepSpeedTorchEngine:
             self.timers(STEP_TIMER).start()
         if self.is_gradient_accumulation_boundary():
             assert self._acc is not None, "step() with no accumulated grads"
-            self._post_boundary_bookkeeping(self._boundary_update())
+            with self._armed("optimizer boundary step"):
+                _chaos.maybe_stall(self.global_steps)
+                self._post_boundary_bookkeeping(self._boundary_update())
             self.tput_timer.stop(sync_on=self._state_tensor())
         self.micro_steps += 1
         if wcb:
@@ -1405,21 +1464,34 @@ class DeepSpeedTorchEngine:
         * micro, (r + 1) * gas * micro).)  Returns the last micro-step's
         loss (fp32, detached)."""
         assert self.training, "train_batch() requires train mode"
+        batch = self._check_batch(batch, "train_batch")
+        batch = tuple(self._to_device(x) for x in batch)
+        with self._armed("train_batch"):
+            _chaos.maybe_stall(self.global_steps)
+            return self._train_step(batch)
+
+    def _check_batch(self, batch, what):
+        """``batch`` as a tuple of leaves sharing a leading dim divisible
+        by gas."""
         batch = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
         gas = self.gradient_accumulation_steps()
         leads = {x.shape[0] for x in batch}
         if len(leads) != 1:
             raise ValueError(
-                f"train_batch: batch leaves disagree on the leading dim "
+                f"{what}: batch leaves disagree on the leading dim "
                 f"({sorted(leads)}); every leaf must carry the same "
                 f"[gas * micro] axis")
         lead = leads.pop()
         if lead % gas != 0:
             raise ValueError(
-                f"train_batch: leading batch dim {lead} is not divisible by "
+                f"{what}: leading batch dim {lead} is not divisible by "
                 f"gradient_accumulation_steps={gas}")
-        mb = lead // gas
-        batch = tuple(self._to_device(x) for x in batch)
+        return batch
+
+    def _train_step(self, batch):
+        """One ``train_batch`` on a checked batch already on the device."""
+        gas = self.gradient_accumulation_steps()
+        mb = batch[0].shape[0] // gas
         self.tput_timer.start()
         loss = None
         for i in range(gas):
@@ -1432,10 +1504,119 @@ class DeepSpeedTorchEngine:
             return type(loss)(l.detach().float() for l in loss)
         return loss.detach().float()
 
-    # ------------------------------------------------ not in this slice yet
-
     def train_many(self, batches):
-        raise _unported("train_many", "Queue 1 item 12")
+        """K optimizer steps, one per ``train_batch``-format batch of
+        ``batches`` (K is its length, typically
+        ``config.train_steps_per_dispatch``, grouped by
+        ``data.BlockPrefetcher``): bitwise equal to K ``train_batch``
+        calls, the masters, moments, step, loss scale, skip counters, LR
+        schedule and returned last loss alike.  All K batches are staged
+        to the device first; the host reads at most one fence per block
+        (see the module docstring), and the watchdog is armed once with
+        its deadline scaled by K.  Preemption (``resilience.run_resumable``)
+        polls between calls, so a drain lands on a K boundary."""
+        assert self.training, "train_many() requires train mode"
+        if not isinstance(batches, (list, tuple)) or len(batches) == 0:
+            raise ValueError(
+                "train_many: pass a non-empty sequence of train_batch-"
+                "format batches (one per fused optimizer step)")
+        batches = [tuple(b) if isinstance(b, (tuple, list)) else (b,)
+                   for b in batches]
+        fmt = [tuple((tuple(x.shape), str(x.dtype)) for x in b)
+               for b in batches]
+        if any(f != fmt[0] for f in fmt[1:]):
+            raise ValueError(
+                "train_many: every batch in a K-block must share one "
+                "format (pytree structure + leaf shapes/dtypes); mixed "
+                "formats must go through separate blocks")
+        batches = [self._check_batch(b, "train_many") for b in batches]
+        k = len(batches)
+        sched = self.lr_scheduler
+        if sched is not None and not (hasattr(sched, "state_dict")
+                                      and hasattr(sched, "load_state_dict")):
+            raise DeepSpeedConfigError(
+                f"train_steps_per_dispatch > 1 with an LR scheduler "
+                f"needs state_dict/load_state_dict on the scheduler "
+                f"(to stage the K prospective hyper rows); "
+                f"{type(sched).__name__} has neither")
+        staged = [tuple(self._to_device(x) for x in b) for b in batches]
+        with self._armed("train_many", deadline_scale=k):
+            _chaos.maybe_stall(self.global_steps)
+            if not (self.config.fp16_enabled or self._nan_sentinel):
+                for b in staged:
+                    loss = self._train_step(b)
+                return loss
+            snap = self._snapshot()
+            flags = []
+            self._defer_skip = True
+            try:
+                for b in staged:
+                    loss = self._train_step(b)
+                    flags.append(self._last_overflow.reshape(()))
+            finally:
+                self._defer_skip = False
+            # the block's one host fence: its skip vector
+            if not bool(torch.stack(flags).any()):
+                return loss
+            # a boundary skipped: replay the block from the snapshot with
+            # the per-boundary reads of train_batch
+            self._restore(snap)
+            for b in staged:
+                loss = self._train_step(b)
+            return loss
+
+    def _snapshot(self) -> dict:
+        """A copy of everything a boundary changes: the optimizer state
+        (masters, moments, step, loss scale), the step counters, the LR
+        schedule and the optimizer's param groups."""
+        def clone(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().clone()
+            if isinstance(x, dict):
+                return {k: clone(v) for k, v in x.items()}
+            return x
+
+        sched = self.lr_scheduler
+        return {"optimizer": clone(self._optimizer_state_dict()),
+                "counters": (self.global_steps, self.skipped_steps,
+                             self.micro_steps, self.overflow),
+                "groups": [dict(g) for g in self.optimizer.param_groups],
+                "sched": (None if sched is None
+                          else copy.deepcopy(sched.state_dict()))}
+
+    def _restore(self, snap: dict) -> None:
+        self._optimizer_load_state_dict(snap["optimizer"])
+        (self.global_steps, self.skipped_steps, self.micro_steps,
+         self.overflow) = snap["counters"]
+        if snap["sched"] is not None:
+            self.lr_scheduler.load_state_dict(snap["sched"])
+        for g, saved in zip(self.optimizer.param_groups, snap["groups"]):
+            g.clear()
+            g.update(saved)
+
+    # -------------------------------------------------------------- resilience
+
+    @contextlib.contextmanager
+    def _armed(self, label, deadline_scale: float = 1.0):
+        """The watchdog armed around a blocking call (nothing when the
+        resilience watchdog is off).  ``deadline_scale`` stretches the
+        deadline for regions of several optimizer steps (``train_many``).
+        Armed regions do not nest: a call inside one (``backward`` inside
+        ``train_batch``) runs under the outer arm."""
+        if self._watchdog is None or self._watchdog_busy:
+            yield
+            return
+        self._watchdog_busy = True
+        try:
+            with self._watchdog.armed(label, deadline_scale=deadline_scale):
+                yield
+        finally:
+            self._watchdog_busy = False
+
+    def resilience_counters(self) -> dict:
+        """The process-wide resilience counters (restarts, skipped-NaN
+        steps, IO retries, watchdog near-misses and fires)."""
+        return COUNTERS.as_dict()
 
     # ---------------------------------------------------------- checkpointing
 
@@ -1448,9 +1629,10 @@ class DeepSpeedTorchEngine:
         from deepspeed_tpu_torch import checkpoint as ckpt_mod
         # the save's stall is not training throughput
         self.tput_timer.discard_window()
-        return ckpt_mod.save_checkpoint(self, save_dir, tag=tag,
-                                        client_state=client_state,
-                                        async_save=async_save)
+        with self._armed("save_checkpoint"):
+            return ckpt_mod.save_checkpoint(self, save_dir, tag=tag,
+                                            client_state=client_state,
+                                            async_save=async_save)
 
     def checkpoint_wait(self):
         """Block until every queued async checkpoint write is on disk;
@@ -1464,10 +1646,11 @@ class DeepSpeedTorchEngine:
         returns ``(path, client_state)``, ``(None, None)`` if none."""
         from deepspeed_tpu_torch import checkpoint as ckpt_mod
         self.tput_timer.discard_window()
-        return ckpt_mod.load_checkpoint(
-            self, load_dir, tag=tag,
-            load_optimizer_states=load_optimizer_states,
-            load_lr_scheduler_states=load_lr_scheduler_states)
+        with self._armed("load_checkpoint"):
+            return ckpt_mod.load_checkpoint(
+                self, load_dir, tag=tag,
+                load_optimizer_states=load_optimizer_states,
+                load_lr_scheduler_states=load_lr_scheduler_states)
 
     def _state_tensor(self):
         """The fp32 masters: what a timer synchronises on."""

@@ -15,10 +15,13 @@ weights inside the block body (``transformer.zero3_enter``,
 ``stack_apply``).  Under sequence parallelism (``seq_group``, set by the
 engine, which hands each rank its block of the sequence by
 ``batch_specs``) the positions are the rank's block of the table and the
-loss's token count sums over the seq group.  What the JAX model has and
-this port does not yet
-raises ``NotImplementedError`` naming its ROADMAP.md item where a caller
-reaches it: the MoE variant and the serving methods.
+loss's token count sums over the seq group.  The block stack runs
+through the ``_stack`` hook, ``(x, aux)``, whose aux term joins the loss
+(the JAX ``gpt2.py:119-124``, ``:199-204``); ``models/gpt2_moe.py``'s
+``GPT2MoE`` overrides it, with ``_init_blocks`` and ``_block_specs``.
+What the JAX model has and this port does not yet raises
+``NotImplementedError`` naming its ROADMAP.md item where a caller reaches
+it: the serving methods.
 """
 
 from __future__ import annotations
@@ -70,7 +73,8 @@ class GPT2(nn.Module):
 
         self.wte = normal(std, config.vocab_size, h)
         self.wpe = normal(std * 0.5, config.max_seq_len, h)
-        self.blocks = T.TransformerStack(config, generator, device)
+        self.blocks = T.TransformerStack(config, generator, device,
+                                         init=self._init_blocks)
         self.lnf_s = nn.Parameter(torch.ones(h, device=device))
         self.lnf_b = nn.Parameter(torch.zeros(h, device=device))
         #: the model process group (None: one model shard); the engine
@@ -104,8 +108,20 @@ class GPT2(nn.Module):
     def partition_specs(self):
         """The sharded dim of each leaf over the model group (None:
         replicated)."""
-        return {"wte": 0, "wpe": None, "blocks": T.block_partition_specs(),
+        return {"wte": 0, "wpe": None, "blocks": self._block_specs(),
                 "lnf_s": None, "lnf_b": None}
+
+    # block-stack hooks (GPT2MoE overrides all three)
+    _init_blocks = staticmethod(T.init_block_params)
+    _block_specs = staticmethod(T.block_partition_specs)
+
+    def _stack(self, x, blocks, z3_dims=None):
+        """The block stack on ``x``: ``(x, aux)``, aux a scalar loss term
+        or None."""
+        return T.stack_apply(x, blocks, self.config, group=self.model_group,
+                             z3_dims=z3_dims, z3_group=self.data_group,
+                             z3_prefetch=self.zero3_prefetch,
+                             seq_group=self.seq_group), None
 
     def zero3_min_dims(self):
         """Engine hook (stage 3): the lowest partitionable dim per leaf.
@@ -131,14 +147,12 @@ class GPT2(nn.Module):
         x = L.vocab_parallel_embedding(tokens, p["wte"], group)
         x = x + L.seq_shard_positions(p["wpe"], T_len, self.seq_group).to(
             x.dtype)[None]
-        x = T.stack_apply(x, T.subtree(p, "blocks"), cfg, group=group,
-                          z3_dims=z3.get("blocks"), z3_group=self.data_group,
-                          z3_prefetch=self.zero3_prefetch,
-                          seq_group=self.seq_group)
+        x, aux = self._stack(x, T.subtree(p, "blocks"), z3.get("blocks"))
         x = L.layer_norm(x, p["lnf_s"], p["lnf_b"], cfg.ln_eps)
         logits = L.vocab_parallel_logits(x, p["wte"], group)
         loss = L.vocab_parallel_cross_entropy(logits, labels, group)
-        return L.masked_mean_loss(loss, labels >= 0, self.seq_group)
+        loss = L.masked_mean_loss(loss, labels >= 0, self.seq_group)
+        return loss if aux is None else loss + aux
 
     # ---------------------------------------------- not in this slice yet
 
@@ -150,10 +164,3 @@ class GPT2(nn.Module):
 
     def apply_decode(self, *args, **kwargs):
         raise _unported("GPT-2 serving (apply_decode)", "Queue 1 item 13")
-
-
-class GPT2MoE(GPT2):
-    """``deepspeed_tpu/models/gpt2_moe.py``'s Mixture-of-Experts GPT-2."""
-
-    def __init__(self, *args, **kwargs):
-        raise _unported("the MoE GPT-2 (GPT2MoE)", "Queue 1 item 11")

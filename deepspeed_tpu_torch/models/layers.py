@@ -48,7 +48,9 @@ class _NamedLinear(torch.autograd.Function):
     """``x @ w + b`` whose backward needs only its inputs.  Given
     ``saved`` (the output of the same product from an earlier run) it
     returns that and computes nothing: a recompute that replays the
-    forward gets the product's graph node without the product."""
+    forward gets the product's graph node without the product.  ``w`` is
+    ``[in, out]``, or ``[e, in, out]`` with ``x`` ``[e, ..., in]`` and
+    ``b`` ``[e, out]`` (one product per expert, the MoE's ``ffn1``)."""
 
     @staticmethod
     def forward(ctx, x, w, b, saved):
@@ -58,21 +60,33 @@ class _NamedLinear(torch.autograd.Function):
             return saved.detach()
         y = x @ w.to(x.dtype)
         if b is not None:
-            y = y + b.to(y.dtype)
+            y = y + _bias(b, w).to(y.dtype)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
         gx = gw = gb = None
         if ctx.needs_input_grad[0]:
-            gx = g @ w.to(g.dtype).t()
+            gx = g @ w.to(g.dtype).transpose(-1, -2)
+        if w.dim() == 3:
+            if ctx.needs_input_grad[1]:
+                gw = (x.transpose(-1, -2) @ g).to(w.dtype)
+            if ctx.b_dtype is not None and ctx.needs_input_grad[2]:
+                gb = g.sum(-2).to(ctx.b_dtype)
+            return gx, gw, gb, None
+        g2 = g.reshape(-1, g.shape[-1])
         if ctx.needs_input_grad[1]:
             gw = (x.reshape(-1, x.shape[-1]).t() @ g2).to(w.dtype)
         if ctx.b_dtype is not None and ctx.needs_input_grad[2]:
             gb = g2.sum(0).to(ctx.b_dtype)
         return gx, gw, gb, None
+
+
+def _bias(b, w):
+    """``b`` broadcast over the rows of ``x @ w``: per expert for a stacked
+    ``w`` ``[e, in, out]``."""
+    return b[:, None, :] if w.dim() == 3 else b
 
 
 class _NamedSaves(threading.local):
@@ -118,11 +132,17 @@ def column_parallel_linear(x, w, b=None, name=None, group=None):
     by name (``named_saves``) and whose recompute then costs nothing.  The
     name goes on the product itself: an identity tag after it would leave
     the product to be replayed."""
-    x = comm.copy_to_model(x, group)
+    return named_linear(comm.copy_to_model(x, group), w, b, name)
+
+
+def named_linear(x, w, b=None, name=None):
+    """``x @ w + b`` (``w`` ``[in, out]``, or ``[e, in, out]`` per expert)
+    as the product named ``name`` for the ``"selective"`` remat policy
+    (see ``column_parallel_linear``); a plain product without a name."""
     if name is None:
         y = x @ w.to(x.dtype)
         if b is not None:
-            y = y + b.to(y.dtype)
+            y = y + _bias(b, w).to(y.dtype)
         return y
     st = _SAVES
     if name not in st.keep:

@@ -67,7 +67,7 @@ class GPT2Pipelined(GPT2):
         """The dim of each leaf cut over the pipe axis (None: every stage
         holds it whole): dim 0, the layer stack, of every block leaf."""
         return {"wte": None, "wpe": None,
-                "blocks": {k: 0 for k in T.block_partition_specs()},
+                "blocks": {k: 0 for k in self._block_specs()},
                 "lnf_s": None, "lnf_b": None}
 
     def forward(self, tokens, labels):
@@ -112,9 +112,8 @@ class GPT2Pipelined(GPT2):
 
     def _pipe_stack(self, u, blocks, z3_dims=None):
         """Stage-stack hook: returns ``(y, aux)``, aux a scalar loss term
-        (0.0 here; the MoE variant adds its load-balancing term).  Under
-        ZeRO-3 ``z3_dims`` are the stacked leaves' partition dims."""
-        return T.stack_apply(u, blocks, self.config, group=self.model_group,
-                             z3_dims=z3_dims, z3_group=self.data_group,
-                             z3_prefetch=self.zero3_prefetch,
-                             seq_group=self.seq_group), 0.0
+        (0.0 here; the MoE variant returns its weighted load-balancing
+        term).  Under ZeRO-3 ``z3_dims`` are the stacked leaves' partition
+        dims."""
+        y, aux = self._stack(u, blocks, z3_dims)
+        return y, 0.0 if aux is None else aux

@@ -148,12 +148,17 @@ def _mlp(x, p, group=None):
     return L.row_parallel_linear(y, p["fc2_w"], p["fc2_b"], group=group)
 
 
-def block_apply(x, p, cfg: TransformerConfig, attn_mask=None, group=None,
-                seq_group=None):
-    """One dense block; ``p`` leaves have no layer axis and are this
-    rank's slices of the model group ``group``; ``x`` is this rank's
-    sequence block of the seq group ``seq_group`` (None: the whole
-    sequence)."""
+def block_with_ffn(x, p, cfg: TransformerConfig, attn_mask=None, group=None,
+                   seq_group=None, ffn=None):
+    """One block with a pluggable FFN (the JAX ``block_with_ffn``,
+    ``transformer.py:133-154``): ``ffn(u, p) -> (delta, aux)`` replaces
+    the dense MLP (the MoE plugs in here, ``models/moe.py``).  ``p``
+    leaves have no layer axis and are this rank's slices of the model
+    group ``group``; ``x`` is this rank's sequence block of the seq group
+    ``seq_group`` (None: the whole sequence).  Returns ``(x, aux)``, aux
+    None for the dense MLP."""
+    f = ffn if ffn is not None else (lambda u, pp: (_mlp(u, pp, group),
+                                                    None))
     attn = lambda u: L.multihead_attention(
         u, p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"],
         n_heads=cfg.num_heads, causal=cfg.causal, attn_mask=attn_mask,
@@ -162,9 +167,17 @@ def block_apply(x, p, cfg: TransformerConfig, attn_mask=None, group=None,
     ln2 = lambda u: L.layer_norm(u, p["ln2_s"], p["ln2_b"], cfg.ln_eps)
     if cfg.pre_ln:
         x = x + attn(ln1(x))
-        return x + _mlp(ln2(x), p, group)
+        delta, aux = f(ln2(x), p)
+        return x + delta, aux
     x = ln1(x + attn(x))            # post-LN (BERT)
-    return ln2(x + _mlp(x, p, group))
+    delta, aux = f(x, p)
+    return ln2(x + delta), aux
+
+
+def block_apply(x, p, cfg: TransformerConfig, attn_mask=None, group=None,
+                seq_group=None):
+    """One dense block (``block_with_ffn`` with the dense MLP)."""
+    return block_with_ffn(x, p, cfg, attn_mask, group, seq_group)[0]
 
 
 _MATMUL_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -182,7 +195,9 @@ class _SelectiveRemat(torch.autograd.Function):
     """``body(x, mask, *leaves)`` run without a graph, keeping ``x``, the
     leaves and the ``SELECTIVE_SAVES`` products; the backward re-runs it
     with the graph, the saved products handed back, and takes the
-    gradients of its inputs from that graph."""
+    gradients of its inputs from that graph.  The body returns one tensor,
+    or a tuple (the MoE block's ``(x, aux)``), each output with its own
+    incoming gradient."""
 
     @staticmethod
     def forward(ctx, body, x, mask, *leaves):
@@ -193,7 +208,7 @@ class _SelectiveRemat(torch.autograd.Function):
         return out
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         x, mask, *rest = ctx.saved_tensors
         leaves, saved = rest[:len(rest) - ctx.n_saved], \
             rest[len(rest) - ctx.n_saved:]
@@ -203,8 +218,12 @@ class _SelectiveRemat(torch.autograd.Function):
         with torch.enable_grad(), L.named_saves(SELECTIVE_SAVES,
                                                 replay=saved):
             out = ctx.body(inputs[0], mask, *inputs[1:])
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
         wanted = [t for t in inputs if t.requires_grad]
-        got = iter(torch.autograd.grad(out, wanted, grad,
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                       [g for _, g in pairs],
                                        allow_unused=True))
         grads = [next(got) if t.requires_grad else None for t in inputs]
         return (None, grads[0], None, *grads[1:])
@@ -285,11 +304,24 @@ def zero3_min_dims(model: nn.Module) -> Dict[str, int]:
 def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
                 attn_mask=None, group=None, z3_dims=None, z3_group=None,
                 z3_prefetch=False, seq_group=None):
+    """The dense stack (``stack_apply_aux`` without an FFN hook); returns
+    ``x``."""
+    return stack_apply_aux(x, stacked, cfg, attn_mask, group, z3_dims,
+                           z3_group, z3_prefetch, seq_group)[0]
+
+
+def stack_apply_aux(x, stacked: Dict[str, torch.Tensor],
+                    cfg: TransformerConfig, attn_mask=None, group=None,
+                    z3_dims=None, z3_group=None, z3_prefetch=False,
+                    seq_group=None, ffn=None):
     """All layers over the stacked [L, ...] params (this rank's slices of
     the model group ``group``; under pipeline parallelism this stage's
     layers), on this rank's sequence block of ``seq_group``.  A recompute
     replays a block's forward collectives, in the same order on every
-    rank.
+    rank.  Returns ``(x, aux)``: with an FFN hook ``ffn(u, p) -> (delta,
+    aux)`` (``block_with_ffn``), the sum of the layers' aux terms, carried
+    through every route below (the JAX ``scan_layers`` stacks them and
+    ``moe_stack_apply`` sums); without one, None.
 
     ZeRO-3 (``z3_dims``: the stacked leaves' partition dims over the data
     group ``z3_group``): each layer's slice of the partitioned stack is
@@ -308,41 +340,65 @@ def stack_apply(x, stacked: Dict[str, torch.Tensor], cfg: TransformerConfig,
         body_dims = [shifted[k] for k in names]
 
     def block(x_, mask_, leaves):
-        return block_apply(x_, dict(zip(names, leaves)), cfg, mask_, group,
-                           seq_group)
+        """``x`` (dense), or ``(x, aux)`` with the FFN hook: a block
+        function's outputs are tensors only."""
+        out, aux = block_with_ffn(x_, dict(zip(names, leaves)), cfg, mask_,
+                                  group, seq_group, ffn)
+        return out if ffn is None else (out, aux)
 
     def body(x_, mask_, *leaves):
         if z3:
             leaves = Z.gather_leaves(leaves, body_dims, z3_group)
         return block(x_, mask_, leaves)
 
+    aux_sum = None
+
+    def carry(out):
+        nonlocal aux_sum
+        if ffn is None:
+            return out
+        out, aux = out
+        aux_sum = aux if aux_sum is None else aux_sum + aux
+        return out
+
     # the stack's own depth: under pipeline parallelism this stage's layers
     n, layers = len(names), len(per_layer[0])
     if not (z3 and z3_prefetch and layers >= 2 and layers % 2 == 0):
         body = remat_wrap(body, cfg)
         for i in range(layers):
-            x = body(x, attn_mask, *(leaves[i] for leaves in per_layer))
-        return x
+            x = carry(body(x, attn_mask,
+                           *(leaves[i] for leaves in per_layer)))
+        return x, aux_sum
 
     def pair(x_, mask_, *leaves):
         a, b = leaves[:n], leaves[n:]
         pending = Z.start_gather(b, body_dims, z3_group)
-        x_ = block(x_, mask_, Z.gather_leaves(a, body_dims, z3_group))
-        return block(x_, mask_, Z.gather_leaves(b, body_dims, z3_group,
+        out = block(x_, mask_, Z.gather_leaves(a, body_dims, z3_group))
+        aux_a = None
+        if ffn is not None:
+            out, aux_a = out
+        out = block(out, mask_, Z.gather_leaves(b, body_dims, z3_group,
                                                 pending=pending))
+        if ffn is None:
+            return out
+        return out[0], aux_a + out[1]
 
     pair = remat_wrap(pair, cfg)
     for i in range(0, layers, 2):
-        x = pair(x, attn_mask, *(leaves[i] for leaves in per_layer),
-                 *(leaves[i + 1] for leaves in per_layer))
-    return x
+        x = carry(pair(x, attn_mask, *(leaves[i] for leaves in per_layer),
+                       *(leaves[i + 1] for leaves in per_layer)))
+    return x, aux_sum
 
 
 class TransformerStack(nn.Module):
     """The stacked block parameters as ``nn.Parameter``s named like the JAX
-    leaves (``qkv_w``, ``fc2_b``, ...); ``stack_apply`` runs them."""
+    leaves (``qkv_w``, ``fc2_b``, ...); ``stack_apply`` runs them.
+    ``init`` makes them (``init_block_params``; the MoE's
+    ``moe.init_moe_block_params``)."""
 
-    def __init__(self, cfg: TransformerConfig, generator=None, device=None):
+    def __init__(self, cfg: TransformerConfig, generator=None, device=None,
+                 init=None):
         super().__init__()
-        for name, t in init_block_params(cfg, generator, device).items():
+        init = init or init_block_params
+        for name, t in init(cfg, generator, device).items():
             self.register_parameter(name, nn.Parameter(t))

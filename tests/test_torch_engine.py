@@ -215,10 +215,12 @@ def test_initialize_without_device_needs_a_gpu():
     # tensor, pipeline and sequence parallelism are ported
     # (tests/test_torch_tp_*.py, test_torch_pipeline*.py, test_torch_sp_*.py:
     # one process at context_parallel_size 2 is test_topology_sizes_and_
-    # refusals's); the host-side subsystems of item 12 are not
+    # refusals's); train_many and resilience are ported
+    # (tests/test_torch_multistep.py, test_torch_resilience.py), the other
+    # host-side subsystems of item 12 are not
     pytest.param({"tensorboard": {"enabled": True}}, "ROADMAP",
                  id="extra1-ROADMAP"),
-    ({"train_steps_per_dispatch": 4}, "ROADMAP"),
+    pytest.param({"dump_state": True}, "ROADMAP", id="extra2-ROADMAP"),
 ])
 def test_unported_configs_raise(extra, match):
     with pytest.raises((NotImplementedError,

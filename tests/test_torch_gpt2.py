@@ -176,5 +176,13 @@ def test_unported_gpt2_paths_raise():
     jm = JGPT2.from_size("tiny")
     jmin = jm.zero3_min_dims(jm.init_params(jax.random.PRNGKey(0)))
     assert tm.zero3_min_dims() == weights.flatten_tree(jmin)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        GPT2MoE.from_size("tiny")
+    # the MoE GPT-2 is ported (tests/test_torch_moe.py): it builds, with
+    # the JAX model's leaf names and shapes
+    from deepspeed_tpu.models import GPT2MoE as JGPT2MoE
+    tmoe = GPT2MoE.from_size("tiny", device="meta")
+    jmoe = JGPT2MoE.from_size("tiny")
+    jshapes = weights.flatten_tree(jax.tree_util.tree_map(
+        lambda x: tuple(x.shape),
+        jax.eval_shape(jmoe.init_params, jax.random.PRNGKey(0))))
+    assert {k: tuple(p.shape) for k, p in tmoe.named_parameters()} == \
+        jshapes

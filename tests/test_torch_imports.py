@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.models, deepspeed_tpu_torch.weights, "
             "deepspeed_tpu_torch.zero3, deepspeed_tpu_torch.sparse, "
             "deepspeed_tpu_torch.checkpoint, "
-            "deepspeed_tpu_torch.parallel.pipeline; "
+            "deepspeed_tpu_torch.parallel.pipeline, "
+            "deepspeed_tpu_torch.models.moe, "
+            "deepspeed_tpu_torch.resilience.driver; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -73,6 +73,18 @@ Scenarios:
   rank's blocks) and the attention kernels' launch counts
   (``launches/<kernel>``).  ``device`` "cuda" runs it on the card.
 
+MoE: ``model`` ``"moe"`` trains ``GPT2MoE`` and ``"moe_pipe"``
+``GPT2MoEPipelined`` (``moe_kw``: ``num_experts``, ``router_top_k``,
+``capacity_factor``, ...; ``fp32_compute`` computes in fp32); at mp > 1
+the experts are cut over the model group.  ``train_many`` (a K) runs the
+steps in blocks of K through ``engine.train_many`` (with ``prefetch``,
+fed by ``data.BlockPrefetcher``).
+* ``moe_grads``: the world is one model group; each case of
+  ``spec["cases"]`` builds the tiny ``GPT2MoE`` of its ``moe_kw`` from the
+  inputs' weights, cuts it to this rank's experts, and runs the loss and
+  its backward on the whole batch ``tokens_g``/``labels_g``; outputs
+  ``<case>/loss`` and ``<case>/g/<name>`` (this rank's local gradients).
+
 With ``sp`` > 1 (``context_parallel_size``, or the ``mesh``) the train
 scenario's world is dp x pp x sp x mp: every rank of a seq group takes its
 data rank's rows, the engine cuts the sequence; ``topo/coords`` then ends
@@ -99,7 +111,8 @@ sys.path.insert(0, str(ROOT))
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch import sparse, weights, zero  # noqa: E402
 from deepspeed_tpu_torch.models import (  # noqa: E402
-    GPT2, BertForPreTraining, BertForQuestionAnswering, GPT2Pipelined)
+    GPT2, BertForPreTraining, BertForQuestionAnswering, GPT2MoE,
+    GPT2MoEPipelined, GPT2Pipelined)
 from deepspeed_tpu_torch.models import layers as L  # noqa: E402
 from deepspeed_tpu_torch.models import transformer as T  # noqa: E402
 from deepspeed_tpu_torch.parallel import comm, pipeline, topology  # noqa: E402
@@ -145,6 +158,65 @@ class Fp32GPT2Pipelined(GPT2Pipelined):
                 (tokens, labels))
         finally:
             self._upcast = False
+
+
+class SimpleModel(torch.nn.Module):
+    """One linear layer and a cross-entropy (the JAX tests'
+    ``tests/simple_model.py:SimpleModel``): ``forward(x, y)`` on float
+    rows ``x`` [B, H] and int classes ``y`` [B]; ``w`` starts from a numpy
+    seed."""
+
+    def __init__(self, hidden_dim: int = 8, seed: int = 0):
+        super().__init__()
+        rng = np.random.default_rng(seed)
+        self.w = torch.nn.Parameter(torch.from_numpy(
+            (rng.normal(size=(hidden_dim, hidden_dim)) * 0.1).astype(
+                np.float32)))
+        self.b = torch.nn.Parameter(torch.zeros(hidden_dim))
+
+    def forward(self, x, y):
+        logits = x @ self.w.to(x.dtype) + self.b.to(x.dtype)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, 1, y.long()[:, None]).mean()
+
+
+def master_bytes(engine) -> bytes:
+    """The fp32 masters' bytes (the owned flat partition under ZeRO-1/2,
+    else every leaf in name order): what the bitwise contracts compare."""
+    if engine.zero_flat:
+        return engine.master_flat.detach().cpu().numpy().tobytes()
+    return b"".join(engine.master[k].detach().cpu().numpy().tobytes()
+                    for k in sorted(engine.master))
+
+
+def _fp32_forward(base):
+    """``base.forward`` computing in fp32 whatever dtype the parameters
+    hold (as ``Fp32GPT2``)."""
+    def forward(self, *batch):
+        if self._upcast:
+            return base.forward(self, *batch)
+        self._upcast = True
+        try:
+            return torch.func.functional_call(
+                self, {k: p.float() for k, p in self.named_parameters()},
+                batch)
+        finally:
+            self._upcast = False
+    return forward
+
+
+class Fp32GPT2MoE(GPT2MoE):
+    """``GPT2MoE`` computing in fp32 (as ``Fp32GPT2``)."""
+
+    _upcast = False
+    forward = _fp32_forward(GPT2MoE)
+
+
+class Fp32GPT2MoEPipelined(GPT2MoEPipelined):
+    """``GPT2MoEPipelined`` computing in fp32 (as ``Fp32GPT2``)."""
+
+    _upcast = False
+    forward = _fp32_forward(GPT2MoEPipelined)
 
 
 class Fp32Bert(BertForPreTraining):
@@ -339,8 +411,8 @@ def run_train(spec, inputs, rank, world):
     if "runs" in spec:
         out = {}
         for i, run in enumerate(spec["runs"]):
-            fn = run_pipe_raw if run.get("scenario") == "pipe_raw" \
-                else run_train
+            fn = {"pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads}.get(
+                run.get("scenario"), run_train)
             for k, v in fn(run, inputs, rank, world).items():
                 out[f"{i}/{k}"] = v
         return out
@@ -372,6 +444,17 @@ def _train(spec, inputs, rank, world):
         model = BertForQuestionAnswering.from_size("tiny", **TINY_BERT)
     elif spec.get("model") == "embedding":
         model = EmbeddingClassifier()
+    elif spec.get("model") == "moe":
+        cls = Fp32GPT2MoE if spec.get("fp32_compute") else GPT2MoE
+        model = cls.from_size("tiny", **dict(TINY, **spec.get("moe_kw", {})))
+    elif spec.get("model") == "moe_pipe":
+        cls = (Fp32GPT2MoEPipelined if spec.get("fp32_compute")
+               else GPT2MoEPipelined)
+        model = cls.from_size(
+            "tiny", num_micro_batches=spec.get("micro_batches", 2),
+            schedule=spec.get("schedule", "gpipe"),
+            **dict(TINY, num_layers=spec.get("layers", TINY["num_layers"]),
+                   **spec.get("moe_kw", {})))
     elif spec.get("model") == "pipe":
         cls = Fp32GPT2Pipelined if spec.get("fp32_compute") else GPT2Pipelined
         model = cls.from_size(
@@ -451,6 +534,16 @@ def _train(spec, inputs, rank, world):
                         inject.get("leaf", next(iter(acc)))]
                     flat.view(-1)[inject.get("index", -1)] = float("inf")
                 engine.step()
+        elif spec.get("train_many"):
+            k = spec["train_many"]
+            if step % k:
+                continue
+            blocks = [[inputs[kk][first + s][dpr * rows:(dpr + 1) * rows]
+                       for kk in keys] for s in range(step, step + k)]
+            if spec.get("prefetch"):
+                from deepspeed_tpu_torch.data import BlockPrefetcher
+                blocks = next(iter(BlockPrefetcher(iter(blocks), k)))
+            loss = engine.train_many([tuple(b) for b in blocks])
         else:
             loss = engine.train_batch(tuple(batch))
         losses.append(float(loss))
@@ -557,6 +650,31 @@ def run_pipe_raw(spec, inputs, rank, world):
     return out
 
 
+def run_moe_grads(spec, inputs, rank, world):
+    """The MoE GPT-2's loss and local gradients at ep = world (see the
+    module docstring)."""
+    topology.init_distributed(device="cpu")
+    topo = topology.make_topology({"model_parallel_size": world}, "cpu")
+    out = {}
+    toks, labels = (torch.from_numpy(np.array(inputs[k]))
+                    for k in ("tokens_g", "labels_g"))
+    for case in spec["cases"]:
+        prefix = case.get("weights", "w") + "/"
+        model = GPT2MoE.from_size("tiny", **dict(TINY, **case["moe_kw"]))
+        weights.params_from_numpy(model, weights.unflatten_tree(
+            {k[len(prefix):]: inputs[k] for k in inputs.files
+             if k.startswith(prefix)}))
+        model.validate(world)
+        weights.shard_module_(model, model.partition_specs(), world, rank)
+        model.model_group = topo.model_group
+        loss = model(toks, labels)
+        loss.backward()
+        out[f"{case['name']}/loss"] = loss.detach().numpy()
+        out.update({f"{case['name']}/g/{k}": p.grad.numpy()
+                    for k, p in model.named_parameters()})
+    return out
+
+
 def run_seq_attn(spec, inputs, rank, world):
     """Ring or Ulysses attention on this rank's sequence blocks (see the
     module docstring)."""
@@ -604,7 +722,8 @@ def main():
     inputs = np.load(spec["inputs"])
     run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
            "tp_layers": run_tp_layers, "seq_attn": run_seq_attn,
-           "pipe_raw": run_pipe_raw}[spec["scenario"]]
+           "pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads}[
+        spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
     import torch.distributed as dist
