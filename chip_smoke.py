@@ -3712,7 +3712,7 @@ def phase_moe_gpt2(device, size="medium", micro=MOE_MICRO, layers=None,
 # the multistep_gpt2 phase: GPT-2 medium at MID_LAYERS, seq 128, under the
 # deterministic flag; MULTI_BLOCKS blocks of MULTI_K batches as train_batch
 # calls and as train_many blocks fed by BlockPrefetcher(place=...), in bf16
-# and in fp16 with a chaos non-finite loss at step 2 (that block replays).
+# and in fp16 with a chaos non-finite loss at step 2 (skipped both ways).
 # The step times are the last block's: the first carries the warm-up.
 MULTI_K, MULTI_BLOCKS = 4, 2
 
@@ -3819,19 +3819,15 @@ def phase_multistep_gpt2(device, size="medium", micro=MICRO,
             out[prec_name] = (s, m)
     attn = layers * GAS * n
     (sb, mb), (sf, mf) = out["bf16"], out["fp16"]
-    # fp16: the skipped boundary launches no Adam; the first block's
-    # optimistic pass launches every boundary's, then its replay the
-    # serial count
+    # fp16: the skipped boundary launches no Adam, in either run
     expect = {"bf16_serial": no_launches(adam=leaves * n, block_fwd=attn,
                                          block_bwd=attn),
               "bf16_block": no_launches(adam=leaves * n, block_fwd=attn,
                                         block_bwd=attn),
               "fp16_serial": no_launches(adam=leaves * (n - 1),
                                          block_fwd=attn, block_bwd=attn),
-              "fp16_block": no_launches(
-                  adam=leaves * (n + MULTI_K - 1),
-                  block_fwd=attn + attn // MULTI_BLOCKS,
-                  block_bwd=attn + attn // MULTI_BLOCKS)}
+              "fp16_block": no_launches(adam=leaves * (n - 1),
+                                        block_fwd=attn, block_bwd=attn)}
     got = {"bf16_serial": sb["launches"], "bf16_block": mb["launches"],
            "fp16_serial": sf["launches"], "fp16_block": mf["launches"]}
     keys = ("digest", "step", "global_steps", "skipped", "loss_scale")
@@ -3970,7 +3966,8 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
         and broken["tags"] == [f"global_step{drain}"]
         and broken["counters"]["preemptions"] == 1,
         "relaunch_resumed": rc_r == 0 and resumed["global_steps"]
-        == RESUME_STEPS and resumed["counters"]["restarts"] == 1,
+        == RESUME_STEPS and resumed["counters"]["restarts"] == 1
+        and resumed["counters"]["restore_seconds"] > 0,
         "masters_bitwise": resumed["digest"] == unbroken["digest"],
         "no_watchdog_fire": not unbroken["watchdog_fired"]
         and not resumed["watchdog_fired"]

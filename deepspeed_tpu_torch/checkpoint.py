@@ -339,16 +339,17 @@ _TORCH_DTYPES = {np.dtype(k): v for k, v in (
     ("uint8", torch.uint8), ("bool", torch.bool))}
 
 
-#: retries of a chunk read (``io_retry``); ``load_checkpoint`` sets it from
-#: the engine's ``resilience.io_retries``
-READ_RETRIES = 3
+#: retries of a leaf read (``io_retry``) where the caller has no engine;
+#: ``load_checkpoint`` passes its engine's ``resilience.io_retries``
+IO_RETRIES = 3
 
 
-def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0) -> None:
+def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0,
+              retries: int = IO_RETRIES) -> None:
     """Fill ``out`` from the file region behind ``mm``, from its element
     ``start`` on, with one positioned read (which releases the GIL, where
     a page fault on the memmap holds it), through the chaos read point and
-    ``io_retry`` (``READ_RETRIES``); a short read names the truncation."""
+    ``io_retry`` (``retries``); a short read names the truncation."""
     if not out.nbytes:
         return
 
@@ -358,7 +359,7 @@ def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0) -> None:
             f.seek(int(mm.offset) + start * mm.dtype.itemsize)
             return f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
 
-    got = io_retry(read, retries=READ_RETRIES,
+    got = io_retry(read, retries=retries,
                    what=f"checkpoint chunk read ({mm.filename}@{mm.offset})")
     if got != out.nbytes:
         raise CheckpointReadError(
@@ -366,11 +367,12 @@ def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0) -> None:
             f"{out.nbytes} bytes at offset {mm.offset}, read {got}")
 
 
-def to_tensor(leaf, device=None) -> torch.Tensor:
+def to_tensor(leaf, device=None, retries: int = IO_RETRIES) -> torch.Tensor:
     """A loaded leaf (memmap, ``Bf16Chunk``, numpy array, tensor) as a
-    tensor on ``device`` (default the CPU).  The bytes go through a fresh
-    host staging tensor, pinned for a CUDA device; never through
-    ``torch.from_numpy`` on a read-only view."""
+    tensor on ``device`` (default the CPU), its read retried ``retries``
+    times.  The bytes go through a fresh host staging tensor, pinned for a
+    CUDA device; never through ``torch.from_numpy`` on a read-only
+    view."""
     if isinstance(leaf, torch.Tensor):
         return leaf.to(device) if device is not None else leaf
     cuda = device is not None and torch.device(device).type == "cuda"
@@ -394,13 +396,13 @@ def to_tensor(leaf, device=None) -> torch.Tensor:
     if bf16:
         view = view.view(np.uint16)
     if isinstance(src, np.memmap) and getattr(src, "filename", None):
-        _readinto(src, view)
+        _readinto(src, view, retries=retries)
     else:
         def fill():
             # an inline leaf counts as a read too, as in the JAX restore
             _chaos.read_point("ckpt_read")
             view[...] = src
-        io_retry(fill, retries=READ_RETRIES, what="checkpoint leaf read")
+        io_retry(fill, retries=retries, what="checkpoint leaf read")
     out = stage.view(dtype) if bf16 else stage
     return out.to(device, non_blocking=True) if cuda else out
 
@@ -521,7 +523,8 @@ def _is_z3_marker(obj) -> bool:
     return isinstance(obj, tuple) and len(obj) == 3 and obj[0] == _Z3_TAG
 
 
-def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int):
+def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int,
+                     retries: int = IO_RETRIES):
     """Replace the ZeRO-3 markers in model rank ``row``'s freshly read
     state with whole leaves (CPU tensors), concatenated along the
     recorded dim from the ``zero3_dp_rank_*_row_{row}`` shard files (the
@@ -551,7 +554,7 @@ def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int):
             rec = leaves.get(index)
             if rec is None:
                 rec = leaves[_keystr(name)]
-            chunks.append(to_tensor(rec[field]))
+            chunks.append(to_tensor(rec[field], retries=retries))
         return torch.cat(chunks, dim=int(dim))
 
     def fix(tree, field):
@@ -575,14 +578,15 @@ def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int):
 
 
 def _read_state(load_dir: str, tag: str, row: int = 0, mp: int = 1,
-                pp: int = 1):
+                pp: int = 1, retries: int = IO_RETRIES):
     """The model-state file of (stage, model rank) ``row = stage * mp +
     mp_rank`` of a save at ``mp`` and ``pp``, ZeRO-3 leaves rehydrated."""
     state = _load_obj(model_file(load_dir, tag, row % mp, row // mp, pp))
-    return _zero3_rehydrate(load_dir, tag, state, row)
+    return _zero3_rehydrate(load_dir, tag, state, row, retries)
 
 
-def _read_model_state(load_dir: str, tag: Optional[str]):
+def _read_model_state(load_dir: str, tag: Optional[str],
+                      retries: int = IO_RETRIES):
     """``(tag, state)`` of the tag's model-state file of stage 0 and model
     rank 0, or None when there is no checkpoint."""
     tag = _resolve_tag(load_dir, tag)
@@ -591,7 +595,8 @@ def _read_model_state(load_dir: str, tag: Optional[str]):
     mfile = _model_probe(load_dir, tag)
     if mfile is None:
         return None
-    return tag, _zero3_rehydrate(load_dir, tag, _load_obj(mfile), 0)
+    return tag, _zero3_rehydrate(load_dir, tag, _load_obj(mfile), 0,
+                                 retries)
 
 
 def _saved_mp(state) -> int:
@@ -602,16 +607,18 @@ def _saved_pp(state) -> int:
     return int(state.get("pp_world_size", 1))
 
 
-def _all_states(load_dir: str, tag: str, state0) -> list:
+def _all_states(load_dir: str, tag: str, state0,
+                retries: int = IO_RETRIES) -> list:
     """The model-state files of every saved (stage, model rank), in the
     order ``stage * mp + mp_rank`` (``state0``, already read, is the
     first)."""
     mp, pp = _saved_mp(state0), _saved_pp(state0)
-    return [state0] + [_read_state(load_dir, tag, r, mp, pp)
+    return [state0] + [_read_state(load_dir, tag, r, mp, pp, retries)
                        for r in range(1, mp * pp)]
 
 
-def _combined(trees, specs, pipe_specs, mp: int) -> dict:
+def _combined(trees, specs, pipe_specs, mp: int,
+              retries: int = IO_RETRIES) -> dict:
     """The global tree of the saved (stage, model rank)s' local ``trees``
     at model-parallel size ``mp``, as CPU tensors (``specs``: the model's
     ``partition_specs()``, ``pipe_specs``: its ``pipe_specs()``)."""
@@ -620,7 +627,8 @@ def _combined(trees, specs, pipe_specs, mp: int) -> dict:
             f"checkpoint was saved at mp={mp}: combining its model-rank "
             f"files needs the saving model's partition_specs()")
     return weights_mod.combine_stage_trees(
-        [_map_leaves(t, to_tensor) for t in trees], specs or {}, mp,
+        [_map_leaves(t, lambda x: to_tensor(x, retries=retries))
+         for t in trees], specs or {}, mp,
         pipe_specs)
 
 
@@ -957,15 +965,16 @@ def _map_leaves(tree, fn):
 
 
 @torch.no_grad()
-def _copy_into(dst: torch.Tensor, src, name: str) -> None:
+def _copy_into(dst: torch.Tensor, src, name: str,
+               retries: int = IO_RETRIES) -> None:
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(
             f"checkpoint restore: {name} has shape {tuple(src.shape)}, the "
             f"engine expects {tuple(dst.shape)}")
-    dst.copy_(to_tensor(src, dst.device))
+    dst.copy_(to_tensor(src, dst.device, retries))
 
 
-def _load_flat(dst: dict, tree, what: str) -> None:
+def _load_flat(dst: dict, tree, what: str, retries: int = IO_RETRIES) -> None:
     """Copy a loaded JAX-layout tree into ``{dotted name: tensor}``."""
     flat = weights_mod.flatten_tree(tree)
     missing, extra = set(dst) - set(flat), set(flat) - set(dst)
@@ -974,7 +983,7 @@ def _load_flat(dst: dict, tree, what: str) -> None:
                        f"missing {sorted(missing)}, unexpected "
                        f"{sorted(extra)}")
     for name, t in dst.items():
-        _copy_into(t, flat[name], f"{what}.{name}")
+        _copy_into(t, flat[name], f"{what}.{name}", retries)
 
 
 @torch.no_grad()
@@ -1054,9 +1063,9 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     (or a checkpoint without them) the masters are re-derived from the
     loaded module, so the next step cannot revert it."""
     ASYNC_SAVER.wait()
-    global READ_RETRIES
-    READ_RETRIES = int(getattr(engine.config, "resilience_io_retries", 3))
-    read = _read_model_state(load_dir, tag)
+    retries = int(getattr(engine.config, "resilience_io_retries",
+                          IO_RETRIES))
+    read = _read_model_state(load_dir, tag, retries)
     if read is None:
         return None, None
     tag, state = read
@@ -1091,7 +1100,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     engine.micro_steps = int(state["micro_steps"])
     old_ls = engine.loss_scale_state._asdict()
     engine.loss_scale_state = prec.LossScaleState(**{
-        k: to_tensor(np.asarray(v), old_ls[k].device).to(old_ls[k].dtype)
+        k: to_tensor(np.asarray(v), old_ls[k].device, retries).to(
+            old_ls[k].dtype)
         for k, v in state["loss_scale_state"].items()})
     for live, saved in zip(engine.optimizer.param_groups,
                            state.get("param_groups", [])):
@@ -1104,28 +1114,29 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if saved_mp == mp and saved_pp == pp:
         # this (stage, model rank)'s own file
         if _row(engine):
-            state = _read_state(load_dir, tag, _row(engine), mp, pp)
+            state = _read_state(load_dir, tag, _row(engine), mp, pp,
+                                retries)
         local = lambda get: _zero3_local(engine, get(state))
     else:
         # every saved (stage, model rank)'s file, combined and cut for
         # this rank
-        states = _all_states(load_dir, tag, state)
+        states = _all_states(load_dir, tag, state, retries)
 
         def local(get):
             if get(states[0]) is None:
                 return None
             return _zero3_local(engine, _local(engine, _combined(
                 [get(s) for s in states], engine._param_specs,
-                engine._pipe_specs, saved_mp)))
+                engine._pipe_specs, saved_mp, retries)))
 
     _load_flat(dict(engine.module.named_parameters()),
-               local(lambda s: s["module"]), "module")
+               local(lambda s: s["module"]), "module", retries)
     opt = state.get("optimizer")
     if load_optimizer_states and engine.zero_flat:
-        _load_zero_checkpoint(engine, load_dir, tag)
+        _load_zero_checkpoint(engine, load_dir, tag, retries)
     elif load_optimizer_states and opt is not None:
         _load_flat(engine.master, local(lambda s: s["optimizer"]["master"]),
-                   "optimizer.master")
+                   "optimizer.master", retries)
         saved = {key: local(lambda s, key=key:
                             s["optimizer"]["opt_state"][key])
                  for key in ("m", "v")}
@@ -1139,7 +1150,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                     f"engine's optimizer "
                     f"{'has' if live is not None else 'has none'}")
             if live is not None:
-                _load_flat(live, saved[key], f"optimizer.opt_state.{key}")
+                _load_flat(live, saved[key], f"optimizer.opt_state.{key}",
+                           retries)
         engine.opt_state.step = int(np.asarray(saved["step"]))
     else:
         _rederive_masters(engine)
@@ -1147,7 +1159,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
 
 
 @torch.no_grad()
-def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
+def _load_zero_checkpoint(engine, load_dir: str, tag: str,
+                          retries: int = IO_RETRIES) -> None:
     """This rank's partition of its model rank's flat fp32 master and
     moments from the partition files of a save at ANY data-parallel size,
     re-padded for the engine's layout; then the compute-dtype parameters
@@ -1199,7 +1212,7 @@ def _load_zero_checkpoint(engine, load_dir: str, tag: str) -> None:
                 continue
             out = view[s - lo:e - lo]
             if isinstance(src, np.memmap) and getattr(src, "filename", None):
-                _readinto(src, out, start=s - s0)
+                _readinto(src, out, start=s - s0, retries=retries)
             else:
                 out[...] = np.asarray(src)[s - s0:e - s0]
         dst.copy_(stage, non_blocking=cuda)

@@ -113,15 +113,12 @@ a dense fallback (``sparse.sparse_psum``; the reference's
 
 ``train_many(batches)`` runs K ``train_batch``-format batches, bitwise
 equal to K ``train_batch`` calls (the JAX ``engine.py:2986-3140``): all K
-are staged to the device up front with non-blocking copies, and the host
-reads at most one fence per block.  Without a skip contract (bf16 or fp32
-without the NaN sentinel) it reads nothing.  Under fp16 or the sentinel
-the block runs on the assumption that no boundary skips, with the skip
-flags left on the device, after a snapshot of the optimizer state; the one
-read is the block's skip vector at the end, and if any boundary skipped,
-the state is restored and the block replayed with a host read per
-boundary, which is what ``train_batch`` does.  (The JAX package instead
-gates each boundary's update on its flag inside the compiled program.)
+are staged to the device up front with non-blocking copies, then each runs
+``train_batch``'s step.  Without a skip contract (bf16 or fp32 without the
+NaN sentinel) the host reads nothing; under fp16 or the sentinel it reads
+each boundary's agreed overflow flag, as ``train_batch`` does.  (The JAX
+package instead gates each boundary's update on its flag inside the
+compiled program.)
 
 Resilience (``deepspeed_tpu_torch/resilience/``, the ``resilience``
 config block): the hang watchdog armed around ``backward``, ``step``,
@@ -150,6 +147,7 @@ import logging
 import math
 import os
 import re
+import time
 from typing import Optional
 
 import torch
@@ -384,10 +382,6 @@ class DeepSpeedTorchEngine:
             self._watchdog = Watchdog(
                 self.config.resilience_watchdog_timeout_s,
                 abort=self.config.resilience_watchdog_abort)
-        #: train_many's optimistic block: boundaries update without a host
-        #: read of their skip flag, which stays on the device
-        self._defer_skip = False
-        self._last_overflow = None
 
         # loss scale: the MEGATRON FSM under ZeRO, the INLINE one otherwise
         # (the JAX engine's engine.py:632)
@@ -1238,12 +1232,8 @@ class DeepSpeedTorchEngine:
     def _skip(self, overflow) -> bool:
         """Whether this boundary skips its update: under the skip contract
         (fp16, or the NaN sentinel at any precision) the host reads the
-        agreed overflow flag; ``train_many``'s optimistic block
-        (``_defer_skip``) leaves it on the device in ``_last_overflow``
-        and updates."""
-        self._last_overflow = overflow
-        if not (self.config.fp16_enabled or self._nan_sentinel) \
-                or self._defer_skip:
+        agreed overflow flag."""
+        if not (self.config.fp16_enabled or self._nan_sentinel):
             return False
         return bool(overflow)
 
@@ -1511,9 +1501,8 @@ class DeepSpeedTorchEngine:
         ``data.BlockPrefetcher``): bitwise equal to K ``train_batch``
         calls, the masters, moments, step, loss scale, skip counters, LR
         schedule and returned last loss alike.  All K batches are staged
-        to the device first; the host reads at most one fence per block
-        (see the module docstring), and the watchdog is armed once with
-        its deadline scaled by K.  Preemption (``resilience.run_resumable``)
+        to the device first, and the watchdog is armed once with its
+        deadline scaled by K.  Preemption (``resilience.run_resumable``)
         polls between calls, so a drain lands on a K boundary."""
         assert self.training, "train_many() requires train mode"
         if not isinstance(batches, (list, tuple)) or len(batches) == 0:
@@ -1542,57 +1531,9 @@ class DeepSpeedTorchEngine:
         staged = [tuple(self._to_device(x) for x in b) for b in batches]
         with self._armed("train_many", deadline_scale=k):
             _chaos.maybe_stall(self.global_steps)
-            if not (self.config.fp16_enabled or self._nan_sentinel):
-                for b in staged:
-                    loss = self._train_step(b)
-                return loss
-            snap = self._snapshot()
-            flags = []
-            self._defer_skip = True
-            try:
-                for b in staged:
-                    loss = self._train_step(b)
-                    flags.append(self._last_overflow.reshape(()))
-            finally:
-                self._defer_skip = False
-            # the block's one host fence: its skip vector
-            if not bool(torch.stack(flags).any()):
-                return loss
-            # a boundary skipped: replay the block from the snapshot with
-            # the per-boundary reads of train_batch
-            self._restore(snap)
             for b in staged:
                 loss = self._train_step(b)
             return loss
-
-    def _snapshot(self) -> dict:
-        """A copy of everything a boundary changes: the optimizer state
-        (masters, moments, step, loss scale), the step counters, the LR
-        schedule and the optimizer's param groups."""
-        def clone(x):
-            if isinstance(x, torch.Tensor):
-                return x.detach().clone()
-            if isinstance(x, dict):
-                return {k: clone(v) for k, v in x.items()}
-            return x
-
-        sched = self.lr_scheduler
-        return {"optimizer": clone(self._optimizer_state_dict()),
-                "counters": (self.global_steps, self.skipped_steps,
-                             self.micro_steps, self.overflow),
-                "groups": [dict(g) for g in self.optimizer.param_groups],
-                "sched": (None if sched is None
-                          else copy.deepcopy(sched.state_dict()))}
-
-    def _restore(self, snap: dict) -> None:
-        self._optimizer_load_state_dict(snap["optimizer"])
-        (self.global_steps, self.skipped_steps, self.micro_steps,
-         self.overflow) = snap["counters"]
-        if snap["sched"] is not None:
-            self.lr_scheduler.load_state_dict(snap["sched"])
-        for g, saved in zip(self.optimizer.param_groups, snap["groups"]):
-            g.clear()
-            g.update(saved)
 
     # -------------------------------------------------------------- resilience
 
@@ -1615,7 +1556,9 @@ class DeepSpeedTorchEngine:
 
     def resilience_counters(self) -> dict:
         """The process-wide resilience counters (restarts, skipped-NaN
-        steps, IO retries, watchdog near-misses and fires)."""
+        steps, IO retries, watchdog near-misses and fires, the last
+        restore's seconds); the compile-cache pair is None, not
+        measured."""
         return COUNTERS.as_dict()
 
     # ---------------------------------------------------------- checkpointing
@@ -1646,11 +1589,20 @@ class DeepSpeedTorchEngine:
         returns ``(path, client_state)``, ``(None, None)`` if none."""
         from deepspeed_tpu_torch import checkpoint as ckpt_mod
         self.tput_timer.discard_window()
+        t0 = time.perf_counter()
         with self._armed("load_checkpoint"):
-            return ckpt_mod.load_checkpoint(
+            path, client = ckpt_mod.load_checkpoint(
                 self, load_dir, tag=tag,
                 load_optimizer_states=load_optimizer_states,
                 load_lr_scheduler_states=load_lr_scheduler_states)
+        if path is not None:
+            # the restore is on the resume's critical path (the JAX
+            # engine's ``restore_seconds``); the copies to the card are
+            # done when the masters are
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            COUNTERS.restore_seconds = time.perf_counter() - t0
+        return path, client
 
     def _state_tensor(self):
         """The fp32 masters: what a timer synchronises on."""

@@ -13,6 +13,7 @@ merely "still running" (docs/resilience.md "Observability").
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from typing import Optional
 
 
 @dataclass
@@ -35,10 +36,10 @@ class Counters:
     #: wall-clock seconds of the most recent checkpoint restore
     #: (engine.load_checkpoint) — the resume-latency half of fast resume
     restore_seconds: float = 0.0
-    #: persistent-compilation-cache hits/misses (utils/compile_cache.py;
-    #: hits > 0 on a relaunch means the restart skipped recompilation)
-    compile_cache_hits: int = 0
-    compile_cache_misses: int = 0
+    #: persistent-compilation-cache hits/misses: the JAX package's names,
+    #: None (not measured) until the port has a compile cache
+    compile_cache_hits: Optional[int] = None
+    compile_cache_misses: Optional[int] = None
 
     def as_dict(self) -> dict:
         return {f.name: getattr(self, f.name) for f in fields(self)}

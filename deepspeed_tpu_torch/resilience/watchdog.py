@@ -61,13 +61,9 @@ class Watchdog:
 
     def __init__(self, timeout_s: float, abort: bool = False,
                  near_miss_frac: float = 0.8, history: int = 32,
-                 poll_s: float = None, on_fire=None):
+                 poll_s: float = None):
         self.timeout_s = float(timeout_s)
         self.abort = bool(abort)
-        #: optional callable invoked (on the monitor thread) after the
-        #: stack dump and BEFORE any abort (a hang-trace capture hook;
-        #: the port's telemetry is not ported yet, ROADMAP.md item 12)
-        self.on_fire = on_fire
         self.near_miss_frac = float(near_miss_frac)
         self.poll_s = (poll_s if poll_s is not None
                        else max(0.02, min(1.0, self.timeout_s / 10.0)))
@@ -154,8 +150,9 @@ class Watchdog:
               deadline_s: float = None) -> None:
         recent = "\n".join(f"  {lbl}: {dur * 1000.0:.1f} ms"
                            for lbl, dur in self.timings) or "  (none)"
-        # (the JAX watchdog adds the flight recorder's tail here and
-        # dumps its ring; the port's observability is not ported yet)
+        # (the JAX watchdog adds the flight recorder's tail here, dumps
+        # its ring and calls a hang-trace hook; the port's observability
+        # is not ported yet)
         deadline_s = self.timeout_s if deadline_s is None else deadline_s
         dump = (f"WATCHDOG: {label!r} exceeded {deadline_s:.2f}s "
                 f"deadline ({elapsed:.2f}s elapsed)\n"
@@ -166,13 +163,6 @@ class Watchdog:
         self.fired = True
         COUNTERS.watchdog_fires += 1
         logger.error("%s", dump)
-        if self.on_fire is not None:
-            # best-effort diagnostics (hang trace capture): a hook failure
-            # must never mask the dump or block the abort path
-            try:
-                self.on_fire()
-            except Exception as e:  # pragma: no cover - defensive
-                logger.warning("watchdog on_fire hook failed: %s", e)
         self.fire_event.set()
         if self.abort:
             # the restart path takes over: flush the dump to stderr and

@@ -112,8 +112,8 @@ def test_parity_bitwise(name, cfg, dtype):
 
 def test_parity_fp16_skip_mid_block_with_scheduler():
     """A real overflow in the middle of a block under fp16 and an LR
-    scheduler: the block replays with per-boundary reads, and the master,
-    skip count and LR equal the serial run's bitwise."""
+    scheduler: the block skips that boundary, and the master, skip count
+    and LR equal the serial run's bitwise."""
     cfg = base_config(
         fp16={"enabled": True, "loss_scale": 128.0},
         scheduler={"type": "WarmupLR",
@@ -133,8 +133,7 @@ def test_parity_fp16_skip_mid_block_with_scheduler():
 
 def test_bf16_sentinel_skip_mid_block_counts_once():
     """The NaN sentinel under bf16: the poisoned boundary is skipped in
-    both runs and counted once in ``nan_skips`` by the block (the
-    optimistic pass counts nothing; the replay counts it)."""
+    both runs and counted once in ``nan_skips`` by the block."""
     cfg = base_config(bf16={"enabled": True},
                       resilience={"nan_sentinel": True})
     bs = [batch(0), batch(1, poison=True), batch(2)]

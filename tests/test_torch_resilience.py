@@ -131,6 +131,7 @@ def test_sigterm_drain_and_bitwise_resume(tmpdir):
         handler.uninstall()
     assert resumed.global_steps == 6
     assert COUNTERS.preemptions >= 1 and COUNTERS.restarts == 1
+    assert COUNTERS.restore_seconds > 0
     assert master_bytes(resumed) == ref
 
 
@@ -299,6 +300,12 @@ def test_io_error_on_chunk_read_retries(tmpdir):
                                   resilience={"io_retries": 0}))()
     with pytest.raises(IOError, match="injected IO read failure"):
         strict.load_checkpoint(save_dir, tag="t0")
+    # the budget is the loading engine's: a read without an engine keeps
+    # the default, whichever engine loaded last
+    chaos.configure(io_fail_reads=1)
+    assert deepspeed_tpu_torch.checkpoint.load_module_tree(
+        save_dir, tag="t0") is not None
+    assert COUNTERS.io_retries == 3
 
 
 # ------------------------------------------------------------ hang watchdog
@@ -431,6 +438,9 @@ def test_counters_and_exit_codes_match_jax():
         "restarts", "preemptions", "nan_skips", "io_retries",
         "watchdog_near_misses", "watchdog_fires", "restore_seconds",
         "compile_cache_hits", "compile_cache_misses"}
+    # no restore yet; no compile cache in the port: not measured
+    assert got["restore_seconds"] == 0.0
+    assert got["compile_cache_hits"] is got["compile_cache_misses"] is None
     _split_step(engine, chaos.poison_batch(_fp32_batch(1)))
     assert engine.resilience_counters()["nan_skips"] == 1
     assert (RESUME_EXIT_CODE, WATCHDOG_EXIT_CODE) == (
