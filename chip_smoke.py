@@ -110,7 +110,10 @@ Phases (each prints one JSON line, with the seconds since the start as
    takes 6 steps and saves after step 3 (the model-state file and one
    ZeRO partition file), run B, from another seed, loads it and takes
    steps 4-6; losses, flat master, moments, step, loss scale and counters
-   bitwise equal to run A's; save bytes and seconds, load seconds.
+   bitwise equal to run A's; save bytes and seconds, load seconds.  Then
+   a third engine loads the save through the restore plan with
+   ``checkpoint.restore_threads`` 1 and 8: both bitwise equal to the
+   saved state, each with its ``restore_seconds``.
    gpt2_reference: train_gpt2's run at EARLY_LAYERS (6) of GPT-2
    medium's 24 layers, full width: the losses tp_gpt2, pp_gpt2 and
    zero3_pp_gpt2 are held to, since the multi-rank phases 16-20 run at
@@ -210,12 +213,39 @@ Phases (each prints one JSON line, with the seconds since the start as
    ways and exact launches.
    resume_gpt2: ``resilience.run_resumable`` over ``train_many`` blocks of
    2 in child processes (``chip_smoke.py --resume-child``; GPT-2 medium at
-   MID_LAYERS, the watchdog armed): an unbroken child to step 8; a child
-   SIGTERM'd by chaos at step 3 drains at step 4, writes an emergency tag
-   and exits RESUME_EXIT_CODE; a relaunch resumes to step 8, its masters
-   bitwise equal to the unbroken child's (one restart, no watchdog fire).
-   ``chip_smoke.py --only moe_gpt2,multistep_gpt2,resume_gpt2`` runs the
-   build and the named phases of these three alone, with no result line.
+   MID_LAYERS, the watchdog armed, 4 restore readers): an unbroken child
+   to step 8; then ONE run of the port's launcher (``python -m
+   deepspeed_tpu_torch.launcher.launch --max_restarts 1
+   --compile_cache_dir ...``) around a child SIGTERM'd by chaos at step 3,
+   which drains at step 4, writes an emergency tag, dumps the flight
+   recorder (``preempt``) and exits RESUME_EXIT_CODE, and its relaunch,
+   which resumes to step 8, its masters bitwise equal to the unbroken
+   child's (the launcher exits 0 after one relaunch, one restart, no
+   second SIGTERM, no watchdog fire; the compile cache, seeded with this
+   process's three kernel libraries, serves both attempts: 3 hits, 0
+   misses, every library loaded from it).
+   obs_gpt2: GPT-2 medium at 24 layers, train_gpt2's recipe, 8 steps
+   with observability off and on (report window 4, the JSONL log, the
+   torch.profiler window of steps 5-6, the health endpoints, MFU against
+   989 TFLOP/s) under the deterministic flag: (a) masters bitwise; (b) in
+   steps 2-3 no synchronizing CUDA call (``set_sync_debug_mode("warn")``)
+   and no counted fence; (c) the log passes the port's validator CLI, one
+   startup and two window events whose loss is the step's, exactly; (d)
+   the trace loads, holds the dstpu/ ranges and 32 / 96 / 96 launches of
+   the Adam and whole-tile kernels; (e) /healthz 200, /metrics parses;
+   (f) fp16 at MID_LAYERS with a NaN loss at step 2: the window's skipped
+   1, masters bitwise with the spool off.  Samples/s on and off, the
+   window's MFU and peak memory are reported.
+   fleet_gpt2: GPT-2 medium at EARLY_LAYERS, dp 2 as two processes
+   (``chip_smoke.py --fleet-child``) over gloo on the one card, 4 steps,
+   report window 2, the fleet view on; rank 1 stalls 2 s on the host
+   before step 3: rank 0 writes 2 schema-valid fleet events naming both
+   ranks and rank 1 none, the StragglerDetector flags rank 1 in window 2
+   only, the masters agree bitwise, each rank's exit-time flight-recorder
+   dump holds its 4 boundaries.
+   ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
+   moe_gpt2, multistep_gpt2, resume_gpt2) runs the build and the named
+   phases alone, with no result line.
 22. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
@@ -2049,16 +2079,23 @@ def phase_flat_adam(device, engine, launches):
     return row
 
 
+ZERO_RESTORE_THREADS = (1, 8)
+
+
 def phase_zero_ckpt(device):
     """ZeRO-2 (overlap on) under the deterministic flag: run A takes 6
     steps and saves after step 3; run B, a fresh engine from another seed,
     loads it and takes steps 4-6.  Run B's losses, flat master, moments,
-    step and loss-scale state must equal run A's bitwise."""
+    step and loss-scale state must equal run A's bitwise.  Then a third
+    engine loads the save with ``checkpoint.restore_threads`` 1 and 8
+    (ZERO_RESTORE_THREADS): both loads bitwise equal to the saved state,
+    each with its ``restore_seconds``."""
     import shutil
     import tempfile
 
     import torch
 
+    from deepspeed_tpu_torch.resilience import COUNTERS
     (ROOT / "build").mkdir(exist_ok=True)
     work = tempfile.mkdtemp(prefix="zero_ckpt_", dir=ROOT / "build")
     ck_dir = os.path.join(work, "ckpt")
@@ -2082,6 +2119,12 @@ def phase_zero_ckpt(device):
                     save_bytes = a.last_save_bytes
                     files = sorted(os.listdir(path))
                     root_files = sorted(os.listdir(ck_dir))
+                    # the saved state, on the card: what both restores
+                    # below must equal
+                    saved = {"master": a.master_flat.clone(),
+                             "m": a.opt_state.m["flat"].clone(),
+                             "v": a.opt_state.v["flat"].clone(),
+                             "step": a.opt_state.step}
             sync(device)
             launches_a = launch_counts()
             b = zero_engine(device, zero_cfg, seed=1)
@@ -2114,9 +2157,32 @@ def phase_zero_ckpt(device):
             steps_b = GPT2_STEPS - ZERO_SAVE_AT
             del a, b
             free(device)
+            # the restore plan serial and pooled, into one engine
+            c = zero_engine(device, zero_cfg, seed=2)
+            loads = {}
+            for threads in ZERO_RESTORE_THREADS:
+                c.config.checkpoint_restore_threads = threads
+                COUNTERS.restore_seconds = 0.0
+                sync(device)
+                t0 = time.perf_counter()
+                c.load_checkpoint(ck_dir)
+                sync(device)
+                loads[threads] = {
+                    "restore_seconds": COUNTERS.restore_seconds,
+                    "wall_s": time.perf_counter() - t0,
+                    "bitwise": all(torch.equal(t, saved[k]) for k, t in (
+                        ("master", c.master_flat),
+                        ("m", c.opt_state.m["flat"]),
+                        ("v", c.opt_state.v["flat"])))
+                    and c.opt_state.step == saved["step"]}
+            del c, saved
+            free(device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     checks = {"bitwise": all(bitwise.values()),
+              "restore_pooled_equals_serial": all(
+                  r["bitwise"] for r in loads.values())
+              and all(r["restore_seconds"] > 0 for r in loads.values()),
               "files": files == [ZERO_MODEL_FILE, ZERO_OPTIM_FILE]
               and root_files == ["global_step3", "latest"],
               "launches": (launches_a == no_launches(
@@ -2128,6 +2194,7 @@ def phase_zero_ckpt(device):
     emit("zero_ckpt", model="gpt2-medium", zero=zero_cfg, deterministic=True,
          save_after=ZERO_SAVE_AT, files=files, save_bytes=save_bytes,
          save_s=save_s, load_s=load_s,
+         restore=loads,
          losses_a=[float(x) for x in losses_a],
          losses_b=[float(x) for x in losses_b], bitwise=bitwise,
          launches_a=launches_a, launches_b=launches_b, checks=checks)
@@ -3860,29 +3927,46 @@ def phase_multistep_gpt2(device, size="medium", micro=MICRO,
 
 # the resume_gpt2 phase: resilience.run_resumable over train_many blocks of
 # RESUME_K in child processes (GPT-2 medium at MID_LAYERS, the watchdog
-# armed): an unbroken child to RESUME_STEPS; a child SIGTERM'd by chaos at
-# step RESUME_SIGTERM_AT, drained at the next K boundary; a relaunch
+# armed, the restore plan at RESUME_THREADS readers): an unbroken child to
+# RESUME_STEPS; then one run of the port's launcher with --max_restarts 1
+# and --compile_cache_dir, whose child chaos SIGTERMs itself at step
+# RESUME_SIGTERM_AT, drains at the next K boundary (exit 43) and is
+# relaunched, resuming from the emergency checkpoint
 RESUME_K, RESUME_STEPS, RESUME_SIGTERM_AT = 2, 8, 3
 RESUME_WATCHDOG_S = 300.0
+RESUME_THREADS = 4
 
 
 def resume_child(spec_path):
     """One process of the resume_gpt2 phase: ``run_resumable`` to
     RESUME_STEPS in train_many blocks; writes ``<name>.json`` beside the
-    spec and exits with ``run_resumable``'s code."""
+    spec (``<name>_<generation>.json`` under the launcher, which exports
+    the restart ordinal) and exits with ``run_resumable``'s code.  The
+    three kernel libraries are loaded first, in parallel, from the
+    compile cache's directory (DSTPU_COMPILE_CACHE_DIR, the launcher's
+    --compile_cache_dir) or built there."""
     import torch
 
     from deepspeed_tpu_torch import resilience
+    from deepspeed_tpu_torch.observability.health import \
+        ENV_REPLICA_GENERATION
     from deepspeed_tpu_torch.resilience import chaos
     spec = json.loads(pathlib.Path(spec_path).read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(spec["device"])
+    t0 = time.perf_counter()
+    libs = []
     if device.type == "cuda":
-        for mod in _counted():          # the parent's build, loaded
-            mod.build()
+        with ThreadPoolExecutor(3) as pool:     # one nvcc per source
+            libs = [job.result()._name for job in
+                    [pool.submit(mod.build) for mod in _counted()]]
+    build_s = time.perf_counter() - t0
     cfg = dict(gpt2_config(spec["micro"]), train_steps_per_dispatch=RESUME_K,
-               resilience={"watchdog_timeout_s": RESUME_WATCHDOG_S})
+               resilience={"watchdog_timeout_s": RESUME_WATCHDOG_S},
+               checkpoint={"restore_threads": RESUME_THREADS})
+    gen = os.environ.get(ENV_REPLICA_GENERATION)
+    name = spec["name"] if gen is None else f"{spec['name']}_{gen}"
     vocab = []
 
     def factory():
@@ -3899,7 +3983,8 @@ def resume_child(spec_path):
                                  seed=100 + start + j)
                         for j in range(RESUME_K)])
 
-    out = {"name": spec["name"]}
+    out = {"name": name, "build_s": build_s,
+           "lib_dirs": sorted({os.path.dirname(x) for x in libs})}
     t0 = time.perf_counter()
     code = 0
     with deterministic():
@@ -3916,59 +4001,103 @@ def resume_child(spec_path):
                                                          "emergency")))
     out.update(exit=code, counters=resilience.COUNTERS.as_dict(),
                seconds=time.perf_counter() - t0)
-    (pathlib.Path(spec_path).parent / f"{spec['name']}.json").write_text(
+    (pathlib.Path(spec_path).parent / f"{name}.json").write_text(
         json.dumps(out))
     return code
 
 
 def phase_resume_gpt2(device, size="medium", micro=MICRO,
                       layers=MID_LAYERS):
-    """run_resumable in three child processes (see RESUME_K): unbroken,
-    SIGTERM'd by chaos and drained at the K boundary, relaunched; the
-    relaunch's masters bitwise equal to the unbroken run's.
-    ``phase_resume_gpt2(torch.device("cpu"), size="tiny", micro=2,
-    layers=2)`` rehearses it on the CPU."""
+    """run_resumable in child processes (see RESUME_K): unbroken, then the
+    port's launcher with --max_restarts 1 around a child SIGTERM'd by
+    chaos (drained at the K boundary, exit 43) and its relaunch (exit 0),
+    whose masters are bitwise the unbroken run's; the relaunch loads the
+    three kernel libraries from the compile cache (the launcher's
+    --compile_cache_dir, seeded with the parent's build: both attempts
+    load every library from it, 3 hits and 0 misses each, the relaunch
+    from the directory the launcher re-exported), restores with
+    RESUME_THREADS readers, and the drain left the flight recorder's
+    ``preempt`` dump.  ``phase_resume_gpt2(torch.device("cpu"),
+    size="tiny", micro=2, layers=2)`` rehearses it on the CPU (the
+    compile-cache check fails there by design: no kernel is built)."""
     import shutil
     import tempfile
 
+    from deepspeed_tpu_torch.launcher.run import encode_world_info
+    from deepspeed_tpu_torch.observability import flightrec
     from deepspeed_tpu_torch.resilience import RESUME_EXIT_CODE
+    from deepspeed_tpu_torch.resilience import chaos
     (ROOT / "build").mkdir(exist_ok=True)
     work = pathlib.Path(tempfile.mkdtemp(prefix="resume_gpt2_",
                                          dir=ROOT / "build"))
 
-    def child(name, ckpt, sigterm=None):
+    def spec_for(name, ckpt):
         spec = work / f"{name}.spec.json"
         spec.write_text(json.dumps({"name": name, "device": str(device),
                                     "ckpt": str(work / ckpt),
                                     "layers": layers, "size": size,
                                     "micro": micro}))
-        env_ = dict(os.environ)
-        env_.pop("DSTPU_CHAOS_SIGTERM_STEP", None)
-        if sigterm is not None:
-            env_["DSTPU_CHAOS_SIGTERM_STEP"] = str(sigterm)
-        p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                            "--resume-child", str(spec)], env=env_,
-                           timeout=TP_CHILD_TIMEOUT)
-        res = json.loads((work / f"{name}.json").read_text())
-        return p.returncode, res
+        return spec
 
+    base = dict(os.environ)
+    for key in (chaos.ENV_SIGTERM_STEP, "DSTPU_COMPILE_CACHE_DIR",
+                "DSTPU_REPLICA_GENERATION"):
+        base.pop(key, None)
     try:
-        rc_u, unbroken = child("unbroken", "u")
-        rc_b, broken = child("broken", "r", sigterm=RESUME_SIGTERM_AT)
-        rc_r, resumed = child("relaunch", "r")
+        p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--resume-child", str(spec_for("unbroken", "u"))],
+                           env=base, timeout=TP_CHILD_TIMEOUT)
+        rc_u = p.returncode
+        unbroken = json.loads((work / "unbroken.json").read_text())
+        # the compile cache, seeded with the libraries this process built
+        cache = work / "compile_cache"
+        cache.mkdir()
+        for mod in (_counted() if device.type == "cuda" else ()):
+            shutil.copy2(mod.build()._name, cache)
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+             f"--world_info={encode_world_info({'localhost': [0]})}",
+             f"--master_port={_free_port()}", "--max_restarts=1",
+             "--restart_backoff=0.1", f"--compile_cache_dir={cache}",
+             str(ROOT / "chip_smoke.py"), "--resume-child",
+             str(spec_for("launched", "r"))],
+            env=dict(base, **{chaos.ENV_SIGTERM_STEP: str(RESUME_SIGTERM_AT),
+                              flightrec.ENV_DUMP_DIR: str(work / "fr")}),
+            cwd=str(ROOT), timeout=2 * TP_CHILD_TIMEOUT)
+        launcher_s = time.perf_counter() - t0
+        rc_l = p.returncode
+        attempts = sorted(f.name for f in work.glob("launched_*.json"))
+        broken = json.loads((work / "launched_0.json").read_text())
+        resumed = json.loads((work / "launched_1.json").read_text())
+        try:
+            preempt = flightrec.load_dump(
+                str(work / "fr" / "flightrec_rank0_preempt.json"))
+            preempt_kinds = [e["kind"] for e in preempt["entries"]][-3:]
+        except (OSError, ValueError) as e:
+            preempt, preempt_kinds = None, repr(e)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     drain = (RESUME_SIGTERM_AT // RESUME_K + 1) * RESUME_K
+    cb, cr = broken["counters"], resumed["counters"]
     checks = {
         "unbroken_exit_0": rc_u == 0 and unbroken["global_steps"]
         == RESUME_STEPS,
-        "broken_drained_at_k_boundary": rc_b == RESUME_EXIT_CODE
+        "launcher_one_relaunch": rc_l == 0 and attempts
+        == ["launched_0.json", "launched_1.json"],
+        "broken_drained_at_k_boundary": broken["exit"] == RESUME_EXIT_CODE
         and broken["tags"] == [f"global_step{drain}"]
-        and broken["counters"]["preemptions"] == 1,
-        "relaunch_resumed": rc_r == 0 and resumed["global_steps"]
-        == RESUME_STEPS and resumed["counters"]["restarts"] == 1
-        and resumed["counters"]["restore_seconds"] > 0,
+        and cb["preemptions"] == 1,
+        "relaunch_resumed": resumed["exit"] == 0
+        and resumed["global_steps"] == RESUME_STEPS
+        and cr["restarts"] == 1 and cr["restore_seconds"] > 0
+        and cr["preemptions"] == 0,
         "masters_bitwise": resumed["digest"] == unbroken["digest"],
+        "compile_cache": cb["compile_cache_hits"] == 3
+        and cr["compile_cache_hits"] == 3
+        and cb["compile_cache_misses"] == cr["compile_cache_misses"] == 0
+        and broken["lib_dirs"] == resumed["lib_dirs"] == [str(cache)],
+        "preempt_dump": preempt is not None and "preempt" in preempt_kinds,
         "no_watchdog_fire": not unbroken["watchdog_fired"]
         and not resumed["watchdog_fired"]
         and all(r["counters"]["watchdog_fires"] == 0
@@ -3977,14 +4106,458 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
          micro_batch=micro, gas=GAS, k=RESUME_K, steps=RESUME_STEPS,
          sigterm_at=RESUME_SIGTERM_AT, drained_at=drain,
          watchdog_timeout_s=RESUME_WATCHDOG_S,
-         exit_codes={"unbroken": rc_u, "broken": rc_b, "relaunch": rc_r},
+         restore_threads=RESUME_THREADS,
+         exit_codes={"unbroken": rc_u, "launcher": rc_l,
+                     "broken": broken["exit"], "relaunch": resumed["exit"]},
+         attempts=attempts, preempt_dump_tail=preempt_kinds,
          counters={r["name"]: r["counters"]
+                   for r in (unbroken, broken, resumed)},
+         build_s={r["name"]: r["build_s"]
+                  for r in (unbroken, broken, resumed)},
+         lib_dirs={r["name"]: r["lib_dirs"]
                    for r in (unbroken, broken, resumed)},
          child_seconds={r["name"]: r["seconds"]
                         for r in (unbroken, broken, resumed)},
-         checks=checks)
+         launcher_s=launcher_s, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"resume_gpt2 phase failed: {checks}")
+
+
+# the obs_gpt2 phase: GPT-2 medium at full width and depth with train_gpt2's
+# recipe, OBS_STEPS steps from one seed with observability off and on (the
+# metric spool, the JSONL log, the torch.profiler window of OBS_TRACE, the
+# health endpoints, the MFU column against the card's 989 bf16 TFLOP/s),
+# under the deterministic flag; then fp16 at MID_LAYERS with a NaN loss at
+# step 2 of OBS_FP16_STEPS, spool on and off.  The sync-debug steps are
+# between the window edges and before the trace.
+OBS_STEPS, OBS_WINDOW, OBS_TRACE = 8, 4, (5, 2)
+OBS_SYNC_STEPS = (1, 2)
+OBS_FP16_STEPS = 4
+PEAK_BF16_TFLOPS = 989.0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http_get(port, path):
+    """(status, body) of ``GET http://127.0.0.1:<port><path>``."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _validate_jsonl(path):
+    """The port's validator CLI on ``path``: (exit code, output)."""
+    p = subprocess.run([sys.executable, "-m",
+                        "deepspeed_tpu_torch.observability", str(path)],
+                       capture_output=True, text=True, cwd=str(ROOT),
+                       timeout=120)
+    return p.returncode, (p.stdout + p.stderr).strip()
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _trace_counts(path):
+    """A Chrome trace's kernel launches by port kernel name and its
+    ``dstpu/`` ranges by name."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = dict.fromkeys(DEVICE_SYMBOL, 0)
+    spans = {}
+    for ev in events:
+        name = str(ev.get("name", ""))
+        if ev.get("cat") == "kernel":
+            for k, sym in DEVICE_SYMBOL.items():
+                if sym in name:
+                    kernels[k] += 1
+        elif name.startswith("dstpu/"):
+            spans[name] = spans.get(name, 0) + 1
+    return kernels, spans, len(events)
+
+
+def gpt2_flops_per_sample(n_params, layers, hidden, seq):
+    """Training FLOPs of one GPT-2 sample: 6 N T for the parameters and
+    12 L d T^2 for the attention products (forward and backward)."""
+    return 6 * n_params * seq + 12 * layers * hidden * seq * seq
+
+
+def phase_obs_gpt2(device, size="medium", micro=MICRO, layers=None,
+                   fp16_layers=MID_LAYERS):
+    """Observability at full width and depth (see OBS_STEPS): (a) masters
+    bitwise with the spool on and off; (b) no synchronizing CUDA call
+    (``torch.cuda.set_sync_debug_mode("warn")``) and no counted fence in
+    the sync-debug steps; (c) the JSONL log passes the port's validator
+    with one startup and OBS_STEPS / OBS_WINDOW window events whose loss
+    is the step's, exactly; (d) the trace window is a loadable Chrome
+    trace with the dstpu/ ranges and the kernels' launches; (e) /healthz
+    200 and /metrics parses; (f) fp16 with one NaN step: the window's
+    skipped 1, the masters bitwise with the spool off.  Returns the
+    launches.  ``phase_obs_gpt2(torch.device("cpu"), size="tiny",
+    micro=2, layers=2, fp16_layers=2)`` rehearses it on the CPU (the
+    launch and sync-debug checks fail there by design)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.observability import fences
+    from deepspeed_tpu_torch.observability import health as health_mod
+    from deepspeed_tpu_torch.resilience import chaos
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="obs_gpt2_",
+                                         dir=ROOT / "build"))
+    rows = micro * GAS
+    cuda = device.type == "cuda"
+
+    def staged(vocab, n, seed0, poison_at=None):
+        out = []
+        for i in range(n):
+            toks, labels = lm_batch(rows, GPT2_SEQ, vocab, seed=seed0 + i)
+            leaves = [toks, labels]
+            if poison_at is not None:
+                p = np.zeros(rows, np.float32)
+                leaves.append(p)
+            b = tuple(torch.as_tensor(x).to(device) for x in leaves)
+            if poison_at is not None and i == poison_at:
+                b = chaos.poison_batch(b)
+            out.append(b)
+        return out
+
+    def run(eng, bs, sync_steps=()):
+        """The steps; per step the wall ms (synchronized after the step,
+        outside the sync-debug region), the loss tensors (read after the
+        run), the sync-debug warnings and the fence deltas."""
+        losses, step_ms, warned, fence_delta = [], [], [], 0
+        sync(device)
+        reset_launch_counts()
+        for i, b in enumerate(bs):
+            t0 = time.perf_counter()
+            if i in sync_steps:
+                f0 = fences.FENCE_COUNT
+                with warnings.catch_warnings(record=True) as got:
+                    warnings.simplefilter("always")
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        losses.append(eng.train_batch(b))
+                    finally:
+                        if cuda:
+                            torch.cuda.set_sync_debug_mode(0)
+                fence_delta += fences.FENCE_COUNT - f0
+                warned += [f"{w.filename}:{w.lineno}: {w.message}"
+                           for w in got if "called a synchronizing CUDA"
+                           in str(w.message)]
+            else:
+                losses.append(eng.train_batch(b))
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"losses": losses, "step_ms": step_ms, "warned": warned,
+                "fence_delta": fence_delta, "launches": launch_counts()}
+
+    # the on-run's steps 2-8 carry its instrumentation: the sync-debug
+    # steps (0-based 1-2), the profiler's warm-up (3-4), the traced steps
+    # (5-6) and the export (6); step 8 (7) carries the spool alone
+    def steady(step_ms):
+        sel = step_ms[1:]
+        return rows * len(sel) / (sum(sel) / 1e3)
+
+    try:
+        with deterministic():
+            # -------------------------------------------- (a)-(e): bf16
+            eng = make_engine(gpt2_config(micro), device, size=size,
+                              gpt2=True, **_depth(layers))
+            mcfg = eng.module.config
+            n_params = eng.num_parameters()
+            leaves = len(eng.master)
+            bs = staged(mcfg.vocab_size, OBS_STEPS, 300)
+            _reset_peak(device)
+            off = run(eng, bs)
+            off.update(digest=_z3_digest(eng), peak_mem_gib=_peak_gib(device))
+            del eng
+            free(device)
+            port = _free_port()
+            fps = gpt2_flops_per_sample(n_params, mcfg.num_layers,
+                                        mcfg.hidden_size, GPT2_SEQ)
+            obs = {"report_window": OBS_WINDOW,
+                   "jsonl_path": str(work / "events.jsonl"),
+                   "trace_dir": str(work / "trace"),
+                   "trace_start_step": OBS_TRACE[0],
+                   "trace_num_steps": OBS_TRACE[1],
+                   "health_port": port, "flops_per_sample": fps,
+                   "peak_tflops_per_chip": PEAK_BF16_TFLOPS,
+                   "flight_recorder_dir": str(work)}
+            eng = make_engine(dict(gpt2_config(micro), observability=obs),
+                              device, size=size, gpt2=True, **_depth(layers))
+            _reset_peak(device)
+            on = run(eng, bs, sync_steps=OBS_SYNC_STEPS)
+            health = _http_get(port, "/healthz")
+            metrics = _http_get(port, "/metrics")
+            eng.flush_telemetry()
+            on.update(digest=_z3_digest(eng), peak_mem_gib=_peak_gib(device))
+            eng.telemetry.close()
+            del eng
+            free(device)
+            # -------------------------------------------- (f): fp16
+            fp16 = {}
+            for mode in ("off", "on"):
+                cfg = gpt2_config(micro)
+                cfg.pop("bf16")
+                cfg["fp16"] = {"enabled": True, "initial_scale_power": 16}
+                if mode == "on":
+                    cfg["observability"] = {
+                        "report_window": OBS_FP16_STEPS,
+                        "jsonl_path": str(work / "fp16.jsonl")}
+                eng = chaos_gpt2_engine(device, cfg, fp16_layers, size=size)
+                fb = staged(eng.module.config.vocab_size, OBS_FP16_STEPS,
+                            400, poison_at=1)
+                r = run(eng, fb)
+                eng.flush_telemetry()
+                r.update(digest=_z3_digest(eng), skipped=eng.skipped_steps)
+                fp16[mode] = r
+                del eng
+                free(device)
+        losses_on = [float(x) for x in on["losses"]]
+        losses_off = [float(x) for x in off["losses"]]
+        events = _read_jsonl(work / "events.jsonl")
+        rc, verdict = _validate_jsonl(work / "events.jsonl")
+        windows = [e for e in events
+                   if e.get("schema") == "dstpu.telemetry.window"]
+        startups = [e for e in events
+                    if e.get("schema") == "dstpu.telemetry.startup"]
+        trace_path = work / "trace" / (f"steps_{OBS_TRACE[0]}_"
+                                       f"{OBS_TRACE[0] + OBS_TRACE[1]}.json")
+        try:
+            t_kernels, t_spans, t_events = _trace_counts(trace_path)
+            trace_ok = True
+        except (OSError, ValueError, KeyError) as e:
+            t_kernels, t_spans, t_events, trace_ok = {}, {}, 0, repr(e)
+        fp16_events = _read_jsonl(work / "fp16.jsonl")
+        rc16, verdict16 = _validate_jsonl(work / "fp16.jsonl")
+        fp16_windows = [e for e in fp16_events
+                        if e.get("schema") == "dstpu.telemetry.window"]
+        try:
+            prom = health_mod.parse_prometheus_text(metrics[1])
+        except ValueError as e:
+            prom = {"error": repr(e)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    layers_run = mcfg.num_layers
+    attn = layers_run * GAS * OBS_STEPS
+    expect = no_launches(adam=leaves * OBS_STEPS, block_fwd=attn,
+                         block_bwd=attn)
+    n_traced = OBS_TRACE[1]
+    expect_trace = {"adam": leaves * n_traced,
+                    "block_fwd": layers_run * GAS * n_traced,
+                    "block_bwd": layers_run * GAS * n_traced}
+    edge_steps = [k * OBS_WINDOW - 1 for k in range(1, OBS_STEPS
+                                                     // OBS_WINDOW + 1)]
+    checks = {
+        "a_masters_bitwise": on["digest"] == off["digest"]
+        and losses_on == losses_off,
+        "b_no_sync": not on["warned"] and on["fence_delta"] == 0,
+        "c_jsonl": rc == 0 and len(startups) == 1
+        and len(windows) == OBS_STEPS // OBS_WINDOW
+        and [w["loss"] for w in windows] == [losses_on[i]
+                                             for i in edge_steps]
+        and [w["step"] for w in windows] == [i + 1 for i in edge_steps]
+        and all(w["skipped"] == 0 for w in windows),
+        "d_trace": trace_ok is True
+        and {k: t_kernels.get(k) for k in expect_trace} == expect_trace
+        and all(t_spans.get(f"dstpu/{s}", 0) > 0
+                for s in ("fwd", "bwd", "boundary", "train_batch")),
+        "e_health": health[0] == 200 and json.loads(health[1])["ok"] is True
+        and "error" not in prom and prom.get("dstpu_step") == OBS_STEPS,
+        "f_fp16": rc16 == 0 and len(fp16_windows) == 1
+        and fp16_windows[0]["skipped"] == 1
+        and fp16["on"]["skipped"] == fp16["off"]["skipped"] == 1
+        and fp16["on"]["digest"] == fp16["off"]["digest"],
+        "launches": on["launches"] == expect and off["launches"] == expect}
+    last = windows[-1] if windows else {}
+    emit("obs_gpt2", model=f"gpt2-{size}", layers=layers_run, seq=GPT2_SEQ,
+         micro_batch=micro, gas=GAS, dtype="bf16", optimizer="Adam",
+         lr=1e-4, deterministic=True, params=n_params, leaves=leaves,
+         steps=OBS_STEPS, report_window=OBS_WINDOW, trace_steps=OBS_TRACE,
+         sync_debug_steps=OBS_SYNC_STEPS, flops_per_sample=fps,
+         losses={"off": losses_off, "on": losses_on},
+         step_ms={"off": off["step_ms"], "on": on["step_ms"]},
+         samples_per_s_steady={"off": steady(off["step_ms"]),
+                               "on": steady(on["step_ms"])},
+         peak_mem_gib={"off": off["peak_mem_gib"], "on": on["peak_mem_gib"]},
+         window_events=[{k: w.get(k) for k in (
+             "step", "window_steps", "loss", "loss_mean", "grad_norm",
+             "loss_scale", "skipped", "step_ms", "samples_per_sec", "mfu",
+             "measured_peak_hbm_gb", "host_ms")} for w in windows],
+         startup=startups[0] if startups else None,
+         validator={"rc": rc, "out": verdict, "fp16_rc": rc16,
+                    "fp16_out": verdict16},
+         sync_warnings=on["warned"], fence_delta=on["fence_delta"],
+         trace={"events": t_events, "kernels": t_kernels, "spans": t_spans,
+                "expected_kernels": expect_trace, "loaded": trace_ok},
+         health={"healthz": health[0], "metrics_parsed": len(prom),
+                 "step": prom.get("dstpu_step")},
+         fp16={"layers": fp16_layers, "steps": OBS_FP16_STEPS,
+               "losses": {m: [float(x) for x in r["losses"]]
+                          for m, r in fp16.items()},
+               "skipped": {m: r["skipped"] for m, r in fp16.items()},
+               "window": {k: fp16_windows[0].get(k) for k in (
+                   "step", "window_steps", "skipped", "loss_scale")}
+               if fp16_windows else None},
+         mfu=last.get("mfu"), launches={"off": off["launches"],
+                                        "on": on["launches"]},
+         expected_launches=expect, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"obs_gpt2 phase failed: {checks}")
+    return {"off": off["launches"], "on": on["launches"],
+            "trace": {k: t_kernels.get(k) for k in expect_trace},
+            "fp16_off": fp16["off"]["launches"],
+            "fp16_on": fp16["on"]["launches"]}
+
+
+# the fleet_gpt2 phase: GPT-2 medium at EARLY_LAYERS, dp 2 as two processes
+# on the one card over gloo, FLEET_STEPS steps with report_window
+# FLEET_WINDOW and the fleet view on; rank 1 stalls FLEET_STALL_S on the
+# host (the chaos stall point) before step FLEET_STALL_AT's work
+FLEET_STEPS, FLEET_WINDOW, FLEET_STALL_AT, FLEET_STALL_S = 4, 2, 2, 2.0
+
+
+def fleet_child(spec_path, rank):
+    """One rank of the fleet_gpt2 phase (started by ``phase_fleet_gpt2``):
+    FLEET_STEPS train_batch steps on its rows, the telemetry flushed; its
+    flight recorder dumps at exit (DSTPU_FLIGHTREC_DUMP_AT_EXIT)."""
+    t_start = time.perf_counter()
+    spec, device = _child_setup(spec_path, rank, 2)
+    micro = spec["micro"]
+    obs = {"report_window": FLEET_WINDOW,
+           "jsonl_path": os.path.join(spec["work"], f"events_{rank}.jsonl"),
+           "fleet": True, "fleet_wait_s": 60.0,
+           "flight_recorder_dir": spec["work"]}
+    cfg = dict(gpt2_config(micro), observability=obs)
+    cfg["train_batch_size"] = micro * GAS * 2
+    eng = make_engine(cfg, device, size=spec["size"], gpt2=True,
+                      **_depth(spec["layers"]))
+    rows = micro * GAS
+    toks, labels = lm_batch(rows * 2, GPT2_SEQ, eng.module.config.vocab_size)
+    batch = (toks[rank * rows:(rank + 1) * rows],
+             labels[rank * rows:(rank + 1) * rows])
+    out = {"rank": rank, **_child_run(eng, batch, FLEET_STEPS, device)}
+    t0 = time.perf_counter()
+    eng.flush_telemetry()
+    out["flush_s"] = time.perf_counter() - t0
+    out["window"] = eng.telemetry.last_window_event
+    eng.telemetry.close()
+    del eng
+    return _child_finish(spec_path, spec, out, t_start, device)
+
+
+def phase_fleet_gpt2(device, size="medium", micro=MICRO, layers=EARLY_LAYERS):
+    """The fleet view across two ranks (see FLEET_STEPS): rank 0 writes
+    FLEET_STEPS / FLEET_WINDOW schema-valid fleet events naming both
+    hosts and rank 1 writes none; the StragglerDetector flags rank 1 in
+    the stalled window; both ranks' masters bitwise equal; each rank's
+    flight-recorder dump holds its boundary records.  Returns each rank's
+    launches.  ``phase_fleet_gpt2(torch.device("cpu"), size="tiny",
+    micro=2, layers=2)`` rehearses it on the CPU (the launch check fails
+    there by design)."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.observability import flightrec
+    from deepspeed_tpu_torch.resilience import chaos
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="fleet_gpt2_",
+                                         dir=ROOT / "build"))
+    spec = work / "fleet.json"
+    spec.write_text(json.dumps({
+        "mode": "fleet", "device": str(device), "size": size,
+        "micro": micro, "layers": layers, "work": str(work),
+        "coordinator": f"tcp://127.0.0.1:{_free_port()}"}))
+    base = dict(os.environ, DSTPU_FLIGHTREC_DUMP_AT_EXIT="1")
+    for key in (chaos.ENV_STALL_STEP, chaos.ENV_STALL_S):
+        base.pop(key, None)
+    stall = {chaos.ENV_STALL_STEP: str(FLEET_STALL_AT),
+             chaos.ENV_STALL_S: str(FLEET_STALL_S)}
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-child",
+             str(spec), str(r)], env=dict(base, **(stall if r else {})))
+            for r in range(2)]
+        try:
+            deadline = time.monotonic() + TP_CHILD_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"--fleet-child ranks exited "
+                                 f"{[p.returncode for p in procs]}")
+        ranks = [json.loads((work / f"fleet_{r}.json").read_text())
+                 for r in range(2)]
+        events = _read_jsonl(work / "events_0.jsonl")
+        rc, verdict = _validate_jsonl(work / "events_0.jsonl")
+        rank1_log = (work / "events_1.jsonl").exists()
+        dumps = {}
+        for r in range(2):
+            path = work / f"flightrec_rank{r}_exit.json"
+            try:
+                d = flightrec.load_dump(str(path))
+                dumps[r] = [e["step"] for e in d["entries"]
+                            if e["kind"] == "boundary"]
+            except (OSError, ValueError) as e:
+                dumps[r] = repr(e)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    fleet = [e for e in events if e.get("schema") == "dstpu.telemetry.fleet"]
+    stalled_window = FLEET_STALL_AT // FLEET_WINDOW + 1
+    checks = {
+        "fleet_events": rc == 0 and not rank1_log
+        and len(fleet) == FLEET_STEPS // FLEET_WINDOW
+        and all(e["reported_hosts"] == 2 and sorted(e["per_host"]) ==
+                ["0", "1"] and e["missing_hosts"] == [] for e in fleet),
+        "straggler_flagged": [e["window"] for e in fleet
+                              if 1 in (e.get("stragglers") or [])]
+        == [stalled_window]
+        and all(0 not in (e.get("stragglers") or []) for e in fleet),
+        "masters_bitwise": ranks[0]["digest"] == ranks[1]["digest"],
+        "flight_recorder": all(dumps[r] == list(range(1, FLEET_STEPS + 1))
+                               for r in range(2))}
+    emit("fleet_gpt2", model=f"gpt2-{size}", layers=layers, dp=2,
+         backend="gloo (one card)", seq=GPT2_SEQ, micro_batch=micro,
+         gas=GAS, steps=FLEET_STEPS, report_window=FLEET_WINDOW,
+         stall={"rank": 1, "step": FLEET_STALL_AT, "s": FLEET_STALL_S},
+         losses=[r["losses"] for r in ranks],
+         step_ms=[r["step_ms"] for r in ranks],
+         peak_mem_gib=[r["peak_mem_gib"] for r in ranks],
+         fleet_events=[{k: e.get(k) for k in (
+             "window", "step", "reported_hosts", "missing_hosts",
+             "straggler_index", "stragglers", "host_ms_min",
+             "host_ms_median", "host_ms_max", "step_ms_median",
+             "samples_per_sec_sum")} for e in fleet],
+         validator={"rc": rc, "out": verdict},
+         flight_recorder_boundaries=dumps,
+         flush_s=[r["flush_s"] for r in ranks],
+         child_seconds=[r["seconds"] for r in ranks],
+         launches=[r["launches"] for r in ranks], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"fleet_gpt2 phase failed: {checks}")
+    return [r["launches"] for r in ranks]
 
 
 def phase_calibrate(device):
@@ -4076,15 +4649,20 @@ def main() -> int:
     if sys.argv[1:2] == ["--resume-child"]:
         sys.path.insert(0, str(ROOT))
         return resume_child(sys.argv[2])
-    # --only moe_gpt2,multistep_gpt2,resume_gpt2: the build and those of
-    # this slice's phases alone (a quick check; no kernels line, no result)
+    if sys.argv[1:2] == ["--fleet-child"]:
+        sys.path.insert(0, str(ROOT))
+        return fleet_child(sys.argv[2], int(sys.argv[3]))
+    # --only obs_gpt2,fleet_gpt2,...: the build and those phases alone (a
+    # quick check; no kernels line, no result)
     only = None
+    only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
+                   "obs_gpt2", "fleet_gpt2")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
-        unknown = only - {"moe_gpt2", "multistep_gpt2", "resume_gpt2"}
+        unknown = only - set(only_phases)
         if unknown:
-            print(f"chip_smoke.py: --only takes moe_gpt2, multistep_gpt2 "
-                  f"and resume_gpt2, not {sorted(unknown)}", file=sys.stderr)
+            print(f"chip_smoke.py: --only takes {', '.join(only_phases)}, "
+                  f"not {sorted(unknown)}", file=sys.stderr)
             return 2
     if not (ROOT / "deepspeed_tpu_torch" / "csrc" / "fused_optim.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -4124,11 +4702,11 @@ def main() -> int:
                 for src, mod in mods.items()})
 
     if only is not None:
-        for name, fn in (("moe_gpt2", phase_moe_gpt2),
-                         ("multistep_gpt2", phase_multistep_gpt2),
-                         ("resume_gpt2", phase_resume_gpt2)):
+        for name in only_phases:
             if name in only:
-                fn(device)
+                if name == "zero_ckpt":
+                    process_group(device)
+                globals()[f"phase_{name}"](device)
                 free(device)
         return 0
 
@@ -4244,6 +4822,18 @@ def main() -> int:
     free(device)
     phase_resume_gpt2(device)
     free(device)
+    obs_launches = phase_obs_gpt2(device)
+    free(device)
+    fleet_launches = phase_fleet_gpt2(device)
+    free(device)
+    for k in kernels:
+        if k["name"] in ("adam", "block_fwd", "block_bwd"):
+            # obs_gpt2 at 24 layers: spool off / on, the kernels in its
+            # trace window, the fp16 runs at MID_LAYERS; fleet_gpt2 per
+            # rank at EARLY_LAYERS
+            k["obs_gpt2_launches"] = {
+                **{run: v[k["name"]] for run, v in obs_launches.items()},
+                "fleet_gpt2": [r[k["name"]] for r in fleet_launches]}
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # moe_gpt2 (a) top-1 at 24 layers, (b) top-2, (c) the 12-layer
@@ -4274,7 +4864,8 @@ def main() -> int:
     extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches",
              "pp_gpt2_launches", "sp_gpt2_launches",
              "zero3_pp_gpt2_launches", "moe_gpt2_launches",
-             "multistep_gpt2_launches", "moe_expert_leaf")
+             "multistep_gpt2_launches", "moe_expert_leaf",
+             "obs_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

@@ -114,7 +114,10 @@ _Z3_TAG = "__dstpu_zero3_part__"
 
 
 class CheckpointReadError(RuntimeError):
-    """A chunk could not be read in full (a truncated file)."""
+    """A restore reader failed: a truncated chunk, or storage errors that
+    exhausted the per-reader ``io_retries`` budget.  Named, so that a dead
+    reader surfaces as an exception on the restoring thread, never as a
+    hang of the consumer."""
 
 
 class Bf16Chunk:
@@ -339,72 +342,302 @@ _TORCH_DTYPES = {np.dtype(k): v for k, v in (
     ("uint8", torch.uint8), ("bool", torch.bool))}
 
 
-#: retries of a leaf read (``io_retry``) where the caller has no engine;
+#: retries of a chunk read (``io_retry``) where the caller has no engine;
 #: ``load_checkpoint`` passes its engine's ``resilience.io_retries``
 IO_RETRIES = 3
 
+#: the largest read of one flat ZeRO partition region: a partition is cut
+#: into reads of this size so that the reader pool shares it out
+REGION_BYTES = 64 * 2 ** 20
 
-def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0,
-              retries: int = IO_RETRIES) -> None:
+
+# ------------------------------------------- parallel streaming restore
+#
+# The JAX package's restore pipeline (``deepspeed_tpu/checkpoint.py``
+# "parallel streaming restore"), for tensors: a reader pool streams chunk
+# reads from the container, each leaf is assembled as its chunks land, and
+# the copy of leaf i to the card (from a pinned host buffer, non_blocking)
+# overlaps the reads of every later leaf.  Readers use positioned
+# ``readinto`` reads (which release the GIL, where a page fault on a memmap
+# holds it), each read composed with ``io_retry``; the bytes of read
+# results in flight are bounded by ``restore_readahead_mb``, so peak host
+# memory is one readahead window plus the leaf being placed, not the whole
+# state.  ``restore_threads <= 1`` runs the same plan inline; both paths
+# run the same per-leaf assembly, so they are bitwise interchangeable
+# (tests/test_torch_restore.py).
+
+class _Region:
+    """Elements ``[start, stop)`` of a flat chunk (a memmap or an inline
+    array): one read of a ZeRO partition file."""
+
+    def __init__(self, src, start: int, stop: int):
+        self.src, self.start, self.stop = src, int(start), int(stop)
+        self.shape = (self.stop - self.start,)
+        self.nbytes = (self.stop - self.start) * src.dtype.itemsize
+
+
+def _part_nbytes(part) -> int:
+    if isinstance(part, Bf16Chunk):
+        return part.raw.nbytes
+    if isinstance(part, torch.Tensor):
+        return part.numel() * part.element_size()
+    return int(getattr(part, "nbytes", 0) or 0)
+
+
+def _part_shape(part) -> tuple:
+    return tuple(getattr(part, "shape", ()))
+
+
+class LazyParts:
+    """A leaf to assemble from chunk parts: ``parts`` are the raw sources
+    (memmaps, ``Bf16Chunk``, inline arrays, tensors, regions) and
+    ``assemble(tensors)`` (tensors in ``parts`` order) builds the leaf, of
+    ``shape``.  The restore hands every part to the reader pool and
+    assembles each leaf as its parts land (``_stream_leaves``);
+    ``materialize()`` is the inline equivalent, bitwise the same (the JAX
+    package's ``zero.LazyParts``)."""
+
+    __slots__ = ("parts", "assemble", "shape")
+
+    def __init__(self, parts, assemble, shape):
+        self.parts = list(parts)
+        self.assemble = assemble
+        self.shape = tuple(shape)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(_part_nbytes(p) for p in self.parts)
+
+    def materialize(self) -> torch.Tensor:
+        return self.assemble([_read_part(p) for p in self.parts])
+
+    def map(self, fn, shape) -> "LazyParts":
+        """``fn`` applied to the assembled leaf (of ``shape``)."""
+        sub = self.assemble
+        return LazyParts(self.parts, lambda ts: fn(sub(ts)), shape)
+
+    @classmethod
+    def wrap(cls, value) -> "LazyParts":
+        """Lift a plain source into a single-part LazyParts."""
+        if isinstance(value, cls):
+            return value
+        return cls([value], lambda ts: ts[0], _part_shape(value))
+
+    @classmethod
+    def concat(cls, values, dim: int) -> "LazyParts":
+        """``values`` (LazyParts or raw sources) concatenated along
+        ``dim``, every underlying chunk kept an independent part."""
+        lazies = [cls.wrap(v) for v in values]
+        counts = [len(lz.parts) for lz in lazies]
+        subs = [lz.assemble for lz in lazies]
+
+        def assemble(ts):
+            out, i = [], 0
+            for n, sub in zip(counts, subs):
+                out.append(sub(ts[i:i + n]))
+                i += n
+            return torch.cat(out, dim=dim)
+
+        shape = list(lazies[0].shape)
+        shape[dim] = sum(lz.shape[dim] for lz in lazies)
+        return cls([p for lz in lazies for p in lz.parts], assemble, shape)
+
+
+class _RestorePlan:
+    """The restore knobs of one load: reader-pool width, readahead window,
+    per-reader retry budget."""
+
+    def __init__(self, threads: int = 1, readahead_mb: float = 256.0,
+                 io_retries: int = IO_RETRIES):
+        self.threads = int(threads)
+        self.readahead_bytes = max(1, int(float(readahead_mb) * 2 ** 20))
+        self.io_retries = int(io_retries)
+
+    @classmethod
+    def auto_threads(cls) -> int:
+        # reads are memcpy-bound once the page cache is warm and IO-bound
+        # when cold; a couple of readers per core covers both without
+        # oversubscribing small hosts
+        return max(2, min(8, 2 * (os.cpu_count() or 1)))
+
+    @classmethod
+    def from_engine(cls, engine) -> "_RestorePlan":
+        """The engine's ``checkpoint.restore_threads`` (0: auto),
+        ``restore_readahead_mb`` and ``resilience.io_retries``; the
+        defaults without an engine."""
+        cfg = getattr(engine, "config", None)
+        threads = int(getattr(cfg, "checkpoint_restore_threads", 0))
+        if threads == 0:
+            threads = cls.auto_threads()
+        return cls(
+            threads=threads,
+            readahead_mb=float(getattr(cfg, "checkpoint_restore_readahead_mb",
+                                       256.0)),
+            io_retries=int(getattr(cfg, "resilience_io_retries",
+                                   IO_RETRIES)))
+
+
+def _readinto(mm: np.memmap, out: np.ndarray, start: int = 0) -> None:
     """Fill ``out`` from the file region behind ``mm``, from its element
-    ``start`` on, with one positioned read (which releases the GIL, where
-    a page fault on the memmap holds it), through the chaos read point and
-    ``io_retry`` (``retries``); a short read names the truncation."""
+    ``start`` on, with one positioned read; a short read names the
+    truncation."""
     if not out.nbytes:
         return
-
-    def read():
-        _chaos.read_point("ckpt_read")  # the chaos tier's Nth-read failure
-        with open(mm.filename, "rb") as f:
-            f.seek(int(mm.offset) + start * mm.dtype.itemsize)
-            return f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
-
-    got = io_retry(read, retries=retries,
-                   what=f"checkpoint chunk read ({mm.filename}@{mm.offset})")
+    offset = int(mm.offset) + start * mm.dtype.itemsize
+    with open(mm.filename, "rb") as f:
+        f.seek(offset)
+        got = f.readinto(memoryview(out.reshape(-1).view(np.uint8)))
     if got != out.nbytes:
         raise CheckpointReadError(
             f"truncated checkpoint chunk in {mm.filename!r}: wanted "
-            f"{out.nbytes} bytes at offset {mm.offset}, read {got}")
+            f"{out.nbytes} bytes at offset {offset}, file ended after {got}")
 
 
-def to_tensor(leaf, device=None, retries: int = IO_RETRIES) -> torch.Tensor:
-    """A loaded leaf (memmap, ``Bf16Chunk``, numpy array, tensor) as a
-    tensor on ``device`` (default the CPU), its read retried ``retries``
-    times.  The bytes go through a fresh host staging tensor, pinned for a
-    CUDA device; never through ``torch.from_numpy`` on a read-only
-    view."""
-    if isinstance(leaf, torch.Tensor):
-        return leaf.to(device) if device is not None else leaf
-    cuda = device is not None and torch.device(device).type == "cuda"
-    if isinstance(leaf, Bf16Chunk):
-        src, bf16 = leaf.raw, True
-    else:
-        src = np.asarray(leaf)
-        bf16 = src.dtype.name == _BF16           # an inline ml_dtypes array
-        if bf16:
-            src = src.view(np.uint16)
+def _read_part(part, pin: bool = False) -> torch.Tensor:
+    """One chunk source as a CPU tensor (pinned with ``pin``): a file chunk
+    (or a region of one) through one positioned read into a fresh staging
+    tensor, never through ``torch.from_numpy`` on a read-only view; an
+    inline array copied; a tensor as it is.  Passes the chaos read point."""
+    _chaos.read_point("ckpt_read")
+    if isinstance(part, torch.Tensor):
+        return part
+    region = part if isinstance(part, _Region) else None
+    src = region.src if region is not None else part
+    bf16 = isinstance(src, Bf16Chunk)
+    if bf16:
+        src = src.raw
+    elif not isinstance(src, np.memmap):
+        src = np.asarray(src)
+        if src.dtype.name == _BF16:             # an inline ml_dtypes array
+            bf16, src = True, src.view(np.uint16)
+    start = region.start if region is not None else 0
+    shape = region.shape if region is not None else src.shape
     if bf16:
         dtype, staged_as = torch.bfloat16, torch.int16
     else:
-        dtype = _TORCH_DTYPES.get(src.dtype)
+        dtype = _TORCH_DTYPES.get(np.dtype(src.dtype))
         if dtype is None:
             raise TypeError(f"checkpoint leaf dtype {src.dtype} has no "
                             f"torch counterpart")
         staged_as = dtype
-    stage = torch.empty(tuple(src.shape), dtype=staged_as, pin_memory=cuda)
+    stage = torch.empty(tuple(shape), dtype=staged_as, pin_memory=pin)
     view = stage.numpy()
     if bf16:
         view = view.view(np.uint16)
-    if isinstance(src, np.memmap) and getattr(src, "filename", None):
-        _readinto(src, view, retries=retries)
+    if isinstance(src, np.memmap):
+        _readinto(src, view, start)
     else:
-        def fill():
-            # an inline leaf counts as a read too, as in the JAX restore
-            _chaos.read_point("ckpt_read")
-            view[...] = src
-        io_retry(fill, retries=retries, what="checkpoint leaf read")
-    out = stage.view(dtype) if bf16 else stage
-    return out.to(device, non_blocking=True) if cuda else out
+        view[...] = src.reshape(-1)[start:start + view.size].reshape(
+            view.shape)
+    return stage.view(dtype) if bf16 else stage
+
+
+def _part_desc(part) -> str:
+    src = part.src if isinstance(part, _Region) else part
+    src = src.raw if isinstance(src, Bf16Chunk) else src
+    fn = getattr(src, "filename", None)
+    if fn:
+        return f"{fn}@{getattr(src, 'offset', '?')}"
+    return type(part).__name__
+
+
+def _stream_leaves(leaves, plan: _RestorePlan, pin: bool = False):
+    """Yield a CPU tensor (pinned with ``pin``) for each of ``leaves`` in
+    order, the reads pipelined.
+
+    Every leaf expands into its chunk parts; with ``plan.threads > 1`` a
+    reader pool fetches parts concurrently (submission runs ahead of
+    consumption until ``readahead_bytes`` of results are in flight, so the
+    window, not the pool, bounds host memory), and each leaf is assembled
+    as its parts land.  ``threads <= 1`` runs the same plan inline: the
+    same reads, the same assembly, bitwise the same leaves.  A read that
+    fails after its own ``io_retries`` retries, or a short one, raises
+    ``CheckpointReadError`` on this thread."""
+    def read(part):
+        # exhausted-retry storage errors surface as the SAME named error on
+        # both the serial and the pooled path
+        try:
+            return io_retry(lambda: _read_part(part, pin),
+                            retries=plan.io_retries,
+                            what=f"checkpoint chunk read ({_part_desc(part)})")
+        except CheckpointReadError:
+            raise
+        except Exception as e:
+            raise CheckpointReadError(
+                f"checkpoint restore reader failed on {_part_desc(part)}: "
+                f"{e}") from e
+
+    lazies = [LazyParts.wrap(x) for x in leaves]
+    if plan.threads <= 1:
+        for lz in lazies:
+            yield lz.assemble([read(p) for p in lz.parts])
+        return
+
+    import collections
+    from concurrent.futures import ThreadPoolExecutor
+    flat = [(p, _part_nbytes(p)) for lz in lazies for p in lz.parts]
+    ex = ThreadPoolExecutor(max_workers=plan.threads,
+                            thread_name_prefix="dstpu-ckpt-reader")
+    pending = collections.deque()   # (future, nbytes, part) in flat order
+    state = {"si": 0, "inflight": 0}
+
+    def pump():
+        # keep at least one read in flight and the window full; consuming
+        # a result frees window bytes, so the pool always drains forward
+        # (no reader waits on the consumer: deadlock-free)
+        while state["si"] < len(flat) and (
+                not pending or state["inflight"] < plan.readahead_bytes):
+            part, nb = flat[state["si"]]
+            pending.append((ex.submit(read, part), nb, part))
+            state["si"] += 1
+            state["inflight"] += nb
+
+    try:
+        for lz in lazies:
+            got = []
+            for _ in lz.parts:
+                pump()
+                fut, nb, part = pending.popleft()
+                got.append(fut.result())
+                state["inflight"] -= nb
+                pump()
+            yield lz.assemble(got)
+    finally:
+        ex.shutdown(wait=False, cancel_futures=True)
+
+
+def _place(pairs, plan: _RestorePlan) -> None:
+    """Copy each ``(destination tensor, source leaf)`` of ``pairs`` into
+    place through ONE streamed read plan: every shape is checked before
+    any read, and the copy of leaf i (``non_blocking`` from a pinned host
+    buffer, for a card) overlaps the reads of the later leaves."""
+    for dst, src, name in pairs:
+        shape = tuple(getattr(src, "shape", ()))
+        if shape != tuple(dst.shape):
+            raise ValueError(
+                f"checkpoint restore: {name} has shape {shape}, the engine "
+                f"expects {tuple(dst.shape)}")
+    pin = any(dst.device.type == "cuda" for dst, _, _ in pairs)
+    stream = _stream_leaves([src for _, src, _ in pairs], plan, pin=pin)
+    try:
+        with torch.no_grad():
+            for (dst, _, _), host in zip(pairs, stream):
+                dst.copy_(host, non_blocking=dst.device.type == "cuda")
+    finally:
+        stream.close()      # releases the reader pool on error paths too
+
+
+def to_tensor(leaf, device=None, retries: int = IO_RETRIES) -> torch.Tensor:
+    """A loaded leaf (memmap, ``Bf16Chunk``, numpy array, tensor,
+    ``LazyParts``) as a tensor on ``device`` (default the CPU), read
+    through a serial plan with ``retries`` retries per chunk; staged in a
+    pinned host buffer for a CUDA device."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device) if device is not None else leaf
+    cuda = device is not None and torch.device(device).type == "cuda"
+    host = next(_stream_leaves([leaf], _RestorePlan(1, io_retries=retries),
+                               pin=cuda))
+    return host.to(device, non_blocking=True) if cuda else host
 
 
 # ------------------------------------------------------------ layout
@@ -523,14 +756,14 @@ def _is_z3_marker(obj) -> bool:
     return isinstance(obj, tuple) and len(obj) == 3 and obj[0] == _Z3_TAG
 
 
-def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int,
-                     retries: int = IO_RETRIES):
+def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int):
     """Replace the ZeRO-3 markers in model rank ``row``'s freshly read
-    state with whole leaves (CPU tensors), concatenated along the
-    recorded dim from the ``zero3_dp_rank_*_row_{row}`` shard files (the
-    JAX ``_zero3_rehydrate``).  After it the state reads as a stage-0
-    file.  The shard record of a leaf is found by its index in the JAX
-    flatten order (keystr-keyed records of older JAX files too)."""
+    state with whole leaves, each a ``LazyParts`` concatenating its shard
+    records along the recorded dim from the ``zero3_dp_rank_*_row_{row}``
+    shard files (the JAX ``_zero3_rehydrate``): the restore plan reads the
+    shards concurrently.  After it the state reads as a stage-0 file.  The
+    shard record of a leaf is found by its index in the JAX flatten order
+    (keystr-keyed records of older JAX files too)."""
     if not state.get("zero3_native"):
         return state
     cache = {}
@@ -554,8 +787,8 @@ def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int,
             rec = leaves.get(index)
             if rec is None:
                 rec = leaves[_keystr(name)]
-            chunks.append(to_tensor(rec[field], retries=retries))
-        return torch.cat(chunks, dim=int(dim))
+            chunks.append(rec[field])
+        return LazyParts.concat(chunks, int(dim))
 
     def fix(tree, field):
         if _is_z3_marker(tree):                  # a whole-tree marker
@@ -578,15 +811,14 @@ def _zero3_rehydrate(load_dir: str, tag: str, state: dict, row: int,
 
 
 def _read_state(load_dir: str, tag: str, row: int = 0, mp: int = 1,
-                pp: int = 1, retries: int = IO_RETRIES):
+                pp: int = 1):
     """The model-state file of (stage, model rank) ``row = stage * mp +
     mp_rank`` of a save at ``mp`` and ``pp``, ZeRO-3 leaves rehydrated."""
     state = _load_obj(model_file(load_dir, tag, row % mp, row // mp, pp))
-    return _zero3_rehydrate(load_dir, tag, state, row, retries)
+    return _zero3_rehydrate(load_dir, tag, state, row)
 
 
-def _read_model_state(load_dir: str, tag: Optional[str],
-                      retries: int = IO_RETRIES):
+def _read_model_state(load_dir: str, tag: Optional[str]):
     """``(tag, state)`` of the tag's model-state file of stage 0 and model
     rank 0, or None when there is no checkpoint."""
     tag = _resolve_tag(load_dir, tag)
@@ -595,8 +827,7 @@ def _read_model_state(load_dir: str, tag: Optional[str],
     mfile = _model_probe(load_dir, tag)
     if mfile is None:
         return None
-    return tag, _zero3_rehydrate(load_dir, tag, _load_obj(mfile), 0,
-                                 retries)
+    return tag, _zero3_rehydrate(load_dir, tag, _load_obj(mfile), 0)
 
 
 def _saved_mp(state) -> int:
@@ -607,29 +838,33 @@ def _saved_pp(state) -> int:
     return int(state.get("pp_world_size", 1))
 
 
-def _all_states(load_dir: str, tag: str, state0,
-                retries: int = IO_RETRIES) -> list:
+def _all_states(load_dir: str, tag: str, state0) -> list:
     """The model-state files of every saved (stage, model rank), in the
     order ``stage * mp + mp_rank`` (``state0``, already read, is the
     first)."""
     mp, pp = _saved_mp(state0), _saved_pp(state0)
-    return [state0] + [_read_state(load_dir, tag, r, mp, pp, retries)
+    return [state0] + [_read_state(load_dir, tag, r, mp, pp)
                        for r in range(1, mp * pp)]
 
 
 def _combined(trees, specs, pipe_specs, mp: int,
-              retries: int = IO_RETRIES) -> dict:
+              plan: "_RestorePlan") -> dict:
     """The global tree of the saved (stage, model rank)s' local ``trees``
     at model-parallel size ``mp``, as CPU tensors (``specs``: the model's
-    ``partition_specs()``, ``pipe_specs``: its ``pipe_specs()``)."""
+    ``partition_specs()``, ``pipe_specs``: its ``pipe_specs()``), every
+    leaf of every tree read through ``plan``."""
     if mp > 1 and specs is None:
         raise ValueError(
             f"checkpoint was saved at mp={mp}: combining its model-rank "
             f"files needs the saving model's partition_specs()")
-    return weights_mod.combine_stage_trees(
-        [_map_leaves(t, lambda x: to_tensor(x, retries=retries))
-         for t in trees], specs or {}, mp,
-        pipe_specs)
+    flats = [weights_mod.flatten_tree(t) for t in trees]
+    stream = _stream_leaves([v for f in flats for v in f.values()], plan)
+    try:
+        read = [weights_mod.unflatten_tree({k: next(stream) for k in f})
+                for f in flats]
+    finally:
+        stream.close()
+    return weights_mod.combine_stage_trees(read, specs or {}, mp, pipe_specs)
 
 
 # ------------------------------------------------------------ saving
@@ -920,7 +1155,8 @@ def _publish(engine, save_dir: str, tag: str) -> None:
 
 # ------------------------------------------------------------ loading
 
-def _module_tree(load_dir: str, tag: Optional[str], specs, pipe_specs=None):
+def _module_tree(load_dir: str, tag: Optional[str], specs, pipe_specs=None,
+                 plan: Optional["_RestorePlan"] = None):
     """``(tag, global module tree of CPU tensors)``, or None."""
     ASYNC_SAVER.wait()
     read = _read_model_state(load_dir, tag)
@@ -929,7 +1165,7 @@ def _module_tree(load_dir: str, tag: Optional[str], specs, pipe_specs=None):
     tag, state = read
     return tag, _combined(
         [s["module"] for s in _all_states(load_dir, tag, state)], specs,
-        pipe_specs, _saved_mp(state))
+        pipe_specs, _saved_mp(state), plan or _RestorePlan.from_engine(None))
 
 
 def load_module_tree(load_dir: str, tag: Optional[str] = None, specs=None,
@@ -944,11 +1180,17 @@ def load_module_tree(load_dir: str, tag: Optional[str] = None, specs=None,
 
 
 def load_params_only(load_dir: str, tag: Optional[str] = None, dtype=None,
-                     specs=None, pipe_specs=None):
+                     specs=None, pipe_specs=None, threads: int = 0,
+                     readahead_mb: float = 256.0,
+                     io_retries: int = IO_RETRIES):
     """``(tag, tree)``: the module only (global, as ``load_module_tree``),
-    as CPU tensors, floating leaves cast to ``dtype`` when given; the
-    optimizer state stays unread.  None when there is no checkpoint."""
-    read = _module_tree(load_dir, tag, specs, pipe_specs)
+    as CPU tensors, floating leaves cast to ``dtype`` when given, streamed
+    through the parallel reader (``threads`` readers, 0: auto); the
+    optimizer state and the ZeRO partition files stay unread.  None when
+    there is no checkpoint."""
+    plan = _RestorePlan(threads or _RestorePlan.auto_threads(),
+                        readahead_mb, io_retries)
+    read = _module_tree(load_dir, tag, specs, pipe_specs, plan)
     if read is None:
         return None
 
@@ -974,16 +1216,16 @@ def _copy_into(dst: torch.Tensor, src, name: str,
     dst.copy_(to_tensor(src, dst.device, retries))
 
 
-def _load_flat(dst: dict, tree, what: str, retries: int = IO_RETRIES) -> None:
-    """Copy a loaded JAX-layout tree into ``{dotted name: tensor}``."""
+def _flat_pairs(dst: dict, tree, what: str) -> list:
+    """``(tensor, source leaf, name)`` for each leaf of a loaded
+    JAX-layout tree and its engine tensor in ``{dotted name: tensor}``."""
     flat = weights_mod.flatten_tree(tree)
     missing, extra = set(dst) - set(flat), set(flat) - set(dst)
     if missing or extra:
         raise KeyError(f"checkpoint {what} names differ from the engine's: "
                        f"missing {sorted(missing)}, unexpected "
                        f"{sorted(extra)}")
-    for name, t in dst.items():
-        _copy_into(t, flat[name], f"{what}.{name}", retries)
+    return [(t, flat[name], f"{what}.{name}") for name, t in dst.items()]
 
 
 @torch.no_grad()
@@ -1014,12 +1256,13 @@ def _zero3_local(engine, tree):
         dim = dims.get(name, -1)
         if dim < 0:
             return leaf
-        if isinstance(leaf, Bf16Chunk):
-            raw = np.array(zero3_mod.shard(leaf.raw, dim, dp, r))
-            return torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
         if isinstance(leaf, torch.Tensor):
             return zero3_mod.shard(leaf, dim, dp, r)
-        return np.array(zero3_mod.shard(np.asarray(leaf), dim, dp, r))
+        lz = LazyParts.wrap(leaf)
+        shape = list(lz.shape)
+        shape[dim] //= dp
+        return lz.map(lambda t: zero3_mod.shard(t, dim, dp, r).contiguous(),
+                      shape)
 
     return weights_mod.unflatten_tree({
         k: one(k, v) for k, v in weights_mod.flatten_tree(tree).items()})
@@ -1061,11 +1304,14 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     ``latest`` names).  Returns ``(path, client_state)``, or ``(None,
     None)`` when nothing is found.  With ``load_optimizer_states`` False
     (or a checkpoint without them) the masters are re-derived from the
-    loaded module, so the next step cannot revert it."""
+    loaded module, so the next step cannot revert it.  Every leaf (the
+    module, the masters and moments, or this rank's ZeRO partition
+    regions) streams through ONE read plan (``_RestorePlan.from_engine``):
+    ``checkpoint.restore_threads`` readers, ``restore_readahead_mb`` in
+    flight, ``resilience.io_retries`` per read."""
     ASYNC_SAVER.wait()
-    retries = int(getattr(engine.config, "resilience_io_retries",
-                          IO_RETRIES))
-    read = _read_model_state(load_dir, tag, retries)
+    plan = _RestorePlan.from_engine(engine)
+    read = _read_model_state(load_dir, tag)
     if read is None:
         return None, None
     tag, state = read
@@ -1100,7 +1346,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     engine.micro_steps = int(state["micro_steps"])
     old_ls = engine.loss_scale_state._asdict()
     engine.loss_scale_state = prec.LossScaleState(**{
-        k: to_tensor(np.asarray(v), old_ls[k].device, retries).to(
+        k: to_tensor(np.asarray(v), old_ls[k].device, plan.io_retries).to(
             old_ls[k].dtype)
         for k, v in state["loss_scale_state"].items()})
     for live, saved in zip(engine.optimizer.param_groups,
@@ -1114,33 +1360,34 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if saved_mp == mp and saved_pp == pp:
         # this (stage, model rank)'s own file
         if _row(engine):
-            state = _read_state(load_dir, tag, _row(engine), mp, pp,
-                                retries)
+            state = _read_state(load_dir, tag, _row(engine), mp, pp)
         local = lambda get: _zero3_local(engine, get(state))
     else:
         # every saved (stage, model rank)'s file, combined and cut for
         # this rank
-        states = _all_states(load_dir, tag, state, retries)
+        states = _all_states(load_dir, tag, state)
 
         def local(get):
             if get(states[0]) is None:
                 return None
             return _zero3_local(engine, _local(engine, _combined(
                 [get(s) for s in states], engine._param_specs,
-                engine._pipe_specs, saved_mp, retries)))
+                engine._pipe_specs, saved_mp, plan)))
 
-    _load_flat(dict(engine.module.named_parameters()),
-               local(lambda s: s["module"]), "module", retries)
+    pairs = _flat_pairs(dict(engine.module.named_parameters()),
+                        local(lambda s: s["module"]), "module")
     opt = state.get("optimizer")
+    step = None
     if load_optimizer_states and engine.zero_flat:
-        _load_zero_checkpoint(engine, load_dir, tag, retries)
+        zpairs, step = _zero_checkpoint_pairs(engine, load_dir, tag)
+        pairs += zpairs
     elif load_optimizer_states and opt is not None:
-        _load_flat(engine.master, local(lambda s: s["optimizer"]["master"]),
-                   "optimizer.master", retries)
+        pairs += _flat_pairs(engine.master,
+                             local(lambda s: s["optimizer"]["master"]),
+                             "optimizer.master")
         saved = {key: local(lambda s, key=key:
                             s["optimizer"]["opt_state"][key])
                  for key in ("m", "v")}
-        saved["step"] = opt["opt_state"]["step"]
         for key in ("m", "v"):
             live = getattr(engine.opt_state, key)
             if (live is None) != (saved[key] is None):
@@ -1150,21 +1397,28 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                     f"engine's optimizer "
                     f"{'has' if live is not None else 'has none'}")
             if live is not None:
-                _load_flat(live, saved[key], f"optimizer.opt_state.{key}",
-                           retries)
-        engine.opt_state.step = int(np.asarray(saved["step"]))
+                pairs += _flat_pairs(live, saved[key],
+                                     f"optimizer.opt_state.{key}")
+        step = opt["opt_state"]["step"]
+    _place(pairs, plan)
+    if load_optimizer_states and engine.zero_flat:
+        engine.opt_state.step = int(np.asarray(step))
+        engine._params_from_master_flat()
+    elif step is not None:
+        engine.opt_state.step = int(np.asarray(step))
     else:
         _rederive_masters(engine)
     return os.path.join(load_dir, tag), state.get("client_state", {})
 
 
 @torch.no_grad()
-def _load_zero_checkpoint(engine, load_dir: str, tag: str,
-                          retries: int = IO_RETRIES) -> None:
-    """This rank's partition of its model rank's flat fp32 master and
-    moments from the partition files of a save at ANY data-parallel size,
-    re-padded for the engine's layout; then the compute-dtype parameters
-    re-derived from the restored masters (the JAX package's
+def _zero_checkpoint_pairs(engine, load_dir: str, tag: str):
+    """``(pairs, step)``: this rank's partition of its model rank's flat
+    fp32 master and moments, as ``(destination slice, region, name)``
+    reads of at most ``REGION_BYTES`` from the partition files of a save
+    at ANY data-parallel size, re-padded for the engine's layout (the
+    padding zeroed here), and the saved step.  The caller places the
+    pairs and re-derives the compute-dtype parameters (the JAX package's
     ``_load_zero_checkpoint``).  A save at another model or pipeline
     parallel size raises."""
     meta = engine.flat_meta
@@ -1199,22 +1453,19 @@ def _load_zero_checkpoint(engine, load_dir: str, tag: str,
                          f"elements, their header says {total}")
     lo, part = engine._owned_range()
     hi = min(lo + part, total)
-    cuda = engine.device.type == "cuda"
     live = {"master": engine.master_flat, "m": engine.opt_state.m["flat"],
             "v": engine.opt_state.v["flat"]}
+    step_elems = max(1, REGION_BYTES // 4)
+    pairs = []
     for key, dst in live.items():
-        stage = torch.zeros(part, dtype=torch.float32, pin_memory=cuda)
-        view = stage.numpy()
-        for sh, s0 in zip(shards, starts[:-1]):
+        if hi - lo < part:
+            dst[max(hi - lo, 0):].zero_()
+        for r, (sh, s0) in enumerate(zip(shards, starts[:-1])):
             src = sh[key]
             s, e = max(lo, s0), min(hi, s0 + len(src))
-            if s >= e:
-                continue
-            out = view[s - lo:e - lo]
-            if isinstance(src, np.memmap) and getattr(src, "filename", None):
-                _readinto(src, out, start=s - s0, retries=retries)
-            else:
-                out[...] = np.asarray(src)[s - s0:e - s0]
-        dst.copy_(stage, non_blocking=cuda)
-    engine.opt_state.step = int(np.asarray(shard0["step"]))
-    engine._params_from_master_flat()
+            for a in range(s, e, step_elems):
+                b = min(e, a + step_elems)
+                pairs.append((dst[a - lo:b - lo],
+                              _Region(src, a - s0, b - s0),
+                              f"zero partition {r} {key}[{a - s0}:{b - s0}]"))
+    return pairs, shard0["step"]

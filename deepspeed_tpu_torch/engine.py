@@ -133,9 +133,28 @@ whose batches arrive on the engine's device, each data rank reading its
 rows of the global batch (the model ranks of a data group read the same
 rows); ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
 package's checkpoint layout, per-model-rank and ZeRO partition files
-included (``checkpoint.py``).  What the JAX engine has and this slice does
-not yet (telemetry, tensorboard, the profiler, graph lint) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+included (``checkpoint.py``); a load streams every leaf through one read
+plan (``checkpoint_restore_threads`` readers, ``restore_readahead_mb`` in
+flight).
+
+Observability (``deepspeed_tpu_torch/observability/``, the
+``observability`` config block; built last in ``__init__``): the metric
+spool appends each boundary's loss, grad norm, loss scale and skip flag to
+a device ring and drains it once per ``report_window`` boundaries without
+a host wait; the window, startup and fleet events go to TensorBoard and a
+JSONL log; a ``torch.profiler`` window, ``dstpu/*`` ranges and the
+watchdog's hang capture; the flight recorder, the detectors and the health
+endpoints.  Every deliberate host read goes through
+``observability.fences`` (under fp16 or the NaN sentinel the boundary's
+skip-flag read stays: the port gates the update on the host).  The
+``compile_cache`` key points the kernel build directory
+(``utils/compile_cache.py``).  ``tensorboard`` writes through a
+``SummaryWriter`` on rank 0, the ``profile`` window and
+``start_profile``/``stop_profile`` run ``torch.profiler``, and
+``dump_state`` logs the config, the engine state and the device's memory
+statistics.  What the JAX engine has and the port does not yet (graph lint
+and ``analysis/``) raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -161,6 +180,9 @@ from deepspeed_tpu_torch import weights as weights_mod
 from deepspeed_tpu_torch import zero as zero_mod
 from deepspeed_tpu_torch import zero3 as zero3_mod
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
+from deepspeed_tpu_torch.observability import fences as obs_fences
+from deepspeed_tpu_torch.observability.flightrec import RECORDER as _flightrec
+from deepspeed_tpu_torch.observability.tracing import annotate as _annotate
 from deepspeed_tpu_torch.ops import optim as optim_mod
 from deepspeed_tpu_torch.parallel import comm
 from deepspeed_tpu_torch.parallel.topology import (init_distributed,
@@ -345,6 +367,12 @@ class DeepSpeedTorchEngine:
         self.sp_rank = self.topology.sp_rank
         self.config = DeepSpeedConfig(cfg_src,
                                       dp_world_size=self.dp_world_size)
+        # the kernel build directory (utils/compile_cache.py): set before
+        # any kernel library loads, so a relaunched worker loads the prior
+        # attempt's libraries instead of running nvcc
+        from deepspeed_tpu_torch.utils import compile_cache as _compile_cache
+        self.compile_cache_dir = _compile_cache.enable_from_config(
+            self.config)
         # knobs of upstream's NCCL schedule that one collective per bucket
         # leaves without effect: accepted, with the JAX engine's warnings
         if self.config.disable_allgather:
@@ -455,6 +483,30 @@ class DeepSpeedTorchEngine:
                                     if training_data is not None else None)
         self.optimizer = OptimizerFacade(self)
         self._configure_lr_scheduler()
+
+        # tensorboard (the JAX engine's engine.py:757-760): rank 0 writes
+        self.summary_writer = (self._get_summary_writer()
+                               if self.tensorboard_enabled()
+                               and self.global_rank == 0 else None)
+        self._profiling = False
+        self._profiler = None
+        #: the last micro-step's loss (detached): what the spool records
+        self._boundary_loss = None
+        #: the last boundary's agreed overflow flag (a device tensor)
+        self._last_overflow = None
+
+        # telemetry, built LAST: it reads the summary writer, the
+        # scheduler and the resilience wiring above
+        from deepspeed_tpu_torch.observability import Telemetry
+        self._telemetry = Telemetry.from_engine(self)
+        if self._watchdog is not None:
+            # a tripped hang deadline records a short trace before the
+            # optional abort (resilience/watchdog.py on_fire)
+            hook = self._telemetry.hang_capture_hook()
+            if hook is not None:
+                self._watchdog.on_fire = hook
+        if self.config.dump_state:
+            self.dump_state()
 
     # ------------------------------------------------------------------ setup
 
@@ -625,14 +677,6 @@ class DeepSpeedTorchEngine:
             (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off"
              or cfg.analysis_concurrency_mode != "off",
              "graph lint / analysis", "Queue 1 item 14"),
-            (cfg.observability_report_window > 0
-             or cfg.observability_trace_num_steps > 0,
-             "observability", "Queue 1 item 12"),
-            (cfg.tensorboard_enabled, "tensorboard", "Queue 1 item 12"),
-            (cfg.profile_enabled, "profile", "Queue 1 item 12"),
-            (cfg.compile_cache_dir is not None, "compile_cache",
-             "Queue 1 item 12"),
-            (cfg.dump_state, "dump_state", "Queue 1 item 12"),
         ]
         for hit, what, item in refused:
             if hit:
@@ -990,10 +1034,11 @@ class DeepSpeedTorchEngine:
             self.timers(FORWARD_TIMER).start()
         batch = self._seq_block(tuple(self._to_device(x) for x in inputs))
         if self.training:
-            loss = self._seq_mean(self.module(*batch))
+            with _annotate("fwd"):
+                loss = self._seq_mean(self.module(*batch))
         else:
             self.tput_timer.discard_window()
-            with torch.no_grad():
+            with torch.no_grad(), _annotate("eval"):
                 loss = self._seq_mean(self.module(*batch))
         self._last_loss = loss
         if wcb:
@@ -1053,9 +1098,12 @@ class DeepSpeedTorchEngine:
             total = sum(l.float() for l in out)
         else:
             total = out.float()
-        with self._armed("backward (fused fwd+bwd)"):
+        with self._armed("backward (fused fwd+bwd)"), _annotate("bwd"):
             (total * (self.loss_scale_state.cur_scale / gas)).backward()
             self._last_loss = None
+            self._boundary_loss = (
+                type(out)(l.detach() for l in out)
+                if isinstance(out, (tuple, list)) else out.detach())
             with torch.no_grad():
                 if self.zero_stage == 2:
                     self._accumulate_partition()
@@ -1063,6 +1111,19 @@ class DeepSpeedTorchEngine:
                     self._accumulate_flat()
                 else:
                     self._accumulate_leaves()
+        if (self.summary_writer is not None and self._spool is None
+                and self.is_gradient_accumulation_boundary()):
+            self.sample_count = (self.train_micro_batch_size_per_gpu()
+                                 * self.dp_world_size * (self.micro_steps + 1))
+            # float(l) is a host read; with the metric spool on the loss
+            # rides the ring buffer and reaches TensorBoard at the drain
+            losses = (self._boundary_loss
+                      if isinstance(self._boundary_loss, (tuple, list))
+                      else (self._boundary_loss,))
+            obs_fences.count_fence()
+            self.summary_writer.add_scalar(
+                "Train/Samples/train_loss",
+                sum(float(l) for l in losses), self.sample_count)
         if wcb:
             self.timers(BACKWARD_TIMER).stop(sync_on=self._acc)
         if loss is None:
@@ -1213,6 +1274,7 @@ class DeepSpeedTorchEngine:
         # the reduced grads are the same on every data rank: so are the
         # norm and the overflow flag
         sq, overflow = self._sqnorm_and_overflow(grads)
+        self._last_overflow = overflow
         self._last_grad_norm = torch.sqrt(sq)
         combined = self._combined_scale(self._last_grad_norm)
         skip = self._skip(overflow)
@@ -1235,7 +1297,11 @@ class DeepSpeedTorchEngine:
         agreed overflow flag."""
         if not (self.config.fp16_enabled or self._nan_sentinel):
             return False
-        return bool(overflow)
+        # the one boundary read the port keeps with the spool on: its
+        # update is gated on the host (observability.Telemetry.
+        # defers_overflow)
+        self._telemetry.defers_overflow(self)
+        return bool(obs_fences.read_scalar(overflow))
 
     def _reduce_grads(self, acc):
         """The data-group reduction of the accumulated per-leaf grads, in
@@ -1362,6 +1428,7 @@ class DeepSpeedTorchEngine:
             dist.all_reduce(sq, group=topo.within)
         comm.model_sum_(sq, topo.model_group)
         comm.model_sum_(sq, topo.pipe_group)
+        self._last_overflow = overflow
         self._last_grad_norm = torch.sqrt(sq[0])
         combined = self._combined_scale(self._last_grad_norm)
         fp16 = self.config.fp16_enabled
@@ -1409,6 +1476,11 @@ class DeepSpeedTorchEngine:
 
     def _post_boundary_bookkeeping(self, overflow: bool):
         self.global_steps += 1
+        # post-mortem breadcrumb: which boundary this process last
+        # completed (the flight recorder)
+        _flightrec.record("boundary", step=self.global_steps)
+        self._profile_window()
+        self._telemetry.maybe_trace(self.global_steps)
         self.overflow = overflow
         if overflow:
             self.skipped_steps += 1
@@ -1424,6 +1496,36 @@ class DeepSpeedTorchEngine:
             self.lr_scheduler.step()
         if self.global_steps % self.steps_per_print() == 0:
             self._report_progress(self.global_steps)
+        if self.summary_writer is not None and not self._telemetry.spool_active:
+            # per-boundary scalars through the one registry (lr, the
+            # resilience and compile-cache counters); with the spool on
+            # they ride the window drain instead
+            self._telemetry.emit_boundary_scalars(
+                getattr(self, "sample_count", self.global_steps))
+
+    def _spool_row(self, offset=None, ls_used=None):
+        """This boundary's spool row: the last micro-step's loss, the grad
+        norm, the loss scale in effect and the overflow flag (device ops
+        only).  ``offset`` None appends it; an int writes row ``offset`` of
+        a ``train_many`` block, noted at the block's end."""
+        spool = self._spool
+        if spool is None:
+            return
+        self._telemetry.note_spool_base_step(self.global_steps - 1)
+        args = (self._boundary_loss, self._last_grad_norm, ls_used,
+                self._last_overflow)
+        if offset is None:
+            spool.append(*args)
+        else:
+            spool.write_row(offset, *args)
+
+    def _stop_tput(self, sync_on):
+        if self._spool is not None:
+            # throughput rides the window drains; a report's host wait
+            # here would bring back the stall the spool removes
+            self.tput_timer.stop(report_speed=False, sync_on=None)
+        else:
+            self.tput_timer.stop(sync_on=sync_on)
 
     def step(self):
         """Optimizer boundary step (upstream deepspeed_light.py:709-807)."""
@@ -1433,10 +1535,22 @@ class DeepSpeedTorchEngine:
             self.timers(STEP_TIMER).start()
         if self.is_gradient_accumulation_boundary():
             assert self._acc is not None, "step() with no accumulated grads"
-            with self._armed("optimizer boundary step"):
+            with self._armed("optimizer boundary step"), \
+                    _annotate("boundary"):
+                # host-side pre-work clock (the fleet straggler signal)
+                t0 = time.monotonic()
+                _flightrec.record("arm", label="boundary",
+                                  step=self.global_steps)
                 _chaos.maybe_stall(self.global_steps)
+                t1 = time.monotonic()
+                ls_used = self.loss_scale_state.cur_scale
                 self._post_boundary_bookkeeping(self._boundary_update())
-            self.tput_timer.stop(sync_on=self._state_tensor())
+                # noted before the row: a window edge's delivery must find
+                # this boundary's host time in its own window
+                self._telemetry.note_boundary_host_seconds(
+                    t1 - t0, time.monotonic() - t0)
+                self._spool_row(ls_used=ls_used)
+            self._stop_tput(self._state_tensor())
         self.micro_steps += 1
         if wcb:
             self.timers(STEP_TIMER).stop(sync_on=self._state_tensor())
@@ -1456,9 +1570,17 @@ class DeepSpeedTorchEngine:
         assert self.training, "train_batch() requires train mode"
         batch = self._check_batch(batch, "train_batch")
         batch = tuple(self._to_device(x) for x in batch)
-        with self._armed("train_batch"):
+        with self._armed("train_batch"), _annotate("train_batch"):
+            # host-side pre-work clock: [region entry, the step's first
+            # launch) is time only THIS host pays (GC, data prep, an
+            # injected stall) — the fleet straggler signal; a collective
+            # wait inside the step is excluded
+            t0 = time.monotonic()
+            _flightrec.record("arm", label="train_batch",
+                              step=self.global_steps)
             _chaos.maybe_stall(self.global_steps)
-            return self._train_step(batch)
+            t1 = time.monotonic()
+            return self._train_step(batch, host_clock=(t0, t1))
 
     def _check_batch(self, batch, what):
         """``batch`` as a tuple of leaves sharing a leading dim divisible
@@ -1478,8 +1600,11 @@ class DeepSpeedTorchEngine:
                 f"gradient_accumulation_steps={gas}")
         return batch
 
-    def _train_step(self, batch):
-        """One ``train_batch`` on a checked batch already on the device."""
+    def _train_step(self, batch, spool_offset=None, host_clock=None):
+        """One ``train_batch`` on a checked batch already on the device;
+        ``spool_offset``: its row in a ``train_many`` block;
+        ``host_clock``: ``(region entry, work start)`` of ``train_batch``'s
+        region, noted for the telemetry before the spool row."""
         gas = self.gradient_accumulation_steps()
         mb = batch[0].shape[0] // gas
         self.tput_timer.start()
@@ -1487,9 +1612,16 @@ class DeepSpeedTorchEngine:
         for i in range(gas):
             loss = self.forward(*(x[i * mb:(i + 1) * mb] for x in batch))
             self.backward(loss)
-        self._post_boundary_bookkeeping(self._boundary_update())
+        ls_used = self.loss_scale_state.cur_scale
+        with _annotate("boundary"):
+            self._post_boundary_bookkeeping(self._boundary_update())
+        if host_clock is not None:
+            t0, t1 = host_clock
+            self._telemetry.note_boundary_host_seconds(
+                t1 - t0, time.monotonic() - t0)
+        self._spool_row(spool_offset, ls_used)
         self.micro_steps += gas
-        self.tput_timer.stop(sync_on=loss)
+        self._stop_tput(loss)
         if isinstance(loss, (tuple, list)):
             return type(loss)(l.detach().float() for l in loss)
         return loss.detach().float()
@@ -1529,10 +1661,28 @@ class DeepSpeedTorchEngine:
                 f"(to stage the K prospective hyper rows); "
                 f"{type(sched).__name__} has neither")
         staged = [tuple(self._to_device(x) for x in b) for b in batches]
-        with self._armed("train_many", deadline_scale=k):
+        spool = self._spool
+        if spool is not None and spool.would_straddle(k):
+            # a stray train_batch left the ring mid-window: this block's K
+            # rows would wrap over undrained ones.  Deliver the partial
+            # window first (one counted fence, mixed usage only)
+            spool.flush()
+        with self._armed("train_many", deadline_scale=k), \
+                _annotate("train_many"):
+            t0 = time.monotonic()
+            _flightrec.record("arm", label="train_many",
+                              step=self.global_steps, block=k)
             _chaos.maybe_stall(self.global_steps)
-            for b in staged:
-                loss = self._train_step(b)
+            t1 = time.monotonic()
+            for i, b in enumerate(staged):
+                loss = self._train_step(
+                    b, spool_offset=i if spool is not None else None)
+            self._telemetry.note_boundary_host_seconds(
+                t1 - t0, time.monotonic() - t0)
+            if spool is not None:
+                # the K rows count at once; the drain fires on the window
+                # edge (window % K == 0)
+                spool.note_appends(k)
             return loss
 
     # -------------------------------------------------------------- resilience
@@ -1557,9 +1707,121 @@ class DeepSpeedTorchEngine:
     def resilience_counters(self) -> dict:
         """The process-wide resilience counters (restarts, skipped-NaN
         steps, IO retries, watchdog near-misses and fires, the last
-        restore's seconds); the compile-cache pair is None, not
-        measured."""
+        restore's seconds, the compile cache's hits and misses), also
+        exported through the telemetry registry as ``Train/Resilience/*``
+        scalars."""
         return COUNTERS.as_dict()
+
+    # ------------------------------------------------------------ telemetry
+
+    @property
+    def telemetry(self):
+        """The engine's ``observability.Telemetry`` (always present; the
+        spool, tracer, fleet and health endpoints only when configured)."""
+        return self._telemetry
+
+    @property
+    def _spool(self):
+        """The active MetricSpool, or None (``report_window`` unset)."""
+        return self._telemetry.spool
+
+    def flush_telemetry(self, local_only=False, fleet_timeout=None):
+        """Deliver the final (possibly partial) metric window now: THE one
+        deliberate telemetry fence.  The resilience driver calls it on a
+        preemption drain and at run end, ``load_checkpoint`` before a
+        restore; idempotent.  ``local_only`` skips the bounded wait for the
+        fleet (the preemption drain's, before the emergency save)."""
+        self._telemetry.flush(local_only=local_only,
+                              fleet_timeout=fleet_timeout)
+
+    def _get_summary_writer(self):
+        base = (self.config.tensorboard_output_path
+                or os.path.join(os.path.expanduser("~"), "tensorboard"))
+        name = self.config.tensorboard_job_name or "DeepSpeedJobName"
+        path = os.path.join(base, name)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            return SummaryWriter(log_dir=path)
+        except Exception:
+            logger.warning("tensorboard requested but no writer available")
+            return None
+
+    def dump_state(self):
+        """The config, the engine state and the device's memory statistics
+        in the log (upstream dump_state, deepspeed_light.py:183-185; the
+        JAX engine's ``dump_state``)."""
+        self.config.print("DeepSpeedTorchEngine config")
+        logger.info(
+            "engine state: device=%s (dp=%d mp=%d pp=%d sp=%d) zero=%s "
+            "stage=%d compute_dtype=%s optimizer=%s groups=%d",
+            self.device, self.dp_world_size, self.mp_world_size,
+            self.pp_world_size, self.sp_world_size, self.zero_enabled,
+            self.zero_stage, str(self.policy.compute_dtype).replace(
+                "torch.", ""),
+            self.base_optimizer.name, len(self._group_defs))
+        logger.info("steps: global=%d micro=%d skipped=%d",
+                    self.global_steps, self.micro_steps, self.skipped_steps)
+        mem = SynchronizedWallClockTimer.memory_usage()
+        if mem:
+            logger.info("memory: %s", mem)
+        if self.device.type == "cuda":
+            stats = torch.cuda.memory_stats(self.device)
+            logger.info("memory_stats: %s", {
+                k: stats[k] for k in sorted(stats)
+                if k.endswith(".all.current") or k.endswith(".all.peak")})
+
+    # ------------------------------------------------------------- profiling
+
+    def start_profile(self, output_path: Optional[str] = None):
+        """Start a ``torch.profiler`` capture (CPU, and CUDA on a card); the
+        ``profile`` config section drives it over ``[start_step,
+        end_step)``.  ``stop_profile`` writes it as a Chrome trace to
+        ``<output_path>/trace.json`` (``trace_rank<r>.json`` at world >
+        1)."""
+        if self._profiling:
+            return
+        from deepspeed_tpu_torch.observability import tracing as obs_tracing
+        path = output_path or self.config.profile_output_path
+        world = self.dp_world_size * self.mp_world_size \
+            * self.pp_world_size * self.sp_world_size
+        name = f"trace_rank{self.global_rank}.json" if world > 1 \
+            else "trace.json"
+        self._profiler = (obs_tracing.start_capture(
+            self.device.type == "cuda"), os.path.join(path, name))
+        self._profiling = True
+        obs_tracing.note_capture_active(True)
+        # write the trace even if training ends inside the window; register
+        # once (a bound-method atexit handler pins the engine)
+        if not getattr(self, "_profile_atexit", False):
+            import atexit
+            atexit.register(self.stop_profile)
+            self._profile_atexit = True
+        logger.info("torch.profiler capture started -> %s",
+                    self._profiler[1])
+
+    def stop_profile(self):
+        if not self._profiling:
+            return
+        from deepspeed_tpu_torch.observability import tracing as obs_tracing
+        obs_tracing.note_capture_active(False)
+        prof, path = self._profiler
+        self._profiler = None
+        self._profiling = False
+        obs_tracing.stop_capture(prof, path)
+        logger.info("torch.profiler capture stopped -> %s", path)
+
+    def _profile_window(self):
+        cfg = self.config
+        if not cfg.profile_enabled:
+            return
+        # range (not equality) checks: a resume can land past start_step
+        # and must still trace the rest of the window
+        if (not self._profiling
+                and cfg.profile_start_step <= self.global_steps
+                < cfg.profile_end_step):
+            self.start_profile()
+        elif self._profiling and self.global_steps >= cfg.profile_end_step:
+            self.stop_profile()
 
     # ---------------------------------------------------------- checkpointing
 
@@ -1572,7 +1834,8 @@ class DeepSpeedTorchEngine:
         from deepspeed_tpu_torch import checkpoint as ckpt_mod
         # the save's stall is not training throughput
         self.tput_timer.discard_window()
-        with self._armed("save_checkpoint"):
+        _flightrec.record("checkpoint.save", step=self.global_steps, tag=tag)
+        with self._armed("save_checkpoint"), _annotate("checkpoint.save"):
             return ckpt_mod.save_checkpoint(self, save_dir, tag=tag,
                                             client_state=client_state,
                                             async_save=async_save)
@@ -1588,9 +1851,14 @@ class DeepSpeedTorchEngine:
         """Restore from a checkpoint (reference deepspeed_light.py:974-1046);
         returns ``(path, client_state)``, ``(None, None)`` if none."""
         from deepspeed_tpu_torch import checkpoint as ckpt_mod
+        # deliver the undelivered metric window NOW, with the pre-restore
+        # step numbers: stale ring rows must never mix into a window after
+        # the restore
+        self.flush_telemetry()
         self.tput_timer.discard_window()
         t0 = time.perf_counter()
-        with self._armed("load_checkpoint"):
+        _flightrec.record("checkpoint.load", step=self.global_steps, tag=tag)
+        with self._armed("load_checkpoint"), _annotate("checkpoint.load"):
             path, client = ckpt_mod.load_checkpoint(
                 self, load_dir, tag=tag,
                 load_optimizer_states=load_optimizer_states,
@@ -1598,10 +1866,11 @@ class DeepSpeedTorchEngine:
         if path is not None:
             # the restore is on the resume's critical path (the JAX
             # engine's ``restore_seconds``); the copies to the card are
-            # done when the masters are
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            # done when the masters are (a counted fence)
+            obs_fences.fence_on(self._state_tensor())
             COUNTERS.restore_seconds = time.perf_counter() - t0
+            # window step numbering follows the restored step count
+            self._telemetry.rebase_steps(self.global_steps)
         return path, client
 
     def _state_tensor(self):

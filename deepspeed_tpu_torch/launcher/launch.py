@@ -1,0 +1,192 @@
+"""Per-node launcher: decode world info, export the rendezvous contract,
+start one process per local GPU slot.
+
+The port of ``deepspeed_tpu/launcher/launch.py`` with upstream DeepSpeed's
+process model (``deepspeed_launch.py:56-119``): slot ``i`` of this node is
+one process, which gets ``LOCAL_RANK=i`` and ``--local_rank=i`` (the card
+``parallel.topology.resolve_device`` picks) and the rendezvous contract
+that ``parallel.topology.init_distributed`` consumes:
+
+    DSTPU_COORDINATOR     = master_addr:master_port   (= MASTER_ADDR/PORT)
+    DSTPU_NUM_PROCESSES   = total process count       (= WORLD_SIZE)
+    DSTPU_PROCESS_ID      = this process's rank       (= RANK)
+
+The same world info gives the same global rank mapping as the JAX
+launcher's.
+
+Resilience: ``--max_restarts N`` relaunches this node's processes (with
+jittered exponential backoff) when every failed process exited with a
+restartable code (``resilience.RESTARTABLE_EXIT_CODES``: 43 = preemption
+drain after an emergency checkpoint, 44 = watchdog abort); a real crash is
+not relaunched.  The relaunched processes auto-resume through
+``resilience.run_resumable``'s newest-valid-checkpoint discovery, and
+inherit the launcher's environment with ``--compile_cache_dir``,
+``--trace_dir`` and ``--health_port`` re-exported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import random
+import subprocess
+import sys
+import time
+
+from deepspeed_tpu_torch.launcher.run import decode_world_info
+from deepspeed_tpu_torch.observability.health import (ENV_HEALTH_PORT,
+                                                ENV_REPLICA_GENERATION)
+from deepspeed_tpu_torch.observability.tracing import ENV_TRACE_DIR
+from deepspeed_tpu_torch.resilience import RESTARTABLE_EXIT_CODES
+from deepspeed_tpu_torch.utils.compile_cache import ENV_DIR as COMPILE_CACHE_ENV_DIR
+
+logger = logging.getLogger(__name__)
+
+#: backoff ceiling between restart attempts
+RESTART_BACKOFF_CAP_S = 60.0
+
+
+def parse_args(args=None):
+    parser = argparse.ArgumentParser(
+        description="per-node process launcher")
+    parser.add_argument("--node_rank", type=int, default=0,
+                        help="Rank of this node in the world info")
+    parser.add_argument("--master_addr", type=str, default="127.0.0.1")
+    parser.add_argument("--master_port", type=int, default=29500)
+    parser.add_argument("--world_info", type=str, required=True,
+                        help="base64 JSON of host → slot list")
+    parser.add_argument("--max_restarts", type=int, default=0,
+                        help="Relaunch budget after restartable exits "
+                             f"(codes {RESTARTABLE_EXIT_CODES}: preemption "
+                             "drain / watchdog abort)")
+    parser.add_argument("--restart_backoff", type=float, default=1.0,
+                        help="Base seconds of the jittered exponential "
+                             "restart backoff")
+    parser.add_argument("--compile_cache_dir", type=str, default="",
+                        help="Kernel build directory: exported to every "
+                             "spawned worker (including --max_restarts "
+                             "relaunches) as DSTPU_COMPILE_CACHE_DIR, so "
+                             "time-to-first-step after a preemption is "
+                             "restore + library load, not restore + nvcc")
+    parser.add_argument("--trace_dir", type=str, default="",
+                        help="Telemetry trace destination exported to "
+                             "every spawned worker (including relaunches) "
+                             "as DSTPU_TRACE_DIR — the engine resolves it "
+                             "when the config carries no "
+                             "observability.trace_dir")
+    parser.add_argument("--health_port", type=int, default=0,
+                        help="Base health-endpoint port exported to every "
+                             "spawned worker (including relaunches) as "
+                             "DSTPU_HEALTH_PORT; each worker serves "
+                             "/healthz /status /metrics on base + its "
+                             "global rank")
+    parser.add_argument("training_script", type=str)
+    parser.add_argument("training_script_args", nargs=argparse.REMAINDER)
+    return parser.parse_args(args=args)
+
+
+def restart_delay_s(attempt: int, base: float,
+                    cap: float = RESTART_BACKOFF_CAP_S,
+                    rand=random.random) -> float:
+    """Jittered exponential backoff: ``min(cap, base * 2**(attempt-1)) *
+    uniform(0.5, 1.5)`` — jitter so a pod's nodes do not re-stampede the
+    coordinator in lockstep (attempt is 1-based)."""
+    return min(cap, base * (2.0 ** max(0, attempt - 1))) * (0.5 + rand())
+
+
+def global_rank_mapping(world_info):
+    """host → list of global process ranks (upstream
+    deepspeed_launch.py:81-91)."""
+    mapping = {}
+    rank = 0
+    for host, slots in world_info.items():
+        mapping[host] = list(range(rank, rank + len(slots)))
+        rank += len(slots)
+    return mapping
+
+
+def _spawn_procs(args, local_ranks, world_size, node_host, generation=0):
+    procs = []
+    for local_rank, global_rank in enumerate(local_ranks):
+        env = os.environ.copy()
+        # restart ordinal for the /metrics replica_generation gauge: a
+        # fleet router tells a RELAUNCHED worker (generation bumped,
+        # uptime reset) from a live one (observability/health.py)
+        env[ENV_REPLICA_GENERATION] = str(int(generation))
+        env["DSTPU_COORDINATOR"] = f"{args.master_addr}:{args.master_port}"
+        env["DSTPU_NUM_PROCESSES"] = str(world_size)
+        env["DSTPU_PROCESS_ID"] = str(global_rank)
+        # upstream's spellings
+        env["MASTER_ADDR"] = args.master_addr
+        env["MASTER_PORT"] = str(args.master_port)
+        env["WORLD_SIZE"] = str(world_size)
+        env["RANK"] = str(global_rank)
+        env["LOCAL_RANK"] = str(local_rank)
+        if args.compile_cache_dir:
+            # every attempt (first launch AND each restart) lands in the
+            # same persistent compilation cache — the engine's env
+            # fallback (utils/compile_cache.resolve_dir) picks it up even
+            # when the config carries no compile_cache block
+            env[COMPILE_CACHE_ENV_DIR] = args.compile_cache_dir
+        if args.trace_dir:
+            # same fallback pattern for trace captures (workers append a
+            # per-process subdirectory — observability/tracing.py)
+            env[ENV_TRACE_DIR] = args.trace_dir
+        if args.health_port:
+            # BASE port only: each worker offsets by its own global rank
+            # (observability/health.resolve_health_port), so co-hosted
+            # workers never fight over one socket
+            env[ENV_HEALTH_PORT] = str(args.health_port)
+        cmd = ([sys.executable, "-u", args.training_script]
+               + args.training_script_args
+               + [f"--local_rank={local_rank}"])
+        logger.info("node %s rank %d: %s", node_host, global_rank, cmd)
+        procs.append(subprocess.Popen(cmd, env=env))
+    return procs
+
+
+def main(args=None):
+    args = parse_args(args)
+    world_info = decode_world_info(args.world_info)
+    assert len(world_info) > 0, "empty world info"
+
+    hosts = list(world_info.keys())
+    node_host = hosts[args.node_rank]
+    mapping = global_rank_mapping(world_info)
+    local_ranks = mapping[node_host]
+    world_size = sum(len(v) for v in mapping.values())
+
+    attempt = 0
+    while True:
+        procs = _spawn_procs(args, local_ranks, world_size, node_host,
+                             generation=attempt)
+        rc = 0
+        for p in procs:
+            p.wait()
+            rc = rc or p.returncode
+        if rc == 0:
+            return 0
+        codes = sorted({p.returncode for p in procs})
+        # restart only when EVERY failure is a restartable drain/abort —
+        # a rank that crashed with a real error (code 1, segfault) would
+        # crash again; burning the budget on it helps nobody
+        restartable = all(c in RESTARTABLE_EXIT_CODES or c == 0
+                          for c in codes)
+        if not restartable or attempt >= args.max_restarts:
+            if restartable and args.max_restarts > 0:
+                logger.error(
+                    "restart budget exhausted (%d) with exit codes %s",
+                    args.max_restarts, codes)
+            return rc
+        attempt += 1
+        delay = restart_delay_s(attempt, args.restart_backoff)
+        logger.warning(
+            "restartable exit codes %s: relaunching (attempt %d/%d) "
+            "after %.1fs backoff", codes, attempt, args.max_restarts, delay)
+        time.sleep(delay)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    sys.exit(main())

@@ -1,0 +1,339 @@
+"""Multi-node launcher: ``dst-torch <args> script.py <script args>``.
+
+The port of ``deepspeed_tpu/launcher/run.py`` (upstream DeepSpeed's
+``deepspeed_run.py``, shipped there as ``bin/ds``), case for case:
+
+* hostfile in MPI syntax ``worker-0 slots=4`` (upstream fetch_hostfile
+  :88-113); **1 slot = 1 GPU = 1 process**, started by
+  ``launcher.launch`` with ``LOCAL_RANK`` and ``--local_rank``.
+* include/exclude filter DSL ``-i "worker-0@worker-2:0,2"`` (upstream
+  parse_inclusion_exclusion :116-205): ``@`` separates nodes, ``:`` splits
+  host from a comma-separated slot list, no list = all slots.
+* world info passed to per-node launchers as base64 JSON (upstream
+  encode_world_info :218-221).
+* fan-out via pdsh when available, else plain ssh per host, else local
+  subprocess (upstream :290-332 w/ local fallback :233-240); environment
+  propagation = allowlist prefixes + a ``.deepspeed_env`` file of extra
+  exports (upstream EXPORT_ENVS/DEEPSPEED_ENVIRONMENT_NAME :26-46,290-305).
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import json
+import logging
+import os
+import shlex
+import shutil
+import subprocess
+import sys
+from collections import OrderedDict
+
+logger = logging.getLogger(__name__)
+
+DLTS_HOSTFILE = "/job/hostfile"
+EXPORT_ENVS = ["CUDA", "TORCH", "PYTHON", "PATH", "LD_", "DSTPU_", "NCCL",
+               "OMP_"]
+DEEPSPEED_ENVIRONMENT_NAME = ".deepspeed_env"
+DEEPSPEED_ENVIRONMENT_PATHS = [".", os.path.expanduser("~")]
+PDSH_MAX_FAN_OUT = 1024
+
+
+def parse_args(args=None):
+    parser = argparse.ArgumentParser(
+        description="dst-torch: deepspeed_tpu_torch multi-host launcher")
+    parser.add_argument("-H", "--hostfile", type=str, default=DLTS_HOSTFILE,
+                        help="Hostfile path (MPI style: 'host slots=N')")
+    parser.add_argument("-i", "--include", type=str, default="",
+                        help="Include filter, e.g. 'worker-0@worker-1:0,2'")
+    parser.add_argument("-e", "--exclude", type=str, default="",
+                        help="Exclude filter, same DSL as --include")
+    parser.add_argument("--num_nodes", type=int, default=-1,
+                        help="Limit to first N nodes of the resource pool")
+    parser.add_argument("--num_gpus", "--num_chips", type=int, default=-1,
+                        dest="num_gpus",
+                        help="Limit slots per node (parity alias: num_chips)")
+    parser.add_argument("--master_port", type=int, default=29500,
+                        help="Coordinator port of the torch.distributed rendezvous")
+    parser.add_argument("--master_addr", type=str, default="",
+                        help="Coordinator address; default = first host")
+    parser.add_argument("--launcher", type=str, default="pdsh",
+                        choices=("pdsh", "ssh", "local"),
+                        help="Fan-out backend")
+    parser.add_argument("--max_restarts", type=int, default=0,
+                        help="Per-node relaunch budget after restartable "
+                             "exits (preemption drain / watchdog abort)")
+    parser.add_argument("--restart_backoff", type=float, default=1.0,
+                        help="Base seconds of the jittered exponential "
+                             "restart backoff")
+    parser.add_argument("--compile_cache_dir", type=str, default="",
+                        help="Kernel build directory exported to every "
+                             "worker (and every --max_restarts relaunch) "
+                             "as DSTPU_COMPILE_CACHE_DIR, so a restarted "
+                             "process loads the prior attempt's nvcc "
+                             "libraries instead of rebuilding them")
+    parser.add_argument("--trace_dir", type=str, default="",
+                        help="Telemetry trace destination exported to "
+                             "every worker (and every --max_restarts "
+                             "relaunch) as DSTPU_TRACE_DIR: torch.profiler "
+                             "capture windows and watchdog hang captures "
+                             "land here, one subdirectory per process")
+    parser.add_argument("--health_port", type=int, default=0,
+                        help="Base port of the per-process live health "
+                             "endpoints (/healthz /status /metrics), "
+                             "exported to every worker (and every "
+                             "--max_restarts relaunch) as "
+                             "DSTPU_HEALTH_PORT; each worker serves on "
+                             "base + its global rank, rank 0 additionally "
+                             "carries the fleet view.  0 disables")
+    parser.add_argument("--force_multi", action="store_true",
+                        help="Treat a single-node pool as multi-node (ssh)")
+    parser.add_argument("user_script", type=str,
+                        help="User training script")
+    parser.add_argument("user_args", nargs=argparse.REMAINDER,
+                        help="User script arguments")
+    return parser.parse_args(args=args)
+
+
+# ------------------------------------------------------------------ hostfile
+
+def fetch_hostfile(hostfile_path):
+    """Parse 'hostname slots=N' lines; None when absent (upstream
+    fetch_hostfile :88-113)."""
+    if not os.path.isfile(hostfile_path):
+        logger.warning("no hostfile at %s — falling back to this machine's "
+                       "local slots only", hostfile_path)
+        return None
+    resource_pool = OrderedDict()
+    with open(hostfile_path, "r") as fd:
+        for line in fd.readlines():
+            line = line.strip()
+            if line == "" or line.startswith("#"):
+                continue
+            try:
+                hostname, slots = line.split()
+                _, slot_count = slots.split("=")
+                slot_count = int(slot_count)
+            except ValueError:
+                logger.error("hostfile line %r does not parse as "
+                             "'<hostname> slots=<int>'", line)
+                raise ValueError(f"hostfile bad entry: {line!r}")
+            if hostname in resource_pool:
+                logger.error("hostfile lists %s twice — each host may "
+                             "appear on one line only", hostname)
+                raise ValueError(f"host {hostname} is already defined")
+            resource_pool[hostname] = slot_count
+    return resource_pool
+
+
+def _parse_hostfile_filter(filter_str):
+    """'worker-0@worker-1:0,2' → OrderedDict(host → [slots] or [])"""
+    mapping = OrderedDict()
+    for node_config in filter_str.split("@"):
+        node_config = node_config.strip()
+        if node_config == "":
+            continue
+        if ":" in node_config:
+            hostname, slots = node_config.split(":")
+            slot_list = [int(x) for x in slots.split(",") if x != ""]
+        else:
+            hostname, slot_list = node_config, []
+        if hostname in mapping:
+            raise ValueError(f"host {hostname} defined twice in {filter_str!r}")
+        mapping[hostname.strip()] = slot_list
+    return mapping
+
+
+def parse_resource_filter(host_info, include_str="", exclude_str=""):
+    """Apply -i/-e to a resource pool (host → slot count), returning
+    host → [slot ids].  Mutually exclusive; unknown hosts/slots are errors
+    (upstream parse_inclusion_exclusion + parse_resource_filter
+    :116-205)."""
+    if include_str != "" and exclude_str != "":
+        raise ValueError("include_str and exclude_str are mutually exclusive")
+
+    active = OrderedDict(
+        (host, list(range(count))) for host, count in host_info.items())
+    if include_str == "" and exclude_str == "":
+        return active
+
+    filter_str = include_str if include_str != "" else exclude_str
+    mapping = _parse_hostfile_filter(filter_str)
+    for hostname, slots in mapping.items():
+        if hostname not in host_info:
+            raise ValueError(f"unknown host {hostname!r} in filter")
+        for s in slots:
+            if s not in range(host_info[hostname]):
+                raise ValueError(
+                    f"unknown slot {s} on host {hostname!r} in filter")
+
+    if include_str != "":
+        filtered = OrderedDict()
+        for hostname, slots in mapping.items():
+            filtered[hostname] = (slots if slots
+                                  else list(range(host_info[hostname])))
+        return filtered
+
+    # exclude
+    filtered = OrderedDict()
+    for hostname, all_slots in active.items():
+        if hostname not in mapping:
+            filtered[hostname] = all_slots
+            continue
+        dropped = mapping[hostname]
+        if not dropped:           # whole host excluded
+            continue
+        keep = [s for s in all_slots if s not in dropped]
+        if keep:
+            filtered[hostname] = keep
+    return filtered
+
+
+def parse_inclusion_exclusion(resource_pool, inclusion, exclusion):
+    return parse_resource_filter(dict(resource_pool),
+                                 include_str=inclusion, exclude_str=exclusion)
+
+
+# ---------------------------------------------------------------- world info
+
+def encode_world_info(world_info) -> str:
+    """base64(JSON) (upstream encode_world_info :218-221)."""
+    return base64.urlsafe_b64encode(
+        json.dumps(world_info).encode()).decode()
+
+
+def decode_world_info(encoded: str):
+    return json.loads(base64.urlsafe_b64decode(encoded.encode()).decode())
+
+
+# ---------------------------------------------------------------------- main
+
+def _env_exports():
+    exports = []
+    for var, val in os.environ.items():
+        if any(var.startswith(p) for p in EXPORT_ENVS):
+            exports.append(f"export {var}={shlex.quote(val)}")
+    for path in DEEPSPEED_ENVIRONMENT_PATHS:
+        env_file = os.path.join(path, DEEPSPEED_ENVIRONMENT_NAME)
+        if os.path.isfile(env_file):
+            with open(env_file) as f:
+                for line in f.readlines():
+                    line = line.strip()
+                    if line and not line.startswith("#"):
+                        key, sep, val = line.partition("=")
+                        exports.append(
+                            f"export {key}={shlex.quote(val)}" if sep
+                            else f"export {line}")
+    return exports
+
+
+def main(args=None):
+    args = parse_args(args)
+    resource_pool = fetch_hostfile(args.hostfile)
+
+    if resource_pool is None:
+        # local-only fallback (upstream :233-240): one process by default,
+        # --num_gpus/--num_chips N requests N local slots
+        n_slots = args.num_gpus if args.num_gpus > 0 else 1
+        active = OrderedDict({"localhost": list(range(n_slots))})
+        if args.include or args.exclude:
+            raise ValueError(
+                "include/exclude require a hostfile (no resource pool)")
+        multi_node = args.force_multi
+    else:
+        active = parse_inclusion_exclusion(resource_pool, args.include,
+                                           args.exclude)
+        if args.num_nodes > 0:
+            active = OrderedDict(list(active.items())[:args.num_nodes])
+        if args.num_gpus > 0:
+            active = OrderedDict(
+                (h, s[:args.num_gpus]) for h, s in active.items())
+        multi_node = len(active) > 1 or args.force_multi
+
+    if not active:
+        raise ValueError("no hosts remain after filtering")
+
+    first_host = next(iter(active))
+    master_addr = args.master_addr
+    if not master_addr:
+        if multi_node and first_host not in ("localhost", "127.0.0.1"):
+            # upstream resolves via `ssh first_host hostname -I` (:254-261)
+            try:
+                out = subprocess.check_output(
+                    ["ssh", first_host, "hostname", "-I"], timeout=30)
+                master_addr = out.decode().split()[0]
+            except Exception:
+                master_addr = first_host
+        else:
+            master_addr = "127.0.0.1"
+
+    world_info = {h: s for h, s in active.items()}
+    encoded = encode_world_info(world_info)
+
+    launch_cmd = [
+        sys.executable, "-u", "-m", "deepspeed_tpu_torch.launcher.launch",
+        f"--world_info={encoded}",
+        f"--master_addr={master_addr}",
+        f"--master_port={args.master_port}",
+    ]
+    if args.max_restarts:
+        launch_cmd += [f"--max_restarts={args.max_restarts}",
+                       f"--restart_backoff={args.restart_backoff}"]
+    if args.compile_cache_dir:
+        launch_cmd += [f"--compile_cache_dir={args.compile_cache_dir}"]
+    if args.trace_dir:
+        launch_cmd += [f"--trace_dir={args.trace_dir}"]
+    if args.health_port:
+        launch_cmd += [f"--health_port={args.health_port}"]
+
+    if not multi_node:
+        cmd = launch_cmd + ["--node_rank=0", args.user_script] + args.user_args
+        logger.info("cmd=%s", cmd)
+        result = subprocess.Popen(cmd, env=os.environ.copy())
+        result.wait()
+        return result.returncode
+
+    exports = _env_exports()
+    runner = args.launcher
+    if runner == "pdsh" and shutil.which("pdsh") is None:
+        logger.warning("pdsh not found, falling back to ssh fan-out")
+        runner = "ssh"
+
+    procs = []
+    hosts = list(active.keys())
+    if runner == "pdsh":
+        env = os.environ.copy()
+        env["PDSH_RCMD_TYPE"] = "ssh"
+        host_list = ",".join(hosts)
+        # %n expands to the pdsh node rank on each target
+        remote_cmd = (
+            "; ".join(exports + [f"cd {shlex.quote(os.path.abspath(os.getcwd()))}"])
+            + "; " + " ".join(map(shlex.quote, launch_cmd))
+            + " --node_rank=%n " + shlex.quote(args.user_script) + " "
+            + " ".join(map(shlex.quote, args.user_args)))
+        cmd = ["pdsh", "-f", str(PDSH_MAX_FAN_OUT), "-w", host_list,
+               remote_cmd]
+        logger.info("cmd=%s", cmd)
+        procs.append(subprocess.Popen(cmd, env=env))
+    else:
+        for rank, host in enumerate(hosts):
+            remote_cmd = (
+                "; ".join(exports + [f"cd {os.path.abspath(os.getcwd())}"])
+                + "; " + " ".join(launch_cmd)
+                + f" --node_rank={rank} " + args.user_script + " "
+                + " ".join(args.user_args))
+            cmd = ["ssh", host, remote_cmd]
+            logger.info("cmd=%s", cmd)
+            procs.append(subprocess.Popen(cmd, env=os.environ.copy()))
+
+    rc = 0
+    for p in procs:
+        p.wait()
+        rc = rc or p.returncode
+    return rc
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    sys.exit(main())

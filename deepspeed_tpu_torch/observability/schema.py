@@ -1,0 +1,556 @@
+"""Machine-readable telemetry event schemas (one JSONL line per event).
+
+The JSONL event log is the machine half of the exporter fan-out
+(TensorBoard is the human half), schema-versioned so downstream tooling
+(bench diffing, fleet dashboards, the CI smoke gate) can parse it without
+guessing.  Validation is hand-rolled — no jsonschema dependency — and
+doubles as the documentation of record for every field
+(docs/observability.md mirrors these tables).
+
+Six event schemas share one stream (a rank-0 log interleaves them):
+
+* ``dstpu.telemetry.window``  — one line per drained metric window.
+  v1 logs still validate; v2 adds the per-host fleet-report
+  columns (``host_ms``, ``data_wait_ms``, ``anomalies``, ``rank``).
+* ``dstpu.telemetry.startup`` — one line per process start (v2): compile
+  / time-to-first-step seconds, restore latency, compile-cache counters —
+  the cold-start cost as a recorded number instead of the first window's
+  null ``step_ms``.
+* ``dstpu.telemetry.fleet``   — one line per cross-host aggregated window
+  (v2, rank 0 only): per-host min/median/max timings, straggler index and
+  flags, anomaly roll-up, counter sums, the full per-host report map.
+* ``dstpu.telemetry.serve``   — one line per serving window (own
+  version track): continuous-batching decode iterations, tokens
+  delivered, slot occupancy, and p50/p99 TTFT / inter-token latency
+  (the JAX package's inference/driver.py).  v1
+  logs still validate; v2 adds the prefix-reuse and speculative-decoding
+  columns (``prefix_hits``, ``prefix_tokens_reused``, ``spec_proposed``,
+  ``spec_accepted``); v3 adds the replica-observability columns (live
+  slot/page-pool gauges, per-window request completions, queue-wait
+  percentiles) and derives every latency percentile from per-request
+  records instead of the old cumulative per-token samples.
+* ``dstpu.telemetry.request`` — one line per COMPLETED serving request
+  (v1): the request's whole lifecycle as numbers — queue wait, prefill,
+  time-to-first-token, per-token decode latency, prefix-reuse facts
+  (pages mapped / tokens served from shared pages) and the finish
+  reason (docs/observability.md "Serving view").
+* ``dstpu.telemetry.router`` — one line per fleet-router window (v1):
+  fleet-wide tokens/s, the per-replica load map (the /metrics gauges
+  the router routed on), evictions/resubmits, prefill→decode KV
+  handoffs and prefix-affinity hits
+  (the JAX package's inference/router.py).
+
+Schema evolution contract: additive fields bump the version with
+validators accepting all :data:`ACCEPTED_VERSIONS` and unknown EXTRA
+keys; removing or retyping a field is a breaking change.
+"""
+
+from __future__ import annotations
+
+import json
+import numbers
+from typing import Optional
+
+#: window event-log schema identifier + current version
+SCHEMA_ID = "dstpu.telemetry.window"
+SCHEMA_VERSION = 2
+#: versions the validator accepts for window events (v1: logs before the fleet columns)
+ACCEPTED_VERSIONS = (1, 2)
+
+#: fleet/startup schemas (introduced at v2 — no v1 ever existed)
+FLEET_SCHEMA_ID = "dstpu.telemetry.fleet"
+STARTUP_SCHEMA_ID = "dstpu.telemetry.startup"
+
+#: serving window events (the JAX package's inference/driver.py):
+#: one line per window of continuous-batching decode iterations.  Own
+#: version track (v1) — the validator is version-aware per schema, so a
+#: future additive field bumps SERVE_ACCEPTED_VERSIONS without touching
+#: the training schemas.
+SERVE_SCHEMA_ID = "dstpu.telemetry.serve"
+SERVE_SCHEMA_VERSION = 3
+#: v1 = logs without the prefix-reuse / speculative columns, v2 = those
+#: logs (no replica-observability columns) — both still valid
+SERVE_ACCEPTED_VERSIONS = (1, 2, 3)
+
+#: per-request lifecycle records (one line per COMPLETED request)
+REQUEST_SCHEMA_ID = "dstpu.telemetry.request"
+REQUEST_SCHEMA_VERSION = 1
+
+#: fleet-router windows (the JAX package's inference/router.py): one
+#: line per router reporting window — the fleet-level roll-up the
+#: per-replica serve events cannot see (evictions, resubmits, handoffs,
+#: the admission-time load map)
+ROUTER_SCHEMA_ID = "dstpu.telemetry.router"
+ROUTER_SCHEMA_VERSION = 1
+
+_NUM = numbers.Real
+
+#: field -> (type check, required[, min_version]).  Optional fields must
+#: still be PRESENT (null when unknown) in every event at or above their
+#: min version — a missing column and an unmeasured column are different
+#: facts, and downstream diffing relies on a stable key set.
+FIELDS = {
+    "schema": (str, True),
+    "version": (int, True),
+    "ts": (_NUM, True),                 # unix seconds at drain
+    "step": (int, True),                # engine global_steps at window end
+    "window_steps": (int, True),        # boundaries in this window (>0)
+    "loss": (_NUM, False),              # last boundary's loss (sum of leaves)
+    "loss_mean": (_NUM, False),         # mean over the window
+    "grad_norm": (_NUM, False),         # last boundary's global grad norm
+    "loss_scale": (_NUM, False),        # loss scale in effect (fp16)
+    "skipped": (int, True),             # skip-on-overflow boundaries
+    "step_ms": (_NUM, False),           # measured mean step wall ms
+    "samples_per_sec": (_NUM, False),
+    "mfu": (_NUM, False),               # needs observability.flops_per_sample
+    # predicted-vs-measured capacity (the planner handoff): drift =
+    # measured / predicted, the number that makes prediction rot visible
+    "predicted_peak_hbm_gb": (_NUM, False),
+    "measured_peak_hbm_gb": (_NUM, False),
+    "hbm_drift": (_NUM, False),
+    "predicted_boundary_ms": (_NUM, False),
+    "measured_boundary_ms": (_NUM, False),
+    "boundary_drift": (_NUM, False),
+    # which BackendProfile priced the predictions: the planner defaults to
+    # the RUNNING backend (matching what `measured_*` sees), but a config
+    # `analysis.profile` overrides it — drift is only meaningful knowing
+    # which one applied
+    "predicted_profile": (str, False),
+    "counters": (dict, True),           # resilience/compile-cache counters
+    # ---- v2 (fleet observability): the per-host report columns --------
+    "rank": (int, False, 2),            # the process rank
+    "host_ms": (_NUM, False, 2),        # mean host-side pre-dispatch ms per
+                                        # boundary (the straggler signal)
+    "data_wait_ms": (_NUM, False, 2),   # mean data-loader wait ms per
+                                        # boundary (starvation signal)
+    "anomalies": (list, False, 2),      # per-host detector flags
+}
+
+#: fleet event fields (schema ``dstpu.telemetry.fleet`` v2)
+FLEET_FIELDS = {
+    "schema": (str, True),
+    "version": (int, True),
+    "ts": (_NUM, True),
+    "window": (int, True),              # window ordinal (1-based)
+    "step": (int, True),                # max per-host step at window end
+    "n_hosts": (int, True),             # the process count
+    "reported_hosts": (int, True),      # reports in by the deadline
+    "missing_hosts": (list, True),      # ranks absent at the deadline —
+                                        # itself a hang precursor
+    "step_ms_min": (_NUM, False),       # wall step-time spread
+    "step_ms_median": (_NUM, False),
+    "step_ms_max": (_NUM, False),
+    "host_ms_min": (_NUM, False),       # host-side time spread (the
+    "host_ms_median": (_NUM, False),    # signal stragglers move)
+    "host_ms_max": (_NUM, False),
+    "samples_per_sec_sum": (_NUM, False),   # fleet goodput
+    "straggler_index": (_NUM, False),   # max/median host signal
+    "stragglers": (list, True),         # flagged ranks (may be empty)
+    "anomalies": (list, True),          # [{"rank": r, "kind": k}, ...]
+    "loss_mean": (_NUM, False),         # mean of per-host window means
+    "loss_spread": (_NUM, False),       # max - min (one-rank spikes show)
+    "skipped_total": (int, True),       # summed skip-on-overflow count
+    "counters": (dict, True),           # summed numeric counter roll-up
+    "per_host": (dict, True),           # rank(str) -> per-host report
+}
+
+#: startup event fields (schema ``dstpu.telemetry.startup`` v2)
+STARTUP_FIELDS = {
+    "schema": (str, True),
+    "version": (int, True),
+    "ts": (_NUM, True),
+    "rank": (int, True),
+    "host": (str, False),
+    "step": (int, True),                # global step the run started from
+    #: engine build -> first completed optimizer boundary (wall seconds):
+    #: the cold-start cost the first window's null step_ms refuses to
+    #: launder into a throughput number
+    "time_to_first_step_s": (_NUM, False),
+    #: wall seconds of the first boundary dispatch (dominated by compile
+    #: on a cold cache)
+    "first_dispatch_s": (_NUM, False),
+    "restore_seconds": (_NUM, False),   # checkpoint restore latency
+    "compile_cache_hits": (int, False),
+    "compile_cache_misses": (int, False),
+}
+
+#: serve event fields (schema ``dstpu.telemetry.serve`` v1) — the
+#: continuous-batching window record (docs/inference.md "Telemetry")
+SERVE_FIELDS = {
+    "schema": (str, True),
+    "version": (int, True),
+    "ts": (_NUM, True),
+    "window": (int, True),              # window ordinal (1-based)
+    "decode_iters": (int, True),        # scheduler iterations folded in
+    "tokens_out": (int, True),          # tokens delivered this window
+    "admitted": (int, True),            # requests admitted this window
+    "evicted": (int, True),             # cumulative completed requests
+    "active_slots_mean": (_NUM, True),  # mean occupied decode slots
+    "queue_depth": (int, True),         # waiting requests at window end
+    "slots": (int, True),               # total decode slots
+    "kv_cache_gb": (_NUM, False),       # preallocated cache size
+    "tokens_per_sec": (_NUM, False),    # this window's delivery rate
+    "ttft_p50_ms": (_NUM, False),       # over COMPLETED requests so far
+    "ttft_p99_ms": (_NUM, False),
+    "itl_p50_ms": (_NUM, False),        # inter-token latency
+    "itl_p99_ms": (_NUM, False),
+    # ---- v2 (prefix KV reuse + speculative decoding) -----------------
+    # cumulative over the scheduler's lifetime, like `evicted`
+    "prefix_hits": (int, True, 2),          # admissions served a prefix
+    "prefix_tokens_reused": (int, True, 2),  # prompt tokens not re-prefilled
+    "spec_proposed": (int, True, 2),        # draft tokens proposed
+    "spec_accepted": (int, True, 2),        # draft tokens accepted
+    # ---- v3 (replica observability): per-request-derived latency +
+    # live slot/page-pool gauges.  At v3 the ttft/itl percentile columns
+    # above are computed over PER-REQUEST records (each completed
+    # request is one sample; a request's ITL sample is its mean
+    # inter-token gap) instead of pooled per-token samples — the pooled
+    # per-token p50 honestly collapses to ~0 under fused decode (D-1 of
+    # every D gaps are within one dispatch).
+    "requests_completed": (int, True, 3),   # evictions in THIS window
+    "queue_wait_p50_ms": (_NUM, False, 3),  # over requests completed
+    "queue_wait_p99_ms": (_NUM, False, 3),  # so far (submit -> admit)
+    "itl_mean_ms": (_NUM, False, 3),        # pooled per-token mean (the
+                                            # cross-D-comparable number)
+    "slots_in_use": (int, True, 3),         # occupied slots at window end
+    "free_pages": (int, False, 3),          # allocatable (free + LRU)
+    "lru_pages": (int, False, 3),           # published refcount-0 pages
+    "shared_pages": (int, False, 3),        # pages with refcount > 1
+    "admission_refusals": (int, True, 3),   # cumulative pool refusals
+    "counters": (dict, True),           # resilience/compile-cache roll-up
+}
+
+#: request event fields (schema ``dstpu.telemetry.request`` v1) — the
+#: per-request lifecycle record, emitted at eviction.  Milliseconds
+#: throughout; null = honestly unmeasured (e.g. ``itl_mean_ms`` of a
+#: one-token request).
+REQUEST_FIELDS = {
+    "schema": (str, True),
+    "version": (int, True),
+    "ts": (_NUM, True),                 # completion wall time
+    "rid": (int, True),                 # caller-assigned request id
+    "slot": (int, True),                # decode slot served in
+    "prompt_tokens": (int, True),
+    "tokens_out": (int, True),
+    "finish_reason": (str, True),       # "eos" | "length"
+    "queue_wait_ms": (_NUM, False),     # submit -> admission dispatch
+    "prefill_ms": (_NUM, False),        # admission dispatch -> first token
+    "ttft_ms": (_NUM, False),           # submit -> first token
+    "decode_ms": (_NUM, False),         # first token -> last token
+    "itl_mean_ms": (_NUM, False),       # decode_ms / (tokens_out - 1)
+    "itl_max_ms": (_NUM, False),        # largest single inter-token gap
+    "prefix_hit": (bool, True),         # admission reused shared pages
+    "prefix_tokens_reused": (int, True),  # prompt tokens not re-prefilled
+    "pages_mapped": (int, True),        # page-table entries this request
+}
+
+#: router event fields (schema ``dstpu.telemetry.router`` v1) — the
+#: fleet window record.  Cumulative counters are over the router's
+#: lifetime (like the serve schema's ``evicted``); rates are this
+#: window's.
+ROUTER_FIELDS = {
+    "schema": (str, True),
+    "version": (int, True),
+    "ts": (_NUM, True),
+    "window": (int, True),              # window ordinal (1-based)
+    "n_replicas": (int, True),          # replicas the router knows
+    "healthy_replicas": (int, True),    # answering 200 at this window
+    "prefill_replicas": (int, True),    # disaggregated prefill pool (0 =
+                                        # no disaggregation)
+    "requests_submitted": (int, True),  # cumulative intake
+    "requests_completed": (int, True),  # cumulative completions
+    "requests_inflight": (int, True),   # handed to a replica, not done
+    "queue_depth": (int, True),         # waiting at the ROUTER (no
+                                        # replica chosen yet)
+    "tokens_out": (int, True),          # cumulative fleet tokens
+    "tokens_per_sec": (_NUM, False),    # this window's fleet rate
+    "evictions": (int, True),           # replicas evicted (503/wedge)
+    "resubmits": (int, True),           # requests re-queued by eviction
+    "handoffs": (int, True),            # prefill→decode KV handoffs
+    "affinity_hits": (int, True),       # admissions routed to the
+                                        # replica holding the prefix
+    "ttft_p50_ms": (_NUM, False),       # over completed requests so far
+    "ttft_p99_ms": (_NUM, False),
+    "queue_wait_p50_ms": (_NUM, False),
+    "queue_wait_p99_ms": (_NUM, False),
+    "per_replica": (dict, True),        # replica id(str) -> load map
+                                        # (the /metrics gauges routed on)
+}
+
+_SCHEMAS = None
+
+
+def _schemas():
+    global _SCHEMAS
+    if _SCHEMAS is None:
+        _SCHEMAS = {
+            SCHEMA_ID: (FIELDS, ACCEPTED_VERSIONS),
+            FLEET_SCHEMA_ID: (FLEET_FIELDS, (2,)),
+            STARTUP_SCHEMA_ID: (STARTUP_FIELDS, (2,)),
+            SERVE_SCHEMA_ID: (SERVE_FIELDS, SERVE_ACCEPTED_VERSIONS),
+            REQUEST_SCHEMA_ID: (REQUEST_FIELDS, (1,)),
+            ROUTER_SCHEMA_ID: (ROUTER_FIELDS, (1,)),
+        }
+    return _SCHEMAS
+
+
+def _validate_fields(event: dict, table: dict, versions) -> Optional[str]:
+    version = event.get("version")
+    if version not in versions:
+        return (f"version is {version!r}, expected one of "
+                f"{list(versions)}")
+    for name, spec in table.items():
+        typ, required = spec[0], spec[1]
+        min_version = spec[2] if len(spec) > 2 else min(versions)
+        if version < min_version:
+            continue        # the field postdates this event's schema
+        if name not in event:
+            return f"missing field {name!r}"
+        val = event[name]
+        if val is None:
+            if required:
+                return f"required field {name!r} is null"
+            continue
+        if typ is int:
+            # bool is an int subclass; a true/false here is a bug
+            if not isinstance(val, int) or isinstance(val, bool):
+                return f"field {name!r} must be an integer, got {val!r}"
+        elif not isinstance(val, typ):
+            return (f"field {name!r} must be "
+                    f"{getattr(typ, '__name__', typ)}, got {val!r}")
+    return None
+
+
+def validate_event(event: dict) -> Optional[str]:
+    """Validate a WINDOW event (v1 or v2); returns None when valid, else a
+    message naming the first problem.  Unknown extra keys are allowed
+    (additive schema evolution)."""
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    if event.get("schema") != SCHEMA_ID:
+        return (f"schema is {event.get('schema')!r}, expected "
+                f"{SCHEMA_ID!r}")
+    msg = _validate_fields(event, FIELDS, ACCEPTED_VERSIONS)
+    if msg is not None:
+        return msg
+    if event["window_steps"] <= 0:
+        return f"window_steps must be > 0, got {event['window_steps']}"
+    if not (0 <= event["skipped"] <= event["window_steps"]):
+        return (f"skipped ({event['skipped']}) outside "
+                f"[0, window_steps={event['window_steps']}]")
+    return _validate_counters(event["counters"])
+
+
+def validate_fleet_event(event: dict) -> Optional[str]:
+    """Validate a FLEET event (rank-0 cross-host window roll-up)."""
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    if event.get("schema") != FLEET_SCHEMA_ID:
+        return (f"schema is {event.get('schema')!r}, expected "
+                f"{FLEET_SCHEMA_ID!r}")
+    msg = _validate_fields(event, FLEET_FIELDS, (2,))
+    if msg is not None:
+        return msg
+    if event["n_hosts"] < 1:
+        return f"n_hosts must be >= 1, got {event['n_hosts']}"
+    if not (0 <= event["reported_hosts"] <= event["n_hosts"]):
+        return (f"reported_hosts ({event['reported_hosts']}) outside "
+                f"[0, n_hosts={event['n_hosts']}]")
+    for r in event["stragglers"]:
+        if not isinstance(r, int) or isinstance(r, bool):
+            return f"stragglers must list integer ranks, got {r!r}"
+    for a in event["anomalies"]:
+        if not (isinstance(a, dict) and "rank" in a and "kind" in a):
+            return f"anomalies entries need rank + kind, got {a!r}"
+    if not isinstance(event["per_host"], dict):
+        return "per_host must be an object"
+    return _validate_counters(event["counters"])
+
+
+def validate_startup_event(event: dict) -> Optional[str]:
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    if event.get("schema") != STARTUP_SCHEMA_ID:
+        return (f"schema is {event.get('schema')!r}, expected "
+                f"{STARTUP_SCHEMA_ID!r}")
+    return _validate_fields(event, STARTUP_FIELDS, (2,))
+
+
+def validate_serve_event(event: dict) -> Optional[str]:
+    """Validate a SERVE window event (continuous-batching telemetry;
+    v1/v2/v3 — the replica-observability columns are v3-only)."""
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    if event.get("schema") != SERVE_SCHEMA_ID:
+        return (f"schema is {event.get('schema')!r}, expected "
+                f"{SERVE_SCHEMA_ID!r}")
+    msg = _validate_fields(event, SERVE_FIELDS, SERVE_ACCEPTED_VERSIONS)
+    if msg is not None:
+        return msg
+    if event["decode_iters"] <= 0:
+        return f"decode_iters must be > 0, got {event['decode_iters']}"
+    if event["slots"] < 1:
+        return f"slots must be >= 1, got {event['slots']}"
+    if event["tokens_out"] < 0:
+        return f"tokens_out must be >= 0, got {event['tokens_out']}"
+    if event["version"] >= 3:
+        if event["requests_completed"] < 0:
+            return (f"requests_completed must be >= 0, got "
+                    f"{event['requests_completed']}")
+        if not (0 <= event["slots_in_use"] <= event["slots"]):
+            return (f"slots_in_use ({event['slots_in_use']}) outside "
+                    f"[0, slots={event['slots']}]")
+    return _validate_counters(event["counters"])
+
+
+def validate_request_event(event: dict) -> Optional[str]:
+    """Validate a per-request lifecycle record."""
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    if event.get("schema") != REQUEST_SCHEMA_ID:
+        return (f"schema is {event.get('schema')!r}, expected "
+                f"{REQUEST_SCHEMA_ID!r}")
+    msg = _validate_fields(event, REQUEST_FIELDS, (1,))
+    if msg is not None:
+        return msg
+    if event["prompt_tokens"] < 1:
+        return (f"prompt_tokens must be >= 1, got "
+                f"{event['prompt_tokens']}")
+    if event["tokens_out"] < 1:
+        # a completed request emitted at least its first token
+        return f"tokens_out must be >= 1, got {event['tokens_out']}"
+    if event["finish_reason"] not in ("eos", "length"):
+        return (f"finish_reason must be 'eos' or 'length', got "
+                f"{event['finish_reason']!r}")
+    if not (0 <= event["prefix_tokens_reused"] <= event["prompt_tokens"]):
+        return (f"prefix_tokens_reused ({event['prefix_tokens_reused']}) "
+                f"outside [0, prompt_tokens={event['prompt_tokens']}]")
+    return None
+
+
+def validate_router_event(event: dict) -> Optional[str]:
+    """Validate a fleet-router window event."""
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    if event.get("schema") != ROUTER_SCHEMA_ID:
+        return (f"schema is {event.get('schema')!r}, expected "
+                f"{ROUTER_SCHEMA_ID!r}")
+    msg = _validate_fields(event, ROUTER_FIELDS, (1,))
+    if msg is not None:
+        return msg
+    if event["n_replicas"] < 1:
+        return f"n_replicas must be >= 1, got {event['n_replicas']}"
+    if not (0 <= event["healthy_replicas"] <= event["n_replicas"]):
+        return (f"healthy_replicas ({event['healthy_replicas']}) outside "
+                f"[0, n_replicas={event['n_replicas']}]")
+    if not (0 <= event["prefill_replicas"] <= event["n_replicas"]):
+        return (f"prefill_replicas ({event['prefill_replicas']}) outside "
+                f"[0, n_replicas={event['n_replicas']}]")
+    if event["requests_completed"] > event["requests_submitted"]:
+        return (f"requests_completed ({event['requests_completed']}) "
+                f"exceeds requests_submitted "
+                f"({event['requests_submitted']})")
+    for name in ("requests_inflight", "queue_depth", "tokens_out",
+                 "evictions", "resubmits", "handoffs", "affinity_hits"):
+        if event[name] < 0:
+            return f"{name} must be >= 0, got {event[name]}"
+    if not isinstance(event["per_replica"], dict):
+        return "per_replica must be an object"
+    return None
+
+
+def _validate_counters(counters: dict) -> Optional[str]:
+    for k, v in counters.items():
+        if not isinstance(k, str) or (v is not None
+                                      and not isinstance(v, _NUM)):
+            return f"counters[{k!r}] must map str -> number, got {v!r}"
+    return None
+
+
+def validate_any(event: dict) -> Optional[str]:
+    """Dispatch on the event's ``schema`` field: window (v1/v2), fleet,
+    startup, serve (v1/v2/v3), request and router events all validate;
+    anything else is invalid — a stream of unknown schemas must fail the
+    gate, not slide through."""
+    if not isinstance(event, dict):
+        return f"event is {type(event).__name__}, expected object"
+    sid = event.get("schema")
+    if sid == SCHEMA_ID:
+        return validate_event(event)
+    if sid == FLEET_SCHEMA_ID:
+        return validate_fleet_event(event)
+    if sid == STARTUP_SCHEMA_ID:
+        return validate_startup_event(event)
+    if sid == SERVE_SCHEMA_ID:
+        return validate_serve_event(event)
+    if sid == REQUEST_SCHEMA_ID:
+        return validate_request_event(event)
+    if sid == ROUTER_SCHEMA_ID:
+        return validate_router_event(event)
+    return (f"unknown schema {sid!r}; expected one of "
+            f"[{SCHEMA_ID!r}, {FLEET_SCHEMA_ID!r}, {STARTUP_SCHEMA_ID!r}, "
+            f"{SERVE_SCHEMA_ID!r}, {REQUEST_SCHEMA_ID!r}, "
+            f"{ROUTER_SCHEMA_ID!r}]")
+
+
+def validate_jsonl(path: str) -> list:
+    """Validate every line of a JSONL event log (window/fleet/startup
+    events may interleave — a rank-0 fleet log does).  Returns a list of
+    ``(line_number, message)`` problems (empty = valid); an unreadable or
+    EMPTY file is a problem — the CI smoke gate treats "no telemetry" as
+    a failure, not a pass."""
+    problems = []
+    n = 0
+    try:
+        with open(path, "r") as f:
+            for i, line in enumerate(f, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                n += 1
+                try:
+                    event = json.loads(line)
+                except ValueError as e:
+                    problems.append((i, f"not valid JSON: {e}"))
+                    continue
+                msg = validate_any(event)
+                if msg is not None:
+                    problems.append((i, msg))
+    except OSError as e:
+        return [(0, f"cannot read {path!r}: {e}")]
+    if n == 0:
+        problems.append((0, f"{path!r} contains no events"))
+    return problems
+
+
+def count_by_schema(path: str) -> dict:
+    """``{schema_id_or_"invalid": count}`` over a JSONL file — the
+    validator CLI's per-file summary."""
+    out = {}
+    for (sid, _version), n in count_by_schema_version(path).items():
+        out[sid] = out.get(sid, 0) + n
+    return out
+
+
+def count_by_schema_version(path: str) -> dict:
+    """``{(schema_id_or_"invalid", version): count}`` over a JSONL file —
+    the version-aware validator summary (a mixed v1/v2 serve stream, e.g.
+    a replica upgraded mid-run, shows both tracks)."""
+    out = {}
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    ev = json.loads(line)
+                    sid = ev.get("schema") or "invalid"
+                    version = ev.get("version")
+                except ValueError:
+                    sid, version = "invalid", None
+                key = (sid, version)
+                out[key] = out.get(key, 0) + 1
+    except OSError:
+        pass
+    return out

@@ -1,10 +1,14 @@
 """Compile one CUDA source of ``deepspeed_tpu_torch/csrc`` into a shared
 library with a plain C interface, and load it with ctypes.
 
-``nvcc`` builds for ``sm_90a`` into ``build/kernels/`` at first use; the
-library's name carries a hash of the source, the shared headers of
-``csrc/`` and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  Sources that
+``nvcc`` builds for ``sm_90a`` at first use into ``build_dir()``: the
+compile cache's directory (``utils/compile_cache.py``: the config's
+``compile_cache.dir`` or ``DSTPU_COMPILE_CACHE_DIR``), else
+``build/kernels/``.  The library's name carries a hash of the source, the
+shared headers of ``csrc/`` and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is: a load counts one
+``resilience.COUNTERS.compile_cache_hits``, a build one
+``compile_cache_misses``.  Sources that
 are built at the same time (one thread each) run their ``nvcc`` in
 parallel: the wait on the subprocess releases the GIL.
 """
@@ -37,16 +41,33 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build_library(source: pathlib.Path):
-    """``(ctypes.CDLL, compiler output)`` for ``source``; the output is ""
-    when an earlier build of the same source and flags was loaded."""
+def build_dir() -> pathlib.Path:
+    """Where libraries are built and loaded: the compile cache's directory
+    when one is enabled or exported, else ``BUILD_DIR``."""
+    from deepspeed_tpu_torch.utils import compile_cache
+    d = compile_cache.enabled_dir() or os.environ.get(compile_cache.ENV_DIR)
+    return pathlib.Path(d) if d else BUILD_DIR
+
+
+def library_path(source: pathlib.Path) -> pathlib.Path:
+    """The ``.so`` that ``build_library(source)`` writes and loads."""
     src = source.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{source.stem}_{tag[:16]}.so"
+    return build_dir() / f"{source.stem}_{tag[:16]}.so"
+
+
+def build_library(source: pathlib.Path):
+    """``(ctypes.CDLL, compiler output)`` for ``source``; the output is ""
+    when an earlier build of the same source and flags was loaded."""
+    from deepspeed_tpu_torch.resilience.counters import COUNTERS
+    out = library_path(source)
     log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        COUNTERS.compile_cache_hits += 1
+    else:
+        COUNTERS.compile_cache_misses += 1
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         res = subprocess.run(cmd, capture_output=True, text=True)

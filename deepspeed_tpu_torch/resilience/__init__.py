@@ -14,9 +14,9 @@ Four cooperating pieces (docs/resilience.md):
   ``RESUME_EXIT_CODE``.
 * **auto-resume** (:mod:`.driver`): :func:`run_resumable` discovers the
   newest VALID checkpoint, restores engine + lr-scheduler + data-iterator
-  state, and continues step-accurately; a launcher relaunch loop on
-  ``RESTARTABLE_EXIT_CODES`` closes the circle (the port's ``launcher/``
-  is not ported yet: ROADMAP.md Queue 1 item 12).
+  state, and continues step-accurately; the launcher's ``--max_restarts``
+  relaunch loop on ``RESTARTABLE_EXIT_CODES`` closes the circle
+  (``launcher/launch.py``).
 * **hang watchdog** (:mod:`.watchdog`): a heartbeat thread armed around
   each blocking step/collective/checkpoint call; past the deadline it dumps
   all-thread stacks + recent step timings and (configurably) aborts with
@@ -32,9 +32,8 @@ Config: the ``resilience`` JSON block (``preempt_save``, ``max_restarts``,
 
 This module (and everything it imports eagerly) imports neither torch nor
 the engine: a launcher parent process imports the exit-code contract.
-``run_resumable`` and friends load lazily.  The flight-recorder calls of
-the JAX driver and watchdog wait for the port's observability (ROADMAP.md
-Queue 1 item 12).
+``run_resumable`` and friends load lazily.  The driver and the watchdog
+record into and dump the flight recorder (``observability/flightrec.py``).
 """
 
 from deepspeed_tpu_torch.resilience import chaos  # noqa: F401

@@ -14,9 +14,9 @@ back here and resumes step-accurately.
 The resume proof (tests/test_torch_resilience.py, after the JAX
 ``tests/test_resilience.py``): a run SIGTERM'd mid-training finishes with
 parameters BITWISE identical to an uninterrupted run, data-iterator
-position included.  The JAX ``run_resumable``'s flight-recorder calls,
-telemetry flushes and data-wait timing wait for the port's observability
-(ROADMAP.md Queue 1 item 12).
+position included.  A drain flushes the telemetry spool before the
+emergency save and the fleet after it, and dumps the flight recorder
+(``preempt``); a crash dumps it too (``crash``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,10 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional
 
+from time import monotonic as _monotonic
+
 from deepspeed_tpu_torch import checkpoint as ckpt_mod
+from deepspeed_tpu_torch.observability.flightrec import RECORDER as _flightrec
 from deepspeed_tpu_torch.resilience import chaos
 from deepspeed_tpu_torch.resilience.counters import COUNTERS
 from deepspeed_tpu_torch.resilience.preempt import (PreemptionHandler,
@@ -166,6 +169,13 @@ def run_resumable(engine_factory: Callable, train_step: Callable, *,
     handler.install()
     if data_loader is None:
         data_loader = engine.training_dataloader
+    cache_dir = getattr(engine, "compile_cache_dir", None)
+    if cache_dir:
+        # enable() exported DSTPU_COMPILE_CACHE_DIR, so in-process
+        # re-invocations and launcher relaunches (--max_restarts) all load
+        # the kernel libraries from the same directory
+        logger.info("resilience: kernel build directory %s (kept across "
+                    "restart attempts)", cache_dir)
     rank = getattr(engine, "global_rank", 0)
     preempt_save = bool(getattr(engine.config, "resilience_preempt_save",
                                 True))
@@ -179,11 +189,19 @@ def run_resumable(engine_factory: Callable, train_step: Callable, *,
             nonlocal it
             if it is None:
                 return None
+            # time the blocking fetch: the telemetry data-starvation
+            # detector compares a window's data wait with its step time
+            t0 = _monotonic()
             try:
-                return next(it)
+                batch = next(it)
             except StopIteration:
                 it = iter(data_loader)  # epoch rolled (loader re-shuffles)
-                return next(it)
+                batch = next(it)
+            note_wait = getattr(getattr(engine, "telemetry", None),
+                                "note_data_wait_seconds", None)
+            if note_wait is not None:
+                note_wait(_monotonic() - t0)
+            return batch
 
         while engine.global_steps < steps:
             step = engine.global_steps
@@ -204,6 +222,12 @@ def run_resumable(engine_factory: Callable, train_step: Callable, *,
             # preempted host drains EVERY host here, at the same step
             if handler.should_stop():
                 tag = f"{EMERGENCY_PREFIX}{tag_prefix}{engine.global_steps}"
+                # the spooled window may be mid-fill: flush the LOCAL
+                # spool BEFORE the emergency save, so the telemetry record
+                # covers the drained step, but skip the fleet wait: the
+                # grace period belongs to the checkpoint
+                _flightrec.record("preempt_agreed", step=engine.global_steps)
+                _flush_telemetry(engine, local_only=True)
                 if preempt_save:
                     save_with_retry(engine, save_dir, tag=tag,
                                     client_state=_client_state(data_loader,
@@ -218,6 +242,13 @@ def run_resumable(engine_factory: Callable, train_step: Callable, *,
                         "resilience: preemption agreed at step %d "
                         "(preempt_save off); exiting %d",
                         engine.global_steps, RESUME_EXIT_CODE)
+                # checkpoint durable: NOW the final fleet report, on a
+                # short bound
+                _flush_telemetry(engine, fleet_timeout=10.0)
+                # post-mortem artifact before the drain exit: which step
+                # this host reached
+                _flightrec.record("preempt", step=engine.global_steps)
+                _flightrec.dump("preempt")
                 raise SystemExit(RESUME_EXIT_CODE)
 
             if save_interval and engine.global_steps % save_interval == 0 \
@@ -231,7 +262,29 @@ def run_resumable(engine_factory: Callable, train_step: Callable, *,
             save_with_retry(engine, save_dir, tag=f"{tag_prefix}{steps}",
                             client_state=_client_state(data_loader,
                                                        client_state))
+        _flush_telemetry(engine)
         return engine
+    except SystemExit:
+        raise               # the drain path dumped above
+    except BaseException as e:
+        # crash exit: leave the ring on disk so the post-mortem knows the
+        # step this host died at — best-effort, never masks the crash
+        _flightrec.record("crash", step=engine.global_steps,
+                          error=repr(e)[:200])
+        _flightrec.dump("crash")
+        raise
     finally:
         if own_handler:
             handler.uninstall()
+
+
+def _flush_telemetry(engine, **kwargs) -> None:
+    """Deliver the final (possibly partial) metric window — best-effort;
+    a telemetry failure must never turn a clean drain into a crash."""
+    flush = getattr(engine, "flush_telemetry", None)
+    if flush is None:
+        return
+    try:
+        flush(**kwargs)
+    except Exception as e:  # pragma: no cover - defensive
+        logger.warning("resilience: telemetry flush failed: %s", e)

@@ -61,8 +61,13 @@ class Watchdog:
 
     def __init__(self, timeout_s: float, abort: bool = False,
                  near_miss_frac: float = 0.8, history: int = 32,
-                 poll_s: float = None):
+                 poll_s: float = None, on_fire=None):
         self.timeout_s = float(timeout_s)
+        #: optional callable run (on the monitor thread) after the stack
+        #: dump and BEFORE any abort: the telemetry layer hooks a short
+        #: torch.profiler hang capture here, so a wedged run leaves a
+        #: trace, not just stacks (observability/tracing.py)
+        self.on_fire = on_fire
         self.abort = bool(abort)
         self.near_miss_frac = float(near_miss_frac)
         self.poll_s = (poll_s if poll_s is not None
@@ -150,19 +155,41 @@ class Watchdog:
               deadline_s: float = None) -> None:
         recent = "\n".join(f"  {lbl}: {dur * 1000.0:.1f} ms"
                            for lbl, dur in self.timings) or "  (none)"
-        # (the JAX watchdog adds the flight recorder's tail here, dumps
-        # its ring and calls a hang-trace hook; the port's observability
-        # is not ported yet)
+        # the flight recorder's tail: the stack dump says where this thread
+        # is stuck NOW, the tail which step / window the process reached
+        # before it hung.  A torch-free import; best-effort.
+        flight = "  (unavailable)"
+        try:
+            from deepspeed_tpu_torch.observability import flightrec
+            flight = flightrec.RECORDER.format_tail()
+        except Exception:  # pragma: no cover - defensive
+            pass
         deadline_s = self.timeout_s if deadline_s is None else deadline_s
         dump = (f"WATCHDOG: {label!r} exceeded {deadline_s:.2f}s "
                 f"deadline ({elapsed:.2f}s elapsed)\n"
                 f"last {len(self.timings)} armed-operation timings:\n"
                 f"{recent}\n"
+                f"recent flight-recorder entries:\n{flight}\n"
                 f"all-thread stacks:\n{format_all_stacks()}")
         self.last_dump = dump
         self.fired = True
         COUNTERS.watchdog_fires += 1
         logger.error("%s", dump)
+        try:
+            # the ring on disk next to the stack dump: a relaunch (or the
+            # abort below) ends the process, the file is what a
+            # post-mortem collects
+            from deepspeed_tpu_torch.observability import flightrec
+            flightrec.RECORDER.dump("watchdog")
+        except Exception:  # pragma: no cover - defensive
+            pass
+        if self.on_fire is not None:
+            # best-effort diagnostics (the hang trace): a hook failure must
+            # never mask the dump or block the abort path
+            try:
+                self.on_fire()
+            except Exception as e:  # pragma: no cover - defensive
+                logger.warning("watchdog on_fire hook failed: %s", e)
         self.fire_event.set()
         if self.abort:
             # the restart path takes over: flush the dump to stderr and

@@ -4,7 +4,8 @@ The port of ``deepspeed_tpu/utils/timer.py``.  Where the JAX package blocks
 on the arrays a span produced, a CUDA span ends in
 ``torch.cuda.synchronize()`` (upstream deepspeed_timer.py:32-40); ``sync_on``
 names the tensors whose device should be synchronised, and nothing is
-synchronised for CPU tensors or when ``sync_on`` is None.
+synchronised for CPU tensors or when ``sync_on`` is None.  Every such wait
+goes through ``observability.fences.fence_on``, which counts it.
 """
 
 from __future__ import annotations
@@ -23,23 +24,11 @@ except ImportError:  # pragma: no cover
     PSUTIL_AVAILABLE = False
 
 
-def _devices_of(sync_on):
-    if sync_on is None:
-        return set()
-    if isinstance(sync_on, torch.Tensor):
-        return {sync_on.device} if sync_on.is_cuda else set()
-    if isinstance(sync_on, dict):
-        sync_on = list(sync_on.values())
-    out = set()
-    if isinstance(sync_on, (list, tuple)):
-        for x in sync_on:
-            out |= _devices_of(x)
-    return out
-
-
 def _fence(sync_on) -> None:
-    for dev in _devices_of(sync_on):
-        torch.cuda.synchronize(dev)
+    # the fence choke point: counted, so "zero fences between report
+    # windows" is a number the tests pin
+    from deepspeed_tpu_torch.observability import fences as obs_fences
+    obs_fences.fence_on(sync_on)
 
 
 class SynchronizedWallClockTimer:

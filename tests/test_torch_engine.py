@@ -215,12 +215,12 @@ def test_initialize_without_device_needs_a_gpu():
     # tensor, pipeline and sequence parallelism are ported
     # (tests/test_torch_tp_*.py, test_torch_pipeline*.py, test_torch_sp_*.py:
     # one process at context_parallel_size 2 is test_topology_sizes_and_
-    # refusals's); train_many and resilience are ported
-    # (tests/test_torch_multistep.py, test_torch_resilience.py), the other
-    # host-side subsystems of item 12 are not
-    pytest.param({"tensorboard": {"enabled": True}}, "ROADMAP",
-                 id="extra1-ROADMAP"),
-    pytest.param({"dump_state": True}, "ROADMAP", id="extra2-ROADMAP"),
+    # refusals's); so is all of item 12 (tensorboard and dump_state train:
+    # tests/test_torch_observability.py); graph lint and analysis/ (item
+    # 14) are not
+    pytest.param({"graph_lint": "warn"}, "ROADMAP", id="extra1-ROADMAP"),
+    pytest.param({"analysis": {"mode": "warn"}}, "ROADMAP",
+                 id="extra2-ROADMAP"),
 ])
 def test_unported_configs_raise(extra, match):
     with pytest.raises((NotImplementedError,

@@ -48,7 +48,14 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.checkpoint, "
             "deepspeed_tpu_torch.parallel.pipeline, "
             "deepspeed_tpu_torch.models.moe, "
-            "deepspeed_tpu_torch.resilience.driver; "
+            "deepspeed_tpu_torch.resilience.driver, "
+            "deepspeed_tpu_torch.observability, "
+            "deepspeed_tpu_torch.observability.__main__, "
+            "deepspeed_tpu_torch.observability.fleet, "
+            "deepspeed_tpu_torch.observability.health, "
+            "deepspeed_tpu_torch.launcher.run, "
+            "deepspeed_tpu_torch.launcher.launch, "
+            "deepspeed_tpu_torch.utils.compile_cache; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

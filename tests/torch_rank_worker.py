@@ -84,6 +84,10 @@ fed by ``data.BlockPrefetcher``).
   inputs' weights, cuts it to this rank's experts, and runs the loss and
   its backward on the whole batch ``tokens_g``/``labels_g``; outputs
   ``<case>/loss`` and ``<case>/g/<name>`` (this rank's local gradients).
+* ``fleet``: ``SimpleModel`` at dp ``world`` with the fleet view on
+  (``x``/``y`` [steps, rows * world, ...]); rank 1 stalls on the host
+  before step ``stall_at``; outputs ``master`` (bytes), ``dump`` (the
+  flight recorder's file) and ``host_ms`` (the last window's).
 
 With ``sp`` > 1 (``context_parallel_size``, or the ``mesh``) the train
 scenario's world is dp x pp x sp x mp: every rank of a seq group takes its
@@ -714,6 +718,40 @@ def run_seq_attn(spec, inputs, rank, world):
     return out
 
 
+def run_fleet(spec, inputs, rank, world):
+    """The fleet view across the ranks: ``SimpleModel`` at dp ``world``,
+    ``spec["steps"]`` train_batch steps on this rank's rows with
+    ``report_window`` 2 and the fleet on (each rank's JSONL log path under
+    ``spec["work"]``; only rank 0 writes one); rank 1 stalls
+    ``spec["stall_s"]`` on the host (the chaos stall point) before step
+    ``spec["stall_at"]``; each rank dumps its flight recorder ("fleet")."""
+    from deepspeed_tpu_torch.observability import flightrec
+    from deepspeed_tpu_torch.resilience import chaos
+    work = spec["work"]
+    rows = spec["rows"]
+    cfg = {"train_batch_size": rows * world, "steps_per_print": 10 ** 9,
+           "optimizer": {"type": "Adam", "params": {"lr": 0.02}},
+           "observability": {
+               "report_window": 2, "fleet": True, "fleet_wait_s": 60.0,
+               "jsonl_path": os.path.join(work, f"events_{rank}.jsonl"),
+               "flight_recorder_dir": work}}
+    engine = deepspeed_tpu_torch.initialize(
+        model=SimpleModel(hidden_dim=8), config=cfg, device="cpu")[0]
+    if rank == 1:
+        chaos.configure(stall_step=spec["stall_at"], stall_s=spec["stall_s"])
+    x, y = inputs["x"], inputs["y"]
+    for i in range(spec["steps"]):
+        engine.train_batch((
+            torch.from_numpy(x[i, rank * rows:(rank + 1) * rows]),
+            torch.from_numpy(y[i, rank * rows:(rank + 1) * rows])))
+    engine.flush_telemetry()
+    path = flightrec.RECORDER.dump("fleet")
+    return {"master": np.frombuffer(master_bytes(engine), np.uint8),
+            "dump": np.asarray(path),
+            "host_ms": np.asarray(
+                engine.telemetry.last_window_event["host_ms"])}
+
+
 def main():
     spec_path, rank = pathlib.Path(sys.argv[1]), int(sys.argv[2])
     spec = json.loads(spec_path.read_text())
@@ -722,7 +760,8 @@ def main():
     inputs = np.load(spec["inputs"])
     run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
            "tp_layers": run_tp_layers, "seq_attn": run_seq_attn,
-           "pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads}[
+           "pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads,
+           "fleet": run_fleet}[
         spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
