@@ -243,9 +243,38 @@ Phases (each prints one JSON line, with the seconds since the start as
    ranks and rank 1 none, the StragglerDetector flags rank 1 in window 2
    only, the masters agree bitwise, each rank's exit-time flight-recorder
    dump holds its 4 boundaries.
+   serve_gpt2: single-replica serving (``deepspeed_tpu_torch.inference``)
+   of GPT-2 medium at full width and depth in bf16 from train_gpt2's
+   seed-0 weights: 16 slots, 1,024 tokens a slot, prefill bucket 512,
+   page 128 (a 1,610,612,736-byte pool), the trace
+   ``synthetic_requests(32, vocab=50304, seed=0, prompt_min=16,
+   prompt_max=256, new_min=16, new_max=128)``.  Legs, one line each: (a)
+   a cold start from a ZeRO-1 checkpoint of the port's training engine
+   (saved here at step 0; the partition file never opened, the restored
+   weights bitwise the seed-0 ones in bf16), ``restore_seconds`` at 4
+   readers and the startup event; (b) 3 trace prompts' prefill logits
+   against the port on the CPU in fp32, relative error under 0.05; (c)
+   one prompt decoded 16 steps, each against a full re-forward on
+   another slot, relative error under 0.05; (d) ``run_serve``
+   (continuous, JSONL, window 16, /healthz mid-serve) against
+   ``StaticScheduler``, token-identical; (e) fused decode (D 4),
+   token-identical to (d); (f) 16 requests sharing a 256-token prefix:
+   the pool's hits and shared pages, a reused page bitwise equal to a
+   fresh prefill's, the tokens against prefix reuse off; (g) int8: the
+   logits of (b)'s prompts within 0.05 of bf16, the weight bytes, the
+   trace's tokens/s; (h) speculative decoding with the first 12 layers
+   as the draft (shared embeddings, 4 draft tokens), the accept rate.
+   Where (c), (f) and (h) disagree with their reference, the reference
+   context's top-two logit gap must be at most 1/64 of its largest
+   logit (a near-tie; the count is printed).  After (d), d_profile: a
+   decode step over all 16 slots under torch.profiler, as the engine's
+   CUDA graph and eagerly (``DSTPU_SERVE_GRAPHS=0``): step ms, device
+   busy ms, kernel launches a step.  (e) and (h) also run their fused
+   block once under ``set_sync_debug_mode("error")``: no host sync.  No
+   training kernel launches in any leg.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
-   moe_gpt2, multistep_gpt2, resume_gpt2) runs the build and the named
-   phases alone, with no result line.
+   moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2) runs the build and
+   the named phases alone, with no result line.
 22. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
@@ -1856,7 +1885,8 @@ def phase_block_kernels(device, launches, prof_gpt2):
 def process_group(device):
     """A one-rank NCCL process group on ``device`` (a TCP rendezvous on a
     free localhost port), started once for the ZeRO phases through the
-    port's ``init_distributed``."""
+    port's ``init_distributed`` (gloo when a phase rehearses on the
+    CPU)."""
     import socket
 
     import torch.distributed as dist
@@ -1869,7 +1899,7 @@ def process_group(device):
         port = sock.getsockname()[1]
     topology.init_distributed(coordinator_address=f"tcp://127.0.0.1:{port}",
                               num_processes=1, process_id=0, device=device)
-    if dist.get_backend() != "nccl":
+    if dist.get_backend() != ("nccl" if device.type == "cuda" else "gloo"):
         raise AssertionError(f"process group backend {dist.get_backend()}")
 
 
@@ -4560,6 +4590,532 @@ def phase_fleet_gpt2(device, size="medium", micro=MICRO, layers=EARLY_LAYERS):
     return [r["launches"] for r in ranks]
 
 
+# the serving phase (serve_gpt2): GPT-2 medium at full width and depth
+# served from one card by deepspeed_tpu_torch.inference.  SERVE holds the
+# card's shapes; phase_serve_gpt2(torch.device("cpu"), shapes=SERVE_TINY)
+# rehearses it on the CPU.
+SERVE = dict(size="medium", layers=None, slots=16, max_tokens=1024,
+             bucket=512, page=128,
+             trace=dict(n=32, prompt_min=16, prompt_max=256, new_min=16,
+                        new_max=128),
+             prefix=dict(n=16, prefix=256, tail_min=16, tail_max=128,
+                         new_min=16, new_max=64),
+             oracle_steps=16, cpu_prompts=3, fused=4, draft_tokens=4,
+             draft_layers=12, window=16)
+SERVE_TINY = dict(size="tiny", layers=2, slots=4, max_tokens=128, bucket=64,
+                  page=16,
+                  trace=dict(n=8, prompt_min=4, prompt_max=32, new_min=4,
+                             new_max=24),
+                  prefix=dict(n=6, prefix=32, tail_min=4, tail_max=16,
+                              new_min=4, new_max=8),
+                  oracle_steps=4, cpu_prompts=3, fused=4, draft_tokens=4,
+                  draft_layers=1, window=4)
+# bf16 on the card against fp32 on the CPU, and int8 against bf16: the
+# relative logit error of the JAX package's tests (test_inference.py:101-137)
+SERVE_REL_TOL = 0.05
+# the near-tie rule: a stream may leave its reference only where the
+# reference context's two largest fp32 logits lie within this share of its
+# largest |logit| (a product over another row count rounds differently)
+SERVE_NEAR_TIE = 1.0 / 64
+SERVE_RESTORE_THREADS = 4
+
+
+def _rel_err(got, want):
+    import numpy as np
+    return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
+
+
+def _near_tie(row):
+    """(top-two gap, the rule's limit) of an fp32 logits row."""
+    import numpy as np
+    top = np.sort(row)[-2:]
+    return float(top[1] - top[0]), float(np.max(np.abs(row)) * SERVE_NEAR_TIE)
+
+
+def _divergences(ref_engine, requests, ref, got):
+    """Each request whose tokens in ``got`` leave those in ``ref``, at its
+    first differing position: the gap and limit of the reference context's
+    logits (``prompt + ref[:p]`` re-forwarded on ``ref_engine``, slot 0).
+    Returns (list of dicts, all at a near-tie)."""
+    out = []
+    by_rid = {r.rid: r for r in requests}
+    for rid, want in ref.items():
+        have = got[rid]
+        if have == want:
+            continue
+        p = next((i for i, (a, b) in enumerate(zip(want, have)) if a != b),
+                 min(len(want), len(have)))
+        ref_engine.reset()
+        row = ref_engine.prefill(0, list(by_rid[rid].prompt) + want[:p])
+        ref_engine.reset()
+        gap, limit = _near_tie(row)
+        out.append({"rid": rid, "position": p, "gap": gap, "limit": limit,
+                    "ref_token": want[p] if p < len(want) else None,
+                    "token": have[p] if p < len(have) else None})
+    return out, all(d["gap"] <= d["limit"] for d in out)
+
+
+def _serve_config(shapes, dtype="bfloat16", **inf):
+    return {"inference": {"max_slots": shapes["slots"],
+                          "max_tokens": shapes["max_tokens"],
+                          "prefill_bucket": shapes["bucket"],
+                          "page_tokens": shapes["page"], "dtype": dtype,
+                          **inf},
+            "checkpoint": {"restore_threads": SERVE_RESTORE_THREADS}}
+
+
+def _prefix_trace(shapes, vocab, seed=1):
+    """``n`` requests opening with one shared ``prefix`` of tokens (whole
+    pages), with their own tails and budgets."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import Request
+    spec = shapes["prefix"]
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, spec["prefix"]).tolist()
+    return [Request(rid=i, prompt=prefix + rng.integers(
+        0, vocab, int(rng.integers(spec["tail_min"],
+                                   spec["tail_max"] + 1))).tolist(),
+                    max_new_tokens=int(rng.integers(spec["new_min"],
+                                                    spec["new_max"] + 1)))
+            for i in range(spec["n"])]
+
+
+def _int8_plan_bytes(model, itemsize=2):
+    """The weight bytes of ``model`` under the int8 plan: one byte per
+    quantized element, the compute dtype's ``itemsize`` per scale (one per
+    output channel) and per element of every other leaf."""
+    from deepspeed_tpu_torch.inference import quant
+    total = 0
+    for name, p in model.named_parameters():
+        axis = quant.GPT2_QUANT_PLAN.get(name.split(".")[-1])
+        if axis is None:
+            total += p.numel() * itemsize
+        else:
+            total += p.numel() + p.numel() // p.shape[axis] * itemsize
+    return total
+
+
+def _clone(reqs):
+    from deepspeed_tpu_torch.inference import Request
+    return [Request(rid=r.rid, prompt=list(r.prompt),
+                    max_new_tokens=r.max_new_tokens) for r in reqs]
+
+
+def _no_host_sync(fn, device):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``: None
+    when it ran without a host sync, else the error (on the CPU it just
+    runs)."""
+    import torch
+    if device.type != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e)[:200]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return None
+
+
+def _block_args(eng, device, remaining=8):
+    """Device inputs of a fused block over every slot: the row map, a token
+    each, all active, no EOS, ``remaining`` tokens left."""
+    import torch
+    n = eng.num_slots
+    return (eng._rows(), torch.arange(n, dtype=torch.int32, device=device),
+            torch.ones(n, dtype=torch.bool, device=device),
+            torch.full((n,), -1, dtype=torch.int32, device=device),
+            torch.full((n,), remaining, dtype=torch.int32, device=device))
+
+
+def _serve_profile(eng, reqs, device, steps=4, top=8):
+    """Where one decode step over every slot spends its time: each slot
+    prefilled with a trace prompt, one step to warm, then ``steps`` steps
+    under torch.profiler (wall on the host clock: each step ends in the
+    sampler's read)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    eng.reset()
+    for slot in range(eng.num_slots):
+        eng.prefill(slot, reqs[slot].prompt)
+    feed = np.zeros(eng.num_slots, np.int32)
+    act = np.ones(eng.num_slots, bool)
+    eng.decode(feed, act)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.decode(feed, act)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.decode(feed, act)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.reset()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy = sum(_self_device_ms(e) for e in kernels)
+    return {"slots": eng.num_slots, "steps": steps, "step_ms": step_ms,
+            "step_ms_profiled": wall_ms / steps,
+            "device_busy_ms_per_step": busy / steps,
+            "device_busy_share_profiled": busy / wall_ms if wall_ms else None,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+            "top_kernels": [
+                {"name": e.key[:80], "calls_per_step": e.count / steps,
+                 "ms_per_step": _self_device_ms(e) / steps}
+                for e in sorted(kernels, key=_self_device_ms,
+                                reverse=True)[:top]]}
+
+
+def _warm(eng, reqs, tokens=6):
+    """The shortest and the longest prompt of ``reqs`` through ``eng``, so
+    that its programs (one per bucket, the decode or fused block) are
+    captured before a timed run; then an empty pool again."""
+    by_len = sorted(reqs, key=lambda r: len(r.prompt))
+    eng.generate([by_len[0].prompt, by_len[-1].prompt],
+                 max_new_tokens=tokens)
+    eng.reset()
+
+
+def _serve_numbers(summary):
+    return {k: summary[k] for k in (
+        "tokens_out", "elapsed_s", "tokens_per_sec", "ttft_p50_ms",
+        "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms", "itl_mean_ms",
+        "decode_iters")}
+
+
+def phase_serve_gpt2(device, shapes=SERVE):
+    """Single-replica serving of GPT-2 medium (phase docstring entry
+    serve_gpt2): legs (a)-(h), one line each, then the phase's line."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import checkpoint, weights
+    from deepspeed_tpu_torch.inference import kvcache
+    from deepspeed_tpu_torch.inference import (ContinuousScheduler,
+                                               InferenceEngine,
+                                               ServeObservability,
+                                               StaticScheduler,
+                                               latency_summary, run_serve,
+                                               synthetic_requests)
+    from deepspeed_tpu_torch.models import GPT2
+    t_phase = time.perf_counter()
+    size, depth = shapes["size"], _depth(shapes["layers"])
+    meta = GPT2.from_size(size, device="meta", **depth)
+    vocab = meta.config.vocab_size
+    reqs = synthetic_requests(shapes["trace"]["n"], vocab=vocab, seed=0,
+                              **{k: v for k, v in shapes["trace"].items()
+                                 if k != "n"})
+    checks, legs = {}, {}
+    prev_reduce = torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="serve_gpt2_", dir=ROOT / "build")
+
+    def leg(name, **fields):
+        counts = launch_counts()
+        fields["launches"] = counts
+        checks[f"{name}_no_training_kernel"] = not any(counts.values())
+        legs[name] = fields
+        emit(f"serve_gpt2_{name}", **fields)
+        reset_launch_counts()
+
+    try:
+        # ---- (a) cold start from the training engine's ZeRO-1 checkpoint
+        ck_dir = os.path.join(work, "ckpt")
+        process_group(device)
+        zcfg = gpt2_config(MICRO)
+        zcfg["zero_optimization"] = {"stage": 1, "overlap_comm": False}
+        trainer = make_engine(zcfg, device, size=size, gpt2=True, **depth)
+        seed_tree = {k: p.detach().to(torch.bfloat16).clone()
+                     for k, p in trainer.module.named_parameters()}
+        cpu_tree = weights.unflatten_tree(
+            {k: p.detach().float().cpu()
+             for k, p in trainer.module.named_parameters()})
+        trainer.save_checkpoint(ck_dir)
+        files = sorted(os.listdir(os.path.join(ck_dir, "global_step0")))
+        del trainer
+        free(device)
+        opened = []
+        orig = checkpoint._load_obj
+
+        def spy(path):
+            opened.append(os.path.basename(path))
+            return orig(path)
+
+        reset_launch_counts()
+        checkpoint._load_obj = spy
+        try:
+            t0 = time.perf_counter()
+            eng = InferenceEngine(meta, config=_serve_config(
+                shapes, observability={"window_iters": shapes["window"]}),
+                checkpoint_dir=ck_dir, device=device)
+            build_s = time.perf_counter() - t0
+        finally:
+            checkpoint._load_obj = orig
+        restored = weights.flatten_tree(eng.params)
+        checks["a_partition_files_unread"] = (
+            any(f.startswith("zero_pp_rank") for f in files)
+            and not any(f.startswith("zero_pp_rank") for f in opened))
+        checks["a_weights_bitwise"] = all(
+            torch.equal(restored[k], t) for k, t in seed_tree.items())
+        del seed_tree
+        eng.generate([reqs[0].prompt], max_new_tokens=2)
+        startup = eng.startup_event()
+        checks["a_restore_timed"] = (eng.restore_seconds or 0) > 0
+        pool_bytes = kvcache.cache_bytes(eng.cache_spec)
+        checks["a_pool_bytes"] = pool_bytes == (
+            2 * meta.config.num_layers * shapes["slots"]
+            * shapes["max_tokens"] * meta.config.hidden_size * 2)
+        leg("a_cold_start", files=files, opened=sorted(set(opened)),
+            restore_threads=SERVE_RESTORE_THREADS,
+            restore_seconds=eng.restore_seconds, engine_build_s=build_s,
+            weight_bytes=eng.weight_bytes, pool_bytes=pool_bytes,
+            startup=startup)
+
+        # ---- (b) the card's prefill logits against the port on the CPU
+        cpu = InferenceEngine(meta, config=_serve_config(
+            dict(shapes, slots=1, max_tokens=shapes["trace"]["prompt_max"],
+                 bucket=shapes["trace"]["prompt_max"]), dtype="float32"),
+            params=cpu_tree, device="cpu")
+        prompts = [r.prompt for r in reqs[:shapes["cpu_prompts"]]]
+        card_rows, errs = [], []
+        for p in prompts:
+            eng.reset()
+            cpu.reset()
+            card_rows.append(eng.prefill(0, p))
+            errs.append(_rel_err(card_rows[-1], cpu.prefill(0, p)))
+        eng.reset()
+        del cpu
+        checks["b_card_vs_cpu"] = max(errs) < SERVE_REL_TOL
+        leg("b_card_vs_cpu", prompt_tokens=[len(p) for p in prompts],
+            rel_err=errs, bound=SERVE_REL_TOL)
+
+        # ---- (c) the decode oracle: each step against a re-forward
+        logits = eng.prefill(0, prompts[0])
+        seq = list(prompts[0])
+        cur = int(np.argmax(logits))
+        errs, ties = [], []
+        for _ in range(shapes["oracle_steps"]):
+            seq.append(cur)
+            ref = eng.prefill(1, seq)
+            feed = np.zeros(eng.num_slots, np.int32)
+            feed[0] = cur
+            act = np.zeros(eng.num_slots, bool)
+            act[0] = True
+            dec = eng.decode(feed, act)[0]
+            errs.append(_rel_err(dec, ref))
+            if int(np.argmax(dec)) != int(np.argmax(ref)):
+                gap, limit = _near_tie(ref)
+                ties.append({"step": len(seq) - len(prompts[0]),
+                             "gap": gap, "limit": limit})
+            cur = int(np.argmax(dec))
+        eng.reset()
+        checks["c_oracle_rel"] = max(errs) < SERVE_REL_TOL
+        checks["c_oracle_ties"] = all(t["gap"] <= t["limit"] for t in ties)
+        leg("c_decode_oracle", steps=shapes["oracle_steps"],
+            max_rel_err=max(errs), divergences=len(ties), at=ties)
+
+        # ---- (d) continuous (run_serve, JSONL, health) against static
+        jsonl = os.path.join(work, "serve.jsonl")
+        port = _free_port()
+        obs = ServeObservability(eng, port=port)
+        health = {}
+
+        def poll():
+            while "code" not in health and not stop.is_set():
+                sched = obs._sched
+                if sched is not None and sched.active > 0:
+                    health["code"] = _http_get(port, "/healthz")[0]
+                    health["slots_in_use"] = sched.active
+                    return
+                time.sleep(0.005)
+
+        _warm(eng, reqs)
+        stop = threading.Event()
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        _reset_peak(device)
+        try:
+            cont = run_serve(eng, _clone(reqs), jsonl_path=jsonl,
+                             window_iters=shapes["window"],
+                             observability=obs)
+        finally:
+            stop.set()
+            poller.join(timeout=10)
+            obs.close()
+        cont_peak = _peak_gib(device)
+        cont_tokens = {r.rid: r.tokens for r in cont["results"]}
+        eng.reset()
+        _reset_peak(device)
+        sched = StaticScheduler(eng)
+        t0 = time.perf_counter()
+        static_results = sched.run(_clone(reqs))
+        sync(device)
+        static_sum = latency_summary(static_results,
+                                     time.perf_counter() - t0)
+        static_sum["decode_iters"] = sched.decode_iters
+        static_peak = _peak_gib(device)
+        eng.reset()
+        rc, out = _validate_jsonl(jsonl)
+        checks["d_static_equals_continuous"] = (
+            {r.rid: r.tokens for r in static_results} == cont_tokens)
+        checks["d_jsonl_clean"] = rc == 0
+        checks["d_healthz_200"] = health.get("code") == 200
+        leg("d_continuous_vs_static",
+            continuous=_serve_numbers(cont["summary"]),
+            static=_serve_numbers(static_sum),
+            peak_gib={"continuous": cont_peak, "static": static_peak},
+            jsonl_validator=rc, jsonl_events=len(_read_jsonl(jsonl)),
+            healthz=health, request_events=cont["summary"]["request_events"])
+        with env("DSTPU_SERVE_GRAPHS", "0"):
+            eager = InferenceEngine(meta, config=_serve_config(shapes),
+                                    params=eng.params, device=device)
+        leg("d_profile", graphs=_serve_profile(eng, reqs, device),
+            eager=_serve_profile(eager, reqs, device))
+        del eager
+        free(device)
+
+        # ---- (e) fused decode, D iterations a dispatch
+        fused = InferenceEngine(meta, config=_serve_config(
+            shapes, decode_iters_per_dispatch=shapes["fused"]),
+            params=eng.params, device=device)
+        _warm(fused, reqs)
+        out = run_serve(fused, _clone(reqs))
+        checks["e_fused_equals_serial"] = (
+            {r.rid: r.tokens for r in out["results"]} == cont_tokens)
+        dispatches = fused.decode_dispatches
+        args = _block_args(fused, device)
+        sync_err = _no_host_sync(
+            lambda: fused._decode_block(shapes["fused"], *args), device)
+        checks["e_no_host_sync"] = sync_err is None
+        leg("e_fused_decode", d=shapes["fused"], dispatches=dispatches,
+            host_sync_in_block=sync_err,
+            summary=_serve_numbers(out["summary"]))
+        del fused
+        free(device)
+
+        # ---- (f) prefix reuse against prefix reuse off
+        preqs = _prefix_trace(shapes, vocab)
+        seen = {"shared_pages": 0, "pages_in_use": 0}
+
+        def track(sched, stats):
+            g = eng.pool.gauges()
+            for k in seen:
+                seen[k] = max(seen[k], g[k])
+
+        eng.reset()
+        sched = ContinuousScheduler(eng, on_event=track)
+        t0 = time.perf_counter()
+        reuse_res = sched.run(_clone(preqs))
+        reuse_s = time.perf_counter() - t0
+        gauges = eng.pool.gauges()
+        plen = shapes["prefix"]["prefix"]
+        probe = preqs[0].prompt[:plen] + [1] * shapes["prefix"]["tail_min"]
+        _, reused = eng.admit(0, probe, 1)
+        rows = eng.pool.slot_rows(0)[:plen]
+        shared = (eng._cache["k"][:, rows].clone(),
+                  eng._cache["v"][:, rows].clone())
+        eng.reset()
+        plain = InferenceEngine(meta, config=_serve_config(
+            shapes, prefix_reuse=False), params=eng.params, device=device)
+        plain.prefill(0, probe)
+        prow = plain.pool.slot_rows(0)[:plen]
+        checks["f_page_bitwise"] = reused == plen and all(
+            torch.equal(a, b[:, prow]) for a, b in zip(
+                shared, (plain._cache["k"], plain._cache["v"])))
+        del shared
+        _warm(plain, preqs)
+        t0 = time.perf_counter()
+        plain_res = ContinuousScheduler(plain).run(_clone(preqs))
+        plain_s = time.perf_counter() - t0
+        divs, ok = _divergences(plain, preqs,
+                                {r.rid: r.tokens for r in plain_res},
+                                {r.rid: r.tokens for r in reuse_res})
+        checks["f_hits"] = sched.prefix_hits >= len(preqs) - 1
+        checks["f_ties"] = ok
+        leg("f_prefix_reuse", requests=len(preqs), prefix_tokens=plen,
+            prefix_hits=sched.prefix_hits,
+            tokens_reused=sched.prefix_tokens_reused,
+            max_shared_pages=seen["shared_pages"],
+            max_pages_in_use=seen["pages_in_use"], gauges=gauges,
+            seconds={"reuse": reuse_s, "off": plain_s},
+            divergences=len(divs), at=divs)
+        del plain
+        free(device)
+
+        # ---- (g) int8 weights
+        q8 = InferenceEngine(meta, config=_serve_config(
+            shapes, quantize="int8"), params=eng.params, device=device)
+        errs = [_rel_err(q8.prefill(0, p), row)
+                for p, row in zip(prompts, card_rows)]
+        _warm(q8, reqs)
+        out = run_serve(q8, _clone(reqs))
+        plan_bytes = _int8_plan_bytes(meta)
+        checks["g_int8_rel"] = max(errs) < SERVE_REL_TOL
+        checks["g_int8_bytes"] = q8.weight_bytes == plan_bytes
+        checks["g_int8_generates"] = (
+            out["summary"]["tokens_out"]
+            == sum(r.max_new_tokens for r in reqs))
+        leg("g_int8", rel_err=errs, bound=SERVE_REL_TOL,
+            weight_bytes=q8.weight_bytes, plan_bytes=plan_bytes,
+            bf16_weight_bytes=eng.weight_bytes,
+            ratio_to_bf16=q8.weight_bytes / eng.weight_bytes,
+            summary=_serve_numbers(out["summary"]))
+        del q8
+        free(device)
+
+        # ---- (h) speculative decoding, the first layers as the draft
+        dl = shapes["draft_layers"]
+        draft = GPT2.from_size(size, device="meta", num_layers=dl)
+        dparams = dict(eng.params, blocks={
+            k: v[:dl] for k, v in eng.params["blocks"].items()})
+        spec = InferenceEngine(meta, config=_serve_config(
+            shapes, speculative={"draft_tokens": shapes["draft_tokens"]}),
+            params=eng.params, draft_model=draft, draft_params=dparams,
+            device=device)
+        _warm(spec, reqs)
+        out = run_serve(spec, _clone(reqs))
+        divs, ok = _divergences(eng, reqs, cont_tokens,
+                                {r.rid: r.tokens for r in out["results"]})
+        checks["h_ties"] = ok
+        spec.reset()
+        for slot in range(spec.num_slots):
+            spec.prefill(slot, reqs[slot].prompt)
+        args = _block_args(spec, device)
+        sync_err = _no_host_sync(lambda: spec._spec_block(*args), device)
+        checks["h_no_host_sync"] = sync_err is None
+        leg("h_speculative", draft_layers=dl,
+            draft_tokens=shapes["draft_tokens"],
+            accept_rate=out["summary"]["spec_accept_rate"],
+            proposed=out["summary"]["spec_proposed"],
+            accepted=out["summary"]["spec_accepted"],
+            host_sync_in_block=sync_err,
+            summary=_serve_numbers(out["summary"]),
+            divergences=len(divs), at=divs)
+        del spec, eng
+        free(device)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            prev_reduce
+        shutil.rmtree(work, ignore_errors=True)
+    emit("serve_gpt2", model=f"gpt2-{size}", seconds=time.perf_counter()
+         - t_phase, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_gpt2 phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {name: v["launches"] for name, v in legs.items()}
+
+
 def phase_calibrate(device):
     """``calibrate_stream_threshold()``: the per-seq fwd+bwd times of the
     streaming kernels and the einsum path, the threshold it returns and
@@ -4656,7 +5212,7 @@ def main() -> int:
     # quick check; no kernels line, no result)
     only = None
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
-                   "obs_gpt2", "fleet_gpt2")
+                   "obs_gpt2", "fleet_gpt2", "serve_gpt2")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -4826,6 +5382,12 @@ def main() -> int:
     free(device)
     fleet_launches = phase_fleet_gpt2(device)
     free(device)
+    serve_launches = phase_serve_gpt2(device)
+    free(device)
+    for k in kernels:
+        # serve_gpt2's legs (a)-(h): the serving path runs no kernel
+        k["serve_gpt2_launches"] = {leg: counts[k["name"]] for leg, counts
+                                    in serve_launches.items()}
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # obs_gpt2 at 24 layers: spool off / on, the kernels in its
@@ -4865,7 +5427,7 @@ def main() -> int:
              "pp_gpt2_launches", "sp_gpt2_launches",
              "zero3_pp_gpt2_launches", "moe_gpt2_launches",
              "multistep_gpt2_launches", "moe_expert_leaf",
-             "obs_gpt2_launches")
+             "obs_gpt2_launches", "serve_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

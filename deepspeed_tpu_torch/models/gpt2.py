@@ -19,9 +19,13 @@ loss's token count sums over the seq group.  The block stack runs
 through the ``_stack`` hook, ``(x, aux)``, whose aux term joins the loss
 (the JAX ``gpt2.py:119-124``, ``:199-204``); ``models/gpt2_moe.py``'s
 ``GPT2MoE`` overrides it, with ``_init_blocks`` and ``_block_specs``.
-What the JAX model has and this port does not yet raises
-``NotImplementedError`` naming its ROADMAP.md item where a caller reaches
-it: the serving methods.
+
+Serving (``gpt2.py:126-187``): ``kv_cache_dims`` declares what the KV page
+pool holds per token, and ``apply_extend`` / ``apply_decode`` run a block
+of new tokens / one token a slot against the pool, which they write in
+place (``deepspeed_tpu_torch/inference/``).  Both take a JAX-layout tree of
+tensors (``params``: the serving engine's, or its int8 tree; None: the
+module's own parameters).
 """
 
 from __future__ import annotations
@@ -48,12 +52,6 @@ GPT2_SIZES = {
     "8b":     dict(num_layers=72, hidden_size=3072, num_heads=24),
     "20b":    dict(num_layers=111, hidden_size=3808, num_heads=32),
 }
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
-        f"{item})")
 
 
 class GPT2(nn.Module):
@@ -154,13 +152,71 @@ class GPT2(nn.Module):
         loss = L.masked_mean_loss(loss, labels >= 0, self.seq_group)
         return loss if aux is None else loss + aux
 
-    # ---------------------------------------------- not in this slice yet
+    # ------------------------------------------------- serving (inference/)
 
     def kv_cache_dims(self, mp_size: int = 1):
-        raise _unported("GPT-2 serving (kv_cache_dims)", "Queue 1 item 13")
+        """(num_layers, local kv heads, head_dim): what the serving KV pool
+        holds per token on one model shard."""
+        cfg = self.config
+        return (cfg.num_layers, cfg.num_heads // mp_size,
+                cfg.hidden_size // cfg.num_heads)
 
-    def apply_extend(self, *args, **kwargs):
-        raise _unported("GPT-2 serving (apply_extend)", "Queue 1 item 13")
+    def _serve_params(self, params):
+        if params is not None:
+            return params
+        from deepspeed_tpu_torch import weights
+        return weights.unflatten_tree(dict(self.named_parameters()))
 
-    def apply_decode(self, *args, **kwargs):
-        raise _unported("GPT-2 serving (apply_decode)", "Queue 1 item 13")
+    @torch.no_grad()
+    def apply_extend(self, params, tokens, k, v, pos, n_new, rows):
+        """A block of new tokens forwarded against the KV page pool:
+        prefill (``pos`` 0), tail prefill over a reused prefix (``pos`` =
+        the reused tokens) and the speculative verify, one program shape.
+
+        tokens: int [B, E], left-aligned (``n_new[b]`` real); k, v: [L, R +
+        1, n_local, d] pools (row R the drop row), written in place; pos:
+        int [B], each slot's first new position; rows: int [B, cap], the
+        page-table row map.  Returns ``(logits [B, E, vocab / mp], k, v)``:
+        logits for every block position (pad positions' are garbage)."""
+        cfg, group = self.config, self.model_group
+        p = self._serve_params(params)
+        E = tokens.shape[1]
+        x = L.vocab_parallel_embedding(tokens, p["wte"], group)
+        wpe = p["wpe"]
+        positions = torch.clamp(
+            pos.long()[:, None]
+            + torch.arange(E, dtype=torch.int64, device=tokens.device)[None],
+            0, wpe.shape[0] - 1)
+        x = x + wpe[positions].to(x.dtype)
+        x, k, v = T.stack_extend(x, p["blocks"], cfg, k, v, rows, pos, n_new,
+                                 group=group)
+        x = L.layer_norm(x, p["lnf_s"], p["lnf_b"], cfg.ln_eps)
+        return L.vocab_parallel_logits(x, p["wte"], group), k, v
+
+    @torch.no_grad()
+    def apply_decode(self, params, tokens, k, v, pos, active, rows,
+                     ring: bool = False):
+        """One incremental decode step.
+
+        tokens: int [B], each slot's input token; k, v: [L, R + 1, n_local,
+        d] pools, written in place; pos: int [B], the position the new
+        token takes; active: bool [B] (an inactive slot writes only the
+        drop row and keeps its position; its logits are meaningless);
+        rows: int [B, cap].  Returns ``(logits [B, vocab / mp], k, v,
+        pos')`` with ``pos' = pos + active``."""
+        cfg, group = self.config, self.model_group
+        p = self._serve_params(params)
+        cap = rows.shape[1]
+        pos_l = pos.long()
+        write_idx = (pos_l % cap) if ring else torch.clamp(pos_l, 0, cap - 1)
+        wrow = torch.gather(rows.long(), 1, write_idx[:, None])[:, 0]
+        wrow = torch.where(active, wrow, k.shape[1] - 1)    # the drop row
+        x = L.vocab_parallel_embedding(tokens[:, None], p["wte"], group)
+        wpe = p["wpe"]
+        prow = wpe[torch.clamp(pos_l, 0, wpe.shape[0] - 1)]
+        x = x + prow[:, None].to(x.dtype)
+        x, k, v = T.stack_decode(x, p["blocks"], cfg, k, v, pos, rows, wrow,
+                                 ring=ring, group=group)
+        x = L.layer_norm(x, p["lnf_s"], p["lnf_b"], cfg.ln_eps)
+        logits = L.vocab_parallel_logits(x[:, 0], p["wte"], group)
+        return logits, k, v, pos + active.to(pos.dtype)

@@ -23,12 +23,25 @@ sequence cut over it) ``multihead_attention`` runs ring attention
 model's ``sp_impl``; ``seq_shard_positions`` offsets the position table by
 the rank's block and ``masked_mean_loss`` sums the valid-token count over
 the seq group (the JAX ``layers.py:273-278``, ``:316-331``).
+
+Serving (``deepspeed_tpu_torch/inference/``, the JAX ``layers.py:353-543``):
+a weight may be an int8 subtree ``{"q", "s"}`` (``is_quantized``), which
+the linear, embedding and LM-head functions take through the
+matmul-dequant plan (``quant_matmul_plan``, env ``DSTPU_QUANT_MATMUL``);
+and the KV page pool is read and written through a page-table row map
+(``gather_kv_rows``, ``scatter_kv_rows``) by the one-token decode and the
+block extend (``decode_multihead_attention``,
+``extend_multihead_attention``), with the JAX numerics: fp32 scores and
+softmax, the ``-1e9`` mask, probabilities cast to the compute dtype
+before the value product.  These are einsums and row copies, as in the
+JAX package, where no Pallas kernel lies on the serving path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import os
 import threading
 
@@ -131,7 +144,11 @@ def column_parallel_linear(x, w, b=None, name=None, group=None):
     ``_NamedLinear``, whose output the ``"selective"`` remat policy saves
     by name (``named_saves``) and whose recompute then costs nothing.  The
     name goes on the product itself: an identity tag after it would leave
-    the product to be replayed."""
+    the product to be replayed.  An int8 ``w`` (``{"q", "s"}``, serving)
+    goes through ``matmul_dequant``."""
+    if is_quantized(w):
+        y = matmul_dequant(comm.copy_to_model(x, group), w)
+        return y if b is None else y + b.to(y.dtype)
     return named_linear(comm.copy_to_model(x, group), w, b, name)
 
 
@@ -163,8 +180,11 @@ def row_parallel_linear(x, w, b=None, group=None):
     """x: [..., in / mp]; w: [in / mp, out]; b: [out], replicated.  The
     partial products sum over the model group in the compute dtype (the
     JAX ``psum`` of ``x_local @ w_local.astype(x.dtype)``); the result is
-    replicated."""
-    y = comm.reduce_from_model(x @ w.to(x.dtype), group)
+    replicated.  An int8 ``w`` dequantizes before the sum: its
+    per-output-channel scales are the same on every model rank."""
+    y = comm.reduce_from_model(
+        matmul_dequant(x, w) if is_quantized(w) else x @ w.to(x.dtype),
+        group)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -178,13 +198,17 @@ def _vocab_start(local_vocab, group):
 def vocab_parallel_embedding(tokens, wte, group=None):
     """tokens: int [...]; wte: [vocab / mp, h] -> [..., h]: the masked
     lookup of the rows this rank owns (zeros elsewhere), summed over the
-    model group (Megatron's VocabParallelEmbedding)."""
+    model group (Megatron's VocabParallelEmbedding).  An int8 ``wte``
+    dequantizes the rows after the lookup (per-row scales: a row is the
+    embedding's output channel)."""
+    lookup = _quant_lookup if is_quantized(wte) else \
+        torch.nn.functional.embedding
     if group is None:
-        return torch.nn.functional.embedding(tokens.long(), wte)
-    local = wte.shape[0]
+        return lookup(tokens.long(), wte)
+    local = (wte["q"] if is_quantized(wte) else wte).shape[0]
     idx = tokens.long() - _vocab_start(local, group)
     valid = (idx >= 0) & (idx < local)
-    emb = torch.nn.functional.embedding(torch.clamp(idx, 0, local - 1), wte)
+    emb = lookup(torch.clamp(idx, 0, local - 1), wte)
     emb = emb * valid[..., None].to(emb.dtype)
     return comm.reduce_from_model(emb, group)
 
@@ -192,8 +216,16 @@ def vocab_parallel_embedding(tokens, wte, group=None):
 def vocab_parallel_logits(h, wte, group=None):
     """Weight-tied LM head: h [..., hid] replicated @ wte [vocab / mp,
     hid]^T -> logits [..., vocab / mp], sharded on the vocab dim and never
-    gathered (``vocab_parallel_cross_entropy`` takes them as they are)."""
-    return comm.copy_to_model(h, group) @ wte.to(h.dtype).t()
+    gathered (``vocab_parallel_cross_entropy`` takes them as they are).  An
+    int8 ``wte`` follows the matmul-dequant plan (its per-row scales are
+    the logits' per-output-channel scales)."""
+    h = comm.copy_to_model(h, group)
+    if is_quantized(wte):
+        if quant_matmul_plan() == "dequant":
+            return h @ dequantize(wte).to(h.dtype).t()
+        y = h @ wte["q"].to(h.dtype).t()
+        return y * wte["s"].reshape(-1).to(y.dtype)
+    return h @ wte.to(h.dtype).t()
 
 
 class _VocabParallelCE(torch.autograd.Function):
@@ -497,3 +529,186 @@ def multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, *, n_heads,
         ctx = core_attention(q, k, v, causal=causal, attn_mask=attn_mask)
     return row_parallel_linear(ctx.reshape(B, T, n_local * d), proj_w,
                                proj_b, group=group)
+
+
+# --------------------------------------------------------------- serving
+# int8 weight-only quantization (inference/quant.py): a weight is a
+# {"q": int8, "s": per-output-channel scale} subtree, and the product takes
+# one of two forms (the JAX layers.py:353-400):
+#   "dequant": materialise W = q * s in the compute dtype, then multiply
+#              (one rounding per weight element);
+#   "scaled":  x @ q first, then scale the [..., out] product (the default:
+#              the scales commute with the contraction, and the [in, out]
+#              dequantized weight is never materialised).
+QUANT_MATMUL_IMPLS = ("auto", "dequant", "scaled")
+
+
+def quant_matmul_plan() -> str:
+    """The matmul-dequant form ("dequant" | "scaled"): env
+    ``DSTPU_QUANT_MATMUL`` pins one; "auto" (the default) is "scaled"."""
+    mode = os.environ.get("DSTPU_QUANT_MATMUL", "auto")
+    if mode not in QUANT_MATMUL_IMPLS:
+        raise ValueError(
+            f"DSTPU_QUANT_MATMUL={mode!r} is not a valid impl: use 'auto', "
+            f"'dequant' or 'scaled'")
+    return "scaled" if mode == "auto" else mode
+
+
+def is_quantized(w) -> bool:
+    """True for an int8-quantized weight subtree ({"q", "s"})."""
+    return isinstance(w, dict) and set(w) == {"q", "s"}
+
+
+def dequantize(wq):
+    """The full-precision weight of a quantized subtree, in the scale's
+    dtype (the serving compute dtype)."""
+    return wq["q"].to(wq["s"].dtype) * wq["s"]
+
+
+def matmul_dequant(x, wq):
+    """``x @ W`` for an int8 ``W`` [in, out] with per-output-channel scales
+    ``[1, out]``, by ``quant_matmul_plan``."""
+    if quant_matmul_plan() == "dequant":
+        return x @ dequantize(wq).to(x.dtype)
+    y = x @ wq["q"].to(x.dtype)
+    return y * wq["s"].reshape(-1).to(y.dtype)
+
+
+def _quant_lookup(idx, wq):
+    """Rows ``idx`` of an int8 embedding, dequantized by their row
+    scales."""
+    s = wq["s"].reshape(-1)
+    return (torch.nn.functional.embedding(idx, wq["q"]).to(s.dtype)
+            * s[idx][..., None])
+
+
+# Nothing here reads the card or copies from the host (the mask value is a
+# kernel argument, not a tensor), so a decode step, and D of them, run
+# without a host sync.
+#
+# The KV page pool: [R + 1, n, d] rows per layer.  Rows 0..R-1 hold the
+# pages; row R is the DROP row.  The JAX pool has R rows, drops writes aimed
+# at row R in the scatter (mode="drop") and clips reads; an out-of-range
+# index on the card would be a device-side assert instead, so here every
+# write aimed past the pages (padding, inactive slots, positions past a
+# slot's allocation) lands in the drop row, and a read there sees what was
+# last dropped, which the position mask hides.
+
+def gather_kv_rows(pool, rows):
+    """Per-slot view of a layer's page pool: ``pool`` [R + 1, n, d],
+    ``rows`` int [B, cap] (the page-table row map, ``R`` = the drop row)
+    -> [B, cap, n, d].  A shared page appears in several slots' views."""
+    B, cap = rows.shape
+    idx = torch.clamp(rows.reshape(-1).long(), 0, pool.shape[0] - 1)
+    return pool.index_select(0, idx).view(B, cap, *pool.shape[1:])
+
+
+def scatter_kv_rows(pool, new, rows):
+    """Write ``new`` [..., n, d] token rows into ``pool`` [R + 1, n, d] IN
+    PLACE at ``rows`` (int, ``new``'s leading dims); rows ``>= R`` go to
+    the drop row.  In-bounds rows belong to one writer (the page table's
+    refcounts), so duplicates occur only among dropped writes.  Returns
+    ``pool``."""
+    n, d = new.shape[-2], new.shape[-1]
+    idx = torch.clamp(rows.reshape(-1).long(), 0, pool.shape[0] - 1)
+    return pool.index_copy_(0, idx, new.reshape(-1, n, d).to(pool.dtype))
+
+
+def _scores(q, k, eq):
+    """fp32 scores ``einsum(eq, q, k) / sqrt(d)``: products of bf16/fp16
+    values are exact in fp32, so both operands go up to fp32 (the JAX
+    ``preferred_element_type=fp32``)."""
+    return torch.einsum(eq, q.float(), k.float()) / math.sqrt(q.shape[-1])
+
+
+def cached_attention(q, k_cache, v_cache, pos, ring: bool = False):
+    """Single-query attention against per-slot KV views.
+
+    q: [B, n, d] (this step's query, its own K/V already written); views
+    [B, cap, n, d]; pos: int [B], the query's own position, so entries
+    ``<= pos`` attend.  ``ring`` admits every entry once a slot has
+    wrapped (``pos >= cap``, the sliding window).  Returns [B, n, d]."""
+    scores = _scores(q, k_cache, "bnd,btnd->bnt")
+    cap = k_cache.shape[1]
+    t = torch.arange(cap, dtype=torch.int64, device=q.device)
+    pos = pos.long()[:, None]
+    valid = t[None, :] <= pos
+    if ring:
+        valid = valid | (pos >= cap)
+    scores = scores.masked_fill(~valid[:, None, :], -1e9)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnt,btnd->bnd", probs, v_cache.to(q.dtype))
+
+
+def extend_attention(q, k_view, v_view, start):
+    """Attention of a block of new tokens q [B, E, n, d] (slot b's first at
+    position ``start[b]``) against views [B, cap, n, d] that already hold
+    their rows: query e attends rows ``t <= start + e``, exactly causal.
+    The caller keeps the block inside the slot (``start + E <= cap``).
+    Returns [B, E, n, d]."""
+    scores = _scores(q, k_view, "bend,btnd->bent")
+    cap, E = k_view.shape[1], q.shape[1]
+    e_pos = (start.long()[:, None]
+             + torch.arange(E, dtype=torch.int64, device=q.device)[None, :])
+    t = torch.arange(cap, dtype=torch.int64, device=q.device)
+    valid = t[None, None, :] <= e_pos[:, :, None]               # [B, E, t]
+    scores = scores.masked_fill(~valid[:, :, None, :], -1e9)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bent,btnd->bend", probs, v_view.to(q.dtype))
+
+
+def decode_multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, k_pool,
+                               v_pool, pos, rows, write_rows, *, n_heads,
+                               ring: bool = False, group=None):
+    """One-token attention step against a layer's KV page pool.
+
+    x: [B, 1, h]; pools [R + 1, n_local, d]; pos: int [B] (the new token's
+    position); rows: int [B, cap] (the page-table row map); write_rows:
+    int [B] (this step's row, ``R``: a dropped write).  Writes this step's
+    K/V into the pools in place, attends through the slot views, and
+    returns ``(out [B, 1, h], k_pool, v_pool)``."""
+    B, _, h = x.shape
+    d = h // n_heads
+    qkv = column_parallel_linear(x, qkv_w, qkv_b, group=group)
+    n_local = qkv.shape[-1] // (3 * d)
+    qkv = qkv.reshape(B, n_local, 3, d)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scatter_kv_rows(k_pool, k, write_rows)
+    scatter_kv_rows(v_pool, v, write_rows)
+    ctx = cached_attention(q, gather_kv_rows(k_pool, rows),
+                           gather_kv_rows(v_pool, rows), pos, ring=ring)
+    out = row_parallel_linear(ctx.reshape(B, 1, n_local * d), proj_w, proj_b,
+                              group=group)
+    return out, k_pool, v_pool
+
+
+def extend_multihead_attention(x, qkv_w, qkv_b, proj_w, proj_b, k_pool,
+                               v_pool, rows, start, n_new, *, n_heads,
+                               group=None):
+    """Attention for a block of new tokens against a layer's KV page pool:
+    prefill, tail prefill over a reused prefix and the speculative verify.
+
+    x: [B, E, h] (E new tokens a slot, left-aligned, ``n_new[b]`` real);
+    pools [R + 1, n_local, d]; rows: int [B, cap]; start: int [B] (each
+    slot's first new position).  Pad positions and positions past the slot
+    write to the drop row; their outputs are garbage the caller masks.
+    Returns ``(out [B, E, h], k_pool, v_pool)``."""
+    B, E, h = x.shape
+    d = h // n_heads
+    qkv = column_parallel_linear(x, qkv_w, qkv_b, group=group)
+    n_local = qkv.shape[-1] // (3 * d)
+    qkv = qkv.reshape(B, E, n_local, 3, d)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    cap = rows.shape[1]
+    e = torch.arange(E, dtype=torch.int64, device=x.device)[None, :]
+    idx = start.long()[:, None] + e                              # [B, E]
+    wrows = torch.gather(rows.long(), 1, torch.clamp(idx, 0, cap - 1))
+    real = (e < n_new.long()[:, None]) & (idx < cap)
+    wrows = torch.where(real, wrows, k_pool.shape[0] - 1)   # the drop row
+    scatter_kv_rows(k_pool, k, wrows)
+    scatter_kv_rows(v_pool, v, wrows)
+    ctx = extend_attention(q, gather_kv_rows(k_pool, rows),
+                           gather_kv_rows(v_pool, rows), start)
+    out = row_parallel_linear(ctx.reshape(B, E, n_local * d), proj_w, proj_b,
+                              group=group)
+    return out, k_pool, v_pool

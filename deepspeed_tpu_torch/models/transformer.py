@@ -33,6 +33,13 @@ block's attention; a recompute replays the ring's shifts and Ulysses'
 all-to-alls in the same order on every rank.  ``token_batch_specs`` is the
 batch layout of the [B, T] token models: the dim of each batch leaf cut
 over the seq group.
+
+Serving (``deepspeed_tpu_torch/inference/``, the JAX
+``transformer.py:309-388``): ``block_decode`` / ``block_extend`` run one
+block's math on a single token / a block of new tokens against the layer's
+KV page pool, and ``stack_decode`` / ``stack_extend`` loop over the layers,
+each writing its own slice ``k[l]`` / ``v[l]`` of the pool in place.  No
+remat and no backward: serving runs under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -402,3 +409,69 @@ class TransformerStack(nn.Module):
         init = init or init_block_params
         for name, t in init(cfg, generator, device).items():
             self.register_parameter(name, nn.Parameter(t))
+
+
+# ------------------------------------------------------------- serving
+
+def layer_params(stacked, i: int):
+    """Layer ``i`` of the stacked leaves, an int8 ``{"q", "s"}`` subtree
+    sliced leaf by leaf."""
+    return {k: ({"q": v["q"][i], "s": v["s"][i]} if L.is_quantized(v)
+                else v[i]) for k, v in stacked.items()}
+
+
+def _serve_block(x, p, cfg: TransformerConfig, attn, group=None):
+    """The training block's math around the serving attention ``attn(u) ->
+    (out, k_pool, v_pool)``: the same LayerNorm, GELU and projections, so
+    an incremental decode stays within dtype tolerance of a re-forward."""
+    ln1 = lambda u: L.layer_norm(u, p["ln1_s"], p["ln1_b"], cfg.ln_eps)
+    ln2 = lambda u: L.layer_norm(u, p["ln2_s"], p["ln2_b"], cfg.ln_eps)
+    if cfg.pre_ln:
+        a, kc, vc = attn(ln1(x))
+        x = x + a
+        return x + _mlp(ln2(x), p, group), kc, vc
+    a, kc, vc = attn(x)
+    x = ln1(x + a)
+    return ln2(x + _mlp(x, p, group)), kc, vc
+
+
+def block_decode(x, p, cfg: TransformerConfig, k_pool, v_pool, pos, rows,
+                 write_rows, ring: bool = False, group=None):
+    """One dense block on a single-token slice x [B, 1, h] against this
+    layer's KV page pool ([R + 1, n_local, d], read through ``rows``);
+    returns ``(x, k_pool, v_pool)``, the pools written in place."""
+    return _serve_block(x, p, cfg, lambda u: L.decode_multihead_attention(
+        u, p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"], k_pool, v_pool,
+        pos, rows, write_rows, n_heads=cfg.num_heads, ring=ring,
+        group=group), group)
+
+
+def block_extend(x, p, cfg: TransformerConfig, k_pool, v_pool, rows, start,
+                 n_new, group=None):
+    """One dense block on a block of new tokens x [B, E, h] against this
+    layer's KV page pool: the prefill / tail-prefill / verify body."""
+    return _serve_block(x, p, cfg, lambda u: L.extend_multihead_attention(
+        u, p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"], k_pool, v_pool,
+        rows, start, n_new, n_heads=cfg.num_heads, group=group), group)
+
+
+def stack_decode(x, stacked, cfg: TransformerConfig, k, v, pos, rows,
+                 write_rows, ring: bool = False, group=None):
+    """One decode step over the stacked layers: layer ``l`` writes its
+    slice ``k[l]`` / ``v[l]`` of the pools [L, R + 1, n_local, d] in
+    place.  Returns ``(x, k, v)``."""
+    for i in range(k.shape[0]):
+        x, _, _ = block_decode(x, layer_params(stacked, i), cfg, k[i], v[i],
+                               pos, rows, write_rows, ring=ring, group=group)
+    return x, k, v
+
+
+def stack_extend(x, stacked, cfg: TransformerConfig, k, v, rows, start,
+                 n_new, group=None):
+    """A block of new tokens over the stacked layers (prefill, tail
+    prefill, speculative verify), each layer writing its pool slice in
+    place.  Returns ``(x, k, v)``."""
+    for i in range(k.shape[0]):
+        x, _, _ = block_extend(x, layer_params(stacked, i), cfg, k[i], v[i],
+                               rows, start, n_new, group=group)
+    return x, k, v

@@ -166,10 +166,11 @@ def test_unported_gpt2_paths_raise():
     tm.validate(2)
     with pytest.raises(ValueError, match="not divisible by mp 3"):
         tm.validate(3)
-    for call in (lambda: tm.kv_cache_dims(), lambda: tm.apply_extend(),
-                 lambda: tm.apply_decode()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            call()
+    # serving is ported (tests/test_torch_inference.py): the KV dims are
+    # the JAX model's at mp 1 and 2
+    jtiny = JGPT2.from_size("tiny")
+    for mp in (1, 2):
+        assert tm.kv_cache_dims(mp) == jtiny.kv_cache_dims(mp)
     # ZeRO-3 is ported (tests/test_torch_zero3.py): the fields exist, and
     # the block leaves pin their layer axis as the JAX hook does
     assert tm.zero3_dims is None and tm.zero3_prefetch is False

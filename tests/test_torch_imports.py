@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.observability.health, "
             "deepspeed_tpu_torch.launcher.run, "
             "deepspeed_tpu_torch.launcher.launch, "
-            "deepspeed_tpu_torch.utils.compile_cache; "
+            "deepspeed_tpu_torch.utils.compile_cache, "
+            "deepspeed_tpu_torch.inference, "
+            "deepspeed_tpu_torch.inference.engine; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
