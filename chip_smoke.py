@@ -114,13 +114,13 @@ Phases (each prints one JSON line, with the seconds since the start as
    a third engine loads the save through the restore plan with
    ``checkpoint.restore_threads`` 1 and 8: both bitwise equal to the
    saved state, each with its ``restore_seconds``.
-   gpt2_reference: train_gpt2's run at EARLY_LAYERS (6) of GPT-2
+   gpt2_reference: train_gpt2's run at EARLY_LAYERS (2) of GPT-2
    medium's 24 layers, full width: the losses tp_gpt2, pp_gpt2 and
    zero3_pp_gpt2 are held to, since the multi-rank phases 16-20 run at
    that depth so that the script stays inside its time limit with phase
    21.  gpt2_1024_reference: train_gpt2_1024's run at that depth, for
    sp_gpt2.
-16. tp_gpt2: GPT-2 medium (6 layers) as train_gpt2 at mp 2, dp 1, as two
+16. tp_gpt2: GPT-2 medium (2 layers) as train_gpt2 at mp 2, dp 1, as two
    processes on the one card (``chip_smoke.py --tp-child``) over a gloo
    model group
    (NCCL refuses two ranks on one device, so each collective stages
@@ -133,10 +133,10 @@ Phases (each prints one JSON line, with the seconds since the start as
    ranks, the 9 replicated leaves' masters too, (a) within 2e-2 of
    gpt2_reference, (b) bitwise equal to (a), (c) bitwise (losses, flat
    master, moments, step, loss scale), (d) equal to the joined shards, (e)
-   within 1e-5, launches exact per rank (whole-tile 144 + 144, Adam 96 in
+   within 1e-5, launches exact per rank (whole-tile 24 + 24, Adam 96 in
    (a), and the bucket count a step in (b)); step ms, peak memory per
    rank, the save's file sizes.
-17. zero3_gpt2: GPT-2 medium (6 layers) under ZeRO-3 at dp 2 (seq 128,
+17. zero3_gpt2: GPT-2 medium (2 layers) under ZeRO-3 at dp 2 (seq 128,
    bf16, Adam lr 1e-4, micro-batch 16 per rank, gas 2: train_gpt2's 64
    rows a step), as
    two processes on the one card (``chip_smoke.py --z3-child``) over a
@@ -149,10 +149,10 @@ Phases (each prints one JSON line, with the seconds since the start as
    fresh processes resume (a)'s save, bitwise equal to its steps 4-6;
    this process loads the save at dp 1, stage 0 (the shard files
    rehydrated) and takes steps 4-6 within 1e-2 of (a)'s.  Launches exact
-   per rank (Adam 16 shard leaves a step, whole-tile 24 + 24, the remat
+   per rank (Adam 16 shard leaves a step, whole-tile 4 + 4, the remat
    replaying the forward); the layout, peak memory, step ms, the save's
    files, save and load seconds.
-18. pp_gpt2: GPT-2 medium (6 layers) at pp 2 (3 a stage; seq 128, bf16,
+18. pp_gpt2: GPT-2 medium (2 layers) at pp 2 (1 a stage; seq 128, bf16,
    Adam lr 1e-4, micro-batch 32, gas 2, 8 pipeline micro-batches of 4
    rows, so the head is sharded over the stages), as two stage processes
    on the one card (``chip_smoke.py --pp-child``) over a gloo pipe group
@@ -164,10 +164,10 @@ Phases (each prints one JSON line, with the seconds since the start as
    3 and 0 stage inputs held; (c) GPipe with ZeRO-1 (one flat Adam launch
    a step per stage), bitwise equal to (a); (d) fresh processes resume
    (a)'s save bitwise (losses, masters, moments).  Launches exact per
-   stage (whole-tile 96 + 96 a step; 1F1B replays the forward on stage
+   stage (whole-tile 16 + 16 a step; 1F1B replays the forward on stage
    0; Adam 16 leaves a step); one model file per stage, peak memory,
    step ms, save and load seconds.
-19. sp_gpt2: GPT-2 medium (6 layers) at seq 1024 and sp 2, dp 1, as two
+19. sp_gpt2: GPT-2 medium (2 layers) at seq 1024 and sp 2, dp 1, as two
    seq-rank processes on the one card (``chip_smoke.py --sp-child``) over a
    gloo seq group (the ring's shifts, Ulysses' all-to-alls and the
    gradients' seq sum stage through the host: not NVLink's step times),
@@ -176,11 +176,11 @@ Phases (each prints one JSON line, with the seconds since the start as
    of 16), 3 steps; (c) fresh processes resume (a)'s save.  Checks: (a)
    and (b) within 1e-2 of gpt2_1024_reference's losses step for step and
    of each other, (c) bitwise equal to (a)'s steps 4-6, launches exact per
-   rank (the ring: no attention kernel; Ulysses: 12 streaming forwards,
+   rank (the ring: no attention kernel; Ulysses: 4 streaming forwards,
    dkv and dq a step at G = 4 x 8, T 1024; Adam 16 leaves a step), the
    save the files of an sp 1 save (this process loads it at sp 1 and saves
    it again: the same names and sizes); the peak per rank, step ms.
-20. zero3_pp_gpt2: GPT-2 medium (6 layers) at seq 128 under ZeRO-3 at dp
+20. zero3_pp_gpt2: GPT-2 medium (2 layers) at seq 128 under ZeRO-3 at dp
    2 x pp 2, as four processes (``chip_smoke.py --z3pp-child``) over gloo,
    train_gpt2's weights and 64-row batch (a data rank's 32 rows as
    micro-batch 16 x gas 2, 4 pipeline micro-batches of 4 rows): (a)
@@ -188,7 +188,7 @@ Phases (each prints one JSON line, with the seconds since the start as
    losses; (b) 1F1B, 3 steps, within 1e-2 of (a); (c) fresh processes
    resume (a)'s save bitwise.  Each rank holds half of its stage's
    partitioned leaves, the shard files carry the row ``pp_stage * mp +
-   mp_rank``, and launches are exact per rank (whole-tile 24 + 24 a step,
+   mp_rank``, and launches are exact per rank (whole-tile 8 + 8 a step,
    1F1B replaying the forward on stage 0; Adam 16 shard leaves a step).
 21. moe_gpt2: GPT2MoE at GPT-2 medium's width with 8 experts a layer
    (top-1, capacity 1.25, aux weight 0.01; seq 128, bf16, Adam lr 1e-4,
@@ -196,14 +196,14 @@ Phases (each prints one JSON line, with the seconds since the start as
    layers (1,765,214,208 parameters, 17 leaves), 6 steps, each step's
    weighted aux term printed; the Adam kernel on the 805,306,368-element
    expert leaf against adam_plain, with its time and bound; (b) top-2, 3
-   steps; (c) moe_reference: (a) at MID_LAYERS (12), 6 steps; (d) that model
+   steps; (c) moe_reference: (a) at MID_LAYERS (4), 6 steps; (d) that model
    at ep 2 (mp 2) as two processes on the one card (``chip_smoke.py
    --moe-child``) over gloo, ZeRO-1, 6 steps, saved after step 3 (free
    space in build/ checked first), 4 experts a rank, within 2e-2 of (c)
    step for step; (e) fresh processes resume the save, bitwise equal
    (losses, flat master, moments).  Launches exact (Adam 17 leaves a step
    at ZeRO off, one flat launch a step at ep 2; whole-tile 48 + 48 a step
-   at 24 layers, 24 + 24 a rank at 12); peaks, step ms, file sizes.
+   at 24 layers, 8 + 8 a rank at 4); peaks, step ms, file sizes.
    multistep_gpt2: GPT-2 medium at MID_LAYERS under the deterministic
    flag, 8 batches as 8 ``train_batch`` calls and as two ``train_many``
    blocks of 4 fed by ``BlockPrefetcher(place=...)``: masters, moments,
@@ -213,7 +213,7 @@ Phases (each prints one JSON line, with the seconds since the start as
    ways and exact launches.
    resume_gpt2: ``resilience.run_resumable`` over ``train_many`` blocks of
    2 in child processes (``chip_smoke.py --resume-child``; GPT-2 medium at
-   MID_LAYERS, the watchdog armed, 4 restore readers): an unbroken child
+   EARLY_LAYERS, the watchdog armed, 4 restore readers): an unbroken child
    to step 8; then ONE run of the port's launcher (``python -m
    deepspeed_tpu_torch.launcher.launch --max_restarts 1
    --compile_cache_dir ...``) around a child SIGTERM'd by chaos at step 3,
@@ -233,7 +233,7 @@ Phases (each prints one JSON line, with the seconds since the start as
    startup and two window events whose loss is the step's, exactly; (d)
    the trace loads, holds the dstpu/ ranges and 32 / 96 / 96 launches of
    the Adam and whole-tile kernels; (e) /healthz 200, /metrics parses;
-   (f) fp16 at MID_LAYERS with a NaN loss at step 2: the window's skipped
+   (f) fp16 at EARLY_LAYERS with a NaN loss at step 2: the window's skipped
    1, masters bitwise with the spool off.  Samples/s on and off, the
    window's MFU and peak memory are reported.
    fleet_gpt2: GPT-2 medium at EARLY_LAYERS, dp 2 as two processes
@@ -272,9 +272,27 @@ Phases (each prints one JSON line, with the seconds since the start as
    busy ms, kernel launches a step.  (e) and (h) also run their fused
    block once under ``set_sync_debug_mode("error")``: no host sync.  No
    training kernel launches in any leg.
+   fleet_serve_gpt2: two replicas of serve_gpt2's engine in this process
+   on the one card, each loaded from serve_gpt2's checkpoint at its
+   shapes and warmed alone (every program a CUDA graph before a router
+   thread runs), behind ``deepspeed_tpu_torch.inference.FleetRouter``:
+   (a) two mixed replicas on serve_gpt2's trace, tokens against its (d),
+   fleet tokens/s, TTFT and ITL, requests per replica, peak memory, the
+   router JSONL through the port's validator; (b) prefix affinity on
+   (f)'s shared-prefix trace, tokens against (f), affinity and prefix
+   hits; (c) a chaos stall of replica 1 at its 8th decode of the trace
+   with a 3 s serve watchdog: its /healthz 503, one eviction, the
+   resubmitted requests' TTFT counted from the trace's submit, every
+   request completed with (d)'s tokens, one watchdog dump; (d) one
+   prefill and one decode replica (``inference.fleet.disaggregate``): 32
+   handoffs of 98,304 bytes a prompt token, (d)'s tokens, an exported
+   slot's rows bitwise the prefill pool's and, imported, the decode
+   pool's.  Tokens that leave their reference are held to the near-tie
+   rule and counted.  No training kernel launches in any leg.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
-   moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2) runs the build and
-   the named phases alone, with no result line.
+   moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2;
+   the last runs serve_gpt2 first) runs the build and the named phases
+   alone, with no result line.
 22. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
@@ -2248,18 +2266,22 @@ TP_LOSS_RTOL = 2e-2
 # the sums split over two ranks
 TP_TINY_RTOL = 1e-5
 TP_CHILD_TIMEOUT = 600
-# the depth of the multi-rank phases of GPT-2 medium before this slice's
-# (tp_gpt2, zero3_gpt2, pp_gpt2, sp_gpt2, zero3_pp_gpt2): 6 of its 24
-# layers, at its full width, so that the whole script stays inside its
-# time limit with moe_gpt2, multistep_gpt2 and resume_gpt2 after them (at
-# 12 layers the script took 1,147 s of its 1,200); tp_gpt2, pp_gpt2 and
-# zero3_pp_gpt2 are held to gpt2_reference, sp_gpt2 to
-# gpt2_1024_reference, train_gpt2's and train_gpt2_1024's weights and
-# batches at this depth
-EARLY_LAYERS = 6
-# the depth of moe_gpt2's ep 2 runs and their reference, multistep_gpt2
-# and resume_gpt2: 12 of the 24 layers, full width
-MID_LAYERS = 12
+# the depth of the multi-rank phases of GPT-2 medium (tp_gpt2, zero3_gpt2,
+# pp_gpt2, sp_gpt2, zero3_pp_gpt2, fleet_gpt2), resume_gpt2 and
+# obs_gpt2's fp16 runs: 2 of its 24 layers, at its full width, so that the
+# whole script stays inside its time limit with the phases after them (at
+# 12 layers it took 1,147 s of its 1,200 on one H100; at 6, with the
+# serving phases, 1,044 s; at 4 with the fleet's, 1,113 s: these phases'
+# time is mostly process start-up and gloo's host staging of the
+# 50,304-row embedding, which depth moves little); tp_gpt2, pp_gpt2 and
+# zero3_pp_gpt2 are held to
+# gpt2_reference, sp_gpt2 to gpt2_1024_reference, train_gpt2's and
+# train_gpt2_1024's weights and batches at this depth
+EARLY_LAYERS = 2
+# the depth of moe_gpt2's ep 2 runs and their reference and
+# multistep_gpt2: 4 of the 24 layers, full width (12 until the fleet
+# phase came)
+MID_LAYERS = 4
 
 
 def _depth(layers):
@@ -3519,7 +3541,7 @@ def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
 # JAX gpt2_moe.py: top-1 Switch routing at capacity 1.25), seq 128, bf16,
 # Adam lr 1e-4, micro-batch 16, gas 2, from seeded weights and batch.
 # (a) top-1 at its full 24 layers, (b) top-2, (c) moe_reference: (a) at
-# MID_LAYERS, (d) the 12-layer model at ep 2 (mp 2) as two child
+# MID_LAYERS, (d) that model at ep 2 (mp 2) as two child
 # processes on the one card over gloo, ZeRO-1, saved after step 3, (e)
 # fresh processes resume (d)'s save
 MOE_EXPERTS, MOE_MICRO, MOE_SAVE_AT, MOE_TOP2_STEPS, MOE_EP = 8, 16, 3, 3, 2
@@ -3956,7 +3978,7 @@ def phase_multistep_gpt2(device, size="medium", micro=MICRO,
 
 
 # the resume_gpt2 phase: resilience.run_resumable over train_many blocks of
-# RESUME_K in child processes (GPT-2 medium at MID_LAYERS, the watchdog
+# RESUME_K in child processes (GPT-2 medium at EARLY_LAYERS, the watchdog
 # armed, the restore plan at RESUME_THREADS readers): an unbroken child to
 # RESUME_STEPS; then one run of the port's launcher with --max_restarts 1
 # and --compile_cache_dir, whose child chaos SIGTERMs itself at step
@@ -4037,7 +4059,7 @@ def resume_child(spec_path):
 
 
 def phase_resume_gpt2(device, size="medium", micro=MICRO,
-                      layers=MID_LAYERS):
+                      layers=EARLY_LAYERS):
     """run_resumable in child processes (see RESUME_K): unbroken, then the
     port's launcher with --max_restarts 1 around a child SIGTERM'd by
     chaos (drained at the K boundary, exit 43) and its relaunch (exit 0),
@@ -4157,7 +4179,7 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
 # recipe, OBS_STEPS steps from one seed with observability off and on (the
 # metric spool, the JSONL log, the torch.profiler window of OBS_TRACE, the
 # health endpoints, the MFU column against the card's 989 bf16 TFLOP/s),
-# under the deterministic flag; then fp16 at MID_LAYERS with a NaN loss at
+# under the deterministic flag; then fp16 at EARLY_LAYERS with a NaN loss at
 # step 2 of OBS_FP16_STEPS, spool on and off.  The sync-debug steps are
 # between the window edges and before the trace.
 OBS_STEPS, OBS_WINDOW, OBS_TRACE = 8, 4, (5, 2)
@@ -4225,7 +4247,7 @@ def gpt2_flops_per_sample(n_params, layers, hidden, seq):
 
 
 def phase_obs_gpt2(device, size="medium", micro=MICRO, layers=None,
-                   fp16_layers=MID_LAYERS):
+                   fp16_layers=EARLY_LAYERS):
     """Observability at full width and depth (see OBS_STEPS): (a) masters
     bitwise with the spool on and off; (b) no synchronizing CUDA call
     (``torch.cuda.set_sync_debug_mode("warn")``) and no counted fence in
@@ -4782,15 +4804,18 @@ def _warm(eng, reqs, tokens=6):
 
 
 def _serve_numbers(summary):
-    return {k: summary[k] for k in (
+    return {k: summary.get(k) for k in (
         "tokens_out", "elapsed_s", "tokens_per_sec", "ttft_p50_ms",
         "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms", "itl_mean_ms",
         "decode_iters")}
 
 
-def phase_serve_gpt2(device, shapes=SERVE):
+def phase_serve_gpt2(device, shapes=SERVE, keep=None):
     """Single-replica serving of GPT-2 medium (phase docstring entry
-    serve_gpt2): legs (a)-(h), one line each, then the phase's line."""
+    serve_gpt2): legs (a)-(h), one line each, then the phase's line.
+    ``keep`` (a dict) receives what fleet_serve_gpt2 reuses: the work
+    directory with the checkpoint (left for that phase to remove), the
+    traces, (d)'s tokens and summary and (f)'s tokens."""
     import shutil
     import tempfile
     import threading
@@ -4969,6 +4994,11 @@ def phase_serve_gpt2(device, shapes=SERVE):
         rc, out = _validate_jsonl(jsonl)
         checks["d_static_equals_continuous"] = (
             {r.rid: r.tokens for r in static_results} == cont_tokens)
+        if keep is not None:
+            keep.update(work=work, ckpt=ck_dir, reqs=_clone(reqs),
+                        tokens=cont_tokens,
+                        summary=_serve_numbers(cont["summary"]),
+                        peak_gib=cont_peak)
         checks["d_jsonl_clean"] = rc == 0
         checks["d_healthz_200"] = health.get("code") == 200
         leg("d_continuous_vs_static",
@@ -5043,6 +5073,9 @@ def phase_serve_gpt2(device, shapes=SERVE):
                                 {r.rid: r.tokens for r in reuse_res})
         checks["f_hits"] = sched.prefix_hits >= len(preqs) - 1
         checks["f_ties"] = ok
+        if keep is not None:
+            keep.update(preqs=_clone(preqs), prefix_tokens={
+                r.rid: r.tokens for r in reuse_res})
         leg("f_prefix_reuse", requests=len(preqs), prefix_tokens=plen,
             prefix_hits=sched.prefix_hits,
             tokens_reused=sched.prefix_tokens_reused,
@@ -5107,13 +5140,311 @@ def phase_serve_gpt2(device, shapes=SERVE):
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             prev_reduce
-        shutil.rmtree(work, ignore_errors=True)
+        if keep is None or "prefix_tokens" not in keep:
+            shutil.rmtree(work, ignore_errors=True)
     emit("serve_gpt2", model=f"gpt2-{size}", seconds=time.perf_counter()
          - t_phase, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"serve_gpt2 phase failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return {name: v["launches"] for name, v in legs.items()}
+
+
+# the fleet_serve_gpt2 phase: two GPT-2 medium replicas in this process on
+# the one card behind deepspeed_tpu_torch.inference.FleetRouter, each loaded
+# from serve_gpt2's checkpoint (module file only) at serve_gpt2's shapes and
+# held to serve_gpt2's tokens; phase_fleet_serve_gpt2(torch.device("cpu"),
+# keep, shapes=SERVE_TINY) rehearses it on the CPU after phase_serve_gpt2(
+# ..., keep=keep).  One pair of engines serves every leg (each with the
+# serve watchdog and the KV handoff programs configured); every program of
+# each is captured as a CUDA graph by a serial warm-up before the router
+# starts its threads.
+SERVE_FLEET_POLL_S = 0.02
+# the eviction leg's serve watchdog: far above any dispatch of the trace
+# (a prefill at the 512 bucket, a decode step), so that only the stall
+# fires it
+SERVE_FLEET_WATCHDOG_S = 3.0
+# the eviction leg stalls replica 1 at its SERVE_FLEET_STALL_AT-th decode
+# of the trace; replica 0's decode count is first carried
+# SERVE_FLEET_WARM_AHEAD dispatches past replica 1's, so that it never
+# meets the stall's
+SERVE_FLEET_STALL_AT = 8
+SERVE_FLEET_WARM_AHEAD = 40
+
+
+def _fleet_serve(engines, reqs, prefill=(), ports=None, spy_evict=None,
+                 **kw):
+    """Serve ``reqs`` on a FleetRouter over ``engines`` (+ ``prefill``):
+    ``(out, per-replica admissions, wall seconds, router)``; the router is
+    closed, its ports read before."""
+    from deepspeed_tpu_torch.inference import FleetRouter
+    router = FleetRouter(engines, list(prefill), replica_ports=ports,
+                         poll_s=SERVE_FLEET_POLL_S, **kw)
+    if spy_evict is not None:
+        orig = router._evict
+
+        def evict(rep):
+            with router._lock:
+                owned = sorted(rid for rid, f in router._inflight.items()
+                               if f.owner is rep)
+            spy_evict.append({"replica": rep.rid, "owned": owned,
+                              "t": time.perf_counter()})
+            orig(rep)
+        router._evict = evict
+    try:
+        t0 = time.perf_counter()
+        out = router.serve(reqs, timeout_s=600.0, stall_timeout_s=120.0)
+        wall = time.perf_counter() - t0
+        admitted = {rep.rid: (rep.sched.admitted if rep.sched is not None
+                              else None) for rep in router.all_replicas}
+        health = {rep.rid: _http_get(rep.port, "/healthz")[0]
+                  for rep in router.all_replicas if rep.port is not None}
+    finally:
+        router.close()
+    return out, admitted, wall, health, t0
+
+
+def phase_fleet_serve_gpt2(device, keep, shapes=SERVE):
+    """Two replicas of GPT-2 medium behind the router (phase docstring
+    entry fleet_serve_gpt2): legs (a)-(d), one line each, then the
+    phase's line.  ``keep``: what phase_serve_gpt2 handed on; its work
+    directory is removed here."""
+    import shutil
+
+    import torch
+
+    from deepspeed_tpu_torch import checkpoint
+    from deepspeed_tpu_torch.inference import InferenceEngine
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.resilience import chaos
+    t_phase = time.perf_counter()
+    size, depth = shapes["size"], _depth(shapes["layers"])
+    meta = GPT2.from_size(size, device="meta", **depth)
+    mc = meta.config
+    reqs, ref = keep["reqs"], keep["tokens"]
+    checks, legs = {}, {}
+    prev_reduce = torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    work = keep["work"]
+
+    fr_dir = os.path.join(work, "fr")
+
+    def build(n):
+        """``n`` engines from the checkpoint, each warmed alone (every
+        program captured before any router thread runs)."""
+        engines = [InferenceEngine(meta, config=_serve_config(
+            shapes, fleet={"disaggregate": True},
+            observability={"watchdog_timeout_s": SERVE_FLEET_WATCHDOG_S,
+                           "flight_recorder_dir": fr_dir}),
+            checkpoint_dir=keep["ckpt"], device=device) for _ in range(n)]
+        for eng in engines:
+            _warm(eng, reqs)
+        sync(device)
+        return engines
+
+    def leg(name, **fields):
+        counts = launch_counts()
+        fields["launches"] = counts
+        checks[f"{name}_no_training_kernel"] = not any(counts.values())
+        legs[name] = fields
+        emit(f"fleet_serve_gpt2_{name}", **fields)
+        reset_launch_counts()
+
+    def held(engine, requests, want, out, label):
+        """Tokens against ``want``: identical, else every divergence at a
+        near-tie of the reference context (re-forwarded on ``engine``)."""
+        got = {r.rid: r.tokens for r in out["results"]}
+        complete = sorted(got) == sorted(want) and all(got.values())
+        checks[f"{label}_complete"] = complete
+        engine.attach_watchdog(None)
+        engine.reset()
+        divs, ok = (_divergences(engine, requests, want, got) if complete
+                    else ([], False))
+        engine.reset()
+        checks[f"{label}_ties"] = ok
+        return got == want, divs
+
+    try:
+        # ---- (a) two mixed replicas, serve_gpt2's trace
+        engines = build(2)
+        jsonl = os.path.join(work, "router.jsonl")
+        reset_launch_counts()
+        _reset_peak(device)
+        out, admitted, wall, _, _ = _fleet_serve(
+            engines, _clone(reqs), jsonl_path=jsonl)
+        peak = _peak_gib(device)
+        same, divs = held(engines[0], reqs, ref, out, "a")
+        rc, vout = _validate_jsonl(jsonl)
+        events = _read_jsonl(jsonl)
+        s = out["summary"]
+        checks["a_jsonl_clean"] = rc == 0 and any(
+            e["schema"] == "dstpu.telemetry.router" for e in events)
+        checks["a_no_eviction"] = s["evictions"] == s["resubmits"] == 0
+        checks["a_both_replicas_served"] = all(
+            v and v > 0 for v in admitted.values())
+        leg("a_mixed", replicas=2, requests=len(reqs), identical=same,
+            divergences=len(divs), at=divs,
+            fleet=_serve_numbers(s), single=keep["summary"],
+            requests_per_replica=admitted, wall_s=wall,
+            peak_gib=peak, single_peak_gib=keep["peak_gib"],
+            weight_bytes=[e.weight_bytes for e in engines],
+            restore_seconds=[e.restore_seconds for e in engines],
+            router_windows=s["router_windows"], jsonl_validator=rc,
+            jsonl_events=len(events))
+
+        # ---- (b) affinity over serve_gpt2 (f)'s shared-prefix trace
+        preqs = keep["preqs"]
+        for eng in engines:
+            eng.attach_watchdog(None)
+            eng.reset()
+        out, admitted, wall, _, _ = _fleet_serve(engines, _clone(preqs),
+                                                 affinity=True)
+        same, divs = held(engines[0], preqs, keep["prefix_tokens"], out, "b")
+        s = out["summary"]
+        checks["b_affinity_hits"] = s["affinity_hits"] >= len(preqs) - 2
+        leg("b_affinity", requests=len(preqs), identical=same,
+            divergences=len(divs), at=divs,
+            affinity_hits=s["affinity_hits"],
+            prefix_hits=sum(r.prefix_hit for r in out["results"]),
+            reused_tokens=sum(r.reused_tokens for r in out["results"]),
+            requests_per_replica=admitted, wall_s=wall,
+            fleet=_serve_numbers(s))
+
+        # ---- (c) eviction: replica 1 stalls mid-trace, its watchdog fires
+        # (replica 0's decode count is first carried past the stall's)
+        for eng in engines:
+            eng.attach_watchdog(None)
+            eng.reset()
+        ahead = (engines[1].decode_dispatches
+                 - engines[0].decode_dispatches + SERVE_FLEET_WARM_AHEAD)
+        _warm(engines[0], reqs, tokens=max(2, ahead))
+        stall_at = engines[1].decode_dispatches + SERVE_FLEET_STALL_AT
+        checks["c_stall_targets_replica_1"] = (
+            engines[0].decode_dispatches > stall_at)
+        chaos.configure(stall_step=stall_at, stall_s=60.0)
+        evicted = []
+        try:
+            out, admitted, wall, health, t_serve = _fleet_serve(
+                engines, _clone(reqs), ports=[_free_port(), _free_port()],
+                spy_evict=evicted)
+        finally:
+            chaos.reset()
+        same, divs = held(engines[0], reqs, ref, out, "c")
+        s = out["summary"]
+        by_rid = {r.rid: r for r in out["results"]}
+        moved = evicted[0]["owned"] if evicted else []
+        since = (evicted[0]["t"] - t_serve) if evicted else None
+        # a resubmitted request keeps its enqueue time: its TTFT counts
+        # from the trace's submit, across the stall, not from the eviction
+        ttfts = {rid: by_rid[rid].ttft_s for rid in moved if rid in by_rid}
+        checks["c_evicted_replica_1"] = (
+            s["evictions"] == 1 and s["resubmits"] >= 1
+            and [e["replica"] for e in evicted] == [1])
+        checks["c_healthz_503"] = health.get(1) == 503 \
+            and health.get(0) == 200
+        checks["c_original_enqueue_times"] = bool(ttfts) and all(
+            t >= since - 0.25 for t in ttfts.values())
+        dumps = sorted(f for f in os.listdir(fr_dir) if "watchdog" in f) \
+            if os.path.isdir(fr_dir) else []
+        checks["c_watchdog_dump"] = len(dumps) == 1
+        leg("c_eviction", watchdog_timeout_s=SERVE_FLEET_WATCHDOG_S,
+            stall_at_decode=stall_at, evictions=s["evictions"],
+            resubmits=s["resubmits"], moved=moved,
+            evicted_after_s=since, moved_ttft_s=ttfts, healthz=health,
+            identical=same, divergences=len(divs), at=divs,
+            requests_per_replica=admitted, wall_s=wall, dumps=dumps,
+            fleet=_serve_numbers(s))
+
+        # ---- (d) disaggregated: replica 0 decodes, replica 1 prefills
+        for eng in engines:
+            eng.attach_watchdog(None)
+            eng.reset()
+        written = []
+        real_write = checkpoint.write_kv_handoff
+
+        def counted_write(path, *, k, v, meta, **kw):
+            real_write(path, k=k, v=v, meta=meta, **kw)
+            written.append((meta["n_tokens"],
+                            k.numel() * k.element_size()
+                            + v.numel() * v.element_size(),
+                            os.path.getsize(path)))
+            return path
+
+        checkpoint.write_kv_handoff = counted_write
+        try:
+            out, admitted, wall, _, _ = _fleet_serve(
+                engines[:1], _clone(reqs), prefill=engines[1:])
+        finally:
+            checkpoint.write_kv_handoff = real_write
+        dec, pre = engines
+        same, divs = held(dec, reqs, ref, out, "d")
+        s = out["summary"]
+        per_token = 2 * mc.num_layers * mc.num_heads * (
+            mc.hidden_size // mc.num_heads) * 2
+        checks["d_handoffs"] = s["handoffs"] == len(reqs) == len(written)
+        checks["d_handoff_bytes"] = (
+            sum(b for _, b, _ in written)
+            == per_token * sum(len(r.prompt) for r in reqs)
+            and all(b == per_token * n for n, b, _ in written))
+        # an exported slot's rows are the prefill pool's bytes, and import
+        # into the decode pool bitwise
+        pre.reset()
+        dec.reset()
+        probe = max(reqs, key=lambda r: len(r.prompt))
+        pre.admit(0, probe.prompt, probe.max_new_tokens)
+        k, v, n = pre.export_kv(0)
+        rows = torch.as_tensor(pre.pool.slot_rows(0)[:n], dtype=torch.long,
+                               device=device)
+        exported = (torch.equal(k.to(device), pre._cache["k"][:, rows])
+                    and torch.equal(v.to(device), pre._cache["v"][:, rows]))
+        dec.import_kv(0, probe.prompt, k, v, probe.max_new_tokens)
+        drows = torch.as_tensor(dec.pool.slot_rows(0)[:n], dtype=torch.long,
+                                device=device)
+        imported = (torch.equal(dec._cache["k"][:, drows], k.to(device))
+                    and torch.equal(dec._cache["v"][:, drows],
+                                    v.to(device)))
+        checks["d_export_bitwise"] = exported and n == len(probe.prompt)
+        checks["d_import_bitwise"] = imported
+        leg("d_disaggregated", handoffs=s["handoffs"],
+            handoff_bytes=sum(b for _, b, _ in written),
+            handoff_file_bytes=sum(f for _, _, f in written),
+            bytes_per_prompt_token=per_token,
+            prompt_tokens=sum(len(r.prompt) for r in reqs),
+            export_bitwise=exported, import_bitwise=imported,
+            identical=same, divergences=len(divs), at=divs,
+            requests_per_replica=admitted, wall_s=wall,
+            fleet=_serve_numbers(s))
+        del engines, dec, pre, k, v
+        free(device)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            prev_reduce
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit("fleet_serve_gpt2", model=f"gpt2-{size}", replicas=2,
+         seconds=seconds, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"fleet_serve_gpt2 phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {name: v["launches"] for name, v in legs.items()}
+
+
+def serve_pair(device, shapes=SERVE):
+    """serve_gpt2, then fleet_serve_gpt2 on its checkpoint and tokens:
+    both phases' launch counts by leg.  ``serve_pair(torch.device("cpu"),
+    SERVE_TINY)`` rehearses both on the CPU (about 20 s)."""
+    import shutil
+    keep = {}
+    try:
+        serve = phase_serve_gpt2(device, shapes=shapes, keep=keep)
+        free(device)
+        fleet = phase_fleet_serve_gpt2(device, keep, shapes=shapes)
+        free(device)
+    finally:
+        if "work" in keep:
+            shutil.rmtree(keep["work"], ignore_errors=True)
+    return serve, fleet
 
 
 def phase_calibrate(device):
@@ -5212,7 +5543,8 @@ def main() -> int:
     # quick check; no kernels line, no result)
     only = None
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
-                   "obs_gpt2", "fleet_gpt2", "serve_gpt2")
+                   "obs_gpt2", "fleet_gpt2", "serve_gpt2",
+                   "fleet_serve_gpt2")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -5258,6 +5590,11 @@ def main() -> int:
                 for src, mod in mods.items()})
 
     if only is not None:
+        if "fleet_serve_gpt2" in only:
+            # it serves serve_gpt2's checkpoint and holds its tokens
+            only = (only - {"fleet_serve_gpt2"}) | {"serve_gpt2"}
+            serve_pair(device)
+            only.discard("serve_gpt2")
         for name in only_phases:
             if name in only:
                 if name == "zero_ckpt":
@@ -5382,23 +5719,26 @@ def main() -> int:
     free(device)
     fleet_launches = phase_fleet_gpt2(device)
     free(device)
-    serve_launches = phase_serve_gpt2(device)
-    free(device)
+    serve_launches, fleet_serve_launches = serve_pair(device)
     for k in kernels:
-        # serve_gpt2's legs (a)-(h): the serving path runs no kernel
+        # serve_gpt2's legs (a)-(h) and fleet_serve_gpt2's (a)-(d): the
+        # serving path runs no kernel
         k["serve_gpt2_launches"] = {leg: counts[k["name"]] for leg, counts
                                     in serve_launches.items()}
+        k["fleet_serve_gpt2_launches"] = {
+            leg: counts[k["name"]]
+            for leg, counts in fleet_serve_launches.items()}
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # obs_gpt2 at 24 layers: spool off / on, the kernels in its
-            # trace window, the fp16 runs at MID_LAYERS; fleet_gpt2 per
-            # rank at EARLY_LAYERS
+            # trace window, the fp16 runs and fleet_gpt2 per rank at
+            # EARLY_LAYERS
             k["obs_gpt2_launches"] = {
                 **{run: v[k["name"]] for run, v in obs_launches.items()},
                 "fleet_gpt2": [r[k["name"]] for r in fleet_launches]}
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
-            # moe_gpt2 (a) top-1 at 24 layers, (b) top-2, (c) the 12-layer
+            # moe_gpt2 (a) top-1 at 24 layers, (b) top-2, (c) the MID_LAYERS
             # reference, (d) ep 2 per rank, (e) its resume per rank; and
             # multistep_gpt2's train_batch / train_many runs
             k["moe_gpt2_launches"] = {
@@ -5427,7 +5767,8 @@ def main() -> int:
              "pp_gpt2_launches", "sp_gpt2_launches",
              "zero3_pp_gpt2_launches", "moe_gpt2_launches",
              "multistep_gpt2_launches", "moe_expert_leaf",
-             "obs_gpt2_launches", "serve_gpt2_launches")
+             "obs_gpt2_launches", "serve_gpt2_launches",
+             "fleet_serve_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

@@ -169,6 +169,14 @@ class _ChunkedWriter:
         self._refs.add(id(ref))
         return ref
 
+    def put_array(self, x) -> tuple:
+        """A chunk reference to ``x`` (a tensor or an array), never
+        inlined."""
+        if isinstance(x, torch.Tensor):
+            return self._chunk(*_host_array(x))
+        a = np.asarray(x)
+        return self._chunk(a, a.dtype.name)
+
     def put(self, obj):
         if isinstance(obj, dict):
             return {k: self.put(v) for k, v in obj.items()}
@@ -1469,3 +1477,74 @@ def _zero_checkpoint_pairs(engine, load_dir: str, tag: str):
                               _Region(src, a - s0, b - s0),
                               f"zero partition {r} {key}[{a - s0}:{b - s0}]"))
     return pairs, shard0["step"]
+
+
+# --------------------------------------------------------- KV handoff
+# Prefill/decode disaggregation ships a slot's written KV page rows from a
+# prefill replica to a decode replica as ONE container file: the
+# checkpoints' machinery (an atomic tmp + rename seal, validated chunk
+# references, positioned reads), so a torn or corrupt artifact raises a
+# named error.  The JAX package's files and the port's read each other
+# (bf16 rows as the container's "bfloat16" chunks).
+
+KV_HANDOFF_SCHEMA = "dstpu.kv_handoff"
+KV_HANDOFF_VERSION = 1
+
+
+def write_kv_handoff(path: str, *, k, v, meta: dict,
+                     io_retries: int = IO_RETRIES) -> str:
+    """Seal one slot's KV handoff artifact at ``path``: the written ``k``
+    / ``v`` rows (``[layers, tokens, kv_heads, head_dim]`` tensors or
+    arrays, the global heads dim) as payload chunks plus a ``meta`` dict
+    (prompt tokens, first token, timestamps).  Atomic, retried through
+    ``io_retry``; the directory is created if missing."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    header = {"schema": KV_HANDOFF_SCHEMA, "version": KV_HANDOFF_VERSION,
+              "meta": dict(meta)}
+
+    def _write():
+        w = _ChunkedWriter(path)
+        try:
+            payload = dict(header)
+            payload["k"] = w.put_array(k)
+            payload["v"] = w.put_array(v)
+            w.finish(payload)
+        except BaseException:
+            w.abort()
+            raise
+    io_retry(_write, retries=io_retries, what=f"kv handoff write {path!r}")
+    return path
+
+
+def read_kv_handoff(path: str, io_retries: int = IO_RETRIES):
+    """Load a KV handoff artifact: ``(meta, k, v)``, ``k`` and ``v`` CPU
+    tensors in the written dtype, read by positioned reads after every
+    chunk reference was checked against the payload region.  A corrupt,
+    truncated or wrong-schema file raises :class:`CheckpointReadError`
+    naming the problem: the decode replica fails the one handoff and
+    never imports garbage pages."""
+    def _read():
+        _chaos.read_point("ckpt_read")
+        return _load_obj(path)
+
+    try:
+        obj = io_retry(_read, retries=io_retries,
+                       what=f"kv handoff read {path!r}")
+    except (ValueError, pickle.UnpicklingError, EOFError) as e:
+        raise CheckpointReadError(
+            f"corrupt KV handoff {path!r}: {e}") from e
+    if not isinstance(obj, dict) or obj.get("schema") != KV_HANDOFF_SCHEMA:
+        raise CheckpointReadError(
+            f"{path!r} is not a KV handoff artifact (schema "
+            f"{obj.get('schema') if isinstance(obj, dict) else None!r})")
+    if obj.get("version") != KV_HANDOFF_VERSION:
+        raise CheckpointReadError(
+            f"KV handoff {path!r} has version {obj.get('version')!r}, "
+            f"this reader understands {KV_HANDOFF_VERSION}")
+    try:
+        k = to_tensor(obj["k"], retries=io_retries)
+        v = to_tensor(obj["v"], retries=io_retries)
+    except (KeyError, ValueError, OSError) as e:
+        raise CheckpointReadError(
+            f"corrupt KV handoff {path!r}: {e}") from e
+    return obj.get("meta", {}), k, v

@@ -194,9 +194,15 @@ from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
 
 logger = logging.getLogger(__name__)
 
+MEMORY_OPT_ALLREDUCE_SIZE = 500000000  # reference deepspeed_light.py:30
+
 FORWARD_TIMER = "forward"
 BACKWARD_TIMER = "backward"
+BACKWARD_INNER_TIMER = "backward_inner"
+BACKWARD_REDUCE_TIMER = "backward_allreduce"
 STEP_TIMER = "step"
+TIMER_SPANS = (FORWARD_TIMER, BACKWARD_TIMER, BACKWARD_INNER_TIMER,
+               BACKWARD_REDUCE_TIMER, STEP_TIMER)
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -674,8 +680,7 @@ class DeepSpeedTorchEngine:
     def _refuse_unported(self):
         cfg = self.config
         refused = [
-            (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off"
-             or cfg.analysis_concurrency_mode != "off",
+            (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off",
              "graph lint / analysis", "Queue 1 item 14"),
         ]
         for hit, what, item in refused:
@@ -995,12 +1000,13 @@ class DeepSpeedTorchEngine:
         deepspeed_light.py:535-567).
         ``num_local_io_workers`` > 0 collates on a producer thread, which
         also stages each batch to the device (default: one for the train
-        route, none otherwise)."""
+        route, none otherwise).  ``data_sampler`` is accepted and not
+        used, as in the JAX engine: the loader shards and shuffles by
+        itself."""
         from deepspeed_tpu_torch.data import DeepSpeedDataLoader
         if data_sampler is not None:
-            raise NotImplementedError(
-                "data_sampler is not supported: the loader shards and "
-                "shuffles by itself")
+            logger.warning("deepspeed_io: data_sampler is ignored; the "
+                           "loader shards and shuffles by itself")
         if batch_size is None:
             batch_size = (self.train_micro_batch_size_per_gpu()
                           * self.dp_world_size)
@@ -1099,11 +1105,21 @@ class DeepSpeedTorchEngine:
         else:
             total = out.float()
         with self._armed("backward (fused fwd+bwd)"), _annotate("bwd"):
+            # backward_inner: the model's backward compute
+            if wcb:
+                self.timers(BACKWARD_INNER_TIMER).start()
             (total * (self.loss_scale_state.cur_scale / gas)).backward()
+            if wcb:
+                self.timers(BACKWARD_INNER_TIMER).stop(sync_on=total)
             self._last_loss = None
             self._boundary_loss = (
                 type(out)(l.detach() for l in out)
                 if isinstance(out, (tuple, list)) else out.detach())
+            # backward_allreduce: the fp32 micro-step accumulate (the
+            # data-parallel reduction runs at the boundary step, as in the
+            # JAX engine)
+            if wcb:
+                self.timers(BACKWARD_REDUCE_TIMER).start()
             with torch.no_grad():
                 if self.zero_stage == 2:
                     self._accumulate_partition()
@@ -1111,6 +1127,8 @@ class DeepSpeedTorchEngine:
                     self._accumulate_flat()
                 else:
                     self._accumulate_leaves()
+            if wcb:
+                self.timers(BACKWARD_REDUCE_TIMER).stop(sync_on=self._acc)
         if (self.summary_writer is not None and self._spool is None
                 and self.is_gradient_accumulation_boundary()):
             self.sample_count = (self.train_micro_batch_size_per_gpu()
@@ -1554,7 +1572,15 @@ class DeepSpeedTorchEngine:
         self.micro_steps += 1
         if wcb:
             self.timers(STEP_TIMER).stop(sync_on=self._state_tensor())
-            self.timers.log([FORWARD_TIMER, BACKWARD_TIMER, STEP_TIMER],
+            # per-span TensorBoard events (reference deepspeed_light.py:
+            # 770-781), then the console log
+            if self.summary_writer is not None:
+                for name in TIMER_SPANS:
+                    self.summary_writer.add_scalar(
+                        f"Train/Samples/elapsed_time_ms_{name}",
+                        self.timers(name).elapsed(reset=False) * 1000.0,
+                        getattr(self, "sample_count", self.global_steps))
+            self.timers.log(list(TIMER_SPANS),
                             memory_breakdown=self.config.memory_breakdown)
 
     # --------------------------------------------------------- fused hot path

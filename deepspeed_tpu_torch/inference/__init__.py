@@ -1,6 +1,6 @@
-"""deepspeed_tpu_torch.inference: single-replica serving on one card.
+"""deepspeed_tpu_torch.inference: serving on one card.
 
-The port of ``deepspeed_tpu/inference/`` for one model replica: weights
+The port of ``deepspeed_tpu/inference/`` at model_parallel_size 1: weights
 from a training checkpoint through the weights-only restore
 (``checkpoint.load_params_only``), a refcounted KV page pool with prefix
 reuse (paged and ring layouts), continuous and static batching, fused
@@ -13,14 +13,18 @@ watchdog.
                           config=cfg, checkpoint_dir="ckpts")
     outs = eng.generate([[1, 2, 3]], max_new_tokens=16)
 
-The fleet (``FleetRouter``, ``RouterObservability``, ``run_fleet``, the
-``router`` module: replicas behind a router, prefill/decode
-disaggregation) is ROADMAP.md Queue 1 item 13b; those names raise
-``NotImplementedError`` until then.
+The fleet (``router``): ``FleetRouter`` / ``run_fleet`` put N engines,
+each on its own driver thread, behind a least-loaded router with prefix
+affinity, 503-eviction with resubmission, and prefill/decode
+disaggregation through KV handoff artifacts; ``RouterObservability``
+serves the fleet's endpoints.
+
+    from deepspeed_tpu_torch.inference import run_fleet
+    out = run_fleet([eng_a, eng_b], requests)
 """
 
 from deepspeed_tpu_torch.inference import driver, kvcache, quant  # noqa: F401
-from deepspeed_tpu_torch.inference import observability  # noqa: F401
+from deepspeed_tpu_torch.inference import observability, router  # noqa: F401
 from deepspeed_tpu_torch.inference.driver import (  # noqa: F401
     ServeTelemetry, run_serve, synthetic_requests)
 from deepspeed_tpu_torch.inference.engine import InferenceEngine  # noqa: F401
@@ -28,20 +32,11 @@ from deepspeed_tpu_torch.inference.kvcache import (  # noqa: F401
     KVCacheSpec, PagePool)
 from deepspeed_tpu_torch.inference.observability import (  # noqa: F401
     ServeObservability)
+from deepspeed_tpu_torch.inference.router import (  # noqa: F401
+    FleetRouter, RouterObservability, run_fleet)
 from deepspeed_tpu_torch.inference.scheduler import (  # noqa: F401
     ContinuousScheduler, KVHandoff, Request, RequestResult,
     StaticScheduler, greedy_sampler, latency_summary, request_latency_ms)
-
-_FLEET = ("FleetRouter", "RouterObservability", "run_fleet", "router")
-
-
-def __getattr__(name):
-    if name in _FLEET:
-        raise NotImplementedError(
-            f"{name} (fleet serving) is not ported to deepspeed_tpu_torch "
-            f"yet (ROADMAP.md, Queue 1 item 13b)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 __all__ = [
     "InferenceEngine", "KVCacheSpec", "PagePool", "ContinuousScheduler",
@@ -49,4 +44,5 @@ __all__ = [
     "greedy_sampler", "latency_summary", "request_latency_ms",
     "ServeTelemetry", "ServeObservability", "run_serve",
     "synthetic_requests", "driver", "kvcache", "observability", "quant",
+    "FleetRouter", "RouterObservability", "run_fleet", "router",
 ]

@@ -23,7 +23,10 @@ place:
   through the extend path and the longest agreeing prefix, on the device,
   one host read per iteration; the emitted tokens equal target-only
   greedy decode by construction;
-* **copy_page**: the ring layout's copy-on-write of a shared page.
+* **copy_page**: the ring layout's copy-on-write of a shared page;
+* **export_kv / import_kv** (``inference.fleet.disaggregate``): a slot's
+  written K/V rows read off the card for a prefill->decode handoff, and
+  written into fresh pages of another replica's pool (``index_copy_``).
 
 The JAX engine jits these programs; on the card each is captured here as
 a CUDA graph (``_GraphedStep``) at its first call, one per program and
@@ -36,11 +39,10 @@ reads the card between the D iterations of ``decode_many`` or inside the
 speculative step: the tokens come back in one counted fence
 (``observability/fences.py``).
 
-One engine is one replica at ``model_parallel_size`` 1.  The fleet
-(replicas behind a router, prefill/decode disaggregation through
-``export_kv`` / ``import_kv``, serving at mp > 1 across processes) is
-ROADMAP.md Queue 1 item 13b; graph lint and the static analyses
-(``plan_capacity``, ``plan_dispatch``, ``run_graph_lint``,
+One engine is one replica at ``model_parallel_size`` 1; replicas go
+behind ``inference/router.py``'s ``FleetRouter``.  Serving at mp > 1
+across processes is ROADMAP.md Queue 1 item 13b (c); graph lint and the
+static analyses (``plan_capacity``, ``plan_dispatch``, ``run_graph_lint``,
 ``run_stability``, ``predict_executables``) are item 14.  Each raises
 ``NotImplementedError`` naming its item.
 """
@@ -272,6 +274,10 @@ class InferenceEngine:
 
         self.decode_iters_per_dispatch = int(
             self.config.inference_decode_iters_per_dispatch)
+        # prefill/decode disaggregation: export_kv / import_kv exist only
+        # when the config declares the fleet disaggregated
+        self.fleet_disaggregate = bool(
+            self.config.inference_fleet_disaggregate)
         self._warned_fused_fallback = False
         # replica observability hooks (inference/observability.py): a
         # watchdog attached here arms around every dispatch; the decode
@@ -284,9 +290,8 @@ class InferenceEngine:
         cfg = self.config
         refused = [
             (int(cfg.model_parallel_size or 1) > 1,
-             "serving at model_parallel_size > 1", "Queue 1 item 13b"),
-            (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off"
-             or cfg.analysis_concurrency_mode != "off",
+             "serving at model_parallel_size > 1", "Queue 1 item 13b (c)"),
+            (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off",
              "graph lint / analysis", "Queue 1 item 14"),
         ]
         for hit, what, item in refused:
@@ -444,6 +449,50 @@ class InferenceEngine:
             return logits, pos2
         return step
 
+    def capture_programs(self) -> None:
+        """Capture every program this engine serves with as its CUDA graph
+        now (a no-op eagerly): the extend at each bucket width, the decode
+        step, and with a draft its decode, its extend and the verify.  The
+        inputs point every K/V write at the drop row and activate no slot,
+        so the pools, the positions and the page table are untouched.  A
+        capture must not overlap another thread's CUDA work on the
+        device, so replicas sharing a card capture here, one after the
+        other, before their driver threads start (``FleetRouter.start``)."""
+        if self._graphs is None:
+            return
+        dev, spec = self.device, self.cache_spec
+        slots = spec.slots
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def drop(n, pool_spec, cap):
+            return torch.full((n, cap), pool_spec.pool_rows,
+                              dtype=torch.int32, device=dev)
+
+        rows1 = drop(1, spec, spec.capacity)
+        for bucket in {self.prefill_bucket, self.tail_bucket} - {0}:
+            self._program(("extend", False), self._extend_fn(False),
+                          zeros(1, bucket, dtype=torch.int64), zeros(1),
+                          zeros(1), rows1)
+        self._program(("decode", False), self._decode_fn(False),
+                      zeros(slots, dtype=torch.int64),
+                      zeros(slots, dtype=torch.bool),
+                      drop(slots, spec, spec.capacity), zeros(slots))
+        if self.draft_model is not None:
+            dspec = self.draft_cache_spec
+            drows = drop(slots, dspec, self._draft_rows.shape[1])
+            self._program(("extend", True), self._extend_fn(True),
+                          zeros(1, self.prefill_bucket, dtype=torch.int64),
+                          zeros(1), zeros(1), drows[:1])
+            self._program(("decode", True), self._decode_fn(True),
+                          zeros(slots), zeros(slots, dtype=torch.bool),
+                          drows, zeros(slots))
+            self._program(("extend", False), self._extend_fn(False),
+                          zeros(slots, self.spec_draft_tokens + 1),
+                          zeros(slots), zeros(slots),
+                          drop(slots, spec, spec.capacity))
+
     def max_total_tokens(self):
         """The hard per-request budget (prompt + generated): positions past
         the model's ``max_seq_len`` would reuse the last position
@@ -458,15 +507,110 @@ class InferenceEngine:
             vals.append(int(max_seq))
         return min(vals) if vals else None
 
-    # -------------------------------------------- refused (items 13b, 14)
+    # ------------------------------------------------------------ KV handoff
+    def _require_disaggregate(self, what: str) -> None:
+        if not self.fleet_disaggregate:
+            raise RuntimeError(
+                f"{what} needs inference.fleet.disaggregate: true "
+                f"(the KV handoff programs were not built — "
+                f"docs/inference.md \"Fleet serving\")")
+
     def export_kv(self, slot: int):
-        raise _unported("InferenceEngine.export_kv (KV handoff)",
-                        "Queue 1 item 13b")
+        """Read slot ``slot``'s written K/V rows off the card for a
+        prefill->decode handoff: ``(k, v, n_tokens)``, ``k`` and ``v`` CPU
+        tensors ``[layers, n_tokens, kv_heads, head_dim]`` in the cache
+        dtype: the bytes the extend program wrote, so a replica importing
+        them continues byte-identically.  One gather of the slot's rows
+        on the card and one counted host read.  Needs
+        ``inference.fleet.disaggregate``."""
+        self._require_disaggregate("export_kv")
+        n_tokens = int(self._host_pos[int(slot)])
+        if n_tokens < 1:
+            raise ValueError(
+                f"slot {slot} holds no written rows — prefill it before "
+                f"exporting")
+        rows = self._dev(self.pool.slot_rows(int(slot))[:n_tokens],
+                         torch.int64)
+        _RECORDER.record("serve_export_kv", slot=int(slot),
+                         tokens=n_tokens)
+        with self._armed("serve_export_kv"), annotate("serve_export_kv"):
+            kv = torch.stack([self._cache["k"].index_select(1, rows),
+                              self._cache["v"].index_select(1, rows)])
+            obs_fences.count_fence()
+            kv = kv.cpu()
+        return kv[0], kv[1], n_tokens
 
-    def import_kv(self, *args, **kwargs):
-        raise _unported("InferenceEngine.import_kv (KV handoff)",
-                        "Queue 1 item 13b")
+    def import_kv(self, slot: int, prompt_tokens, k_rows, v_rows,
+                  max_new_tokens: int):
+        """Admit ``slot`` from a KV handoff instead of a prefill: map the
+        slot's pages (leading ones from the local prefix index when the
+        prompt's page-aligned prefix is resident: those hold the same
+        bytes and are never written), write the handed-off rows into the
+        fresh pages with ``index_copy_`` (never the drop row, never a
+        shared page, never past the prompt), publish the full prompt
+        pages and pin the slot's position.  ``k_rows`` / ``v_rows``:
+        tensors (or numpy arrays) ``[layers, n_tokens, kv_heads,
+        head_dim]`` in the cache dtype.  Returns the ``AdmitGrant`` (None:
+        a pool refusal, nothing allocated).  Shape, dtype and capacity
+        are checked before anything is touched."""
+        self._require_disaggregate("import_kv")
+        toks = np.asarray(prompt_tokens, np.int32).reshape(-1)
+        n_tokens = int(toks.size)
+        spec = self.cache_spec
+        heads_g = spec.kv_heads_local * spec.mp_size
+        expect = (spec.layers, n_tokens, heads_g, spec.head_dim)
+        k_rows = (k_rows if isinstance(k_rows, torch.Tensor)
+                  else torch.from_numpy(np.asarray(k_rows)))
+        v_rows = (v_rows if isinstance(v_rows, torch.Tensor)
+                  else torch.from_numpy(np.asarray(v_rows)))
+        if tuple(k_rows.shape) != expect or tuple(v_rows.shape) != expect:
+            raise ValueError(
+                f"KV handoff shape mismatch: k {tuple(k_rows.shape)} / "
+                f"v {tuple(v_rows.shape)}, this replica expects "
+                f"{expect} — prefill and decode pools must share "
+                f"(layers, kv_heads, head_dim) and the prompt length")
+        for name, arr in (("k", k_rows), ("v", v_rows)):
+            if arr.dtype != spec.dtype:
+                raise ValueError(
+                    f"KV handoff {name} dtype {arr.dtype} != this "
+                    f"replica's cache dtype {spec.dtype} — byte identity "
+                    f"needs identical cache dtypes across the fleet (a "
+                    f"silent cast here would corrupt pages)")
+        if n_tokens > spec.capacity:
+            raise ValueError(
+                f"KV handoff of {n_tokens} tokens exceeds the per-slot "
+                f"capacity ({spec.capacity})")
+        self.release(slot)
+        grant = self.pool.admit(int(slot), toks.tolist(),
+                                int(max_new_tokens),
+                                reuse=self.prefix_reuse)
+        if grant is None:
+            _RECORDER.record("serve_refusal", slot=int(slot),
+                             prompt_tokens=n_tokens,
+                             free_pages=self.pool.free_pages)
+            return None
+        start = grant.reused_tokens
+        rows = self._dev(self.pool.slot_rows(int(slot))[start:n_tokens],
+                         torch.int64)
+        _RECORDER.record("serve_import_kv", slot=int(slot),
+                         tokens=n_tokens, reused=start)
+        t0 = time.perf_counter()
+        with self._armed("serve_import_kv"), annotate("serve_import_kv"):
+            for pool, new in ((self._cache["k"], k_rows),
+                              (self._cache["v"], v_rows)):
+                pool.index_copy_(1, rows, new[:, start:].to(self.device))
+            self._cache["pos"][int(slot)] = n_tokens
+        if self.prefix_reuse:
+            self.pool.publish(grant)
+        self._host_pos[int(slot)] = n_tokens
+        if self.first_token_ts is None:
+            # a pure-decode replica serves its first token at its first
+            # import: the startup event's anchor
+            self.first_token_ts = time.time()
+            self.first_dispatch_s = time.perf_counter() - t0
+        return grant
 
+    # ----------------------------------------------------- refused (item 14)
     def run_graph_lint(self):
         raise _unported("InferenceEngine.run_graph_lint", "Queue 1 item 14")
 

@@ -31,20 +31,21 @@ Sizing is arithmetic: :func:`cache_bytes` is the pool's exact cost, and
 after the weights (on the card, ``torch.cuda.mem_get_info``).
 ``pool_pages`` overcommits: fewer pages than ``slots x pages_per_slot``
 is legal, and admission refuses (queues) when the pool is exhausted.
-``PagePool._lock`` is a plain ``threading.RLock``: the JAX package's lock
-sanitizer (``analysis/lockwatch.py``) is ROADMAP.md Queue 1 item 14.
+``PagePool._lock`` comes from ``analysis.lockwatch.named_lock``: a plain
+``threading.RLock`` unless the lock sanitizer is armed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-import threading
 from collections import OrderedDict
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.analysis import lockwatch
 
 LAYOUTS = ("paged", "ring")
 
@@ -257,9 +258,10 @@ class PagePool:
         # /metrics and the router's load signal — every public method
         # holds this lock.  RLock: admit() re-enters through lookup()
         # and _take_page()
-        self._lock = threading.RLock()
+        self._lock = lockwatch.named_lock("PagePool._lock", rlock=True)
         self._init_state(spec)
 
+    # dstpu-thread: construction init
     def _init_state(self, spec: KVCacheSpec) -> None:
         self.spec = spec
         self.pt = max(1, int(spec.page_tokens))
@@ -359,6 +361,7 @@ class PagePool:
         return self.rows()[slot]
 
     # --------------------------------------------------------- allocation
+    # dstpu-thread: internal holds=PagePool._lock
     def _take_page(self) -> Optional[int]:
         if self._free:
             return self._free.pop()
@@ -369,6 +372,7 @@ class PagePool:
             return page
         return None
 
+    # dstpu-thread: internal holds=PagePool._lock
     def _unpublish(self, page: int) -> None:
         h = self._hash_of.pop(page, None)
         if h is not None and self._index.get(h) == page:

@@ -16,9 +16,10 @@ itself lives on device (inference/kvcache.py) and each slot's attention
 is masked strictly by its own position, so a slot's output stream is
 IDENTICAL whether it shares iterations with 0 or ``slots-1`` neighbours.
 
-The KV handoff between a prefill and a decode replica (``KVHandoff``,
-``submit_handoff``) belongs to the fleet, ROADMAP.md Queue 1 item 13b,
-and raises ``NotImplementedError`` until then.
+A decode replica of a disaggregated fleet (``inference/router.py``)
+takes prefilled requests as ``KVHandoff`` records through
+``submit_handoff``: admission imports their K/V rows into a free slot
+(``InferenceEngine.import_kv``) instead of dispatching a prefill.
 """
 
 from __future__ import annotations
@@ -185,19 +186,23 @@ def _check_request(engine, req: Request) -> None:
             f"layout's sliding window (docs/inference.md)")
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
-        f"{item})")
-
-
+@dataclasses.dataclass
 class KVHandoff:
-    """A prefilled request in flight between a prefill and a decode
-    replica (the fleet's disaggregation): not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise _unported("KVHandoff (prefill/decode disaggregation)",
-                        "Queue 1 item 13b")
+    """A prefilled request in flight between pools: the prefill
+    replica's output (first token + the slot's written KV rows) plus the
+    lifecycle timestamps the decode replica must PRESERVE — TTFT was
+    measured when the prefill produced the first token, and queue wait
+    keeps anchoring at the user's original submit."""
+    req: Request
+    prompt: List[int]            # the full prompt (page hashing + admit)
+    first_token: int             # sampled from the prefill's logits row
+    k: object                    # [L, n_tokens, kv_heads(global), d]
+    v: object                    # (CPU tensors or numpy arrays)
+    n_tokens: int                # rows written (== len(prompt))
+    t_enqueue: float             # the user's ORIGINAL submit time
+    t_admit: float               # prefill admission dispatch start
+    t_first_token: float         # first-token sample time (TTFT anchor)
+    path: Optional[str] = None   # sealed artifact file (router cleanup)
 
 
 class _Slot:
@@ -246,8 +251,7 @@ class ContinuousScheduler:
                                           # called with each RequestResult
                                           # at eviction (request events)
         self.queue: List[tuple] = []      # (request, t_enqueue)
-        self.handoffs: list = []          # prefilled, awaiting import
-                                          # (the fleet, item 13b: empty)
+        self.handoffs: List[KVHandoff] = []   # prefilled, awaiting import
         self.slots: List[Optional[_Slot]] = [None] * engine.num_slots
         self.results: List[RequestResult] = []
         self.decode_iters = 0
@@ -271,15 +275,45 @@ class ContinuousScheduler:
         self.queue.append((request, time.perf_counter()
                            if now is None else now))
 
-    def submit_handoff(self, handoff) -> None:
-        """Queue a prefilled request handed off from a prefill replica
-        (the fleet's decode-pool intake): not ported yet."""
-        raise _unported("ContinuousScheduler.submit_handoff",
-                        "Queue 1 item 13b")
+    def submit_handoff(self, handoff: KVHandoff) -> None:
+        """Queue a PREFILLED request (KV handed off from a prefill
+        replica): admission imports the rows into a free slot instead of
+        dispatching a prefill — the decode pool's intake.  The request
+        must fit this engine's budgets exactly like a fresh submit."""
+        _check_request(self.engine, handoff.req)
+        self.handoffs.append(handoff)
 
     def _admit_handoffs(self) -> int:
-        raise _unported("ContinuousScheduler._admit_handoffs",
-                        "Queue 1 item 13b")
+        """Import queued handoffs into free slots; returns tokens landed
+        (each handoff arrives WITH its first token).  A pool refusal
+        keeps the remaining handoffs queued — transient, like the regular
+        admission path."""
+        admitted_tokens = 0
+        for i in range(len(self.slots)):
+            if not self.handoffs or self.slots[i] is not None:
+                continue
+            h = self.handoffs[0]
+            grant = self.engine.import_kv(
+                i, h.prompt, h.k, h.v, h.req.max_new_tokens)
+            if grant is None:
+                self.admission_refusals += 1
+                break            # pool exhausted: no later slot differs
+            self.handoffs.pop(0)
+            if grant.reused_tokens:
+                self.prefix_hits += 1
+                self.prefix_tokens_reused += grant.reused_tokens
+            # lifecycle bookkeeping PRESERVES the prefill-side times: TTFT
+            # anchored at the prefill's first-token sample, queue wait at
+            # the user's original submit
+            self.slots[i] = _Slot(
+                h.req, h.first_token, h.t_enqueue, h.t_first_token,
+                t_admit=h.t_admit, reused_tokens=grant.reused_tokens,
+                pages_mapped=len(self.engine.pool.slot_pages(i)))
+            self.admitted += 1
+            admitted_tokens += 1
+            if _stops(h.req, h.first_token, 1):
+                self._evict(i)
+        return admitted_tokens
 
     @property
     def active(self) -> int:

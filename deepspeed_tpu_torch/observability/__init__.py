@@ -103,8 +103,12 @@ class Telemetry:
         self._engine_ref = weakref.ref(engine)
         self.window = int(cfg.observability_report_window)
         self.registry = MetricRegistry()
-        # the JAX package registers lockwatch's counters here; the port
-        # has no analysis/ yet (ROADMAP.md Queue 1 item 14)
+        # with the lock sanitizer armed (DSTPU_LOCKWATCH=1 /
+        # lockwatch.instrument()), its wait/held counters ride this
+        # registry into every snapshot as lockwatch/lock_wait_ms.<name>
+        from deepspeed_tpu_torch.analysis import lockwatch
+        if lockwatch.armed():
+            lockwatch.register_metrics(self.registry)
         self._lock = threading.Lock()
         self._last_drain_ts = None      # set at first drain; window 1 is
         self._base_step = None          # unmeasured (it includes compile)

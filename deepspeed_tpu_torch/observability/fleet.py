@@ -118,6 +118,7 @@ class FleetAggregator:
         self._thread.start()
 
     # ------------------------------------------------------------- publish
+    # dstpu-thread: drain-callback enqueue-only
     def publish(self, ordinal: int, report: dict) -> None:
         """Hand one window report off (delivery-thread side: enqueue only;
         the store write is a network call and runs on this aggregator's

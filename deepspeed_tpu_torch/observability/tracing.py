@@ -112,26 +112,25 @@ def _drain_device() -> None:
     torch.cuda.synchronize()
 
 
-def start_capture(with_cuda: Optional[bool] = None, prepared=None,
-                  drain: bool = False):
+def start_capture(with_cuda: Optional[bool] = None, prepared=None):
     """A recording ``torch.profiler.profile`` (``prepared``'s, or a new
-    one's); ``drain``: after the card's queued work."""
+    one's)."""
     prof = prepared if prepared is not None else prepare_capture(with_cuda)
-    if drain:
-        _drain_device()
     prof.start_trace()
     return prof
 
 
-def stop_capture(prof, path: str, drain: bool = False) -> str:
-    """Stop ``prof`` (``drain``: after the card's queued work) and write its
-    Chrome trace to ``path``."""
-    if drain:
-        _drain_device()
-    prof.stop()
+def export_capture(prof, path: str) -> str:
+    """Write the stopped ``prof``'s Chrome trace to ``path``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     prof.export_chrome_trace(path)
     return path
+
+
+def stop_capture(prof, path: str) -> str:
+    """Stop ``prof`` and write its Chrome trace to ``path``."""
+    prof.stop_trace()
+    return export_capture(prof, path)
 
 
 class Tracer:
@@ -157,11 +156,15 @@ class Tracer:
 
     # ----------------------------------------------------------- start/stop
     def _start(self, path: str, prepared=None, drain: bool = False) -> bool:
+        """``drain``: start after the card's queued work (the fence runs
+        before the lock: a wait under it would stall the other thread)."""
+        if drain:
+            _drain_device()
         with self._lock:
             if self._active is not None:
                 return False
             try:
-                self._prof = start_capture(self.with_cuda, prepared, drain)
+                self._prof = start_capture(self.with_cuda, prepared)
             except Exception as e:
                 logger.warning("trace capture could not start (%s): %s",
                                path, e)
@@ -177,6 +180,11 @@ class Tracer:
         return True
 
     def stop(self, drain: bool = False) -> Optional[str]:
+        """Stop the active capture (``drain``: after the card's queued
+        work) and write it; the fence and the file IO run outside the
+        lock."""
+        if drain:
+            _drain_device()
         with self._lock:
             path, self._active = self._active, None
             prof, self._prof = self._prof, None
@@ -184,10 +192,15 @@ class Tracer:
                 return None
             note_capture_active(False)
             try:
-                stop_capture(prof, path, drain)
+                prof.stop_trace()
             except Exception as e:  # pragma: no cover - defensive
                 logger.warning("trace capture stop failed: %s", e)
                 return None
+        try:
+            export_capture(prof, path)
+        except Exception as e:  # pragma: no cover - defensive
+            logger.warning("trace capture write failed: %s", e)
+            return None
         logger.info("telemetry: trace capture stopped (%s)", path)
         return path
 
@@ -201,9 +214,12 @@ class Tracer:
                 and self._prepared is None
                 and global_step == self.start_step - 1):
             try:
-                self._prepared = prepare_capture(self.with_cuda)
+                prepared = prepare_capture(self.with_cuda)
             except Exception as e:
                 logger.warning("trace capture could not warm up: %s", e)
+            else:
+                with self._lock:
+                    self._prepared = prepared
         elif (self._active is None and not self._window_done
                 and self.start_step <= global_step < self.end_step):
             path = os.path.join(

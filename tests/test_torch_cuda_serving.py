@@ -1,7 +1,8 @@
 """The serving path on the card against the CPU: the KV pool's row copies,
 the serving attention, the GPT-2 serving methods, the int8 products and the
 engine's fused decode, each on a CUDA tensor against the same function on
-the CPU.  The serving path runs no hand-written kernel (the JAX package's
+the CPU; the KV handoff between two replicas on the card, and two replicas
+behind the router against one replica's graph replays.  The serving path runs no hand-written kernel (the JAX package's
 has no Pallas kernel there): every training kernel's launch count stays 0.
 This file imports no JAX; without a card its tests skip.  On a machine
 with one, from the repository root:
@@ -229,3 +230,113 @@ def test_cuda_graphs_match_eager(dev, mode, monkeypatch):
     toks0, logits0, _ = run("0")
     assert toks == toks0
     np.testing.assert_allclose(logits, logits0, rtol=2e-2, atol=2e-2)
+
+
+def _bf16_engine(dev, **inf):
+    cfg = {"inference": {"max_slots": 3, "max_tokens": 32,
+                         "prefill_bucket": 16, "page_tokens": 8,
+                         "dtype": "bfloat16", **inf}}
+    return InferenceEngine(GPT2.from_size("tiny", device="meta", **TINY),
+                           config=cfg, params=_params(), device=dev)
+
+
+def test_kv_handoff_on_the_card(dev):
+    """export_kv / import_kv between two replicas on the card: the
+    exported rows are the prefill pool's bytes, they land bitwise in the
+    decode pool, and decoding there continues with the single replica's
+    tokens."""
+    from deepspeed_tpu_torch.inference import run_serve
+    reqs = synthetic_requests(6, vocab=128, seed=4, prompt_min=2,
+                              prompt_max=14, new_min=3, new_max=12)
+    single = {r.rid: r.tokens
+              for r in run_serve(_bf16_engine(dev), reqs)["results"]}
+    pre = _bf16_engine(dev, fleet={"disaggregate": True})
+    dec = _bf16_engine(dev, fleet={"disaggregate": True})
+    for req in reqs:
+        pre.reset()
+        dec.reset()
+        logits, _ = pre.admit(0, req.prompt, req.max_new_tokens)
+        k, v, n = pre.export_kv(0)
+        assert k.device.type == "cpu" and k.dtype == torch.bfloat16
+        rows = torch.as_tensor(pre.pool.slot_rows(0)[:n], dtype=torch.long,
+                               device=dev)
+        assert torch.equal(k.to(dev), pre._cache["k"][:, rows])
+        assert torch.equal(v.to(dev), pre._cache["v"][:, rows])
+        assert dec.import_kv(0, req.prompt, k, v,
+                             req.max_new_tokens) is not None
+        drows = torch.as_tensor(dec.pool.slot_rows(0)[:n],
+                                dtype=torch.long, device=dev)
+        assert torch.equal(dec._cache["k"][:, drows], k.to(dev))
+        assert torch.equal(dec._cache["v"][:, drows], v.to(dev))
+        toks = [int(np.argmax(logits))]
+        feed = np.zeros(dec.num_slots, np.int32)
+        act = np.zeros(dec.num_slots, bool)
+        act[0] = True
+        while len(toks) < req.max_new_tokens:
+            feed[0] = toks[-1]
+            toks.append(int(np.argmax(dec.decode(feed, act)[0])))
+        assert toks == single[req.rid]
+
+
+@pytest.mark.parametrize("disaggregate", [False, True])
+def test_two_replicas_replay_one_replicas_tokens(dev, disaggregate):
+    """Two replicas on the card behind the router: ``FleetRouter.start``
+    captures every program of every replica (both extend buckets, the
+    decode step) before the driver threads start, so no capture overlaps
+    the other thread's replays; the same tokens as one replica's."""
+    from deepspeed_tpu_torch.inference import run_fleet, run_serve
+    reqs = synthetic_requests(10, vocab=128, seed=5, prompt_min=2,
+                              prompt_max=14, new_min=3, new_max=14)
+    fleet = {"disaggregate": True} if disaggregate else {}
+    single = _bf16_engine(dev, fleet=fleet)
+    want = {r.rid: r.tokens for r in run_serve(single, reqs)["results"]}
+    engines = [_bf16_engine(dev, fleet=fleet) for _ in range(2)]
+    for eng in engines:
+        eng.capture_programs()
+        # the prefill bucket and the tail bucket (a page), and the decode
+        assert sorted(k[0][0] for k in eng._graphs) == [
+            "decode", "extend", "extend"]
+    kw = dict(prefill_engines=engines[1:]) if disaggregate else {}
+    out = run_fleet(engines[:1] if disaggregate else engines, reqs,
+                    poll_s=0.02, **kw)
+    assert {r.rid: r.tokens for r in out["results"]} == want
+    s = out["summary"]
+    assert s["evictions"] == 0
+    assert s["handoffs"] == (len(reqs) if disaggregate else 0)
+
+
+@pytest.mark.parametrize("mode", ["paged", "speculative"])
+def test_captured_programs_match_eager(dev, mode, monkeypatch):
+    """``capture_programs`` (every program captured up front, on inputs
+    that write only the drop row) leaves the pools untouched, and the
+    captured graphs then serve the eager tokens."""
+    p = _params()
+    inf = {"max_slots": 3, "max_tokens": 32, "prefill_bucket": 16,
+           "page_tokens": 8, "dtype": "bfloat16"}
+    kw = {}
+    if mode == "speculative":
+        inf["speculative"] = {"draft_tokens": 2}
+        kw = dict(draft_model=GPT2.from_size("tiny", device="meta",
+                                             **dict(TINY, num_layers=1)),
+                  draft_params=dict(p, blocks={k: v[:1] for k, v in
+                                               p["blocks"].items()}))
+    reqs = synthetic_requests(6, vocab=128, seed=8, prompt_min=2,
+                              prompt_max=12, new_min=2, new_max=14)
+
+    def run(graphs):
+        monkeypatch.setenv("DSTPU_SERVE_GRAPHS", graphs)
+        eng = InferenceEngine(GPT2.from_size("tiny", device="meta", **TINY),
+                              config={"inference": inf}, params=p,
+                              device=dev, **kw)
+        if graphs == "1":
+            before = {k: v.clone() for k, v in eng._cache.items()}
+            eng.capture_programs()
+            assert len(eng._graphs) == (6 if mode == "speculative" else 3)
+            R = eng.cache_spec.pool_rows
+            assert torch.equal(eng._cache["pos"], before["pos"])
+            assert torch.equal(eng._cache["k"][:, :R], before["k"][:, :R])
+        return {r.rid: r.tokens for r in ContinuousScheduler(eng).run(
+            [type(r)(rid=r.rid, prompt=list(r.prompt),
+                     max_new_tokens=r.max_new_tokens) for r in reqs])}
+
+    assert run("1") == run("0")

@@ -259,3 +259,82 @@ def test_args_config_file_and_wall_clock_breakdown(tmp_path):
     engine.eval()
     eval_loss = engine(*(x[:MICRO] for x in b))
     assert not eval_loss.requires_grad
+
+
+class _Scalars:
+    """A summary writer that records ``add_scalar`` tags."""
+
+    def __init__(self):
+        self.tags = []
+
+    def add_scalar(self, tag, value, step):
+        self.tags.append(tag)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+@pytest.fixture
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_wall_clock_spans_and_tensorboard_tags_match_jax(one_thread):
+    """Queue 3 item 8: with ``wall_clock_breakdown`` and a summary writer,
+    one split-API step times the JAX engine's five spans and writes its
+    ``Train/Samples/elapsed_time_ms_<span>`` tags, tag for tag."""
+    from deepspeed_tpu import engine as jengine_mod
+    from deepspeed_tpu_torch import engine as tengine_mod
+    cfg = config("AdamW", "fp32", wall_clock_breakdown=True)
+    params, b = init_params(), batches(1)[0]
+    jeng, _, _, _ = deepspeed_tpu.initialize(
+        config=cfg, model=JBert.from_size("tiny", **TINY),
+        model_parameters=params, mesh=make_mesh(devices=jax.devices()[:1]))
+    teng = make_torch(cfg, params)
+    spans = {}
+    for name, eng in (("jax", jeng), ("torch", teng)):
+        eng.summary_writer = _Scalars()
+        for i in range(GAS):
+            loss = eng(*(x[i * MICRO:(i + 1) * MICRO] for x in b))
+            eng.backward(loss)
+            eng.step()
+        assert eng.global_steps == 1
+        spans[name] = (set(eng.timers.timers), eng.summary_writer.tags)
+    assert spans["torch"] == spans["jax"]
+    for mod in (jengine_mod, tengine_mod):
+        assert (mod.BACKWARD_INNER_TIMER, mod.BACKWARD_REDUCE_TIMER,
+                mod.MEMORY_OPT_ALLREDUCE_SIZE) == (
+            "backward_inner", "backward_allreduce", 500000000)
+    assert {f"Train/Samples/elapsed_time_ms_{s}" for s in (
+        "forward", "backward", "backward_inner", "backward_allreduce",
+        "step")} <= set(spans["torch"][1])
+
+
+def test_deepspeed_io_accepts_a_data_sampler(one_thread):
+    """Queue 3 item 9: ``deepspeed_io(data_sampler=...)`` is accepted and
+    not used, as by the JAX engine: the batches equal the JAX loader's at
+    the same seed."""
+    cfg = config("AdamW", "fp32")
+    params = init_params()
+    rng = np.random.default_rng(3)
+    data = [(rng.normal(size=(8,)).astype(np.float32),
+             np.int32(i)) for i in range(16)]
+    sampler = list(reversed(range(len(data))))
+    jeng, _, _, _ = deepspeed_tpu.initialize(
+        config=cfg, model=JBert.from_size("tiny", **TINY),
+        model_parameters=params, mesh=make_mesh(devices=jax.devices()[:1]))
+    teng = make_torch(cfg, params)
+    got = [tuple(np.asarray(x) for x in batch) for batch in
+           teng.deepspeed_io(data, data_sampler=sampler)]
+    want = [tuple(np.asarray(x) for x in batch) for batch in
+            jeng.deepspeed_io(data, data_sampler=sampler)]
+    assert len(got) == len(want) == len(data) // MICRO
+    for g, w in zip(got, want):
+        for a, c in zip(g, w):
+            np.testing.assert_array_equal(a, c)

@@ -57,7 +57,13 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.launcher.launch, "
             "deepspeed_tpu_torch.utils.compile_cache, "
             "deepspeed_tpu_torch.inference, "
-            "deepspeed_tpu_torch.inference.engine; "
+            "deepspeed_tpu_torch.inference.engine, "
+            "deepspeed_tpu_torch.inference.router, "
+            "deepspeed_tpu_torch.analysis, "
+            "deepspeed_tpu_torch.analysis.__main__, "
+            "deepspeed_tpu_torch.examples.train_simple, "
+            "deepspeed_tpu_torch.examples.train_gpt2, "
+            "deepspeed_tpu_torch.examples.serve_gpt2; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

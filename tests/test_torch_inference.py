@@ -20,7 +20,9 @@ passed to both engines as numpy.  The weights are drawn with ``init_std``
 * cold starts from a JAX ZeRO-1 training checkpoint and from a port
   checkpoint, each served by both packages with identical tokens, and the
   ZeRO partition files never opened;
-* the refusals: mp 2, ``export_kv``, ``plan_capacity`` and graph lint.
+* the refusals: mp 2, ``plan_capacity`` and graph lint; the fleet's
+  handoff pieces (``export_kv``, ``import_kv``, ``KVHandoff``, the router)
+  now work.
 """
 
 import os
@@ -531,9 +533,32 @@ def test_cold_start_from_either_package(tmp_path, params, monkeypatch):
     ("run_graph_lint", "item 14"), ("plan_dispatch", "item 14"),
     ("run_stability", "item 14"), ("predict_executables", "item 14"),
     ("handoff", "item 13b"), ("router", "item 13b")])
-def test_refusals_name_their_item(pair, what, item):
+def test_refusals_name_their_item(params, pair, what, item):
+    """What is still refused names its ROADMAP item.  The fleet's pieces
+    (item 13b (a), (b): ``export_kv``, ``import_kv``, ``KVHandoff``, the
+    router) are ported: those ids check that they now work."""
     cfg = serve_config()
     from deepspeed_tpu_torch import inference
+    if what in ("export_kv", "import_kv", "handoff", "router"):
+        dis = InferenceEngine(ttiny(), config=serve_config(
+            fleet={"disaggregate": True}), params=params, device="cpu")
+        if what == "router":
+            assert inference.FleetRouter is inference.router.FleetRouter
+            assert callable(inference.run_fleet)
+            return
+        dis.admit(0, [1, 2, 3], 4)
+        k, v, n = dis.export_kv(0)
+        assert n == 3 and tuple(k.shape)[:2] == (TINY["num_layers"], 3)
+        if what == "import_kv":
+            grant = dis.import_kv(1, [1, 2, 3], k, v, 4)
+            assert grant is not None and grant.reused_tokens == 0
+        if what == "handoff":
+            h = inference.KVHandoff(
+                req=Request(rid=0, prompt=[1, 2, 3], max_new_tokens=4),
+                prompt=[1, 2, 3], first_token=5, k=k, v=v, n_tokens=n,
+                t_enqueue=0.0, t_admit=0.0, t_first_token=0.0)
+            assert h.n_tokens == 3 and h.path is None
+        return
     calls = {
         "mp2": lambda: InferenceEngine(
             ttiny(), config={**cfg, "model_parallel_size": 2},
@@ -543,10 +568,6 @@ def test_refusals_name_their_item(pair, what, item):
         "analysis": lambda: InferenceEngine(
             ttiny(), config={**cfg, "analysis": {"mode": "warn"}},
             device="cpu"),
-        "export_kv": lambda: pair[1].export_kv(0),
-        "import_kv": lambda: pair[1].import_kv(0, [1], None, None, 1),
-        "handoff": lambda: inference.KVHandoff(),
-        "router": lambda: inference.FleetRouter,
     }
     call = calls.get(what, lambda: getattr(pair[1], what)())
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
