@@ -127,9 +127,10 @@ Phases (each prints one JSON line, with the seconds since the start as
    through the host, and the step times are not TP's on NVLink), from
    train_gpt2's seed-0 weights cut by the engine: (a) ZeRO off, (b) ZeRO-1
    with overlap_comm (32 MB buckets over the local flat), saved after
-   step 3, (c) fresh processes resume that save, (d) this
-   process loads its model states into an mp 1 engine, (e) a tiny fp32
-   GPT-2 at mp 2 against mp 1.  Checks: losses bitwise equal across the
+   step 3, (c) fresh engines in the same two processes resume that save
+   (read from disk after a barrier), (d) this process loads its model
+   states into an mp 1 engine, (e) a tiny fp32 GPT-2 at mp 2 against mp
+   1.  Checks: losses bitwise equal across the
    ranks, the 9 replicated leaves' masters too, (a) within 2e-2 of
    gpt2_reference, (b) bitwise equal to (a), (c) bitwise (losses, flat
    master, moments, step, loss scale), (d) equal to the joined shards, (e)
@@ -146,7 +147,8 @@ Phases (each prints one JSON line, with the seconds since the start as
    (b) overlap_comm (the gather prefetch) and (c) "full" remat, 3 steps
    each, bitwise equal to (a) in losses and both ranks' master, m and v
    shards, (c) at a lower peak; (d) ZeRO-1 at dp 2 within 1e-2 of (a);
-   fresh processes resume (a)'s save, bitwise equal to its steps 4-6;
+   fresh engines in the same processes resume (a)'s save from disk,
+   bitwise equal to its steps 4-6;
    this process loads the save at dp 1, stage 0 (the shard files
    rehydrated) and takes steps 4-6 within 1e-2 of (a)'s.  Launches exact
    per rank (Adam 16 shard leaves a step, whole-tile 4 + 4, the remat
@@ -162,18 +164,19 @@ Phases (each prints one JSON line, with the seconds since the start as
    steps, saved after step 3, within 2e-2 of gpt2_reference's losses; (b)
    1F1B, 3 steps, within 1e-2 of (a) at a lower peak on both stages, with
    3 and 0 stage inputs held; (c) GPipe with ZeRO-1 (one flat Adam launch
-   a step per stage), bitwise equal to (a); (d) fresh processes resume
-   (a)'s save bitwise (losses, masters, moments).  Launches exact per
-   stage (whole-tile 16 + 16 a step; 1F1B replays the forward on stage
-   0; Adam 16 leaves a step); one model file per stage, peak memory,
-   step ms, save and load seconds.
+   a step per stage), bitwise equal to (a); (d) fresh engines in the
+   same processes resume (a)'s save from disk bitwise (losses, masters,
+   moments).  Launches exact per stage (whole-tile 16 + 16 a step; 1F1B
+   replays the forward on stage 0; Adam 16 leaves a step); one model file
+   per stage, peak memory, step ms, save and load seconds.
 19. sp_gpt2: GPT-2 medium (2 layers) at seq 1024 and sp 2, dp 1, as two
    seq-rank processes on the one card (``chip_smoke.py --sp-child``) over a
    gloo seq group (the ring's shifts, Ulysses' all-to-alls and the
    gradients' seq sum stage through the host: not NVLink's step times),
    train_gpt2_1024's seed-0 weights and batch, 512 tokens a rank: (a)
    ring attention, 6 steps, saved after step 3; (b) Ulysses (8 local heads
-   of 16), 3 steps; (c) fresh processes resume (a)'s save.  Checks: (a)
+   of 16), 3 steps; (c) fresh engines in the same processes resume
+   (a)'s save from disk.  Checks: (a)
    and (b) within 1e-2 of gpt2_1024_reference's losses step for step and
    of each other, (c) bitwise equal to (a)'s steps 4-6, launches exact per
    rank (the ring: no attention kernel; Ulysses: 4 streaming forwards,
@@ -185,11 +188,12 @@ Phases (each prints one JSON line, with the seconds since the start as
    train_gpt2's weights and 64-row batch (a data rank's 32 rows as
    micro-batch 16 x gas 2, 4 pipeline micro-batches of 4 rows): (a)
    GPipe, 4 steps, saved after step 2, within 2e-2 of gpt2_reference's
-   losses; (b) 1F1B, 3 steps, within 1e-2 of (a); (c) fresh processes
-   resume (a)'s save bitwise.  Each rank holds half of its stage's
-   partitioned leaves, the shard files carry the row ``pp_stage * mp +
-   mp_rank``, and launches are exact per rank (whole-tile 8 + 8 a step,
-   1F1B replaying the forward on stage 0; Adam 16 shard leaves a step).
+   losses; (b) 1F1B, 3 steps, within 1e-2 of (a); (c) fresh engines in
+   the same processes resume (a)'s save from disk bitwise.  Each rank
+   holds half of its stage's partitioned leaves, the shard files carry
+   the row ``pp_stage * mp + mp_rank``, and launches are exact per rank
+   (whole-tile 8 + 8 a step, 1F1B replaying the forward on stage 0; Adam
+   16 shard leaves a step).
 21. moe_gpt2: GPT2MoE at GPT-2 medium's width with 8 experts a layer
    (top-1, capacity 1.25, aux weight 0.01; seq 128, bf16, Adam lr 1e-4,
    micro-batch 16, gas 2, seeded weights and batch, ZeRO off): (a) all 24
@@ -200,7 +204,8 @@ Phases (each prints one JSON line, with the seconds since the start as
    at ep 2 (mp 2) as two processes on the one card (``chip_smoke.py
    --moe-child``) over gloo, ZeRO-1, 6 steps, saved after step 3 (free
    space in build/ checked first), 4 experts a rank, within 2e-2 of (c)
-   step for step; (e) fresh processes resume the save, bitwise equal
+   step for step; (e) fresh engines in the same processes resume the
+   save from disk, bitwise equal
    (losses, flat master, moments).  Launches exact (Adam 17 leaves a step
    at ZeRO off, one flat launch a step at ep 2; whole-tile 48 + 48 a step
    at 24 layers, 8 + 8 a rank at 4); peaks, step ms, file sizes.
@@ -289,10 +294,27 @@ Phases (each prints one JSON line, with the seconds since the start as
    slot's rows bitwise the prefill pool's and, imported, the decode
    pool's.  Tokens that leave their reference are held to the near-tie
    rule and counted.  No training kernel launches in any leg.
+   tp_serve_gpt2: serve_gpt2's engine at model_parallel_size 2, as two
+   processes on the one card (``chip_smoke.py --tp-serve-child``) over a
+   gloo model group (every collective stages through the host, so the
+   programs run eagerly and ``DSTPU_SERVE_GRAPHS=1`` raises), each rank
+   restoring serve_gpt2's checkpoint (saved at mp 1) and keeping its half
+   of the weights and 8 of the 16 heads (an 805,306,368-byte pool), model
+   rank 0 driving through ``InferenceEngine.lead``: (a) serve_gpt2's
+   trace, continuous batching, tokens against its (d); (b) its
+   shared-prefix trace with prefix reuse, its (f)'s hits and reused
+   tokens and tokens; a decode step over all 16 slots, timed; (c) int8
+   (quantized on the global tree, then cut) on the trace's first 8
+   requests, tokens against its (g), the replicated scales bitwise equal
+   on both ranks, each rank's weight bytes the plan's at mp 2.  A stream
+   that leaves its reference is held to the near-tie rule on an mp-1
+   engine of the same checkpoint.  Tokens/s, TTFT, ITL, peak per rank.
+   Then an engine with "auto" slots: each rank prices half of the card,
+   both hold the same slots.  No training kernel launches on either rank.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
-   moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2;
-   the last runs serve_gpt2 first) runs the build and the named phases
-   alone, with no result line.
+   moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2,
+   tp_serve_gpt2; the last two run serve_gpt2 first) runs the build and
+   the named phases alone, with no result line.
 22. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
@@ -327,6 +349,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -444,9 +467,16 @@ ATTN_RTOL, ATTN_ATOL = 2e-2, 1e-2
 _START = time.perf_counter()
 
 
+#: one line at a time (phases run side by side write from two threads)
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields,
-                      "elapsed_s": time.perf_counter() - _START}), flush=True)
+    line = json.dumps({"phase": phase, **fields,
+                       "elapsed_s": time.perf_counter() - _START})
+    with _EMIT_LOCK:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
 
 
 @contextlib.contextmanager
@@ -2254,7 +2284,7 @@ def phase_zero_ckpt(device):
 # dp 1, as two processes on the one card over a gloo model group (NCCL
 # refuses two ranks on one device; gloo stages each collective through the
 # host).  Runs: (a) ZeRO off, (b) ZeRO-1 with overlap_comm, saved after
-# step 3, (c) that save resumed by fresh processes, (e) a tiny fp32 GPT-2
+# step 3, (c) that save resumed by fresh engines, (e) a tiny fp32 GPT-2
 # at mp 2 against mp 1; (d), in the parent: the mp 2 model states loaded
 # into an mp 1 GPT-2 medium.
 TP, TP_SAVE_AT = 2, 3
@@ -2376,7 +2406,8 @@ def _zero_digest(engine):
 
 def tp_child(spec_path, rank):
     """One rank of the tp_gpt2 phase (started by ``phase_tp_gpt2``): mode
-    "train" runs (a), (b) and (e); mode "resume" runs (c).  Writes
+    "train" runs (a), (b) and (e); mode "resume" runs (c); "train+resume"
+    runs both, the resume after a barrier.  Writes
     ``<mode>_<rank>.json`` beside the spec."""
     import torch
     import torch.distributed as dist
@@ -2397,66 +2428,73 @@ def tp_child(spec_path, rank):
     out = {"rank": rank, "backend": dist.get_backend()}
     t_start = time.perf_counter()
     with deterministic():
-        if spec["mode"] == "train":
-            a = tp_engine(device, None, size=size, cfg=cfg,
-                          layers=spec["layers"])
-            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
-                             a.module.config.vocab_size)
-            _reset_peak(device)
-            losses, step_ms, launches = _tp_train(a, batch, GPT2_STEPS,
-                                                  device)
-            specs = a._param_specs
-            repl = {k: t for k, t in a.master.items()
-                    if specs[k] is None}
-            meta = zero.make_flat_meta(a.master, 1)
-            flat_a = zero.flatten_tree(a.master, meta)[:meta.total]
-            out["a"] = {"losses": losses, "step_ms": step_ms,
-                        "launches": launches, "leaves": len(a.master),
-                        "layers": a.module.config.num_layers,
-                        "peak_mem_gib": _peak_gib(device),
-                        "local_params": a.num_parameters(),
-                        "replicated": {k: _sha(t) for k, t in repl.items()},
-                        "replicated_elements": sum(t.numel()
-                                                   for t in repl.values())}
-            del a
+        # train, then (with "train+resume") the resume of its save
+        # into fresh engines in these processes
+        for mode in spec["mode"].split("+"):
+            if mode == "train":
+                a = tp_engine(device, None, size=size, cfg=cfg,
+                              layers=spec["layers"])
+                batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                                 a.module.config.vocab_size)
+                _reset_peak(device)
+                losses, step_ms, launches = _tp_train(a, batch, GPT2_STEPS,
+                                                      device)
+                specs = a._param_specs
+                repl = {k: t for k, t in a.master.items()
+                        if specs[k] is None}
+                meta = zero.make_flat_meta(a.master, 1)
+                flat_a = zero.flatten_tree(a.master, meta)[:meta.total]
+                out["a"] = {"losses": losses, "step_ms": step_ms,
+                            "launches": launches, "leaves": len(a.master),
+                            "layers": a.module.config.num_layers,
+                            "peak_mem_gib": _peak_gib(device),
+                            "local_params": a.num_parameters(),
+                            "replicated": {k: _sha(t)
+                                           for k, t in repl.items()},
+                            "replicated_elements": sum(t.numel()
+                                                       for t in repl.values())}
+                del a
+                free(device)
+                b = tp_engine(device, TP_ZERO, size=size, cfg=cfg,
+                              layers=spec["layers"])
+                _reset_peak(device)
+                losses, step_ms, launches = _tp_train(
+                    b, batch, GPT2_STEPS, device, save_dir=spec["ckpt"])
+                meta, buckets = b.flat_meta, b._comm_buckets()
+                out["b"] = {"losses": losses, "step_ms": step_ms,
+                            "launches": launches,
+                            "peak_mem_gib": _peak_gib(device),
+                            "masters_equal_a": bool(torch.equal(
+                                b.master_flat[:meta.total], flat_a)),
+                            "layout": {"elements": meta.total,
+                                       "padded": meta.padded,
+                                       "buckets": len(buckets),
+                                       "last_bucket": buckets[-1][1]
+                                       - buckets[-1][0]},
+                            **_zero_digest(b)}
+                del b, flat_a
+                free(device)
+                e = tp_engine(device, None, size="tiny",
+                              cfg=gpt2_config(4, dtype="fp32", lr=1e-3))
+                out["e"] = {"losses": [
+                    float(e.train_batch(lm_batch(4 * GAS, 128, 512,
+                                                 seed=100 + step)))
+                    for step in range(3)]}
+                del e
+            else:
+                c = tp_engine(device, TP_ZERO, seed=1, size=size, cfg=cfg,
+                              layers=spec["layers"])
+                batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                                 c.module.config.vocab_size)
+                c.load_checkpoint(spec["ckpt"])
+                losses, step_ms, launches = _tp_train(
+                    c, batch, GPT2_STEPS - TP_SAVE_AT, device)
+                out["c"] = {"losses": losses, "step_ms": step_ms,
+                            "launches": launches, **_zero_digest(c)}
+                del c
+            # every rank's save is on disk before a resume reads it
+            dist.barrier()
             free(device)
-            b = tp_engine(device, TP_ZERO, size=size, cfg=cfg,
-                          layers=spec["layers"])
-            _reset_peak(device)
-            losses, step_ms, launches = _tp_train(
-                b, batch, GPT2_STEPS, device, save_dir=spec["ckpt"])
-            meta, buckets = b.flat_meta, b._comm_buckets()
-            out["b"] = {"losses": losses, "step_ms": step_ms,
-                        "launches": launches,
-                        "peak_mem_gib": _peak_gib(device),
-                        "masters_equal_a": bool(torch.equal(
-                            b.master_flat[:meta.total], flat_a)),
-                        "layout": {"elements": meta.total,
-                                   "padded": meta.padded,
-                                   "buckets": len(buckets),
-                                   "last_bucket": buckets[-1][1]
-                                   - buckets[-1][0]},
-                        **_zero_digest(b)}
-            del b, flat_a
-            free(device)
-            e = tp_engine(device, None, size="tiny",
-                          cfg=gpt2_config(4, dtype="fp32", lr=1e-3))
-            out["e"] = {"losses": [
-                float(e.train_batch(lm_batch(4 * GAS, 128, 512,
-                                             seed=100 + step)))
-                for step in range(3)]}
-            del e
-        else:
-            c = tp_engine(device, TP_ZERO, seed=1, size=size, cfg=cfg,
-                          layers=spec["layers"])
-            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
-                             c.module.config.vocab_size)
-            c.load_checkpoint(spec["ckpt"])
-            losses, step_ms, launches = _tp_train(
-                c, batch, GPT2_STEPS - TP_SAVE_AT, device)
-            out["c"] = {"losses": losses, "step_ms": step_ms,
-                        "launches": launches, **_zero_digest(c)}
-            del c
     free(device)
     out["seconds"] = time.perf_counter() - t_start
     (pathlib.Path(spec_path).parent / f"{spec['mode']}_{rank}.json"
@@ -2515,11 +2553,10 @@ def phase_tp_gpt2(device, train_losses, size="medium", micro=MICRO,
     run = {"device": str(device), "ckpt": ck_dir, "size": size,
            "micro": micro, "layers": layers}
     try:
-        tr = _tp_launch(work, "train", run)
+        tr = rs = _tp_launch(work, "train+resume", run)
         tag = f"global_step{TP_SAVE_AT}"
         files = {f: os.path.getsize(os.path.join(ck_dir, tag, f))
                  for f in sorted(os.listdir(os.path.join(ck_dir, tag)))}
-        rs = _tp_launch(work, "resume", run)
 
         # (d): the mp 2 model states into an mp 1 GPT-2 medium
         d = tp_engine(device, None, seed=2, mp=1, size=size,
@@ -2657,7 +2694,8 @@ def _z3_digest(engine):
 
 def z3_child(spec_path, rank):
     """One rank of the zero3_gpt2 phase (started by
-    ``phase_zero3_gpt2``): mode "train" runs (a)-(d), mode "resume" the
+    ``phase_zero3_gpt2``; "train+resume" runs both modes, the resume
+    after a barrier): mode "train" runs (a)-(d), mode "resume" the
     resume of (a)'s save.  Writes ``<mode>_<rank>.json`` beside the
     spec."""
     import torch
@@ -2722,28 +2760,34 @@ def z3_child(spec_path, rank):
         return res
 
     with deterministic():
-        if spec["mode"] == "train":
-            for name, zero_cfg, remat, steps, save in (
-                    ("a", Z3_BASE, False, GPT2_STEPS, spec["ckpt"]),
-                    ("b", dict(Z3_BASE, overlap_comm=True), False,
-                     Z3_SHORT_STEPS, None),
-                    ("c", Z3_BASE, {"enabled": True, "policy": "full"},
-                     Z3_SHORT_STEPS, None),
-                    ("d", {"stage": 1, "overlap_comm": False}, False,
-                     Z3_SHORT_STEPS, None)):
-                eng = engine(zero_cfg, remat=remat)
-                out[name] = run(eng, steps, save)
+        # train, then (with "train+resume") the resume of its save
+        # into fresh engines in these processes
+        for mode in spec["mode"].split("+"):
+            if mode == "train":
+                for name, zero_cfg, remat, steps, save in (
+                        ("a", Z3_BASE, False, GPT2_STEPS, spec["ckpt"]),
+                        ("b", dict(Z3_BASE, overlap_comm=True), False,
+                         Z3_SHORT_STEPS, None),
+                        ("c", Z3_BASE, {"enabled": True, "policy": "full"},
+                         Z3_SHORT_STEPS, None),
+                        ("d", {"stage": 1, "overlap_comm": False}, False,
+                         Z3_SHORT_STEPS, None)):
+                    eng = engine(zero_cfg, remat=remat)
+                    out[name] = run(eng, steps, save)
+                    del eng
+                    free(device)
+            else:
+                eng = engine(Z3_BASE, seed=1)
+                t0 = time.perf_counter()
+                eng.load_checkpoint(spec["ckpt"])
+                sync(device)
+                load_s = time.perf_counter() - t0
+                out["resume"] = dict(run(eng, GPT2_STEPS - Z3_SAVE_AT),
+                                     load_s=load_s)
                 del eng
-                free(device)
-        else:
-            eng = engine(Z3_BASE, seed=1)
-            t0 = time.perf_counter()
-            eng.load_checkpoint(spec["ckpt"])
-            sync(device)
-            load_s = time.perf_counter() - t0
-            out["resume"] = dict(run(eng, GPT2_STEPS - Z3_SAVE_AT),
-                                 load_s=load_s)
-            del eng
+            # every rank's save is on disk before a resume reads it
+            dist.barrier()
+            free(device)
     free(device)
     out["seconds"] = time.perf_counter() - t_start
     (pathlib.Path(spec_path).parent / f"{spec['mode']}_{rank}.json"
@@ -2757,7 +2801,7 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO, layers=None):
     Z3_DP): (a) on-demand gathers, saved after step 3; (b) the prefetch
     (overlap_comm) and (c) "full" remat, each bitwise equal to (a); (d)
     ZeRO-1 at dp 2 within Z3_ZERO1_RTOL of (a); the resume of (a)'s save
-    in fresh processes, bitwise equal to (a)'s steps 4-6; and (a)'s save
+    in fresh engines, bitwise equal to (a)'s steps 4-6; and (a)'s save
     loaded into this process at dp 1 and stage 0 (the rehydrate), whose
     steps 4-6 are within Z3_DP1_RTOL of (a)'s.  Launches exact per rank.
     Returns the launches by run and rank."""
@@ -2772,8 +2816,8 @@ def phase_zero3_gpt2(device, size="medium", micro=Z3_MICRO, layers=None):
     spec = {"device": str(device), "ckpt": ck_dir, "size": size,
             "micro": micro, "layers": layers}
     try:
-        tr = _tp_launch(work, "train", spec, flag="--z3-child", world=Z3_DP)
-        rs = _tp_launch(work, "resume", spec, flag="--z3-child", world=Z3_DP)
+        tr = rs = _tp_launch(work, "train+resume", spec, flag="--z3-child",
+                             world=Z3_DP)
         # the save into one process at dp 1, stage 0, gas 4: its micro-steps
         # are rank 0's two, then rank 1's two
         eng = make_engine(z3_config(micro, GAS * Z3_DP, 1, None), device,
@@ -2925,7 +2969,8 @@ def pp_engine(device, size, micro, seed=0, layers=None, **cfg):
 def pp_child(spec_path, rank):
     """One stage of the pp_gpt2 phase (started by ``phase_pp_gpt2``): mode
     "train" runs (a) GPipe saved after step PP_SAVE_AT, (b) 1F1B and (c)
-    GPipe with ZeRO-1; mode "resume" runs (d), the resume of (a)'s save.
+    GPipe with ZeRO-1; mode "resume" runs (d), the resume of (a)'s save
+    ("train+resume": both, the resume after a barrier).
     Writes ``<mode>_<rank>.json`` beside the spec."""
     import torch
     import torch.distributed as dist
@@ -2972,26 +3017,34 @@ def pp_child(spec_path, rank):
                 **extra}
 
     with deterministic():
-        if spec["mode"] == "train":
-            for name, cfg, steps, save in (
-                    ("a", {}, GPT2_STEPS, spec["ckpt"]),
-                    ("b", {"schedule": "1f1b"}, PP_SHORT_STEPS, None),
-                    ("c", {"zero_cfg": {"stage": 1, "overlap_comm": False}},
-                     PP_SHORT_STEPS, None)):
-                eng = pp_engine(device, size, micro, layers=spec["layers"],
-                                **cfg)
-                out[name] = run(eng, steps, save)
+        # train, then (with "train+resume") the resume of its save
+        # into fresh engines in these processes
+        for mode in spec["mode"].split("+"):
+            if mode == "train":
+                for name, cfg, steps, save in (
+                        ("a", {}, GPT2_STEPS, spec["ckpt"]),
+                        ("b", {"schedule": "1f1b"}, PP_SHORT_STEPS, None),
+                        ("c", {"zero_cfg": {"stage": 1,
+                                            "overlap_comm": False}},
+                         PP_SHORT_STEPS, None)):
+                    eng = pp_engine(device, size, micro, layers=spec["layers"],
+                                    **cfg)
+                    out[name] = run(eng, steps, save)
+                    del eng
+                    free(device)
+            else:
+                eng = pp_engine(device, size, micro, seed=1,
+                                layers=spec["layers"])
+                t0 = time.perf_counter()
+                eng.load_checkpoint(spec["ckpt"])
+                sync(device)
+                load_s = time.perf_counter() - t0
+                out["d"] = dict(run(eng, GPT2_STEPS - PP_SAVE_AT),
+                                load_s=load_s)
                 del eng
-                free(device)
-        else:
-            eng = pp_engine(device, size, micro, seed=1,
-                            layers=spec["layers"])
-            t0 = time.perf_counter()
-            eng.load_checkpoint(spec["ckpt"])
-            sync(device)
-            load_s = time.perf_counter() - t0
-            out["d"] = dict(run(eng, GPT2_STEPS - PP_SAVE_AT), load_s=load_s)
-            del eng
+            # every rank's save is on disk before a resume reads it
+            dist.barrier()
+            free(device)
     free(device)
     out["seconds"] = time.perf_counter() - t_start
     (pathlib.Path(spec_path).parent / f"{spec['mode']}_{rank}.json"
@@ -3007,7 +3060,7 @@ def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO,
     ``train_losses`` (train_gpt2's, the same weights and batch at pp 1);
     (b) 1F1B, 3 steps, within PP_1F1B_RTOL of (a) and at a lower peak on
     both stages; (c) GPipe with ZeRO-1 (the flat Adam per stage), 3
-    steps, bitwise equal to (a); (d) fresh processes resume (a)'s save,
+    steps, bitwise equal to (a); (d) fresh engines resume (a)'s save,
     bitwise equal to (a)'s steps 4-6.  Launches exact per stage.  Returns
     the launches by run and stage."""
     import shutil
@@ -3020,8 +3073,8 @@ def phase_pp_gpt2(device, train_losses, size="medium", micro=MICRO,
     run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
            "micro": micro, "layers": layers}
     try:
-        tr = _tp_launch(work, "train", run, flag="--pp-child", world=PP)
-        rs = _tp_launch(work, "resume", run, flag="--pp-child", world=PP)
+        tr = rs = _tp_launch(work, "train+resume", run, flag="--pp-child",
+                             world=PP)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3184,7 +3237,8 @@ def _child_finish(spec_path, spec, out, t_start, device):
 def sp_child(spec_path, rank):
     """One seq rank of the sp_gpt2 phase (started by ``phase_sp_gpt2``):
     mode "train" runs (a) the ring, saved after step SP_SAVE_AT, and (b)
-    Ulysses; mode "resume" runs (c), the resume of (a)'s save.  Writes
+    Ulysses; mode "resume" runs (c), the resume of (a)'s save
+    ("train+resume": both, the resume after a barrier).  Writes
     ``<mode>_<rank>.json`` beside the spec."""
     import torch.distributed as dist
     spec, device = _child_setup(spec_path, rank, SP)
@@ -3198,30 +3252,37 @@ def sp_child(spec_path, rank):
                            **_depth(spec["layers"]))
 
     with deterministic():
-        if spec["mode"] == "train":
-            for name, impl, steps, save in (
-                    ("a", "ring", GPT2_STEPS, spec["ckpt"]),
-                    ("b", "ulysses", SP_SHORT_STEPS, None)):
-                eng = engine(impl)
+        # train, then (with "train+resume") the resume of its save
+        # into fresh engines in these processes
+        for mode in spec["mode"].split("+"):
+            if mode == "train":
+                for name, impl, steps, save in (
+                        ("a", "ring", GPT2_STEPS, spec["ckpt"]),
+                        ("b", "ulysses", SP_SHORT_STEPS, None)):
+                    eng = engine(impl)
+                    batch = lm_batch(micro * GAS, spec["seq"],
+                                     eng.module.config.vocab_size)
+                    out[name] = dict(
+                        _child_run(eng, batch, steps, device, save,
+                                   SP_SAVE_AT),
+                        sp_rank=eng.sp_rank, heads=eng.module.config.num_heads,
+                        layers=eng.module.config.num_layers)
+                    del eng, batch
+                    free(device)
+            else:
+                eng = engine("ring", seed=1)
                 batch = lm_batch(micro * GAS, spec["seq"],
                                  eng.module.config.vocab_size)
-                out[name] = dict(
-                    _child_run(eng, batch, steps, device, save, SP_SAVE_AT),
-                    sp_rank=eng.sp_rank, heads=eng.module.config.num_heads,
-                    layers=eng.module.config.num_layers)
-                del eng, batch
-                free(device)
-        else:
-            eng = engine("ring", seed=1)
-            batch = lm_batch(micro * GAS, spec["seq"],
-                             eng.module.config.vocab_size)
-            t0 = time.perf_counter()
-            eng.load_checkpoint(spec["ckpt"])
-            sync(device)
-            load_s = time.perf_counter() - t0
-            out["c"] = dict(_child_run(eng, batch, GPT2_STEPS - SP_SAVE_AT,
-                                       device), load_s=load_s)
-            del eng
+                t0 = time.perf_counter()
+                eng.load_checkpoint(spec["ckpt"])
+                sync(device)
+                load_s = time.perf_counter() - t0
+                out["c"] = dict(_child_run(eng, batch, GPT2_STEPS - SP_SAVE_AT,
+                                           device), load_s=load_s)
+                del eng
+            # every rank's save is on disk before a resume reads it
+            dist.barrier()
+            free(device)
     return _child_finish(spec_path, spec, out, t_start, device)
 
 
@@ -3248,8 +3309,8 @@ def phase_sp_gpt2(device, sp1_losses, size="medium", micro=GPT2_1024_MICRO,
     run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
            "micro": micro, "seq": seq, "layers": layers}
     try:
-        tr = _tp_launch(work, "train", run, flag="--sp-child", world=SP)
-        rs = _tp_launch(work, "resume", run, flag="--sp-child", world=SP)
+        tr = rs = _tp_launch(work, "train+resume", run, flag="--sp-child",
+                             world=SP)
         # the sp 2 save into one process at sp 1, saved again there
         eng = make_engine(gpt2_config(micro), device, size=size, seed=2,
                           gpt2=True, max_seq_len=seq, **_depth(layers))
@@ -3354,7 +3415,8 @@ Z3PP_1F1B_RTOL = 1e-2
 def z3pp_child(spec_path, rank):
     """One rank of the zero3_pp_gpt2 phase (started by
     ``phase_zero3_pp_gpt2``): mode "train" runs (a) GPipe, saved after
-    step Z3PP_SAVE_AT, and (b) 1F1B; mode "resume" runs (c), the resume of
+    step Z3PP_SAVE_AT, and (b) 1F1B; mode "resume" runs (c) ("train+
+    resume": both, the resume after a barrier), the resume of
     (a)'s save.  Writes ``<mode>_<rank>.json`` beside the spec."""
     import math
 
@@ -3402,23 +3464,29 @@ def z3pp_child(spec_path, rank):
         return res
 
     with deterministic():
-        if spec["mode"] == "train":
-            for name, schedule, steps, save in (
-                    ("a", "gpipe", Z3PP_STEPS, spec["ckpt"]),
-                    ("b", "1f1b", Z3PP_SHORT_STEPS, None)):
-                eng = engine(schedule)
-                out[name] = run(eng, steps, save)
+        # train, then (with "train+resume") the resume of its save
+        # into fresh engines in these processes
+        for mode in spec["mode"].split("+"):
+            if mode == "train":
+                for name, schedule, steps, save in (
+                        ("a", "gpipe", Z3PP_STEPS, spec["ckpt"]),
+                        ("b", "1f1b", Z3PP_SHORT_STEPS, None)):
+                    eng = engine(schedule)
+                    out[name] = run(eng, steps, save)
+                    del eng
+                    free(device)
+            else:
+                eng = engine("gpipe", seed=1)
+                t0 = time.perf_counter()
+                eng.load_checkpoint(spec["ckpt"])
+                sync(device)
+                load_s = time.perf_counter() - t0
+                out["c"] = dict(run(eng, Z3PP_STEPS - Z3PP_SAVE_AT),
+                                load_s=load_s)
                 del eng
-                free(device)
-        else:
-            eng = engine("gpipe", seed=1)
-            t0 = time.perf_counter()
-            eng.load_checkpoint(spec["ckpt"])
-            sync(device)
-            load_s = time.perf_counter() - t0
-            out["c"] = dict(run(eng, Z3PP_STEPS - Z3PP_SAVE_AT),
-                            load_s=load_s)
-            del eng
+            # every rank's save is on disk before a resume reads it
+            dist.barrier()
+            free(device)
     return _child_finish(spec_path, spec, out, t_start, device)
 
 
@@ -3430,7 +3498,7 @@ def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
     ZeRO off at pp 1 and dp 1, the same weights and batch), (b) 1F1B, 3
     steps, within
     Z3PP_1F1B_RTOL of
-    (a); (c) fresh processes resume (a)'s save, bitwise equal to (a)'s
+    (a); (c) fresh engines resume (a)'s save, bitwise equal to (a)'s
     steps 3-4.  Each rank holds half of its stage's partitioned leaves;
     the shard files are keyed by the row ``pp_stage * mp + mp_rank``.
     Launches exact per rank.  Returns the launches by run and rank."""
@@ -3447,13 +3515,12 @@ def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
     run = {"device": str(device), "ckpt": str(work / "ckpt"), "size": size,
            "micro": micro, "layers": layers}
     try:
-        tr = _tp_launch(work, "train", run, flag="--z3pp-child", world=world)
+        tr = rs = _tp_launch(work, "train+resume", run, flag="--z3pp-child",
+                             world=world)
         tag = f"global_step{Z3PP_SAVE_AT}"
         rows = {f: int(ck._load_obj(os.path.join(run["ckpt"], tag, f))["row"])
                 for f in sorted(os.listdir(os.path.join(run["ckpt"], tag)))
                 if f.startswith("zero3_dp_rank_")}
-        rs = _tp_launch(work, "resume", run, flag="--z3pp-child",
-                        world=world)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3543,7 +3610,7 @@ def phase_zero3_pp_gpt2(device, ref_losses, size="medium",
 # (a) top-1 at its full 24 layers, (b) top-2, (c) moe_reference: (a) at
 # MID_LAYERS, (d) that model at ep 2 (mp 2) as two child
 # processes on the one card over gloo, ZeRO-1, saved after step 3, (e)
-# fresh processes resume (d)'s save
+# fresh engines resume (d)'s save
 MOE_EXPERTS, MOE_MICRO, MOE_SAVE_AT, MOE_TOP2_STEPS, MOE_EP = 8, 16, 3, 3, 2
 MOE_ZERO = {"stage": 1, "overlap_comm": False}
 # (d) at ep 2 against (c) at ep 1: the same routing, the combine's two
@@ -3606,38 +3673,46 @@ def _moe_run(eng, batch, steps, device):
 
 def moe_child(spec_path, rank):
     """One rank of moe_gpt2's ep 2 runs (started by ``phase_moe_gpt2``):
-    mode "train" runs (d), saved after step MOE_SAVE_AT; mode "resume" runs
+    mode "train" runs (d), saved after step MOE_SAVE_AT ("train+resume":
+    both, the resume after a barrier); mode "resume" runs
     (e).  Writes ``<mode>_<rank>.json`` beside the spec."""
     import torch.distributed as dist
     spec, device = _child_setup(spec_path, rank, MOE_EP)
     out = {"rank": rank, "backend": dist.get_backend()}
     t_start = time.perf_counter()
     with deterministic():
-        if spec["mode"] == "train":
-            eng = moe_engine(device, layers=spec["layers"], zero=MOE_ZERO,
-                             mp=MOE_EP, micro=spec["micro"],
-                             size=spec["size"])
-            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
-                             eng.module.config.vocab_size)
-            out["d"] = dict(
-                _child_run(eng, batch, GPT2_STEPS, device, spec["ckpt"],
-                           MOE_SAVE_AT),
-                local_params=eng.num_parameters(),
-                local_experts=eng.module.blocks.exp1_w.shape[1],
-                expert_leaf=list(eng.module.blocks.exp1_w.shape))
-        else:
-            eng = moe_engine(device, seed=1, layers=spec["layers"],
-                             zero=MOE_ZERO, mp=MOE_EP, micro=spec["micro"],
-                             size=spec["size"])
-            batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
-                             eng.module.config.vocab_size)
-            t0 = time.perf_counter()
-            eng.load_checkpoint(spec["ckpt"])
-            sync(device)
-            load_s = time.perf_counter() - t0
-            out["e"] = dict(_child_run(eng, batch, GPT2_STEPS - MOE_SAVE_AT,
-                                       device), load_s=load_s)
-        del eng
+        # train, then (with "train+resume") the resume of its save
+        # into fresh engines in these processes
+        for mode in spec["mode"].split("+"):
+            if mode == "train":
+                eng = moe_engine(device, layers=spec["layers"], zero=MOE_ZERO,
+                                 mp=MOE_EP, micro=spec["micro"],
+                                 size=spec["size"])
+                batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                                 eng.module.config.vocab_size)
+                out["d"] = dict(
+                    _child_run(eng, batch, GPT2_STEPS, device, spec["ckpt"],
+                               MOE_SAVE_AT),
+                    local_params=eng.num_parameters(),
+                    local_experts=eng.module.blocks.exp1_w.shape[1],
+                    expert_leaf=list(eng.module.blocks.exp1_w.shape))
+            else:
+                eng = moe_engine(device, seed=1, layers=spec["layers"],
+                                 zero=MOE_ZERO, mp=MOE_EP, micro=spec["micro"],
+                                 size=spec["size"])
+                batch = lm_batch(spec["micro"] * GAS, GPT2_SEQ,
+                                 eng.module.config.vocab_size)
+                t0 = time.perf_counter()
+                eng.load_checkpoint(spec["ckpt"])
+                sync(device)
+                load_s = time.perf_counter() - t0
+                out["e"] = dict(_child_run(eng, batch,
+                                           GPT2_STEPS - MOE_SAVE_AT, device),
+                                load_s=load_s)
+            del eng
+            # every rank's save is on disk before a resume reads it
+            dist.barrier()
+            free(device)
     return _child_finish(spec_path, spec, out, t_start, device)
 
 
@@ -3741,10 +3816,8 @@ def phase_moe_gpt2(device, size="medium", micro=MOE_MICRO, layers=None,
     run = {"device": str(device), "ckpt": str(work / "ckpt"),
            "layers": ep_layers, **kw}
     try:
-        tr = _tp_launch(work, "train", run, flag="--moe-child",
-                        world=MOE_EP)
-        rs = _tp_launch(work, "resume", run, flag="--moe-child",
-                        world=MOE_EP)
+        tr = rs = _tp_launch(work, "train+resume", run, flag="--moe-child",
+                             world=MOE_EP)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     d, e = [r["d"] for r in tr], [r["e"] for r in rs]
@@ -4703,18 +4776,26 @@ def _prefix_trace(shapes, vocab, seed=1):
             for i in range(spec["n"])]
 
 
-def _int8_plan_bytes(model, itemsize=2):
-    """The weight bytes of ``model`` under the int8 plan: one byte per
-    quantized element, the compute dtype's ``itemsize`` per scale (one per
-    output channel) and per element of every other leaf."""
+def _int8_plan_bytes(model, itemsize=2, mp=1):
+    """The weight bytes of ``model`` under the int8 plan on one of ``mp``
+    model ranks: one byte per quantized element, the compute dtype's
+    ``itemsize`` per scale (one per output channel) and per element of
+    every other leaf; a leaf cut over the ranks (and a scale cut with its
+    output channels) counts its 1/mp."""
+    from deepspeed_tpu_torch import weights
     from deepspeed_tpu_torch.inference import quant
+    specs = weights.flatten_tree(model.partition_specs())
     total = 0
     for name, p in model.named_parameters():
+        dim = specs.get(name)
+        cut = mp if dim is not None else 1
         axis = quant.GPT2_QUANT_PLAN.get(name.split(".")[-1])
         if axis is None:
-            total += p.numel() * itemsize
+            total += p.numel() * itemsize // cut
         else:
-            total += p.numel() + p.numel() // p.shape[axis] * itemsize
+            scales = p.numel() // p.shape[axis]
+            total += p.numel() // cut + scales * itemsize // (
+                cut if dim != axis else 1)
     return total
 
 
@@ -5075,7 +5156,9 @@ def phase_serve_gpt2(device, shapes=SERVE, keep=None):
         checks["f_ties"] = ok
         if keep is not None:
             keep.update(preqs=_clone(preqs), prefix_tokens={
-                r.rid: r.tokens for r in reuse_res})
+                r.rid: r.tokens for r in reuse_res},
+                prefix_counts=(sched.prefix_hits,
+                               sched.prefix_tokens_reused))
         leg("f_prefix_reuse", requests=len(preqs), prefix_tokens=plen,
             prefix_hits=sched.prefix_hits,
             tokens_reused=sched.prefix_tokens_reused,
@@ -5094,6 +5177,9 @@ def phase_serve_gpt2(device, shapes=SERVE, keep=None):
         _warm(q8, reqs)
         out = run_serve(q8, _clone(reqs))
         plan_bytes = _int8_plan_bytes(meta)
+        if keep is not None:
+            keep.update(int8_tokens={r.rid: r.tokens
+                                     for r in out["results"]})
         checks["g_int8_rel"] = max(errs) < SERVE_REL_TOL
         checks["g_int8_bytes"] = q8.weight_bytes == plan_bytes
         checks["g_int8_generates"] = (
@@ -5207,10 +5293,8 @@ def _fleet_serve(engines, reqs, prefill=(), ports=None, spy_evict=None,
 def phase_fleet_serve_gpt2(device, keep, shapes=SERVE):
     """Two replicas of GPT-2 medium behind the router (phase docstring
     entry fleet_serve_gpt2): legs (a)-(d), one line each, then the
-    phase's line.  ``keep``: what phase_serve_gpt2 handed on; its work
-    directory is removed here."""
-    import shutil
-
+    phase's line.  ``keep``: what phase_serve_gpt2 handed on (serve_pair
+    removes its work directory)."""
     import torch
 
     from deepspeed_tpu_torch import checkpoint
@@ -5420,7 +5504,6 @@ def phase_fleet_serve_gpt2(device, keep, shapes=SERVE):
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             prev_reduce
-        shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     emit("fleet_serve_gpt2", model=f"gpt2-{size}", replicas=2,
          seconds=seconds, checks=checks)
@@ -5430,21 +5513,292 @@ def phase_fleet_serve_gpt2(device, keep, shapes=SERVE):
     return {name: v["launches"] for name, v in legs.items()}
 
 
-def serve_pair(device, shapes=SERVE):
-    """serve_gpt2, then fleet_serve_gpt2 on its checkpoint and tokens:
-    both phases' launch counts by leg.  ``serve_pair(torch.device("cpu"),
-    SERVE_TINY)`` rehearses both on the CPU (about 20 s)."""
-    import shutil
-    keep = {}
+# the tp_serve_gpt2 phase: serve_gpt2's GPT-2 medium at model_parallel_size
+# TP_SERVE as TP_SERVE child processes on the one card over a gloo model
+# group (each rank 8 of the 16 heads and half of every sharded weight;
+# the collectives stage through the host, which a CUDA graph cannot
+# capture, so the programs run eagerly), restored from serve_gpt2's
+# ZeRO-1 checkpoint (saved at mp 1, cut at load) at serve_gpt2's shapes:
+# (a) serve_gpt2's trace, (b) its shared-prefix trace with prefix reuse,
+# (c) int8 on the trace's first TP_SERVE_INT8 requests.  Tokens that
+# leave serve_gpt2's are held to the near-tie rule on an mp-1 engine of
+# the same checkpoint, built here only when a stream leaves.
+TP_SERVE = 2
+TP_SERVE_INT8 = 8
+# decode steps timed over every slot (an eager step reads every slot's
+# whole capacity whatever it holds, so the slots are not prefilled first)
+TP_SERVE_STEPS = 4
+
+
+def tp_serve_child(spec_path, rank):
+    """One model rank of the tp_serve_gpt2 phase (started by
+    ``phase_tp_serve_gpt2``): the engines of legs (a)-(b) and (c), each
+    served through ``InferenceEngine.lead`` (model rank 0 drives, the
+    other follows); writes ``serve_<rank>.json`` beside the spec."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.inference import (ContinuousScheduler,
+                                               InferenceEngine, run_serve,
+                                               synthetic_requests)
+    from deepspeed_tpu_torch.models import GPT2
+    spec, device = _child_setup(spec_path, rank, TP_SERVE)
+    shapes = spec["shapes"]
+    out = {"rank": rank, "backend": dist.get_backend(), "legs": {}}
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    meta = GPT2.from_size(shapes["size"], device="meta",
+                          **_depth(shapes["layers"]))
+    vocab = meta.config.vocab_size
+    reqs = synthetic_requests(shapes["trace"]["n"], vocab=vocab, seed=0,
+                              **{k: v for k, v in shapes["trace"].items()
+                                 if k != "n"})
+    preqs = _prefix_trace(shapes, vocab)
+
+    def config(**inf):
+        return dict(_serve_config(shapes, **inf),
+                    model_parallel_size=TP_SERVE)
+
+    def build(**inf):
+        t0 = time.perf_counter()
+        eng = InferenceEngine(meta, config=config(**inf),
+                              checkpoint_dir=spec["ckpt"], device=device)
+        sync(device)
+        return eng, time.perf_counter() - t0
+
+    def tokens(results):
+        return {str(r.rid): r.tokens for r in results}
+
+    legs = out["legs"]
+
+    def leg(name, **fields):
+        legs[name] = dict(fields, launches=launch_counts())
+        reset_launch_counts()
+
+    # a gloo model group cannot be captured: asking for graphs raises
     try:
-        serve = phase_serve_gpt2(device, shapes=shapes, keep=keep)
+        with env("DSTPU_SERVE_GRAPHS", "1"):
+            InferenceEngine(meta, config=config(), device=device)
+        out["graphs_env_raises"] = False
+    except RuntimeError as e:
+        out["graphs_env_raises"] = "gloo model group" in str(e)
+
+    # ---- (a), (b) and the decode step: bf16 with prefix reuse ----
+    eng, out["build_s"] = build(prefix_reuse=True)
+    out["weight_bytes"] = eng.weight_bytes
+    out["pool_bytes"] = 2 * eng._cache["k"][:, :-1].numel() * 2
+    out["startup_graphs"] = [eng.graphs, eng.graphs_off_because]
+    _reset_peak(device)
+    reset_launch_counts()
+
+    def warm(eng):
+        # eager programs: no capture to warm, only the first calls' setup
+        eng.generate([reqs[0].prompt], max_new_tokens=2)
+        eng.reset()
+
+    def serve_bf16(eng):
+        warm(eng)
+        reset_launch_counts()
+        res = run_serve(eng, _clone(reqs))
+        leg("a_mixed", tokens=tokens(res["results"]),
+            summary=_serve_numbers(res["summary"]),
+            tokens_per_sec_per_chip=res["summary"][
+                "tokens_per_sec_per_chip"], mp=res["summary"]["mp"])
+        eng.reset()
+        sched = ContinuousScheduler(eng)
+        t0 = time.perf_counter()
+        res = sched.run(_clone(preqs))
+        leg("b_prefix", tokens=tokens(res), seconds=time.perf_counter() - t0,
+            prefix_hits=sched.prefix_hits,
+            tokens_reused=sched.prefix_tokens_reused)
+        eng.reset()
+        feed = np.zeros(eng.num_slots, np.int32)
+        act = np.ones(eng.num_slots, bool)
+        eng.decode(feed, act)
+        t0 = time.perf_counter()
+        for _ in range(TP_SERVE_STEPS):
+            eng.decode(feed, act)
+        leg("decode_step", slots=eng.num_slots, steps=TP_SERVE_STEPS,
+            step_ms=(time.perf_counter() - t0) * 1e3 / TP_SERVE_STEPS)
+        eng.reset()
+
+    eng.lead(serve_bf16)
+    out["peak_gib"] = _peak_gib(device)
+    out["launches_follower"] = launch_counts()
+    del eng
+    free(device)
+
+    # ---- (c) int8: quantized on the global tree, then cut ----
+    q8, out["int8_build_s"] = build(quantize="int8")
+    out["int8_weight_bytes"] = q8.weight_bytes
+    out["int8_replicated_scales"] = {
+        k: hashlib.sha256(q8.params["blocks"][k]["s"].float().cpu().numpy()
+                          .tobytes()).hexdigest()
+        for k in ("proj_w", "fc2_w")}
+    reset_launch_counts()
+
+    def serve_int8(q8):
+        first = _clone(reqs[:TP_SERVE_INT8])
+        warm(q8)
+        reset_launch_counts()
+        res = run_serve(q8, first)
+        leg("c_int8", tokens=tokens(res["results"]),
+            summary=_serve_numbers(res["summary"]))
+
+    q8.lead(serve_int8)
+    out["int8_launches_follower"] = launch_counts()
+    del q8
+    free(device)
+
+    # "auto" slots: the two ranks share the card, so each prices half of
+    # its memory and of what is allocated on it; both take the fewer slots
+    if device.type == "cuda":
+        auto, _ = build(max_slots=0)
+        out["auto"] = {"slots": auto.num_slots,
+                       "budget": list(auto._device_budget()),
+                       "card_bytes": torch.cuda.mem_get_info(device)[1]}
+        del auto
+    return _child_finish(spec_path, spec, out, t_start, device)
+
+
+def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
+    """serve_gpt2's engine at model_parallel_size 2 as two processes over
+    gloo on the one card (see TP_SERVE): legs (a)-(c) in one launch of
+    the two ranks, one line each, then the phase's line.  ``keep``: what
+    phase_serve_gpt2 handed on (its checkpoint, traces and tokens)."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import InferenceEngine
+    from deepspeed_tpu_torch.models import GPT2
+    t_phase = time.perf_counter()
+    meta = GPT2.from_size(shapes["size"], device="meta",
+                          **_depth(shapes["layers"]))
+    work = pathlib.Path(keep["work"])
+    ranks = _tp_launch(work, "serve", {
+        "device": str(device), "ckpt": keep["ckpt"], "shapes": shapes},
+        flag="--tp-serve-child", world=TP_SERVE)
+    lead, follow = ranks[0], ranks[1]
+    legs = lead["legs"]
+    checks = {}
+    prev_reduce = torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    def held(name, ref, reqs, **inf):
+        """The leg's tokens against ``ref`` under the near-tie rule, on
+        an mp-1 engine of the same checkpoint (built only when a stream
+        leaves its reference)."""
+        got = {int(k): v for k, v in legs[name]["tokens"].items()}
+        want = {r.rid: ref[r.rid] for r in reqs}
+        if got == want:
+            return [], True
+        ref_eng = InferenceEngine(meta, config=_serve_config(shapes, **inf),
+                                  checkpoint_dir=keep["ckpt"], device=device)
+        try:
+            return _divergences(ref_eng, reqs, want, got)
+        finally:
+            del ref_eng
+            free(device)
+
+    try:
+        reqs, preqs = keep["reqs"], keep["preqs"]
+        divs, ok = held("a_mixed", keep["tokens"], reqs)
+        checks["a_ties"] = ok
+        checks["a_chips"] = legs["a_mixed"]["mp"] == TP_SERVE
+        emit("tp_serve_gpt2_a_mixed", summary=legs["a_mixed"]["summary"],
+             tokens_per_sec_per_chip=legs["a_mixed"][
+                 "tokens_per_sec_per_chip"],
+             serve_gpt2_d=keep["summary"], divergences=len(divs), at=divs,
+             peak_gib=[r["peak_gib"] for r in ranks],
+             launches=legs["a_mixed"]["launches"])
+        divs, ok = held("b_prefix", keep["prefix_tokens"], preqs,
+                        prefix_reuse=True)
+        b = legs["b_prefix"]
+        checks["b_ties"] = ok
+        checks["b_hits"] = (b["prefix_hits"], b["tokens_reused"]) == \
+            keep["prefix_counts"]
+        emit("tp_serve_gpt2_b_prefix", requests=len(preqs),
+             prefix_hits=b["prefix_hits"], tokens_reused=b["tokens_reused"],
+             serve_gpt2_f=keep["prefix_counts"], seconds=b["seconds"],
+             divergences=len(divs), at=divs, launches=b["launches"])
+        emit("tp_serve_gpt2_decode_step", **legs["decode_step"])
+        first = reqs[:TP_SERVE_INT8]
+        divs, ok = held("c_int8", keep["int8_tokens"], first,
+                        quantize="int8")
+        c = legs["c_int8"]
+        rank_bytes = _int8_plan_bytes(meta, mp=TP_SERVE)
+        checks["c_ties"] = ok
+        checks["c_scales_equal"] = len({
+            json.dumps(r["int8_replicated_scales"], sort_keys=True)
+            for r in ranks}) == 1
+        checks["c_rank_bytes"] = all(r["int8_weight_bytes"] == rank_bytes
+                                     for r in ranks)
+        emit("tp_serve_gpt2_c_int8", requests=len(first),
+             summary=c["summary"],
+             weight_bytes=[r["int8_weight_bytes"] for r in ranks],
+             expected_rank_bytes=rank_bytes,
+             mp1_bytes=_int8_plan_bytes(meta),
+             replicated_scales=lead["int8_replicated_scales"],
+             divergences=len(divs), at=divs, launches=c["launches"])
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            prev_reduce
+    pool_bytes = (2 * meta.config.num_layers * shapes["slots"]
+                  * shapes["max_tokens"] * meta.config.hidden_size * 2
+                  // TP_SERVE)
+    checks["pool_bytes"] = all(r["pool_bytes"] == pool_bytes for r in ranks)
+    checks["graphs_off"] = all(
+        r["startup_graphs"] == [False, "gloo model group"]
+        and r["graphs_env_raises"] for r in ranks)
+    checks["auto_slots_halved"] = device.type != "cuda" or (
+        len({r["auto"]["slots"] for r in ranks}) == 1
+        and all(r["auto"]["budget"][0] == r["auto"]["card_bytes"] // TP_SERVE
+                for r in ranks))
+    launches = {name: legs[name]["launches"] for name in legs}
+    launches["follower"] = follow["launches_follower"]
+    launches["follower_int8"] = follow["int8_launches_follower"]
+    checks["no_training_kernel"] = not any(
+        n for counts in launches.values() for n in counts.values())
+    emit("tp_serve_gpt2", model=f"gpt2-{shapes['size']}", mp=TP_SERVE,
+         backend=lead["backend"], transport="gloo over the host (not "
+         "NVLink)", layers=meta.config.num_layers,
+         weight_bytes=[r["weight_bytes"] for r in ranks],
+         pool_bytes=[r["pool_bytes"] for r in ranks],
+         build_s=[r["build_s"] for r in ranks],
+         int8_build_s=[r["int8_build_s"] for r in ranks],
+         auto_slots=[r.get("auto") for r in ranks],
+         child_seconds=[r["seconds"] for r in ranks],
+         seconds=time.perf_counter() - t_phase, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"tp_serve_gpt2 phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def serve_pair(device, shapes=SERVE, fleet=True, tp=True):
+    """serve_gpt2, then fleet_serve_gpt2 and tp_serve_gpt2 on its
+    checkpoint and tokens: the three phases' launch counts by leg (None
+    for a phase left out).  ``serve_pair(torch.device("cpu"),
+    SERVE_TINY)`` rehearses them on the CPU (about 35 s)."""
+    import shutil
+    keep, out = {}, [None, None, None]
+    try:
+        out[0] = phase_serve_gpt2(device, shapes=shapes, keep=keep)
         free(device)
-        fleet = phase_fleet_serve_gpt2(device, keep, shapes=shapes)
-        free(device)
+        if fleet:
+            out[1] = phase_fleet_serve_gpt2(device, keep, shapes=shapes)
+            free(device)
+        if tp:
+            out[2] = phase_tp_serve_gpt2(device, keep, shapes=shapes)
+            free(device)
     finally:
         if "work" in keep:
             shutil.rmtree(keep["work"], ignore_errors=True)
-    return serve, fleet
+    return tuple(out)
 
 
 def phase_calibrate(device):
@@ -5539,12 +5893,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--fleet-child"]:
         sys.path.insert(0, str(ROOT))
         return fleet_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-serve-child"]:
+        sys.path.insert(0, str(ROOT))
+        return tp_serve_child(sys.argv[2], int(sys.argv[3]))
     # --only obs_gpt2,fleet_gpt2,...: the build and those phases alone (a
     # quick check; no kernels line, no result)
     only = None
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
                    "obs_gpt2", "fleet_gpt2", "serve_gpt2",
-                   "fleet_serve_gpt2")
+                   "fleet_serve_gpt2", "tp_serve_gpt2")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -5590,11 +5947,12 @@ def main() -> int:
                 for src, mod in mods.items()})
 
     if only is not None:
-        if "fleet_serve_gpt2" in only:
-            # it serves serve_gpt2's checkpoint and holds its tokens
-            only = (only - {"fleet_serve_gpt2"}) | {"serve_gpt2"}
-            serve_pair(device)
-            only.discard("serve_gpt2")
+        serving = {"fleet_serve_gpt2", "tp_serve_gpt2"} & only
+        if serving:
+            # they serve serve_gpt2's checkpoint and hold its tokens
+            serve_pair(device, fleet="fleet_serve_gpt2" in serving,
+                       tp="tp_serve_gpt2" in serving)
+            only = only - serving - {"serve_gpt2"}
         for name in only_phases:
             if name in only:
                 if name == "zero_ckpt":
@@ -5658,57 +6016,70 @@ def main() -> int:
     phase_zero_ckpt(device)
     free(device)
     gpt2_shallow = phase_gpt2_reference(device)
-    tp_launches = phase_tp_gpt2(device, gpt2_shallow, layers=EARLY_LAYERS)
-    for k in kernels:
-        if k["name"] == "adam":
-            # per GPT-2 step: 16 leaves' launches (its ms: BERT-large's 22)
-            k["profile_ms"] = profile_ms(prof_gpt2, "adam", per_launch=False)
-            k["path"] = "adam; profile_ms: train_gpt2"
-            # the ZeRO path's shape: one flat partition, or its buckets
-            k["flat_partition"] = {key: flat_adam[key] for key in (
-                "elements", "buckets", "launches_overlap_on", "ms",
-                "event_ms", "bucket_loop_ms", "plain_ms", "bound_ms",
-                "library_ms", "max_abs_err")}
-        if k["name"] in ("adam", "block_fwd", "block_bwd"):
-            # per rank of tp_gpt2 (mp 2): ZeRO off (a) and ZeRO-1 (b)
-            k["tp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
-                                     for run, ranks in tp_launches.items()}
-    free(device)
-    z3_launches = phase_zero3_gpt2(device, layers=EARLY_LAYERS)
-    for k in kernels:
-        if k["name"] in ("adam", "block_fwd", "block_bwd"):
-            # per rank of zero3_gpt2 (dp 2): runs (a)-(d) and the resume
-            k["zero3_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
-                                        for run, ranks in z3_launches.items()}
-    free(device)
-    pp_launches = phase_pp_gpt2(device, gpt2_shallow, layers=EARLY_LAYERS)
-    for k in kernels:
-        if k["name"] in ("adam", "block_fwd", "block_bwd"):
-            # per stage of pp_gpt2 (pp 2): runs (a)-(d)
-            k["pp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
-                                     for run, ranks in pp_launches.items()}
-    free(device)
-    sp1_shallow = phase_gpt2_reference(device, micro=GPT2_1024_MICRO,
-                                       seq=GPT2_1024_SEQ,
-                                       name="gpt2_1024_reference")
-    free(device)
-    sp_launches = phase_sp_gpt2(device, sp1_shallow, layers=EARLY_LAYERS)
-    for k in kernels:
-        if k["name"] in ("adam", "stream_fwd", "stream_dkv", "stream_dq"):
-            # per seq rank of sp_gpt2 (sp 2): (a) ring, (b) Ulysses, (c)
-            k["sp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
-                                     for run, ranks in sp_launches.items()}
-    free(device)
-    z3pp_launches = phase_zero3_pp_gpt2(device, gpt2_shallow,
-                                        layers=EARLY_LAYERS)
-    for k in kernels:
-        if k["name"] in ("adam", "block_fwd", "block_bwd"):
-            # per rank of zero3_pp_gpt2 (dp 2 x pp 2): (a) GPipe, (b)
-            # 1F1B, (c) the resume
-            k["zero3_pp_gpt2_launches"] = {
-                run: [r[k["name"]] for r in ranks]
-                for run, ranks in z3pp_launches.items()}
-    free(device)
+    # pp_gpt2 and zero3_pp_gpt2 do nothing in this process but wait for
+    # their child processes and check what they wrote: each runs in a side
+    # thread beside the next multi-rank phases (those phases' time is
+    # mostly process start-up and gloo's host staging, not the card)
+    side = ThreadPoolExecutor(1)
+    try:
+        pp_job = side.submit(phase_pp_gpt2, device, gpt2_shallow,
+                             layers=EARLY_LAYERS)
+        tp_launches = phase_tp_gpt2(device, gpt2_shallow, layers=EARLY_LAYERS)
+        for k in kernels:
+            if k["name"] == "adam":
+                # per GPT-2 step: 16 leaves' launches (its ms: BERT-large's 22)
+                k["profile_ms"] = profile_ms(prof_gpt2, "adam",
+                                             per_launch=False)
+                k["path"] = "adam; profile_ms: train_gpt2"
+                # the ZeRO path's shape: one flat partition, or its buckets
+                k["flat_partition"] = {key: flat_adam[key] for key in (
+                    "elements", "buckets", "launches_overlap_on", "ms",
+                    "event_ms", "bucket_loop_ms", "plain_ms", "bound_ms",
+                    "library_ms", "max_abs_err")}
+            if k["name"] in ("adam", "block_fwd", "block_bwd"):
+                # per rank of tp_gpt2 (mp 2): ZeRO off (a) and ZeRO-1 (b)
+                k["tp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                         for run, ranks in tp_launches.items()}
+        free(device)
+        z3_launches = phase_zero3_gpt2(device, layers=EARLY_LAYERS)
+        for k in kernels:
+            if k["name"] in ("adam", "block_fwd", "block_bwd"):
+                # per rank of zero3_gpt2 (dp 2): runs (a)-(d) and the resume
+                k["zero3_gpt2_launches"] = {
+                    run: [r[k["name"]] for r in ranks]
+                    for run, ranks in z3_launches.items()}
+        free(device)
+        pp_launches = pp_job.result()
+        for k in kernels:
+            if k["name"] in ("adam", "block_fwd", "block_bwd"):
+                # per stage of pp_gpt2 (pp 2): runs (a)-(d)
+                k["pp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                         for run, ranks in pp_launches.items()}
+        free(device)
+        z3pp_job = side.submit(phase_zero3_pp_gpt2, device, gpt2_shallow,
+                               layers=EARLY_LAYERS)
+        sp1_shallow = phase_gpt2_reference(device, micro=GPT2_1024_MICRO,
+                                           seq=GPT2_1024_SEQ,
+                                           name="gpt2_1024_reference")
+        free(device)
+        sp_launches = phase_sp_gpt2(device, sp1_shallow, layers=EARLY_LAYERS)
+        for k in kernels:
+            if k["name"] in ("adam", "stream_fwd", "stream_dkv", "stream_dq"):
+                # per seq rank of sp_gpt2 (sp 2): (a) ring, (b) Ulysses, (c)
+                k["sp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
+                                         for run, ranks in sp_launches.items()}
+        free(device)
+        z3pp_launches = z3pp_job.result()
+        for k in kernels:
+            if k["name"] in ("adam", "block_fwd", "block_bwd"):
+                # per rank of zero3_pp_gpt2 (dp 2 x pp 2): (a) GPipe, (b)
+                # 1F1B, (c) the resume
+                k["zero3_pp_gpt2_launches"] = {
+                    run: [r[k["name"]] for r in ranks]
+                    for run, ranks in z3pp_launches.items()}
+        free(device)
+    finally:
+        side.shutdown(wait=True)
     moe = phase_moe_gpt2(device)
     free(device)
     multi_launches = phase_multistep_gpt2(device)
@@ -5719,15 +6090,17 @@ def main() -> int:
     free(device)
     fleet_launches = phase_fleet_gpt2(device)
     free(device)
-    serve_launches, fleet_serve_launches = serve_pair(device)
+    serve_launches, fleet_serve_launches, tp_serve_launches = \
+        serve_pair(device)
     for k in kernels:
-        # serve_gpt2's legs (a)-(h) and fleet_serve_gpt2's (a)-(d): the
-        # serving path runs no kernel
-        k["serve_gpt2_launches"] = {leg: counts[k["name"]] for leg, counts
-                                    in serve_launches.items()}
-        k["fleet_serve_gpt2_launches"] = {
-            leg: counts[k["name"]]
-            for leg, counts in fleet_serve_launches.items()}
+        # serve_gpt2's legs (a)-(h), fleet_serve_gpt2's (a)-(d) and
+        # tp_serve_gpt2's (a)-(c) (the leader's by leg, the follower's by
+        # engine): the serving path runs no kernel
+        for name, launches in (("serve_gpt2", serve_launches),
+                               ("fleet_serve_gpt2", fleet_serve_launches),
+                               ("tp_serve_gpt2", tp_serve_launches)):
+            k[f"{name}_launches"] = {leg: counts[k["name"]]
+                                     for leg, counts in launches.items()}
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
             # obs_gpt2 at 24 layers: spool off / on, the kernels in its
@@ -5768,7 +6141,7 @@ def main() -> int:
              "zero3_pp_gpt2_launches", "moe_gpt2_launches",
              "multistep_gpt2_launches", "moe_expert_leaf",
              "obs_gpt2_launches", "serve_gpt2_launches",
-             "fleet_serve_gpt2_launches")
+             "fleet_serve_gpt2_launches", "tp_serve_gpt2_launches")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}))

@@ -22,9 +22,19 @@ Exits nonzero if any request produced no tokens.
 
 The shipped serving configs (``examples/gpt2/ds_config_serve*.json``,
 ``ds_config_fleet_serve.json``) set ``graph_lint`` and ``analysis`` to
-``error`` and two of them ``model_parallel_size`` 2: the port refuses those
-(ROADMAP.md Queue 1 items 14 and 13b (c)), so serve from a copy without
-those keys.
+``error``: the port refuses those (ROADMAP.md Queue 1 item 14), so serve
+from a copy without those keys.
+
+Two of them set ``model_parallel_size`` 2: a replica is then one process
+per model rank, started by the port's launcher, e.g. on the CPU
+
+    python -m deepspeed_tpu_torch.launcher.run --num_gpus 2 \
+        deepspeed_tpu_torch/examples/serve_gpt2.py --ckpt /tmp/gpt2_ck \
+        --deepspeed_config my_serve_config.json --device cpu
+
+(``PYTHONPATH`` naming the repository).  Model rank 0 serves and prints;
+the other ranks follow its commands and print nothing.  ``--fleet`` and
+``--verify-identity`` serve at model_parallel_size 1 only.
 
 Replica observability: ``--health_port`` serves live /healthz /status
 /metrics; ``--probe-endpoints`` probes them over HTTP mid-traffic and
@@ -148,10 +158,7 @@ def _model(args):
 
 
 def serve(args):
-    from deepspeed_tpu_torch.inference import (InferenceEngine,
-                                               ServeObservability,
-                                               observability, run_serve,
-                                               synthetic_requests)
+    from deepspeed_tpu_torch.inference import InferenceEngine
 
     if args.chaos_stall_iter:
         # deterministic stalled-decode chaos: the Nth decode dispatch
@@ -162,8 +169,21 @@ def serve(args):
                         stall_s=args.chaos_stall_s)
 
     cfg = _load_config(args)
+    if int(cfg.get("model_parallel_size") or 1) > 1 and args.verify_identity:
+        print("ERROR: --verify-identity builds a second engine: it serves "
+              "at model_parallel_size 1 only", file=sys.stderr)
+        return 1
     engine = InferenceEngine(_model(args), config=cfg,
                              checkpoint_dir=args.ckpt, device=args.device)
+    # model rank 0 serves; at model_parallel_size > 1 the other ranks
+    # follow its commands until it is done
+    return engine.lead(lambda eng: _serve_replica(args, eng)) or 0
+
+
+def _serve_replica(args, engine):
+    from deepspeed_tpu_torch.inference import (ServeObservability,
+                                               observability, run_serve,
+                                               synthetic_requests)
     obs = (ServeObservability(engine)
            if observability.configured(engine.config) else None)
     print(f"serving tag {engine.loaded_tag}: {engine.num_slots} slots x "
@@ -249,6 +269,11 @@ def serve_fleet(args):
                                                synthetic_requests)
 
     cfg = _load_config(args)
+    if int(cfg.get("model_parallel_size") or 1) > 1:
+        # several replicas of several ranks each in one process group
+        raise NotImplementedError(
+            "--fleet at model_parallel_size > 1 is not ported to "
+            "deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 13b (e))")
     fleet_cfg = cfg.get("inference", {}).get("fleet", {})
     n = args.fleet or int(fleet_cfg.get("replicas", 0)) or 2
     k = (args.prefill_replicas if args.prefill_replicas is not None
@@ -554,6 +579,9 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the first CUDA "
                              "device); 'cpu' serves on the CPU")
+    parser.add_argument("--local_rank", type=int, default=None,
+                        help="set by the launcher (the card comes from "
+                             "LOCAL_RANK)")
     return parser.parse_args(argv)
 
 

@@ -132,7 +132,12 @@ class ServeTelemetry:
         """Scheduler hook (``ContinuousScheduler(on_event=...)``)."""
         if not self._startup_emitted and self.engine.first_token_ts:
             self._startup_emitted = True
-            self._emit(self.engine.startup_event())
+            from deepspeed_tpu_torch.observability import schema
+            # the schema's fields: the JSONL stays keyed as the JAX
+            # package's (the engine's record carries more)
+            event = self.engine.startup_event()
+            self._emit({k: v for k, v in event.items()
+                        if k in schema.STARTUP_FIELDS})
         if self.observability is not None:
             self.observability.note_scheduler(sched)
         self._iters += 1
@@ -320,7 +325,9 @@ def run_serve(engine, requests, *, jsonl_path: Optional[str] = None,
     elapsed = time.perf_counter() - t0
     tel.flush(sched)
     tel.close()
-    summary = latency_summary(results, elapsed, n_chips=1)
+    # chips = the model group's devices, as the JAX driver counts its mesh
+    summary = latency_summary(results, elapsed,
+                              n_chips=engine.mp_world_size)
     prompt_tokens = sum(r.prompt_len for r in results)
     summary.update({
         "decode_iters": sched.decode_iters,

@@ -1,4 +1,4 @@
-"""The serving engine: checkpoint -> tokens, on one card.
+"""The serving engine: checkpoint -> tokens.
 
 The port of ``deepspeed_tpu/inference/engine.py`` for one model replica.
 ``InferenceEngine`` loads a training checkpoint's weights through
@@ -39,16 +39,37 @@ reads the card between the D iterations of ``decode_many`` or inside the
 speculative step: the tokens come back in one counted fence
 (``observability/fences.py``).
 
-One engine is one replica at ``model_parallel_size`` 1; replicas go
-behind ``inference/router.py``'s ``FleetRouter``.  Serving at mp > 1
-across processes is ROADMAP.md Queue 1 item 13b (c); graph lint and the
-static analyses (``plan_capacity``, ``plan_dispatch``, ``run_graph_lint``,
-``run_stability``, ``predict_executables``) are item 14.  Each raises
-``NotImplementedError`` naming its item.
+One engine is one replica; replicas go behind ``inference/router.py``'s
+``FleetRouter``.  At ``model_parallel_size`` mp > 1 a replica is mp
+processes, one per model rank, in a started process group of exactly mp
+ranks (``parallel/topology.make_serving_topology``: the model group, dp
+1, and a gloo control group on CPU tensors).  Each rank holds its slice
+of the weights (``partition_specs``; int8 quantized on the global tree,
+then cut, so every rank has the same scales) and its ``heads / mp`` KV
+heads.  Model rank 0 is the leader: it alone runs the page pool, the
+prefix index, the scheduler and the host positions, and every public
+method that touches the card first sends its command and host inputs
+(tokens, rows, slot, start, page ids, K/V rows) to the followers, which
+run the same program on their slices in ``follow()`` until the leader's
+``close()``.  ``lead(fn)`` runs ``fn(engine)`` on the leader and stops the
+followers in a ``finally``; on a follower it runs the loop.  The programs
+run the model with its model group; the logits a host reads come back
+over the whole vocabulary, gathered on every rank, so the device argmax
+of the fused programs (ties to the lowest index) gives every rank the
+same tokens without another message.  A gloo
+model group cannot be captured in a CUDA graph, so at mp > 1 the
+programs run eagerly.  ``export_kv`` returns the global heads and
+``import_kv`` takes them, so handoffs cross model-parallel degrees.
+
+Graph lint and the static analyses (``plan_capacity``, ``plan_dispatch``,
+``run_graph_lint``, ``run_stability``, ``predict_executables``) are
+ROADMAP.md Queue 1 item 14, and several replicas in one process group
+item 13b (e); each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -59,6 +80,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepspeed_tpu_torch import checkpoint
 from deepspeed_tpu_torch import weights as weights_mod
@@ -67,7 +89,9 @@ from deepspeed_tpu_torch.inference import kvcache, quant
 from deepspeed_tpu_torch.observability import fences as obs_fences
 from deepspeed_tpu_torch.observability.flightrec import RECORDER as _RECORDER
 from deepspeed_tpu_torch.observability.tracing import annotate
-from deepspeed_tpu_torch.parallel.topology import resolve_device
+from deepspeed_tpu_torch.parallel import comm
+from deepspeed_tpu_torch.parallel.topology import (make_serving_topology,
+                                                   resolve_device)
 from deepspeed_tpu_torch.resilience import chaos as _chaos
 
 logger = logging.getLogger(__name__)
@@ -153,7 +177,8 @@ def seeded_params(model, seed: int) -> dict:
 
 
 class InferenceEngine:
-    """Checkpoint-to-tokens serving engine on one device."""
+    """Checkpoint-to-tokens serving engine: one replica, on one device per
+    model rank."""
 
     def __init__(self, model, config=None, params=None,
                  checkpoint_dir: Optional[str] = None,
@@ -184,7 +209,19 @@ class InferenceEngine:
         from deepspeed_tpu_torch.utils import compile_cache as _compile_cache
         self.compile_cache_dir = _compile_cache.enable_from_config(
             self.config)
-        self.mp_world_size = 1
+        # the serving mesh is the model group: dp 1 (data parallelism in
+        # serving is replicas behind the router, not a mesh axis)
+        self.mp_world_size = int(self.config.model_parallel_size or 1)
+        self.serving = (make_serving_topology(self.mp_world_size,
+                                              self.device)
+                        if self.mp_world_size > 1 else None)
+        self.model_group = (self.serving.model_group
+                            if self.serving is not None else None)
+        self.mp_rank = (self.serving.mp_rank
+                        if self.serving is not None else 0)
+        self._stopped = False
+        # the programs' CUDA graphs by (program, shape); None runs eagerly
+        self._graphs, self.graphs_off_because = self._graph_mode()
         validate_fn = getattr(model, "validate", None)
         if validate_fn is not None:
             validate_fn(self.mp_world_size)
@@ -199,10 +236,18 @@ class InferenceEngine:
             self.loaded_tag, host = host
         else:
             self.loaded_tag = None
+        specs = model.partition_specs()
         if self.quantize == "int8":
+            # on the global tree, then cut: every model rank has the same
+            # per-output-channel scales, which the row-parallel products
+            # need (they dequantize each partial before the sum)
             host = quant.quantize_tree(host, self.compute_dtype)
-        self.params = self._place(host)
+            specs = quant.quantize_specs(specs)
+        self._param_specs = specs
+        self.params = self._place(self._shard(host, specs))
+        # this rank's bytes (the JAX engine's per-device count)
         self.weight_bytes = self._tree_bytes(self.params)
+        del host
 
         # ---- the KV page pool ----
         max_tokens = (self.config.inference_max_tokens
@@ -212,12 +257,9 @@ class InferenceEngine:
             # rows past max_seq_len are never written (the schedulers
             # refuse requests beyond it): do not price them
             max_tokens = min(int(max_tokens), int(max_seq))
-        hbm_bytes, used = None, 0
-        if self.device.type == "cuda":
-            # "auto" slots size against the card's own memory after the
-            # weights (everything already allocated counts as weights)
-            free, hbm_bytes = torch.cuda.mem_get_info(self.device)
-            used = hbm_bytes - free
+        auto = self.config.inference_max_slots in (0, None)
+        hbm_bytes, used = (self._device_budget() if auto
+                           and self.device.type == "cuda" else (None, 0))
         self.cache_spec = kvcache.spec_from_model(
             model, self.mp_world_size,
             slots=self.config.inference_max_slots,
@@ -226,6 +268,14 @@ class InferenceEngine:
             page_tokens=self.config.inference_page_tokens,
             pool_pages=self.config.inference_pool_pages,
             hbm_bytes=hbm_bytes, weight_bytes=used)
+        if auto and self.serving is not None:
+            # every model rank must hold the same slots: the fewest any
+            # rank's share of its card allows
+            slots = torch.tensor([self.cache_spec.slots])
+            dist.all_reduce(slots, op=dist.ReduceOp.MIN,
+                            group=self.serving.control_group)
+            self.cache_spec = dataclasses.replace(self.cache_spec,
+                                                  slots=int(slots))
         # the default bucket: the capacity, clipped to the position range
         default_bucket = (min(self.cache_spec.capacity, int(max_seq))
                           if max_seq is not None
@@ -250,15 +300,13 @@ class InferenceEngine:
                             if self.prefix_reuse
                             and min(tail, self.prefill_bucket)
                             < self.prefill_bucket else 0)
-        self.pool = kvcache.PagePool(self.cache_spec)
+        # the host scheduler state lives on the leader only
+        self.pool = (kvcache.PagePool(self.cache_spec) if self.is_leader
+                     else None)
         self._host_pos = np.zeros((self.cache_spec.slots,), np.int64)
         self._cache = kvcache.init_cache(self.cache_spec, self.device)
         self._rows_src = None
         self._rows_dev = None
-        # the programs' CUDA graphs by (program, shape); None runs eagerly
-        self._graphs = ({} if self.device.type == "cuda"
-                        and os.environ.get("DSTPU_SERVE_GRAPHS", "1") != "0"
-                        else None)
 
         # ---- speculative decoding: the draft model and its plain pool ----
         self.spec_draft_tokens = int(
@@ -288,19 +336,72 @@ class InferenceEngine:
     # ------------------------------------------------------------ helpers
     def _refuse_unported(self):
         cfg = self.config
-        refused = [
-            (int(cfg.model_parallel_size or 1) > 1,
-             "serving at model_parallel_size > 1", "Queue 1 item 13b (c)"),
-            (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off",
-             "graph lint / analysis", "Queue 1 item 14"),
-        ]
-        for hit, what, item in refused:
-            if hit:
-                raise _unported(what, item)
+        if cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off":
+            raise _unported("graph lint / analysis", "Queue 1 item 14")
 
     @property
     def num_slots(self) -> int:
         return self.cache_spec.slots
+
+    @property
+    def is_leader(self) -> bool:
+        """Model rank 0: the rank that serves (always, at mp 1)."""
+        return self.mp_rank == 0
+
+    @property
+    def graphs(self) -> bool:
+        """Whether the programs run as CUDA graphs."""
+        return self._graphs is not None
+
+    def _graph_mode(self):
+        """``(graphs dict or None, why they are off or None)``.  A gloo
+        model group stages its collectives through the host, which a
+        CUDA graph cannot capture; capturing NCCL collectives is untried
+        (it waits for a machine with two cards), so at mp > 1 the
+        programs run eagerly, and ``DSTPU_SERVE_GRAPHS=1`` there raises."""
+        asked = os.environ.get("DSTPU_SERVE_GRAPHS")
+        if self.device.type != "cuda":
+            return None, "cpu"
+        if self.serving is not None:
+            why = f"{dist.get_backend(self.model_group)} model group"
+            if asked == "1":
+                raise RuntimeError(
+                    f"DSTPU_SERVE_GRAPHS=1 at model_parallel_size "
+                    f"{self.mp_world_size}: the programs cannot be CUDA "
+                    f"graphs over a {why} (capturing the collectives "
+                    f"waits for two cards, ROADMAP.md); unset it")
+            return None, why
+        if asked == "0":
+            return None, "DSTPU_SERVE_GRAPHS=0"
+        return {}, None
+
+    def _shard(self, tree, specs):
+        """This model rank's slice of the global ``tree``."""
+        if self.serving is None:
+            return tree
+        return weights_mod.shard_tree(tree, specs, self.mp_world_size,
+                                      self.mp_rank)
+
+    def _device_budget(self):
+        """``(bytes, bytes in use)`` that "auto" slots size against: the
+        card's memory and what is already allocated on it (the weights).
+        Model ranks that share one card (a gloo model group on one
+        device) each take their share of both: ``mem_get_info`` sees
+        every rank's allocations, so it is read after all of them placed
+        their weights."""
+        if self.serving is None:
+            free, total = torch.cuda.mem_get_info(self.device)
+            return total, total - free
+        group = self.serving.control_group
+        dist.barrier(group=group)
+        free, total = torch.cuda.mem_get_info(self.device)
+        props = torch.cuda.get_device_properties(self.device)
+        card = (socket.gethostname(), str(getattr(props, "uuid",
+                                                  self.device.index)))
+        cards = [None] * self.mp_world_size
+        dist.all_gather_object(cards, card, group=group)
+        share = cards.count(card)
+        return total // share, (total - free) // share
 
     def _host_tree(self, model, checkpoint_dir, tag, params, seed, stream):
         """The JAX-layout tree of ``model``'s weights, floating leaves in
@@ -340,11 +441,15 @@ class InferenceEngine:
     def _place(self, host):
         """The host tree on the device: floating leaves in the compute
         dtype (an int8 tree's scales already are), int8 payloads as
-        they are."""
+        they are.  A rank's slice gets its own contiguous storage, so the
+        global tree is not kept alive on the CPU."""
         def leaf(t):
             dtype = (self.compute_dtype if t.is_floating_point()
                      else t.dtype)
-            return t.detach().to(device=self.device, dtype=dtype)
+            out = t.detach().to(device=self.device, dtype=dtype)
+            if self.serving is not None and out.data_ptr() == t.data_ptr():
+                out = out.clone()
+            return out.contiguous()
         return _map_tree(host, leaf)
 
     @staticmethod
@@ -390,7 +495,8 @@ class InferenceEngine:
                                 seed + 1, stream="draft")
         if ck is not None:
             dhost = dhost[1]
-        self.draft_params = self._place(dhost)
+        self.draft_params = self._place(
+            self._shard(dhost, draft_model.partition_specs()))
         self.draft_weight_bytes = self._tree_bytes(self.draft_params)
         self.draft_cache_spec = kvcache.spec_from_model(
             draft_model, self.mp_world_size, slots=self.cache_spec.slots,
@@ -410,11 +516,84 @@ class InferenceEngine:
     def _rows(self) -> torch.Tensor:
         """The page table's [slots, capacity] row map on the device,
         uploaded again only after the table changed."""
+        return self._rows_from(self._rows_changed())
+
+    def _rows_changed(self):
+        """The leader's page-table row map when it changed since the last
+        upload, else None (the programs' copy is current)."""
         rows = self.pool.rows()
-        if rows is not self._rows_src:
-            self._rows_src = rows
+        if rows is self._rows_src:
+            return None
+        self._rows_src = rows
+        return rows
+
+    def _rows_from(self, rows) -> torch.Tensor:
+        """The row map on the device, replaced by ``rows`` when given."""
+        if rows is not None:
             self._rows_dev = self._dev(rows, torch.int32)
         return self._rows_dev
+
+    # ------------------------------------------------ leader and followers
+    def _run(self, cmd: str, **args):
+        """Program ``cmd`` on the host inputs ``args`` (numbers, numpy
+        arrays, CPU tensors): at mp > 1 the leader first sends ``(cmd,
+        args)`` to the followers, then every rank runs ``_do_<cmd>``."""
+        if self.serving is not None:
+            if not self.is_leader:
+                raise RuntimeError(
+                    f"model rank {self.mp_rank} is a follower: it serves "
+                    f"through follow(), the leader (model rank 0) calls "
+                    f"the engine")
+            if self._stopped:
+                raise RuntimeError("the followers were stopped (close())")
+            self._command((cmd, args))
+        return getattr(self, f"_do_{cmd}")(**args)
+
+    def _command(self, msg=None):
+        """The leader's ``msg`` on every rank of the control group."""
+        box = [msg]
+        # model rank 0 is global rank 0: one replica a process group
+        dist.broadcast_object_list(box, src=0,
+                                   group=self.serving.control_group)
+        return box[0]
+
+    def follow(self) -> None:
+        """A follower's loop: run each command the leader sends on this
+        rank's slices, until the leader's stop."""
+        if self.serving is None or self.is_leader:
+            raise RuntimeError("follow() runs on a follower (model rank "
+                               "> 0 at model_parallel_size > 1)")
+        while True:
+            cmd, args = self._command()
+            if cmd == "stop":
+                return
+            getattr(self, f"_do_{cmd}")(**args)
+
+    def close(self) -> None:
+        """Stop the followers (the leader, once; nothing at mp 1 or on a
+        follower).  The engine serves no more after it."""
+        if self.serving is None or not self.is_leader or self._stopped:
+            return
+        self._stopped = True
+        self._command(("stop", {}))
+
+    def lead(self, fn):
+        """``fn(self)`` on the leader, the followers stopped in a
+        ``finally`` (an exception on the leader never leaves a follower
+        waiting for a command); the follower loop on a follower, which
+        returns None."""
+        if self.serving is not None and not self.is_leader:
+            self.follow()
+            return None
+        try:
+            return fn(self)
+        finally:
+            self.close()
+
+    def _full_vocab(self, logits):
+        """Vocab-sharded logits [..., vocab / mp] joined over the model
+        group into the whole vocabulary, on every rank."""
+        return comm.model_all_gather(logits, -1, self.model_group)
 
     def _program(self, key, fn, *inputs):
         """``fn(*inputs)``: eagerly, or through the CUDA graph of ``key``
@@ -427,22 +606,30 @@ class InferenceEngine:
         return self._graphs[key](*inputs)
 
     def _extend_fn(self, draft: bool):
+        """The extend program: this rank's vocab slice of the logits
+        [B, E, vocab / mp]."""
         model = self.draft_model if draft else self.module
         params = self.draft_params if draft else self.params
         cache = self._draft_cache if draft else self._cache
+        group = self.model_group
 
         def extend(tokens, start, n_new, rows):
+            model.model_group = group
             return model.apply_extend(params, tokens, cache["k"], cache["v"],
                                       start, n_new, rows)[0]
         return extend
 
     def _decode_fn(self, draft: bool):
+        """The decode step: this rank's vocab slice of the logits [B,
+        vocab / mp] and the advanced positions."""
         model = self.draft_model if draft else self.module
         params = self.draft_params if draft else self.params
         cache = self._draft_cache if draft else self._cache
         ring = False if draft else self.cache_spec.ring
+        group = self.model_group
 
         def step(tokens, active, rows, pos):
+            model.model_group = group
             logits, _, _, pos2 = model.apply_decode(
                 params, tokens, cache["k"], cache["v"], pos, active, rows,
                 ring=ring)
@@ -529,16 +716,22 @@ class InferenceEngine:
             raise ValueError(
                 f"slot {slot} holds no written rows — prefill it before "
                 f"exporting")
-        rows = self._dev(self.pool.slot_rows(int(slot))[:n_tokens],
-                         torch.int64)
+        rows = self.pool.slot_rows(int(slot))[:n_tokens]
         _RECORDER.record("serve_export_kv", slot=int(slot),
                          tokens=n_tokens)
         with self._armed("serve_export_kv"), annotate("serve_export_kv"):
-            kv = torch.stack([self._cache["k"].index_select(1, rows),
-                              self._cache["v"].index_select(1, rows)])
+            kv = self._run("export_kv", rows=rows)
             obs_fences.count_fence()
             kv = kv.cpu()
         return kv[0], kv[1], n_tokens
+
+    def _do_export_kv(self, rows):
+        """``[2, layers, n, heads, d]``: the K and V rows ``rows``, every
+        model rank's heads joined in rank order (the global heads)."""
+        rows = self._dev(rows, torch.int64)
+        kv = torch.stack([self._cache["k"].index_select(1, rows),
+                          self._cache["v"].index_select(1, rows)])
+        return comm.model_all_gather(kv, 3, self.model_group)
 
     def import_kv(self, slot: int, prompt_tokens, k_rows, v_rows,
                   max_new_tokens: int):
@@ -590,16 +783,17 @@ class InferenceEngine:
                              free_pages=self.pool.free_pages)
             return None
         start = grant.reused_tokens
-        rows = self._dev(self.pool.slot_rows(int(slot))[start:n_tokens],
-                         torch.int64)
+        rows = self.pool.slot_rows(int(slot))[start:n_tokens]
         _RECORDER.record("serve_import_kv", slot=int(slot),
                          tokens=n_tokens, reused=start)
         t0 = time.perf_counter()
         with self._armed("serve_import_kv"), annotate("serve_import_kv"):
-            for pool, new in ((self._cache["k"], k_rows),
-                              (self._cache["v"], v_rows)):
-                pool.index_copy_(1, rows, new[:, start:].to(self.device))
-            self._cache["pos"][int(slot)] = n_tokens
+            k_new, v_new = k_rows[:, start:], v_rows[:, start:]
+            if self.serving is not None:
+                # the followers' copy goes over the control group
+                k_new, v_new = k_new.cpu(), v_new.cpu()
+            self._run("import_kv", slot=int(slot), rows=rows, k=k_new,
+                      v=v_new, n_tokens=n_tokens)
         if self.prefix_reuse:
             self.pool.publish(grant)
         self._host_pos[int(slot)] = n_tokens
@@ -609,6 +803,17 @@ class InferenceEngine:
             self.first_token_ts = time.time()
             self.first_dispatch_s = time.perf_counter() - t0
         return grant
+
+    def _do_import_kv(self, slot, rows, k, v, n_tokens):
+        """Write the global-head rows ``k`` / ``v`` [layers, n, heads, d]
+        into ``rows`` of this rank's pools (its ``heads / mp`` of them) and
+        pin ``slot``'s position at ``n_tokens``."""
+        rows = self._dev(rows, torch.int64)
+        n_local = self.cache_spec.kv_heads_local
+        heads = slice(self.mp_rank * n_local, (self.mp_rank + 1) * n_local)
+        for pool, new in ((self._cache["k"], k), (self._cache["v"], v)):
+            pool.index_copy_(1, rows, new[:, :, heads].to(self.device))
+        self._cache["pos"][slot] = n_tokens
 
     # ----------------------------------------------------- refused (item 14)
     def run_graph_lint(self):
@@ -646,6 +851,9 @@ class InferenceEngine:
         zeroed in place."""
         self.pool.reset()
         self._host_pos[:] = 0
+        self._run("reset")
+
+    def _do_reset(self):
         for cache in (self._cache, self._draft_cache):
             if cache is not None:
                 for t in cache.values():
@@ -665,7 +873,8 @@ class InferenceEngine:
                     n_new: int):
         """One admission program: extend ``slot`` by ``n_new`` tokens from
         ``start`` at the bucket width of ``padded`` and return the last
-        real token's logits row [1, vocab]; sets the slot's position."""
+        real token's logits row [1, vocab / mp]; sets the slot's
+        position."""
         cache = self._draft_cache if draft else self._cache
         bucket = padded.shape[1]
         logits = self._program(
@@ -713,21 +922,20 @@ class InferenceEngine:
         if self.tail_bucket and tail.size <= self.tail_bucket:
             bucket = self.tail_bucket
         padded, n_new = self._pad_prompt(tail, bucket)
-        rows = self._dev(self.pool.slot_rows(slot)[None], torch.int32)
+        # the draft has no prefix index: it prefills the whole prompt
+        # (cheap: that is what a draft is)
+        dpad = (self._pad_prompt(toks, self.prefill_bucket)[0]
+                if self.draft_model is not None else None)
         _RECORDER.record("serve_admit", slot=slot,
                          prompt_tokens=int(toks.size),
                          reused_tokens=int(start),
                          pages=len(self.pool.slot_pages(slot)))
         t0 = time.perf_counter()
         with self._armed("serve_prefill"), annotate("serve_prefill"):
-            lrow = self._extend_one(False, padded, rows, slot, start, n_new)
-            if self.draft_model is not None:
-                # the draft has no prefix index: it prefills the whole
-                # prompt (cheap: that is what a draft is)
-                dpad, dn = self._pad_prompt(toks, self.prefill_bucket)
-                with annotate("serve_draft_prefill"):
-                    self._extend_one(True, dpad, self._draft_rows[slot][None],
-                                     slot, 0, dn)
+            lrow = self._run("admit", padded=padded,
+                             rows=self.pool.slot_rows(slot)[None], slot=slot,
+                             start=int(start), n_new=n_new, dpad=dpad,
+                             dn=int(toks.size))
             # the sampler's data dependency: one counted fence an admission
             out = obs_fences.read_arrays(lrow.float())[0][0]
         if self.prefix_reuse:
@@ -737,6 +945,18 @@ class InferenceEngine:
             self.first_token_ts = time.time()
             self.first_dispatch_s = time.perf_counter() - t0
         return out, grant.reused_tokens
+
+    def _do_admit(self, padded, rows, slot, start, n_new, dpad, dn):
+        """The admission programs: the target's extend (and the draft's
+        whole-prompt prefill); the last real token's logits row over the
+        whole vocabulary [1, vocab]."""
+        lrow = self._extend_one(False, padded, self._dev(rows, torch.int32),
+                                slot, start, n_new)
+        if dpad is not None:
+            with annotate("serve_draft_prefill"):
+                self._extend_one(True, dpad, self._draft_rows[slot][None],
+                                 slot, 0, dn)
+        return self._full_vocab(lrow)
 
     def release(self, slot: int) -> None:
         """Evict ``slot``: decrement every page refcount (shared pages
@@ -768,6 +988,9 @@ class InferenceEngine:
     def copy_page(self, src: int, dst: int) -> None:
         """Ring-layout copy-on-write: page ``src``'s rows into page
         ``dst``, in every layer's k and v pool (a row copy, bitwise)."""
+        self._run("copy_page", src=int(src), dst=int(dst))
+
+    def _do_copy_page(self, src, dst):
         pt = self.cache_spec.page_tokens
         for t in (self._cache["k"], self._cache["v"]):
             t[:, dst * pt:(dst + 1) * pt] = t[:, src * pt:(src + 1) * pt]
@@ -819,17 +1042,26 @@ class InferenceEngine:
             # the chaos stall point: inside the armed region, so a stalled
             # decode fires the serve watchdog
             _chaos.maybe_stall(self.decode_dispatches)
-            logits, _ = self._decode_step(
-                self._dev(tokens, torch.int64), self._dev(active, torch.bool),
-                self._rows())
+            logits = self._run("decode", tokens=np.asarray(tokens),
+                               active=active, rows=self._rows_changed())
             self._host_pos += active
             # one counted fence per decode iteration (the sampler's input)
             return obs_fences.read_arrays(logits.float())[0]
 
+    def _do_decode(self, tokens, active, rows):
+        """One decode step; its logits over the whole vocabulary."""
+        logits, _ = self._decode_step(
+            self._dev(tokens, torch.int64), self._dev(active, torch.bool),
+            self._rows_from(rows))
+        return self._full_vocab(logits)
+
     def _greedy(self, logits):
-        """The device argmax over the fp32 view: the first max, as the host
-        sampler's ``np.argmax`` of the fp32 logits row."""
-        return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        """The device argmax over the fp32 view of the whole vocabulary:
+        the first max, as the host sampler's ``np.argmax`` of the fp32
+        logits row; at mp > 1 every rank gathers the vocab-sharded logits
+        first, so every rank takes the same tokens."""
+        return torch.argmax(self._full_vocab(logits).float(),
+                            dim=-1).to(torch.int32)
 
     def decode_many(self, tokens, active, eos_ids, remaining):
         """D fused decode iterations (``inference.decode_iters_per_
@@ -852,15 +1084,20 @@ class InferenceEngine:
         with self._armed("serve_decode_many", scale=float(d)), \
                 annotate("serve_decode_many"):
             _chaos.maybe_stall(self.decode_dispatches)
-            toks, emitted = self._decode_block(
-                d, self._rows(), self._dev(tokens, torch.int32),
-                self._dev(active_np, torch.bool),
-                self._dev(eos_ids, torch.int32),
-                self._dev(remaining, torch.int32))
+            toks, emitted = self._run(
+                "decode_many", rows=self._rows_changed(),
+                tokens=np.asarray(tokens), active=active_np,
+                eos_ids=np.asarray(eos_ids), remaining=np.asarray(remaining))
             # the sampler's fence, amortized: one read per D-block
             toks, emitted = obs_fences.read_arrays(toks, emitted)
         self._host_pos += emitted.sum(axis=0)
         return toks, emitted.astype(bool)
+
+    def _do_decode_many(self, rows, tokens, active, eos_ids, remaining):
+        return self._decode_block(
+            self.decode_iters_per_dispatch, self._rows_from(rows),
+            self._dev(tokens, torch.int32), self._dev(active, torch.bool),
+            self._dev(eos_ids, torch.int32), self._dev(remaining, torch.int32))
 
     def _decode_block(self, d: int, rows, tokens, active, eos_ids,
                       remaining):
@@ -907,14 +1144,19 @@ class InferenceEngine:
         with self._armed("serve_spec_step", scale=float(j + 1)), \
                 annotate("serve_spec_step"):
             _chaos.maybe_stall(self.decode_dispatches)
-            toks, emitted = self._spec_block(
-                self._rows(), self._dev(tokens, torch.int32),
-                self._dev(active_np, torch.bool),
-                self._dev(eos_ids, torch.int32),
-                self._dev(remaining, torch.int32))
+            toks, emitted = self._run(
+                "spec", rows=self._rows_changed(), tokens=np.asarray(tokens),
+                active=active_np, eos_ids=np.asarray(eos_ids),
+                remaining=np.asarray(remaining))
             toks, emitted = obs_fences.read_arrays(toks, emitted)
         self._host_pos += emitted.sum(axis=0)
         return toks, emitted.astype(bool)
+
+    def _do_spec(self, rows, tokens, active, eos_ids, remaining):
+        return self._spec_block(
+            self._rows_from(rows), self._dev(tokens, torch.int32),
+            self._dev(active, torch.bool), self._dev(eos_ids, torch.int32),
+            self._dev(remaining, torch.int32))
 
     def _spec_block(self, rows, tokens, active, eos_ids, remaining):
         """One speculative iteration on device tensors: ``(tokens [J+1,
@@ -976,7 +1218,9 @@ class InferenceEngine:
         """The serve cold-start record, the training startup event's
         schema: ``time_to_first_step_s`` is build -> first token,
         ``first_dispatch_s`` the first prefill dispatch, with the restore
-        latency and the compile-cache counters."""
+        latency and the compile-cache counters; beside them the model
+        parallel degree and whether the programs are CUDA graphs (and
+        why not)."""
         from deepspeed_tpu_torch.observability import health, schema
         from deepspeed_tpu_torch.resilience import COUNTERS
         return {
@@ -997,6 +1241,11 @@ class InferenceEngine:
                                 else None),
             "compile_cache_hits": COUNTERS.compile_cache_hits,
             "compile_cache_misses": COUNTERS.compile_cache_misses,
+            # the port's own facts beside the schema's (the serve JSONL
+            # keeps the schema's fields only)
+            "model_parallel": self.mp_world_size,
+            "graphs": self.graphs,
+            "graphs_off_because": self.graphs_off_because,
         }
 
     # --------------------------------------------------------- convenience

@@ -193,6 +193,7 @@ class ServeObservability:
         out = {
             "healthy": self.healthy(),
             "model_parallel": self.engine.mp_world_size,
+            "graphs": self.engine.graphs,
             "slots": self.engine.num_slots,
             "slots_in_use": (sched.active if sched is not None else 0),
             "queue_depth": (sched.pending if sched is not None else 0),

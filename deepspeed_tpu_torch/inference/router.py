@@ -991,10 +991,12 @@ class FleetRouter:
                 rep.telemetry.flush(rep.sched)
         with self._lock:
             results = list(self.results)
-        # one device per replica (mp 1), as the JAX fleet counts its
+        # each replica's model group, as the JAX fleet counts its
         # replicas' mesh devices
-        summary = latency_summary(results, elapsed,
-                                  n_chips=len(self.all_replicas))
+        summary = latency_summary(
+            results, elapsed,
+            n_chips=sum(rep.engine.mp_world_size
+                        for rep in self.all_replicas))
         summary.update({
             "n_replicas": len(self.all_replicas),
             "prefill_replicas": len(self.prefill_pool),

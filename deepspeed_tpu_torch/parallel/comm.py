@@ -580,6 +580,14 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+@torch.no_grad()
+def model_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The model ranks' ``x`` joined along ``dim`` in rank order (the JAX
+    ``out_specs`` of a model-sharded dim, assembled), without a gradient;
+    ``x`` itself without a group."""
+    return _gather_along(x, dim, group)
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` entering a model-sharded branch (a column-parallel input, the
     tied LM head); ``x`` itself without a group."""
@@ -690,6 +698,10 @@ def seq_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` joined along ``dim`` in rank order (the JAX
     ``all_gather(..., tiled=True)``), without a gradient; ``x`` itself
     without a group."""
+    return _gather_along(x, dim, group)
+
+
+def _gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group is None:
         return x
     size = dist.get_world_size(group)

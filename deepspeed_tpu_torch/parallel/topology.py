@@ -26,6 +26,12 @@ state, as in the JAX mesh: ZeRO partitions over the data group only.
   from the config or a ``MeshConfig``, the rank and world size from the
   started group (1 without one), and builds every model, seq, pipe and
   data group.
+* ``make_serving_topology`` is a serving replica's layout at
+  ``model_parallel_size`` mp > 1: one process per model rank, the model
+  group of ``make_topology`` at dp 1, and a gloo control group on CPU
+  tensors, over which model rank 0 (the leader) sends its commands to
+  the others (``inference/engine.py``), whatever backend the model group
+  runs.
 * ``Topology.with_subgroups`` builds the ZeRO ``parameter_parallel_size``
   sub-groups of ``comm.subgroup_index_groups`` inside each (stage, seq
   rank, model rank)'s data group: ``within`` (consecutive blocks of ranks
@@ -386,3 +392,48 @@ def make_topology(config: Optional[dict] = None, device=None,
                     for s in range(pp) for q in range(sp)
                     for m in range(mp)), dp)
     return dataclasses.replace(topo, within=mine["group"], **mine)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingTopology:
+    """A serving replica's ranks: ``topology`` (dp 1; its model group is
+    the replica's) and ``control_group`` (gloo, CPU tensors: the commands
+    of the leader, model rank 0)."""
+    topology: Topology
+    control_group: object
+
+    @property
+    def model_group(self):
+        return self.topology.model_group
+
+    @property
+    def mp_rank(self) -> int:
+        return self.topology.mp_rank
+
+
+def make_serving_topology(mp: int, device=None) -> ServingTopology:
+    """The layout of one serving replica at ``model_parallel_size`` ``mp``
+    > 1: the process group (started here from the environment as
+    ``init_distributed`` does, unless one runs) must hold exactly ``mp``
+    ranks, one per model rank.  Data parallelism in serving is replicas
+    behind the router, not a mesh axis: several replicas in one process
+    group are refused (ROADMAP.md Queue 1 item 13b (e)).  Every rank
+    creates the control group, in one order."""
+    device = resolve_device(device)
+    init_distributed(device=device)
+    if not dist.is_initialized():
+        raise ValueError(
+            f"{C.MODEL_PARALLEL_SIZE}={mp} serves as {mp} processes, one "
+            f"per model rank, in a started process group; none was "
+            f"started (launch {mp} ranks, e.g. under "
+            f"deepspeed_tpu_torch.launcher)")
+    world = dist.get_world_size()
+    if world != mp:
+        raise NotImplementedError(
+            f"a process group of {world} ranks at {C.MODEL_PARALLEL_SIZE}="
+            f"{mp}: one serving replica takes exactly {mp} ranks; several "
+            f"replicas in one process group are not ported to "
+            f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 13b (e))")
+    topo = make_topology({C.MODEL_PARALLEL_SIZE: mp}, device)
+    control = dist.new_group(list(range(world)), backend="gloo")
+    return ServingTopology(topology=topo, control_group=control)

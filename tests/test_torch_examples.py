@@ -16,13 +16,17 @@ same JAX-init weights (the port drivers take them as
 * ``serve_gpt2``'s greedy tokens, one replica and ``--fleet 2
   --prefill-replicas 1``, equal the JAX driver's on the JAX driver's
   ``--prepare`` checkpoint (and each fleet equals its single replica);
+* ``serve_gpt2`` at model_parallel_size 2, two CPU ranks under the
+  port's launcher, prints the JAX driver's tokens at mp 2 on the same
+  lint-free copy of ``ds_config_serve.json``;
 * the shipped serving configs, unchanged, stop the port's driver with the
-  refusal that names ROADMAP.md Queue 1 item 13b (c) or 14.
+  refusal that names ROADMAP.md Queue 1 item 14 (their graph lint).
 
 The configs are copies of the shipped ones with fp16 / bf16 off (the
 comparison is in fp32), and for the serving configs with
-``model_parallel_size``, ``graph_lint`` and ``analysis`` removed (the
-port refuses them).  The drivers' multi-rank runs (pp 2, ep 2) are left to
+``graph_lint`` and ``analysis`` removed (the port refuses them) and
+``model_parallel_size`` too, but for the mp 2 test.  The drivers'
+multi-rank training runs (pp 2, ep 2) are left to
 ``tests/test_torch_pipeline.py`` and ``tests/test_torch_moe.py``, which
 hold the same models at those meshes over gloo.
 """
@@ -267,8 +271,8 @@ def test_serve_gpt2_prepares_a_checkpoint_the_jax_driver_serves(
 
 
 @pytest.mark.parametrize("config,item", [
-    ("ds_config_serve.json", "item 13b \\(c\\)"),
-    ("ds_config_serve_spec.json", "item 13b \\(c\\)"),
+    ("ds_config_serve.json", "item 14"),
+    ("ds_config_serve_spec.json", "item 14"),
     ("ds_config_fleet_serve.json", "item 14"),
 ])
 def test_shipped_serving_configs_are_refused_by_name(jax_served, config,
@@ -278,3 +282,48 @@ def test_shipped_serving_configs_are_refused_by_name(jax_served, config,
         serve_gpt2.main(["--ckpt", ck, "--requests", "2", "--device", "cpu",
                          "--deepspeed_config",
                          os.path.join(EXAMPLES, "gpt2", config)])
+
+
+def test_serve_gpt2_at_mp2_on_two_ranks(jax_served, tmp_path, monkeypatch,
+                                        capsys):
+    """``serve_gpt2`` at model_parallel_size 2: two CPU ranks under the
+    port's launcher, on a lint-free fp32 copy of ``ds_config_serve.json``
+    that keeps its ``model_parallel_size`` 2.  Model rank 0 alone prints,
+    and its tokens are the JAX driver's on the same copy (at mp 2, over
+    two of the rig's devices)."""
+    import socket
+    import subprocess
+    ck = jax_served[0]
+    cfg = _fp32_copy(tmp_path, "gpt2/ds_config_serve.json", "mp2.json",
+                     model_parallel_size=2)
+    monkeypatch.syspath_prepend(os.path.join(EXAMPLES, "gpt2"))
+    jmod = _load("gpt2/serve_gpt2.py", "jax_serve_gpt2")
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", [jmod.__file__, "--ckpt", ck,
+                                      "--deepspeed_config", cfg,
+                                      "--requests", "4"])
+    with monkeypatch.context() as mp:
+        devices = jax.devices
+        mp.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:2])
+        assert not jmod.main()
+    want = _served(capsys.readouterr().out)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.run",
+         "--hostfile", str(tmp_path / "missing"), "--num_gpus", "2",
+         "--master_port", str(port),
+         os.path.join(ROOT, "deepspeed_tpu_torch", "examples",
+                      "serve_gpt2.py"),
+         "--ckpt", ck, "--deepspeed_config", cfg, "--requests", "4",
+         "--device", "cpu"],
+        capture_output=True, text=True, timeout=240, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+                 OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("serving tag") == 1
+    summary = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith("{")][-1])
+    assert summary["mp"] == 2
+    assert len(want) == 4 and _served(proc.stdout) == want

@@ -20,9 +20,10 @@ passed to both engines as numpy.  The weights are drawn with ``init_std``
 * cold starts from a JAX ZeRO-1 training checkpoint and from a port
   checkpoint, each served by both packages with identical tokens, and the
   ZeRO partition files never opened;
-* the refusals: mp 2, ``plan_capacity`` and graph lint; the fleet's
-  handoff pieces (``export_kv``, ``import_kv``, ``KVHandoff``, the router)
-  now work.
+* the refusals: ``plan_capacity`` and graph lint; the fleet's handoff
+  pieces (``export_kv``, ``import_kv``, ``KVHandoff``, the router) and
+  serving at mp 2 (two gloo CPU ranks; ``tests/test_torch_tp_serving.py``
+  holds it mode by mode) now work.
 """
 
 import os
@@ -51,6 +52,7 @@ from deepspeed_tpu_torch.inference import (ContinuousScheduler,
                                            synthetic_requests)
 from deepspeed_tpu_torch.models import GPT2
 from deepspeed_tpu_torch.models import layers as L
+from torch_ranks import run_ranks
 
 TINY = dict(vocab_size=128, max_seq_len=64, num_layers=2, hidden_size=64,
             num_heads=4, init_std=0.2)
@@ -533,12 +535,31 @@ def test_cold_start_from_either_package(tmp_path, params, monkeypatch):
     ("run_graph_lint", "item 14"), ("plan_dispatch", "item 14"),
     ("run_stability", "item 14"), ("predict_executables", "item 14"),
     ("handoff", "item 13b"), ("router", "item 13b")])
-def test_refusals_name_their_item(params, pair, what, item):
+def test_refusals_name_their_item(params, pair, what, item, tmp_path):
     """What is still refused names its ROADMAP item.  The fleet's pieces
     (item 13b (a), (b): ``export_kv``, ``import_kv``, ``KVHandoff``, the
-    router) are ported: those ids check that they now work."""
+    router) and serving at mp 2 (item 13b (c)) are ported: those ids
+    check that they now work (mp 2: one process without a group says it
+    needs two; two gloo CPU ranks serve the mp-1 engine's logits)."""
     cfg = serve_config()
     from deepspeed_tpu_torch import inference
+    if what == "mp2":
+        with pytest.raises(ValueError, match="2 processes"):
+            InferenceEngine(ttiny(), config={**cfg, "model_parallel_size": 2},
+                            device="cpu")
+        prompts = [[1, 2, 3, 4, 5], [7, 8, 9]]
+        out = run_ranks(tmp_path, 2, {
+            "scenario": "tp_serve", "model_kw": TINY,
+            "serve": cfg["inference"], "prompts": prompts,
+            "modes": ["prefill"]}, {
+                f"w/{k}": v for k, v in weights.flatten_tree(params).items()},
+            timeout=120)[0]
+        for i, p in enumerate(prompts):
+            pair[1].reset()
+            np.testing.assert_allclose(out[f"prefill/{i}"],
+                                       pair[1].prefill(0, p), atol=1e-5)
+        pair[1].reset()
+        return
     if what in ("export_kv", "import_kv", "handoff", "router"):
         dis = InferenceEngine(ttiny(), config=serve_config(
             fleet={"disaggregate": True}), params=params, device="cpu")
@@ -560,9 +581,6 @@ def test_refusals_name_their_item(params, pair, what, item):
             assert h.n_tokens == 3 and h.path is None
         return
     calls = {
-        "mp2": lambda: InferenceEngine(
-            ttiny(), config={**cfg, "model_parallel_size": 2},
-            device="cpu"),
         "graph_lint": lambda: InferenceEngine(
             ttiny(), config={**cfg, "graph_lint": "error"}, device="cpu"),
         "analysis": lambda: InferenceEngine(

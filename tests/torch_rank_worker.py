@@ -752,6 +752,191 @@ def run_fleet(spec, inputs, rank, world):
                 engine.telemetry.last_window_event["host_ms"])}
 
 
+def _greedy_decode(eng, slot, first, steps):
+    """``steps`` greedy decode steps of ``slot`` alone from ``first``."""
+    toks, cur = [], int(first)
+    for _ in range(steps):
+        feed = np.zeros(eng.num_slots, np.int32)
+        act = np.zeros(eng.num_slots, bool)
+        feed[slot], act[slot] = cur, True
+        cur = int(np.argmax(eng.decode(feed, act)[slot]))
+        toks.append(cur)
+    return toks
+
+
+def run_tp_serve(spec, inputs, rank, world):
+    """One serving replica at mp = ``world``, one process per model rank
+    (tiny GPT-2 ``model_kw`` from the inputs' ``w/`` weights, the
+    ``serve`` inference section): for each of ``modes``, one engine is
+    built on every rank and ``engine.lead(...)`` runs the mode on the
+    leader while the followers serve its commands.  The leader's outputs
+    (``<mode>/...``; token maps as JSON): ``base`` (fleet.disaggregate):
+    ``prefill/<i>`` of ``prompts``, the decode oracle's largest error
+    against a re-forward and its argmax agreement, ``run_serve``'s tokens
+    and summary, static batching's tokens, the startup event and the
+    health snapshot, ``fleet`` / ``fleet_summary`` (``run_fleet`` with
+    this engine as its one replica), ``export_k`` / ``export_v`` of
+    ``prompts[0]``; an
+    mp-1 engine on the leader alone (``mp1/prefill/<i>``,
+    ``mp1/continuous``) and the handoffs both ways (``handoff/22``: the
+    mp-``world`` engine's own prefill, ``/12``: an mp-1 export imported
+    here, ``/21``: this export imported at mp 1, each decoded
+    ``handoff_steps``); ``fused`` (D 4), ``spec`` (prefix reuse and a
+    1-layer draft, J 2: ``continuous``, ``prefix`` and its hits),
+    ``int8`` (``prefill/<i>``, ``continuous``, ``weight_bytes``; every
+    rank writes ``int8/s/<leaf>``, its scales), ``prefill`` (the
+    engine's ``prefill/<i>`` alone), ``raise`` (the leader
+    raises inside ``lead``: ``raise/error`` on the leader,
+    ``raise/follower_returned`` on the followers)."""
+    from deepspeed_tpu_torch.inference import (ContinuousScheduler,
+                                               InferenceEngine, Request,
+                                               StaticScheduler, run_serve,
+                                               synthetic_requests)
+    from deepspeed_tpu_torch.inference.router import run_fleet as serve_fleet
+    from deepspeed_tpu_torch.inference.observability import \
+        ServeObservability
+    params = weights.unflatten_tree(
+        {k[2:]: inputs[k] for k in inputs.files if k.startswith("w/")})
+    dparams = {**params, "blocks": {k: v[:1] for k, v in
+                                    params["blocks"].items()}}
+    kw = spec["model_kw"]
+
+    def model(**over):
+        return GPT2.from_size("tiny", device="meta", **{**kw, **over})
+
+    def cfg(mp, **inf):
+        return {"train_micro_batch_size_per_gpu": 1,
+                "model_parallel_size": mp,
+                "inference": {**spec["serve"], **inf}}
+
+    def reqs():
+        return synthetic_requests(**spec["trace"])
+
+    def preqs():
+        return [Request(rid=i, prompt=list(p), max_new_tokens=n)
+                for i, (p, n) in enumerate(spec["prefix_trace"])]
+
+    def tokens(results):
+        return np.asarray(json.dumps(
+            {str(r.rid): [int(t) for t in r.tokens] for r in results}))
+
+    prompts = spec["prompts"]
+    out = {}
+
+    def base(eng):
+        mp1 = InferenceEngine(model(), config=cfg(
+            1, fleet={"disaggregate": True}), params=params, device="cpu")
+        for i, p in enumerate(prompts):
+            for name, e in (("base", eng), ("mp1", mp1)):
+                e.reset()
+                out[f"{name}/prefill/{i}"] = e.prefill(0, p)
+        eng.reset()
+        logits = eng.prefill(0, prompts[0])
+        seq, cur, errs, agree = list(prompts[0]), int(np.argmax(logits)), \
+            [], True
+        for _ in range(spec["oracle_steps"]):
+            seq.append(cur)
+            ref = eng.prefill(1, seq)
+            feed = np.zeros(eng.num_slots, np.int32)
+            act = np.zeros(eng.num_slots, bool)
+            feed[0], act[0] = cur, True
+            dec = eng.decode(feed, act)[0]
+            errs.append(float(np.max(np.abs(dec - ref))))
+            agree &= int(np.argmax(dec)) == int(np.argmax(ref))
+            cur = int(np.argmax(dec))
+        out["base/oracle_err"] = np.asarray(max(errs))
+        out["base/oracle_argmax_equal"] = np.asarray(agree)
+        eng.reset()
+        served = run_serve(eng, reqs())
+        out["base/continuous"] = tokens(served["results"])
+        out["base/summary"] = np.asarray(json.dumps(served["summary"]))
+        eng.reset()
+        out["base/static"] = tokens(StaticScheduler(eng).run(reqs()))
+        out["base/startup"] = np.asarray(json.dumps(eng.startup_event()))
+        out["base/health"] = np.asarray(json.dumps(
+            ServeObservability(eng).health_snapshot(), default=str))
+        eng.reset()
+        fleet = serve_fleet([eng], reqs())
+        out["base/fleet"] = tokens(fleet["results"])
+        out["base/fleet_summary"] = np.asarray(json.dumps(fleet["summary"]))
+        mp1.reset()
+        out["mp1/continuous"] = tokens(
+            ContinuousScheduler(mp1).run(reqs()))
+        # the KV handoff both ways between the mp-1 and this engine
+        p, steps = prompts[0], spec["handoff_steps"]
+        eng.reset()
+        first = int(np.argmax(eng.admit(0, p, steps + 1)[0]))
+        k2, v2, _ = eng.export_kv(0)
+        out["base/export_k"], out["base/export_v"] = k2.numpy(), v2.numpy()
+        out["handoff/22"] = np.asarray(_greedy_decode(eng, 0, first, steps))
+        mp1.reset()
+        mp1.admit(0, p, steps + 1)
+        k1, v1, _ = mp1.export_kv(0)
+        eng.reset()
+        eng.import_kv(0, p, k1, v1, steps + 1)
+        out["handoff/12"] = np.asarray(_greedy_decode(eng, 0, first, steps))
+        mp1.reset()
+        mp1.import_kv(0, p, k2, v2, steps + 1)
+        out["handoff/21"] = np.asarray(_greedy_decode(mp1, 0, first, steps))
+
+    def fused(eng):
+        out["fused/continuous"] = tokens(ContinuousScheduler(eng).run(reqs()))
+        out["fused/dispatches"] = np.asarray(eng.decode_dispatches)
+
+    def spec_prefix(eng):
+        out["spec/continuous"] = tokens(ContinuousScheduler(eng).run(reqs()))
+        eng.reset()
+        sched = ContinuousScheduler(eng)
+        out["spec/prefix"] = tokens(sched.run(preqs()))
+        out["spec/prefix_hits"] = np.asarray(sched.prefix_hits)
+        out["spec/prefix_reused"] = np.asarray(sched.prefix_tokens_reused)
+
+    def int8(eng):
+        for i, p in enumerate(prompts):
+            eng.reset()
+            out[f"int8/prefill/{i}"] = eng.prefill(0, p)
+        eng.reset()
+        out["int8/continuous"] = tokens(ContinuousScheduler(eng).run(reqs()))
+
+    def prefill(eng):
+        for i, p in enumerate(prompts):
+            eng.reset()
+            out[f"prefill/{i}"] = eng.prefill(0, p)
+
+    def fail(eng):
+        eng.prefill(0, prompts[0])
+        raise RuntimeError("the leader failed")
+
+    builds = {
+        "base": (dict(fleet={"disaggregate": True}), {}, base),
+        "fused": (dict(decode_iters_per_dispatch=4), {}, fused),
+        "spec": (dict(prefix_reuse=True, speculative={"draft_tokens": 2}),
+                 dict(draft_model=model(num_layers=1),
+                      draft_params=dparams), spec_prefix),
+        "int8": (dict(quantize="int8"), {}, int8),
+        "prefill": ({}, {}, prefill),
+        "raise": ({}, {}, fail),
+    }
+    for mode in spec["modes"]:
+        inf, extra, fn = builds[mode]
+        eng = InferenceEngine(model(), config=cfg(world, **inf),
+                              params=params, device="cpu", **extra)
+        if mode == "int8":
+            out["int8/weight_bytes"] = np.asarray(eng.weight_bytes)
+            for name, t in weights.flatten_tree(eng.params).items():
+                if name.endswith(".s"):
+                    out[f"int8/s/{name[:-2]}"] = t.numpy()
+        if mode == "raise":
+            try:
+                eng.lead(fn)
+                out["raise/follower_returned"] = np.asarray(rank > 0)
+            except RuntimeError as e:
+                out["raise/error"] = np.asarray(str(e))
+            continue
+        eng.lead(fn)
+    return out
+
+
 def main():
     spec_path, rank = pathlib.Path(sys.argv[1]), int(sys.argv[2])
     spec = json.loads(spec_path.read_text())
@@ -761,7 +946,7 @@ def main():
     run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
            "tp_layers": run_tp_layers, "seq_attn": run_seq_attn,
            "pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads,
-           "fleet": run_fleet}[
+           "fleet": run_fleet, "tp_serve": run_tp_serve}[
         spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
