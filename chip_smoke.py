@@ -313,8 +313,30 @@ Phases (each prints one JSON line, with the seconds since the start as
    both hold the same slots.  No training kernel launches on either rank.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
    moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2,
-   tp_serve_gpt2; the last two run serve_gpt2 first) runs the build and
-   the named phases alone, with no result line.
+   tp_serve_gpt2, analysis_gpt2; the serving two run serve_gpt2 first)
+   runs the build and the named phases alone, with no result line.
+   analysis_gpt2 (the graph lint and the planners, ``analysis/``): on
+   train_gpt2's engine after its profile, (a) the lint of the fused step
+   in error mode, zero errors, and its planned peak within 10% of
+   ``max_memory_allocated`` over one ``train_batch`` (less the bytes
+   earlier phases left allocated before the engine was built), whole and
+   with the step's state taken off both sides; (c) the predicted kernel
+   libraries against the ``compile_cache_misses`` of one step on a cold
+   build directory; (d) the ``FenceModel`` against the fence counter over
+   4 steps of an fp16 engine at GPT-2 medium's widths (2 layers) that
+   reports every 2 steps: a count that is not 0; (e) the h100 profile's
+   constants (a launch, a fence, a drain's host side, pinned
+   host-to-device staging, a new stream's cuBLAS workspaces, the memory
+   the process holds outside the allocator).  After the serving phases,
+   (b) serve_gpt2's config with seeded weights, built with ``graph_lint``
+   and ``analysis`` in error mode: zero lint errors, the predicted CUDA
+   graphs equal to ``len(engine._graphs)`` after a served trace, the
+   planned peaks within 10% of an eager served trace's and of the
+   captured programs' served trace (the plan adds the graphs' static
+   buffers and the capture stream's workspaces), each whole and with the
+   weights and pools taken off both sides.  In tp_serve_gpt2, (f) the
+   lint's command over both ranks: zero errors, every collective
+   signature the same on both.
 22. attn_sweep: kernel fwd+bwd against the einsum path's (16 heads, d 64,
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
@@ -5601,6 +5623,12 @@ def tp_serve_child(spec_path, rank):
         eng.reset()
 
     def serve_bf16(eng):
+        # analysis_gpt2 (f): the lint's command traces every rank's
+        # programs; their collectives are exchanged and compared
+        t0 = time.perf_counter()
+        rep = eng.run_graph_lint()
+        out["lint"] = {"errors": [f.format() for f in rep.errors],
+                       "seconds": time.perf_counter() - t0}
         warm(eng)
         reset_launch_counts()
         res = run_serve(eng, _clone(reqs))
@@ -5627,6 +5655,11 @@ def tp_serve_child(spec_path, rank):
         eng.reset()
 
     eng.lead(serve_bf16)
+    from deepspeed_tpu_torch.analysis import passes
+    sigs = [passes.collective_signature(o)
+            for t in eng._serve_traces.values() for o in t.collectives()]
+    out["lint_collectives"] = len(sigs)
+    out["lint_sigs"] = hashlib.sha256(repr(sigs).encode()).hexdigest()
     out["peak_gib"] = _peak_gib(device)
     out["launches_follower"] = launch_counts()
     del eng
@@ -5763,6 +5796,16 @@ def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
     launches["follower_int8"] = follow["int8_launches_follower"]
     checks["no_training_kernel"] = not any(
         n for counts in launches.values() for n in counts.values())
+    # analysis_gpt2 (f): zero lint errors, every collective signature the
+    # same on both ranks
+    checks["f_lint_clean"] = not lead["lint"]["errors"]
+    checks["f_signatures_agree"] = (
+        lead["lint_collectives"] > 0
+        and len({r["lint_sigs"] for r in ranks}) == 1)
+    emit("analysis_gpt2_f_tp_lint", ranks=TP_SERVE,
+         collectives=[r["lint_collectives"] for r in ranks],
+         errors=lead["lint"]["errors"][:4], seconds=lead["lint"]["seconds"],
+         agree=checks["f_signatures_agree"])
     emit("tp_serve_gpt2", model=f"gpt2-{shapes['size']}", mp=TP_SERVE,
          backend=lead["backend"], transport="gloo over the host (not "
          "NVLink)", layers=meta.config.num_layers,
@@ -5799,6 +5842,352 @@ def serve_pair(device, shapes=SERVE, fleet=True, tp=True):
         if "work" in keep:
             shutil.rmtree(keep["work"], ignore_errors=True)
     return tuple(out)
+
+
+# analysis_gpt2: the planned peaks are held to max_memory_allocated within
+# this share (the JAX package's contract with compiled.memory_analysis())
+ANALYSIS_PEAK_TOL = 0.10
+# (d): the FenceModel on a configuration that fences: GPT-2 medium's widths
+# at EARLY_LAYERS layers in fp16 (the loss scaler's overflow read each
+# boundary) with a throughput report every 2 steps
+ANALYSIS_FENCE_STEPS = 4
+ANALYSIS_FENCE_PRINT = 2
+
+
+def _calibrate_host(device, calls=2000):
+    """The h100 profile's host constants on this card: a launch (a tiny
+    in-place add, host time per call), a fence (synchronize + a scalar
+    read on an idle card) and host -> device staging of 256 MiB from pinned
+    memory."""
+    import torch
+    x = torch.zeros(16, device=device)
+    sync(device)
+    for _ in range(100):
+        x.add_(1)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        x.add_(1)
+    launch_us = (time.perf_counter() - t0) / calls * 1e6
+    sync(device)
+    reads = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(device)
+        float(x[0])
+        reads.append(time.perf_counter() - t0)
+    reads.sort()
+    fence_us = reads[len(reads) // 2] * 1e6
+    # the spool's drain on the host: a pinned buffer, the async copy of
+    # the ring behind the work, an event (observability/spool.py)
+    ring = torch.zeros((64, 16), device=device)
+    drains = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        buf = torch.empty(ring.shape, dtype=ring.dtype, pin_memory=True)
+        buf.copy_(ring, non_blocking=True)
+        torch.cuda.Event().record(torch.cuda.current_stream(device))
+        drains.append(time.perf_counter() - t0)
+    sync(device)
+    drains.sort()
+    callback_us = drains[len(drains) // 2] * 1e6
+    host = torch.empty(256 << 20, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    dev.copy_(host, non_blocking=True)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dev.copy_(host, non_blocking=True)
+    sync(device)
+    h2d = 5 * (256 << 20) / (time.perf_counter() - t0) / 2 ** 30
+    del host, dev
+    # a stream's first products (a biased bf16 linear, a bf16 bmm with an
+    # fp32 result, as the serving programs run) keep its workspaces: a
+    # high-priority stream, which nothing else of the port uses
+    from deepspeed_tpu_torch import precision
+    x = torch.randn(64, 1024, device=device, dtype=torch.bfloat16)
+    w = torch.randn(1024, 1024, device=device, dtype=torch.bfloat16)
+    b = torch.randn(1024, device=device, dtype=torch.bfloat16)
+    sync(device)
+    a0 = torch.cuda.memory_allocated(device)
+    side = torch.cuda.Stream(device, priority=-1)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        y = torch.nn.functional.linear(x, w, b)
+        z = precision.f32_bmm(x.view(1, 64, 1024), w.view(1, 1024, 1024))
+        del y, z
+    sync(device)
+    workspace = torch.cuda.memory_allocated(device) - a0
+    free_b, total_b = torch.cuda.mem_get_info(device)
+    reserve = total_b - free_b - torch.cuda.memory_reserved(device)
+    # the host cost of a kernel wrapper as an operator (dstpu::block_fwd)
+    # against its undecorated body, back to back on a tiny shape
+    from deepspeed_tpu_torch.ops import block_attention as battn
+    q = torch.randn(1, 64, 16, 64, device=device, dtype=torch.bfloat16)
+    mask = torch.ones(1, 64, device=device)
+    per_call = {}
+    for name, fn in (("operator", battn.block_fwd),
+                     ("body", battn.block_fwd._init_fn)):
+        for _ in range(50):
+            fn(q, q, q, mask, False)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(q, q, q, mask, False)
+        sync(device)
+        per_call[name] = (time.perf_counter() - t0) / calls * 1e6
+    return {"dispatch_us": launch_us, "fence_us": fence_us,
+            "callback_us": callback_us, "h2d_gibps": h2d,
+            "stream_workspace_bytes": workspace,
+            "total_memory_bytes": total_b, "reserve_bytes": reserve,
+            "reserve_gib": reserve / 2 ** 30,
+            "block_fwd_operator_us": per_call["operator"],
+            "block_fwd_body_us": per_call["body"]}
+
+
+def _cold_libraries(engine, batch, device):
+    """One train_batch with every kernel library unloaded and the build
+    directory a fresh one: the compile_cache_misses it counts."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import block_attention, cuda_optim
+    from deepspeed_tpu_torch.ops import stream_attention
+    from deepspeed_tpu_torch.resilience import COUNTERS
+    from deepspeed_tpu_torch.utils import compile_cache
+    mods = (cuda_optim, stream_attention, block_attention)
+    saved = [m._lib for m in mods]
+    prev = os.environ.get(compile_cache.ENV_DIR)
+    cold = tempfile.mkdtemp(prefix="cold_kernels_", dir=ROOT / "build")
+    try:
+        for m in mods:
+            m._lib = None
+        os.environ[compile_cache.ENV_DIR] = cold
+        m0 = COUNTERS.compile_cache_misses
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        sync(device)
+        return (COUNTERS.compile_cache_misses - m0,
+                time.perf_counter() - t0)
+    finally:
+        for m, lib in zip(mods, saved):
+            m._lib = lib
+        if prev is None:
+            os.environ.pop(compile_cache.ENV_DIR, None)
+        else:
+            os.environ[compile_cache.ENV_DIR] = prev
+        shutil.rmtree(cold, ignore_errors=True)
+
+
+def _allocated(device):
+    """Bytes the process holds on the card now: what an earlier phase left
+    alive counts in max_memory_allocated but is no plan's."""
+    import torch
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" \
+        else 0
+
+
+def phase_analysis_gpt2_train(device, engine=None, batch=None,
+                              baseline=0):
+    """analysis_gpt2's training half on train_gpt2's engine and batch (GPT-2
+    medium, seq 128, micro-batch 32, gas 2): (a) the lint of the fused step
+    in error mode and its planned peak against max_memory_allocated over
+    one train_batch, (c) the predicted kernel libraries against the
+    compile_cache_misses of a cold build directory, (d) the FenceModel
+    against the fence counter, (e) the h100 host constants.  ``baseline``:
+    the bytes allocated before the engine was built (earlier phases'),
+    taken off the measured peak."""
+    import torch
+
+    from deepspeed_tpu_torch import analysis
+    from deepspeed_tpu_torch.analysis import stability
+    from deepspeed_tpu_torch.observability import fences
+    t_phase = time.perf_counter()
+    if engine is None:
+        free(device)
+        baseline = _allocated(device)
+        engine = make_engine(gpt2_config(MICRO), device, size="medium",
+                             gpt2=True)
+        batch = lm_batch(MICRO * GAS, GPT2_SEQ,
+                         engine.module.config.vocab_size)
+    dev_batch = tuple(engine._to_device(torch.as_tensor(x)) for x in batch)
+    checks = {}
+    # ---- (a) lint and plan of the fused step, then one real step
+    t0 = time.perf_counter()
+    rep = engine._lint(dev_batch, ("train_batch",))
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = engine.plan_capacity(dev_batch, profile="h100")
+    plan_s = time.perf_counter() - t0
+    tr = engine._analysis_traces["train_batch"]
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        engine.train_batch(batch)
+        sync(device)
+        measured = torch.cuda.max_memory_allocated(device) - baseline
+    else:
+        # the CPU rehearsal: the same trace over a real step's live bytes
+        measured = analysis.trace_engine(
+            engine, dev_batch, fake=False)["train_batch"].total_peak
+    ratio = plan.peak_bytes / measured
+    # the transient part alone: the step's state (its arguments) taken off
+    # both sides
+    state = plan.programs[0].argument_bytes
+    transient_ratio = (plan.peak_bytes - state) / (measured - state)
+    checks["a_lint_clean"] = not rep.errors
+    checks["a_peak"] = abs(ratio - 1) <= ANALYSIS_PEAK_TOL
+    checks["a_transient"] = abs(transient_ratio - 1) <= ANALYSIS_PEAK_TOL
+    backward_ops = sum(1 for o in tr.ops if "backward" in o.short)
+    checks["a_backward_traced"] = backward_ops > 0
+    emit("analysis_gpt2_a_train", model="gpt2-medium", seq=GPT2_SEQ,
+         micro_batch=MICRO, gas=GAS, ops=len(tr.ops),
+         backward_ops=backward_ops, launches=tr.launches(),
+         kernels=sorted({o.name for o in tr.ops if o.kind == "kernel"}),
+         trace_s=trace_s, plan_s=plan_s, summary=rep.summary(),
+         errors=[f.format() for f in rep.errors][:4],
+         infos=sorted({f.code for f in rep.infos}),
+         planned_peak_bytes=plan.peak_bytes,
+         planned_argument_bytes=plan.programs[0].argument_bytes,
+         measured_peak_bytes=measured, baseline_bytes=baseline,
+         ratio=ratio, transient_ratio=transient_ratio,
+         persistent=plan.persistent, profile=plan.profile.name,
+         budget_bytes=plan.budget_bytes, fits=plan.fits())
+    # ---- (d) the FenceModel over ANALYSIS_FENCE_STEPS steps of a
+    # configuration that fences (train_gpt2's bf16 recipe has none)
+    fcfg = dict(gpt2_config(MICRO, dtype="fp32"), fp16={"enabled": True},
+                steps_per_print=ANALYSIS_FENCE_PRINT)
+    fengine = make_engine(fcfg, device, size="medium", gpt2=True,
+                          **_depth(EARLY_LAYERS))
+    dplan = fengine.plan_dispatch(dev_batch)
+    prior = fengine.tput_timer.local_step_count
+    f0 = fences.FENCE_COUNT
+    for _ in range(ANALYSIS_FENCE_STEPS):
+        fengine.train_batch(batch)
+    sync(device)
+    got = fences.FENCE_COUNT - f0
+    want = dplan.predict_fences(ANALYSIS_FENCE_STEPS,
+                                prior_boundaries=prior)
+    checks["d_fences"] = got == want and want > 0
+    emit("analysis_gpt2_d_fences", layers=EARLY_LAYERS, dtype="fp16",
+         steps_per_print=ANALYSIS_FENCE_PRINT, steps=ANALYSIS_FENCE_STEPS,
+         predicted=want, counted=got,
+         fence_model=dplan.to_json()["fence_model"],
+         host_ms_per_step=dplan.host_ms_per_step())
+    del fengine
+    free(device)
+    # ---- (c) kernel libraries on a cold build directory
+    pred = stability.predict_executables(engine, [dev_batch])
+    misses, cold_s = _cold_libraries(engine, batch, device)
+    checks["c_libraries"] = misses == len(pred.libraries)
+    emit("analysis_gpt2_c_libraries", predicted=pred.libraries,
+         compile_cache_misses=misses, seconds=cold_s)
+    # ---- (e) the host constants of the h100 profile
+    if device.type == "cuda":
+        emit("analysis_gpt2_e_calibration", **_calibrate_host(device))
+    emit("analysis_gpt2_train", seconds=time.perf_counter() - t_phase,
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"analysis_gpt2 (train) failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return checks
+
+
+def phase_analysis_gpt2_serve(device, shapes=SERVE):
+    """analysis_gpt2's serving half: (b) serve_gpt2's engine (its config,
+    seeded weights) built with graph_lint and analysis in error mode (the
+    build gates raise on an error), its programs captured and a few
+    requests served: the predicted CUDA graphs against len(engine._graphs)
+    and the planned peaks against max_memory_allocated, of an eager run
+    and of the captured programs serving, each whole and its transient
+    part (the weights and pools taken off both sides)."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import (InferenceEngine, run_serve,
+                                               synthetic_requests)
+    from deepspeed_tpu_torch.models import GPT2
+    t_phase = time.perf_counter()
+    meta = GPT2.from_size(shapes["size"], device="meta",
+                          **_depth(shapes["layers"]))
+    cfg = dict(_serve_config(shapes, prefix_reuse=True),
+               graph_lint={"mode": "error"},
+               analysis={"mode": "error", "profile": "h100"})
+    free(device)
+    baseline = _allocated(device)
+    t0 = time.perf_counter()
+    eng = InferenceEngine(meta, config=cfg, seed=0, device=device)
+    build_s = time.perf_counter() - t0
+    checks = {}
+    t0 = time.perf_counter()
+    rep = eng.run_graph_lint()
+    lint_s = time.perf_counter() - t0
+    plan = eng.plan_capacity()
+    pred = eng.predict_executables()
+    reqs = synthetic_requests(8, vocab=meta.config.vocab_size, seed=0,
+                              **{k: v for k, v in shapes["trace"].items()
+                                 if k != "n"})
+    persistent = sum(v for k, v in plan.persistent.items()
+                     if k.endswith("_bytes"))
+
+    def held(planned, measured):
+        """(ratio, transient ratio): the weights and pools taken off both
+        sides for the second."""
+        return (planned / measured,
+                (planned - persistent) / (measured - persistent))
+
+    # the eager programs first (graphs off): the plan's eager peak
+    graphs_on, eng._graphs = eng._graphs, None
+    sync(device)
+    _reset_peak(device)
+    run_serve(eng, _clone(reqs))
+    sync(device)
+    eager = (torch.cuda.max_memory_allocated(device) - baseline
+             if device.type == "cuda" else plan.eager_peak_bytes)
+    eager_ratio, eager_tr = held(plan.eager_peak_bytes, eager)
+    # then as the card serves: every program captured, the requests
+    # replayed; the plan adds the graphs' static buffers and the capture
+    # stream's workspaces
+    eng._graphs = graphs_on
+    eng.reset()
+    sync(device)
+    _reset_peak(device)
+    eng.capture_programs()
+    res = run_serve(eng, reqs)
+    sync(device)
+    graphed = (torch.cuda.max_memory_allocated(device) - baseline
+               if device.type == "cuda" else plan.peak_bytes)
+    ratio, transient_ratio = held(plan.peak_bytes, graphed)
+    graphs = len(eng._graphs) if eng._graphs is not None else None
+    checks["b_lint_clean"] = not rep.errors
+    checks["b_graphs"] = pred.graphs == graphs
+    for name, r in (("b_peak_eager", eager_ratio),
+                    ("b_transient_eager", eager_tr),
+                    ("b_peak_graphed", ratio),
+                    ("b_transient_graphed", transient_ratio)):
+        checks[name] = abs(r - 1) <= ANALYSIS_PEAK_TOL
+    emit("analysis_gpt2_b_serve", build_s=build_s, lint_s=lint_s,
+         summary=rep.summary(), errors=[f.format() for f in rep.errors][:4],
+         programs={p.subject: p.peak_bytes for p in plan.programs},
+         persistent_bytes=persistent, baseline_bytes=baseline,
+         planned_eager_peak_bytes=plan.eager_peak_bytes,
+         measured_eager_peak_bytes=eager, eager_ratio=eager_ratio,
+         eager_transient_ratio=eager_tr,
+         planned_peak_bytes=plan.peak_bytes, measured_peak_bytes=graphed,
+         ratio=ratio, transient_ratio=transient_ratio,
+         graph_static_bytes=dict((str(k), v)
+                                 for k, v in plan.graph_static.items()),
+         graph_workspace_bytes=plan.graph_workspace_bytes,
+         persistent=plan.persistent,
+         predicted_graphs=pred.graphs, graphs=graphs,
+         graph_keys=[str(k) for k in eng._graphs or ()],
+         requests=len(res["results"]), seconds=time.perf_counter() - t_phase,
+         checks=checks)
+    del eng
+    free(device)
+    if not all(checks.values()):
+        raise AssertionError(f"analysis_gpt2 (serve) failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return checks
 
 
 def phase_calibrate(device):
@@ -5901,7 +6290,7 @@ def main() -> int:
     only = None
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
                    "obs_gpt2", "fleet_gpt2", "serve_gpt2",
-                   "fleet_serve_gpt2", "tp_serve_gpt2")
+                   "fleet_serve_gpt2", "tp_serve_gpt2", "analysis_gpt2")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -5957,7 +6346,12 @@ def main() -> int:
             if name in only:
                 if name == "zero_ckpt":
                     process_group(device)
-                globals()[f"phase_{name}"](device)
+                if name == "analysis_gpt2":
+                    phase_analysis_gpt2_train(device)
+                    free(device)
+                    phase_analysis_gpt2_serve(device)
+                else:
+                    globals()[f"phase_{name}"](device)
                 free(device)
         return 0
 
@@ -6007,8 +6401,11 @@ def main() -> int:
     kernels += phase_attn_kernels(device, attn_launches, paths, profs)
     phase_bwd_sweep(device)
 
+    free(device)
+    before_gpt2 = _allocated(device)
     engine, batch, gpt2_launches, gpt2_losses = phase_train_gpt2(device)
     prof_gpt2 = phase_profile(engine, batch, device, name="profile_gpt2")
+    phase_analysis_gpt2_train(device, engine, batch, baseline=before_gpt2)
     del engine, batch
     free(device)
     kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
@@ -6092,6 +6489,7 @@ def main() -> int:
     free(device)
     serve_launches, fleet_serve_launches, tp_serve_launches = \
         serve_pair(device)
+    phase_analysis_gpt2_serve(device)
     for k in kernels:
         # serve_gpt2's legs (a)-(h), fleet_serve_gpt2's (a)-(d) and
         # tp_serve_gpt2's (a)-(c) (the leader's by leg, the follower's by

@@ -1,7 +1,7 @@
-"""Findings, reports and the lint error type.
+"""Findings, reports and the lint error types.
 
-A copy of the JAX package's ``analysis/report.py`` for the port's
-host-concurrency lint.  A :class:`Finding` is one defect: a stable dotted
+A copy of the JAX package's ``analysis/report.py``, for the port's graph
+lint, planners and host-concurrency lint.  A :class:`Finding` is one defect: a stable dotted
 ``code`` (which rule fired), a ``severity``, a message, a ``path`` (for
 the concurrency lint, the lock or locks involved) and the ``source``
 location ``file:line (function)``.
@@ -40,6 +40,20 @@ class GraphLintError(Exception):
         head = (f"graph lint found {len(report.errors)} error-severity "
                 f"finding(s)" + (f" in {where}" if where else ""))
         super().__init__(head + ":\n" + report.format(min_severity=ERROR))
+
+
+class MemoryPlanError(GraphLintError):
+    """Raised in ``analysis.mode == "error"`` when an error-severity
+    finding of the planners survives suppression (``memory.budget-
+    exceeded``: the predicted per-device peak exceeds the budget).
+    Subclasses :class:`GraphLintError`, so ``except GraphLintError`` keeps
+    working; the findings carry the contributor table."""
+
+
+class ShardSpecError(ValueError):
+    """A partition spec cannot apply to the value it is paired with
+    (unknown axis, rank overflow, or a non-divisible dim): raised before
+    anything runs, naming the offending leaf, spec and axis."""
 
 
 @dataclasses.dataclass

@@ -29,12 +29,17 @@ ENV_TRACE_DIR = "DSTPU_TRACE_DIR"
 #: profiles.py PROFILES); validated here so ``analysis.profile`` gives the
 #: same errors in both packages
 _PROFILE_NAMES = ("cpu-8", "v4-8", "v5e-8", "v5p-8")
+#: the port's own profiles (deepspeed_tpu_torch/analysis/profiles.py); a
+#: JAX name above resolves to the profile of the device the engine runs on
+_PORT_PROFILE_NAMES = ("h100", "cpu")
 
 
 def _resolve_profile(name) -> str:
     """Profile by name; bare generations default to the 8-device slice
     (``"v4"`` -> ``"v4-8"``), as in the JAX package."""
     key = str(name).strip().lower()
+    if key in _PORT_PROFILE_NAMES:
+        return key
     for cand in (key, f"{key}-8"):
         if cand in _PROFILE_NAMES:
             return cand

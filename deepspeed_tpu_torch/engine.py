@@ -152,9 +152,16 @@ skip-flag read stays: the port gates the update on the host).  The
 ``SummaryWriter`` on rank 0, the ``profile`` window and
 ``start_profile``/``stop_profile`` run ``torch.profiler``, and
 ``dump_state`` logs the config, the engine state and the device's memory
-statistics.  What the JAX engine has and the port does not yet (graph lint
-and ``analysis/``) raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+statistics.
+
+Graph lint and the planners (``analysis/``, the ``graph_lint`` and
+``analysis`` config sections): each program kind (``train`` for the split
+API's ``forward``, ``eval``, ``train_batch``, ``train_many``) is traced
+once per batch format, fake (nothing computed, no collective on the wire),
+linted and planned; ``error`` mode raises ``GraphLintError`` /
+``MemoryPlanError`` before the program first runs.  ``run_graph_lint``,
+``plan_capacity``, ``plan_dispatch`` and ``run_stability`` are the
+library surface.
 """
 
 from __future__ import annotations
@@ -205,10 +212,9 @@ TIMER_SPANS = (FORWARD_TIMER, BACKWARD_TIMER, BACKWARD_INNER_TIMER,
                BACKWARD_REDUCE_TIMER, STEP_TIMER)
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
-        f"{item})")
+def _batch_key(batch) -> tuple:
+    """A batch's format: its leaves' shapes and dtypes."""
+    return tuple((tuple(x.shape), str(x.dtype)) for x in batch)
 
 
 _NO_BATCH_SPECS = (
@@ -403,7 +409,19 @@ class DeepSpeedTorchEngine:
                                     and self.config.dynamic_loss_scale)
         self._configure_optimizer()
         self._configure_zero()
-        self._refuse_unported()
+        # graph lint and the planners (analysis/): each (program kind,
+        # batch format) is traced, linted and planned once at its first
+        # call; "error" mode raises before the program runs
+        self._graph_lint_mode = self.config.graph_lint_mode
+        self._graph_lint_suppress = list(self.config.graph_lint_suppress)
+        self._linted_keys = set()
+        self._analysis_mode = self.config.analysis_mode
+        self._analysis_suppress = list(self.config.analysis_suppress)
+        self._planned_keys = set()
+        self._in_fused = False
+        #: the traces of the last analyzed programs (kinds, format, k)
+        self._analysis_traces = {}
+        self._trace_key = None
 
         # resilience: the NaN/Inf sentinel extends the fp16 skip-on-overflow
         # contract to bf16 and fp32 boundaries; the hang watchdog arms
@@ -676,16 +694,6 @@ class DeepSpeedTorchEngine:
         if self.pp_world_size > 1:
             axes.append((self._staged, topo.pipe_group, self.pp_world_size))
         return axes
-
-    def _refuse_unported(self):
-        cfg = self.config
-        refused = [
-            (cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off",
-             "graph lint / analysis", "Queue 1 item 14"),
-        ]
-        for hit, what, item in refused:
-            if hit:
-                raise _unported(what, item)
 
     def _configure_zero(self):
         """ZeRO stage, partition groups and overlap buckets (the JAX
@@ -974,6 +982,196 @@ class DeepSpeedTorchEngine:
             "zero_stage": self.zero_stage,
         }
 
+    # ------------------------------------------------- lint and planners
+
+    def _traces(self, batch, kinds, k: int = 1):
+        """The fake traces of ``kinds`` on ``batch`` (``analysis.
+        trace_engine``), reused while the kinds, format and K repeat: the
+        lint and the planners of one gate share one trace."""
+        from deepspeed_tpu_torch import analysis
+        key = (tuple(kinds), _batch_key(batch), k)
+        if self._trace_key != key:
+            self._analysis_traces = analysis.trace_engine(self, batch, kinds,
+                                                          k=k)
+            self._trace_key = key
+        return self._analysis_traces
+
+    def _lint(self, batch, kinds, k: int = 1):
+        """The passes over the traced ``kinds``, every rank exchanging its
+        collectives once (a rank whose trace fails still exchanges)."""
+        from deepspeed_tpu_torch import analysis
+        rep = analysis.Report(subject=",".join(kinds))
+        rep.extend(analysis._shard_spec_report(self))
+        failure, traces = None, {}
+        try:
+            traces = self._traces(batch, kinds, k)
+        except Exception as e:  # noqa: BLE001 - exchanged, then raised
+            failure = e
+        rep.extend(analysis._lint_engine_traces(self, traces, failure))
+        if "step" in kinds or "train_batch" in kinds \
+                or "train_many" in kinds:
+            rep.extend(analysis._master_dtype_report(self))
+        return rep
+
+    def _maybe_graph_lint(self, kind, key, run):
+        """One lint per (program kind, batch format), dispatched per
+        ``graph_lint.mode``; sticky on an error (a retried build lints
+        again).  A failed analysis warns, as in the JAX engine."""
+        from deepspeed_tpu_torch import analysis
+        mode = self._graph_lint_mode
+        if mode == "off" or (kind, key) in self._linted_keys:
+            return
+        self._linted_keys.add((kind, key))
+        try:
+            rep = run()
+        except analysis.GraphLintError:
+            raise
+        except Exception as e:  # noqa: BLE001 - lint never breaks a build
+            logger.warning("graph lint could not analyze %s: %s", kind, e)
+            return
+        rep = rep.filtered(self._graph_lint_suppress)
+        try:
+            analysis.dispatch_report(rep, mode, where=kind, log=logger)
+        except analysis.GraphLintError:
+            self._linted_keys.discard((kind, key))
+            raise
+
+    def _maybe_capacity_plan(self, kind, key, run, batch=None,
+                             steps_per_dispatch: int = 1):
+        """The capacity plan once per (program kind, batch format), with
+        the stability and dispatch passes riding along, dispatched per
+        ``analysis.mode`` (``MemoryPlanError`` in error mode)."""
+        from deepspeed_tpu_torch import analysis
+        mode = self._analysis_mode
+        if mode == "off" or (kind, key) in self._planned_keys:
+            return
+        self._planned_keys.add((kind, key))
+        try:
+            plan = run()
+            if kind in ("train_batch", "train_many"):
+                self._telemetry.note_fused_plan(plan)
+            rep = plan.to_report(subject=kind)
+            if batch is not None:
+                from deepspeed_tpu_torch.analysis import dispatchplan
+                from deepspeed_tpu_torch.analysis import stability as stab
+                train = kind != "eval"
+                fused = kind in ("train_batch", "train_many")
+                rep.extend(stab.check_engine(self, batch, fused=fused,
+                                             train=train))
+                if train:
+                    rep.extend(dispatchplan.plan_engine_dispatch(
+                        self, batch, fused=fused, profile=plan.profile,
+                        steps_per_dispatch=steps_per_dispatch,
+                        launches=self._launches()).to_report())
+        except analysis.GraphLintError:
+            raise
+        except Exception as e:  # noqa: BLE001 - a plan never breaks a build
+            logger.warning("capacity plan could not analyze %s: %s", kind,
+                           e)
+            return
+        rep = rep.filtered(self._analysis_suppress)
+        try:
+            analysis.dispatch_report(
+                rep, mode, where=kind, log=logger, label="capacity plan",
+                info_hint="engine.plan_capacity(batch).format_table() "
+                          "shows the plan",
+                error_cls=analysis.MemoryPlanError)
+        except analysis.GraphLintError:
+            self._planned_keys.discard((kind, key))
+            raise
+
+    def _launches(self):
+        """Launches of the last traced step (its programs together)."""
+        if not self._analysis_traces:
+            return None
+        return sum(t.launches() for t in self._analysis_traces.values())
+
+    def _gate(self, kind, key, batch, lint_kinds, plan, k: int = 1):
+        self._maybe_graph_lint(kind, key,
+                               lambda: self._lint(batch, lint_kinds, k))
+        self._maybe_capacity_plan(kind, key, plan, batch=batch,
+                                  steps_per_dispatch=k)
+
+    def run_graph_lint(self, batch, train: bool = True):
+        """The passes over the split-API programs for ``batch``'s format
+        (one micro batch; ``eval`` with ``train=False``): the library and
+        CLI surface, whatever ``graph_lint.mode``."""
+        batch = tuple(self._to_device(x) for x in (
+            batch if isinstance(batch, (tuple, list)) else (batch,)))
+        kinds = ("fwdbwd", "step") if train else ("eval",)
+        return self._lint(batch, kinds).filtered(self._graph_lint_suppress)
+
+    def plan_capacity(self, batch, train: bool = True, fused: bool = True,
+                      profile=None, budget_gb=None,
+                      steps_per_dispatch=None):
+        """The static capacity plan (peak memory per device and bytes on
+        the wire) of ``batch``'s format: ``train_batch`` (or ``train_many``
+        at K > 1) when ``fused``, else the split API's ``fwdbwd`` on one
+        micro batch and the boundary ``step``.  The budget is
+        ``analysis.memory_budget_gb``, else an explicitly chosen profile's
+        memory; with neither the plan only reports."""
+        from deepspeed_tpu_torch.analysis import commplan, memplan, profiles
+        batch = tuple(self._to_device(x) for x in (
+            batch if isinstance(batch, (tuple, list)) else (batch,)))
+        _, profile, budget = profiles.for_plan(profile, self.config,
+                                               self.device, budget_gb)
+        if steps_per_dispatch is None:
+            steps_per_dispatch = int(
+                self.config.train_steps_per_dispatch or 1)
+        k = steps_per_dispatch if (train and fused) else 1
+        kinds = (("train_many",) if k > 1 else ("train_batch",)) \
+            if train and fused else (("fwdbwd", "step") if train
+                                     else ("eval",))
+        traces = self._traces(batch, kinds, k)
+        from deepspeed_tpu_torch import analysis
+        axes = analysis.known_groups(self.topology)
+        comms = {n: commplan.analyze_comm(t, axes, profile, subject=n)
+                 for n, t in traces.items()}
+        boundary = comms.get("step")
+        if "fwdbwd" in comms:
+            gas = self.gradient_accumulation_steps()
+            fb = comms["fwdbwd"]
+            for c in fb.costs:
+                c.executions *= gas
+            comm = commplan.merge("fwdbwd*gas+step", [fb, boundary],
+                                  profile)
+        else:
+            comm = next(iter(comms.values()))
+        return memplan.CapacityPlan(
+            programs=[memplan.analyze_trace(t, n)
+                      for n, t in traces.items()],
+            persistent=self.memory_estimate(), profile=profile,
+            budget_bytes=budget,
+            zero3_prefetch_bytes=memplan.zero3_prefetch_transient_bytes(
+                self),
+            comm=comm, boundary_comm=boundary)
+
+    def run_stability(self, batch=None, train: bool = True,
+                      fused: bool = True):
+        """The placement report (``stability.unpinned-sharding``): the
+        library and CLI surface, whatever ``analysis.mode``."""
+        from deepspeed_tpu_torch.analysis import stability as stab
+        return stab.check_engine(self, batch, fused=fused, train=train
+                                 ).filtered(self._analysis_suppress)
+
+    def plan_dispatch(self, batch, fused: bool = True, profile=None):
+        """The priced host timeline of one optimizer step for ``batch``'s
+        format (``analysis.DispatchPlan``): launches of the traced step,
+        the deliberate fences (``FenceModel``, checkable against
+        ``observability.fences.FENCE_COUNT``), stagings, the spool's
+        drain."""
+        from deepspeed_tpu_torch.analysis import dispatchplan, profiles
+        batch = tuple(self._to_device(x) for x in (
+            batch if isinstance(batch, (tuple, list)) else (batch,)))
+        k = int(self.config.train_steps_per_dispatch or 1) if fused else 1
+        kinds = (("train_many",) if k > 1 else ("train_batch",)) if fused \
+            else ("fwdbwd", "step")
+        self._traces(batch, kinds, k)
+        return dispatchplan.plan_engine_dispatch(
+            self, batch, fused=fused,
+            profile=profiles.for_plan(profile, self.config, self.device)[0],
+            launches=self._launches())
+
     # ----------------------------------------------------------------- modes
 
     def train(self):
@@ -1038,7 +1236,10 @@ class DeepSpeedTorchEngine:
         wcb = self.wall_clock_breakdown()
         if wcb:
             self.timers(FORWARD_TIMER).start()
-        batch = self._seq_block(tuple(self._to_device(x) for x in inputs))
+        batch = tuple(self._to_device(x) for x in inputs)
+        if not self._in_fused:
+            self._forward_gate(batch)
+        batch = self._seq_block(batch)
         if self.training:
             with _annotate("fwd"):
                 loss = self._seq_mean(self.module(*batch))
@@ -1052,6 +1253,19 @@ class DeepSpeedTorchEngine:
         return loss
 
     __call__ = forward
+
+    def _forward_gate(self, batch):
+        """The split API's gates: ``train`` (forward + backward on one micro
+        batch and the boundary step) or ``eval``."""
+        if self._graph_lint_mode == "off" and self._analysis_mode == "off":
+            return
+        key = _batch_key(batch)
+        if self.training:
+            self._gate("train", key, batch, ("fwdbwd", "step"),
+                       lambda: self.plan_capacity(batch, fused=False))
+        else:
+            self._gate("eval", key, batch, ("eval",),
+                       lambda: self.plan_capacity(batch, train=False))
 
     def _seq_block(self, batch):
         """Under sequence parallelism, this rank's block of each leaf that
@@ -1596,6 +1810,13 @@ class DeepSpeedTorchEngine:
         assert self.training, "train_batch() requires train mode"
         batch = self._check_batch(batch, "train_batch")
         batch = tuple(self._to_device(x) for x in batch)
+        if self._graph_lint_mode != "off" or self._analysis_mode != "off":
+            self._gate("train_batch", _batch_key(batch), batch,
+                       ("train_batch",),
+                       lambda: self.plan_capacity(batch,
+                                                  steps_per_dispatch=1))
+            if self._spool is not None and self._analysis_mode != "off":
+                self._telemetry.note_predictions(self, batch)
         with self._armed("train_batch"), _annotate("train_batch"):
             # host-side pre-work clock: [region entry, the step's first
             # launch) is time only THIS host pays (GC, data prep, an
@@ -1635,9 +1856,13 @@ class DeepSpeedTorchEngine:
         mb = batch[0].shape[0] // gas
         self.tput_timer.start()
         loss = None
-        for i in range(gas):
-            loss = self.forward(*(x[i * mb:(i + 1) * mb] for x in batch))
-            self.backward(loss)
+        self._in_fused = True
+        try:
+            for i in range(gas):
+                loss = self.forward(*(x[i * mb:(i + 1) * mb] for x in batch))
+                self.backward(loss)
+        finally:
+            self._in_fused = False
         ls_used = self.loss_scale_state.cur_scale
         with _annotate("boundary"):
             self._post_boundary_bookkeeping(self._boundary_update())
@@ -1687,6 +1912,15 @@ class DeepSpeedTorchEngine:
                 f"(to stage the K prospective hyper rows); "
                 f"{type(sched).__name__} has neither")
         staged = [tuple(self._to_device(x) for x in b) for b in batches]
+        if self._graph_lint_mode != "off" or self._analysis_mode != "off":
+            first = staged[0]
+            self._gate("train_many", (k, _batch_key(first)), first,
+                       ("train_many",),
+                       lambda: self.plan_capacity(first,
+                                                  steps_per_dispatch=k),
+                       k=k)
+            if self._spool is not None and self._analysis_mode != "off":
+                self._telemetry.note_predictions(self, first)
         spool = self._spool
         if spool is not None and spool.would_straddle(k):
             # a stray train_batch left the ring mid-window: this block's K
@@ -1897,6 +2131,15 @@ class DeepSpeedTorchEngine:
             COUNTERS.restore_seconds = time.perf_counter() - t0
             # window step numbering follows the restored step count
             self._telemetry.rebase_steps(self.global_steps)
+            if self._analysis_mode != "off":
+                # a restored leaf off the engine's device or dtype would be
+                # copied (or captured) again at every step
+                from deepspeed_tpu_torch import analysis
+                analysis.dispatch_report(
+                    self.run_stability(), self._analysis_mode,
+                    where="load_checkpoint", log=logger,
+                    label="capacity plan",
+                    error_cls=analysis.MemoryPlanError)
         return path, client
 
     def _state_tensor(self):

@@ -22,8 +22,8 @@ Exits nonzero if any request produced no tokens.
 
 The shipped serving configs (``examples/gpt2/ds_config_serve*.json``,
 ``ds_config_fleet_serve.json``) set ``graph_lint`` and ``analysis`` to
-``error``: the port refuses those (ROADMAP.md Queue 1 item 14), so serve
-from a copy without those keys.
+``error``: the engine lints and plans every serving program at build
+(``analysis/``) and serves when they are clean.
 
 Two of them set ``model_parallel_size`` 2: a replica is then one process
 per model rank, started by the port's launcher, e.g. on the CPU

@@ -61,10 +61,15 @@ model group cannot be captured in a CUDA graph, so at mp > 1 the
 programs run eagerly.  ``export_kv`` returns the global heads and
 ``import_kv`` takes them, so handoffs cross model-parallel degrees.
 
-Graph lint and the static analyses (``plan_capacity``, ``plan_dispatch``,
-``run_graph_lint``, ``run_stability``, ``predict_executables``) are
-ROADMAP.md Queue 1 item 14, and several replicas in one process group
-item 13b (e); each raises ``NotImplementedError`` naming its item.
+Graph lint and the static analyses (``run_graph_lint``, ``plan_capacity``,
+``plan_dispatch``, ``run_stability``, ``predict_executables``) trace every
+program production can dispatch once, fake (``analysis/graph.py``): the
+build gates them per the config's ``graph_lint`` / ``analysis`` sections
+(``error`` raises before the first request), on every model rank, the
+ranks exchanging their collectives over the control group; after build
+the leader's ``run_graph_lint`` sends its command like any other.
+Several replicas in one process group are ROADMAP.md Queue 1 item 13b
+(e): refused naming it.
 """
 
 from __future__ import annotations
@@ -112,12 +117,6 @@ def _resolve_dtype(name):
             f"got {name!r}")
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
-        f"{item})")
-
-
 def _map_tree(tree, fn):
     return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
@@ -138,7 +137,13 @@ class _GraphedStep:
     then copies its inputs in and replays.  The outputs are the graph's
     own tensors, overwritten by the next replay.  ``fn`` must be
     idempotent on its state (the serving programs are: a replay after the
-    warm-up writes the same K/V rows again)."""
+    warm-up writes the same K/V rows again).  Every warm-up and capture
+    of the process on one device runs on one stream (:attr:`streams`): a
+    stream's first matrix products allocate its cuBLAS workspaces for
+    good, so one stream holds one set."""
+
+    #: device -> the warm-up and capture stream (made at its first capture)
+    streams: dict = {}
 
     def __init__(self, fn):
         self.fn = fn
@@ -148,7 +153,10 @@ class _GraphedStep:
     def __call__(self, *inputs):
         if self.graph is None:
             self.inputs = [t.clone() for t in inputs]
-            side = torch.cuda.Stream()
+            dev = inputs[0].device
+            side = _GraphedStep.streams.get(dev)
+            if side is None:
+                side = _GraphedStep.streams[dev] = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self.fn(*self.inputs)
@@ -156,7 +164,7 @@ class _GraphedStep:
             self.graph = torch.cuda.CUDAGraph()
             # thread_local: another thread's CUDA call (a telemetry drain)
             # during the capture is not an error
-            with torch.cuda.graph(self.graph,
+            with torch.cuda.graph(self.graph, stream=side,
                                   capture_error_mode="thread_local"):
                 self.outputs = self.fn(*self.inputs)
         else:
@@ -203,7 +211,6 @@ class InferenceEngine:
                 "train_batch_size", "train_micro_batch_size_per_gpu")):
             cfg_src["train_micro_batch_size_per_gpu"] = 1
         self.config = DeepSpeedConfig(cfg_src, dp_world_size=1)
-        self._refuse_unported()
         self.device = resolve_device(device)
 
         from deepspeed_tpu_torch.utils import compile_cache as _compile_cache
@@ -332,13 +339,11 @@ class InferenceEngine:
         # dispatch counter feeds the breadcrumbs and the chaos stall point
         self.watchdog = None
         self.decode_dispatches = 0
+        # graph lint and the planners: every program traced once, gated
+        self._serve_traces = None
+        self._gate_programs()
 
     # ------------------------------------------------------------ helpers
-    def _refuse_unported(self):
-        cfg = self.config
-        if cfg.graph_lint_mode != "off" or cfg.analysis_mode != "off":
-            raise _unported("graph lint / analysis", "Queue 1 item 14")
-
     @property
     def num_slots(self) -> int:
         return self.cache_spec.slots
@@ -815,22 +820,182 @@ class InferenceEngine:
             pool.index_copy_(1, rows, new[:, :, heads].to(self.device))
         self._cache["pos"][slot] = n_tokens
 
-    # ----------------------------------------------------- refused (item 14)
+    # ------------------------------------------------- lint and planners
+    def _gated_programs(self):
+        """``(kind, run)`` of every program production can dispatch, each
+        on inputs of its call's shapes: the admission extend (and the tail
+        bucket's), the decode step, the fused decode or the speculative
+        step, the draft's prefill, the ring's copy-on-write and the KV
+        handoff pair."""
+        slots, spec = self.num_slots, self.cache_spec
+        cap = spec.capacity
+        rows1 = np.zeros((1, cap), np.int32)
+        rows = np.zeros((slots, cap), np.int32)
+        tok = np.zeros((slots,), np.int64)
+        act = np.zeros((slots,), bool)
+        ivec = np.zeros((slots,), np.int32)
+
+        def admit(bucket):
+            return lambda: self._do_admit(np.zeros((1, bucket), np.int32),
+                                          rows1, 0, 0, 1, None, 0)
+        out = [("prefill", admit(self.prefill_bucket))]
+        if self.tail_bucket:
+            out.append(("prefill_tail", admit(self.tail_bucket)))
+        out.append(("decode", lambda: self._do_decode(tok, act, rows)))
+        if self.decode_iters_per_dispatch > 1:
+            out.append(("decode_many", lambda: self._do_decode_many(
+                rows, ivec, act, ivec, ivec)))
+        if self.spec_draft_tokens > 0:
+            out.append(("draft_prefill", lambda: self._extend_one(
+                True, np.zeros((1, self.prefill_bucket), np.int32),
+                self._draft_rows[:1], 0, 0, 1)))
+            out.append(("spec_step", lambda: self._do_spec(
+                rows, ivec, act, ivec, ivec)))
+        if spec.ring:
+            out.append(("copy_page", lambda: self._do_copy_page(0, 0)))
+        if self.fleet_disaggregate:
+            block = (spec.layers, cap, spec.kv_heads_local * spec.mp_size,
+                     spec.head_dim)
+            out.append(("export_kv", lambda: self._do_export_kv(
+                np.zeros((cap,), np.int64))))
+            out.append(("import_kv", lambda: self._do_import_kv(
+                0, np.zeros((cap,), np.int64),
+                torch.zeros(block, dtype=spec.dtype),
+                torch.zeros(block, dtype=spec.dtype), 1)))
+        return out
+
+    def _traces(self):
+        """The fake traces of every gated program (once per engine): the
+        weights, pools and row maps are fakes for the duration and the
+        programs run eagerly."""
+        if self._serve_traces is not None:
+            return self._serve_traces
+        from deepspeed_tpu_torch.analysis import graph as G
+        mode = G.new_fake_mode()
+        saved = dict(self.__dict__)
+        memo: dict = {}
+        traces = {}
+        try:
+            state = G.fake_attrs(
+                self, ["params", "_cache", "draft_params", "_draft_cache",
+                       "_rows_dev", "_draft_rows"], mode, memo)
+            self._graphs = G.TracedGraphs()
+            for kind, run in self._gated_programs():
+                with G.recording(kind, mode=mode, arguments=state) as rec:
+                    run()
+                traces[kind] = rec.trace()
+        finally:
+            self.__dict__.clear()
+            self.__dict__.update(saved)
+        self._serve_traces = traces
+        return traces
+
+    def _known_groups(self):
+        if self.serving is None:
+            return {}
+        return {"model": tuple(range(self.mp_world_size))}
+
+    def _do_graph_lint(self):
+        """The passes over every program on this rank, the collectives
+        exchanged with the other model ranks over the control group."""
+        from deepspeed_tpu_torch import analysis
+        failure, traces = None, {}
+        try:
+            traces = self._traces()
+        except Exception as e:  # noqa: BLE001 - exchanged, then raised
+            failure = e
+        rep = analysis.lint_traces(
+            traces, self._known_groups(),
+            control_group=(self.serving.control_group
+                           if self.serving is not None else None),
+            rank=self.mp_rank, failure=failure)
+        rep.subject = "serve"
+        return rep.filtered(self.config.graph_lint_suppress)
+
     def run_graph_lint(self):
-        raise _unported("InferenceEngine.run_graph_lint", "Queue 1 item 14")
+        """The passes over every serving program (the library and CLI
+        surface, whatever ``graph_lint.mode``); at mp > 1 the leader's call
+        is a command: every model rank traces."""
+        return self._run("graph_lint")
 
     def run_stability(self, prompt_lengths=()):
-        raise _unported("InferenceEngine.run_stability", "Queue 1 item 14")
+        """The one-graph-per-program promise checked across prompt lengths
+        and reuse offsets, and the weights' and pools' placements."""
+        from deepspeed_tpu_torch.analysis import stability as stab
+        return stab.check_inference_engine(
+            self, prompt_lengths=prompt_lengths
+        ).filtered(self.config.analysis_suppress)
 
     def predict_executables(self):
-        raise _unported("InferenceEngine.predict_executables",
-                        "Queue 1 item 14")
+        """The CUDA graphs the serving path captures (``analysis.
+        stability.predict_executables_serve``)."""
+        from deepspeed_tpu_torch.analysis import stability as stab
+        return stab.predict_executables_serve(self)
 
     def plan_dispatch(self, profile=None):
-        raise _unported("InferenceEngine.plan_dispatch", "Queue 1 item 14")
+        """``{"prefill": DispatchPlan, "decode": DispatchPlan}``: one
+        replay (graphed) or the traced launches (eager) per program, the
+        stagings and the sampler's counted read per iteration."""
+        from deepspeed_tpu_torch.analysis import dispatchplan, profiles
+        launches = ({} if self._graphs is not None else
+                    {k: t.launches() for k, t in self._traces().items()})
+        return dispatchplan.plan_serve_dispatch(
+            self, launches=launches,
+            profile=profiles.for_plan(profile, self.config, self.device)[0])
 
     def plan_capacity(self, profile=None, budget_gb=None):
-        raise _unported("InferenceEngine.plan_capacity", "Queue 1 item 14")
+        """The capacity plan of every serving program with the persistent
+        weights and KV pools (and the draft's)."""
+        from deepspeed_tpu_torch.analysis import memplan, profiles
+        _, prof, budget = profiles.for_plan(profile, self.config,
+                                            self.device, budget_gb)
+        persistent = {
+            "params_bytes": self.weight_bytes,
+            "optimizer_state_bytes": 0,
+            "grad_accumulator_bytes": 0,
+            "zero_stage": 0,
+            "kv_cache_bytes": kvcache.cache_bytes(self.cache_spec),
+        }
+        if self.draft_cache_spec is not None:
+            persistent["draft_params_bytes"] = self.draft_weight_bytes
+            persistent["draft_kv_cache_bytes"] = kvcache.cache_bytes(
+                self.draft_cache_spec)
+        traces = self._traces()
+        static, keys = {}, {}
+        if self._graphs is not None:
+            for kind, t in traces.items():
+                keys[kind] = [p.key for p in t.programs]
+                static.update((p.key, p.static_bytes) for p in t.programs)
+        return memplan.CapacityPlan(
+            programs=[memplan.analyze_trace(t, k) for k, t in traces.items()],
+            persistent=persistent, profile=prof, budget_bytes=budget,
+            graph_static=static, graph_keys=keys,
+            graph_workspace_bytes=(prof.stream_workspace_bytes
+                                   if static and self.device
+                                   not in _GraphedStep.streams else 0))
+
+    def _gate_programs(self):
+        """The build-time gates (``graph_lint.mode`` / ``analysis.mode``),
+        on every model rank: error mode raises before the first
+        request."""
+        from deepspeed_tpu_torch import analysis
+        mode = self.config.graph_lint_mode
+        if mode != "off":
+            analysis.dispatch_report(self._do_graph_lint(), mode,
+                                     where="serve", log=logger)
+        amode = self.config.analysis_mode
+        if amode != "off":
+            plan = self.plan_capacity()
+            rep = plan.to_report(subject="serve")
+            rep.extend(self.run_stability())
+            for p in self.plan_dispatch(profile=plan.profile).values():
+                rep.extend(p.to_report())
+            analysis.dispatch_report(
+                rep.filtered(self.config.analysis_suppress), amode,
+                where="serve", log=logger, label="capacity plan",
+                info_hint="engine.plan_capacity().format_table() shows "
+                          "the plan",
+                error_cls=analysis.MemoryPlanError)
 
     # ------------------------------------------------------------- serving
     def attach_watchdog(self, watchdog) -> None:

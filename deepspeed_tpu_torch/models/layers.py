@@ -48,6 +48,7 @@ import threading
 import torch
 import torch.distributed as dist
 
+from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch.ops import block_attention as battn
 from deepspeed_tpu_torch.ops import dispatch_attention as dattn
 from deepspeed_tpu_torch.ops import stream_attention as sattn
@@ -615,10 +616,25 @@ def scatter_kv_rows(pool, new, rows):
 
 
 def _scores(q, k, eq):
-    """fp32 scores ``einsum(eq, q, k) / sqrt(d)``: products of bf16/fp16
-    values are exact in fp32, so both operands go up to fp32 (the JAX
-    ``preferred_element_type=fp32``)."""
-    return torch.einsum(eq, q.float(), k.float()) / math.sqrt(q.shape[-1])
+    """fp32 scores ``einsum(eq, q, k) / sqrt(d)`` of q [B, n, d] (``eq``
+    ``"bnd,btnd->bnt"``) or [B, E, n, d] (``"bend,btnd->bent"``) against k
+    [B, t, n, d]: the JAX ``preferred_element_type=fp32``.  On the card
+    low-precision q and k stay in their dtype and the product accumulates
+    and returns in fp32 (``precision.f32_bmm``); on the CPU, which has no
+    such product, both go up to fp32 (products of bf16/fp16 values are
+    exact in fp32)."""
+    if q.device.type != "cuda" or q.dtype == torch.float32:
+        return torch.einsum(eq, q.float(), k.float()) / math.sqrt(
+            q.shape[-1])
+    B, t, n, d = k.shape
+    qe = q.reshape(B, -1, n, d)
+    E = qe.shape[1]
+    s = prec.f32_bmm(qe.permute(0, 2, 1, 3).reshape(B * n, E, d),
+                     k.permute(0, 2, 3, 1).reshape(B * n, d, t))
+    s = s / math.sqrt(d)
+    if q.dim() == 3:
+        return s.view(B, n, t)
+    return s.view(B, n, E, t).permute(0, 2, 1, 3)
 
 
 def cached_attention(q, k_cache, v_cache, pos, ring: bool = False):

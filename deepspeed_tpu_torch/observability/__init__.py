@@ -16,10 +16,10 @@ The port of ``deepspeed_tpu/observability/``.  Four pieces, one facade:
 * goodput: each window's measured step time, samples/s, optional MFU
   (``flops_per_sample`` and ``peak_tflops_per_chip``, which has no
   default) and peak device memory (``torch.cuda.max_memory_allocated``).
-  The planner-drift columns (``predicted_*``, ``*_drift``) are present and
-  null: their predictions come from ``analysis/`` (ROADMAP.md Queue 1 item
-  14), which the port does not have yet, and neither does it register
-  ``lockwatch``'s counters.
+  The planner-drift columns (``predicted_*``, ``*_drift``): the capacity
+  planner's predicted peak memory of the fused step and boundary wire
+  time (``analysis/``, handed over once by the engine's gate), next to
+  the measured ones, when ``planner_drift`` is on.
 
 Beside them: the fleet view (:mod:`~.fleet`, rank 0's per-window roll-up
 over the c10d store), the anomaly and straggler detectors
@@ -43,7 +43,7 @@ Config::
       "trace_num_steps": 0,        # > 0 schedules a capture window
       "hang_capture": true,        # watchdog fire -> trace under trace_dir
       "hang_capture_s": 1.0,
-      "planner_drift": true,       # the predicted_* columns (null here)
+      "planner_drift": true,       # the predicted_* columns
       "flops_per_sample": null,    # enables the MFU column
       "peak_tflops_per_chip": null,
       "fleet": false,              # rank-0 dstpu.telemetry.fleet events
@@ -116,11 +116,13 @@ class Telemetry:
                                    or cfg.resilience_nan_sentinel)
         self._fp16 = bool(cfg.fp16_enabled)
         self._warned_overflow_read = False
-        # the planner handoff's columns: present and null until the port
-        # has analysis/ (ROADMAP.md Queue 1 item 14)
+        # the planner handoff's columns: present, null until the engine's
+        # gate hands a plan over (note_fused_plan / note_predictions)
         self.predictions = {"predicted_peak_hbm_gb": None,
                             "predicted_boundary_ms": None,
                             "predicted_profile": None}
+        self.planner_drift = bool(cfg.observability_planner_drift)
+        self._predictions_tried = False
         self.flops_per_sample = cfg.observability_flops_per_sample
         self.peak_tflops = cfg.observability_peak_tflops_per_chip
         self.measured_boundary_ms = None    # set by whoever measures it
@@ -363,6 +365,41 @@ class Telemetry:
         return out
 
     # --------------------------------------------------- engine-facing hooks
+    def note_fused_plan(self, plan) -> None:
+        """Adopt the capacity plan the engine's gate computed: the drift
+        columns do not trace the step again for a number that exists."""
+        if self.planner_drift and \
+                self.predictions["predicted_peak_hbm_gb"] is None:
+            self.predictions["predicted_peak_hbm_gb"] = round(
+                plan.peak_bytes / 2 ** 30, 6)
+            if plan.profile is not None:
+                self.predictions["predicted_profile"] = plan.profile.name
+
+    def note_predictions(self, engine, batch) -> None:
+        """One-time planner handoff: the predicted peak of the fused step
+        (the gate's plan when it ran) and the predicted boundary wire time
+        of the split-API plan, reported beside the measured ones in every
+        window event (``*_drift``)."""
+        if self._predictions_tried or not self.planner_drift:
+            return
+        self._predictions_tried = True
+        batch = (tuple(batch) if isinstance(batch, (tuple, list))
+                 else (batch,))
+        try:
+            if self.predictions["predicted_peak_hbm_gb"] is None:
+                self.note_fused_plan(engine.plan_capacity(batch))
+            gas = engine.gradient_accumulation_steps()
+            micro = tuple(x[:x.shape[0] // gas] for x in batch)
+            split = engine.plan_capacity(micro, fused=False)
+            if split.boundary_comm is not None:
+                self.predictions["predicted_boundary_ms"] = round(
+                    split.boundary_comm.predicted_time_ms(), 6)
+                if split.profile is not None:
+                    self.predictions["predicted_profile"] = \
+                        split.profile.name
+        except Exception as e:  # noqa: BLE001 - best effort
+            logger.warning("telemetry: capacity-plan handoff skipped: %s", e)
+
     def note_spool_base_step(self, global_steps: int) -> None:
         """Anchor ring positions to engine global steps (set at the first
         spooled boundary; a resumed engine anchors at its restored step)."""

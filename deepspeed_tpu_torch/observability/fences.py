@@ -19,9 +19,30 @@ count follows the code path, not the device it ran on.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 #: process-wide count of deliberate host fences (monotonic; tests snapshot
 #: around a region and assert the delta)
 FENCE_COUNT = 0
+
+
+#: depth of deliberate reads on this thread: the graph lint's trace reads
+#: it to tell a fence from a stray host read (analysis/graph.py)
+_scope = threading.local()
+
+
+def in_fence() -> bool:
+    return getattr(_scope, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _deliberate():
+    _scope.depth = getattr(_scope, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _scope.depth -= 1
 
 
 def count_fence(n: int = 1) -> None:
@@ -65,7 +86,8 @@ def read_scalar(x):
     import torch
     if isinstance(x, torch.Tensor):
         count_fence()
-        return x.item()
+        with _deliberate():
+            return x.item()
     return x
 
 
@@ -75,5 +97,6 @@ def read_arrays(*xs):
     import torch
     if any(isinstance(x, torch.Tensor) for x in xs):
         count_fence()
-    return tuple(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-                 else x for x in xs)
+    with _deliberate():
+        return tuple(x.detach().cpu().numpy()
+                     if isinstance(x, torch.Tensor) else x for x in xs)

@@ -11,6 +11,11 @@ and an unchanged one is loaded as it is: a load counts one
 ``compile_cache_misses``.  Sources that
 are built at the same time (one thread each) run their ``nvcc`` in
 parallel: the wait on the subprocess releases the GIL.
+
+Every kernel wrapper is an operator ``dstpu::<kernel>``
+(:func:`kernel_op`): a dispatch-level trace (``analysis/graph.py``) sees a
+launch as that one op, and under ``FakeTensorMode`` the operator's fake
+allocates its outputs and nothing else.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -96,3 +103,20 @@ def on_cuda(name: str, t) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return True
+
+
+def kernel_op(name: str, fake, mutates_args=()):
+    """Register the decorated wrapper as operator ``dstpu::<name>``, with
+    ``fake`` (the outputs' metadata: called on fake tensors) as its
+    fake implementation.  The fake also serves meta tensors, which have
+    no kernel: it raises for them as the wrapper does."""
+    def checked(t, *args, **kwargs):
+        on_cuda(name, t)
+        return fake(t, *args, **kwargs)
+
+    def deco(fn):
+        op = torch.library.custom_op(f"dstpu::{name}",
+                                     mutates_args=mutates_args)(fn)
+        op.register_fake(checked)
+        return op
+    return deco

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Tuple
 
 import torch
 
@@ -194,7 +195,18 @@ def _launch(name, fn, q, *ptrs, causal):
     LAUNCHES[name] += 1
 
 
-def block_fwd(q, k, v, mask, causal):
+def _fwd_fake(q, k, v, mask, causal):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def _bwd_fake(q, k, v, mask, do, causal):
+    return tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                 for _ in range(3))
+
+
+@_build.kernel_op("block_fwd", _fwd_fake)
+def block_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor, causal: bool) -> torch.Tensor:
     """``o`` contiguous [B, T, n, d]."""
     if not _build.on_cuda("block_fwd", q):
         return block_fwd_plain(q, k, v, mask, causal)
@@ -206,7 +218,10 @@ def block_fwd(q, k, v, mask, causal):
     return o
 
 
-def block_bwd(q, k, v, mask, do, causal):
+@_build.kernel_op("block_bwd", _bwd_fake)
+def block_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor, do: torch.Tensor, causal: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``, each contiguous [B, T, n, d]."""
     if not _build.on_cuda("block_bwd", q):
         return block_bwd_plain(q, k, v, mask, do, causal)

@@ -171,7 +171,16 @@ def adam_plain(p, g, m, v, scal, *, eps, eps_inside_sqrt=False,
 
 # ----------------------------------------------------------------- wrappers
 
-def lamb_phase1(p, g, m, v, scal, *, eps, eps_inside_sqrt=False):
+def _lamb_phase1_fake(p, g, m, v, scal, *, eps, eps_inside_sqrt=False):
+    rows = _grid(p.numel()) if p.device.type == "cuda" else 1
+    return torch.empty_like(p), p.new_empty((rows, 2), dtype=torch.float32)
+
+
+@_build.kernel_op("lamb_phase1", _lamb_phase1_fake, mutates_args=("m", "v"))
+def lamb_phase1(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, scal: torch.Tensor, *, eps: float,
+                eps_inside_sqrt: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(u, partials)``; m and v are updated in place."""
     if not _build.on_cuda("lamb_phase1", p):
         return lamb_phase1_plain(p, g, m, v, scal, eps=eps,
@@ -192,7 +201,14 @@ def lamb_phase1(p, g, m, v, scal, *, eps, eps_inside_sqrt=False):
     return u, partials
 
 
-def lamb_phase2(p, u, partials, scal, *, min_coeff, max_coeff):
+def _no_outputs(*args, **kwargs):
+    return None
+
+
+@_build.kernel_op("lamb_phase2", _no_outputs, mutates_args=("p",))
+def lamb_phase2(p: torch.Tensor, u: torch.Tensor, partials: torch.Tensor,
+                scal: torch.Tensor, *, min_coeff: float,
+                max_coeff: float) -> None:
     """``p -= step_size * trust_ratio * u`` in place."""
     if not _build.on_cuda("lamb_phase2", p):
         lamb_phase2_plain(p, u, partials, scal, min_coeff=min_coeff,
@@ -225,8 +241,11 @@ def fused_lamb_update(p, g, m, v, scal, *, eps, min_coeff, max_coeff,
                 max_coeff=max_coeff)
 
 
-def fused_adam_update(p, g, m, v, scal, *, eps, eps_inside_sqrt=False,
-                      decoupled=False) -> None:
+@_build.kernel_op("adam", _no_outputs, mutates_args=("p", "m", "v"))
+def fused_adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                      v: torch.Tensor, scal: torch.Tensor, *, eps: float,
+                      eps_inside_sqrt: bool = False,
+                      decoupled: bool = False) -> None:
     """One Adam/AdamW step on one tensor, p/m/v in place: the port of
     ``deepspeed_tpu.ops.pallas_optim.fused_adam_update``."""
     if not _build.on_cuda("adam", p):

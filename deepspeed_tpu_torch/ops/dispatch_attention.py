@@ -16,6 +16,7 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops import block_attention as battn
+from deepspeed_tpu_torch import precision as prec
 from deepspeed_tpu_torch.ops import stream_attention as sattn
 
 ATTN_IMPLS = ("xla", "block", "stream")
@@ -36,25 +37,47 @@ def check_impls(fwd_impl: str, bwd_impl: str) -> None:
 class _QKScores(torch.autograd.Function):
     """``q @ k^T`` scores in fp32 from low-precision q, k [B, T, n, d].
 
-    The port of ``pallas_attention._qk_scores``: products of bf16/fp16
-    values are exact in fp32, so both operands go up to fp32 and the sum
-    runs in fp32 (the JAX ``preferred_element_type=fp32``).  The backward
-    rounds the fp32 score cotangent to the compute dtype BEFORE the dq/dk
-    products, then accumulates them in fp32 and casts to the compute dtype
-    (``pallas_attention.py:670-677``).  In fp32 the casts are identities."""
+    The port of ``pallas_attention._qk_scores``: the products accumulate
+    and return in fp32 (``precision.f32_bmm``, the JAX
+    ``preferred_element_type=fp32``: on the card the operands stay in the
+    compute dtype).  The backward rounds the fp32 score cotangent to the
+    compute dtype BEFORE the dq/dk products, then accumulates them in fp32
+    and casts to the compute dtype (``pallas_attention.py:670-677``).  In
+    fp32 the casts are identities."""
 
     @staticmethod
     def forward(ctx, q, k):
         ctx.save_for_backward(q, k)
-        return torch.einsum("btnd,bsnd->bnts", q.float(), k.float())
+        if not _lowp_on_card(q):
+            return torch.einsum("btnd,bsnd->bnts", q.float(), k.float())
+        B, T, n, d = q.shape
+        S = k.shape[1]
+        s = prec.f32_bmm(q.permute(0, 2, 1, 3).reshape(B * n, T, d),
+                         k.permute(0, 2, 3, 1).reshape(B * n, d, S))
+        return s.view(B, n, T, S)
 
     @staticmethod
     def backward(ctx, g):
         q, k = ctx.saved_tensors
-        gl = g.to(q.dtype).float()
-        dq = torch.einsum("bnts,bsnd->btnd", gl, k.float()).to(q.dtype)
-        dk = torch.einsum("bnts,btnd->bsnd", gl, q.float()).to(k.dtype)
-        return dq, dk
+        if not _lowp_on_card(q):
+            gl = g.to(q.dtype).float()
+            dq = torch.einsum("bnts,bsnd->btnd", gl, k.float()).to(q.dtype)
+            dk = torch.einsum("bnts,btnd->bsnd", gl, q.float()).to(k.dtype)
+            return dq, dk
+        B, T, n, d = q.shape
+        S = k.shape[1]
+        gl = g.to(q.dtype).reshape(B * n, T, S)
+        kb = k.permute(0, 2, 1, 3).reshape(B * n, S, d)
+        qb = q.permute(0, 2, 1, 3).reshape(B * n, T, d)
+        dq = prec.f32_bmm(gl, kb).view(B, n, T, d).permute(0, 2, 1, 3)
+        dk = prec.f32_bmm(gl.transpose(1, 2), qb).view(
+            B, n, S, d).permute(0, 2, 1, 3)
+        return dq.to(q.dtype), dk.to(k.dtype)
+
+
+def _lowp_on_card(t) -> bool:
+    return t.device.type == "cuda" and t.dtype in (torch.bfloat16,
+                                                   torch.float16)
 
 
 def xla_attention(q, k, v, attn_mask=None, causal=False, with_lse=False):

@@ -30,6 +30,7 @@ import ctypes
 import math
 import os
 import threading
+from typing import Tuple
 
 import torch
 
@@ -284,7 +285,26 @@ def _launch(name, fn, qg, *ptrs, causal):
     LAUNCHES[name] += 1
 
 
-def stream_fwd(qg, kg, vg, maskg, causal):
+def _fwd_fake(qg, kg, vg, maskg, causal):
+    return torch.empty_like(qg), torch.empty_like(maskg)
+
+
+def _bwd_fake(qg, kg, vg, maskg, dog, lse, delta, causal):
+    return tuple(torch.empty_like(qg) for _ in range(3))
+
+
+def _dkv_fake(qg, kg, vg, maskg, dog, lse, delta, causal):
+    return torch.empty_like(kg), torch.empty_like(vg)
+
+
+def _dq_fake(qg, kg, vg, maskg, dog, lse, delta, causal):
+    return torch.empty_like(qg)
+
+
+@_build.kernel_op("stream_fwd", _fwd_fake)
+def stream_fwd(qg: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
+               maskg: torch.Tensor, causal: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [G, T, d], lse fp32 [G, 1, T])``."""
     if not _build.on_cuda("stream_fwd", qg):
         return stream_fwd_plain(qg, kg, vg, maskg, causal)
@@ -334,7 +354,12 @@ def _fused_scratch(lib, qg):
     return buf
 
 
-def stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal):
+@_build.kernel_op("stream_bwd_fused", _bwd_fake)
+def stream_bwd_fused(
+        qg: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
+        maskg: torch.Tensor, dog: torch.Tensor, lse: torch.Tensor,
+        delta: torch.Tensor, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` in one pass.  dQ is summed in a scratch that stays
     allocated between calls: ``fused_scratch_words`` (fp32 [G, T, d] for
     fp32; for bf16/fp16 the counters and the fp32 partials
@@ -353,7 +378,12 @@ def stream_bwd_fused(qg, kg, vg, maskg, dog, lse, delta, causal):
     return dq, dk, dv
 
 
-def stream_dkv(qg, kg, vg, maskg, dog, lse, delta, causal):
+@_build.kernel_op("stream_dkv", _dkv_fake)
+def stream_dkv(
+        qg: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
+        maskg: torch.Tensor, dog: torch.Tensor, lse: torch.Tensor,
+        delta: torch.Tensor, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)``, the first kernel of the split backward."""
     if not _build.on_cuda("stream_dkv", qg):
         return stream_dkv_plain(qg, kg, vg, maskg, dog, lse, delta, causal)
@@ -368,7 +398,11 @@ def stream_dkv(qg, kg, vg, maskg, dog, lse, delta, causal):
     return dk, dv
 
 
-def stream_dq(qg, kg, vg, maskg, dog, lse, delta, causal):
+@_build.kernel_op("stream_dq", _dq_fake)
+def stream_dq(
+        qg: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
+        maskg: torch.Tensor, dog: torch.Tensor, lse: torch.Tensor,
+        delta: torch.Tensor, causal: bool) -> torch.Tensor:
     """``dq``, the second kernel of the split backward."""
     if not _build.on_cuda("stream_dq", qg):
         return stream_dq_plain(qg, kg, vg, maskg, dog, lse, delta, causal)

@@ -408,7 +408,10 @@ def reduce_scatter_grads_bucketed(flat_grad: torch.Tensor, group,
             world_size, fp32_allreduce=fp32_allreduce,
             prescale_gradients=prescale_gradients,
             gradient_predivide_factor=gradient_predivide_factor)
-        if res.data_ptr() != out[s:].data_ptr():
+        # the same memory (storage and offset; a fake tensor of the graph
+        # lint's trace has no data pointer): the reduce wrote in place
+        if not (res.untyped_storage()._cdata == out.untyped_storage()._cdata
+                and res.storage_offset() == out[s:].storage_offset()):
             out[s:e].copy_(res)
     return out
 

@@ -216,3 +216,18 @@ def policy_from_config(fp16_enabled: bool, bf16_enabled: bool) -> Policy:
     if bf16_enabled:
         return Policy(torch.bfloat16, False)
     return Policy(torch.float32, False)
+
+
+def f32_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (3-D) in fp32: the counterpart of the JAX
+    ``preferred_element_type=jnp.float32``.  On a CUDA device low-precision
+    operands stay low-precision and the product accumulates and returns in
+    fp32 (``bmm`` with ``out_dtype``); elsewhere (the CPU has no such
+    product) both go up to fp32 first.  Products of bf16/fp16 values are
+    exact in fp32, so both routes compute the same sums."""
+    if a.device.type == "cuda" and a.dtype in (torch.bfloat16,
+                                               torch.float16) \
+            and b.dtype == a.dtype:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+

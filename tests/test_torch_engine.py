@@ -216,13 +216,25 @@ def test_initialize_without_device_needs_a_gpu():
     # (tests/test_torch_tp_*.py, test_torch_pipeline*.py, test_torch_sp_*.py:
     # one process at context_parallel_size 2 is test_topology_sizes_and_
     # refusals's); so is all of item 12 (tensorboard and dump_state train:
-    # tests/test_torch_observability.py); graph lint and analysis/ (item
-    # 14) are not
-    pytest.param({"graph_lint": "warn"}, "ROADMAP", id="extra1-ROADMAP"),
-    pytest.param({"analysis": {"mode": "warn"}}, "ROADMAP",
+    # tests/test_torch_observability.py), and graph lint and analysis/ (item
+    # 14): those two ids (match None) now build, lint and train
+    # (tests/test_torch_analysis_*.py)
+    pytest.param({"graph_lint": "warn"}, None, id="extra1-ROADMAP"),
+    pytest.param({"analysis": {"mode": "warn"}}, None,
                  id="extra2-ROADMAP"),
 ])
 def test_unported_configs_raise(extra, match):
+    if match is None:
+        eng = make_torch(config("Lamb", "bf16", **extra), init_params())
+        rng = np.random.default_rng(0)
+        ids = rng.integers(0, TINY["vocab_size"], (MICRO * GAS, SEQ))
+        labels = np.where(rng.random(ids.shape) < 0.15, ids, -1)
+        loss = eng.train_batch(tuple(torch.from_numpy(a.astype(np.int64))
+                                     for a in (ids, np.ones_like(ids),
+                                               np.zeros_like(ids),
+                                               labels)))
+        assert np.isfinite(float(loss))
+        return
     with pytest.raises((NotImplementedError,
                         deepspeed_tpu_torch.config.DeepSpeedConfigError),
                        match=match):

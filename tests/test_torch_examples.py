@@ -19,13 +19,15 @@ same JAX-init weights (the port drivers take them as
 * ``serve_gpt2`` at model_parallel_size 2, two CPU ranks under the
   port's launcher, prints the JAX driver's tokens at mp 2 on the same
   lint-free copy of ``ds_config_serve.json``;
-* the shipped serving configs, unchanged, stop the port's driver with the
-  refusal that names ROADMAP.md Queue 1 item 14 (their graph lint).
+* the shipped serving configs serve with their ``graph_lint`` and
+  ``analysis`` at ``error`` (ROADMAP.md Queue 1 item 14, ported): on fp32
+  copies that keep them, at their model_parallel_size, with the JAX
+  driver's tokens.
 
 The configs are copies of the shipped ones with fp16 / bf16 off (the
 comparison is in fp32), and for the serving configs with
-``graph_lint`` and ``analysis`` removed (the port refuses them) and
-``model_parallel_size`` too, but for the mp 2 test.  The drivers'
+``graph_lint`` and ``analysis`` removed and ``model_parallel_size`` too,
+but for the mp 2 test and the shipped-config test.  The drivers'
 multi-rank training runs (pp 2, ep 2) are left to
 ``tests/test_torch_pipeline.py`` and ``tests/test_torch_moe.py``, which
 hold the same models at those meshes over gloo.
@@ -276,12 +278,57 @@ def test_serve_gpt2_prepares_a_checkpoint_the_jax_driver_serves(
     ("ds_config_fleet_serve.json", "item 14"),
 ])
 def test_shipped_serving_configs_are_refused_by_name(jax_served, config,
-                                                     item):
+                                                     item, tmp_path,
+                                                     monkeypatch, capsys):
+    """The shipped serving configs, which item 14 (graph lint and the
+    planners) used to refuse, now serve: on fp32 copies (exact tokens)
+    that keep ``graph_lint`` and ``analysis`` at ``error`` with profile
+    ``v4-8`` and the configs' ``model_parallel_size``; the mp 2 configs as
+    two CPU ranks under the port's launcher.  The tokens equal the JAX
+    driver's on the same copy (at mp 2 over two of the rig's devices)."""
+    import socket
+    import subprocess
     ck = jax_served[0]
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        serve_gpt2.main(["--ckpt", ck, "--requests", "2", "--device", "cpu",
-                         "--deepspeed_config",
-                         os.path.join(EXAMPLES, "gpt2", config)])
+    shipped = json.load(open(os.path.join(EXAMPLES, "gpt2", config)))
+    mp_size = int(shipped.get("model_parallel_size", 1))
+    over = {"graph_lint": shipped["graph_lint"],
+            "analysis": shipped["analysis"]}
+    if mp_size > 1:
+        over["model_parallel_size"] = mp_size
+    assert over["graph_lint"]["mode"] == over["analysis"]["mode"] == "error"
+    cfg = _fp32_copy(tmp_path, f"gpt2/{config}", "copy.json", **over)
+    argv = ["--ckpt", ck, "--deepspeed_config", cfg, "--requests", "4"]
+    if "fleet" in config:
+        argv += ["--fleet", "2", "--prefill-replicas", "1"]
+    monkeypatch.syspath_prepend(os.path.join(EXAMPLES, "gpt2"))
+    jmod = _load("gpt2/serve_gpt2.py", "jax_serve_gpt2")
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", [jmod.__file__, *argv])
+    with monkeypatch.context() as mp:
+        devices = jax.devices
+        mp.setattr(jax, "devices",
+                   lambda *a, **k: devices(*a, **k)[:mp_size])
+        assert not jmod.main()
+    want = _served(capsys.readouterr().out)
+    if mp_size == 1:
+        assert serve_gpt2.main(argv + ["--device", "cpu"]) == 0
+        got = _served(capsys.readouterr().out)
+    else:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        proc = subprocess.run(
+            [sys.executable, "-m", "deepspeed_tpu_torch.launcher.run",
+             "--hostfile", str(tmp_path / "missing"), "--num_gpus",
+             str(mp_size), "--master_port", str(port),
+             os.path.join(ROOT, "deepspeed_tpu_torch", "examples",
+                          "serve_gpt2.py"), *argv, "--device", "cpu"],
+            capture_output=True, text=True, timeout=240, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+                     OMP_NUM_THREADS="1"))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        got = _served(proc.stdout)
+    assert len(want) == 4 and got == want
 
 
 def test_serve_gpt2_at_mp2_on_two_ranks(jax_served, tmp_path, monkeypatch,

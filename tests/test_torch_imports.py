@@ -61,6 +61,13 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.inference.router, "
             "deepspeed_tpu_torch.analysis, "
             "deepspeed_tpu_torch.analysis.__main__, "
+            "deepspeed_tpu_torch.analysis.graph, "
+            "deepspeed_tpu_torch.analysis.passes, "
+            "deepspeed_tpu_torch.analysis.memplan, "
+            "deepspeed_tpu_torch.analysis.commplan, "
+            "deepspeed_tpu_torch.analysis.dispatchplan, "
+            "deepspeed_tpu_torch.analysis.stability, "
+            "deepspeed_tpu_torch.analysis.profiles, "
             "deepspeed_tpu_torch.examples.train_simple, "
             "deepspeed_tpu_torch.examples.train_gpt2, "
             "deepspeed_tpu_torch.examples.serve_gpt2; "

@@ -540,7 +540,11 @@ def test_refusals_name_their_item(params, pair, what, item, tmp_path):
     (item 13b (a), (b): ``export_kv``, ``import_kv``, ``KVHandoff``, the
     router) and serving at mp 2 (item 13b (c)) are ported: those ids
     check that they now work (mp 2: one process without a group says it
-    needs two; two gloo CPU ranks serve the mp-1 engine's logits)."""
+    needs two; two gloo CPU ranks serve the mp-1 engine's logits).  So is
+    item 14, the graph lint and the planners: those ids call each method
+    (or build with the config section) and hold its result against the
+    JAX engine's on the same weights: the rule codes, the program count,
+    the fence count, the persistent bytes and the wire bytes."""
     cfg = serve_config()
     from deepspeed_tpu_torch import inference
     if what == "mp2":
@@ -580,16 +584,74 @@ def test_refusals_name_their_item(params, pair, what, item, tmp_path):
                 t_enqueue=0.0, t_admit=0.0, t_first_token=0.0)
             assert h.n_tokens == 3 and h.path is None
         return
-    calls = {
-        "graph_lint": lambda: InferenceEngine(
-            ttiny(), config={**cfg, "graph_lint": "error"}, device="cpu"),
-        "analysis": lambda: InferenceEngine(
-            ttiny(), config={**cfg, "analysis": {"mode": "warn"}},
-            device="cpu"),
-    }
-    call = calls.get(what, lambda: getattr(pair[1], what)())
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        call()
+    _item14_matches_jax(params, pair, what, cfg)
+
+
+def _codes(rep):
+    return sorted(f.code for f in rep)
+
+
+def _item14_matches_jax(params, pair, what, cfg):
+    """One item-14 surface of the port against the JAX engine's."""
+    from deepspeed_tpu.analysis import dispatchplan as jdp
+    from deepspeed_tpu_torch.analysis import dispatchplan as tdp
+    from deepspeed_tpu_torch.observability import fences
+    je, te = pair
+    if what in ("graph_lint", "analysis"):
+        section = ({"graph_lint": "error"} if what == "graph_lint" else
+                   {"analysis": {"mode": "error", "profile": "v4-8"}})
+        t = InferenceEngine(ttiny(), config={**cfg, **section},
+                            params=params, device="cpu")
+        j = JEngine(jtiny(), config={**cfg, **section}, params=params)
+        reqs = trace(n=4, seed=5)
+        jt, tt, _, _ = _both(j, t, reqs)
+        assert tt == jt
+        return
+    if what == "run_graph_lint":
+        assert _codes(te.run_graph_lint()) == _codes(je.run_graph_lint())
+    elif what == "run_stability":
+        assert _codes(te.run_stability()) == _codes(je.run_stability())
+    elif what == "plan_capacity":
+        tp, jp = te.plan_capacity(), je.plan_capacity()
+        assert tp.persistent == jp.persistent
+        assert _codes(tp.to_report()) == _codes(jp.to_report())
+        assert tp.comm is None and jp.comm is None   # no wire at mp 1
+        assert tp.budget_bytes is None and jp.budget_bytes is None
+    elif what == "predict_executables":
+        # one graph per distinct _program key a run dispatches
+        keys = set()
+        orig = te._program
+
+        def spy(key, fn, *inputs):
+            keys.add((key,) + tuple(tuple(x.shape) for x in inputs))
+            return orig(key, fn, *inputs)
+        te._program = spy
+        try:
+            te.reset()
+            ContinuousScheduler(te).run(trace(n=6, seed=9)[0])
+        finally:
+            del te._program
+            te.reset()
+        pred = te.predict_executables()
+        assert pred.total == len(keys)
+        assert pred.total == je.predict_executables().total
+    elif what == "plan_dispatch":
+        tplans, jplans = te.plan_dispatch(), je.plan_dispatch()
+        for kind in ("prefill", "decode"):
+            assert (tplans[kind].fence_model.per_boundary
+                    == jplans[kind].fence_model.per_boundary)
+            assert (_codes(tplans[kind].to_report())
+                    == _codes(jplans[kind].to_report()))
+        te.reset()
+        f0 = fences.FENCE_COUNT
+        te.prefill(0, [1, 2, 3])
+        for _ in range(3):
+            te.decode(np.zeros(te.num_slots, np.int32),
+                      np.ones(te.num_slots, bool))
+        got = fences.FENCE_COUNT - f0
+        te.reset()
+        assert got == tdp.serve_predict_fences(tplans, 1, 3) == \
+            jdp.serve_predict_fences(jplans, 1, 3)
 
 
 def test_default_device_is_the_card():

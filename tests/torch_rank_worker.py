@@ -937,6 +937,131 @@ def run_tp_serve(spec, inputs, rank, world):
     return out
 
 
+import torch.distributed as dist  # noqa: E402
+
+
+class _ExtraReduce(SimpleModel):
+    """``SimpleModel`` whose forward, with ``extra``, issues one more
+    all-reduce on rank 1 than on rank 0: the seeded rank divergence."""
+
+    def __init__(self, extra: bool):
+        super().__init__()
+        self.extra = extra
+
+    def forward(self, x, y):
+        loss = super().forward(x, y)
+        if self.extra and dist.get_rank() == 1:
+            t = loss.detach().reshape(1).clone()
+            dist.all_reduce(t)
+        return loss
+
+
+def _lint_codes(rep):
+    return np.asarray(sorted(f.code for f in rep.errors) or [""])
+
+
+def run_lint(spec, inputs, rank, world):
+    """The graph lint's seeded cases at world 2 (``analysis/``): (a) one
+    extra all-reduce on rank 1 caught at the first ``train_batch`` in error
+    mode, in bounded time; (b) the fixed program trains; (c) divergent
+    bucket shapes, (d) an all-to-all layout divergence, (e) an unmatched
+    send / receive; (f) GPipe and 1F1B at pp 2 build, lint and train clean
+    in error mode; (g) the fake trace's peak against a real step's at
+    mp 2 and pp 2; (h) the wire bytes per axis of the plans in
+    ``spec["comm"]`` (the JAX plan's counterparts in the test)."""
+    import time as _time
+
+    from deepspeed_tpu_torch import analysis
+    out = {}
+    x, y = inputs["x"], inputs["y"]
+    rows = x.shape[0] // world
+    mine = (torch.from_numpy(x[rank * rows:(rank + 1) * rows]),
+            torch.from_numpy(y[rank * rows:(rank + 1) * rows]))
+    cfg = {"train_micro_batch_size_per_gpu": rows,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-2}},
+           "graph_lint": "error"}
+    for name, extra in (("a", True), ("b", False)):
+        eng = deepspeed_tpu_torch.initialize(
+            model=_ExtraReduce(extra), config=cfg, device="cpu")[0]
+        t0 = _time.monotonic()
+        try:
+            losses = [float(eng.train_batch(mine)) for _ in range(2)]
+            out[f"{name}/losses"] = np.asarray(losses)
+        except analysis.GraphLintError as e:
+            out[f"{name}/codes"] = _lint_codes(e.report)
+            out[f"{name}/message"] = np.asarray(str(e))
+        out[f"{name}/seconds"] = np.asarray(_time.monotonic() - t0)
+    known = {"data": tuple(range(world))}
+
+    def bucket():
+        dist.all_reduce(torch.zeros(4 if rank == 0 else 8))
+
+    def layout():
+        inp = torch.zeros(4 if rank == 0 else 8)
+        dist.all_to_all_single(torch.empty_like(inp), inp)
+
+    def p2p():
+        t = torch.zeros(3)
+        if rank == 0:
+            dist.send(t, 1)
+            dist.send(t, 1)
+        else:
+            dist.recv(t, 0)
+
+    for name, fn in (("c", bucket), ("d", layout), ("e", p2p)):
+        rep = analysis.analyze_step(fn, subject=name, known_groups=known,
+                                    rank=rank)
+        out[f"{name}/codes"] = _lint_codes(rep)
+    toks = torch.from_numpy(inputs["tokens"]).long()
+    for sched in ("gpipe", "1f1b"):
+        model = GPT2Pipelined.from_size("tiny", num_micro_batches=2,
+                                        schedule=sched, **TINY)
+        eng = deepspeed_tpu_torch.initialize(
+            model=model, device="cpu", config={
+                "train_micro_batch_size_per_gpu": toks.shape[0],
+                "pipeline_parallel_size": 2,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                "graph_lint": "error",
+                "analysis": {"mode": "error", "profile": "cpu"}})[0]
+        rep = eng._lint(tuple(eng._to_device(t) for t in (toks, toks)),
+                        ("train_batch",))
+        out[f"f/{sched}/codes"] = _lint_codes(rep)
+        out[f"f/{sched}/loss"] = np.asarray(float(eng.train_batch(
+            (toks, toks))))
+    for name, extra in (("mp", {"model_parallel_size": 2}),
+                        ("pp", {"pipeline_parallel_size": 2})):
+        model = (GPT2Pipelined.from_size("tiny", num_micro_batches=2,
+                                         **TINY) if name == "pp"
+                 else GPT2.from_size("tiny", **TINY))
+        eng = deepspeed_tpu_torch.initialize(
+            model=model, device="cpu", config={
+                "train_micro_batch_size_per_gpu": toks.shape[0],
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                "bf16": {"enabled": True}, **extra})[0]
+        batch = (toks, toks)
+        fake = analysis.trace_engine(eng, batch)["train_batch"]
+        real = analysis.trace_engine(eng, batch, fake=False)["train_batch"]
+        out[f"g/{name}"] = np.asarray([fake.total_peak, real.total_peak])
+    for name, extra in spec.get("comm", {}).items():
+        model = (GPT2Pipelined.from_size("tiny", num_micro_batches=2,
+                                         **TINY)
+                 if extra.get("pipeline_parallel_size") else
+                 GPT2.from_size("tiny", **TINY))
+        gas = int(extra.get("gradient_accumulation_steps", 1))
+        eng = deepspeed_tpu_torch.initialize(
+            model=model, device="cpu", config={
+                "train_micro_batch_size_per_gpu": toks.shape[0] // gas,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                **extra})[0]
+        plan = eng.plan_capacity((toks, toks))
+        for axis, n in plan.comm.per_axis_bytes().items():
+            out[f"h/{name}/{axis}"] = np.asarray(n)
+        out[f"h_ops/{name}"] = np.asarray(sorted(
+            (c.op, c.bytes_per_execution, c.source) for c in plan.comm.costs
+            if c.bytes_per_execution)).reshape(-1, 3)
+    return out
+
+
 def main():
     spec_path, rank = pathlib.Path(sys.argv[1]), int(sys.argv[2])
     spec = json.loads(spec_path.read_text())
@@ -946,7 +1071,8 @@ def main():
     run = {"comm": run_comm, "train": run_train, "sparse": run_sparse,
            "tp_layers": run_tp_layers, "seq_attn": run_seq_attn,
            "pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads,
-           "fleet": run_fleet, "tp_serve": run_tp_serve}[
+           "fleet": run_fleet, "tp_serve": run_tp_serve,
+           "lint": run_lint}[
         spec["scenario"]]
     out = run(spec, inputs, rank, world)
     np.savez(spec_path.parent / f"out_{rank}.npz", **out)
