@@ -309,8 +309,19 @@ Phases (each prints one JSON line, with the seconds since the start as
    on both ranks, each rank's weight bytes the plan's at mp 2.  A stream
    that leaves its reference is held to the near-tie rule on an mp-1
    engine of the same checkpoint.  Tokens/s, TTFT, ITL, peak per rank.
-   Then an engine with "auto" slots: each rank prices half of the card,
-   both hold the same slots.  No training kernel launches on either rank.
+   Then, in the same launch, two replicas of that engine on the same two
+   ranks (every rank builds both in one order, each with its own model
+   and control groups; ``inference.lead_fleet``: the router and its
+   driver threads on model rank 0, a follower thread an engine on the
+   other), ``inference.fleet.disaggregate`` on: (d) both mixed behind
+   ``FleetRouter`` on the trace's first 16 requests, tokens against
+   serve_gpt2's (d), the chips counted 4, both replicas served, fleet
+   tokens/s, TTFT, ITL, requests per replica, peak per rank; (e) one
+   prefill and one decode replica on its first 8: 8 handoffs of 98,304
+   bytes a prompt token (the global heads, as at mp 1), tokens as in
+   (d).  Then an engine with "auto" slots: each rank prices half of the
+   card, both hold the same slots.  No training kernel launches on
+   either rank in any leg.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
    moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2,
    tp_serve_gpt2, analysis_gpt2; the serving two run serve_gpt2 first)
@@ -5547,6 +5558,11 @@ def phase_fleet_serve_gpt2(device, keep, shapes=SERVE):
 # the same checkpoint, built here only when a stream leaves.
 TP_SERVE = 2
 TP_SERVE_INT8 = 8
+# (d) two mixed replicas at mp TP_SERVE on the same ranks behind the
+# router, on the trace's first TP_FLEET_REQUESTS; (e) one prefill and one
+# decode replica on its first TP_FLEET_DIS_REQUESTS
+TP_FLEET_REQUESTS = 16
+TP_FLEET_DIS_REQUESTS = 8
 # decode steps timed over every slot (an eager step reads every slot's
 # whole capacity whatever it holds, so the slots are not prefilled first)
 TP_SERVE_STEPS = 4
@@ -5556,15 +5572,20 @@ def tp_serve_child(spec_path, rank):
     """One model rank of the tp_serve_gpt2 phase (started by
     ``phase_tp_serve_gpt2``): the engines of legs (a)-(b) and (c), each
     served through ``InferenceEngine.lead`` (model rank 0 drives, the
-    other follows); writes ``serve_<rank>.json`` beside the spec."""
+    other follows), then the two replicas of legs (d) and (e), built in
+    one order on both ranks and served through ``inference.lead_fleet``
+    (the router on model rank 0, a follower thread an engine on the
+    other); writes ``serve_<rank>.json`` beside the spec."""
     import hashlib
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from deepspeed_tpu_torch import checkpoint
     from deepspeed_tpu_torch.inference import (ContinuousScheduler,
-                                               InferenceEngine, run_serve,
+                                               InferenceEngine, lead_fleet,
+                                               run_serve,
                                                synthetic_requests)
     from deepspeed_tpu_torch.models import GPT2
     spec, device = _child_setup(spec_path, rank, TP_SERVE)
@@ -5687,6 +5708,56 @@ def tp_serve_child(spec_path, rank):
     del q8
     free(device)
 
+    # ---- (d), (e): two replicas on both ranks behind FleetRouter ----
+    _reset_peak(device)
+    fleet, out["fleet_build_s"] = zip(*(
+        build(fleet={"disaggregate": True}) for _ in range(2)))
+    reset_launch_counts()
+
+    def serve_fleet(engines):
+        for eng in engines:
+            warm(eng)
+        reset_launch_counts()
+        res, admitted, wall, _, _ = _fleet_serve(
+            engines, _clone(reqs[:TP_FLEET_REQUESTS]))
+        s = res["summary"]
+        leg("d_fleet", tokens=tokens(res["results"]),
+            summary=_serve_numbers(s),
+            tokens_per_sec_per_chip=s["tokens_per_sec_per_chip"],
+            chips=sum(e.mp_world_size for e in engines),
+            requests_per_replica=admitted, wall_s=wall,
+            evictions=s["evictions"], handoffs=s["handoffs"])
+        for eng in engines:
+            eng.reset()
+        written = []
+        real_write = checkpoint.write_kv_handoff
+
+        def counted_write(path, *, k, v, meta, **kw):
+            real_write(path, k=k, v=v, meta=meta, **kw)
+            written.append([meta["n_tokens"],
+                            k.numel() * k.element_size()
+                            + v.numel() * v.element_size()])
+            return path
+
+        checkpoint.write_kv_handoff = counted_write
+        try:
+            res, admitted, wall, _, _ = _fleet_serve(
+                engines[:1], _clone(reqs[:TP_FLEET_DIS_REQUESTS]),
+                prefill=engines[1:])
+        finally:
+            checkpoint.write_kv_handoff = real_write
+        s = res["summary"]
+        leg("e_disaggregated", tokens=tokens(res["results"]),
+            summary=_serve_numbers(s), handoffs=s["handoffs"],
+            written=written, requests_per_replica=admitted, wall_s=wall,
+            chips=sum(e.mp_world_size for e in engines))
+
+    lead_fleet(list(fleet), serve_fleet)
+    out["fleet_peak_gib"] = _peak_gib(device)
+    out["fleet_launches_follower"] = launch_counts()
+    del fleet
+    free(device)
+
     # "auto" slots: the two ranks share the card, so each prices half of
     # its memory and of what is allocated on it; both take the fewer slots
     if device.type == "cuda":
@@ -5777,6 +5848,47 @@ def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
              mp1_bytes=_int8_plan_bytes(meta),
              replicated_scales=lead["int8_replicated_scales"],
              divergences=len(divs), at=divs, launches=c["launches"])
+        # (d) two mixed replicas at mp 2 on the same two ranks
+        d = legs["d_fleet"]
+        first = reqs[:TP_FLEET_REQUESTS]
+        divs, ok = held("d_fleet", keep["tokens"], first)
+        checks["d_ties"] = ok
+        checks["d_chips"] = d["chips"] == 2 * TP_SERVE
+        checks["d_both_replicas_served"] = all(
+            v and v > 0 for v in d["requests_per_replica"].values())
+        checks["d_no_eviction_or_handoff"] = \
+            d["evictions"] == d["handoffs"] == 0
+        emit("tp_serve_gpt2_d_fleet", replicas=2, mp=TP_SERVE,
+             requests=len(first), summary=d["summary"],
+             tokens_per_sec_per_chip=d["tokens_per_sec_per_chip"],
+             chips=d["chips"], requests_per_replica=d["requests_per_replica"],
+             wall_s=d["wall_s"], peak_gib=[r["fleet_peak_gib"] for r in ranks],
+             build_s=[r["fleet_build_s"] for r in ranks],
+             one_replica=legs["a_mixed"]["summary"], divergences=len(divs),
+             at=divs, launches=d["launches"])
+        # (e) one prefill and one decode replica at mp 2: the handoffs
+        # carry the global heads, as at mp 1
+        e = legs["e_disaggregated"]
+        first = reqs[:TP_FLEET_DIS_REQUESTS]
+        divs, ok = held("e_disaggregated", keep["tokens"], first)
+        mc = meta.config
+        per_token = 2 * mc.num_layers * mc.num_heads * (
+            mc.hidden_size // mc.num_heads) * 2
+        prompt_tokens = sum(len(r.prompt) for r in first)
+        checks["e_ties"] = ok
+        checks["e_handoffs"] = (e["handoffs"] == len(first)
+                                == len(e["written"]))
+        checks["e_handoff_bytes"] = (
+            sum(b for _, b in e["written"]) == per_token * prompt_tokens
+            and all(b == per_token * n for n, b in e["written"]))
+        emit("tp_serve_gpt2_e_disaggregated", mp=TP_SERVE,
+             requests=len(first), handoffs=e["handoffs"],
+             handoff_bytes=sum(b for _, b in e["written"]),
+             bytes_per_prompt_token=per_token, prompt_tokens=prompt_tokens,
+             summary=e["summary"], chips=e["chips"],
+             requests_per_replica=e["requests_per_replica"],
+             wall_s=e["wall_s"], divergences=len(divs), at=divs,
+             launches=e["launches"])
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             prev_reduce
@@ -5794,6 +5906,7 @@ def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
     launches = {name: legs[name]["launches"] for name in legs}
     launches["follower"] = follow["launches_follower"]
     launches["follower_int8"] = follow["int8_launches_follower"]
+    launches["follower_fleet"] = follow["fleet_launches_follower"]
     checks["no_training_kernel"] = not any(
         n for counts in launches.values() for n in counts.values())
     # analysis_gpt2 (f): zero lint errors, every collective signature the

@@ -67,6 +67,7 @@ from deepspeed_tpu_torch.analysis import report as R
 #: threading (or is mutated across threads, like kvcache's PagePool)
 CONTROL_PLANE = (
     "inference/router.py",
+    "inference/engine.py",
     "inference/scheduler.py",
     "inference/kvcache.py",
     "inference/observability.py",

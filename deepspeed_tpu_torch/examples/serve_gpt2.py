@@ -33,8 +33,12 @@ per model rank, started by the port's launcher, e.g. on the CPU
         --deepspeed_config my_serve_config.json --device cpu
 
 (``PYTHONPATH`` naming the repository).  Model rank 0 serves and prints;
-the other ranks follow its commands and print nothing.  ``--fleet`` and
-``--verify-identity`` serve at model_parallel_size 1 only.
+the other ranks follow its commands and print nothing.  ``--fleet N`` and
+``--verify-identity`` serve there too: every rank builds every engine
+(the decode replicas, then the prefill replicas, then the one
+``--verify-identity`` re-serves on) in one order, model rank 0 runs the
+router through ``inference.lead_fleet``, and each other rank follows
+every engine on a thread of its own.
 
 Replica observability: ``--health_port`` serves live /healthz /status
 /metrics; ``--probe-endpoints`` probes them over HTTP mid-traffic and
@@ -157,30 +161,39 @@ def _model(args):
                           device="meta")
 
 
-def serve(args):
-    from deepspeed_tpu_torch.inference import InferenceEngine
-
-    if args.chaos_stall_iter:
-        # deterministic stalled-decode chaos: the Nth decode dispatch
-        # stalls inside the watchdog-armed region until the watchdog
-        # reacted (ServeObservability wires stall_until to fire_event)
+def _arm_chaos(args, engine):
+    """Deterministic stalled-decode chaos, on the leader only (the one
+    rank that dispatches): the Nth decode dispatch stalls inside the
+    watchdog-armed region until the watchdog reacted (ServeObservability
+    wires stall_until to fire_event)."""
+    if args.chaos_stall_iter and engine.is_leader:
         from deepspeed_tpu_torch.resilience import chaos
         chaos.configure(stall_step=args.chaos_stall_iter,
                         stall_s=args.chaos_stall_s)
 
+
+def serve(args):
+    from deepspeed_tpu_torch.inference import InferenceEngine, lead_fleet
+
     cfg = _load_config(args)
-    if int(cfg.get("model_parallel_size") or 1) > 1 and args.verify_identity:
-        print("ERROR: --verify-identity builds a second engine: it serves "
-              "at model_parallel_size 1 only", file=sys.stderr)
-        return 1
     engine = InferenceEngine(_model(args), config=cfg,
                              checkpoint_dir=args.ckpt, device=args.device)
+    engines = [engine]
+    if args.verify_identity:
+        # the observability-off engine, built on every rank at this point
+        base_cfg = _load_config(args)
+        base_cfg.get("inference", {}).pop("observability", None)
+        engines.append(InferenceEngine(
+            _model(args), config=base_cfg, checkpoint_dir=args.ckpt,
+            device=args.device))
+    _arm_chaos(args, engine)
     # model rank 0 serves; at model_parallel_size > 1 the other ranks
     # follow its commands until it is done
-    return engine.lead(lambda eng: _serve_replica(args, eng)) or 0
+    return lead_fleet(engines,
+                      lambda engs: _serve_replica(args, *engs)) or 0
 
 
-def _serve_replica(args, engine):
+def _serve_replica(args, engine, base_engine=None):
     from deepspeed_tpu_torch.inference import (ServeObservability,
                                                observability, run_serve,
                                                synthetic_requests)
@@ -254,8 +267,9 @@ def _serve_replica(args, engine):
               file=sys.stderr)
         return 1
 
-    if args.verify_identity:
-        rc = max(rc, _verify_identity(args, reqs, out, obs_fence_delta))
+    if base_engine is not None:
+        rc = max(rc, _verify_identity(args, base_engine, reqs, out,
+                                      obs_fence_delta))
     return rc
 
 
@@ -265,15 +279,9 @@ def serve_fleet(args):
     thread + live endpoints;
     ``--prefill-replicas K`` disaggregates K of them into a prefill
     pool with chunk-container KV handoff."""
-    from deepspeed_tpu_torch.inference import (FleetRouter, InferenceEngine,
-                                               synthetic_requests)
+    from deepspeed_tpu_torch.inference import InferenceEngine, lead_fleet
 
     cfg = _load_config(args)
-    if int(cfg.get("model_parallel_size") or 1) > 1:
-        # several replicas of several ranks each in one process group
-        raise NotImplementedError(
-            "--fleet at model_parallel_size > 1 is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 13b (e))")
     fleet_cfg = cfg.get("inference", {}).get("fleet", {})
     n = args.fleet or int(fleet_cfg.get("replicas", 0)) or 2
     k = (args.prefill_replicas if args.prefill_replicas is not None
@@ -284,17 +292,28 @@ def serve_fleet(args):
         print(f"ERROR: --prefill-replicas {k} must leave at least one "
               f"DECODE replica out of --fleet {n}", file=sys.stderr)
         return 1
-    if args.chaos_stall_iter:
-        from deepspeed_tpu_torch.resilience import chaos
-        chaos.configure(stall_step=args.chaos_stall_iter,
-                        stall_s=args.chaos_stall_s)
 
     def build():
         return InferenceEngine(_model(args), config=cfg,
                                checkpoint_dir=args.ckpt, device=args.device)
 
+    # every rank builds the same engines in this order (at
+    # model_parallel_size > 1 each build makes the replica's groups,
+    # collectively over the ranks)
     decode = [build() for _ in range(n - k)]
     prefill = [build() for _ in range(k)]
+    single = [build()] if args.verify_identity else []
+    _arm_chaos(args, decode[0])
+    return lead_fleet(decode + prefill + single, lambda engines: _serve_fleet(
+        args, decode, prefill, single[0] if single else None)) or 0
+
+
+def _serve_fleet(args, decode, prefill, single):
+    """The leader's side of --fleet: the router over ``decode`` +
+    ``prefill``, then the trace again on ``single`` with
+    --verify-identity."""
+    from deepspeed_tpu_torch.inference import FleetRouter, synthetic_requests
+    n, k = len(decode) + len(prefill), len(prefill)
     print(f"fleet: {n - k} decode/mixed + {k} prefill replica(s), "
           f"tag {decode[0].loaded_tag}")
     reqs = synthetic_requests(
@@ -372,11 +391,10 @@ def serve_fleet(args):
         rc = 1
     router.close()
 
-    if args.verify_identity and rc == 0:
+    if single is not None and rc == 0:
         from deepspeed_tpu_torch.inference import run_serve
         from deepspeed_tpu_torch.resilience import chaos
         chaos.reset()                    # the single run must not stall
-        single = build()
         base = run_serve(single, [r.__class__(
             rid=r.rid, prompt=list(r.prompt),
             max_new_tokens=r.max_new_tokens, eos_id=r.eos_id)
@@ -474,19 +492,15 @@ def _check_chaos(obs) -> int:
     return 0
 
 
-def _verify_identity(args, reqs, out, obs_fence_delta) -> int:
-    """Re-serve the SAME trace with observability stripped and pin
-    bitwise-identical greedy outputs + an identical deliberate-fence
+def _verify_identity(args, engine, reqs, out, obs_fence_delta) -> int:
+    """Re-serve the SAME trace on ``engine`` (observability stripped) and
+    pin bitwise-identical greedy outputs + an identical deliberate-fence
     count — observability must be trajectory-neutral."""
     import copy
 
-    from deepspeed_tpu_torch.inference import InferenceEngine, run_serve
+    from deepspeed_tpu_torch.inference import run_serve
     from deepspeed_tpu_torch.observability import fences
 
-    cfg = _load_config(args)
-    cfg.get("inference", {}).pop("observability", None)
-    engine = InferenceEngine(_model(args), config=cfg,
-                             checkpoint_dir=args.ckpt, device=args.device)
     f0 = fences.FENCE_COUNT
     base = run_serve(engine, copy.deepcopy(reqs), window_iters=args.window)
     base_fences = fences.FENCE_COUNT - f0

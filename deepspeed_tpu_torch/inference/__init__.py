@@ -1,6 +1,6 @@
-"""deepspeed_tpu_torch.inference: serving on one card.
+"""deepspeed_tpu_torch.inference: serving.
 
-The port of ``deepspeed_tpu/inference/`` at model_parallel_size 1: weights
+The port of ``deepspeed_tpu/inference/``: weights
 from a training checkpoint through the weights-only restore
 (``checkpoint.load_params_only``), a refcounted KV page pool with prefix
 reuse (paged and ring layouts), continuous and static batching, fused
@@ -21,13 +21,22 @@ serves the fleet's endpoints.
 
     from deepspeed_tpu_torch.inference import run_fleet
     out = run_fleet([eng_a, eng_b], requests)
+
+At ``model_parallel_size`` mp > 1 every replica is mp processes, one per
+model rank (``engine.py``); every rank builds the same engines in one
+order, and ``lead_fleet`` serves them: the router on model rank 0, each
+engine's follower loop on the other ranks.
+
+    out = lead_fleet([eng_a, eng_b],
+                     lambda engines: run_fleet(engines, requests))
 """
 
 from deepspeed_tpu_torch.inference import driver, kvcache, quant  # noqa: F401
 from deepspeed_tpu_torch.inference import observability, router  # noqa: F401
 from deepspeed_tpu_torch.inference.driver import (  # noqa: F401
     ServeTelemetry, run_serve, synthetic_requests)
-from deepspeed_tpu_torch.inference.engine import InferenceEngine  # noqa: F401
+from deepspeed_tpu_torch.inference.engine import (  # noqa: F401
+    InferenceEngine, lead_fleet)
 from deepspeed_tpu_torch.inference.kvcache import (  # noqa: F401
     KVCacheSpec, PagePool)
 from deepspeed_tpu_torch.inference.observability import (  # noqa: F401
@@ -45,4 +54,5 @@ __all__ = [
     "ServeTelemetry", "ServeObservability", "run_serve",
     "synthetic_requests", "driver", "kvcache", "observability", "quant",
     "FleetRouter", "RouterObservability", "run_fleet", "router",
+    "lead_fleet",
 ]

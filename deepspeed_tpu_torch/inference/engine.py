@@ -43,23 +43,31 @@ One engine is one replica; replicas go behind ``inference/router.py``'s
 ``FleetRouter``.  At ``model_parallel_size`` mp > 1 a replica is mp
 processes, one per model rank, in a started process group of exactly mp
 ranks (``parallel/topology.make_serving_topology``: the model group, dp
-1, and a gloo control group on CPU tensors).  Each rank holds its slice
-of the weights (``partition_specs``; int8 quantized on the global tree,
-then cut, so every rank has the same scales) and its ``heads / mp`` KV
-heads.  Model rank 0 is the leader: it alone runs the page pool, the
-prefix index, the scheduler and the host positions, and every public
-method that touches the card first sends its command and host inputs
-(tokens, rows, slot, start, page ids, K/V rows) to the followers, which
-run the same program on their slices in ``follow()`` until the leader's
-``close()``.  ``lead(fn)`` runs ``fn(engine)`` on the leader and stops the
-followers in a ``finally``; on a follower it runs the loop.  The programs
-run the model with its model group; the logits a host reads come back
-over the whole vocabulary, gathered on every rank, so the device argmax
-of the fused programs (ties to the lowest index) gives every rank the
-same tokens without another message.  A gloo
-model group cannot be captured in a CUDA graph, so at mp > 1 the
-programs run eagerly.  ``export_kv`` returns the global heads and
-``import_kv`` takes them, so handoffs cross model-parallel degrees.
+1, and a gloo control group on CPU tensors).  Several replicas take the
+same mp ranks, as the JAX engine takes the first mp devices for each:
+every rank builds them in one order, each with its own model and control
+groups, and rank m holds model rank m of every replica.  Each rank holds
+its slice of the weights (``partition_specs``; int8 quantized on the
+global tree, then cut, so every rank has the same scales) and its
+``heads / mp`` KV heads.  Model rank 0 is the leader: it alone runs the
+page pool, the prefix index, the scheduler and the host positions, and
+every public method that touches the card first sends its command and
+host inputs (tokens, rows, slot, start, page ids, K/V rows) to the
+followers, which run the same program on their slices in ``follow()``
+until the leader's ``close()``.  ``lead(fn)`` runs ``fn(engine)`` on the
+leader and stops the followers in a ``finally``; on a follower it runs
+the loop.  ``lead_fleet(engines, fn)`` does so for several replicas: the
+leader runs ``fn(engines)`` (the router and its driver threads), a
+follower runs each engine's loop on a thread of its own.  A per-engine
+command lock covers a command's broadcast with the program it starts, and
+the stop: one engine's command stream never interleaves, whichever
+threads drive and close it.  The programs run the model with its model
+group; the logits a host reads come back over the whole vocabulary,
+gathered on every rank, so the device argmax of the fused programs (ties
+to the lowest index) gives every rank the same tokens without another
+message.  A gloo model group cannot be captured in a CUDA graph, so at
+mp > 1 the programs run eagerly.  ``export_kv`` returns the global heads
+and ``import_kv`` takes them, so handoffs cross model-parallel degrees.
 
 Graph lint and the static analyses (``run_graph_lint``, ``plan_capacity``,
 ``plan_dispatch``, ``run_stability``, ``predict_executables``) trace every
@@ -68,8 +76,6 @@ build gates them per the config's ``graph_lint`` / ``analysis`` sections
 (``error`` raises before the first request), on every model rank, the
 ranks exchanging their collectives over the control group; after build
 the leader's ``run_graph_lint`` sends its command like any other.
-Several replicas in one process group are ROADMAP.md Queue 1 item 13b
-(e): refused naming it.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ import json
 import logging
 import os
 import socket
+import threading
 import time
 from contextlib import nullcontext
 from typing import Optional
@@ -89,6 +96,7 @@ import torch.distributed as dist
 
 from deepspeed_tpu_torch import checkpoint
 from deepspeed_tpu_torch import weights as weights_mod
+from deepspeed_tpu_torch.analysis import lockwatch
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.inference import kvcache, quant
 from deepspeed_tpu_torch.observability import fences as obs_fences
@@ -227,6 +235,10 @@ class InferenceEngine:
         self.mp_rank = (self.serving.mp_rank
                         if self.serving is not None else 0)
         self._stopped = False
+        # one command at a time: its broadcast with the program it starts,
+        # or the stop (a driver thread and a closing thread share the
+        # control group, and a broadcast of an object is two collectives)
+        self._command_lock = lockwatch.named_lock("InferenceEngine._command")
         # the programs' CUDA graphs by (program, shape); None runs eagerly
         self._graphs, self.graphs_off_because = self._graph_mode()
         validate_fn = getattr(model, "validate", None)
@@ -539,25 +551,29 @@ class InferenceEngine:
         return self._rows_dev
 
     # ------------------------------------------------ leader and followers
+    # dstpu-thread: driver
     def _run(self, cmd: str, **args):
         """Program ``cmd`` on the host inputs ``args`` (numbers, numpy
         arrays, CPU tensors): at mp > 1 the leader first sends ``(cmd,
-        args)`` to the followers, then every rank runs ``_do_<cmd>``."""
-        if self.serving is not None:
-            if not self.is_leader:
-                raise RuntimeError(
-                    f"model rank {self.mp_rank} is a follower: it serves "
-                    f"through follow(), the leader (model rank 0) calls "
-                    f"the engine")
+        args)`` to the followers, then every rank runs ``_do_<cmd>``, all
+        under the command lock (a stop cannot fall between the two)."""
+        if self.serving is None:
+            return getattr(self, f"_do_{cmd}")(**args)
+        if not self.is_leader:
+            raise RuntimeError(
+                f"model rank {self.mp_rank} is a follower: it serves "
+                f"through follow(), the leader (model rank 0) calls "
+                f"the engine")
+        with self._command_lock:
             if self._stopped:
                 raise RuntimeError("the followers were stopped (close())")
             self._command((cmd, args))
-        return getattr(self, f"_do_{cmd}")(**args)
+            return getattr(self, f"_do_{cmd}")(**args)
 
     def _command(self, msg=None):
         """The leader's ``msg`` on every rank of the control group."""
         box = [msg]
-        # model rank 0 is global rank 0: one replica a process group
+        # model rank 0 is global rank 0: every replica takes ranks 0..mp-1
         dist.broadcast_object_list(box, src=0,
                                    group=self.serving.control_group)
         return box[0]
@@ -574,26 +590,26 @@ class InferenceEngine:
                 return
             getattr(self, f"_do_{cmd}")(**args)
 
+    # dstpu-thread: closer
     def close(self) -> None:
         """Stop the followers (the leader, once; nothing at mp 1 or on a
-        follower).  The engine serves no more after it."""
-        if self.serving is None or not self.is_leader or self._stopped:
+        follower).  The engine serves no more after it.  Under the command
+        lock: a command in flight ends first, and a driver thread that
+        comes later finds the engine stopped."""
+        if self.serving is None or not self.is_leader:
             return
-        self._stopped = True
-        self._command(("stop", {}))
+        with self._command_lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            self._command(("stop", {}))
 
     def lead(self, fn):
         """``fn(self)`` on the leader, the followers stopped in a
         ``finally`` (an exception on the leader never leaves a follower
         waiting for a command); the follower loop on a follower, which
-        returns None."""
-        if self.serving is not None and not self.is_leader:
-            self.follow()
-            return None
-        try:
-            return fn(self)
-        finally:
-            self.close()
+        returns None.  The one-engine case of :func:`lead_fleet`."""
+        return lead_fleet([self], lambda engines: fn(engines[0]))
 
     def _full_vocab(self, logits):
         """Vocab-sharded logits [..., vocab / mp] joined over the model
@@ -1428,3 +1444,59 @@ class InferenceEngine:
         results = sched.run(reqs)
         by_rid = {r.rid: r.tokens for r in results}
         return [by_rid[i] for i in range(len(reqs))]
+
+
+def lead_fleet(engines, fn):
+    """Serve several replicas at once on every rank: ``fn(engines)`` on the
+    leader (model rank 0 of every engine: the router, its driver threads),
+    every engine closed in a ``finally`` (an exception on the leader never
+    leaves a follower waiting); on a follower each engine's ``follow()``
+    on a thread of its own, on the engine's device, all joined, the first
+    error raised again; it returns None there.  Every rank passes its
+    engines in the order it built them; a rank that leads none of them
+    holds only followers (an mp-1 engine is a leader: it stays on model
+    rank 0)."""
+    engines = list(engines)
+    followers = [e for e in engines if not e.is_leader]
+    if not followers:
+        try:
+            return fn(engines)
+        finally:
+            # every engine, even past a close that raised (its followers
+            # would wait for ever); then the first error
+            errors = []
+            for eng in engines:
+                try:
+                    eng.close()
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+            if errors:
+                raise errors[0]
+    if len(followers) != len(engines):
+        raise ValueError(
+            "lead_fleet: a rank leads all of its engines or follows all "
+            "of them (every replica's leader is model rank 0)")
+    errors = []
+    threads = [threading.Thread(target=_follow, args=(eng, errors),
+                                name=f"dstpu-follower-{i}-mp{eng.mp_rank}")
+               for i, eng in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return None
+
+
+# dstpu-thread: follower
+def _follow(eng, errors) -> None:
+    """A follower thread of :func:`lead_fleet`: ``eng``'s loop on its
+    device (a thread starts on the process's first card); an error goes
+    to ``errors``."""
+    try:
+        with (torch.cuda.device(eng.device) if eng.device.type == "cuda"
+              else nullcontext()):
+            eng.follow()
+    except BaseException as e:  # noqa: BLE001 - raised after the join
+        errors.append(e)

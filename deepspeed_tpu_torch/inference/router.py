@@ -39,7 +39,17 @@ router's own /healthz /status /metrics.
 
 Scale model: the IN-PROCESS fleet (replicas as threads over one host's
 devices; on one card every replica's programs are CUDA graphs on the same
-device).  The decisions it encodes (admission scoring off /metrics,
+device).  At ``model_parallel_size`` mp > 1 every replica takes the same
+mp ranks: the router and every replica's driver thread run on model rank
+0, which sends each engine's commands to its followers on the other ranks
+(``engine.lead_fleet``).  The router never closes an engine: its owner
+does, after :meth:`FleetRouter.close`, under the engine's command lock,
+so a driver thread that outlived its bounded join (a stall) cannot send a
+command across the stop; its next dispatch raises instead.  A stall
+(``resilience.chaos``) lands before the command is sent, so a stalled
+leader leaves its followers waiting for a command, not inside a
+collective, and an evicted replica's followers return at that close.
+The decisions it encodes (admission scoring off /metrics,
 503-eviction, timestamp-preserving resubmission, artifact-based KV
 handoff) are the cross-host protocol; a multi-host front end speaks the
 same endpoints over the network.
@@ -364,6 +374,8 @@ class Replica:
         mid-tick, so closing the observability server under a live
         driver races a completion against a dead scheduler.  Bounded
         join — a wedged thread is daemonic and dies with the process.
+        The engine stays open (its owner closes it, under its command
+        lock, which a wedged thread's next dispatch then finds stopped).
         Never called FROM the driver thread (joining yourself
         deadlocks), which the current-thread guard enforces."""
         self.stop.set()

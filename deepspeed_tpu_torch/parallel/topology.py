@@ -416,9 +416,16 @@ def make_serving_topology(mp: int, device=None) -> ServingTopology:
     > 1: the process group (started here from the environment as
     ``init_distributed`` does, unless one runs) must hold exactly ``mp``
     ranks, one per model rank.  Data parallelism in serving is replicas
-    behind the router, not a mesh axis: several replicas in one process
-    group are refused (ROADMAP.md Queue 1 item 13b (e)).  Every rank
-    creates the control group, in one order."""
+    behind the router, not a mesh axis: several replicas share the same
+    ``mp`` ranks, as the JAX engine takes the first ``mp`` devices for
+    each, and rank m holds model rank m of every replica.
+
+    Called once per replica (each ``InferenceEngine`` at mp > 1 calls it at
+    build): each call makes the replica's own model group and gloo control
+    group, so that replicas never share a collective stream.  Group
+    creation is collective over the world, so every rank builds the same
+    replicas in one order, on its main thread, before any router or
+    follower thread starts."""
     device = resolve_device(device)
     init_distributed(device=device)
     if not dist.is_initialized():
@@ -429,11 +436,12 @@ def make_serving_topology(mp: int, device=None) -> ServingTopology:
             f"deepspeed_tpu_torch.launcher)")
     world = dist.get_world_size()
     if world != mp:
-        raise NotImplementedError(
+        raise ValueError(
             f"a process group of {world} ranks at {C.MODEL_PARALLEL_SIZE}="
-            f"{mp}: one serving replica takes exactly {mp} ranks; several "
-            f"replicas in one process group are not ported to "
-            f"deepspeed_tpu_torch yet (ROADMAP.md, Queue 1 item 13b (e))")
+            f"{mp}: serving takes exactly {mp} ranks, one per model rank; "
+            f"every replica takes the same {mp} ranks, as the JAX engine "
+            f"takes the first {mp} devices for each, so several replicas "
+            f"are several engines on these ranks, not a larger world")
     topo = make_topology({C.MODEL_PARALLEL_SIZE: mp}, device)
     control = dist.new_group(list(range(world)), backend="gloo")
     return ServingTopology(topology=topo, control_group=control)

@@ -10,8 +10,9 @@ the port's own control plane:
 * the port's blocking catalogue names the port's device fences
   (``torch.cuda.synchronize``, ``.item()``, ``.cpu()``, the counted reads)
   where the JAX one names ``block_until_ready``;
-* the port's control plane (router, scheduler, page pool, observability,
-  resilience) lints clean, its static model holds the real locks and the
+* the port's control plane (router, the engine's command lock and
+  follower threads, scheduler, page pool, observability, resilience)
+  lints clean, its static model holds the real locks and the
   thread-role contracts, and ``python -m deepspeed_tpu_torch.analysis``
   gives the JAX CLI's exit codes;
 * lockwatch: plain locks when disarmed, order edges, counters and
@@ -342,7 +343,7 @@ def test_shipped_control_plane_has_zero_findings():
     rep = conc.check_paths()
     assert not rep.errors and not rep.warnings, rep.format("warning")
     paths = conc.control_plane_paths()
-    assert len(paths) == len(conc.CONTROL_PLANE) == 15
+    assert len(paths) == len(conc.CONTROL_PLANE) == 16
     assert all(os.path.isfile(p) and os.sep + "deepspeed_tpu_torch" + os.sep
                in p for p in paths)
 
@@ -351,14 +352,18 @@ def test_static_model_covers_the_real_locks():
     model, rep = conc.analyze_paths(conc.control_plane_paths())
     for expected in ("FleetRouter._lock", "PagePool._lock",
                      "MetricRegistry._lock", "FleetAggregator._lock",
-                     "Watchdog._lock", "FlightRecorder._lock"):
+                     "Watchdog._lock", "FlightRecorder._lock",
+                     "InferenceEngine._command"):
         assert expected in model.locks, sorted(model.locks)
     assert model.locks["PagePool._lock"].reentrant
+    assert not model.locks["InferenceEngine._command"].reentrant
     for role in ("router.FleetRouter._complete", "router.FleetRouter._pick",
                  "router.FleetRouter._handoff",
                  "fleet.FleetAggregator.publish",
                  "kvcache.PagePool._take_page",
-                 "kvcache.PagePool._init_state"):
+                 "kvcache.PagePool._init_state",
+                 "engine.InferenceEngine._run", "engine.InferenceEngine.close",
+                 "engine._follow"):
         assert role in model.roles, sorted(model.roles)
     # the JAX control plane's static order graph, edge for edge
     jmodel, _ = jconc.analyze_paths(jconc.control_plane_paths())

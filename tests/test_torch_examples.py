@@ -18,7 +18,9 @@ same JAX-init weights (the port drivers take them as
   ``--prepare`` checkpoint (and each fleet equals its single replica);
 * ``serve_gpt2`` at model_parallel_size 2, two CPU ranks under the
   port's launcher, prints the JAX driver's tokens at mp 2 on the same
-  lint-free copy of ``ds_config_serve.json``;
+  lint-free copy of ``ds_config_serve.json``; with ``--fleet 2`` (two
+  replicas on the same two ranks) and with ``--verify-identity`` it
+  prints the port driver's tokens at mp 1 with the same flag;
 * the shipped serving configs serve with their ``graph_lint`` and
   ``analysis`` at ``error`` (ROADMAP.md Queue 1 item 14, ported): on fp32
   copies that keep them, at their model_parallel_size, with the JAX
@@ -373,4 +375,51 @@ def test_serve_gpt2_at_mp2_on_two_ranks(jax_served, tmp_path, monkeypatch,
     summary = json.loads([ln for ln in proc.stdout.splitlines()
                           if ln.startswith("{")][-1])
     assert summary["mp"] == 2
+    assert len(want) == 4 and _served(proc.stdout) == want
+
+
+@pytest.mark.parametrize("mode", ["fleet", "verify_identity"])
+def test_serve_gpt2_fleet_and_identity_at_mp2(jax_served, tmp_path, capsys,
+                                              mode):
+    """``serve_gpt2 --fleet 2`` and ``--verify-identity`` at
+    model_parallel_size 2: two CPU ranks under the port's launcher, every
+    replica on both (rank 0 leads each, rank 1 follows each on a thread of
+    its own).  Both exit 0, model rank 0 alone prints, and the tokens are
+    the driver's at model_parallel_size 1 on the same checkpoint, with the
+    same flag."""
+    import socket
+    import subprocess
+    ck = jax_served[0]
+    mp1 = _fp32_copy(tmp_path, "gpt2/ds_config_serve.json", "mp1.json")
+    mp2 = _fp32_copy(tmp_path, "gpt2/ds_config_serve.json", "mp2.json",
+                     model_parallel_size=2)
+    flag = ["--fleet", "2"] if mode == "fleet" else ["--verify-identity"]
+    argv = ["--ckpt", ck, "--requests", "4", *flag, "--device", "cpu"]
+    capsys.readouterr()
+    assert serve_gpt2.main(argv + ["--deepspeed_config", mp1]) == 0
+    want = _served(capsys.readouterr().out)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.run",
+         "--hostfile", str(tmp_path / "missing"), "--num_gpus", "2",
+         "--master_port", str(port),
+         os.path.join(ROOT, "deepspeed_tpu_torch", "examples",
+                      "serve_gpt2.py"), *argv, "--deepspeed_config", mp2],
+        capture_output=True, text=True, timeout=240, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+                 OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith("{")][-1])
+    if mode == "fleet":
+        assert proc.stdout.count("fleet: 2 decode/mixed") == 1
+        assert summary["n_replicas"] == 2
+        assert summary["tokens_per_sec_per_chip"] == pytest.approx(
+            summary["tokens_per_sec"] / 4, abs=0.01)
+    else:
+        assert proc.stdout.count("serving tag") == 1
+        assert summary["mp"] == 2
+        assert "identity: 4 requests bitwise-identical" in proc.stdout
     assert len(want) == 4 and _served(proc.stdout) == want

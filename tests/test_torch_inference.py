@@ -538,9 +538,11 @@ def test_cold_start_from_either_package(tmp_path, params, monkeypatch):
 def test_refusals_name_their_item(params, pair, what, item, tmp_path):
     """What is still refused names its ROADMAP item.  The fleet's pieces
     (item 13b (a), (b): ``export_kv``, ``import_kv``, ``KVHandoff``, the
-    router) and serving at mp 2 (item 13b (c)) are ported: those ids
-    check that they now work (mp 2: one process without a group says it
-    needs two; two gloo CPU ranks serve the mp-1 engine's logits).  So is
+    router) and serving at mp 2 (item 13b (c)), one replica or several on
+    the same ranks, are ported: those ids check that they now work (mp 2:
+    one process without a group says it needs two; two gloo CPU ranks
+    serve the mp-1 engine's logits; ``tests/test_torch_tp_fleet.py``
+    serves several replicas at mp 2).  So is
     item 14, the graph lint and the planners: those ids call each method
     (or build with the config section) and hold its result against the
     JAX engine's on the same weights: the rule codes, the program count,

@@ -105,6 +105,8 @@ import json
 import os
 import pathlib
 import sys
+import threading
+import time
 
 import numpy as np
 import torch
@@ -937,6 +939,185 @@ def run_tp_serve(spec, inputs, rank, world):
     return out
 
 
+def run_tp_fleet(spec, inputs, rank, world):
+    """Several serving replicas at mp = ``world`` in one process group
+    (tiny GPT-2 ``model_kw`` from the inputs' ``w/`` weights, the
+    ``serve`` inference section): every rank builds the same engines in
+    one order and serves them through ``inference.lead_fleet`` (the router
+    on the leader, a follower thread per engine elsewhere), in three
+    launches of it:
+
+    * ``a``, ``b`` (mp ``world``, ``fleet.disaggregate``) and ``m`` (mp 1,
+      on the leader alone): ``mixed`` (``run_fleet`` over a and b on the
+      ``trace``), ``affinity`` (a and b, affinity on, the
+      ``prefix_trace``; ``affinity/reused``: a pool reused a prefix),
+      ``disaggregated`` (a decodes, b prefills), ``md21`` (b prefills at
+      mp ``world``, m decodes), ``md12`` (m prefills, b decodes): each
+      ``<mode>/tokens`` (JSON) and ``<mode>/summary``; ``export_k`` /
+      ``export_v``: a's export of ``prompts[0]`` after its admit;
+    * ``e0``, ``e1`` (a 1 s serve watchdog each): ``eviction``, a chaos
+      stall at the first decode dispatch of the trace in whichever replica
+      reaches it (armed on the leader only); ``eviction/tokens``,
+      ``/summary``, ``/evicted_thread_alive`` (the evicted replica's
+      driver thread after the router's close), ``/stopped`` (both engines
+      closed once ``lead_fleet`` returned);
+    * ``r0``, ``r1``: ``raise``, the leader raises inside ``lead_fleet``
+      (``raise/error``);
+    * ``race``: ``race_threads`` leader threads send commands (``reset``)
+      as fast as they can while the main thread closes the engine after
+      ``race_s`` seconds, under a short switch interval; ``race/sent``
+      (the commands that returned), ``race/errors`` (each thread's end),
+      ``race/alive`` (threads left after a bounded join) on the leader,
+      ``race/done`` (the programs run) on every rank.
+
+    On the followers ``<launch>/follower_returned``: ``lead_fleet``
+    returned, every follower thread joined.  First, on every rank,
+    ``refused``: the error of an engine at mp ``2 * world``."""
+    from deepspeed_tpu_torch.inference import (InferenceEngine, Request,
+                                               lead_fleet,
+                                               synthetic_requests)
+    from deepspeed_tpu_torch.inference.router import run_fleet as serve_fleet
+    from deepspeed_tpu_torch.resilience import chaos
+    params = weights.unflatten_tree(
+        {k[2:]: inputs[k] for k in inputs.files if k.startswith("w/")})
+    kw = spec["model_kw"]
+    leader = rank == 0
+
+    def build(mp=world, **inf):
+        return InferenceEngine(
+            GPT2.from_size("tiny", device="meta", **kw),
+            config={"train_micro_batch_size_per_gpu": 1,
+                    "model_parallel_size": mp,
+                    "inference": {**spec["serve"], **inf}},
+            params=params, device="cpu")
+
+    def reqs():
+        return synthetic_requests(**spec["trace"])
+
+    def record(mode, res):
+        out[f"{mode}/tokens"] = np.asarray(json.dumps(
+            {str(r.rid): [int(t) for t in r.tokens]
+             for r in res["results"]}))
+        out[f"{mode}/summary"] = np.asarray(json.dumps(res["summary"]))
+
+    def fleet(engines, requests, prefill=(), **opts):
+        for e in list(engines) + list(prefill):
+            e.reset()
+        return serve_fleet(engines, requests, prefill_engines=prefill,
+                           poll_s=0.02, stall_timeout_s=60.0, **opts)
+
+    out = {}
+    try:
+        build(mp=2 * world)
+    except ValueError as e:
+        out["refused"] = np.asarray(str(e))
+
+    def launch(name, engines, fn):
+        res = lead_fleet(engines, fn)
+        if not leader:
+            out[f"{name}/follower_returned"] = np.asarray(res is None)
+
+    dis = {"fleet": {"disaggregate": True}}
+    a, b = build(**dis), build(**dis)
+    m = [build(mp=1, **dis)] if leader else []
+
+    def modes(engines):
+        record("mixed", fleet([a, b], reqs()))
+        res = fleet([a, b], [Request(rid=i, prompt=list(p), max_new_tokens=n)
+                             for i, (p, n) in enumerate(spec["prefix_trace"])],
+                    affinity=True)
+        record("affinity", res)
+        out["affinity/reused"] = np.asarray(
+            sum(e.pool.tokens_reused for e in (a, b)) > 0)
+        record("disaggregated", fleet([a], reqs(), prefill=[b]))
+        record("md21", fleet(m, reqs(), prefill=[b]))
+        record("md12", fleet([b], reqs(), prefill=m))
+        a.reset()
+        a.admit(0, spec["prompts"][0], 4)
+        k, v, _ = a.export_kv(0)
+        out["export_k"], out["export_v"] = k.numpy(), v.numpy()
+        a.reset()
+
+    launch("modes", [a, b] + m, modes)
+
+    obs = {"observability": {"watchdog_timeout_s": spec["watchdog_s"],
+                             "flight_recorder_dir": spec["work"]}}
+    evict = [build(**obs), build(**obs)]
+
+    def eviction(engines):
+        for e in engines:
+            e.generate([spec["prompts"][0]], max_new_tokens=2)
+            e.reset()
+        stall_at = max(e.decode_dispatches for e in engines) + 1
+        chaos.configure(stall_step=stall_at, stall_s=30.0)
+        from deepspeed_tpu_torch.inference import FleetRouter
+        router = FleetRouter(engines, poll_s=0.02)
+        try:
+            res = router.serve(reqs(), stall_timeout_s=60.0)
+        finally:
+            router.close()
+            chaos.reset()
+        record("eviction", res)
+        out["eviction/evicted_thread_alive"] = np.asarray(json.dumps(
+            [rep.thread.is_alive() for rep in router.replicas if rep.dead]))
+
+    launch("eviction", evict, eviction)
+    if leader:
+        out["eviction/stopped"] = np.asarray(all(e._stopped for e in evict))
+
+    def fail(engines):
+        for e in engines:
+            e.prefill(0, spec["prompts"][0])
+        raise RuntimeError("the leader failed")
+
+    try:
+        launch("raise", [build(), build()], fail)
+    except RuntimeError as e:
+        out["raise/error"] = np.asarray(str(e))
+
+    race = build()
+    done = []
+    real_reset = race._do_reset
+
+    def counted_reset():
+        done.append(1)
+        real_reset()
+    race._do_reset = counted_reset
+
+    def drive(eng, sent, errors):
+        while True:
+            try:
+                eng._run("reset")
+            except RuntimeError as e:
+                errors.append(str(e))
+                return
+            sent.append(1)
+
+    def commands_then_close(engines):
+        eng, = engines
+        sent, errors = [], []
+        threads = [threading.Thread(target=drive, args=(eng, sent, errors))
+                   for _ in range(spec["race_threads"])]
+        prev = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            time.sleep(spec["race_s"])
+            eng.close()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(prev)
+        out["race/alive"] = np.asarray(sum(t.is_alive() for t in threads))
+        out["race/sent"] = np.asarray(len(sent))
+        out["race/errors"] = np.asarray(json.dumps(errors))
+
+    launch("race", [race], commands_then_close)
+    out["race/done"] = np.asarray(len(done))
+    return out
+
+
 import torch.distributed as dist  # noqa: E402
 
 
@@ -1072,6 +1253,7 @@ def main():
            "tp_layers": run_tp_layers, "seq_attn": run_seq_attn,
            "pipe_raw": run_pipe_raw, "moe_grads": run_moe_grads,
            "fleet": run_fleet, "tp_serve": run_tp_serve,
+           "tp_fleet": run_tp_fleet,
            "lint": run_lint}[
         spec["scenario"]]
     out = run(spec, inputs, rank, world)
