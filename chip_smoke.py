@@ -439,8 +439,17 @@ ATTN_KERNELS = {
                       replaces="deepspeed_tpu/ops/pallas_attention.py:106"),
     "block_bwd": dict(passes=5, tensors=7, rows=0, mask=True,
                       replaces="deepspeed_tpu/ops/pallas_attention.py:122"),
+    # the wide route of the same wrappers: the same function, so the same
+    # work (its backward recomputes more, which the bound does not count)
+    "block_fwd_wide": dict(passes=2, tensors=4, rows=0, mask=True,
+                           replaces="deepspeed_tpu/ops/pallas_attention.py"
+                                    ":106"),
+    "block_bwd_wide": dict(passes=5, tensors=7, rows=0, mask=True,
+                           replaces="deepspeed_tpu/ops/pallas_attention.py"
+                                    ":122"),
 }
-# the device function behind each row (its name in a profiler trace); the
+# the device function behind each row (its name in a profiler trace; a
+# tuple: the kernels one launch runs, the first counting the launches); the
 # bf16/fp16 attention kernels, not their fp32 routes
 DEVICE_SYMBOL = {"lamb_phase1": "lamb_phase1_kernel",
                  "lamb_phase2": "lamb_phase2_kernel", "adam": "adam_kernel",
@@ -449,7 +458,10 @@ DEVICE_SYMBOL = {"lamb_phase1": "lamb_phase1_kernel",
                  "stream_dkv": "stream_dkv_mma_kernel",
                  "stream_dq": "stream_dq_wg_kernel",
                  "block_fwd": "block_fwd_wg_kernel",
-                 "block_bwd": "block_bwd_wg_kernel"}
+                 "block_bwd": "block_bwd_wg_kernel",
+                 "block_fwd_wide": "block_fwd_wide_kernel",
+                 "block_bwd_wide": ("block_bwd_wide_dq_kernel",
+                                    "block_bwd_wide_dkv_kernel")}
 # GPT-2 medium at seq 128 (bench.py's GPT-2 recipe: Adam lr 1e-4, bf16);
 # micro-batch 32 x gas 2 gives both BERT phases' 4,096 tokens per micro-step
 GPT2_SEQ, GPT2_STEPS = 128, 6
@@ -463,6 +475,34 @@ GPT2_1024_LOSS_RTOL = 1e-2
 # budget of ops/stream_attention.py never exceeds this
 SCRATCH_CAP = 256 * 2 ** 20
 BLOCK_SHAPE = dict(B=32, n=16, T=128, d=64)
+# the whole-tile kernels' wide route (ops/block_attention.wide_route), each
+# case (B, n, T, d, dtype, causal, padded keys and a fully padded row):
+# GPT-2 large (1536 / 16 heads, d 96) at seq 128, micro-batch 32, and its
+# mp-2 rank's 8 heads; the 8b preset's heads (3072 / 24, d 128); seq not a
+# multiple of 16 or past 128 (136 and 176 at 8 heads, 504 at one); a
+# non-causal padded case; fp32 and fp16 once each.  "large" and "8b" are
+# timed.
+WIDE_CASES = {
+    "large": (32, 16, 128, 96, "bfloat16", True, False),
+    "large_mp2": (32, 8, 128, 96, "bfloat16", True, False),
+    "8b": (32, 24, 128, 128, "bfloat16", True, False),
+    "t136": (32, 8, 136, 64, "bfloat16", True, False),
+    "t176": (32, 8, 176, 64, "bfloat16", True, False),
+    "t504": (32, 1, 504, 64, "bfloat16", True, False),
+    "noncausal_padded": (32, 16, 128, 96, "bfloat16", False, True),
+    "fp32_t136": (32, 8, 136, 96, "float32", True, False),
+    "fp16_t136": (32, 8, 136, 96, "float16", True, False),
+}
+WIDE_TIMED = ("large", "8b")
+# kernel vs plain on identical inputs by type: (rtol, atol as a fraction
+# of max|want|), the card tests' BLOCK_TOL (bf16: ATTN_RTOL, ATTN_ATOL; the
+# sums run in another order, so a bf16/fp16 cast of p or dS can round the
+# other way)
+WIDE_TOL = {"bfloat16": (2e-2, 1e-2), "float16": (5e-3, 2e-3),
+            "float32": (1e-4, 1e-5)}
+# GPT-2 large at full width and depth through the wide route: seq 128,
+# bf16, Adam lr 1e-4, micro-batch 32 x gas 2, 6 steps
+GPT2_LARGE_MICRO = 32
 # the dispatch threshold rule of pallas_attention.calibrate_stream_threshold
 SWEEP_WIN = 1.05
 # the main-path closure (phase closure): BERT-large pretraining as phase
@@ -736,7 +776,8 @@ def phase_dispatch(device):
     every legal (forward, backward) pair of {xla, block} at seq 128 and of
     {xla, stream} at seq 256 (causal, one padded key row), each with its
     launch counts checked.  (stream, block) needs a shape both kernels take:
-    streaming starts at seq 256, the whole-tile kernels end at 128."""
+    streaming starts at seq 256, where the whole-tile kernels run their
+    wide route (counted under its own keys)."""
     import itertools
 
     import numpy as np
@@ -776,9 +817,10 @@ def phase_dispatch(device):
                 got = run(device, fwd_impl, bwd_impl)
                 sync(device)
                 launches = launch_counts()
+            wide = "_wide" if battn.wide_route(T, d) else ""
             expected = no_launches(
-                block_fwd=int(fwd_impl == "block"),
-                block_bwd=int(bwd_impl == "block"),
+                **{f"block_fwd{wide}": int(fwd_impl == "block"),
+                   f"block_bwd{wide}": int(bwd_impl == "block")},
                 stream_fwd=int(fwd_impl == "stream"),
                 **(auto_bwd_launches(torch.float32, B * n, T, d, 1)
                    if bwd_impl == "stream" else {}))
@@ -1090,8 +1132,9 @@ def phase_profile(engine, batch, device, top=12, name="profile"):
                if "gemm" in e.key or "nvjet" in e.key)
     attn = sum(device_ms(e) for e in kernels if "stream_" in e.key)
     block = sum(device_ms(e) for e in kernels
-                if any(DEVICE_SYMBOL[k] in e.key
-                       for k in ("block_fwd", "block_bwd")))
+                if any(_is_symbol(k, e.key)
+                       for k in ("block_fwd", "block_bwd", "block_fwd_wide",
+                                 "block_bwd_wide")))
     emit(name, steps=steps, step_ms_profiled=wall_ms / steps,
          device_busy_ms_per_step=busy / steps,
          device_busy_share_profiled=busy / wall_ms,
@@ -1105,15 +1148,26 @@ def phase_profile(engine, batch, device, top=12, name="profile"):
     return by_name
 
 
+def _symbols(name):
+    sym = DEVICE_SYMBOL[name]
+    return sym if isinstance(sym, tuple) else (sym,)
+
+
+def _is_symbol(name, key):
+    """Whether a profiler key is one of the device functions of ``name``."""
+    return any(sym in key for sym in _symbols(name))
+
+
 def profile_ms(by_name, name, per_launch=True):
     """A ported kernel's device time in a ``phase_profile`` trace: per
-    launch, or (``per_launch`` False) per profiled step; None
-    where the profiled path did not launch it."""
-    hits = [v for k, v in by_name.items() if DEVICE_SYMBOL[name] in k]
-    calls = sum(c for c, _ in hits)
+    launch (the calls of its first device function), or (``per_launch``
+    False) per profiled step; None where the profiled path did not launch
+    it."""
+    first = _symbols(name)[0]
+    calls = sum(c for k, (c, _) in by_name.items() if first in k)
     if not calls:
         return None
-    total = sum(ms for _, ms in hits)
+    total = sum(ms for k, (_, ms) in by_name.items() if _is_symbol(name, k))
     return total / calls if per_launch else total / PROFILE_STEPS
 
 
@@ -1457,18 +1511,18 @@ def phase_train512(device, remat=False, off_run=None):
     return engine, batch, launches, (losses, launches, peak)
 
 
-def _attn_err(got, want):
+def _attn_err(got, want, rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL):
     """(max abs err, max rel err, within tolerance) over tensor pairs, the
-    tolerance ``ATTN_ATOL * max|want| + ATTN_RTOL * |want|``."""
+    tolerance ``atol_of_max * max|want| + rtol * |want|``."""
     abs_err, rel_err, ok = 0.0, 0.0, True
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
         diff = (g - w).abs()
-        atol = ATTN_ATOL * float(w.abs().max())
+        atol = atol_of_max * float(w.abs().max())
         abs_err = max(abs_err, float(diff.max()))
         rel_err = max(rel_err, float(
-            (diff / w.abs().clamp_min(atol / ATTN_RTOL)).max()))
-        ok = ok and bool((diff <= atol + ATTN_RTOL * w.abs()).all())
+            (diff / w.abs().clamp_min(atol / rtol)).max()))
+        ok = ok and bool((diff <= atol + rtol * w.abs()).all())
     return abs_err, rel_err, ok
 
 
@@ -1735,6 +1789,103 @@ def phase_train_gpt2(device):
     return engine, batch, launches, losses
 
 
+def _einsum_spy():
+    """A counter of the einsum attention path's calls (both module names
+    it is reached by), and the undo."""
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.ops import dispatch_attention as dattn
+    real = dattn.xla_attention
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    L.xla_attention = dattn.xla_attention = counted
+
+    def undo():
+        L.xla_attention = dattn.xla_attention = real
+    return calls, undo
+
+
+def phase_train_gpt2_large(device, steps=GPT2_STEPS):
+    """GPT-2 large (24 layers, 1536 hidden, 16 heads: head dim 96) at full
+    width and depth, causal-LM pretraining at seq 128 in bf16, Adam lr
+    1e-4, micro-batch 32 x gas 2, through the whole-tile kernels' wide route
+    and the Adam kernel; then the same engine on the einsum attention as a
+    yardstick.  The wide forward and backward launch once per layer and
+    micro-batch (48 a step), the route-0 and stream kernels and the einsum
+    path never."""
+    import numpy as np
+    import torch
+
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    engine = make_engine(gpt2_config(GPT2_LARGE_MICRO), device, size="large",
+                         gpt2=True)
+    cfg = engine.module.config
+    batch = lm_batch(GPT2_LARGE_MICRO * GAS, GPT2_SEQ, cfg.vocab_size)
+
+    def run(n):
+        losses, step_ms = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        return losses, step_ms
+
+    def steady(step_ms):
+        return (GPT2_LARGE_MICRO * GAS * (len(step_ms) - 1)
+                / (sum(step_ms[1:]) / 1e3))
+
+    calls, undo = _einsum_spy()
+    try:
+        with env("DSTPU_FUSED_ATTN", None):
+            reset_launch_counts()
+            calls[0] = 0
+            losses, step_ms = run(steps)
+            launches = launch_counts()
+            einsum_calls = calls[0]
+    finally:
+        undo()
+    per_step = cfg.num_layers * GAS    # layers x micro-batches
+    expected = no_launches(adam=len(engine.master) * steps,
+                           block_fwd_wide=per_step * steps,
+                           block_bwd_wide=per_step * steps)
+    ok = (bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+          and launches == expected and einsum_calls == 0)
+    emit("train_gpt2_large", model="gpt2-large", layers=cfg.num_layers,
+         hidden=cfg.hidden_size, heads=cfg.num_heads,
+         head_dim=cfg.hidden_size // cfg.num_heads, seq=GPT2_SEQ,
+         micro_batch=GPT2_LARGE_MICRO, gas=GAS, dtype="bf16",
+         optimizer="Adam", lr=1e-4, activation_checkpointing=False,
+         params=engine.num_parameters(), leaves=len(engine.master),
+         losses=losses, step_ms=step_ms,
+         samples_per_s_steady=steady(step_ms),
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+         launches=launches, expected_launches=expected,
+         wide_launches_per_step={k: launches[k] / steps for k in (
+             "block_fwd_wide", "block_bwd_wide")},
+         einsum_calls=einsum_calls, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"train_gpt2_large phase failed: losses {losses}, launches "
+            f"{launches}, expected {expected}, einsum calls {einsum_calls}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    with env("DSTPU_FUSED_ATTN", "0"):
+        reset_launch_counts()
+        y_losses, y_ms = run(YARDSTICK_STEPS)
+        y_launches = launch_counts()
+    emit("train_gpt2_large_einsum_yardstick", steps=YARDSTICK_STEPS,
+         losses=y_losses, step_ms=y_ms, samples_per_s_steady=steady(y_ms),
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+         launches=y_launches)
+    return engine, batch, launches
+
+
 def phase_train_gpt2_1024(device):
     """GPT-2 medium at seq 1024 through the streaming kernels, twice from
     the same seeded weights and batch: the backward as the split pair, then
@@ -1860,11 +2011,14 @@ def phase_bwd_sweep(device, seqs=(256, 512, 1024, 2048), tokens=4096, n=16,
          committed_budget=sattn.STREAM_FUSED_SCRATCH_BUDGET)
 
 
-def phase_block_kernels(device, launches, prof_gpt2):
+def phase_block_kernels(device, launches, prof_gpt2, wide_launches,
+                        prof_large):
     """Each whole-tile kernel against its plain version at the GPT-2 shape
     (q, k, v views of the packed qkv, causal, no padding as on the path,
     and once more with padded keys and a fully padded row), with times on
-    the path's inputs, bounds and a library yardstick."""
+    the path's inputs, bounds and a library yardstick; then the wide route
+    at WIDE_CASES (``phase_block_wide_kernels``), its launches from
+    ``train_gpt2_large`` (``wide_launches``, ``prof_large``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1960,6 +2114,124 @@ def phase_block_kernels(device, launches, prof_gpt2):
         raise AssertionError(f"whole-tile kernels {bad} disagree with their "
                              f"plain versions beyond rtol={ATTN_RTOL} "
                              f"atol={ATTN_ATOL}*max|want|")
+    del q, k, v, do, ones, padded, tq, tk, tv, tdo, tones, tpadded
+    return results + phase_block_wide_kernels(device, wide_launches,
+                                              prof_large)
+
+
+def _block_inputs(device, B, n, T, d, dtype, padded):
+    """q, k, v views of a packed qkv of ``n`` heads, dO and the [B, T] key
+    mask (padded: a fully padded row 0 and padded tails, as
+    phase_block_kernels' padded mask)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(T + d + n)
+    qkv = torch.randn((B, T, n, 3, d), generator=gen,
+                      device=device).to(dtype)
+    do = torch.randn((B, T, n, d), generator=gen, device=device).to(dtype)
+    mask = torch.ones((B, T), device=device)
+    if padded:
+        mask[0] = 0.0
+        for r in range(1, B, 3):
+            mask[r, T - T // 8 - 3 * r:] = 0.0
+    return (*qkv.unbind(3), do, mask)
+
+
+def phase_block_wide_kernels(device, launches=None, prof=None):
+    """The wide route's kernels against their plain versions at WIDE_CASES,
+    each within WIDE_TOL of its type, the backward bitwise equal across two
+    calls at each case; at WIDE_TIMED the times (graph replay and events,
+    plain versions in turn: plain, kernel, kernel, plain), bounds and
+    scaled_dot_product_attention on the same views (timed only).  One row
+    per kernel for the kernels line: its numbers at "large" (GPT-2 large's
+    shape), those at "8b" under ``shape_8b``; ``launches`` (None: none)
+    and ``prof`` from the main path's run."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import block_attention as battn
+    launches = launches or no_launches()
+    cases, timed = {}, {}
+    for case, (B, n, T, d, dt, causal, padded) in WIDE_CASES.items():
+        dtype = getattr(torch, dt)
+        assert battn.wide_route(T, d), case
+        q, k, v, do, mask = _block_inputs(device, B, n, T, d, dtype, padded)
+        rtol, frac = WIDE_TOL[dt]
+        fns = {"block_fwd_wide": (
+            lambda: (battn.block_fwd(q, k, v, mask, causal),),
+            lambda: (battn.block_fwd_plain(q, k, v, mask, causal),)),
+            "block_bwd_wide": (
+            lambda: battn.block_bwd(q, k, v, mask, do, causal),
+            lambda: battn.block_bwd_plain(q, k, v, mask, do, causal))}
+        reset_launch_counts()
+        got = {name: kf() for name, (kf, _) in fns.items()}
+        again = fns["block_bwd_wide"][0]()
+        sync(device)
+        routed = launch_counts()
+        row = {name: _attn_err(got[name], pf(), rtol, frac)
+               for name, (_, pf) in fns.items()}
+        cases[case] = {
+            "shape": dict(B=B, n=n, T=T, d=d), "dtype": dt, "causal": causal,
+            "padded": padded, "rtol": rtol, "atol_of_max": frac,
+            "max_abs_err": {k: e[0] for k, e in row.items()},
+            "max_rel_err": {k: e[1] for k, e in row.items()},
+            "repeatable": all(torch.equal(a, b) for a, b in
+                              zip(got["block_bwd_wide"], again)),
+            # one forward and two backward calls, all on the wide route
+            "wide_route": routed == no_launches(block_fwd_wide=1,
+                                                block_bwd_wide=2),
+            "ok": all(e[2] for e in row.values())}
+        del got, again
+        if case in WIDE_TIMED:
+            four = [x.transpose(1, 2) for x in (q, k, v)]
+
+            def backward(four=four, do=do, causal=causal):
+                leaves = [x.detach().clone().requires_grad_() for x in four]
+                out = F.scaled_dot_product_attention(*leaves,
+                                                     is_causal=causal)
+                return lambda: torch.autograd.grad(
+                    out, leaves, do.transpose(1, 2), retain_graph=True)
+            lib = {"block_fwd_wide": _library_ms(
+                lambda: F.scaled_dot_product_attention(*four,
+                                                       is_causal=causal),
+                device),
+                "block_bwd_wide": _library_ms(backward(), device,
+                                              make=backward)}
+            timed[case] = {}
+            for name, (kfn, pfn) in fns.items():
+                plain_a = _time_ms(pfn, device)
+                kernel_a = _time_ms(kfn, device)
+                kernel_b = _time_ms(kfn, device)
+                plain_b = _time_ms(pfn, device)
+                bound, bound_by = _attn_bound(name, B * n, T, d,
+                                              elt_bytes=dtype.itemsize, B=B)
+                timed[case][name] = {
+                    **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
+                    "plain_ms": min(plain_a, plain_b), "bound_ms": bound,
+                    "bound_by": bound_by, **lib[name]}
+            del four, lib
+        del q, k, v, do, mask, fns
+        emit("block_wide_kernels", case=case, **cases[case],
+             **({"times": timed[case]} if case in timed else {}))
+    results = []
+    for name in ("block_fwd_wide", "block_bwd_wide"):
+        results.append({
+            "name": name, "route": "cuda", "source": BLOCK_SOURCE,
+            "replaces": ATTN_KERNELS[name]["replaces"],
+            "launches": launches[name], "path": "train_gpt2_large",
+            "max_abs_err": cases["large"]["max_abs_err"][name],
+            "max_abs_err_all_bf16_cases": max(
+                c["max_abs_err"][name] for c in cases.values()
+                if c["dtype"] == "bfloat16"),
+            **timed["large"][name],
+            "profile_ms": profile_ms(prof, name) if prof else None,
+            "shape": dict(zip("BnTd", WIDE_CASES["large"][:4])),
+            "shape_8b": dict(shape=dict(zip("BnTd", WIDE_CASES["8b"][:4])),
+                             **timed["8b"][name])})
+    bad = [c for c, r in cases.items()
+           if not (r["ok"] and r["repeatable"] and r["wide_route"])]
+    if bad:
+        raise AssertionError(f"wide whole-tile kernels failed at {bad}: "
+                             f"{[cases[c] for c in bad]}")
     return results
 
 
@@ -4338,8 +4610,8 @@ def _trace_counts(path):
     for ev in events:
         name = str(ev.get("name", ""))
         if ev.get("cat") == "kernel":
-            for k, sym in DEVICE_SYMBOL.items():
-                if sym in name:
+            for k in DEVICE_SYMBOL:
+                if _symbols(k)[0] in name:   # one a launch
                     kernels[k] += 1
         elif name.startswith("dstpu/"):
             spans[name] = spans.get(name, 0) + 1
@@ -6403,7 +6675,8 @@ def main() -> int:
     only = None
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
                    "obs_gpt2", "fleet_gpt2", "serve_gpt2",
-                   "fleet_serve_gpt2", "tp_serve_gpt2", "analysis_gpt2")
+                   "fleet_serve_gpt2", "tp_serve_gpt2", "analysis_gpt2",
+                   "train_gpt2_large", "block_wide_kernels")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -6521,7 +6794,13 @@ def main() -> int:
     phase_analysis_gpt2_train(device, engine, batch, baseline=before_gpt2)
     del engine, batch
     free(device)
-    kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2)
+    engine, batch, large_launches = phase_train_gpt2_large(device)
+    prof_large = phase_profile(engine, batch, device,
+                               name="profile_gpt2_large")
+    del engine, batch
+    free(device)
+    kernels += phase_block_kernels(device, gpt2_launches, prof_gpt2,
+                                   large_launches, prof_large)
     flat_adam, _ = phase_zero_gpt2(device)
     phase_zero_ckpt(device)
     free(device)
@@ -6638,6 +6917,9 @@ def main() -> int:
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
+    # the wide route at GPT-2 large's head dim, by seq (the plan takes the
+    # whole-tile kernels for causal shapes only)
+    phase_attn_sweep(device, "block", True, (64, 128, 136, 176), d=96)
     phase_calibrate(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -6647,7 +6929,8 @@ def main() -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     print(card)
-    extra = ("flat_partition", "tp_gpt2_launches", "zero3_gpt2_launches",
+    extra = ("shape", "shape_8b", "flat_partition", "tp_gpt2_launches",
+             "zero3_gpt2_launches",
              "pp_gpt2_launches", "sp_gpt2_launches",
              "zero3_pp_gpt2_launches", "moe_gpt2_launches",
              "multistep_gpt2_launches", "moe_expert_leaf",

@@ -1,15 +1,22 @@
 // Whole-tile attention for Hopper (sm_90a): the forward and backward kernels
-// for short sequences (T <= 128), on q, k, v in the public [B, T, n, d]
-// layout read through their strides (the views of the packed qkv projection
-// need no copy), with a plain C interface loaded through ctypes
+// for every shape the JAX whole-tile gate takes up to head dim 128 (T a
+// multiple of 8 up to 512), on q, k, v in the public [B, T, n, d] layout
+// read through their strides (the views of the packed qkv projection need
+// no copy), with a plain C interface loaded through ctypes
 // (deepspeed_tpu_torch/ops/block_attention.py builds this file with nvcc at
 // first use and holds each kernel's plain PyTorch version beside it).
 //
-// What each kernel replaces (deepspeed_tpu/ops/pallas_attention.py):
-//   block_fwd_wg_kernel  <- _fwd_kernel  (:106, pallas_call :180)  bf16/fp16
-//   block_bwd_wg_kernel  <- _bwd_kernel  (:122, pallas_call :200)  bf16/fp16
-//   block_fwd_kernel     <- _fwd_kernel  fp32 route
-//   block_bwd_kernel     <- _bwd_kernel  fp32 route
+// What each kernel replaces (deepspeed_tpu/ops/pallas_attention.py), by
+// route (dispatch):
+//   route 0, T a multiple of 16 in [16, 128] and d <= 64:
+//     block_fwd_wg_kernel  <- _fwd_kernel  (:106, pallas_call :180)  bf16/fp16
+//     block_bwd_wg_kernel  <- _bwd_kernel  (:122, pallas_call :200)  bf16/fp16
+//     block_fwd_kernel     <- _fwd_kernel  fp32
+//     block_bwd_kernel     <- _bwd_kernel  fp32
+//   route 1 (the wide route), every other shape up to T 512 and d 128, all
+//   three types (its own note, below the route-0 kernels):
+//     block_fwd_wide_kernel                          <- _fwd_kernel
+//     block_bwd_wide_dq_kernel + block_bwd_wide_dkv_kernel <- _bwd_kernel
 //
 // Contract (the Pallas whole-tile kernels', which is not the streaming
 // kernels').  Scores are q.k^T summed in fp32, times `scale`; under `causal`
@@ -119,6 +126,7 @@ struct Args {
   const void *q, *k, *v, *dout;  // dout: contiguous [B, T, n, d]
   const float* mask;             // [B, T], 1 = attend
   void *o, *dq, *dk, *dv;        // contiguous [B, T, n, d]
+  float* stats;  // the wide backward's row max, sum and t: fp32 [3, B, n, T]
   long long sB, sT, sH;          // element strides of q, k and v
   int B, n, T, d, causal;
   float scale;
@@ -743,6 +751,610 @@ __global__ void __launch_bounds__(128 * NB, 1) block_bwd_wg_kernel(Args a) {
   store_tile(static_cast<T*>(a.dv) + off, ld_out, dvs, rows, d);
 }
 
+// ------------------------------------- the wide route (T <= 512, d <= 128)
+//
+// Every shape of the JAX gate that the routes above refuse: T a multiple of
+// 8 from 8 to 512 and d a multiple of 8 up to 128, in all three types.  It
+// computes what they compute (the contract at the top of this file), with
+// whole fp32 score rows in shared memory and K, V streamed past them in
+// tiles of 64 keys through a two-slot cp.async ring:
+//   * block_fwd_wide_kernel: one block per (b, head, QB = 16 NW query
+//     rows), NW warps of 16 rows.  Each warp forms its rows' scaled and
+//     masked scores tile by tile, takes the exact softmax of each whole row
+//     (max, exp, sum, divide), writes p in the input type over its own
+//     score row, then O += p.V over the V tiles.
+//   * block_bwd_wide_dq_kernel: the same blocks.  S and the softmax as in
+//     the forward, p kept in fp32 and the rows' max and sum stored to a
+//     scratch; dP = dO.V^T tile by tile for t = rowsum(dP * p) over the
+//     whole row (stored too); then dP again for dS = p (dP - t), cast and
+//     staged per warp, and dQ += dS.K.
+//   * block_bwd_wide_dkv_kernel: one block per (b, head, 16 NW keys), each
+//     warp 16 keys.  The query rows stream by 32 with their max, sum and
+//     t; p and dS are recomputed transposed (k.q^T, v.dO^T) from them and
+//     staged per warp, and dV += p^T dO, dK += dS^T q stay in registers.
+//   Every output row is written by one block in a fixed order: no atomics,
+//   bitwise repeatable.  The dkv kernel runs after the dq kernel on the
+//   same stream (it reads the scratch).
+// Products: mma.sync m16n8k16 from ldmatrix fragments for bf16/fp16 (fp32
+// accumulators); for fp32 the same fragment elements by plain FMAs (never
+// TF32).  d is zero-padded to DP (64, 96 or 128; fp32 64 or 128) and rows
+// past T to the tiles in shared memory; nothing past a row is read.  The
+// causal skip is the one of the header: with f the batch row's first
+// unmasked key, a query block starting at r0 >= f takes no key after its
+// last row (those p are exact zeros), and the dkv kernel skips the query
+// rows r0 >= f that end before its first key.
+// Shared memory at T 512, d 128 (the largest; it follows T): bf16 and fp16
+// (QB 64): forward q 17,408 + ring 34,816 + score rows 64 x 516 x 4 =
+// 132,096 + mask 2,176 = 186,496 bytes; dq kernel q and dO 34,816 + ring
+// 34,816 + score rows 132,096 + dS staging 9,216 + mask 2,176 = 213,120;
+// dkv kernel 80,768 at any T.  fp32 runs two warps (QB 32), which halves
+// the score rows: 152,704, 178,304 and 111,488.  All fit the 232,448
+// bytes a block may opt into; each kernel's limit is set once, at T 512.
+// Bound: as the routes above, bytes (GPT-2 large's shape, B 32, n 16,
+// T 128, d 96: forward 50.3 MB, 15.0 us at 3.35 TB/s; backward 88.1 MB,
+// 26.3 us).  This design reads K and V once per query block (twice at
+// T 128), recomputes dP in the dq kernel and S and dP in the dkv kernel
+// (8 T^2 d product passes in the backward where the function needs 5),
+// and takes p and dS to its products through shared memory; wgmma, TMA
+// and a block per head are later work.
+
+constexpr int kWideMaxT = 512;
+constexpr int kWideMaxD = 128;
+constexpr int kKT = 64;  // keys per K/V tile (forward, dq kernel)
+constexpr int kQT = 32;  // query rows per step of the dkv kernel
+
+// elements of T in 16 bytes, and the row stride of a tile of DP columns in
+// shared memory (a 16-byte pad puts the 8 rows of an ldmatrix in distinct
+// banks)
+template <typename T>
+__host__ __device__ constexpr int vec16() {
+  return 16 / int(sizeof(T));
+}
+template <typename T, int DP>
+__host__ __device__ constexpr int ld_tile() {
+  return DP + vec16<T>();
+}
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Shared memory of the forward and dq kernels for a runtime T: the host
+// sizes the launch with it and the kernel carves with it.
+template <typename T, int DP, int NW>
+struct WideLayout {
+  static constexpr int QB = 16 * NW, LDT = ld_tile<T, DP>();
+  static constexpr int LDST = kKT + vec16<T>();  // dS staging row stride
+  static constexpr size_t rows = align128(size_t(QB) * LDT * sizeof(T));
+  static constexpr size_t tile = align128(size_t(kKT) * LDT * sizeof(T));
+  static constexpr size_t stage =
+      align128(size_t(NW) * 16 * LDST * sizeof(T));
+  int LDS;                // fp32 score row stride
+  size_t s, mk, fwd, dq;  // score rows; mask and the block's int
+  __host__ __device__ explicit WideLayout(int Tn) {
+    const int Tp = round_up(Tn, kKT);
+    LDS = Tp + 4;
+    s = align128(size_t(QB) * LDS * 4);
+    mk = align128(size_t(Tp) * 4 + 16);
+    fwd = rows + 2 * tile + s + mk;               // q; ring; S; mask
+    dq = 2 * rows + 2 * tile + s + stage + mk;    // q, dO; ring; S; dS; mask
+  }
+};
+
+// Shared memory of the dkv kernel (any T).
+template <typename T, int DP, int NW>
+struct WideDkvLayout {
+  static constexpr int KB = 16 * NW, LDT = ld_tile<T, DP>();
+  static constexpr int LDST = kQT + vec16<T>();  // p / dS staging stride
+  static constexpr size_t kv = align128(size_t(KB) * LDT * sizeof(T));
+  static constexpr size_t qt = align128(size_t(kQT) * LDT * sizeof(T));
+  static constexpr size_t slot = 2 * qt + align128(3 * kQT * 4);  // q, dO, m l t
+  static constexpr size_t stage =
+      align128(size_t(NW) * 2 * 16 * LDST * sizeof(T));
+  static constexpr size_t total = 2 * kv + 2 * slot + stage + 128;
+};
+
+// `rows` rows of d elements (row r at src + r * ld, 16-byte aligned) into
+// an R x DP tile by 16-byte cp.async; columns from d and rows from `rows`
+// are zero-filled.
+template <typename T, int DP>
+__device__ __forceinline__ void cp_tile(T* dst, const T* src, size_t ld,
+                                        int rows, int R, int d) {
+  constexpr int V = vec16<T>(), C = DP / V, LDT = ld_tile<T, DP>();
+  for (int e = threadIdx.x; e < R * C; e += blockDim.x) {
+    const int r = e / C, c = (e % C) * V;
+    const bool ok = r < rows && c < d;
+    cp_async16(dst + r * LDT + c, ok ? src + size_t(r) * ld + c : src, ok);
+  }
+}
+
+// acc[NT][4] += A[16 x K] . B[K x 8 NT] for one warp, in the mma.sync C
+// layout: acc[nt][e] is row gq + 8 (e >> 1), column 8 nt + 2 tq + (e & 1).
+// A is row-major (stride lda elements); B is stored [n][k] (BNK: row n
+// holds its K values) or [k][n] (stride ldb).  K a multiple of 16, NT even.
+template <typename T, int NT, bool BNK>
+__device__ __forceinline__ void warp_mm(float (&acc)[NT][4], const T* A,
+                                        int lda, const T* B, int ldb, int K) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (std::is_same<T, float>::value) {
+    const int gq = lane >> 2, tq = lane & 3;
+    for (int k = 0; k < K; ++k) {
+      const float a0 = A[gq * lda + k], a1 = A[(gq + 8) * lda + k];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = 8 * nt + 2 * tq;
+        const float b0 = BNK ? B[c * ldb + k] : B[k * ldb + c];
+        const float b1 = BNK ? B[(c + 1) * ldb + k] : B[k * ldb + c + 1];
+        acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
+        acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
+        acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
+        acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
+      }
+    }
+  } else {
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4<false>(a, A + (lane & 15) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        if constexpr (BNK)
+          ldsm_x4<false>(b, B + (16 * np + (lane & 7) + 8 * (lane >> 4)) * ldb +
+                                k0 + 8 * ((lane >> 3) & 1));
+        else
+          ldsm_x4<true>(b, B + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ldb +
+                               16 * np + 8 * (lane >> 4));
+        mma16816<T>(acc[2 * np], a, b[0], b[1]);
+        mma16816<T>(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// two neighbouring values to shared memory as T
+template <typename T>
+__device__ __forceinline__ void put2(T* dst, float lo, float hi) {
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = pack2<T>(lo, hi);
+}
+
+// a warp's 16 x 8 NT accumulator tile times `mul` into shared memory as T
+// (row stride ld)
+template <typename T, int NT>
+__device__ __forceinline__ void stage_frag(T* dst, int ld,
+                                           const float (&acc)[NT][4],
+                                           float mul) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      put2<T>(dst + (gq + 8 * h) * ld + 8 * nt + 2 * tq,
+              acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
+}
+
+// A warp's 16 staged rows (`src`, row stride LDT) to rows row0.. of a
+// contiguous [B, T, n, d] array (`dst` at row 0 of this (b, head), row
+// stride ld), 16 bytes a lane; rows from T are not written.
+template <typename T, int DP>
+__device__ __forceinline__ void store_warp_rows(T* dst, size_t ld,
+                                                const T* src, int row0,
+                                                int Tn, int d) {
+  constexpr int V = vec16<T>(), C = DP / V, LDT = ld_tile<T, DP>();
+  for (int e = threadIdx.x & 31; e < 16 * C; e += 32) {
+    const int r = e / C, c = (e % C) * V;
+    if (row0 + r < Tn && c < d)
+      *reinterpret_cast<uint4*>(dst + size_t(row0 + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(src + r * LDT + c);
+  }
+}
+
+// The batch row's first unmasked key (T when every key is masked), for
+// every thread; `red` is an int of shared memory.  With `mk` the row's
+// mask is kept there too, zeros from T to Tp.
+__device__ __forceinline__ int first_key(const float* mask, int Tn, int Tp,
+                                         float* mk, int* red) {
+  if (threadIdx.x == 0) *red = Tn;
+  __syncthreads();
+  int f = Tn;
+  for (int c = threadIdx.x; c < Tp; c += blockDim.x) {
+    const float m = c < Tn ? mask[c] : 0.f;
+    if (mk) mk[c] = m;
+    if (m != 0.f && c < f) f = c;
+  }
+  f = __reduce_min_sync(0xffffffffu, f);
+  if ((threadIdx.x & 31) == 0) atomicMin(red, f);
+  __syncthreads();
+  return *red;
+}
+
+// A warp's 16 x 64 product tile s (query rows `row` and row + 8 of this
+// thread, keys from c0) scaled and masked as _scores into its fp32 score
+// rows: the causal band, then the key mask, to -1e9.
+__device__ __forceinline__ void put_scores(float* Sw, int LDS,
+                                           const float (&s)[kKT / 8][4],
+                                           int row, int c0, const float* mk,
+                                           const Args& a) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * nt + 2 * tq + e;
+        x[e] = s[nt][2 * h + e] * a.scale;
+        if (a.causal && c > row + 8 * h) x[e] = kMasked;
+        if (mk[c] == 0.f) x[e] = kMasked;
+      }
+      *reinterpret_cast<float2*>(Sw + (gq + 8 * h) * LDS + c0 + 8 * nt +
+                                 2 * tq) = make_float2(x[0], x[1]);
+    }
+}
+
+// The exact softmax of a warp's 16 whole score rows over the keys below
+// kend (the other keys' p are exact zeros), p = e / sum written over each
+// row as P (fp32, or the input type) for its first ncols columns.  With
+// m_out, the max and sum of rows row0 + r below T are stored there and in
+// l_out.  Each lane holds columns lane + 32 u; the loops stop at the
+// row's ncols / 32 (unrolled, so x stays in registers).
+template <typename P>
+__device__ __forceinline__ void softmax_rows(float* Sw, int LDS, int kend,
+                                             int ncols, int row0, int Tn,
+                                             float* m_out, float* l_out) {
+  const int lane = threadIdx.x & 31, nu = ncols / 32;
+  for (int r = 0; r < 16; ++r) {
+    float* srow = Sw + r * LDS;
+    float x[kWideMaxT / 32];
+    float mx = kNegInf, sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < kWideMaxT / 32; ++u) {
+      if (u == nu) break;
+      const int c = lane + 32 * u;
+      x[u] = c < kend ? srow[c] : kNegInf;
+      mx = fmaxf(mx, x[u]);
+    }
+    mx = warp_max(mx);
+#pragma unroll
+    for (int u = 0; u < kWideMaxT / 32; ++u) {
+      if (u == nu) break;
+      x[u] = lane + 32 * u < kend ? expf(x[u] - mx) : 0.f;
+      sum += x[u];
+    }
+    sum = warp_sum(sum);
+    __syncwarp();  // the whole row is read before p overwrites it
+    P* prow = reinterpret_cast<P*>(srow);
+#pragma unroll
+    for (int u = 0; u < kWideMaxT / 32; ++u) {
+      if (u == nu) break;
+      prow[lane + 32 * u] = from_f<P>(x[u] / sum);
+    }
+    if (m_out && lane == 0 && row0 + r < Tn) {
+      m_out[row0 + r] = mx;
+      l_out[row0 + r] = sum;
+    }
+  }
+  __syncwarp();
+}
+
+// The block's place: (b, head) and the first row of its 16 NW rows.
+struct WidePlace {
+  int bh, b, h, r0;
+  __device__ WidePlace(const Args& a, int rows_per_block) {
+    const int nblk = (a.T + rows_per_block - 1) / rows_per_block;
+    bh = blockIdx.x / nblk;
+    r0 = (blockIdx.x % nblk) * rows_per_block;
+    b = bh / a.n;
+    h = bh % a.n;
+  }
+};
+
+template <typename T, int DP, int NW>
+__global__ void __launch_bounds__(32 * NW) block_fwd_wide_kernel(Args a) {
+  using L = WideLayout<T, DP, NW>;
+  constexpr int LDT = L::LDT;
+  constexpr size_t TE = L::tile / sizeof(T);  // elements per ring slot
+  const L lay(a.T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + L::rows);
+  float* Ss = reinterpret_cast<float*>(smem + L::rows + 2 * L::tile);
+  float* mk = reinterpret_cast<float*>(smem + L::rows + 2 * L::tile + lay.s);
+  const int Tn = a.T, d = a.d, Tp = round_up(Tn, kKT);
+  const WidePlace at(a, L::QB);
+  const size_t sT = size_t(a.sT);
+  const size_t base = size_t(at.b) * a.sB + size_t(at.h) * a.sH;
+  const T* kp = static_cast<const T*>(a.k) + base;
+  const T* vp = static_cast<const T*>(a.v) + base;
+  cp_tile<T, DP>(Qs, static_cast<const T*>(a.q) + base + at.r0 * sT, sT,
+                 min(L::QB, Tn - at.r0), L::QB, d);
+  const int f = first_key(a.mask + size_t(at.b) * Tn, Tn, Tp, mk,
+                          reinterpret_cast<int*>(mk + Tp));
+  const int kend = a.causal && f <= at.r0 ? min(Tn, at.r0 + L::QB) : Tn;
+  const int nt = (kend + kKT - 1) / kKT;
+  // the stream: K tiles 0..nt-1, then V tiles 0..nt-1
+  auto issue = [&](int i) {
+    const int j = i < nt ? i : i - nt;
+    cp_tile<T, DP>(ring + (i & 1) * TE, (i < nt ? kp : vp) + j * kKT * sT,
+                   sT, min(kKT, Tn - j * kKT), kKT, d);
+    cp_async_commit();
+  };
+  const int w = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2;
+  T* Qw = Qs + 16 * w * LDT;
+  float* Sw = Ss + 16 * w * lay.LDS;
+  const int row = at.r0 + 16 * w + gq;
+  float o[DP / 8][4] = {};
+  issue(0);
+  for (int i = 0; i < 2 * nt; ++i) {
+    if (i + 1 < 2 * nt) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* tile = ring + (i & 1) * TE;
+    if (i < nt) {
+      float s[kKT / 8][4] = {};
+      warp_mm<T, kKT / 8, true>(s, Qw, LDT, tile, LDT, DP);
+      put_scores(Sw, lay.LDS, s, row, i * kKT, mk, a);
+      if (i == nt - 1) {
+        __syncwarp();
+        softmax_rows<T>(Sw, lay.LDS, kend, nt * kKT, 0, 0, nullptr, nullptr);
+      }
+    } else {
+      // p of keys 64 (i - nt).. in the input type, over the score rows
+      warp_mm<T, DP / 8, false>(o,
+                                reinterpret_cast<const T*>(Sw) + (i - nt) * kKT,
+                                lay.LDS * 4 / int(sizeof(T)), tile, LDT, kKT);
+    }
+    __syncthreads();
+  }
+  // O in the input type, staged through the warp's own q rows
+  stage_frag<T, DP / 8>(Qw, LDT, o, 1.f);
+  __syncwarp();
+  const size_t ld_out = size_t(a.n) * d;
+  store_warp_rows<T, DP>(static_cast<T*>(a.o) + size_t(at.b) * Tn * ld_out +
+                             size_t(at.h) * d,
+                         ld_out, Qw, at.r0 + 16 * w, Tn, d);
+}
+
+template <typename T, int DP, int NW>
+__global__ void __launch_bounds__(32 * NW) block_bwd_wide_dq_kernel(Args a) {
+  using L = WideLayout<T, DP, NW>;
+  constexpr int LDT = L::LDT;
+  constexpr size_t TE = L::tile / sizeof(T);
+  const L lay(a.T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* p = smem;
+  T* Qs = reinterpret_cast<T*>(p);
+  T* dOs = reinterpret_cast<T*>(p += L::rows);
+  T* ring = reinterpret_cast<T*>(p += L::rows);
+  float* Ss = reinterpret_cast<float*>(p += 2 * L::tile);
+  T* dSs = reinterpret_cast<T*>(p += lay.s);
+  float* mk = reinterpret_cast<float*>(p += L::stage);
+  const int Tn = a.T, d = a.d, Tp = round_up(Tn, kKT);
+  const WidePlace at(a, L::QB);
+  const size_t sT = size_t(a.sT);
+  const size_t base = size_t(at.b) * a.sB + size_t(at.h) * a.sH;
+  const size_t ld_out = size_t(a.n) * d;
+  const size_t obase = size_t(at.b) * Tn * ld_out + size_t(at.h) * d;
+  const T* kp = static_cast<const T*>(a.k) + base;
+  const T* vp = static_cast<const T*>(a.v) + base;
+  const int rows = min(L::QB, Tn - at.r0);
+  cp_tile<T, DP>(Qs, static_cast<const T*>(a.q) + base + at.r0 * sT, sT,
+                 rows, L::QB, d);
+  cp_tile<T, DP>(dOs, static_cast<const T*>(a.dout) + obase + at.r0 * ld_out,
+                 ld_out, rows, L::QB, d);
+  const int f = first_key(a.mask + size_t(at.b) * Tn, Tn, Tp, mk,
+                          reinterpret_cast<int*>(mk + Tp));
+  const int kend = a.causal && f <= at.r0 ? min(Tn, at.r0 + L::QB) : Tn;
+  const int nt = (kend + kKT - 1) / kKT;
+  // the stream: K 0..nt-1 (S), V 0..nt-1 (t), then V j, K j for each j
+  // (dS, dQ)
+  auto issue = [&](int i) {
+    int j = i;
+    const T* src = kp;
+    if (i >= 2 * nt) {
+      j = (i - 2 * nt) >> 1;
+      src = (i - 2 * nt) & 1 ? kp : vp;
+    } else if (i >= nt) {
+      j = i - nt;
+      src = vp;
+    }
+    cp_tile<T, DP>(ring + (i & 1) * TE, src + j * kKT * sT, sT,
+                   min(kKT, Tn - j * kKT), kKT, d);
+    cp_async_commit();
+  };
+  const size_t BnT = size_t(a.B) * a.n * Tn;
+  float* m_out = a.stats + size_t(at.bh) * Tn;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  T* Qw = Qs + 16 * w * LDT;
+  const T* dOw = dOs + 16 * w * LDT;
+  float* Sw = Ss + 16 * w * lay.LDS;
+  T* dSw = dSs + 16 * w * L::LDST;
+  const int row = at.r0 + 16 * w + gq;
+  float dq[DP / 8][4] = {};
+  float t[2] = {0.f, 0.f};
+  issue(0);
+  for (int i = 0; i < 4 * nt; ++i) {
+    if (i + 1 < 4 * nt) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* tile = ring + (i & 1) * TE;
+    if (i < nt) {
+      float s[kKT / 8][4] = {};
+      warp_mm<T, kKT / 8, true>(s, Qw, LDT, tile, LDT, DP);
+      put_scores(Sw, lay.LDS, s, row, i * kKT, mk, a);
+      if (i == nt - 1) {
+        __syncwarp();
+        softmax_rows<float>(Sw, lay.LDS, kend, nt * kKT, at.r0 + 16 * w, Tn,
+                            m_out, m_out + BnT);
+      }
+    } else if (i < 2 * nt || !((i - 2 * nt) & 1)) {
+      // dP = dO.v^T of keys 64 j..
+      const int j = i < 2 * nt ? i - nt : (i - 2 * nt) >> 1;
+      float dp[kKT / 8][4] = {};
+      warp_mm<T, kKT / 8, true>(dp, dOw, LDT, tile, LDT, DP);
+      const float* pw = Sw + j * kKT + 2 * tq;
+      if (i < 2 * nt) {
+#pragma unroll
+        for (int n8 = 0; n8 < kKT / 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            t[e >> 1] += dp[n8][e] * pw[(gq + 8 * (e >> 1)) * lay.LDS +
+                                        8 * n8 + (e & 1)];
+        if (i == 2 * nt - 1) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            t[hh] += __shfl_xor_sync(0xffffffffu, t[hh], 1);
+            t[hh] += __shfl_xor_sync(0xffffffffu, t[hh], 2);
+            if (tq == 0 && row + 8 * hh < Tn)
+              m_out[2 * BnT + row + 8 * hh] = t[hh];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n8 = 0; n8 < kKT / 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[n8][e] = pw[(gq + 8 * (e >> 1)) * lay.LDS + 8 * n8 + (e & 1)] *
+                        (dp[n8][e] - t[e >> 1]);
+        stage_frag<T, kKT / 8>(dSw, L::LDST, dp, 1.f);
+        __syncwarp();
+      }
+    } else {
+      warp_mm<T, DP / 8, false>(dq, dSw, L::LDST, tile, LDT, kKT);
+    }
+    __syncthreads();
+  }
+  stage_frag<T, DP / 8>(Qw, LDT, dq, a.scale);
+  __syncwarp();
+  store_warp_rows<T, DP>(static_cast<T*>(a.dq) + obase, ld_out, Qw,
+                         at.r0 + 16 * w, Tn, d);
+}
+
+template <typename T, int DP, int NW>
+__global__ void __launch_bounds__(32 * NW) block_bwd_wide_dkv_kernel(Args a) {
+  using L = WideDkvLayout<T, DP, NW>;
+  constexpr int LDT = L::LDT, LDST = L::LDST;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = reinterpret_cast<T*>(smem + L::kv);
+  unsigned char* slots = smem + 2 * L::kv;
+  T* stg = reinterpret_cast<T*>(slots + 2 * L::slot);
+  int* red = reinterpret_cast<int*>(slots + 2 * L::slot + L::stage);
+  const int Tn = a.T, d = a.d;
+  const WidePlace at(a, L::KB);
+  const int k0 = at.r0;
+  const size_t sT = size_t(a.sT);
+  const size_t base = size_t(at.b) * a.sB + size_t(at.h) * a.sH;
+  const size_t ld_out = size_t(a.n) * d;
+  const size_t obase = size_t(at.b) * Tn * ld_out + size_t(at.h) * d;
+  const T* qp = static_cast<const T*>(a.q) + base;
+  const T* dop = static_cast<const T*>(a.dout) + obase;
+  const int keys = min(L::KB, Tn - k0);
+  cp_tile<T, DP>(Ks, static_cast<const T*>(a.k) + base + k0 * sT, sT, keys,
+                 L::KB, d);
+  cp_tile<T, DP>(Vs, static_cast<const T*>(a.v) + base + k0 * sT, sT, keys,
+                 L::KB, d);
+  cp_async_commit();
+  const float* mrow = a.mask + size_t(at.b) * Tn;
+  const int f = first_key(mrow, Tn, Tn, nullptr, red);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int key = k0 + 16 * w + gq;  // and key + 8
+  const float km[2] = {key < Tn ? mrow[key] : 0.f,
+                       key + 8 < Tn ? mrow[key + 8] : 0.f};
+  const size_t BnT = size_t(a.B) * a.n * Tn;
+  const float* stats = a.stats + size_t(at.bh) * Tn;
+  const int nq = (Tn + kQT - 1) / kQT;
+  // query tiles whose every row has an unmasked key at or before it and
+  // ends before this block's keys add exact zeros (causal): skipped
+  auto next = [&](int i) {
+    while (i < nq && a.causal && f <= i * kQT && i * kQT + kQT - 1 < k0) ++i;
+    return i;
+  };
+  auto issue = [&](int i, int slot) {
+    unsigned char* sl = slots + slot * L::slot;
+    const int r0 = i * kQT, rows = min(kQT, Tn - r0);
+    cp_tile<T, DP>(reinterpret_cast<T*>(sl), qp + r0 * sT, sT, rows, kQT, d);
+    cp_tile<T, DP>(reinterpret_cast<T*>(sl + L::qt), dop + r0 * ld_out, ld_out,
+                   rows, kQT, d);
+    float* st = reinterpret_cast<float*>(sl + 2 * L::qt);
+    for (int e = threadIdx.x; e < 3 * kQT / 4; e += blockDim.x) {
+      const int which = e / (kQT / 4), c = (e % (kQT / 4)) * 4;
+      const float* src = stats + which * BnT + r0;
+      cp_async16(st + which * kQT + c, c < rows ? src + c : src, c < rows);
+    }
+    cp_async_commit();
+  };
+  const T* Kw = Ks + 16 * w * LDT;
+  const T* Vw = Vs + 16 * w * LDT;
+  T* Pw = stg + 2 * 16 * w * LDST;
+  T* dSw = Pw + 16 * LDST;
+  float dk[DP / 8][4] = {}, dv[DP / 8][4] = {};
+  int cur = next(0), slot = 0;
+  issue(cur, 0);  // the tile holding key k0 is never skipped
+  while (cur < nq) {
+    const int nxt = next(cur + 1);
+    if (nxt < nq) {
+      issue(nxt, slot ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* sl = slots + slot * L::slot;
+    const T* Qt = reinterpret_cast<const T*>(sl);
+    const T* dOt = reinterpret_cast<const T*>(sl + L::qt);
+    const float* st = reinterpret_cast<const float*>(sl + 2 * L::qt);
+    const int r0 = cur * kQT;
+    float s[kQT / 8][4] = {}, dp[kQT / 8][4] = {};
+    warp_mm<T, kQT / 8, true>(s, Kw, LDT, Qt, LDT, DP);
+    warp_mm<T, kQT / 8, true>(dp, Vw, LDT, dOt, LDT, DP);
+#pragma unroll
+    for (int n8 = 0; n8 < kQT / 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1, qi = 8 * n8 + 2 * tq + (e & 1);
+        float x = s[n8][e] * a.scale;
+        if (a.causal && key + 8 * hh > r0 + qi) x = kMasked;
+        if (km[hh] == 0.f) x = kMasked;
+        const float pv =
+            r0 + qi < Tn ? expf(x - st[qi]) / st[kQT + qi] : 0.f;
+        s[n8][e] = pv;
+        dp[n8][e] = pv * (dp[n8][e] - st[2 * kQT + qi]);
+      }
+    stage_frag<T, kQT / 8>(Pw, LDST, s, 1.f);
+    stage_frag<T, kQT / 8>(dSw, LDST, dp, 1.f);
+    __syncwarp();
+    warp_mm<T, DP / 8, false>(dv, Pw, LDST, dOt, LDT, kQT);
+    warp_mm<T, DP / 8, false>(dk, dSw, LDST, Qt, LDT, kQT);
+    __syncthreads();
+    cur = nxt;
+    slot ^= 1;
+  }
+  // dK, dV through the warp's own k, v rows
+  T* dks = Ks + 16 * w * LDT;
+  T* dvs = Vs + 16 * w * LDT;
+  stage_frag<T, DP / 8>(dks, LDT, dk, a.scale);
+  stage_frag<T, DP / 8>(dvs, LDT, dv, 1.f);
+  __syncwarp();
+  store_warp_rows<T, DP>(static_cast<T*>(a.dk) + obase, ld_out, dks,
+                         k0 + 16 * w, Tn, d);
+  store_warp_rows<T, DP>(static_cast<T*>(a.dv) + obase, ld_out, dvs,
+                         k0 + 16 * w, Tn, d);
+}
+
 // ------------------------------------------------------------------ launch
 
 template <int DP>
@@ -774,20 +1386,65 @@ int run_wg(bool backward, const Args& a, cudaStream_t stream) {
                   : run_wg<T, 1>(backward, a, stream);
 }
 
-// dtype: 0 fp32, 1 bf16, 2 fp16
-int dispatch(int dtype, bool backward, const Args& a, void* stream) {
+template <typename T, int DP, int NW>
+int run_wide(bool backward, const Args& a, cudaStream_t stream) {
+  using L = WideLayout<T, DP, NW>;
+  const dim3 grid(a.B * a.n * ((a.T + L::QB - 1) / L::QB));
+  const L lay(a.T), top(kWideMaxT);
+  if (!backward)
+    return launch_once<block_fwd_wide_kernel<T, DP, NW>>(
+        grid, 32 * NW, lay.fwd, a, stream, top.fwd);
+  const int rc = launch_once<block_bwd_wide_dq_kernel<T, DP, NW>>(
+      grid, 32 * NW, lay.dq, a, stream, top.dq);
+  if (rc != 0) return rc;
+  // 16 NW keys a block, as the dq kernel's 16 NW query rows: the same grid
+  return launch_once<block_bwd_wide_dkv_kernel<T, DP, NW>>(
+      grid, 32 * NW, WideDkvLayout<T, DP, NW>::total, a, stream);
+}
+
+// d padded to 64, 96 or 128 (fp32: 64 or 128); fp32 runs two warps a block
+template <typename T>
+int run_wide(bool backward, const Args& a, cudaStream_t stream) {
+  constexpr int NW = std::is_same<T, float>::value ? 2 : 4;
+  if (a.d <= 64) return run_wide<T, 64, NW>(backward, a, stream);
+  if constexpr (!std::is_same<T, float>::value)
+    if (a.d <= 96) return run_wide<T, 96, NW>(backward, a, stream);
+  return run_wide<T, 128, NW>(backward, a, stream);
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16.  route 0: the kernels above the wide
+// route (T a multiple of 16 in [16, 128], d <= 64); route 1: the wide
+// route (T a multiple of 8 in [8, 512], d <= 128), whose backward needs
+// `stats`.
+int dispatch(int dtype, int route, bool backward, const Args& a,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.d % 8 != 0 || a.d > 64 || a.T % 16 != 0 || a.T < 16 ||
-      a.T > kMaxT || a.B <= 0 || a.n <= 0)
+  if (a.d % 8 != 0 || a.d <= 0 || a.T <= 0 || a.B <= 0 || a.n <= 0)
+    return int(cudaErrorInvalidValue);
+  if (route == 0) {
+    if (a.d > 64 || a.T % 16 != 0 || a.T < 16 || a.T > kMaxT)
+      return int(cudaErrorInvalidValue);
+    switch (dtype) {
+      case 0:
+        return a.d <= 32 ? run_f32<32>(backward, a, s)
+                         : run_f32<64>(backward, a, s);
+      case 1:
+        return run_wg<__nv_bfloat16>(backward, a, s);
+      case 2:
+        return run_wg<__half>(backward, a, s);
+    }
+    return int(cudaErrorInvalidValue);
+  }
+  if (route != 1 || a.T % 8 != 0 || a.T > kWideMaxT || a.d > kWideMaxD ||
+      (backward && a.stats == nullptr))
     return int(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return a.d <= 32 ? run_f32<32>(backward, a, s)
-                       : run_f32<64>(backward, a, s);
+      return run_wide<float>(backward, a, s);
     case 1:
-      return run_wg<__nv_bfloat16>(backward, a, s);
+      return run_wide<__nv_bfloat16>(backward, a, s);
     case 2:
-      return run_wg<__half>(backward, a, s);
+      return run_wide<__half>(backward, a, s);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -797,35 +1454,38 @@ int dispatch(int dtype, bool backward, const Args& a, void* stream) {
 // C interface.  Every pointer is a device pointer.  q, k, v are [B, T, n, d]
 // in the type `dtype` names, with element strides sB, sT, sH (the last dim
 // contiguous; every row 16-byte aligned); dout, o, dq, dk, dv are contiguous
-// [B, T, n, d]; mask is fp32 [B, T].  `stream` is a cudaStream_t.  Each
-// function returns cudaGetLastError() after its launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for a shape it does not take (T not a multiple of
-// 16 in [16, 128], d not a multiple of 8 up to 64).
+// [B, T, n, d]; mask is fp32 [B, T].  `route` picks the kernels (dispatch):
+// 0 takes T a multiple of 16 in [16, 128] and d a multiple of 8 up to 64,
+// 1 (the wide route) T a multiple of 8 in [8, 512] and d a multiple of 8 up
+// to 128, and its backward writes and reads `stats`, fp32 [3, B, n, T]
+// scratch (route 0 ignores it).  `stream` is a cudaStream_t.  Each function
+// returns cudaGetLastError() after its launches (0 = cudaSuccess), or
+// cudaErrorInvalidValue for a shape or route it does not take.
 
-extern "C" int dstt_block_fwd(int dtype, const void* q, const void* k,
-                              const void* v, const float* mask, void* o,
-                              long long sB, long long sT, long long sH, int B,
-                              int n, int T, int d, float scale, int causal,
-                              void* stream) {
+extern "C" int dstt_block_fwd(int dtype, int route, const void* q,
+                              const void* k, const void* v, const float* mask,
+                              void* o, long long sB, long long sT,
+                              long long sH, int B, int n, int T, int d,
+                              float scale, int causal, void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.mask = mask, a.o = o;
   a.sB = sB, a.sT = sT, a.sH = sH;
   a.B = B, a.n = n, a.T = T, a.d = d, a.scale = scale, a.causal = causal;
-  return dispatch(dtype, false, a, stream);
+  return dispatch(dtype, route, false, a, stream);
 }
 
-extern "C" int dstt_block_bwd(int dtype, const void* q, const void* k,
-                              const void* v, const float* mask,
+extern "C" int dstt_block_bwd(int dtype, int route, const void* q,
+                              const void* k, const void* v, const float* mask,
                               const void* dout, void* dq, void* dk, void* dv,
-                              long long sB, long long sT, long long sH, int B,
-                              int n, int T, int d, float scale, int causal,
-                              void* stream) {
+                              float* stats, long long sB, long long sT,
+                              long long sH, int B, int n, int T, int d,
+                              float scale, int causal, void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.mask = mask, a.dout = dout;
-  a.dq = dq, a.dk = dk, a.dv = dv;
+  a.dq = dq, a.dk = dk, a.dv = dv, a.stats = stats;
   a.sB = sB, a.sT = sT, a.sH = sH;
   a.B = B, a.n = n, a.T = T, a.d = d, a.scale = scale, a.causal = causal;
-  return dispatch(dtype, true, a, stream);
+  return dispatch(dtype, route, true, a, stream);
 }
 
 extern "C" const char* dstt_error_string(int code) {

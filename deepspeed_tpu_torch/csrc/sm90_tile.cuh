@@ -238,11 +238,12 @@ __device__ __forceinline__ void wg_barrier(int id) {
 // ------------------------------------------------------------------ launch
 
 // Launch `Kernel`, setting its dynamic shared-memory limit on the first
-// launch on each device (one bit per device and instantiation); returns
-// cudaGetLastError() after the launch.
+// launch on each device (one bit per device and instantiation) to `limit`
+// (0: `smem`; a kernel whose shared memory grows with a runtime size
+// passes its largest); returns cudaGetLastError() after the launch.
 template <auto Kernel, typename A>
 int launch_once(dim3 grid, int threads, size_t smem, const A& a,
-                cudaStream_t stream) {
+                cudaStream_t stream, size_t limit = 0) {
   static std::atomic<uint64_t> set_on{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -250,7 +251,8 @@ int launch_once(dim3 grid, int threads, size_t smem, const A& a,
   const uint64_t bit = uint64_t(1) << (dev & 63);
   if (!(set_on.load(std::memory_order_acquire) & bit)) {
     err = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(limit > smem ? limit : smem));
     if (err != cudaSuccess) return int(err);
     set_on.fetch_or(bit, std::memory_order_release);
   }

@@ -431,10 +431,12 @@ def attention_plan(T, n, d, causal):
       else the einsum path; a streaming backward after a whole-tile forward
       becomes a whole-tile backward (no logsumexp).
 
-    Where the JAX gate takes a shape and the CUDA kernels' gate refuses it,
-    "auto" treats the kernel as unsupported (the einsum path instead) and
-    "1" raises ``NotImplementedError``.  Off the card (the CPU tests) the
-    plan is the same, so the CPU runs the card's path in plain versions."""
+    Where the JAX gate takes a shape and the CUDA kernels' gate refuses it
+    (only at head dims above 128: the whole-tile gates agree up to there,
+    the streaming ones take d up to 128), "auto" treats the kernel as
+    unsupported (the einsum path instead) and "1" raises
+    ``NotImplementedError``.  Off the card (the CPU tests) the plan is the
+    same, so the CPU runs the card's path in plain versions."""
     mode = _attn_mode()
     if mode == "0":
         return "xla", "xla"

@@ -6,15 +6,21 @@ The port of the whole-tile half of ``deepspeed_tpu/ops/pallas_attention.py``
 kernels live in ``deepspeed_tpu_torch/csrc/block_attention.cu`` (its header
 says which Pallas kernel each replaces, what bounds it and how it is laid
 out); ``build()`` compiles that file with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at first use and loads it with ctypes.
+``build/kernels/`` at first use and loads it with ctypes.  Two routes share
+the wrappers (``wide_route``): the wgmma kernels (bf16/fp16; FMA kernels in
+fp32) at T a multiple of 16 up to 128 and d up to 64, and the wide route
+(``block_fwd_wide_kernel``, ``block_bwd_wide_dq_kernel`` +
+``block_bwd_wide_dkv_kernel``) at every other shape the JAX gate takes up
+to d 128.  Each route counts its own launches.
 
 The kernels take q, k, v in the public ``[B, T, n, d]`` layout through their
 strides (the views of the packed qkv projection need no copy) and an fp32
 ``[B, T]`` key mask (1 = attend); they write contiguous ``[B, T, n, d]``.
 Every wrapper takes the same arguments on either device:
 
-* on CUDA tensors it launches its kernel on the current stream, adds one to
-  ``LAUNCHES[name]``, and raises if the launch fails.  There is no fallback.
+* on CUDA tensors it launches its route's kernels on the current stream,
+  adds one to ``LAUNCHES[name]`` (``name + "_wide"`` on the wide route),
+  and raises if the launch fails.  There is no fallback.
 * on CPU tensors it runs the plain version beside it (the CPU tests hold the
   plain versions against the JAX package).
 
@@ -42,19 +48,22 @@ SOURCE = _build.CSRC / "block_attention.cu"
 #: fp32 score-tile budget per TPU program (``pallas_attention``'s); the JAX
 #: gate ``supported`` keeps to half of it
 SCORE_TILE_BUDGET = 2 * 1024 * 1024
-#: the kernels' own gate (``kernel_supported``): a whole score row of at
-#: most 128 keys sits in registers (bf16/fp16: one quad of a warpgroup's
-#: accumulators; fp32: one warp), T comes in steps of 16 (a k16 product
-#: slice), and the head dim is staged padded to 64 (32 or 64 in fp32)
-KERNEL_MAX_SEQ = 128
-KERNEL_SEQ_GRANULE = 16
-KERNEL_MAX_HEAD_DIM = 64
+#: the kernels' gate (``kernel_supported``): the wide route keeps whole fp32
+#: score rows of up to 512 keys in shared memory and pads the head dim to
+#: 64, 96 or 128; T comes in the JAX gate's steps of 8
+KERNEL_MAX_SEQ = 512
+KERNEL_SEQ_GRANULE = 8
+KERNEL_MAX_HEAD_DIM = 128
+#: the route-0 kernels' shapes (``wide_route``): a score row of at most 128
+#: keys in registers, T in steps of 16 (a k16 product slice), d padded to 64
+WG_MAX_SEQ, WG_SEQ_GRANULE, WG_MAX_HEAD_DIM = 128, 16, 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: launches per kernel since the last ``reset_launch_counts()``; each
 #: wrapper adds one where it launches its kernel, and nowhere else
-LAUNCHES = {"block_fwd": 0, "block_bwd": 0}
+LAUNCHES = {"block_fwd": 0, "block_bwd": 0, "block_fwd_wide": 0,
+            "block_bwd_wide": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -77,8 +86,9 @@ def build() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # the q/k/v strides, B, n, T, d, scale, causal, stream
         tail = [i64] * 3 + [i32] * 4 + [ctypes.c_float, i32, ptr]
-        lib.dstt_block_fwd.argtypes = [i32] + [ptr] * 5 + tail
-        lib.dstt_block_bwd.argtypes = [i32] + [ptr] * 8 + tail
+        # dtype, route, then the tensors (the backward's: and the stats)
+        lib.dstt_block_fwd.argtypes = [i32, i32] + [ptr] * 5 + tail
+        lib.dstt_block_bwd.argtypes = [i32, i32] + [ptr] * 9 + tail
         lib.dstt_block_fwd.restype = lib.dstt_block_bwd.restype = i32
         _lib = lib
         return lib
@@ -97,11 +107,20 @@ def supported(seq_len: int, n_heads: int, head_dim: int) -> bool:
 
 
 def kernel_supported(seq_len: int, head_dim: int) -> bool:
-    """The CUDA kernels' gate, in every input type: T a multiple of 16 in
-    [16, 128], d a multiple of 8 up to 64."""
+    """The CUDA kernels' gate, in every input type: T a multiple of 8 in
+    [8, 512], d a multiple of 8 up to 128.  With ``supported`` it is the
+    JAX gate wherever d <= 128 (the score-tile budget keeps T <= 512)."""
     return (seq_len % KERNEL_SEQ_GRANULE == 0
             and KERNEL_SEQ_GRANULE <= seq_len <= KERNEL_MAX_SEQ
-            and head_dim % 8 == 0 and head_dim <= KERNEL_MAX_HEAD_DIM)
+            and head_dim % 8 == 0 and 0 < head_dim <= KERNEL_MAX_HEAD_DIM)
+
+
+def wide_route(seq_len: int, head_dim: int) -> bool:
+    """Whether a shape of ``kernel_supported`` runs the wide route: every
+    shape but T a multiple of 16 in [16, 128] with d up to 64."""
+    return not (seq_len % WG_SEQ_GRANULE == 0
+                and WG_SEQ_GRANULE <= seq_len <= WG_MAX_SEQ
+                and head_dim <= WG_MAX_HEAD_DIM)
 
 
 # --------------------------------------------------------- plain versions
@@ -188,11 +207,12 @@ def _check(name, q, mask, k, v, do=None):
 
 def _launch(name, fn, q, *ptrs, causal):
     B, T, n, d = q.shape
-    rc = fn(_DTYPE_CODE[q.dtype], *ptrs, *q.stride()[:3], B, n, T, d,
-            1.0 / d ** 0.5, int(bool(causal)),
+    wide = wide_route(T, d)
+    rc = fn(_DTYPE_CODE[q.dtype], int(wide), *ptrs, *q.stride()[:3], B, n, T,
+            d, 1.0 / d ** 0.5, int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on(name, _lib, rc)
-    LAUNCHES[name] += 1
+    LAUNCHES[name + "_wide" if wide else name] += 1
 
 
 def _fwd_fake(q, k, v, mask, causal):
@@ -229,9 +249,15 @@ def block_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build()
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
+    B, T, n, d = q.shape
+    # the wide route's row max, sum and t, from its dq kernel to its dkv
+    # kernel
+    stats = (torch.empty((3, B, n, T), dtype=torch.float32, device=q.device)
+             if wide_route(T, d) else None)
     _launch("block_bwd", lib.dstt_block_bwd, q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), mask.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), causal=causal)
+            dk.data_ptr(), dv.data_ptr(),
+            None if stats is None else stats.data_ptr(), causal=causal)
     return dq, dk, dv
 
 

@@ -158,12 +158,14 @@ def test_block_gates():
             for d in (8, 16, 32, 64, 72):
                 assert BA.supported(T, n, d) == PA.supported(T, n, d)
                 assert BA.kernel_supported(T, d) == (
-                    T % 16 == 0 and 16 <= T <= 128 and d % 8 == 0
-                    and d <= 64)
+                    T % 8 == 0 and 8 <= T <= 512 and d % 8 == 0
+                    and d <= 128)
     assert BA.SCORE_TILE_BUDGET == PA.SCORE_TILE_BUDGET
-    # the JAX gate admits shapes the CUDA kernels refuse
-    assert PA.supported(136, 4, 32) and not BA.kernel_supported(136, 32)
-    assert PA.supported(256, 4, 32) and not BA.kernel_supported(256, 32)
+    # the shapes the JAX gate admits past the route-0 kernels are the
+    # kernels' too (the wide route); past head dim 128 they are not
+    assert PA.supported(136, 4, 32) and BA.kernel_supported(136, 32)
+    assert PA.supported(256, 4, 32) and BA.kernel_supported(256, 32)
+    assert PA.supported(128, 4, 136) and not BA.kernel_supported(128, 136)
 
 
 # ----------------------------------------------------------------- dispatch
@@ -244,8 +246,8 @@ PINS = (  # each sets every threshold pin
      "DSTPU_STREAM_ATTN_MIN": "1024",
      "DSTPU_BLOCK_ATTN_MIN_CAUSAL": "64"},
 )
-GRID = list(itertools.product((64, 128, 256, 512), (4, 12, 16), (32, 64),
-                              (False, True)))
+GRID = list(itertools.product((64, 128, 136, 176, 256, 512), (4, 12, 16),
+                              (32, 64, 96, 128), (False, True)))
 
 
 @pytest.fixture
@@ -282,15 +284,21 @@ def test_attention_plan_matches_jax(tpu_plan, pins):
             assert port == want, (mode, T, n, d, causal)
             seen.add(port)
     assert {("block", "block"), ("stream", "stream"), ("xla", "xla")} <= seen
-    # the JAX gate admits these, the CUDA kernels' gate does not: auto
-    # takes the einsum path, "1" raises naming the gate
+    # the whole-tile kernels take these (the wide route): the JAX plan's
+    # pair under both modes
     for T, d in ((136, 32), (128, 72)):
-        tpu_plan.setenv("DSTPU_FUSED_ATTN", "1")
-        assert JL.attention_plan(T, 4, d, True) == ("block", "block")
-        with pytest.raises(NotImplementedError, match="kernel_supported"):
-            TL.attention_plan(T, 4, d, True)
-        tpu_plan.setenv("DSTPU_FUSED_ATTN", "auto")
-        assert TL.attention_plan(T, 4, d, True) == ("xla", "xla")
+        for mode in ("1", "auto"):
+            tpu_plan.setenv("DSTPU_FUSED_ATTN", mode)
+            assert JL.attention_plan(T, 4, d, True) == ("block", "block")
+            assert TL.attention_plan(T, 4, d, True) == ("block", "block")
+    # past head dim 128 the JAX gate admits what the CUDA kernels' gate
+    # does not: auto takes the einsum path, "1" raises naming the gate
+    tpu_plan.setenv("DSTPU_FUSED_ATTN", "1")
+    assert JL.attention_plan(128, 4, 136, True) == ("block", "block")
+    with pytest.raises(NotImplementedError, match="kernel_supported"):
+        TL.attention_plan(128, 4, 136, True)
+    tpu_plan.setenv("DSTPU_FUSED_ATTN", "auto")
+    assert TL.attention_plan(128, 4, 136, True) == ("xla", "xla")
 
 
 def test_attention_plan_directions_match_jax(tpu_plan):
@@ -304,13 +312,13 @@ def test_attention_plan_directions_match_jax(tpu_plan):
     tpu_plan.setenv("DSTPU_BLOCK_ATTN_MIN_CAUSAL", "128")
     tpu_plan.setenv("DSTPU_STREAM_ATTN_MIN_FWD", "256")
     for T, n, want in ((512, 12, ("xla", "stream")),
-                       (256, 4, ("xla", "stream")),
+                       (256, 4, ("block", "block")),
                        (128, 12, ("block", "block"))):
         assert TL.attention_plan(T, n, 64, True) == want
-    # at seq 256 with 4 heads the JAX gate admits the whole-tile kernel, so
-    # the JAX plan turns (block, stream) into (block, block); the CUDA
-    # kernels stop at 128, so the port's forward takes the einsum path
-    assert JL.attention_plan(256, 4, 64, True) == ("block", "block")
+        assert JL.attention_plan(T, n, 64, True) == want
+    # at seq 256 with 4 heads both gates admit the whole-tile kernel (the
+    # CUDA one by its wide route), so both plans turn (block, stream) into
+    # (block, block)
 
 
 @pytest.mark.parametrize("name,value,match,T", [

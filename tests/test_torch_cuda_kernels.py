@@ -533,7 +533,8 @@ def test_block_attention_kernels_match_plain(dev, dtype, T, d, causal):
     want_o = battn.block_fwd_plain(q, k, v, mask, causal)
     want = battn.block_bwd_plain(q, k, v, mask, do, causal)
     torch.cuda.synchronize()
-    assert battn.LAUNCHES == {"block_fwd": 1, "block_bwd": 1}
+    assert battn.LAUNCHES == {"block_fwd": 1, "block_bwd": 1,
+                              "block_fwd_wide": 0, "block_bwd_wide": 0}
     assert o.is_contiguous() and all(g.is_contiguous() for g in grads)
     block_close([o], [want_o], dtype)
     block_close(grads, want, dtype)
@@ -622,16 +623,20 @@ def test_block_attention_autograd_on_the_card(dev, fwd_impl, bwd_impl):
     battn.reset_launch_counts()
     block_close(run(dev), want, torch.float32)
     assert battn.LAUNCHES == {"block_fwd": int(fwd_impl == "block"),
-                              "block_bwd": int(bwd_impl == "block")}
+                              "block_bwd": int(bwd_impl == "block"),
+                              "block_fwd_wide": 0, "block_bwd_wide": 0}
 
 
 def test_block_wrappers_refuse_bad_inputs(dev):
     q, k, v, do, mask = block_inputs(dev, torch.bfloat16, 128, 32)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         battn.block_fwd(q.double(), k.double(), v.double(), mask, False)
-    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
-        battn.block_fwd(q[:, :120], k[:, :120], v[:, :120],
-                        mask[:, :120].contiguous(), False)
+    with pytest.raises(ValueError, match="multiple of 8 up to 512"):
+        battn.block_fwd(q[:, :124], k[:, :124], v[:, :124],
+                        mask[:, :124].contiguous(), False)
+    wq, wk, wv, _, wmask = block_inputs(dev, torch.bfloat16, 64, 136)
+    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
+        battn.block_fwd(wq, wk, wv, wmask, False)
     with pytest.raises(ValueError, match="share one layout"):
         battn.block_fwd(q, k.contiguous(), v, mask, False)
     with pytest.raises(ValueError, match="do must be contiguous"):
@@ -641,6 +646,96 @@ def test_block_wrappers_refuse_bad_inputs(dev):
         battn.block_fwd(q, k, v, mask.half(), False)
     with pytest.raises(ValueError, match="is on cpu"):
         battn.block_fwd(q, k, v, mask.cpu(), False)
+
+
+# ------------------------------------- whole-tile attention, the wide route
+
+#: every shape of the JAX gate past the route-0 kernels (T a multiple of 16
+#: up to 128 with d up to 64): T not a multiple of 16 (8, 24, 72, 136, 264,
+#: 504), T past 128 (136-512), d past 64 (96, 128) and below it (8, 40);
+#: each pads d to 64, 96 or 128 (fp32: 64 or 128)
+WIDE_SHAPES = [(8, 8), (24, 64), (72, 96), (128, 96), (128, 128), (136, 64),
+               (176, 128), (264, 40), (504, 64), (512, 128)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_block_wide_kernels_match_plain(dev, dtype, T, d, causal):
+    """The wide route on padded keys (under causal its skip) and a fully
+    masked row, against the plain versions, counted on its own keys."""
+    assert battn.wide_route(T, d)
+    q, k, v, do, mask = block_inputs(dev, dtype, T, d)
+    battn.reset_launch_counts()
+    o = battn.block_fwd(q, k, v, mask, causal)
+    grads = battn.block_bwd(q, k, v, mask, do, causal)
+    want_o = battn.block_fwd_plain(q, k, v, mask, causal)
+    want = battn.block_bwd_plain(q, k, v, mask, do, causal)
+    torch.cuda.synchronize()
+    assert battn.LAUNCHES == {"block_fwd": 0, "block_bwd": 0,
+                              "block_fwd_wide": 1, "block_bwd_wide": 1}
+    assert o.is_contiguous() and all(g.is_contiguous() for g in grads)
+    block_close([o], [want_o], dtype)
+    block_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_block_wide_backward_is_deterministic(dev, dtype, causal):
+    q, k, v, do, mask = block_inputs(dev, dtype, 176, 96, seed=4)
+    first = battn.block_bwd(q, k, v, mask, do, causal)
+    for _ in range(3):
+        for a, b in zip(first, battn.block_bwd(q, k, v, mask, do, causal)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_block_wide_causal_skip_takes_whole_rows_where_needed(dev, dtype):
+    """Causal, T 264: batch rows whose first unmasked key is 0, 5, 64, 70
+    and 200.  A query block (or, in the dkv kernel, a query tile) may skip
+    the keys after it only when its first row is at or past that key."""
+    T, d = 264, 64
+    firsts = (0, 5, 64, 70, 200)
+    q, k, v, do, _ = block_inputs(dev, dtype, T, d, B=len(firsts), seed=6)
+    mask = torch.ones((len(firsts), T), device=dev)
+    for row, first in enumerate(firsts):
+        mask[row, :first] = 0.0
+    o = battn.block_fwd(q, k, v, mask, True)
+    grads = battn.block_bwd(q, k, v, mask, do, True)
+    want = battn.block_bwd_plain(q, k, v, mask, do, True)
+    torch.cuda.synchronize()
+    block_close([o], [battn.block_fwd_plain(q, k, v, mask, True)], dtype)
+    block_close(grads, want, dtype)
+    # row 4's first 200 queries attend uniformly over all T keys
+    uniform = v[4].float().mean(dim=0).expand(200, -1, -1)
+    block_close([o[4, :200]], [uniform.to(dtype)], dtype)
+
+
+def test_block_wide_launch_limit_holds_for_a_later_longer_seq(dev):
+    """The wide kernels' shared memory grows with T and their limit is set
+    once per process, at the size of T 512: a first launch at T 72 must
+    leave room for a later one at T 512 (a fresh process)."""
+    script = (
+        "import torch\n"
+        "from deepspeed_tpu_torch.ops import block_attention as battn\n"
+        "dev = torch.device('cuda', 0)\n"
+        "for dt in (torch.bfloat16, torch.float32):\n"
+        "    for T in (72, 512):\n"
+        "        q, k, v, do = (torch.randn(1, T, 1, 128, device=dev,\n"
+        "                       dtype=dt) for _ in range(4))\n"
+        "        mask = torch.ones(1, T, device=dev)\n"
+        "        o = battn.block_fwd(q, k, v, mask, True)\n"
+        "        g = battn.block_bwd(q, k, v, mask, do, True)\n"
+        "        torch.cuda.synchronize()\n"
+        "        want = battn.block_fwd_plain(q, k, v, mask, True)\n"
+        "        assert (o.float() - want.float()).abs().max() < 0.05, T\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 # ------------------------------------------- sequence-parallel attention
@@ -736,4 +831,5 @@ def test_gpt2_moe_step_on_the_card(dev):
         np.testing.assert_allclose(got_m[k].numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-5, err_msg=k)
     assert cuda_optim.LAUNCHES["adam"] == 2 * len(want_m)
-    assert battn.LAUNCHES == {"block_fwd": 4, "block_bwd": 4}
+    assert battn.LAUNCHES == {"block_fwd": 4, "block_bwd": 4,
+                              "block_fwd_wide": 0, "block_bwd_wide": 0}
