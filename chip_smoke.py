@@ -92,7 +92,18 @@ Phases (each prints one JSON line, with the seconds since the start as
    GPT-2 shape (B=32, n=16, T=128, d=64, bf16, causal; q, k, v views of the
    packed qkv), and once with padded keys and a fully padded row, with
    times, bounds and scaled_dot_product_attention(is_causal=True); both
-   checks again at tp_gpt2's shape (n=8 local heads).
+   checks again at tp_gpt2's shape (n=8 local heads).  Before it,
+   train_gpt2_large: GPT-2 large (d 96) at seq 128, every attention
+   through route 0's DP-128 kernels (48 forward and 48 backward launches a
+   step, none on the wide route), an einsum yardstick and a profile.
+   block_dp128_kernels: route 0 at head dims padded to 128 (DP128_CASES:
+   GPT-2 large's heads, its mp-2 rank's, the 8b preset's, non-causal
+   padded, fp16) within WIDE_TOL of the plain versions, the backward
+   bitwise equal across two calls, timed at "large" and "8b" beside
+   scaled_dot_product_attention and the wide route's kernels on the same
+   inputs (called through the library's route argument).
+   block_wide_kernels: the wide route at WIDE_CASES the same way, timed
+   at GPT-2 large's heads at seq 136.
 14. zero_gpt2: GPT-2 medium as train_gpt2 on a one-rank NCCL process group
    (one card: data-parallel size 1, started through the port's
    init_distributed), 6 steps each with ZeRO off, stage 1 with overlap_comm
@@ -321,11 +332,17 @@ Phases (each prints one JSON line, with the seconds since the start as
    bytes a prompt token (the global heads, as at mp 1), tokens as in
    (d).  Then an engine with "auto" slots: each rank prices half of the
    card, both hold the same slots.  No training kernel launches on
-   either rank in any leg.
+   either rank in any leg.  The two ranks start right after serve_gpt2
+   and run on a side thread beside moe_gpt2 through fleet_serve_gpt2;
+   their checks run after fleet_serve_gpt2.  Every line of a phase that
+   ran beside another names it (``beside``); so do pp_gpt2's and
+   zero3_pp_gpt2's, which run beside the multi-rank phases.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
    moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2,
-   tp_serve_gpt2, analysis_gpt2; the serving two run serve_gpt2 first)
-   runs the build and the named phases alone, with no result line.
+   tp_serve_gpt2, analysis_gpt2, train_gpt2_large, block_kernels (every
+   whole-tile route), block_dp128_kernels, block_wide_kernels; the
+   serving two run serve_gpt2 first) runs the build and the named phases
+   alone, with no result line.
    analysis_gpt2 (the graph lint and the planners, ``analysis/``): on
    train_gpt2's engine after its profile, (a) the lint of the fused step
    in error mode, zero errors, and its planned peak within 10% of
@@ -380,6 +397,7 @@ import json
 import os
 import pathlib
 import statistics
+import shutil
 import subprocess
 import sys
 import threading
@@ -439,6 +457,14 @@ ATTN_KERNELS = {
                       replaces="deepspeed_tpu/ops/pallas_attention.py:106"),
     "block_bwd": dict(passes=5, tensors=7, rows=0, mask=True,
                       replaces="deepspeed_tpu/ops/pallas_attention.py:122"),
+    # route 0 at head dims padded to 128 (GPT-2 large's 96, the 8b preset's
+    # 128): the same wrappers and kernels, instantiated at DP 128
+    "block_fwd_dp128": dict(passes=2, tensors=4, rows=0, mask=True,
+                            replaces="deepspeed_tpu/ops/pallas_attention.py"
+                                     ":106"),
+    "block_bwd_dp128": dict(passes=5, tensors=7, rows=0, mask=True,
+                            replaces="deepspeed_tpu/ops/pallas_attention.py"
+                                     ":122"),
     # the wide route of the same wrappers: the same function, so the same
     # work (its backward recomputes more, which the bound does not count)
     "block_fwd_wide": dict(passes=2, tensors=4, rows=0, mask=True,
@@ -459,6 +485,8 @@ DEVICE_SYMBOL = {"lamb_phase1": "lamb_phase1_kernel",
                  "stream_dq": "stream_dq_wg_kernel",
                  "block_fwd": "block_fwd_wg_kernel",
                  "block_bwd": "block_bwd_wg_kernel",
+                 "block_fwd_dp128": "block_fwd_wg_kernel",
+                 "block_bwd_dp128": "block_bwd_wg_kernel",
                  "block_fwd_wide": "block_fwd_wide_kernel",
                  "block_bwd_wide": ("block_bwd_wide_dq_kernel",
                                     "block_bwd_wide_dkv_kernel")}
@@ -475,33 +503,42 @@ GPT2_1024_LOSS_RTOL = 1e-2
 # budget of ops/stream_attention.py never exceeds this
 SCRATCH_CAP = 256 * 2 ** 20
 BLOCK_SHAPE = dict(B=32, n=16, T=128, d=64)
-# the whole-tile kernels' wide route (ops/block_attention.wide_route), each
-# case (B, n, T, d, dtype, causal, padded keys and a fully padded row):
-# GPT-2 large (1536 / 16 heads, d 96) at seq 128, micro-batch 32, and its
-# mp-2 rank's 8 heads; the 8b preset's heads (3072 / 24, d 128); seq not a
-# multiple of 16 or past 128 (136 and 176 at 8 heads, 504 at one); a
-# non-causal padded case; fp32 and fp16 once each.  "large" and "8b" are
-# timed.
-WIDE_CASES = {
+# the bf16/fp16 route-0 kernels at a head dim padded to 128
+# (ops/block_attention.wide_route), each case (B, n, T, d, dtype, causal,
+# padded keys and a fully padded row): GPT-2 large (1536 / 16 heads, d 96)
+# at seq 128, micro-batch 32, and its mp-2 rank's 8 heads; the 8b preset's
+# heads (3072 / 24, d 128); a non-causal padded case; fp16 at GPT-2
+# large's shape.  "large" and "8b" are timed, beside the wide route's
+# kernels on the same inputs (``_wide_route_call``).
+DP128_CASES = {
     "large": (32, 16, 128, 96, "bfloat16", True, False),
     "large_mp2": (32, 8, 128, 96, "bfloat16", True, False),
     "8b": (32, 24, 128, 128, "bfloat16", True, False),
+    "noncausal_padded": (32, 16, 128, 96, "bfloat16", False, True),
+    "fp16_large": (32, 16, 128, 96, "float16", True, False),
+}
+DP128_TIMED = ("large", "8b")
+# the whole-tile kernels' wide route, cases as DP128_CASES: GPT-2 large's
+# heads at seq 136 (the JAX gate's 8 x 136^2 x 4 bytes <= 1 MiB), seq not a
+# multiple of 16 or past 128 (136 and 176 at 8 heads, 504 at one); fp32 and
+# fp16 once each.  "large_t136" is timed.
+WIDE_CASES = {
+    "large_t136": (32, 16, 136, 96, "bfloat16", True, False),
     "t136": (32, 8, 136, 64, "bfloat16", True, False),
     "t176": (32, 8, 176, 64, "bfloat16", True, False),
     "t504": (32, 1, 504, 64, "bfloat16", True, False),
-    "noncausal_padded": (32, 16, 128, 96, "bfloat16", False, True),
     "fp32_t136": (32, 8, 136, 96, "float32", True, False),
     "fp16_t136": (32, 8, 136, 96, "float16", True, False),
 }
-WIDE_TIMED = ("large", "8b")
+WIDE_TIMED = ("large_t136",)
 # kernel vs plain on identical inputs by type: (rtol, atol as a fraction
 # of max|want|), the card tests' BLOCK_TOL (bf16: ATTN_RTOL, ATTN_ATOL; the
 # sums run in another order, so a bf16/fp16 cast of p or dS can round the
 # other way)
 WIDE_TOL = {"bfloat16": (2e-2, 1e-2), "float16": (5e-3, 2e-3),
             "float32": (1e-4, 1e-5)}
-# GPT-2 large at full width and depth through the wide route: seq 128,
-# bf16, Adam lr 1e-4, micro-batch 32 x gas 2, 6 steps
+# GPT-2 large at full width and depth through route 0's DP-128 kernels:
+# seq 128, bf16, Adam lr 1e-4, micro-batch 32 x gas 2, 6 steps
 GPT2_LARGE_MICRO = 32
 # the dispatch threshold rule of pallas_attention.calibrate_stream_threshold
 SWEEP_WIN = 1.05
@@ -542,14 +579,98 @@ _START = time.perf_counter()
 
 #: one line at a time (phases run side by side write from two threads)
 _EMIT_LOCK = threading.Lock()
+#: the phases run on a side thread (``side_submit``): name -> [start, end]
+#: in elapsed seconds (end None while it runs)
+_SIDE = {}
+#: (phase, elapsed_s) of each line the main thread printed, and (None,
+#: elapsed_s) where it stopped waiting for a side phase: a line covers the
+#: time since the entry before it
+_MAIN_LINES = []
+#: per thread: the side phase it runs (None: the main thread) and the
+#: lines that phase holds back until ``side_result``
+_TLS = threading.local()
+#: the held lines of each finished side phase, not yet printed
+_SIDE_HELD = {}
+
+
+def _main_beside(t0, t1):
+    """The main thread's phases whose lines cover time in [t0, t1]."""
+    out, prev = [], 0.0
+    for phase, t in _MAIN_LINES:
+        if phase and t > t0 and prev < t1 and phase not in out:
+            out.append(phase)
+        prev = t
+    return out
 
 
 def emit(phase, **fields):
-    line = json.dumps({"phase": phase, **fields,
-                       "elapsed_s": time.perf_counter() - _START})
+    """Print one phase line, with ``elapsed_s``.  A line of the main thread
+    that covers time when a side phase ran says so (``beside``: those
+    phases); a side phase's lines are held until ``side_result`` and then
+    name the main thread's phases beside them.  A ``beside`` passed in is
+    kept as it is."""
+    now = time.perf_counter() - _START
+    side = getattr(_TLS, "side", None)
     with _EMIT_LOCK:
-        sys.stdout.write(line + "\n")
-        sys.stdout.flush()
+        if side is not None:
+            _TLS.held.append((phase, fields, now))
+            return
+        if "beside" not in fields:
+            since = _MAIN_LINES[-1][1] if _MAIN_LINES else 0.0
+            names = [n for n, (t0, t1) in _SIDE.items()
+                     if t0 < now and (t1 is None or t1 > since)]
+            if names:
+                fields = dict(fields, beside=names)
+        _MAIN_LINES.append((phase, now))
+        _print_line(phase, fields, now)
+
+
+def _print_line(phase, fields, now):
+    sys.stdout.write(json.dumps({"phase": phase, **fields,
+                                 "elapsed_s": now}) + "\n")
+    sys.stdout.flush()
+
+
+def side_submit(pool, name, fn, *args, **kwargs):
+    """Run phase ``name`` (``fn(*args, **kwargs)``) on ``pool``'s thread,
+    beside what the main thread runs next; its lines wait for
+    ``side_result``."""
+    def run():
+        _TLS.side, _TLS.held = name, []
+        _SIDE[name] = [time.perf_counter() - _START, None]
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _SIDE[name][1] = time.perf_counter() - _START
+            _TLS.side = None
+            _SIDE_HELD[name] = _TLS.held
+    return pool.submit(run)
+
+
+def side_result(name, job):
+    """Wait for side phase ``name``, print the lines it held (each with the
+    main thread's phases beside it) and return its result (or raise its
+    error)."""
+    try:
+        return job.result()
+    finally:
+        with _EMIT_LOCK:
+            # the main thread waited until now: its next line covers only
+            # the time from here
+            _MAIN_LINES.append((None, time.perf_counter() - _START))
+        prev = _SIDE[name][0]
+        for phase, fields, t in _SIDE_HELD.pop(name, []):
+            if "beside" not in fields:
+                fields = dict(fields, beside=_main_beside(prev, t))
+            with _EMIT_LOCK:
+                _print_line(phase, fields, t)
+            prev = t
+
+
+def side_beside(name):
+    """The main thread's phases that ran beside side phase ``name``."""
+    t0, t1 = _SIDE[name]
+    return _main_beside(t0, t1 if t1 is not None else float("inf"))
 
 
 @contextlib.contextmanager
@@ -817,7 +938,7 @@ def phase_dispatch(device):
                 got = run(device, fwd_impl, bwd_impl)
                 sync(device)
                 launches = launch_counts()
-            wide = "_wide" if battn.wide_route(T, d) else ""
+            wide = "_wide" if battn.wide_route(T, d, torch.float32) else ""
             expected = no_launches(
                 **{f"block_fwd{wide}": int(fwd_impl == "block"),
                    f"block_bwd{wide}": int(bwd_impl == "block")},
@@ -868,7 +989,7 @@ def phase_train(device):
     # seq 128 is below the streaming kernels' granule: einsum attention
     ok = (np.isfinite(losses).all() and launches["lamb_phase1"] == want
           and launches["lamb_phase2"] == want and launches["adam"] == 0
-          and not any(launches[k] for k in ATTN_KERNELS))
+          and not any(launches[k] for k in ATTN_KERNELS if k in launches))
     emit("train", model="bert-large", seq=SEQ, micro_batch=MICRO, gas=GAS,
          dtype="bf16", optimizer="Lamb", params=n_params, leaves=n_leaves,
          losses=losses, step_ms=step_ms,
@@ -1811,11 +1932,11 @@ def _einsum_spy():
 def phase_train_gpt2_large(device, steps=GPT2_STEPS):
     """GPT-2 large (24 layers, 1536 hidden, 16 heads: head dim 96) at full
     width and depth, causal-LM pretraining at seq 128 in bf16, Adam lr
-    1e-4, micro-batch 32 x gas 2, through the whole-tile kernels' wide route
-    and the Adam kernel; then the same engine on the einsum attention as a
-    yardstick.  The wide forward and backward launch once per layer and
-    micro-batch (48 a step), the route-0 and stream kernels and the einsum
-    path never."""
+    1e-4, micro-batch 32 x gas 2, through the whole-tile kernels' route 0
+    (their DP-128 instantiations) and the Adam kernel; then the same engine
+    on the einsum attention as a yardstick.  The route-0 forward and
+    backward launch once per layer and micro-batch (48 a step), the wide
+    route, the stream kernels and the einsum path never."""
     import numpy as np
     import torch
 
@@ -1852,8 +1973,8 @@ def phase_train_gpt2_large(device, steps=GPT2_STEPS):
         undo()
     per_step = cfg.num_layers * GAS    # layers x micro-batches
     expected = no_launches(adam=len(engine.master) * steps,
-                           block_fwd_wide=per_step * steps,
-                           block_bwd_wide=per_step * steps)
+                           block_fwd=per_step * steps,
+                           block_bwd=per_step * steps)
     ok = (bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
           and launches == expected and einsum_calls == 0)
     emit("train_gpt2_large", model="gpt2-large", layers=cfg.num_layers,
@@ -1866,8 +1987,8 @@ def phase_train_gpt2_large(device, steps=GPT2_STEPS):
          samples_per_s_steady=steady(step_ms),
          peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
          launches=launches, expected_launches=expected,
-         wide_launches_per_step={k: launches[k] / steps for k in (
-             "block_fwd_wide", "block_bwd_wide")},
+         block_launches_per_step={k: launches[k] / steps for k in (
+             "block_fwd", "block_bwd", "block_fwd_wide", "block_bwd_wide")},
          einsum_calls=einsum_calls, ok=ok)
     if not ok:
         raise AssertionError(
@@ -2011,14 +2132,15 @@ def phase_bwd_sweep(device, seqs=(256, 512, 1024, 2048), tokens=4096, n=16,
          committed_budget=sattn.STREAM_FUSED_SCRATCH_BUDGET)
 
 
-def phase_block_kernels(device, launches, prof_gpt2, wide_launches,
+def phase_block_kernels(device, launches, prof_gpt2, large_launches,
                         prof_large):
     """Each whole-tile kernel against its plain version at the GPT-2 shape
     (q, k, v views of the packed qkv, causal, no padding as on the path,
     and once more with padded keys and a fully padded row), with times on
-    the path's inputs, bounds and a library yardstick; then the wide route
-    at WIDE_CASES (``phase_block_wide_kernels``), its launches from
-    ``train_gpt2_large`` (``wide_launches``, ``prof_large``)."""
+    the path's inputs, bounds and a library yardstick; then route 0 at
+    head dims past 64 (``phase_block_dp128_kernels``) and the wide route
+    (``phase_block_wide_kernels``), their launches from
+    ``train_gpt2_large`` (``large_launches``, ``prof_large``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2115,8 +2237,9 @@ def phase_block_kernels(device, launches, prof_gpt2, wide_launches,
                              f"plain versions beyond rtol={ATTN_RTOL} "
                              f"atol={ATTN_ATOL}*max|want|")
     del q, k, v, do, ones, padded, tq, tk, tv, tdo, tones, tpadded
-    return results + phase_block_wide_kernels(device, wide_launches,
-                                              prof_large)
+    return (results
+            + phase_block_dp128_kernels(device, large_launches, prof_large)
+            + phase_block_wide_kernels(device, large_launches, prof_large))
 
 
 def _block_inputs(device, B, n, T, d, dtype, padded):
@@ -2136,67 +2259,102 @@ def _block_inputs(device, B, n, T, d, dtype, padded):
     return (*qkv.unbind(3), do, mask)
 
 
-def phase_block_wide_kernels(device, launches=None, prof=None):
-    """The wide route's kernels against their plain versions at WIDE_CASES,
-    each within WIDE_TOL of its type, the backward bitwise equal across two
-    calls at each case; at WIDE_TIMED the times (graph replay and events,
-    plain versions in turn: plain, kernel, kernel, plain), bounds and
-    scaled_dot_product_attention on the same views (timed only).  One row
-    per kernel for the kernels line: its numbers at "large" (GPT-2 large's
-    shape), those at "8b" under ``shape_8b``; ``launches`` (None: none)
-    and ``prof`` from the main path's run."""
+def _wide_route_call(q, k, v, mask, causal, do=None):
+    """The wide route's kernels on the inputs of a route-0 shape, called
+    through the library's own ``route`` argument (1), not the wrappers (so
+    no launch is counted): the same-run yardstick of the DP-128 kernels.
+    The forward's ``(o,)``, or with ``do`` the backward's ``(dq, dk,
+    dv)``."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import block_attention as battn
+    lib = battn.build()
+    B, T, n, d = q.shape
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            for _ in range(1 if do is None else 3)]
+    tail = (*q.stride()[:3], B, n, T, d, 1.0 / d ** 0.5, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr())
+    if do is None:
+        rc = lib.dstt_block_fwd(battn._DTYPE_CODE[q.dtype], 1, *ins,
+                                outs[0].data_ptr(), *tail)
+        _build.raise_on("block_fwd (wide route)", lib, rc)
+        return tuple(outs)
+    stats = torch.empty((3, B, n, T), dtype=torch.float32, device=q.device)
+    rc = lib.dstt_block_bwd(battn._DTYPE_CODE[q.dtype], 1, *ins,
+                            do.data_ptr(), *(g.data_ptr() for g in outs),
+                            stats.data_ptr(), *tail)
+    _build.raise_on("block_bwd (wide route)", lib, rc)
+    return tuple(outs)
+
+
+def _block_cases(device, phase, cases, timed, names, wide, yardstick=False):
+    """The whole-tile kernels of one route (``wide``) against their plain
+    versions at ``cases``, each within WIDE_TOL of its type, the backward
+    bitwise equal across two calls, every launch on that route; at
+    ``timed`` the times (graph replay and events, plain versions in turn:
+    plain, kernel, kernel, plain), bounds, scaled_dot_product_attention on
+    the same views (timed only) and, with ``yardstick``, the wide route's
+    kernels on the same inputs (``_wide_route_call``: checked against the
+    plain versions too, timed as the kernels).  One line per case
+    (``phase``); returns (case results, times by case and row name), the
+    rows named ``names`` (forward, backward)."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import block_attention as battn
-    launches = launches or no_launches()
-    cases, timed = {}, {}
-    for case, (B, n, T, d, dt, causal, padded) in WIDE_CASES.items():
+    fwd_key, bwd_key = (("block_fwd_wide", "block_bwd_wide") if wide
+                        else ("block_fwd", "block_bwd"))
+    out, times = {}, {}
+    for case, (B, n, T, d, dt, causal, padded) in cases.items():
         dtype = getattr(torch, dt)
-        assert battn.wide_route(T, d), case
+        assert battn.wide_route(T, d, dtype) == wide, case
         q, k, v, do, mask = _block_inputs(device, B, n, T, d, dtype, padded)
         rtol, frac = WIDE_TOL[dt]
-        fns = {"block_fwd_wide": (
+        fns = {names[0]: (
             lambda: (battn.block_fwd(q, k, v, mask, causal),),
             lambda: (battn.block_fwd_plain(q, k, v, mask, causal),)),
-            "block_bwd_wide": (
+            names[1]: (
             lambda: battn.block_bwd(q, k, v, mask, do, causal),
             lambda: battn.block_bwd_plain(q, k, v, mask, do, causal))}
         reset_launch_counts()
         got = {name: kf() for name, (kf, _) in fns.items()}
-        again = fns["block_bwd_wide"][0]()
+        again = fns[names[1]][0]()
         sync(device)
         routed = launch_counts()
-        row = {name: _attn_err(got[name], pf(), rtol, frac)
-               for name, (_, pf) in fns.items()}
-        cases[case] = {
+        want = {name: pf() for name, (_, pf) in fns.items()}
+        row = {name: _attn_err(got[name], want[name], rtol, frac)
+               for name in fns}
+        out[case] = {
             "shape": dict(B=B, n=n, T=T, d=d), "dtype": dt, "causal": causal,
             "padded": padded, "rtol": rtol, "atol_of_max": frac,
             "max_abs_err": {k: e[0] for k, e in row.items()},
             "max_rel_err": {k: e[1] for k, e in row.items()},
             "repeatable": all(torch.equal(a, b) for a, b in
-                              zip(got["block_bwd_wide"], again)),
-            # one forward and two backward calls, all on the wide route
-            "wide_route": routed == no_launches(block_fwd_wide=1,
-                                                block_bwd_wide=2),
+                              zip(got[names[1]], again)),
+            # one forward and two backward calls, all on this route
+            "routed": routed == no_launches(**{fwd_key: 1, bwd_key: 2}),
             "ok": all(e[2] for e in row.values())}
         del got, again
-        if case in WIDE_TIMED:
+        if case in timed:
             four = [x.transpose(1, 2) for x in (q, k, v)]
 
             def backward(four=four, do=do, causal=causal):
                 leaves = [x.detach().clone().requires_grad_() for x in four]
-                out = F.scaled_dot_product_attention(*leaves,
-                                                     is_causal=causal)
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
                 return lambda: torch.autograd.grad(
-                    out, leaves, do.transpose(1, 2), retain_graph=True)
-            lib = {"block_fwd_wide": _library_ms(
+                    o, leaves, do.transpose(1, 2), retain_graph=True)
+            lib = {names[0]: _library_ms(
                 lambda: F.scaled_dot_product_attention(*four,
                                                        is_causal=causal),
                 device),
-                "block_bwd_wide": _library_ms(backward(), device,
-                                              make=backward)}
-            timed[case] = {}
+                names[1]: _library_ms(backward(), device, make=backward)}
+            wide_fns = {names[0]: lambda: _wide_route_call(q, k, v, mask,
+                                                           causal),
+                        names[1]: lambda: _wide_route_call(q, k, v, mask,
+                                                           causal, do)}
+            times[case] = {}
             for name, (kfn, pfn) in fns.items():
                 plain_a = _time_ms(pfn, device)
                 kernel_a = _time_ms(kfn, device)
@@ -2204,35 +2362,81 @@ def phase_block_wide_kernels(device, launches=None, prof=None):
                 plain_b = _time_ms(pfn, device)
                 bound, bound_by = _attn_bound(name, B * n, T, d,
                                               elt_bytes=dtype.itemsize, B=B)
-                timed[case][name] = {
+                times[case][name] = {
                     **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
                     "plain_ms": min(plain_a, plain_b), "bound_ms": bound,
                     "bound_by": bound_by, **lib[name]}
-            del four, lib
-        del q, k, v, do, mask, fns
-        emit("block_wide_kernels", case=case, **cases[case],
-             **({"times": timed[case]} if case in timed else {}))
-    results = []
-    for name in ("block_fwd_wide", "block_bwd_wide"):
-        results.append({
+                if yardstick:
+                    wfn = wide_fns[name]
+                    err = _attn_err(wfn(), want[name], rtol, frac)
+                    times[case][name]["wide_route"] = {
+                        "ms": _graph_ms(lambda: wfn, device),
+                        "event_ms": _time_ms(wfn, device),
+                        "max_abs_err": err[0], "ok": err[2]}
+                    out[case]["ok"] = out[case]["ok"] and err[2]
+            del four, lib, wide_fns
+        del q, k, v, do, mask, fns, want
+        emit(phase, case=case, **out[case],
+             **({"times": times[case]} if case in times else {}))
+    bad = [c for c, r in out.items()
+           if not (r["ok"] and r["repeatable"] and r["routed"])]
+    if bad:
+        raise AssertionError(f"{phase} failed at {bad}: "
+                             f"{[out[c] for c in bad]}")
+    return out, times
+
+
+def _block_rows(names, launch_keys, cases, times, at, launches, prof,
+                path, extra=None):
+    """The kernels line's rows of ``names`` from ``_block_cases``' results:
+    the numbers at case ``at``, ``launches`` of ``launch_keys`` and the
+    profile of the main path ``path`` (None: none)."""
+    rows = []
+    for name, key in zip(names, launch_keys):
+        rows.append({
             "name": name, "route": "cuda", "source": BLOCK_SOURCE,
             "replaces": ATTN_KERNELS[name]["replaces"],
-            "launches": launches[name], "path": "train_gpt2_large",
-            "max_abs_err": cases["large"]["max_abs_err"][name],
+            "launches": launches[key], "launch_key": key, "path": path,
+            "max_abs_err": cases[at]["max_abs_err"][name],
             "max_abs_err_all_bf16_cases": max(
                 c["max_abs_err"][name] for c in cases.values()
                 if c["dtype"] == "bfloat16"),
-            **timed["large"][name],
+            **times[at][name],
             "profile_ms": profile_ms(prof, name) if prof else None,
-            "shape": dict(zip("BnTd", WIDE_CASES["large"][:4])),
-            "shape_8b": dict(shape=dict(zip("BnTd", WIDE_CASES["8b"][:4])),
-                             **timed["8b"][name])})
-    bad = [c for c, r in cases.items()
-           if not (r["ok"] and r["repeatable"] and r["wide_route"])]
-    if bad:
-        raise AssertionError(f"wide whole-tile kernels failed at {bad}: "
-                             f"{[cases[c] for c in bad]}")
-    return results
+            "shape": cases[at]["shape"],
+            **{k: dict(shape=cases[c]["shape"], **times[c][name])
+               for k, c in (extra or {}).items()}})
+    return rows
+
+
+def phase_block_dp128_kernels(device, launches=None, prof=None):
+    """Route 0's DP-128 kernels (bf16/fp16 at head dims in (64, 128])
+    against their plain versions at DP128_CASES (``_block_cases``), timed
+    at DP128_TIMED beside the wide route's kernels on the same inputs.
+    Rows ``block_fwd_dp128`` / ``block_bwd_dp128`` for the kernels line:
+    the numbers at "large" (GPT-2 large's shape), those at "8b" under
+    ``shape_8b``; ``launches`` (None: none) and ``prof`` from the main
+    path's run (``train_gpt2_large``)."""
+    names = ("block_fwd_dp128", "block_bwd_dp128")
+    cases, times = _block_cases(device, "block_dp128_kernels", DP128_CASES,
+                                DP128_TIMED, names, wide=False,
+                                yardstick=True)
+    return _block_rows(names, ("block_fwd", "block_bwd"), cases, times,
+                       "large", launches or no_launches(), prof,
+                       "train_gpt2_large", extra={"shape_8b": "8b"})
+
+
+def phase_block_wide_kernels(device, launches=None, prof=None):
+    """The wide route's kernels against their plain versions at WIDE_CASES
+    (``_block_cases``), timed at WIDE_TIMED.  Rows for the kernels line:
+    the numbers at "large_t136" (GPT-2 large's heads at seq 136);
+    ``launches`` (None: none) from the main path's run
+    (``train_gpt2_large``, which no longer takes this route)."""
+    names = ("block_fwd_wide", "block_bwd_wide")
+    cases, times = _block_cases(device, "block_wide_kernels", WIDE_CASES,
+                                WIDE_TIMED, names, wide=True)
+    return _block_rows(names, names, cases, times, "large_t136",
+                       launches or no_launches(), prof, "train_gpt2_large")
 
 
 def process_group(device):
@@ -4438,9 +4642,9 @@ def resume_child(spec_path):
 
 def phase_resume_gpt2(device, size="medium", micro=MICRO,
                       layers=EARLY_LAYERS):
-    """run_resumable in child processes (see RESUME_K): unbroken, then the
-    port's launcher with --max_restarts 1 around a child SIGTERM'd by
-    chaos (drained at the K boundary, exit 43) and its relaunch (exit 0),
+    """run_resumable in child processes (see RESUME_K): unbroken, beside
+    it the port's launcher with --max_restarts 1 around a child SIGTERM'd
+    by chaos (drained at the K boundary, exit 43) and its relaunch (exit 0),
     whose masters are bitwise the unbroken run's; the relaunch loads the
     three kernel libraries from the compile cache (the launcher's
     --compile_cache_dir, seeded with the parent's build: both attempts
@@ -4473,12 +4677,12 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
     for key in (chaos.ENV_SIGTERM_STEP, "DSTPU_COMPILE_CACHE_DIR",
                 "DSTPU_REPLICA_GENERATION"):
         base.pop(key, None)
+    # the unbroken run and the launcher's attempts are independent (their
+    # own checkpoint directories): they run side by side
+    unbroken_p = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-child",
+         str(spec_for("unbroken", "u"))], env=base)
     try:
-        p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                            "--resume-child", str(spec_for("unbroken", "u"))],
-                           env=base, timeout=TP_CHILD_TIMEOUT)
-        rc_u = p.returncode
-        unbroken = json.loads((work / "unbroken.json").read_text())
         # the compile cache, seeded with the libraries this process built
         cache = work / "compile_cache"
         cache.mkdir()
@@ -4497,6 +4701,8 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
             cwd=str(ROOT), timeout=2 * TP_CHILD_TIMEOUT)
         launcher_s = time.perf_counter() - t0
         rc_l = p.returncode
+        rc_u = unbroken_p.wait(timeout=TP_CHILD_TIMEOUT)
+        unbroken = json.loads((work / "unbroken.json").read_text())
         attempts = sorted(f.name for f in work.glob("launched_*.json"))
         broken = json.loads((work / "launched_0.json").read_text())
         resumed = json.loads((work / "launched_1.json").read_text())
@@ -4507,6 +4713,9 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
         except (OSError, ValueError) as e:
             preempt, preempt_kinds = None, repr(e)
     finally:
+        if unbroken_p.poll() is None:
+            unbroken_p.kill()
+            unbroken_p.wait()
         shutil.rmtree(work, ignore_errors=True)
     drain = (RESUME_SIGTERM_AT // RESUME_K + 1) * RESUME_K
     cb, cr = broken["counters"], resumed["counters"]
@@ -4548,7 +4757,8 @@ def phase_resume_gpt2(device, size="medium", micro=MICRO,
                    for r in (unbroken, broken, resumed)},
          child_seconds={r["name"]: r["seconds"]
                         for r in (unbroken, broken, resumed)},
-         launcher_s=launcher_s, checks=checks)
+         launcher_s=launcher_s, children="the unbroken run beside the "
+         "launcher's attempts", checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"resume_gpt2 phase failed: {checks}")
 
@@ -6041,11 +6251,25 @@ def tp_serve_child(spec_path, rank):
     return _child_finish(spec_path, spec, out, t_start, device)
 
 
-def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
+def tp_serve_launch(device, keep, shapes=SERVE):
+    """tp_serve_gpt2's two ranks, child processes on serve_gpt2's
+    checkpoint: (their results by rank, seconds).  The parent only waits,
+    so ``serve_pair`` runs this on a side thread beside in-process
+    phases."""
+    t0 = time.perf_counter()
+    ranks = _tp_launch(pathlib.Path(keep["work"]), "serve", {
+        "device": str(device), "ckpt": keep["ckpt"], "shapes": shapes},
+        flag="--tp-serve-child", world=TP_SERVE)
+    return ranks, time.perf_counter() - t0
+
+
+def phase_tp_serve_gpt2(device, keep, launched, shapes=SERVE, beside=None):
     """serve_gpt2's engine at model_parallel_size 2 as two processes over
-    gloo on the one card (see TP_SERVE): legs (a)-(c) in one launch of
+    gloo on the one card (see TP_SERVE): legs (a)-(e) in one launch of
     the two ranks, one line each, then the phase's line.  ``keep``: what
-    phase_serve_gpt2 handed on (its checkpoint, traces and tokens)."""
+    phase_serve_gpt2 handed on (its checkpoint, traces and tokens);
+    ``launched``: ``tp_serve_launch``'s result (the ranks ran before);
+    ``beside``: the phases they ran beside (every line says so)."""
     import torch
 
     from deepspeed_tpu_torch.inference import InferenceEngine
@@ -6053,11 +6277,9 @@ def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
     t_phase = time.perf_counter()
     meta = GPT2.from_size(shapes["size"], device="meta",
                           **_depth(shapes["layers"]))
-    work = pathlib.Path(keep["work"])
-    ranks = _tp_launch(work, "serve", {
-        "device": str(device), "ckpt": keep["ckpt"], "shapes": shapes},
-        flag="--tp-serve-child", world=TP_SERVE)
+    ranks, child_s = launched
     lead, follow = ranks[0], ranks[1]
+    emit = _with_beside(beside)
     legs = lead["legs"]
     checks = {}
     prev_reduce = torch.backends.cuda.matmul.\
@@ -6200,33 +6422,54 @@ def phase_tp_serve_gpt2(device, keep, shapes=SERVE):
          int8_build_s=[r["int8_build_s"] for r in ranks],
          auto_slots=[r.get("auto") for r in ranks],
          child_seconds=[r["seconds"] for r in ranks],
-         seconds=time.perf_counter() - t_phase, checks=checks)
+         seconds=time.perf_counter() - t_phase + child_s, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"tp_serve_gpt2 phase failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return launches
 
 
-def serve_pair(device, shapes=SERVE, fleet=True, tp=True):
+def _with_beside(beside):
+    """``emit`` with ``beside`` on every line (``emit`` itself if None)."""
+    if not beside:
+        return emit
+    return lambda phase, **fields: emit(phase, **fields, beside=beside)
+
+
+def serve_pair(device, shapes=SERVE, fleet=True, tp=True, meanwhile=None):
     """serve_gpt2, then fleet_serve_gpt2 and tp_serve_gpt2 on its
     checkpoint and tokens: the three phases' launch counts by leg (None
-    for a phase left out).  ``serve_pair(torch.device("cpu"),
-    SERVE_TINY)`` rehearses them on the CPU (about 35 s)."""
-    import shutil
+    for a phase left out) and what ``meanwhile()`` returned.
+    tp_serve_gpt2's two ranks (child processes, their work host-bound:
+    gloo staging and eager launches) start right after serve_gpt2 on a
+    side thread; ``meanwhile`` (None: nothing) runs beside them, before
+    fleet_serve_gpt2, and shares the card with them (the lines of both
+    say so: "beside"); their checks run last.  ``serve_pair(
+    torch.device("cpu"), SERVE_TINY)`` rehearses them on the CPU (about
+    40 s; ``graphs_off`` fails there by design)."""
     keep, out = {}, [None, None, None]
+    side = ThreadPoolExecutor(1)
     try:
         out[0] = phase_serve_gpt2(device, shapes=shapes, keep=keep)
         free(device)
+        if tp:
+            tp_job = side_submit(side, "tp_serve_gpt2", tp_serve_launch,
+                                 device, keep, shapes)
+        extra = meanwhile() if meanwhile else None
         if fleet:
             out[1] = phase_fleet_serve_gpt2(device, keep, shapes=shapes)
             free(device)
         if tp:
-            out[2] = phase_tp_serve_gpt2(device, keep, shapes=shapes)
+            launched = side_result("tp_serve_gpt2", tp_job)
+            out[2] = phase_tp_serve_gpt2(device, keep, launched,
+                                         shapes=shapes,
+                                         beside=side_beside("tp_serve_gpt2"))
             free(device)
     finally:
+        side.shutdown(wait=True)
         if "work" in keep:
             shutil.rmtree(keep["work"], ignore_errors=True)
-    return tuple(out)
+    return (*out, extra)
 
 
 # analysis_gpt2: the planned peaks are held to max_memory_allocated within
@@ -6676,7 +6919,8 @@ def main() -> int:
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
                    "obs_gpt2", "fleet_gpt2", "serve_gpt2",
                    "fleet_serve_gpt2", "tp_serve_gpt2", "analysis_gpt2",
-                   "train_gpt2_large", "block_wide_kernels")
+                   "train_gpt2_large", "block_kernels",
+                   "block_dp128_kernels", "block_wide_kernels")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -6711,10 +6955,17 @@ def main() -> int:
 
     mods = dict(zip((SOURCE, ATTN_SOURCE, BLOCK_SOURCE), _counted()))
     t0 = time.perf_counter()
+
+    def timed_build(mod):
+        t = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source
-        for job in [pool.submit(mod.build) for mod in mods.values()]:
-            job.result()
+        jobs = {src: pool.submit(timed_build, mod)
+                for src, mod in mods.items()}
+        source_s = {src: job.result() for src, job in jobs.items()}
     emit("build", seconds=time.perf_counter() - t0, sources=list(mods),
+         seconds_by_source=source_s,
          flags=" ".join(mods[SOURCE].NVCC_FLAGS),
          ptxas={src: [ln.strip() for ln in mod.build_log.splitlines()
                       if "registers" in ln or "spill" in ln
@@ -6736,6 +6987,10 @@ def main() -> int:
                     phase_analysis_gpt2_train(device)
                     free(device)
                     phase_analysis_gpt2_serve(device)
+                elif name == "block_kernels":
+                    # every whole-tile route, with no main path's counts
+                    phase_block_kernels(device, no_launches(), {},
+                                        no_launches(), {})
                 else:
                     globals()[f"phase_{name}"](device)
                 free(device)
@@ -6808,11 +7063,15 @@ def main() -> int:
     # pp_gpt2 and zero3_pp_gpt2 do nothing in this process but wait for
     # their child processes and check what they wrote: each runs in a side
     # thread beside the next multi-rank phases (those phases' time is
-    # mostly process start-up and gloo's host staging, not the card)
+    # mostly process start-up and gloo's host staging, not the card); the
+    # lines of both sides name the phases beside them
     side = ThreadPoolExecutor(1)
     try:
-        pp_job = side.submit(phase_pp_gpt2, device, gpt2_shallow,
-                             layers=EARLY_LAYERS)
+        pp_job = side_submit(side, "pp_gpt2", phase_pp_gpt2, device,
+                             gpt2_shallow, layers=EARLY_LAYERS)
+        # queued behind pp_gpt2 on the one side thread
+        z3pp_job = side_submit(side, "zero3_pp_gpt2", phase_zero3_pp_gpt2,
+                               device, gpt2_shallow, layers=EARLY_LAYERS)
         tp_launches = phase_tp_gpt2(device, gpt2_shallow, layers=EARLY_LAYERS)
         for k in kernels:
             if k["name"] == "adam":
@@ -6838,15 +7097,13 @@ def main() -> int:
                     run: [r[k["name"]] for r in ranks]
                     for run, ranks in z3_launches.items()}
         free(device)
-        pp_launches = pp_job.result()
+        pp_launches = side_result("pp_gpt2", pp_job)
         for k in kernels:
             if k["name"] in ("adam", "block_fwd", "block_bwd"):
                 # per stage of pp_gpt2 (pp 2): runs (a)-(d)
                 k["pp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                          for run, ranks in pp_launches.items()}
         free(device)
-        z3pp_job = side.submit(phase_zero3_pp_gpt2, device, gpt2_shallow,
-                               layers=EARLY_LAYERS)
         sp1_shallow = phase_gpt2_reference(device, micro=GPT2_1024_MICRO,
                                            seq=GPT2_1024_SEQ,
                                            name="gpt2_1024_reference")
@@ -6858,7 +7115,7 @@ def main() -> int:
                 k["sp_gpt2_launches"] = {run: [r[k["name"]] for r in ranks]
                                          for run, ranks in sp_launches.items()}
         free(device)
-        z3pp_launches = z3pp_job.result()
+        z3pp_launches = side_result("zero3_pp_gpt2", z3pp_job)
         for k in kernels:
             if k["name"] in ("adam", "block_fwd", "block_bwd"):
                 # per rank of zero3_pp_gpt2 (dp 2 x pp 2): (a) GPipe, (b)
@@ -6869,18 +7126,22 @@ def main() -> int:
         free(device)
     finally:
         side.shutdown(wait=True)
-    moe = phase_moe_gpt2(device)
-    free(device)
-    multi_launches = phase_multistep_gpt2(device)
-    free(device)
-    phase_resume_gpt2(device)
-    free(device)
-    obs_launches = phase_obs_gpt2(device)
-    free(device)
-    fleet_launches = phase_fleet_gpt2(device)
-    free(device)
-    serve_launches, fleet_serve_launches, tp_serve_launches = \
-        serve_pair(device)
+    def beside_tp_serve():
+        """The phases that run beside tp_serve_gpt2's ranks."""
+        moe = phase_moe_gpt2(device)
+        free(device)
+        multi = phase_multistep_gpt2(device)
+        free(device)
+        phase_resume_gpt2(device)
+        free(device)
+        obs = phase_obs_gpt2(device)
+        free(device)
+        fleet = phase_fleet_gpt2(device)
+        free(device)
+        return moe, multi, obs, fleet
+    (serve_launches, fleet_serve_launches, tp_serve_launches,
+     (moe, multi_launches, obs_launches, fleet_launches)) = serve_pair(
+        device, meanwhile=beside_tp_serve)
     phase_analysis_gpt2_serve(device)
     for k in kernels:
         # serve_gpt2's legs (a)-(h), fleet_serve_gpt2's (a)-(d) and
@@ -6889,7 +7150,8 @@ def main() -> int:
         for name, launches in (("serve_gpt2", serve_launches),
                                ("fleet_serve_gpt2", fleet_serve_launches),
                                ("tp_serve_gpt2", tp_serve_launches)):
-            k[f"{name}_launches"] = {leg: counts[k["name"]]
+            k[f"{name}_launches"] = {leg: counts[k.get("launch_key",
+                                                       k["name"])]
                                      for leg, counts in launches.items()}
     for k in kernels:
         if k["name"] in ("adam", "block_fwd", "block_bwd"):
@@ -6917,8 +7179,9 @@ def main() -> int:
     for causal in (False, True):
         phase_attn_sweep(device, "stream", causal, (256, 512, 1024))
         phase_attn_sweep(device, "block", causal, (64, 128))
-    # the wide route at GPT-2 large's head dim, by seq (the plan takes the
-    # whole-tile kernels for causal shapes only)
+    # the whole-tile kernels at GPT-2 large's head dim, by seq: route 0 at
+    # 64 and 128, the wide route at 136 and 176 (the plan takes them for
+    # causal shapes only)
     phase_attn_sweep(device, "block", True, (64, 128, 136, 176), d=96)
     phase_calibrate(device)
 

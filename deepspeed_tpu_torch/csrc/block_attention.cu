@@ -8,13 +8,15 @@
 //
 // What each kernel replaces (deepspeed_tpu/ops/pallas_attention.py), by
 // route (dispatch):
-//   route 0, T a multiple of 16 in [16, 128] and d <= 64:
+//   route 0, T a multiple of 16 in [16, 128]:
 //     block_fwd_wg_kernel  <- _fwd_kernel  (:106, pallas_call :180)  bf16/fp16
 //     block_bwd_wg_kernel  <- _bwd_kernel  (:122, pallas_call :200)  bf16/fp16
-//     block_fwd_kernel     <- _fwd_kernel  fp32
-//     block_bwd_kernel     <- _bwd_kernel  fp32
-//   route 1 (the wide route), every other shape up to T 512 and d 128, all
-//   three types (its own note, below the route-0 kernels):
+//       (d <= 128, padded to DP = 64 or 128)
+//     block_fwd_kernel     <- _fwd_kernel  fp32 (d <= 64)
+//     block_bwd_kernel     <- _bwd_kernel  fp32 (d <= 64)
+//   route 1 (the wide route), every other shape up to T 512 and d 128: T
+//   past 128 or not a multiple of 16, and fp32 past d 64 (its own note,
+//   below the route-0 kernels):
 //     block_fwd_wide_kernel                          <- _fwd_kernel
 //     block_bwd_wide_dq_kernel + block_bwd_wide_dkv_kernel <- _bwd_kernel
 //
@@ -53,12 +55,14 @@
 // operands in shared memory:
 //   * One block per (b, head) with NB = ceil(T / 64) warpgroups (128
 //     threads each, one per 64 query rows), so K and V are loaded once per
-//     head.  The kernels are instantiated per NB (1 or 2), so every loop
-//     over key blocks and query slices has a constant count and no wgmma
-//     sits in a divergent branch (ptxas serialises those); the skipping
-//     warpgroup runs the instantiation for one key block.  The head dim is
-//     zero-padded to 64 in shared memory; rows past T are zero-filled and
-//     never stored.
+//     head.  The kernels are instantiated per NB (1 or 2) and padded head
+//     dim DP (64, or 128 for d in (64, 128]), so every loop over key
+//     blocks, query slices, k16 slices and column chunks has a constant
+//     count and no wgmma sits in a divergent branch (ptxas serialises
+//     those); the skipping warpgroup runs the instantiation for one key
+//     block.  The head dim is zero-padded to DP in shared memory (loads
+//     and stores stop at d, so device bytes follow d); rows past T are
+//     zero-filled and never stored.
 //   * q, k, v (and dO) arrive by 16-byte cp.async straight into the
 //     no-swizzle core-matrix layout the wgmma descriptors read (8-row
 //     groups of 1 KB, each 8 core matrices of 8 rows x 16 bytes), in two
@@ -103,6 +107,20 @@
 //     shared memory while it computes this one measured no faster.
 //   * No product goes through shared memory: S, dP, O and the dK/dV
 //     accumulators stay in registers.
+//   * DP 128 (GPT-2 large's d 96, the 8b preset's 128), on the one
+//     m64n64k16 product: S and dP sum 8 k16 slices instead of 4; O, dQ,
+//     dK and dV are two 64-column chunks.  The forward takes O one chunk
+//     at a time (32 accumulators live, p packed held across both), so it
+//     keeps route 0's two blocks of 256 threads per SM: 96 KB of shared
+//     memory and 122 registers at T = 128 (ptxas, no spills).  The
+//     backward keeps both chunks of dK and dV in flight (128
+//     accumulators) beside dQ's packed chunks, which fit: 182 registers
+//     at T = 128 (218 at T <= 64), no spills, 192 KB of shared memory,
+//     one block per SM as at DP 64.  On an H100 at GPT-2 large's shape
+//     (B 32, n 16, T 128, d 96) the forward reads 0.035 ms against the
+//     wide route's 0.065 and the backward 0.071 against its 0.176, on the
+//     same inputs (PERF.md); padding 96 to 128 costs a third more tensor
+//     work, which bytes bound.
 //   * Each instantiation sets its dynamic shared-memory limit once
 //     (launch_once); its shared memory does not depend on T.
 
@@ -343,39 +361,44 @@ __global__ void __launch_bounds__(kBwdThreads) block_bwd_kernel(Args a) {
 
 // ---------------------------------------- bf16/fp16 forward and backward
 
-constexpr int kDP = 64;        // head dim padded in shared memory
-constexpr int kRB = kDP * 16;  // bytes per 8-row group of an operand tile
+constexpr int kWgMaxD = 128;  // route 0's widest padded head dim
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of the wgmma kernels for NB blocks of 64 rows (R = 64 NB
-// >= T): operand tiles of R rows (q, k, v, dO) in the core-matrix layout
-// and the backward's p and dS as [R queries][R keys] tiles in the same
-// layout (8-query groups of R * 16 bytes, 8-key chunks of 128).
-template <int NB>
+// >= T) and the head dim padded to DP (64 or 128): operand tiles of R rows
+// (q, k, v, dO) in the core-matrix layout (8-row groups of RB = 16 DP
+// bytes, 8-column chunks of 128) and the backward's p and dS as [R
+// queries][R keys] tiles in the same layout (8-query groups of R * 16
+// bytes, 8-key chunks of 128).  A 64-column chunk of a tile starts 1,024
+// bytes after the one before it.
+template <int NB, int DP>
 struct WgLayout {
-  static constexpr int R = 64 * NB;
-  static constexpr size_t tile = size_t(R) * kDP * 2, pt = size_t(R) * R * 2;
+  static constexpr int R = 64 * NB, RB = DP * 16;
+  static constexpr size_t tile = size_t(R) * DP * 2, pt = size_t(R) * R * 2;
   static constexpr size_t fwd = 3 * tile;           // q, k, v
   static constexpr size_t bwd = 4 * tile + 2 * pt;  // q, k, v, dO; p, dS
 };
 
-// byte offset of row r, 8-column chunk c in an operand tile
+// byte offset of row r, 8-column chunk c in an operand tile of DP columns
+template <int DP>
 __device__ __forceinline__ int cm_off(int r, int c) {
-  return (r >> 3) * kRB + c * 128 + (r & 7) * 16;
+  return (r >> 3) * (DP * 16) + c * 128 + (r & 7) * 16;
 }
 
 // `rows` rows of d elements (row r at src + r * ld, 16-byte aligned) into
-// an R-row operand tile by 16-byte cp.async; columns past d and rows past
-// `rows` are zero-filled.  Eight consecutive threads take one column chunk
-// of eight rows, so a warp fills whole 32-byte sectors of each row.
-template <typename T>
+// an R-row operand tile of DP columns by 16-byte cp.async; columns past d
+// and rows past `rows` are zero-filled.  Eight consecutive threads take
+// one column chunk of eight rows, so a warp fills whole 32-byte sectors of
+// each row.
+template <typename T, int DP>
 __device__ __forceinline__ void load_tile_cm(unsigned char* dst, const T* src,
                                              size_t ld, int rows, int R,
                                              int d) {
-  for (int e = threadIdx.x; e < R * 8; e += blockDim.x) {
-    const int r = (e >> 6) * 8 + (e & 7), c = (e >> 3) & 7;
+  constexpr int C = DP / 8;  // 16-byte column chunks a row
+  for (int e = threadIdx.x; e < R * C; e += blockDim.x) {
+    const int r = e / (8 * C) * 8 + (e & 7), c = (e >> 3) % C;
     const bool ok = r < rows && c * 8 < d;
-    cp_async16(dst + cm_off(r, c), ok ? src + r * ld + c * 8 : src, ok);
+    cp_async16(dst + cm_off<DP>(r, c), ok ? src + r * ld + c * 8 : src, ok);
   }
 }
 
@@ -409,19 +432,20 @@ __device__ __forceinline__ bool skips(const Args& a, uint32_t keep0) {
 }
 
 // S = q.k^T (or dP = dO.v^T) of a warpgroup's 64 rows at `A` over key
-// blocks 0..NKB-1 of `B`: s[j] holds the 64 keys from 64 j.  Both operands
-// K-major.
-template <typename T, int NKB>
+// blocks 0..NKB-1 of `B`: s[j] holds the 64 keys from 64 j, summed over
+// the DP / 16 k16 slices of the head dim.  Both operands K-major.
+template <typename T, int NKB, int DP>
 __device__ __forceinline__ void scores(float (&s)[NKB][32],
                                        const unsigned char* A,
                                        const unsigned char* B) {
+  constexpr int RB = DP * 16;
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < NKB; ++j)
 #pragma unroll
-    for (int kk = 0; kk < kDP / 16; ++kk)
-      wgmma_ss<T>(s[j], gmma_desc(A + kk * 256, 128, kRB),
-                  gmma_desc(B + j * 8 * kRB + kk * 256, 128, kRB), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<T>(s[j], gmma_desc(A + kk * 256, 128, RB),
+                  gmma_desc(B + j * 8 * RB + kk * 256, 128, RB), kk > 0);
   wgmma_commit();
   wgmma_wait0();
 #pragma unroll
@@ -430,11 +454,13 @@ __device__ __forceinline__ void scores(float (&s)[NKB][32],
 
 // acc += A . B over the NKB * 64 columns of the packed register operand
 // `w` (a row block of p or dS), B the matching key rows of `Bs` read
-// MN-major (v for O = p.v, k for dQ = dS.k).
-template <typename T, int NKB>
+// MN-major (v for O = p.v, k for dQ = dS.k), 64 of its columns: `Bs`
+// points at the chunk.
+template <typename T, int NKB, int DP>
 __device__ __forceinline__ void rows_times_keys(float (&acc)[32],
                                                 uint32_t (&w)[NKB][4][4],
                                                 const unsigned char* Bs) {
+  constexpr int RB = DP * 16;
   reg_fence(acc);
   wgmma_fence();
 #pragma unroll
@@ -442,7 +468,7 @@ __device__ __forceinline__ void rows_times_keys(float (&acc)[32],
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_t<T>(acc, w[j][kk],
-                    gmma_desc(Bs + (4 * j + kk) * 2 * kRB, kRB, 128));
+                    gmma_desc(Bs + (4 * j + kk) * 2 * RB, RB, 128));
   wgmma_commit();
   wgmma_wait0();
   reg_fence(acc);
@@ -521,7 +547,7 @@ __device__ __forceinline__ void pack_acc(uint32_t (&w)[4][4],
 }
 
 // A warpgroup's packed 64 x 64 tile into the core-matrix layout at `dst`
-// (its row 0; 8-row groups `rb` bytes apart).
+// (its row 0 and first column; 8-row groups `rb` bytes apart).
 __device__ __forceinline__ void stage_words(unsigned char* dst, int rb,
                                             const uint32_t (&w)[4][4]) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -536,26 +562,28 @@ __device__ __forceinline__ void stage_words(unsigned char* dst, int rb,
     }
 }
 
-// `rows` (<= 64) rows of a staged 64-row tile to a contiguous [B, T, n, d]
-// array (row stride ld), 16 bytes a thread over one warpgroup, as
-// load_tile_cm reads.
-template <typename T>
+// `rows` (<= 64) rows of a staged 64-row tile of DP columns to a
+// contiguous [B, T, n, d] array (row stride ld), 16 bytes a thread over
+// one warpgroup, as load_tile_cm reads.
+template <typename T, int DP>
 __device__ __forceinline__ void store_tile(T* dst, size_t ld,
                                            const unsigned char* src,
                                            int rows, int d) {
-  for (int e = threadIdx.x & 127; e < 64 * 8; e += 128) {
-    const int r = (e >> 6) * 8 + (e & 7), c = (e >> 3) & 7;
+  constexpr int C = DP / 8;
+  for (int e = threadIdx.x & 127; e < 64 * C; e += 128) {
+    const int r = e / (8 * C) * 8 + (e & 7), c = (e >> 3) % C;
     if (r < rows && c * 8 < d)
       *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
-          *reinterpret_cast<const uint4*>(src + cm_off(r, c));
+          *reinterpret_cast<const uint4*>(src + cm_off<DP>(r, c));
   }
 }
 
 // The forward of one warpgroup's 64 query rows over NKB key blocks, after
-// q and k have landed: S, the softmax, then (once v has landed) O = p.v,
-// staged through the warpgroup's own q rows (only its products read them)
-// and stored.
-template <typename T, int NKB, int NB>
+// q and k have landed: S, the softmax, then (once v has landed) O = p.v
+// one 64-column chunk at a time (32 accumulators live, whatever DP),
+// each staged through the warpgroup's own q rows (only its products read
+// them) and stored.
+template <typename T, int NKB, int NB, int DP>
 __device__ __forceinline__ void fwd_rows(const Args& a, unsigned char* Qw,
                                          const unsigned char* Ks,
                                          const unsigned char* Vs,
@@ -564,7 +592,7 @@ __device__ __forceinline__ void fwd_rows(const Args& a, unsigned char* Qw,
   const int row0 =
       r0 + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
   float s[NKB][32] = {};
-  scores<T, NKB>(s, Qw, Ks);
+  scores<T, NKB, DP>(s, Qw, Ks);
   softmax_regs<NKB, NB>(s, keep, row0, a);
   uint32_t pa[NKB][4][4];
 #pragma unroll
@@ -572,18 +600,21 @@ __device__ __forceinline__ void fwd_rows(const Args& a, unsigned char* Qw,
   cp_async_wait<0>();  // v has landed
   fence_proxy_async();
   __syncthreads();
-  float o[32] = {};
-  rows_times_keys<T, NKB>(o, pa, Vs);
-  uint32_t ow[4][4];
-  pack_acc<T>(ow, o, 1.f);
-  stage_words(Qw, kRB, ow);
+#pragma unroll
+  for (int nc = 0; nc < DP / 64; ++nc) {
+    float o[32] = {};
+    rows_times_keys<T, NKB, DP>(o, pa, Vs + nc * 1024);
+    uint32_t ow[4][4];
+    pack_acc<T>(ow, o, 1.f);
+    stage_words(Qw + nc * 1024, DP * 16, ow);
+  }
   wg_barrier(1 + (threadIdx.x >> 7));
-  store_tile(out, size_t(a.n) * a.d, Qw, min(64, a.T - r0), a.d);
+  store_tile<T, DP>(out, size_t(a.n) * a.d, Qw, min(64, a.T - r0), a.d);
 }
 
-template <typename T, int NB>
+template <typename T, int NB, int DP>
 __global__ void __launch_bounds__(128 * NB, 2) block_fwd_wg_kernel(Args a) {
-  using L = WgLayout<NB>;
+  using L = WgLayout<NB, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* Ks = Qs + L::tile;
@@ -592,10 +623,13 @@ __global__ void __launch_bounds__(128 * NB, 2) block_fwd_wg_kernel(Args a) {
   const int b = blockIdx.x / a.n, h = blockIdx.x % a.n;
   const size_t base = size_t(b) * a.sB + size_t(h) * a.sH;
   const size_t sT = size_t(a.sT);
-  load_tile_cm(Qs, static_cast<const T*>(a.q) + base, sT, Tn, L::R, d);
-  load_tile_cm(Ks, static_cast<const T*>(a.k) + base, sT, Tn, L::R, d);
+  load_tile_cm<T, DP>(Qs, static_cast<const T*>(a.q) + base, sT, Tn, L::R,
+                      d);
+  load_tile_cm<T, DP>(Ks, static_cast<const T*>(a.k) + base, sT, Tn, L::R,
+                      d);
   cp_async_commit();
-  load_tile_cm(Vs, static_cast<const T*>(a.v) + base, sT, Tn, L::R, d);
+  load_tile_cm<T, DP>(Vs, static_cast<const T*>(a.v) + base, sT, Tn, L::R,
+                      d);
   cp_async_commit();
   const KeyBits<NB> mask(a, b);
   cp_async_wait<1>();  // q, k have landed
@@ -605,19 +639,20 @@ __global__ void __launch_bounds__(128 * NB, 2) block_fwd_wg_kernel(Args a) {
   mask.bits(keep);
 
   const int r0 = 64 * (threadIdx.x >> 7);
-  unsigned char* Qw = Qs + r0 / 8 * kRB;  // this warpgroup's q rows
+  unsigned char* Qw = Qs + r0 / 8 * L::RB;  // this warpgroup's q rows
   T* out = static_cast<T*>(a.o) + (size_t(b) * Tn + r0) * a.n * d +
            size_t(h) * d;
   if (NB > 1 && r0 == 0 && skips(a, keep[0]))
-    fwd_rows<T, 1, NB>(a, Qw, Ks, Vs, keep, r0, out);
+    fwd_rows<T, 1, NB, DP>(a, Qw, Ks, Vs, keep, r0, out);
   else
-    fwd_rows<T, NB, NB>(a, Qw, Ks, Vs, keep, r0, out);
+    fwd_rows<T, NB, NB, DP>(a, Qw, Ks, Vs, keep, r0, out);
 }
 
 // The backward's first half for one warpgroup's 64 query rows over NKB of
 // NB key blocks, after q and k have landed: p and dS to shared memory (the
-// skipped key blocks as zeros), and dQ = dS.k times scale, packed.
-template <typename T, int NKB, int NB>
+// skipped key blocks as zeros), and dQ = dS.k times scale, packed, one
+// 64-column chunk at a time.
+template <typename T, int NKB, int NB, int DP>
 __device__ __forceinline__ void bwd_rows(const Args& a, int r0,
                                          const unsigned char* Qs,
                                          const unsigned char* Ks,
@@ -625,12 +660,12 @@ __device__ __forceinline__ void bwd_rows(const Args& a, int r0,
                                          const unsigned char* dOs,
                                          unsigned char* Ps, unsigned char* dSs,
                                          const uint32_t (&keep)[2 * NB],
-                                         uint32_t (&dqw)[4][4]) {
-  constexpr int RBp = WgLayout<NB>::R * 16;
+                                         uint32_t (&dqw)[DP / 64][4][4]) {
+  constexpr int RB = DP * 16, RBp = WgLayout<NB, DP>::R * 16;
   const int row0 =
       r0 + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
   float s[NKB][32] = {}, dp[NKB][32] = {};
-  scores<T, NKB>(s, Qs + r0 / 8 * kRB, Ks);
+  scores<T, NKB, DP>(s, Qs + r0 / 8 * RB, Ks);
   softmax_regs<NKB, NB>(s, keep, row0, a);
   uint32_t w[NKB][4][4];
 #pragma unroll
@@ -648,7 +683,7 @@ __device__ __forceinline__ void bwd_rows(const Args& a, int r0,
   cp_async_wait<0>();  // dO, v have landed
   fence_proxy_async();
   __syncthreads();
-  scores<T, NKB>(dp, dOs + r0 / 8 * kRB, Vs);
+  scores<T, NKB, DP>(dp, dOs + r0 / 8 * RB, Vs);
   float t[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < NKB; ++j)
@@ -667,15 +702,18 @@ __device__ __forceinline__ void bwd_rows(const Args& a, int r0,
     pack_acc<T>(w[j], dp[j], 1.f);
     stage_words(dSs + r0 / 8 * RBp + j * 1024, RBp, w[j]);
   }
-  float dq[32] = {};
-  rows_times_keys<T, NKB>(dq, w, Ks);
-  pack_acc<T>(dqw, dq, a.scale);
+#pragma unroll
+  for (int nc = 0; nc < DP / 64; ++nc) {
+    float dq[32] = {};
+    rows_times_keys<T, NKB, DP>(dq, w, Ks + nc * 1024);
+    pack_acc<T>(dqw[nc], dq, a.scale);
+  }
 }
 
-template <typename T, int NB>
+template <typename T, int NB, int DP>
 __global__ void __launch_bounds__(128 * NB, 1) block_bwd_wg_kernel(Args a) {
-  using L = WgLayout<NB>;
-  constexpr int RBp = L::R * 16;
+  using L = WgLayout<NB, DP>;
+  constexpr int RB = L::RB, RBp = L::R * 16, NC = DP / 64;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* Ks = Qs + L::tile;
@@ -690,12 +728,15 @@ __global__ void __launch_bounds__(128 * NB, 1) block_bwd_wg_kernel(Args a) {
   const size_t sT = size_t(a.sT);
   const size_t ld_out = size_t(a.n) * d;
   const size_t obase = size_t(b) * Tn * ld_out + size_t(h) * d;
-  load_tile_cm(Qs, static_cast<const T*>(a.q) + base, sT, Tn, L::R, d);
-  load_tile_cm(Ks, static_cast<const T*>(a.k) + base, sT, Tn, L::R, d);
+  load_tile_cm<T, DP>(Qs, static_cast<const T*>(a.q) + base, sT, Tn, L::R,
+                      d);
+  load_tile_cm<T, DP>(Ks, static_cast<const T*>(a.k) + base, sT, Tn, L::R,
+                      d);
   cp_async_commit();
-  load_tile_cm(dOs, static_cast<const T*>(a.dout) + obase, ld_out, Tn,
-               L::R, d);
-  load_tile_cm(Vs, static_cast<const T*>(a.v) + base, sT, Tn, L::R, d);
+  load_tile_cm<T, DP>(dOs, static_cast<const T*>(a.dout) + obase, ld_out, Tn,
+                      L::R, d);
+  load_tile_cm<T, DP>(Vs, static_cast<const T*>(a.v) + base, sT, Tn, L::R,
+                      d);
   cp_async_commit();
   const KeyBits<NB> mask(a, b);
   cp_async_wait<1>();  // q, k have landed
@@ -704,51 +745,64 @@ __global__ void __launch_bounds__(128 * NB, 1) block_bwd_wg_kernel(Args a) {
   uint32_t keep[2 * NB];
   mask.bits(keep);
 
-  uint32_t dqw[4][4];
+  uint32_t dqw[NC][4][4];
   if (NB > 1 && r0 == 0 && skips(a, keep[0]))
-    bwd_rows<T, 1, NB>(a, r0, Qs, Ks, Vs, dOs, Ps, dSs, keep, dqw);
+    bwd_rows<T, 1, NB, DP>(a, r0, Qs, Ks, Vs, dOs, Ps, dSs, keep, dqw);
   else
-    bwd_rows<T, NB, NB>(a, r0, Qs, Ks, Vs, dOs, Ps, dSs, keep, dqw);
+    bwd_rows<T, NB, NB, DP>(a, r0, Qs, Ks, Vs, dOs, Ps, dSs, keep, dqw);
   fence_proxy_async();  // p, dS visible to every warpgroup's products
   __syncthreads();
 
   // this warpgroup's 64 keys: dV = p^T dO and dK = dS^T q over the query
   // rows in ascending 16-row slices (a skipped block pair adds zeros; the
-  // rows past T have zero dO and dS)
-  float dv[32] = {}, dk[32] = {};
-  reg_fence(dv);
-  reg_fence(dk);
+  // rows past T have zero dO and dS), each 64-column chunk of the head
+  // dim in its own accumulators
+  float dv[NC][32] = {}, dk[NC][32] = {};
+#pragma unroll
+  for (int nc = 0; nc < NC; ++nc) {
+    reg_fence(dv[nc]);
+    reg_fence(dk[nc]);
+  }
   wgmma_fence();
 #pragma unroll
   for (int kq = 0; kq < L::R / 16; ++kq) {
     const int off = kq * 2 * RBp + wg * 1024;
-    wgmma_ss_tt<T>(dv, gmma_desc(Ps + off, RBp, 128),
-                   gmma_desc(dOs + kq * 2 * kRB, kRB, 128));
-    wgmma_ss_tt<T>(dk, gmma_desc(dSs + off, RBp, 128),
-                   gmma_desc(Qs + kq * 2 * kRB, kRB, 128));
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc) {
+      wgmma_ss_tt<T>(dv[nc], gmma_desc(Ps + off, RBp, 128),
+                     gmma_desc(dOs + kq * 2 * RB + nc * 1024, RB, 128));
+      wgmma_ss_tt<T>(dk[nc], gmma_desc(dSs + off, RBp, 128),
+                     gmma_desc(Qs + kq * 2 * RB + nc * 1024, RB, 128));
+    }
   }
   wgmma_commit();
   wgmma_wait0();
-  reg_fence(dv);
-  reg_fence(dk);
+#pragma unroll
+  for (int nc = 0; nc < NC; ++nc) {
+    reg_fence(dv[nc]);
+    reg_fence(dk[nc]);
+  }
   __syncthreads();  // every product has read q, k, v
 
   // dQ, dK, dV through this warpgroup's rows of the q, k, v tiles
-  unsigned char* dqs = Qs + r0 / 8 * kRB;
-  unsigned char* dks = Ks + r0 / 8 * kRB;
-  unsigned char* dvs = Vs + r0 / 8 * kRB;
-  uint32_t w[4][4];
-  stage_words(dqs, kRB, dqw);
-  pack_acc<T>(w, dk, a.scale);
-  stage_words(dks, kRB, w);
-  pack_acc<T>(w, dv, 1.f);
-  stage_words(dvs, kRB, w);
+  unsigned char* dqs = Qs + r0 / 8 * RB;
+  unsigned char* dks = Ks + r0 / 8 * RB;
+  unsigned char* dvs = Vs + r0 / 8 * RB;
+#pragma unroll
+  for (int nc = 0; nc < NC; ++nc) {
+    uint32_t w[4][4];
+    stage_words(dqs + nc * 1024, RB, dqw[nc]);
+    pack_acc<T>(w, dk[nc], a.scale);
+    stage_words(dks + nc * 1024, RB, w);
+    pack_acc<T>(w, dv[nc], 1.f);
+    stage_words(dvs + nc * 1024, RB, w);
+  }
   wg_barrier(1 + wg);
   const int rows = min(64, Tn - r0);
   const size_t off = obase + size_t(r0) * ld_out;
-  store_tile(static_cast<T*>(a.dq) + off, ld_out, dqs, rows, d);
-  store_tile(static_cast<T*>(a.dk) + off, ld_out, dks, rows, d);
-  store_tile(static_cast<T*>(a.dv) + off, ld_out, dvs, rows, d);
+  store_tile<T, DP>(static_cast<T*>(a.dq) + off, ld_out, dqs, rows, d);
+  store_tile<T, DP>(static_cast<T*>(a.dk) + off, ld_out, dks, rows, d);
+  store_tile<T, DP>(static_cast<T*>(a.dv) + off, ld_out, dvs, rows, d);
 }
 
 // ------------------------------------- the wide route (T <= 512, d <= 128)
@@ -790,13 +844,14 @@ __global__ void __launch_bounds__(128 * NB, 1) block_bwd_wg_kernel(Args a) {
 // dkv kernel 80,768 at any T.  fp32 runs two warps (QB 32), which halves
 // the score rows: 152,704, 178,304 and 111,488.  All fit the 232,448
 // bytes a block may opt into; each kernel's limit is set once, at T 512.
-// Bound: as the routes above, bytes (GPT-2 large's shape, B 32, n 16,
-// T 128, d 96: forward 50.3 MB, 15.0 us at 3.35 TB/s; backward 88.1 MB,
-// 26.3 us).  This design reads K and V once per query block (twice at
-// T 128), recomputes dP in the dq kernel and S and dP in the dkv kernel
-// (8 T^2 d product passes in the backward where the function needs 5),
-// and takes p and dS to its products through shared memory; wgmma, TMA
-// and a block per head are later work.
+// Bound: as the routes above, bytes (GPT-2 large's heads at T 136, B 32,
+// n 16, d 96: forward 53.5 MB, 16.0 us at 3.35 TB/s; backward 93.6 MB,
+// 27.9 us).  This design reads K and V once per query block, recomputes
+// dP in the dq kernel and S and dP in the dkv kernel (8 T^2 d product
+// passes in the backward where the function needs 5), and takes p and dS
+// to its products through shared memory; route 0's wgmma design (a block
+// per head, register accumulators) covers T <= 128 in bf16/fp16, and
+// TMA and a block per head for T past 128 are later work.
 
 constexpr int kWideMaxT = 512;
 constexpr int kWideMaxD = 128;
@@ -1370,20 +1425,25 @@ int run_f32(bool backward, const Args& a, cudaStream_t stream) {
                 kBwdThreads, L.total, a, stream);
 }
 
-template <typename T, int NB>
+template <typename T, int NB, int DP>
 int run_wg(bool backward, const Args& a, cudaStream_t stream) {
+  using L = WgLayout<NB, DP>;
   const dim3 grid(a.B * a.n);
   if (!backward)
-    return launch_once<block_fwd_wg_kernel<T, NB>>(
-        grid, 128 * NB, WgLayout<NB>::fwd, a, stream);
-  return launch_once<block_bwd_wg_kernel<T, NB>>(
-      grid, 128 * NB, WgLayout<NB>::bwd, a, stream);
+    return launch_once<block_fwd_wg_kernel<T, NB, DP>>(grid, 128 * NB, L::fwd,
+                                                       a, stream);
+  return launch_once<block_bwd_wg_kernel<T, NB, DP>>(grid, 128 * NB, L::bwd,
+                                                     a, stream);
 }
 
+// one or two 64-row blocks; d padded to 64 or 128
 template <typename T>
 int run_wg(bool backward, const Args& a, cudaStream_t stream) {
-  return a.T > 64 ? run_wg<T, 2>(backward, a, stream)
-                  : run_wg<T, 1>(backward, a, stream);
+  if (a.d > 64)
+    return a.T > 64 ? run_wg<T, 2, 128>(backward, a, stream)
+                    : run_wg<T, 1, 128>(backward, a, stream);
+  return a.T > 64 ? run_wg<T, 2, 64>(backward, a, stream)
+                  : run_wg<T, 1, 64>(backward, a, stream);
 }
 
 template <typename T, int DP, int NW>
@@ -1413,16 +1473,17 @@ int run_wide(bool backward, const Args& a, cudaStream_t stream) {
 }
 
 // dtype: 0 fp32, 1 bf16, 2 fp16.  route 0: the kernels above the wide
-// route (T a multiple of 16 in [16, 128], d <= 64); route 1: the wide
-// route (T a multiple of 8 in [8, 512], d <= 128), whose backward needs
-// `stats`.
+// route (T a multiple of 16 in [16, 128]; d <= 128 in bf16 and fp16, d <=
+// 64 in fp32); route 1: the wide route (T a multiple of 8 in [8, 512], d
+// <= 128), whose backward needs `stats`.
 int dispatch(int dtype, int route, bool backward, const Args& a,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.d % 8 != 0 || a.d <= 0 || a.T <= 0 || a.B <= 0 || a.n <= 0)
     return int(cudaErrorInvalidValue);
   if (route == 0) {
-    if (a.d > 64 || a.T % 16 != 0 || a.T < 16 || a.T > kMaxT)
+    if (a.d > (dtype == 0 ? 64 : kWgMaxD) || a.T % 16 != 0 || a.T < 16 ||
+        a.T > kMaxT)
       return int(cudaErrorInvalidValue);
     switch (dtype) {
       case 0:
@@ -1455,8 +1516,8 @@ int dispatch(int dtype, int route, bool backward, const Args& a,
 // in the type `dtype` names, with element strides sB, sT, sH (the last dim
 // contiguous; every row 16-byte aligned); dout, o, dq, dk, dv are contiguous
 // [B, T, n, d]; mask is fp32 [B, T].  `route` picks the kernels (dispatch):
-// 0 takes T a multiple of 16 in [16, 128] and d a multiple of 8 up to 64,
-// 1 (the wide route) T a multiple of 8 in [8, 512] and d a multiple of 8 up
+// 0 takes T a multiple of 16 in [16, 128] and d a multiple of 8 up to 128
+// in bf16 and fp16 (up to 64 in fp32), 1 (the wide route) T a multiple of 8 in [8, 512] and d a multiple of 8 up
 // to 128, and its backward writes and reads `stats`, fp32 [3, B, n, T]
 // scratch (route 0 ignores it).  `stream` is a cudaStream_t.  Each function
 // returns cudaGetLastError() after its launches (0 = cudaSuccess), or

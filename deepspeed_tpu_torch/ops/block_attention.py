@@ -7,8 +7,9 @@ kernels live in ``deepspeed_tpu_torch/csrc/block_attention.cu`` (its header
 says which Pallas kernel each replaces, what bounds it and how it is laid
 out); ``build()`` compiles that file with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at first use and loads it with ctypes.  Two routes share
-the wrappers (``wide_route``): the wgmma kernels (bf16/fp16; FMA kernels in
-fp32) at T a multiple of 16 up to 128 and d up to 64, and the wide route
+the wrappers (``wide_route``): route 0 at T a multiple of 16 up to 128,
+the wgmma kernels in bf16/fp16 (d up to 128, padded to 64 or 128) and FMA
+kernels in fp32 (d up to 64), and the wide route
 (``block_fwd_wide_kernel``, ``block_bwd_wide_dq_kernel`` +
 ``block_bwd_wide_dkv_kernel``) at every other shape the JAX gate takes up
 to d 128.  Each route counts its own launches.
@@ -56,7 +57,10 @@ KERNEL_SEQ_GRANULE = 8
 KERNEL_MAX_HEAD_DIM = 128
 #: the route-0 kernels' shapes (``wide_route``): a score row of at most 128
 #: keys in registers, T in steps of 16 (a k16 product slice), d padded to 64
-WG_MAX_SEQ, WG_SEQ_GRANULE, WG_MAX_HEAD_DIM = 128, 16, 64
+#: or 128 by the wgmma kernels (bf16, fp16) and to 32 or 64 by the fp32 ones
+WG_MAX_SEQ, WG_SEQ_GRANULE = 128, 16
+WG_MAX_HEAD_DIM = {torch.float32: 64, torch.bfloat16: 128,
+                   torch.float16: 128}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -115,12 +119,13 @@ def kernel_supported(seq_len: int, head_dim: int) -> bool:
             and head_dim % 8 == 0 and 0 < head_dim <= KERNEL_MAX_HEAD_DIM)
 
 
-def wide_route(seq_len: int, head_dim: int) -> bool:
-    """Whether a shape of ``kernel_supported`` runs the wide route: every
-    shape but T a multiple of 16 in [16, 128] with d up to 64."""
+def wide_route(seq_len: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether a shape of ``kernel_supported`` runs the wide route in
+    ``dtype``: every shape but T a multiple of 16 in [16, 128] with d up to
+    128 (bf16, fp16) or 64 (fp32)."""
     return not (seq_len % WG_SEQ_GRANULE == 0
                 and WG_SEQ_GRANULE <= seq_len <= WG_MAX_SEQ
-                and head_dim <= WG_MAX_HEAD_DIM)
+                and head_dim <= WG_MAX_HEAD_DIM[dtype])
 
 
 # --------------------------------------------------------- plain versions
@@ -207,7 +212,7 @@ def _check(name, q, mask, k, v, do=None):
 
 def _launch(name, fn, q, *ptrs, causal):
     B, T, n, d = q.shape
-    wide = wide_route(T, d)
+    wide = wide_route(T, d, q.dtype)
     rc = fn(_DTYPE_CODE[q.dtype], int(wide), *ptrs, *q.stride()[:3], B, n, T,
             d, 1.0 / d ** 0.5, int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -253,7 +258,7 @@ def block_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the wide route's row max, sum and t, from its dq kernel to its dkv
     # kernel
     stats = (torch.empty((3, B, n, T), dtype=torch.float32, device=q.device)
-             if wide_route(T, d) else None)
+             if wide_route(T, d, q.dtype) else None)
     _launch("block_bwd", lib.dstt_block_bwd, q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), mask.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),

@@ -55,8 +55,9 @@ WIDE_CASES = [  # B, T, n, d, causal
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,T,n,d,causal", WIDE_CASES)
 def test_wide_shapes_match_jax_interpret(B, T, n, d, causal, dtype):
-    """Padded keys (the tail of row 0), causal and not."""
-    assert PA.supported(T, n, d) and BA.wide_route(T, d)
+    """Padded keys (the tail of row 0), causal and not.  Every case is a
+    wide-route shape in fp32; in bf16 (128, 96) is route 0's."""
+    assert PA.supported(T, n, d) and BA.wide_route(T, d, torch.float32)
     q, k, v, do, mask = inputs(B, T, n, d, seed=T + d)
     want = jax_out_and_grads(lambda a, b, c: PA.fused_attention(
         a, b, c, jnp.asarray(mask), causal, True), q, k, v, do, dtype)
@@ -96,11 +97,35 @@ def test_gate_equals_the_jax_gate_up_to_head_dim_128(n):
 def test_gate_past_head_dim_128_and_the_routes():
     assert PA.supported(128, 4, 136) and not BA.kernel_supported(128, 136)
     assert PA.supported(64, 1, 256) and not BA.kernel_supported(64, 256)
-    # the route-0 kernels keep their shapes; the wide route takes the rest
-    for T in range(8, 521, 8):
-        for d in range(8, 129, 8):
-            assert BA.wide_route(T, d) == (
-                not (T % 16 == 0 and T <= 128 and d <= 64)), (T, d)
+    # route 0 takes T a multiple of 16 up to 128 with d up to 128 in bf16
+    # and fp16 (the wgmma kernels) and up to 64 in fp32 (the FMA kernels);
+    # the wide route takes the rest
+    widest = {torch.float32: 64, torch.bfloat16: 128, torch.float16: 128}
+    for dtype, dmax in widest.items():
+        for T in range(8, 521, 8):
+            for d in range(8, 129, 8):
+                assert BA.wide_route(T, d, dtype) == (
+                    not (T % 16 == 0 and T <= 128 and d <= dmax)), (
+                        dtype, T, d)
+
+
+@pytest.mark.parametrize("size,n,d", [("large", 16, 96), ("8b", 24, 128)])
+def test_gpt2_large_and_8b_heads_take_route_0_at_seq_128(size, n, d,
+                                                          monkeypatch):
+    """GPT-2 large's attention at seq 128 (16 heads of 96) and the 8b
+    preset's heads (24 of 128) take the whole-tile kernels in both
+    directions, on route 0 in bf16 and fp16 and on the wide route in
+    fp32.  Both routes run behind the same ``dstpu::block_fwd`` /
+    ``block_bwd`` operators, so the route is read from the gate."""
+    for name in ("DSTPU_FUSED_ATTN", "DSTPU_BLOCK_ATTN_MIN_CAUSAL"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = GPT2.from_size(size, device="meta").config
+    assert (cfg.num_heads, cfg.hidden_size // cfg.num_heads) == (n, d)
+    assert TL.attention_plan(128, n, d, True) == ("block", "block")
+    assert BA.supported(128, n, d) and BA.kernel_supported(128, d)
+    assert not BA.wide_route(128, d, torch.bfloat16)
+    assert not BA.wide_route(128, d, torch.float16)
+    assert BA.wide_route(128, d, torch.float32)
 
 
 # ---------------------------------------------------------------- the model

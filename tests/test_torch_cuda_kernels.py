@@ -648,12 +648,75 @@ def test_block_wrappers_refuse_bad_inputs(dev):
         battn.block_fwd(q, k, v, mask.cpu(), False)
 
 
+# ------------------------- whole-tile attention, route 0 at head dims past 64
+
+#: the bf16/fp16 route-0 kernels pad a head dim in (64, 128] to 128: d 72
+#: (one 16-byte chunk past 64), 96 (GPT-2 large) and 128 (the 8b preset),
+#: at T below one warpgroup's 64 rows (16, 48), at 64, and at two
+#: warpgroups (96, 128)
+WG_WIDE_SHAPES = [(T, d) for T in (16, 48, 64, 96, 128) for d in (72, 96,
+                                                                   128)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,d", WG_WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_block_route0_head_dim_128_match_plain(dev, dtype, T, d, causal):
+    """Route 0's DP-128 kernels on padded keys (under causal the exact
+    skip) and a fully masked row, against the plain versions."""
+    assert not battn.wide_route(T, d, dtype)
+    q, k, v, do, mask = block_inputs(dev, dtype, T, d)
+    battn.reset_launch_counts()
+    o = battn.block_fwd(q, k, v, mask, causal)
+    grads = battn.block_bwd(q, k, v, mask, do, causal)
+    want_o = battn.block_fwd_plain(q, k, v, mask, causal)
+    want = battn.block_bwd_plain(q, k, v, mask, do, causal)
+    torch.cuda.synchronize()
+    assert battn.LAUNCHES == {"block_fwd": 1, "block_bwd": 1,
+                              "block_fwd_wide": 0, "block_bwd_wide": 0}
+    assert o.is_contiguous() and all(g.is_contiguous() for g in grads)
+    block_close([o], [want_o], dtype)
+    block_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_block_route0_head_dim_128_backward_is_deterministic(dev, dtype,
+                                                             causal, d):
+    q, k, v, do, mask = block_inputs(dev, dtype, 128, d, seed=4)
+    first = battn.block_bwd(q, k, v, mask, do, causal)
+    for _ in range(3):
+        for a, b in zip(first, battn.block_bwd(q, k, v, mask, do, causal)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_block_route0_head_dim_128_causal_skip(dev, dtype):
+    """The causal skip of the DP-128 kernels, as
+    test_block_causal_skip_takes_whole_rows_where_needed at d 96."""
+    T, d = 128, 96
+    q, k, v, do, _ = block_inputs(dev, dtype, T, d, B=4, seed=6)
+    mask = torch.ones((4, T), device=dev)
+    for row, first in enumerate((0, 5, 64, 70)):
+        mask[row, :first] = 0.0
+    o = battn.block_fwd(q, k, v, mask, True)
+    grads = battn.block_bwd(q, k, v, mask, do, True)
+    want = battn.block_bwd_plain(q, k, v, mask, do, True)
+    torch.cuda.synchronize()
+    block_close([o], [battn.block_fwd_plain(q, k, v, mask, True)], dtype)
+    block_close(grads, want, dtype)
+    uniform = v[1, :, :].float().mean(dim=0).expand(5, -1, -1)
+    block_close([o[1, :5]], [uniform.to(dtype)], dtype)
+
+
 # ------------------------------------- whole-tile attention, the wide route
 
 #: every shape of the JAX gate past the route-0 kernels (T a multiple of 16
-#: up to 128 with d up to 64): T not a multiple of 16 (8, 24, 72, 136, 264,
-#: 504), T past 128 (136-512), d past 64 (96, 128) and below it (8, 40);
-#: each pads d to 64, 96 or 128 (fp32: 64 or 128)
+#: up to 128 with d up to 64 in fp32, up to 128 in bf16 and fp16): T not a
+#: multiple of 16 (8, 24, 72, 136, 264, 504), T past 128 (136-512), d past
+#: 64 (96, 128) and below it (8, 40); each pads d to 64, 96 or 128 (fp32:
+#: 64 or 128).  (128, 96) and (128, 128) are the wide route's in fp32 only.
 WIDE_SHAPES = [(8, 8), (24, 64), (72, 96), (128, 96), (128, 128), (136, 64),
                (176, 128), (264, 40), (504, 64), (512, 128)]
 
@@ -664,8 +727,10 @@ WIDE_SHAPES = [(8, 8), (24, 64), (72, 96), (128, 96), (128, 128), (136, 64),
                                    torch.float16], ids=str)
 def test_block_wide_kernels_match_plain(dev, dtype, T, d, causal):
     """The wide route on padded keys (under causal its skip) and a fully
-    masked row, against the plain versions, counted on its own keys."""
-    assert battn.wide_route(T, d)
+    masked row, against the plain versions, counted on its own keys (on
+    route 0's where the shape is route 0's in this type)."""
+    wide = int(battn.wide_route(T, d, dtype))
+    assert wide or (T == 128 and dtype != torch.float32)
     q, k, v, do, mask = block_inputs(dev, dtype, T, d)
     battn.reset_launch_counts()
     o = battn.block_fwd(q, k, v, mask, causal)
@@ -673,8 +738,8 @@ def test_block_wide_kernels_match_plain(dev, dtype, T, d, causal):
     want_o = battn.block_fwd_plain(q, k, v, mask, causal)
     want = battn.block_bwd_plain(q, k, v, mask, do, causal)
     torch.cuda.synchronize()
-    assert battn.LAUNCHES == {"block_fwd": 0, "block_bwd": 0,
-                              "block_fwd_wide": 1, "block_bwd_wide": 1}
+    assert battn.LAUNCHES == {"block_fwd": 1 - wide, "block_bwd": 1 - wide,
+                              "block_fwd_wide": wide, "block_bwd_wide": wide}
     assert o.is_contiguous() and all(g.is_contiguous() for g in grads)
     block_close([o], [want_o], dtype)
     block_close(grads, want, dtype)
