@@ -70,18 +70,33 @@ Phases (each prints one JSON line, with the seconds since the start as
    then fused (288 fused backwards); losses agree step by step within
    1e-2 relative; a profile of one step of each (profile_gpt2_1024,
    profile_gpt2_1024_fused).
-10. attn_kernels: each attention kernel against its plain version at the
-   seq-512 shape (B=8, n=16, T=512, d=64, bf16, padded keys), with times,
-   bounds and torch's scaled_dot_product_attention as the yardstick (also
-   pinned to each masked backend, phase attn_library); the split pair
-   also causal and with a fully padded row; every stream kernel also at
-   the GPT-2 seq-1024 path's shape (causal), and there twice for bitwise
-   repeatability.
+10. attn_kernels: each streaming kernel against its plain version at
+   STREAM_CASES (the seq-512 shape B=8, n=16, T=512, d=64, bf16, padded
+   keys, also causal and with a fully padded row; the GPT-2 seq-1024
+   path's shape and its Ulysses rank's), each bitwise equal across two
+   calls, one launch a call; times at the seq-512 shape (causal_ms
+   beside), bounds and torch's scaled_dot_product_attention as the
+   yardstick (also pinned to each backend, attn_kernels_library).
 11. bwd_sweep: the fused backward against the split pair by sequence
    length (16 heads, d 64, 4,096 tokens per call, T 256-2048, causal and
    not), in bf16 and in fp32, device time, the forward excluded; each
    row's fused scratch and the mode auto takes, and the scratch budget
    the rule of ops/stream_attention.py gives from these times, per dtype.
+   train_gpt2_d256: GPT-2's block at GPT-J-6B's attention widths (16
+   heads of 256, hidden 4096, 6 of its 28 layers (GPT2_D256), seq 2048,
+   vocab 50304; 1,422,721,024 parameters), bf16, Adam lr 1e-4,
+   micro-batch 2 x gas 2, 6 steps, twice from the same weights and batch:
+   the backward in auto (the split pair) and fused; every attention
+   through the streaming kernels' DP-256 instantiations (72 forwards and
+   72 of each backward kernel a run), 0 einsum calls, losses agreeing
+   within 1e-2; samples/s, peak, the fused scratch and a profile of each.
+   stream_dp256_kernels: those kernels as attn_kernels checks and times
+   the DP-64 ones, at STREAM_DP256_CASES (the path's shape causal and
+   not, non-causal padded, fp16, fp32, d 136 and 200), timed at G 32, T
+   2048, d 256 (non-causal; causal_ms at the path's shape); ptxas's
+   registers and spills of every DP-256 entry function (the build's
+   report, or a compile for it where the library was loaded), 0 spill
+   bytes required.
 12. train_gpt2: GPT-2 medium causal-LM pretraining (seq 128, bf16, Adam
    lr 1e-4, ZeRO off, micro-batch 32, gas 2) for 6 steps; every attention
    through the whole-tile kernels (24 layers x 2 x 6 forward and backward
@@ -339,10 +354,12 @@ Phases (each prints one JSON line, with the seconds since the start as
    zero3_pp_gpt2's, which run beside the multi-rank phases.
    ``chip_smoke.py --only obs_gpt2,fleet_gpt2`` (or any of zero_ckpt,
    moe_gpt2, multistep_gpt2, resume_gpt2, serve_gpt2, fleet_serve_gpt2,
-   tp_serve_gpt2, analysis_gpt2, train_gpt2_large, block_kernels (every
-   whole-tile route), block_dp128_kernels, block_wide_kernels; the
-   serving two run serve_gpt2 first) runs the build and the named phases
-   alone, with no result line.
+   tp_serve_gpt2, analysis_gpt2, train_gpt2_large, attn_kernels,
+   block_kernels (every whole-tile route), block_dp128_kernels,
+   block_wide_kernels,
+   train_gpt2_d256, stream_dp256_kernels; the serving two run serve_gpt2
+   first) runs the build and the named phases alone, with no result
+   line.
    analysis_gpt2 (the graph lint and the planners, ``analysis/``): on
    train_gpt2's engine after its profile, (a) the lint of the fused step
    in error mode, zero errors, and its planned peak within 10% of
@@ -369,7 +386,8 @@ Phases (each prints one JSON line, with the seconds since the start as
    4,096 tokens per call), times only: streaming at seq 256, 512 and 1024,
    non-causal and causal, and whole-tile at seq 64 and 128, causal and
    non-causal, with the smallest seq where the kernel is >= 1.05x faster
-   (the data for the dispatch defaults in models/layers.py).
+   (the data for the dispatch defaults in models/layers.py); whole-tile
+   at d 96 (seq 64-176) and streaming at d 256 (seq 256-2048), causal.
 23. calibrate: ``calibrate_stream_threshold()`` (bf16, causal, batch 8, 12
    heads, d 64, seq 256-2048, CUDA events): each seq's times, the
    threshold it returns and the port's table's; a disagreement is
@@ -502,6 +520,55 @@ GPT2_1024_LOSS_RTOL = 1e-2
 # the fused backward's scratch is cached for the process's life: the
 # budget of ops/stream_attention.py never exceeds this
 SCRATCH_CAP = 256 * 2 ** 20
+# GPT-J-6B's attention widths (EleutherAI/gpt-j-6b config.json: n_embd
+# 4096, n_head 16, n_positions 2048, n_layer 28) in GPT-2 large's block
+# (vocab 50304): 16 heads of 256 at seq 2048, the streaming kernels'
+# DP-256 instantiations.  bf16, Adam lr 1e-4, micro-batch 2 x gas 2,
+# GPT2_STEPS steps.  Depth cut from 28 layers to 6.  28 cannot fit:
+# Adam's fp32 master, m and v alone are 70.2 GB of the card's 80.  At 6
+# the peak read 37.1-37.5 GiB (39.1 fused) on an H100, about 5.7 GiB a
+# layer above the embeddings' 3.2, so about 13 would fit; 6 keeps the two
+# runs' engines (1.4 billion parameters each) and their profiles to about
+# 10 s of the script's 1,200, beside every other phase.
+GPT2_D256 = dict(hidden_size=4096, num_heads=16, num_layers=6,
+                 max_seq_len=2048)
+GPT2_D256_MICRO = 2
+# the streaming kernels against their plain versions, each case (B, n, T,
+# d, dtype, causal, mask): mask None (every key), "tails" (the tails of
+# rows 0, 3, 6, ... padded) or "full_row" (those, and every key of row 1;
+# non-causal only: under causal the kernels skip the tiles after the
+# query's, as the Pallas grid does, where the plain versions take the
+# whole row).  DP 64: BERT-large at seq 512 (ATTN_SHAPE), causal too and
+# with a fully padded row; the GPT-2 seq-1024 path's shape and the 8 of
+# its 16 heads that sp_gpt2's Ulysses gives its local attention.
+STREAM_CASES = {
+    "bert512": (*ATTN_SHAPE.values(), "bfloat16", False, "tails"),
+    "bert512_causal": (*ATTN_SHAPE.values(), "bfloat16", True, "tails"),
+    "fully_padded_row": (*ATTN_SHAPE.values(), "bfloat16", False,
+                         "full_row"),
+    "gpt2_1024": (4, 16, 1024, 64, "bfloat16", True, None),
+    "ulysses_1024": (4, 8, 1024, 64, "bfloat16", True, None),
+}
+# DP 256: the path's shape (train_gpt2_d256's heads), causal and not;
+# non-causal padded at T 512; fp16 and fp32 (the FMA route, its fused
+# backward on 16-row tiles) at small shapes; head dims 136 and 200
+# (columns d..255 zero-filled)
+STREAM_DP256_CASES = {
+    "path": (2, 16, 2048, 256, "bfloat16", True, None),
+    "path_noncausal": (2, 16, 2048, 256, "bfloat16", False, None),
+    "noncausal_padded": (4, 4, 512, 256, "bfloat16", False, "full_row"),
+    "fp16": (2, 4, 512, 256, "float16", True, None),
+    "fp32": (2, 2, 256, 256, "float32", False, "full_row"),
+    "fp32_causal": (2, 2, 256, 256, "float32", True, None),
+    "d136": (2, 4, 512, 136, "bfloat16", True, None),
+    "d200": (2, 4, 512, 200, "bfloat16", False, "full_row"),
+}
+# (the case of the kernels line's numbers, the case of its causal_ms)
+STREAM_TIMED = ("bert512", "bert512_causal")
+STREAM_DP256_TIMED = ("path_noncausal", "path")
+# the DP-256 entry functions of stream_attention.cu: the forward, fused
+# backward, dkv and dq in bf16, fp16 and on the fp32 route
+STREAM_DP256_ENTRIES = 12
 BLOCK_SHAPE = dict(B=32, n=16, T=128, d=64)
 # the bf16/fp16 route-0 kernels at a head dim padded to 128
 # (ops/block_attention.wide_route), each case (B, n, T, d, dtype, causal,
@@ -1662,194 +1729,187 @@ def _attn_bound(name, G, T, d, elt_bytes=2, B=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _stream_checks(device, sattn):
-    """The backward kernels against their plain versions on more inputs
-    than the row shape's: the split pair causal at that shape and with a
-    fully padded row (non-causal: under causal the kernels skip the tiles
-    after the query's, as the Pallas grid does, where the plain versions
-    take the whole row); and at the GPT-2 seq-1024 path's shape (B=4, n=16,
-    causal, no padding) every stream kernel that path runs, the forward
-    (o and lse), the split pair and the fused backward, each bitwise equal
-    across two calls; and at the shape sp_gpt2's Ulysses gives its local
-    attention (B=4, n=8 of the 16 heads, the whole causal sequence of 1024)
-    the forward and the split pair.  ``(errors by case and kernel,
-    repeatable)``."""
+def _stream_inputs(device, B, n, T, d, dtype, mask_kind):
+    """q, k, v, dO [B n, T, d] from a seed, the [B, T] key mask (the kinds
+    of STREAM_CASES) and its [G, 1, T] form."""
     import torch
-    B, n, T, d = (ATTN_SHAPE[k] for k in "BnTd")
-    cases = {}
-    padded = torch.ones((B, T), device=device)
-    for r in range(0, B, 3):
-        padded[r, T - T // 8 - 5 * r:] = 0.0
-    full = padded.clone()
-    full[1] = 0.0
-    ones_1024 = torch.ones((GPT2_1024_MICRO, GPT2_1024_SEQ), device=device)
-    for case, (b, t, mask, causal, heads) in {
-            "causal": (B, T, padded, True, n),
-            "fully_padded_row": (B, T, full, False, n),
-            "gpt2_1024": (GPT2_1024_MICRO, GPT2_1024_SEQ, ones_1024, True,
-                          n),
-            "ulysses_1024": (GPT2_1024_MICRO, GPT2_1024_SEQ, ones_1024,
-                             True, n // SP)}.items():
-        gen = torch.Generator(device=device).manual_seed(1)
-        q, k, v, do = (torch.randn((b * heads, t, d), generator=gen,
-                                   device=device).to(torch.bfloat16)
-                       for _ in range(4))
-        maskg = sattn.mask_gtd(mask, b, t, heads)
-        o, lse = sattn.stream_fwd_plain(q, k, v, maskg, causal)
-        delta = (do.float() * o.float()).sum(-1)[:, None, :]
-        args = (q, k, v, maskg, do, lse, delta, causal)
-        # each kernel's outputs, twice on the path's shape
-        runs = {"stream_dkv": lambda: sattn.stream_dkv(*args),
-                "stream_dq": lambda: (sattn.stream_dq(*args),)}
-        want = sattn.stream_bwd_plain(*args)
-        wants = {"stream_dkv": want[1:], "stream_dq": want[:1]}
-        if case in ("gpt2_1024", "ulysses_1024"):
-            runs.update(
-                stream_fwd=lambda: sattn.stream_fwd(q, k, v, maskg, causal))
-            wants.update(stream_fwd=(o, lse))
-        if case == "gpt2_1024":
-            runs.update(
-                stream_bwd_fused=lambda: sattn.stream_bwd_fused(*args))
-            wants.update(stream_bwd_fused=want)
-        got = {name: run() for name, run in runs.items()}
-        sync(device)
-        cases[case] = {name: _attn_err(got[name], wants[name])
-                       for name in runs}
-        if case == "gpt2_1024":
-            again = {name: run() for name, run in runs.items()}
-            sync(device)
-            repeatable = {name: all(torch.equal(a, b) for a, b in
-                                    zip(got[name], again[name]))
-                          for name in runs}
-            del again
-        del q, k, v, do, o, lse, delta, args, runs, want, wants, got
-    return cases, repeatable
-
-
-def phase_attn_kernels(device, launches, paths, profs):
-    """Each attention kernel against its plain version at the seq-512
-    BERT-large shape, with times, bounds, a library yardstick (and its
-    time on each of torch's fused backends that take the mask), and each
-    kernel's per-launch device time in its path's trace (``profs``), and
-    the checks of ``_stream_checks``.  The split pair also: its times under
-    causal at the same shape."""
-    import torch
-    import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import stream_attention as sattn
-    B, n, T, d = (ATTN_SHAPE[k] for k in "BnTd")
-    G = B * n
-    gen = torch.Generator(device=device).manual_seed(0)
-    q, k, v, do = (torch.randn((G, T, d), generator=gen, device=device)
-                   .to(torch.bfloat16) for _ in range(4))
+    gen = torch.Generator(device=device).manual_seed(T + d + n)
+    q, k, v, do = (torch.randn((B * n, T, d), generator=gen,
+                               device=device).to(dtype) for _ in range(4))
     mask = torch.ones((B, T), device=device)
-    for r in range(0, B, 3):
-        mask[r, T - T // 8 - 5 * r:] = 0.0
-    maskg = sattn.mask_gtd(mask, B, T, n)
-    o, lse = sattn.stream_fwd_plain(q, k, v, maskg, False)
-    delta = (do.float() * o.float()).sum(-1)[:, None, :]
-    bwd = (q, k, v, maskg, do, lse, delta, False)
-    o_c, lse_c = sattn.stream_fwd_plain(q, k, v, maskg, True)
-    bwd_c = (q, k, v, maskg, do, lse_c,
-             (do.float() * o_c.float()).sum(-1)[:, None, :], True)
-    del o_c
-    causal_fns = {"stream_dkv": lambda: sattn.stream_dkv(*bwd_c),
-                  "stream_dq": lambda: sattn.stream_dq(*bwd_c)}
-    fns = {
-        "stream_fwd": (lambda: sattn.stream_fwd(q, k, v, maskg, False),
-                       lambda: sattn.stream_fwd_plain(q, k, v, maskg, False)),
-        "stream_bwd_fused": (lambda: sattn.stream_bwd_fused(*bwd),
-                             lambda: sattn.stream_bwd_plain(*bwd)),
-        "stream_dkv": (lambda: sattn.stream_dkv(*bwd),
-                       lambda: sattn.stream_dkv_plain(*bwd)),
-        "stream_dq": (lambda: (sattn.stream_dq(*bwd),),
-                      lambda: (sattn.stream_dq_plain(*bwd),)),
-    }
+    if mask_kind:
+        for r in range(0, B, 3):
+            mask[r, T - T // 8 - 5 * r:] = 0.0
+    if mask_kind == "full_row":
+        mask[1] = 0.0
+    return q, k, v, do, mask, sattn.mask_gtd(mask, B, T, n)
 
-    # yardstick: torch's fused attention with the boolean key mask, forward
-    # and the backward of a kept graph (timed only; the port never calls it)
-    def four(x):
-        return x.view(B, n, T, d)
-    keep = mask.bool()[:, None, None, :]
 
-    def backward():
-        """The backward of a kept graph, its leaves and forward made here
-        (on the stream that will run it)."""
-        leaves = [four(x).detach().clone().requires_grad_()
-                  for x in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
-        return lambda: torch.autograd.grad(out, leaves, four(do),
-                                           retain_graph=True)
-
-    def lib_times():
-        """``_library_ms`` of each direction."""
-        return {"fwd": _library_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        four(q), four(k), four(v), attn_mask=keep), device),
-                "bwd": _library_ms(backward(), device, make=backward)}
-    lib_ms = lib_times()
-    # the same call pinned to each backend that takes a mask: which one
-    # the default dispatch picks decides the yardstick
+def _stream_cases(device, phase, cases, timed):
+    """The four streaming kernels against their plain versions at
+    ``cases``, each within WIDE_TOL of its type (lse within 1e-4 + 1e-4
+    |lse|), each bitwise equal across two calls, each call launching its
+    kernel once; at ``timed`` = (case, causal case) the times (graph
+    replay and events; plain, kernel, kernel, plain), bounds and
+    scaled_dot_product_attention on the same inputs (timed only: the
+    default dispatch and each backend pinned), and each kernel's time at
+    the causal case.  One line per case (``phase``) and one for the
+    library (``<phase>_library``); returns (case results, times by
+    kernel)."""
+    import torch
+    import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    by_backend = {}
-    for backend in ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
-        try:
-            with sdpa_kernel([getattr(SDPBackend, backend)]):
-                by_backend[backend] = lib_times()
-        except RuntimeError as e:
-            by_backend[backend] = f"refused: {str(e)[:120]}"
-    emit("attn_library", shape=ATTN_SHAPE, dtype="bf16", default=lib_ms,
-         by_backend=by_backend)
 
-    checks, repeatable = _stream_checks(device, sattn)
-    results = []
-    for name, (kfn, pfn) in fns.items():
-        got, want = kfn(), pfn()
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    at, causal_at = timed
+    out, times = {}, {}
+    for case, (B, n, T, d, dt, causal, mask_kind) in cases.items():
+        dtype = getattr(torch, dt)
+        rtol, frac = WIDE_TOL[dt]
+        q, k, v, do, mask, maskg = _stream_inputs(device, B, n, T, d, dtype,
+                                                  mask_kind)
+        po, lse = sattn.stream_fwd_plain(q, k, v, maskg, causal)
+        delta = (do.float() * po.float()).sum(-1)[:, None, :]
+        args = (q, k, v, maskg, do, lse, delta, causal)
+        del po
+        fns = {
+            "stream_fwd": (lambda: sattn.stream_fwd(q, k, v, maskg, causal),
+                           lambda: sattn.stream_fwd_plain(q, k, v, maskg,
+                                                          causal)),
+            "stream_bwd_fused": (lambda: sattn.stream_bwd_fused(*args),
+                                 lambda: sattn.stream_bwd_plain(*args)),
+            "stream_dkv": (lambda: sattn.stream_dkv(*args),
+                           lambda: sattn.stream_dkv_plain(*args)),
+            "stream_dq": (lambda: (sattn.stream_dq(*args),),
+                          lambda: (sattn.stream_dq_plain(*args),))}
+        reset_launch_counts()
+        got = {name: kf() for name, (kf, _) in fns.items()}
+        again = {name: kf() for name, (kf, _) in fns.items()}
         sync(device)
-        err = _attn_err(got, want)
-        del got, want
-        mine = {case: c[name] for case, c in checks.items() if name in c}
-        errs = [err] + list(mine.values())
-        err = (max(e[0] for e in errs), max(e[1] for e in errs),
-               all(e[2] for e in errs) and repeatable[name])
-        extra = {"checks": {case: {"max_abs_err": e[0], "max_rel_err": e[1],
-                                   "ok": e[2]} for case, e in mine.items()},
-                 "bitwise_repeatable": repeatable[name]}
-        if name in causal_fns:
-            cfn = causal_fns[name]
-            ct = _kernel_ms(cfn, device, min(_time_ms(cfn, device),
-                                             _time_ms(cfn, device)))
-            extra.update(causal_ms=ct["ms"], causal_event_ms=ct["event_ms"])
-        # plain, kernel, kernel, plain: compare within one call
-        plain_a = _time_ms(pfn, device)
-        kernel_a = _time_ms(kfn, device)
-        kernel_b = _time_ms(kfn, device)
-        plain_b = _time_ms(pfn, device)
-        bound, bound_by = _attn_bound(name, G, T, d)
-        results.append({
-            "name": name, "route": "cuda", "source": ATTN_SOURCE,
-            "replaces": ATTN_KERNELS[name]["replaces"],
-            "launches": launches[name], "path": paths[name],
-            "max_abs_err": err[0], "max_rel_err": err[1], "ok": err[2],
-            **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
-            "plain_ms": min(plain_a, plain_b),
-            "bound_ms": bound, "bound_by": bound_by,
-            **lib_ms["fwd" if name == "stream_fwd" else "bwd"],
-            "profile_ms": profile_ms(profs[name], name), **extra})
-    for r in results:
-        emit("attn_kernels", shape=ATTN_SHAPE, dtype="bf16",
-             rtol=ATTN_RTOL, atol_of_max=ATTN_ATOL, **{k: r[k] for k in (
-                 "name", "ms", "event_ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms", "library_event_ms", "profile_ms",
-                 "max_abs_err", "max_rel_err", "ok", "causal_ms",
-                 "causal_event_ms", "checks", "bitwise_repeatable")
-                 if k in r})
-    bad = [r["name"] for r in results if not r["ok"]]
+        routed = launch_counts() == no_launches(**dict.fromkeys(fns, 2))
+        want = {name: pf() for name, (_, pf) in fns.items()}
+        # the forward's o by type; its fp32 lse on its own
+        errs = {name: _attn_err(got[name][:1] if name == "stream_fwd"
+                                else got[name], want[name][:1]
+                                if name == "stream_fwd" else want[name],
+                                rtol, frac) for name in fns}
+        lse_diff = (got["stream_fwd"][1] - want["stream_fwd"][1]).abs()
+        lse_ok = bool((lse_diff <= 1e-4 + 1e-4 * want["stream_fwd"][1]
+                       .abs()).all())
+        out[case] = {
+            "shape": dict(B=B, n=n, T=T, d=d), "dtype": dt, "causal": causal,
+            "mask": mask_kind, "rtol": rtol, "atol_of_max": frac,
+            "max_abs_err": {k: e[0] for k, e in errs.items()},
+            "max_rel_err": {k: e[1] for k, e in errs.items()},
+            "lse_max_abs_err": float(lse_diff.max()),
+            "repeatable": {name: all(torch.equal(a, b) for a, b in zip(
+                got[name], again[name])) for name in fns},
+            "routed": routed,
+            "ok": all(e[2] for e in errs.values()) and lse_ok}
+        emit(phase, case=case, **out[case])
+        del got, again, want, lse_diff
+        if case == at:
+            def four(x):
+                return x.view(B, n, T, d)
+            keep = (None if mask_kind is None
+                    else mask.bool()[:, None, None, :])
+
+            def backward():
+                """The backward of a kept graph, its leaves and forward
+                made here (on the stream that will run it)."""
+                leaves = [four(x).detach().clone().requires_grad_()
+                          for x in (q, k, v)]
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+                return lambda: torch.autograd.grad(o, leaves, four(do),
+                                                   retain_graph=True)
+
+            def lib_times():
+                """``_library_ms`` of each direction."""
+                return {"fwd": _library_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                four(q), four(k), four(v), attn_mask=keep),
+                            device),
+                        "bwd": _library_ms(backward(), device,
+                                           make=backward)}
+            lib_ms = lib_times()
+            # the same call pinned to each backend: which one the default
+            # dispatch picks decides the yardstick
+            by_backend = {}
+            for backend in ("FLASH_ATTENTION", "CUDNN_ATTENTION",
+                            "EFFICIENT_ATTENTION"):
+                try:
+                    with sdpa_kernel([getattr(SDPBackend, backend)]):
+                        by_backend[backend] = lib_times()
+                except RuntimeError as e:
+                    by_backend[backend] = f"refused: {str(e)[:120]}"
+            emit(f"{phase}_library", case=case, shape=out[case]["shape"],
+                 dtype=dt, default=lib_ms, by_backend=by_backend)
+            for name, (kfn, pfn) in fns.items():
+                # plain, kernel, kernel, plain: compare within one call
+                # (the plain versions at T 2048 take tens of ms: fewer
+                # calls a run)
+                plain_a = _time_ms(pfn, device, calls=5, reps=3)
+                kernel_a = _time_ms(kfn, device)
+                kernel_b = _time_ms(kfn, device)
+                plain_b = _time_ms(pfn, device, calls=5, reps=3)
+                bound, bound_by = _attn_bound(name, B * n, T, d,
+                                              elt_bytes=dtype.itemsize)
+                times.setdefault(name, {}).update(
+                    **_kernel_ms(kfn, device, min(kernel_a, kernel_b)),
+                    plain_ms=min(plain_a, plain_b), bound_ms=bound,
+                    bound_by=bound_by,
+                    **lib_ms["fwd" if name == "stream_fwd" else "bwd"])
+            del lib_ms
+        if case == causal_at:
+            for name, (kfn, _) in fns.items():
+                t = _kernel_ms(kfn, device, _time_ms(kfn, device))
+                times.setdefault(name, {}).update(
+                    causal_ms=t["ms"], causal_event_ms=t["event_ms"])
+        del q, k, v, do, mask, maskg, lse, delta, args, fns
+    bad = [c for c, r in out.items()
+           if not (r["ok"] and r["routed"] and all(r["repeatable"].values()))]
     if bad:
-        raise AssertionError(f"attention kernels {bad} disagree with their "
-                             f"plain versions beyond rtol={ATTN_RTOL} "
-                             f"atol={ATTN_ATOL}*max|want|")
-    return results
+        raise AssertionError(f"{phase} failed at {bad}: "
+                             f"{[out[c] for c in bad]}")
+    return out, times
+
+
+def _stream_rows(phase, cases, times, at, suffix, launches, paths, profs):
+    """The kernels line's rows ``<kernel><suffix>`` from ``_stream_cases``'
+    results: the errors at case ``at`` (and by case), ``launches``,
+    ``paths`` and ``profs`` (the main path's profile; None: none) by
+    kernel.  One line each (``<phase>_times``)."""
+    rows = []
+    for name, t in times.items():
+        row = {
+            "name": name + suffix, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_KERNELS[name]["replaces"],
+            "launches": launches[name], "launch_key": name,
+            "path": paths.get(name), "shape": cases[at]["shape"],
+            "max_abs_err": cases[at]["max_abs_err"][name],
+            "max_abs_err_by_case": {c: r["max_abs_err"][name]
+                                    for c, r in cases.items()},
+            **t,
+            "profile_ms": (profile_ms(profs[name], name)
+                           if profs.get(name) else None)}
+        rows.append(row)
+        emit(f"{phase}_times", **{k: v for k, v in row.items()
+                                  if k not in ("route", "source")})
+    return rows
+
+
+def phase_attn_kernels(device, launches=None, paths=None, profs=None):
+    """The streaming kernels at DP 64 against their plain versions at
+    STREAM_CASES (``_stream_cases``), timed at STREAM_TIMED (BERT-large's
+    seq-512 shape; causal beside).  Rows for the kernels line, with
+    ``launches``, ``paths`` and ``profs`` by kernel from the main paths'
+    runs (None: none)."""
+    cases, times = _stream_cases(device, "attn_kernels", STREAM_CASES,
+                                 STREAM_TIMED)
+    return _stream_rows("attn_kernels", cases, times, STREAM_TIMED[0], "",
+                        launches or no_launches(), paths or {}, profs or {})
 
 
 def phase_train_gpt2(device):
@@ -2130,6 +2190,176 @@ def phase_bwd_sweep(device, seqs=(256, 512, 1024, 2048), tokens=4096, n=16,
     emit("bwd_sweep", heads=n, head_dim=d, tokens=tokens, rows=rows,
          measured_budget=budgets,
          committed_budget=sattn.STREAM_FUSED_SCRATCH_BUDGET)
+
+
+def phase_train_gpt2_d256(device):
+    """GPT-2's block at GPT-J-6B's attention widths (GPT2_D256: 16 heads of
+    256, hidden 4096, 6 layers, seq 2048; 1,422,721,024 parameters),
+    causal-LM pretraining in bf16, Adam lr 1e-4, micro-batch 2 x gas 2,
+    twice from the same seeded weights and batch: the backward in
+    ``auto`` (the split pair: the budget is 0), then
+    ``DSTPU_STREAM_BWD=fused``, each profiled after its timed steps.
+    Every attention through the streaming kernels' DP-256 instantiations
+    (72 forwards and 72 of each backward kernel a run), none on the einsum
+    path.  ``{mode: (launches, profile)}``."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    runs, out = {}, {}
+    for mode in ("split", "fused"):
+        sync(device)
+        _reset_peak(device)
+        engine = make_engine(gpt2_config(GPT2_D256_MICRO), device,
+                             size="large", gpt2=True, **GPT2_D256)
+        cfg = engine.module.config
+        micro, T = GPT2_D256_MICRO, cfg.max_seq_len
+        G, d = micro * cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        batch = lm_batch(micro * GAS, T, cfg.vocab_size)
+        losses, step_ms = [], []
+        calls, undo = _einsum_spy()
+        try:
+            with env("DSTPU_FUSED_ATTN", None), env(
+                    "DSTPU_STREAM_BWD", None if mode == "split" else mode):
+                reset_launch_counts()
+                calls[0] = 0
+                for _ in range(GPT2_STEPS):
+                    t0 = time.perf_counter()
+                    loss = engine.train_batch(batch)
+                    sync(device)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(loss))
+                launches = launch_counts()
+                einsum_calls = calls[0]
+                peak = _peak_gib(device)
+                prof = phase_profile(engine, batch, device, top=16,
+                                     name="profile_gpt2_d256" + (
+                                         "" if mode == "split" else "_fused"))
+        finally:
+            undo()
+        out[mode] = (launches, prof)
+        attn = cfg.num_layers * GAS * GPT2_STEPS
+        bwd = (auto_bwd_launches(torch.bfloat16, G, T, d, attn)
+               if mode == "split" else {"stream_bwd_fused": attn})
+        expected = no_launches(adam=len(engine.master) * GPT2_STEPS,
+                               stream_fwd=attn, **bwd)
+        runs[mode] = dict(
+            bwd_mode="auto" if mode == "split" else mode,
+            losses=losses, step_ms=step_ms, peak_mem_gib=peak,
+            samples_per_s_steady=(micro * GAS * (GPT2_STEPS - 1)
+                                  / (sum(step_ms[1:]) / 1e3)),
+            stream_ms_per_step={k: profile_ms(prof, k, per_launch=False)
+                                for k in ("stream_fwd", "stream_bwd_fused",
+                                          "stream_dkv", "stream_dq")},
+            launches=launches, expected_launches=expected,
+            einsum_calls=einsum_calls,
+            ok=(bool(np.isfinite(losses).all()) and launches == expected
+                and einsum_calls == 0))
+        params, leaves = engine.num_parameters(), len(engine.master)
+        del engine, batch
+        sattn.release_fused_scratch()
+        free(device)
+    agree = all(abs(a - b) <= GPT2_1024_LOSS_RTOL * abs(b) for a, b in zip(
+        runs["split"]["losses"], runs["fused"]["losses"]))
+    ok = runs["split"]["ok"] and runs["fused"]["ok"] and agree
+    emit("train_gpt2_d256", model="gpt2 block at gpt-j-6b attention widths",
+         layers=cfg.num_layers, hidden=cfg.hidden_size, heads=cfg.num_heads,
+         head_dim=d, seq=T, vocab=cfg.vocab_size, micro_batch=micro, gas=GAS,
+         dtype="bf16", optimizer="Adam", lr=1e-4,
+         activation_checkpointing=False, steps=GPT2_STEPS, params=params,
+         leaves=leaves,
+         fused_scratch_bytes=4 * sattn.fused_scratch_words(
+             torch.bfloat16, G, T, d)[0],
+         auto_mode=("fused" if sattn._fused_bwd_fits(torch.bfloat16, G, T, d)
+                    else "split"),
+         loss_rtol=GPT2_1024_LOSS_RTOL, losses_agree=agree, runs=runs, ok=ok)
+    if not ok:
+        raise AssertionError(f"train_gpt2_d256 phase failed: {runs}")
+    return out
+
+
+def _ptxas_log(mod):
+    """nvcc's ``-Xptxas=-v`` report of ``mod``'s source: the build's or,
+    where the library was loaded from an earlier build (no report), that
+    of a compile of the same source with the same flags to a cubin in a
+    fresh directory under build/."""
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import _build
+    if mod.build_log:
+        return mod.build_log
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        res = subprocess.run(
+            [_build.nvcc(), *flags, "--cubin", "-o",
+             str(pathlib.Path(tmp) / "ptxas.cubin"), str(mod.SOURCE)],
+            capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed ({res.returncode}) compiling "
+                           f"{mod.SOURCE}:\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
+
+
+def _ptxas_dp256(log):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    of the DP-256 instantiations (template argument 256) in an nvcc
+    ``-Xptxas=-v`` log."""
+    import re
+    found, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and "Li256E" in fn:
+            regs = found.get(fn, (None, 0, 0))[0]
+            found[fn] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and "Li256E" in fn:
+            _, st, ld = found.get(fn, (None, 0, 0))
+            found[fn] = (int(m.group(1)), st, ld)
+    return found
+
+
+def phase_stream_dp256_kernels(device, runs=None):
+    """The streaming kernels' DP-256 instantiations (head dims in (128,
+    256]) against their plain versions at STREAM_DP256_CASES
+    (``_stream_cases``), timed at STREAM_DP256_TIMED (G 32, T 2048, d 256,
+    non-causal; causal at the path's shape); ptxas's registers and spills
+    of every DP-256 entry function (STREAM_DP256_ENTRIES of them, 0 spill
+    bytes expected).  Rows ``<kernel>_dp256`` for the kernels line; their
+    launches and profile from ``runs`` (``phase_train_gpt2_d256``; None:
+    none)."""
+    from deepspeed_tpu_torch.ops import stream_attention as sattn
+    ptxas = _ptxas_dp256(_ptxas_log(sattn))
+    spills = sorted(fn for fn, v in ptxas.items() if v[1] or v[2])
+    cases, times = _stream_cases(device, "stream_dp256_kernels",
+                                 STREAM_DP256_CASES, STREAM_DP256_TIMED)
+    sattn.release_fused_scratch()
+    runs = runs or {}
+    run_of = {name: "fused" if name == "stream_bwd_fused" else "split"
+              for name in times}
+    by_run = {name: runs.get(run, (no_launches(), None))
+              for name, run in run_of.items()}
+    rows = _stream_rows(
+        "stream_dp256_kernels", cases, times, STREAM_DP256_TIMED[0], "_dp256",
+        {name: counts[name] for name, (counts, _) in by_run.items()},
+        {name: f"train_gpt2_d256 ({run})" for name, run in run_of.items()},
+        {name: prof for name, (_, prof) in by_run.items()})
+    emit("stream_dp256_ptxas", kernels={fn: dict(
+        registers=r, spill_stores=st, spill_loads=ld)
+        for fn, (r, st, ld) in ptxas.items()}, entries=len(ptxas),
+        expected_entries=STREAM_DP256_ENTRIES, spills=spills)
+    if spills or len(ptxas) != STREAM_DP256_ENTRIES:
+        raise AssertionError(
+            f"stream_dp256_kernels: ptxas found {len(ptxas)} DP-256 entry "
+            f"functions (expected {STREAM_DP256_ENTRIES}); spills: {spills}")
+    return rows
 
 
 def phase_block_kernels(device, launches, prof_gpt2, large_launches,
@@ -6919,8 +7149,9 @@ def main() -> int:
     only_phases = ("zero_ckpt", "moe_gpt2", "multistep_gpt2", "resume_gpt2",
                    "obs_gpt2", "fleet_gpt2", "serve_gpt2",
                    "fleet_serve_gpt2", "tp_serve_gpt2", "analysis_gpt2",
-                   "train_gpt2_large", "block_kernels",
-                   "block_dp128_kernels", "block_wide_kernels")
+                   "train_gpt2_large", "attn_kernels", "block_kernels",
+                   "block_dp128_kernels", "block_wide_kernels",
+                   "train_gpt2_d256", "stream_dp256_kernels")
     if sys.argv[1:2] == ["--only"]:
         only = set(sys.argv[2].split(","))
         unknown = only - set(only_phases)
@@ -6979,11 +7210,17 @@ def main() -> int:
             serve_pair(device, fleet="fleet_serve_gpt2" in serving,
                        tp="tp_serve_gpt2" in serving)
             only = only - serving - {"serve_gpt2"}
+        d256_runs = None
         for name in only_phases:
             if name in only:
                 if name == "zero_ckpt":
                     process_group(device)
-                if name == "analysis_gpt2":
+                if name == "train_gpt2_d256":
+                    d256_runs = phase_train_gpt2_d256(device)
+                elif name == "stream_dp256_kernels":
+                    # with train_gpt2_d256's counts and profiles if it ran
+                    phase_stream_dp256_kernels(device, d256_runs)
+                elif name == "analysis_gpt2":
                     phase_analysis_gpt2_train(device)
                     free(device)
                     phase_analysis_gpt2_serve(device)
@@ -7041,6 +7278,9 @@ def main() -> int:
     profs = {k: by_path[v][1] for k, v in paths.items()}
     kernels += phase_attn_kernels(device, attn_launches, paths, profs)
     phase_bwd_sweep(device)
+    free(device)
+    d256_runs = phase_train_gpt2_d256(device)
+    kernels += phase_stream_dp256_kernels(device, d256_runs)
 
     free(device)
     before_gpt2 = _allocated(device)
@@ -7183,6 +7423,9 @@ def main() -> int:
     # 64 and 128, the wide route at 136 and 176 (the plan takes them for
     # causal shapes only)
     phase_attn_sweep(device, "block", True, (64, 128, 136, 176), d=96)
+    # the streaming kernels at head dim 256 by seq, causal: whether the
+    # threshold of 256 (measured at d 64) holds there too (recorded only)
+    phase_attn_sweep(device, "stream", True, (256, 512, 1024, 2048), d=256)
     phase_calibrate(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -7192,7 +7435,8 @@ def main() -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     print(card)
-    extra = ("shape", "shape_8b", "flat_partition", "tp_gpt2_launches",
+    extra = ("shape", "shape_8b", "causal_ms", "flat_partition",
+             "tp_gpt2_launches",
              "zero3_gpt2_launches",
              "pp_gpt2_launches", "sp_gpt2_launches",
              "zero3_pp_gpt2_launches", "moe_gpt2_launches",

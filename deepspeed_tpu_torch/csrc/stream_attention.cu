@@ -117,6 +117,36 @@
 //     dQ stays in registers, is packed into the warpgroup's own q rows and
 //     leaves in 16-byte stores.  127 registers at d 64 (two blocks an SM),
 //     182 at d 128 (one).
+//   * Head dims in (128, 256] run at DP 256, with the same contract and
+//     the same rules (columns d..255 zero-filled in shared memory, loads
+//     and stores stop at d).  What changes is where the accumulators fit:
+//     - forward: FwdSmem<256> is 197,120 bytes and O is 128 fp32 registers
+//       a thread (four 64-column chunks), so one block an SM (launch
+//       bounds 1, not 2, which would cap the registers at 128);
+//     - dq: q and dO at 128 rows would pass the 232,448 bytes a block may
+//       take, so one warpgroup of 64 query rows a block (197,120 bytes;
+//       dQ 128 registers beside S and dP);
+//     - fused backward and dkv: dK and dV of 16 keys over 256 columns
+//       would be 256 fp32 registers a thread, so the head dim is split
+//       across warps: two warps to each 16 keys, 8 a 64-key block, each
+//       owning 128 columns of dK and dV (the DP-128 kernels' registers).
+//       Both warps of a pair recompute S^T and dP^T over the whole head
+//       dim (bitwise the same; one of them stores dS^T for dQ), so the
+//       products are 6 T^2 d passes where dkv needs 4.  The measured
+//       alternative (a dkv kernel no longer in this file): dK and dV in
+//       two passes over the query tiles with 4 warps, one to each 16 keys,
+//       and one 256-column accumulator, which reloads q, dO, lse and delta
+//       and recomputes S^T once more (5 passes) at half the warps an SM.
+//       On an H100 at G 32, T 2048 it took 1.24-1.37x the split head dim's
+//       time, 1.23-1.37x under causal (PERF.md), so dkv and the fused
+//       backward split the head dim.
+//     The fp32 fused backward and dkv take 16-row tiles at DP 256 (32-row
+//     tiles would be 251,776 bytes for the first, and spill in the
+//     second); the forward and dq keep 32 rows.
+//     ptxas at DP 256 (H100 build, PERF.md): forward 255 registers, dq
+//     241, dkv 255, fused 252, 0 spill bytes, with S^T and dP^T over four
+//     k16 slices at a time (mma_abt; unrolled whole, dkv and the fused
+//     backward spilled 8 and 16 bytes).
 //   * Which backward DSTPU_STREAM_BWD=auto takes (ops/stream_attention.py):
 //     the fused kernel while its scratch fits STREAM_FUSED_SCRATCH_BUDGET,
 //     else the pair.  The budget is the largest fused scratch up to which
@@ -128,8 +158,8 @@
 //
 // The fp32 route of all four is the first, simple design, kept so fp32
 // holds to fp32 tolerances: tiles of 32 rows staged in shared memory with
-// a 16-byte row pad, the head dim zero-padded to DP (64 or 128), plain
-// fp32 FMAs (never TF32), synchronous loads, accumulators in shared
+// a 16-byte row pad, the head dim zero-padded to DP (64, 128 or 256),
+// plain fp32 FMAs (never TF32), synchronous loads, accumulators in shared
 // memory.  Its fused backward keeps one block per g that visits the kv
 // tiles in ascending j and adds each dQ tile into an fp32 [G, T, d]
 // scratch with the same element-to-thread map every time (no atomics).
@@ -509,11 +539,13 @@ __device__ __forceinline__ void load_cm(unsigned char* dst, const T* src,
   }
 }
 
+// two blocks an SM up to DP 128; at DP 256 one (197,120 bytes, and O at
+// 128 registers a thread)
 template <typename T, int DP>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, DP > 128 ? 1 : 2)
     stream_fwd_wg_kernel(Args a) {
   using S = FwdSmem<DP>;
-  constexpr int RB = S::RB, NH = DP / 64;  // 64-column halves of O
+  constexpr int RB = S::RB, NH = DP / 64;  // 64-column chunks of O
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* stages = smem + S::Q;
@@ -661,17 +693,26 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
 
 // -------------------------------------- bf16/fp16 fused backward (mma.sync)
 
-// Warps per fused-backward block, 16 keys each: 8 (128 keys) where the
-// head dim fits 64 and T is a multiple of 128, else 4 (64 keys).
+// 16-key groups per fused-backward block: 8 (128 keys) where the head dim
+// fits 64 and T is a multiple of 128, else 4 (64 keys).
 inline int bwd_warps(int T, int d) { return d <= 64 && T % 128 == 0 ? 8 : 4; }
 
-// The shared memory of the fused backward (DQ) and of dkv (!DQ): k, v of
-// the block's BK keys; two stages of q, dO (64 rows), lse, delta; the key
-// mask; for DQ also dS^T [BK keys][64 queries] and the last-ticket flags.
-// Row-major with a 16-byte row pad (ldmatrix rows land in distinct banks).
-template <int DP, int NW, bool DQ>
+// Warps to each 16 keys in the fused backward and dkv: each owns DP /
+// col_split(DP) columns of dK and dV, at most 128 (128 fp32 registers for
+// both), so two at DP 256.
+__host__ __device__ constexpr int col_split(int dp) {
+  return dp > 128 ? dp / 128 : 1;
+}
+
+// The shared memory of the fused backward (DQ) and of dkv (!DQ) with KW
+// 16-key groups: k, v of the block's BK keys; two stages of q, dO (64
+// rows), lse, delta; the key mask; for DQ also dS^T [BK keys][64 queries]
+// and the last-ticket flags (one per thread).  Row-major with a 16-byte
+// row pad (ldmatrix rows land in distinct banks).
+template <int DP, int KW, bool DQ>
 struct BwdMmaSmem {
-  static constexpr int BK = 16 * NW;
+  static constexpr int NW = KW * col_split(DP);  // warps a block
+  static constexpr int BK = 16 * KW;
   static constexpr int LD = DP + 8;    // elements per operand row
   static constexpr int LDS = kKv + 8;  // elements per dS^T row
   static constexpr int QT = kKv * LD * 2, KT = BK * LD * 2;
@@ -714,7 +755,10 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], const T* As,
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
+  // whole up to DP 128; four k16 slices at a time at DP 256, where the
+  // whole loop pushes dkv and the fused backward past 255 registers into
+  // spills (ptxas)
+#pragma unroll (DP > 128 ? 4 : DP / 16)
   for (int kd = 0; kd < DP / 16; ++kd) {
     uint32_t af[4];
     ldsm_x4<false>(af, As + (lane & 15) * LD + kd * 16 + (lane >> 4) * 8);
@@ -730,11 +774,11 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], const T* As,
   }
 }
 
-// acc[DP/8][4] += A . B over K = 64: A the packed [4][4] fragments of the
-// warp's 16 rows, B [64][DP] row-major in shared memory (row stride LD),
-// read transposed.
-template <typename T, int DP>
-__device__ __forceinline__ void mma_ab_regs(float (&acc)[DP / 8][4],
+// acc[NC/8][4] += A . B over K = 64: A the packed [4][4] fragments of the
+// warp's 16 rows, B NC columns of a [64][DP] row-major matrix in shared
+// memory (row stride LD; `Bs` at its first column), read transposed.
+template <typename T, int DP, int NC>
+__device__ __forceinline__ void mma_ab_regs(float (&acc)[NC / 8][4],
                                             const uint32_t (&af)[4][4],
                                             const T* Bs, int lane) {
   constexpr int LD = DP + 8;
@@ -742,7 +786,7 @@ __device__ __forceinline__ void mma_ab_regs(float (&acc)[DP / 8][4],
 #pragma unroll
   for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
-    for (int nd = 0; nd < DP / 16; ++nd) {
+    for (int nd = 0; nd < NC / 16; ++nd) {
       uint32_t bf[4];
       ldsm_x4<true>(bf, Bs + (16 * kq + (mi & 1) * 8 + (lane & 7)) * LD +
                             16 * nd + (mi >> 1) * 8);
@@ -762,13 +806,14 @@ __host__ __device__ inline long long counter_words(int G, int T) {
 // staged q, dO, lse, delta of the query tile at q0.  p^T = exp(s^T -
 // lse) (0 under `skip`, the causal skip), dV += p^T dO, dS^T = p^T (dP^T -
 // delta) scale, dK += dS^T q; dS^T is left packed in `fa` (fa[kq][r]: key
-// key0 + 8 (r & 1), queries 16 kq + 8 (r >> 1) + 2 tq, +1).
-template <typename T, int DP>
+// key0 + 8 (r & 1), queries 16 kq + 8 (r >> 1) + 2 tq, +1).  S^T and dP^T
+// run over the whole head dim; dK and dV are the NC columns from col0.
+template <typename T, int DP, int NC>
 __device__ __forceinline__ void kv_tile_step(
-    float (&dk)[DP / 8][4], float (&dv)[DP / 8][4], uint32_t (&fa)[4][4],
+    float (&dk)[NC / 8][4], float (&dv)[NC / 8][4], uint32_t (&fa)[4][4],
     const T* Kw, const T* Vw, const T* Qs, const T* dOs, const float* lse_s,
     const float* delta_s, const float* mk, int key0, int k0, int q0,
-    bool skip, const Args& a) {
+    int col0, bool skip, const Args& a) {
   const int lane = threadIdx.x & 31, tq = lane & 3;
   // p^T = exp(s^T - lse) on this warp's 16 keys x 64 queries
   float pt[8][4];
@@ -789,7 +834,7 @@ __device__ __forceinline__ void kv_tile_step(
     for (int r = 0; r < 4; ++r)
       fa[kq][r] = pack2<T>(pt[2 * kq + (r >> 1)][2 * (r & 1)],
                            pt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
-  mma_ab_regs<T, DP>(dv, fa, dOs, lane);  // dV += p^T dO
+  mma_ab_regs<T, DP, NC>(dv, fa, dOs + col0, lane);  // dV += p^T dO
 
   // dS^T = p^T (dP^T - delta) scale, dP^T = v.dO^T
   float dpt[8][4];
@@ -807,39 +852,43 @@ __device__ __forceinline__ void kv_tile_step(
     for (int r = 0; r < 4; ++r)
       fa[kq][r] = pack2<T>(dpt[2 * kq + (r >> 1)][2 * (r & 1)],
                            dpt[2 * kq + (r >> 1)][2 * (r & 1) + 1]);
-  mma_ab_regs<T, DP>(dk, fa, Qs, lane);  // dK += dS^T q
+  mma_ab_regs<T, DP, NC>(dk, fa, Qs + col0, lane);  // dK += dS^T q
 }
 
-// dK, dV of BK keys as packed pairs in the input type, 4-byte stores.
-template <typename T, int DP>
-__device__ __forceinline__ void store_dkv(const Args& a, size_t off0,
-                                          int key0,
-                                          const float (&dk)[DP / 8][4],
-                                          const float (&dv)[DP / 8][4]) {
-  const int d = a.d, tq = threadIdx.x & 3;
-  T* dkp = static_cast<T*>(a.dk) + off0;
-  T* dvp = static_cast<T*>(a.dv) + off0;
+// One of dK, dV: the warp's keys and NC columns from col0 as packed pairs
+// in the input type, 4-byte stores into the [keys, d] rows at `dst`.
+template <typename T, int NC>
+__device__ __forceinline__ void store_keys(T* dst, int d, int key0, int col0,
+                                           const float (&acc)[NC / 8][4]) {
+  const int tq = threadIdx.x & 3;
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int c = 8 * n + 2 * tq;
+  for (int n = 0; n < NC / 8; ++n) {
+    const int c = col0 + 8 * n + 2 * tq;
     if (c < d)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t off = size_t(key0 + 8 * h) * d + c;
-        *reinterpret_cast<uint32_t*>(dkp + off) =
-            pack2<T>(dk[n][2 * h], dk[n][2 * h + 1]);
-        *reinterpret_cast<uint32_t*>(dvp + off) =
-            pack2<T>(dv[n][2 * h], dv[n][2 * h + 1]);
-      }
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(dst + size_t(key0 + 8 * h) * d + c) =
+            pack2<T>(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
 
-template <typename T, int DP, int NW>
-__global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
+template <typename T, int NC>
+__device__ __forceinline__ void store_dkv(const Args& a, size_t off0,
+                                          int key0, int col0,
+                                          const float (&dk)[NC / 8][4],
+                                          const float (&dv)[NC / 8][4]) {
+  store_keys<T, NC>(static_cast<T*>(a.dk) + off0, a.d, key0, col0, dk);
+  store_keys<T, NC>(static_cast<T*>(a.dv) + off0, a.d, key0, col0, dv);
+}
+
+template <typename T, int DP, int KW>
+__global__ void __launch_bounds__(32 * KW * col_split(DP),
+                                  KW == 4 && DP == 64 ? 3 : 1)
     stream_bwd_mma_kernel(Args a) {
-  using S = BwdMmaSmem<DP, NW, true>;
+  using S = BwdMmaSmem<DP, KW, true>;
+  constexpr int NW = S::NW, NC = DP / col_split(DP);
   constexpr int LD = S::LD, NT = DP / 8, BK = S::BK, NTH = 32 * NW;
-  constexpr int SUB = NW / 4;  // 64-key tiles per block
+  constexpr int SUB = KW / 4;  // 64-key tiles per block
   constexpr int CW = NW / 4;   // column groups of the dQ product
   constexpr int NTQ = NT / CW;  // its 8-column tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
@@ -853,7 +902,9 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
   const int g = blockIdx.x / nkb, j = blockIdx.x % nkb, k0 = j * BK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int sub = j * SUB + warp / 4;  // this warp's 64-key tile
+  // this warp's 16 keys (group kw) and its dK/dV columns from col0
+  const int kw = warp % KW, col0 = (warp / KW) * NC;
+  const int sub = j * SUB + kw / 4;  // its 64-key tile
   const size_t base = size_t(g) * T_len * d, rbase = size_t(g) * T_len;
   const T* q = static_cast<const T*>(a.q) + base;
   const T* dout = static_cast<const T*>(a.dout) + base;
@@ -880,12 +931,12 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
   load_q_tile(i0, 0);
   cp_async_commit();
 
-  float dk[NT][4], dv[NT][4];
+  float dk[NC / 8][4], dv[NC / 8][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int key0 = 16 * warp + gq;  // this thread's keys: key0, key0 + 8
+  const int key0 = 16 * kw + gq;  // this thread's keys: key0, key0 + 8
 
   for (int i = i0, it = 0; i < nq; ++i, ++it) {
     if (i + 1 < nq) load_q_tile(i + 1, (it + 1) & 1);
@@ -901,17 +952,19 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
     // under causal a warp whose 64-key tile lies after query tile i skips
     // it (p = dS = 0), as the Pallas grid does
     uint32_t fa[4][4];
-    kv_tile_step<T, DP>(dk, dv, fa, Ks + 16 * warp * LD, Vs + 16 * warp * LD,
-                        Qs, dOs, lse_s, delta_s, mk, key0, k0, q0,
-                        a.causal && sub > i, a);
-    // dS^T to shared memory
+    kv_tile_step<T, DP, NC>(dk, dv, fa, Ks + 16 * kw * LD, Vs + 16 * kw * LD,
+                            Qs, dOs, lse_s, delta_s, mk, key0, k0, q0, col0,
+                            a.causal && sub > i, a);
+    // dS^T to shared memory (the warps of one 16-key group hold the same
+    // dS^T: the first stores it)
+    if (warp < KW)
 #pragma unroll
-    for (int kq = 0; kq < 4; ++kq)
+      for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        *reinterpret_cast<uint32_t*>(
-            dSt + (key0 + 8 * (r & 1)) * S::LDS + 16 * kq + 8 * (r >> 1) +
-            2 * tq) = fa[kq][r];
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<uint32_t*>(
+              dSt + (key0 + 8 * (r & 1)) * S::LDS + 16 * kq + 8 * (r >> 1) +
+              2 * tq) = fa[kq][r];
     __syncthreads();
 
     // this block's dQ tile, dS . k over its BK keys: warp w takes the 16
@@ -985,22 +1038,24 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
     }
     __syncthreads();  // `last` is rewritten by the next chunk
   }
-  store_dkv<T, DP>(a, base + size_t(k0) * d, key0, dk, dv);
+  store_dkv<T, NC>(a, base + size_t(k0) * d, key0, col0, dk, dv);
 }
 
 // ------------------------------------------- bf16/fp16 dkv (mma.sync)
 
 // The fused backward without dQ: the same warps and dK/dV loop, and no dS^T
 // store, dQ product, partials, fence or tickets (no scratch); launched
-// with 4 warps (64 keys) a block.  The ring waits for query tile i, then
-// (one barrier: every warp is done with tile i - 1) loads tile i + 1 into
-// the other stage.
-template <typename T, int DP, int NW>
-__global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
+// with 4 16-key groups (64 keys) a block.  The ring waits for query tile
+// i, then (one barrier: every warp is done with tile i - 1) loads tile
+// i + 1 into the other stage.
+template <typename T, int DP, int KW>
+__global__ void __launch_bounds__(32 * KW * col_split(DP),
+                                  KW == 4 && DP == 64 ? 3 : 1)
     stream_dkv_mma_kernel(Args a) {
-  using S = BwdMmaSmem<DP, NW, false>;
-  constexpr int LD = S::LD, NT = DP / 8, BK = S::BK, NTH = 32 * NW;
-  constexpr int SUB = NW / 4;  // 64-key tiles per block
+  using S = BwdMmaSmem<DP, KW, false>;
+  constexpr int NC = DP / col_split(DP);
+  constexpr int LD = S::LD, BK = S::BK, NTH = 32 * S::NW;
+  constexpr int SUB = KW / 4;  // 64-key tiles per block
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + S::K);
   T* Vs = reinterpret_cast<T*>(smem + S::V);
@@ -1009,7 +1064,9 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
   const int nq = T_len / kKv, nkb = T_len / BK;
   const int g = blockIdx.x / nkb, j = blockIdx.x % nkb, k0 = j * BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = j * SUB + warp / 4;  // this warp's 64-key tile
+  // this warp's 16 keys (group kw) and its dK/dV columns from col0
+  const int kw = warp % KW, col0 = (warp / KW) * NC;
+  const int sub = j * SUB + kw / 4;  // its 64-key tile
   const size_t base = size_t(g) * T_len * d, rbase = size_t(g) * T_len;
   const T* q = static_cast<const T*>(a.q) + base;
   const T* dout = static_cast<const T*>(a.dout) + base;
@@ -1032,12 +1089,12 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
   load_q_tile(i0, 0);
   cp_async_commit();
 
-  float dk[NT][4], dv[NT][4];
+  float dk[NC / 8][4], dv[NC / 8][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int key0 = 16 * warp + (lane >> 2);
+  const int key0 = 16 * kw + (lane >> 2);
 
   for (int i = i0, it = 0; i < nq; ++i, ++it) {
     cp_async_wait<0>();
@@ -1047,29 +1104,33 @@ __global__ void __launch_bounds__(32 * NW, NW == 4 && DP == 64 ? 3 : 1)
     const unsigned char* st = stage(it & 1);
     const float* lse_s = reinterpret_cast<const float*>(st + 2 * S::QT);
     uint32_t fa[4][4];
-    kv_tile_step<T, DP>(dk, dv, fa, Ks + 16 * warp * LD, Vs + 16 * warp * LD,
-                        reinterpret_cast<const T*>(st),
-                        reinterpret_cast<const T*>(st + S::QT), lse_s,
-                        lse_s + kKv, mk, key0, k0, i * kKv,
-                        a.causal && sub > i, a);
+    kv_tile_step<T, DP, NC>(dk, dv, fa, Ks + 16 * kw * LD, Vs + 16 * kw * LD,
+                            reinterpret_cast<const T*>(st),
+                            reinterpret_cast<const T*>(st + S::QT), lse_s,
+                            lse_s + kKv, mk, key0, k0, i * kKv, col0,
+                            a.causal && sub > i, a);
   }
-  store_dkv<T, DP>(a, base + size_t(k0) * d, key0, dk, dv);
+  store_dkv<T, NC>(a, base + size_t(k0) * d, key0, col0, dk, dv);
 }
 
 // ---------------------------------------------- bf16/fp16 dq (wgmma)
 
-// dq's shared memory: q and dO (128 rows each) and two stages of K, V (64
-// rows each) and the 64 mask entries, in the forward's core-matrix layout.
+// dq's block: WG warpgroups of 64 query rows, two up to DP 128 and one at
+// DP 256 (two would need 262,656 bytes).  Its shared memory: q and dO
+// (ROWS rows each) and two stages of K, V (64 rows each) and the 64 mask
+// entries, in the forward's core-matrix layout.
 template <int DP>
 struct DqSmem {
+  static constexpr int WG = DP > 128 ? 1 : 2;
+  static constexpr int ROWS = 64 * WG, THREADS = 128 * WG;
   static constexpr int RB = DP * 16;                 // bytes per 8-row group
   static constexpr int TILE = kKv * DP * 2;          // one 64-row tile
   static constexpr int STAGE = 2 * TILE + kKv * 4;   // K, V, mask
-  static constexpr int Q = 2 * TILE, DO = 2 * TILE;
+  static constexpr int Q = WG * TILE, DO = WG * TILE;
   static constexpr size_t bytes = size_t(Q) + DO + 2 * STAGE;
 };
 
-// The forward's twin: one block per (g, 128 query rows), a warpgroup per
+// The forward's twin: one block per (g, ROWS query rows), a warpgroup per
 // 64 rows.  Per 64-key tile, S = q.k^T and dP = dO.v^T (wgmma, one commit
 // group), p and dS on the accumulator registers, and dQ += dS.k with dS
 // packed as the register A operand (k read MN-major, as the forward reads
@@ -1078,17 +1139,18 @@ struct DqSmem {
 // (the Pallas skip).  Rows past T load as zeros with lse = delta = 0 and
 // give dS = 0; they are not stored.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kFwdThreads, DP == 64 ? 2 : 1)
+__global__ void __launch_bounds__(DqSmem<DP>::THREADS, DP == 64 ? 2 : 1)
     stream_dq_wg_kernel(Args a) {
   using S = DqSmem<DP>;
-  constexpr int RB = S::RB, NH = DP / 64;  // 64-column halves of dQ
+  constexpr int RB = S::RB, NH = DP / 64;  // 64-column chunks of dQ
+  constexpr int NTH = S::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* dOs = smem + S::Q;
   unsigned char* stages = dOs + S::DO;
   const int T_len = a.T, d = a.d;
-  const int nqb = (T_len + kFwdRows - 1) / kFwdRows;
-  const int g = blockIdx.x / nqb, q0 = (blockIdx.x % nqb) * kFwdRows;
+  const int nqb = (T_len + S::ROWS - 1) / S::ROWS;
+  const int g = blockIdx.x / nqb, q0 = (blockIdx.x % nqb) * S::ROWS;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
@@ -1098,19 +1160,19 @@ __global__ void __launch_bounds__(kFwdThreads, DP == 64 ? 2 : 1)
   const float* mask = a.mask + rbase;
   const int nk = T_len / kKv;
   const int my_tile = q0 / kKv + wg;  // this warpgroup's 64-row query tile
-  const int jend = a.causal ? min(nk, q0 / kKv + 2) : nk;
+  const int jend = a.causal ? min(nk, q0 / kKv + S::WG) : nk;
 
   auto load_kv = [&](int j, int s) {
     unsigned char* st = stages + s * S::STAGE;
-    load_cm<T, DP>(st, k, j * kKv, kKv, T_len, d, kFwdThreads);
-    load_cm<T, DP>(st + S::TILE, v, j * kKv, kKv, T_len, d, kFwdThreads);
+    load_cm<T, DP>(st, k, j * kKv, kKv, T_len, d, NTH);
+    load_cm<T, DP>(st + S::TILE, v, j * kKv, kKv, T_len, d, NTH);
     if (tid < kKv / 4)
       cp_async16(st + 2 * S::TILE + tid * 16, mask + j * kKv + tid * 4, true);
   };
-  load_cm<T, DP>(Qs, static_cast<const T*>(a.q) + base, q0, kFwdRows, T_len,
-                 d, kFwdThreads);
-  load_cm<T, DP>(dOs, static_cast<const T*>(a.dout) + base, q0, kFwdRows,
-                 T_len, d, kFwdThreads);
+  load_cm<T, DP>(Qs, static_cast<const T*>(a.q) + base, q0, S::ROWS, T_len,
+                 d, NTH);
+  load_cm<T, DP>(dOs, static_cast<const T*>(a.dout) + base, q0, S::ROWS,
+                 T_len, d, NTH);
   load_kv(0, 0);
   cp_async_commit();
 
@@ -1232,8 +1294,8 @@ __global__ void __launch_bounds__(kFwdThreads, DP == 64 ? 2 : 1)
 
 enum Which { kFwd = 0, kBwdFused = 1, kDkv = 2, kDq = 3 };
 
-// the fused backward (DQ; bwd_warps(T, d) warps a block) or dkv (4 warps,
-// 64-key blocks, at every shape)
+// the fused backward (DQ; bwd_warps(T, d) 16-key groups a block) or dkv
+// (4 groups, 64-key blocks, at every shape); col_split(DP) warps a group
 template <typename T, int DP, bool DQ>
 int run_bwd(const Args& a, cudaStream_t stream) {
   if constexpr (DQ && DP == 64)
@@ -1241,16 +1303,19 @@ int run_bwd(const Args& a, cudaStream_t stream) {
       return launch_once<stream_bwd_mma_kernel<T, DP, 8>>(
           dim3(a.G * (a.T / 128)), 256, BwdMmaSmem<DP, 8, true>::bytes, a,
           stream);
+  using S = BwdMmaSmem<DP, 4, DQ>;
   constexpr auto kernel = DQ ? stream_bwd_mma_kernel<T, DP, 4>
                              : stream_dkv_mma_kernel<T, DP, 4>;
-  return launch_once<kernel>(dim3(a.G * (a.T / 64)), 128,
-                             BwdMmaSmem<DP, 4, DQ>::bytes, a, stream);
+  return launch_once<kernel>(dim3(a.G * (a.T / 64)), 32 * S::NW, S::bytes,
+                             a, stream);
 }
 
-// the fp32 route: the first kernels, 32-row tiles
+// the fp32 route: the first kernels, 32-row tiles; at DP 256 the fused
+// backward's and dkv's are 16 rows (at 32 the fused backward would take
+// 251,776 bytes of shared memory, and dkv spills in ptxas)
 template <int DP>
 int run_f32(int which, const Args& a, cudaStream_t stream) {
-  constexpr int B = 32;
+  constexpr int B = 32, BB = DP > 128 ? 16 : B;
   using Lt = Layout<float, DP, B>;
   if (a.T % B != 0) return int(cudaErrorInvalidValue);
   const dim3 tiles(a.G, a.T / B);
@@ -1259,11 +1324,12 @@ int run_f32(int which, const Args& a, cudaStream_t stream) {
       return launch_once<stream_fwd_kernel<float, DP, B>>(tiles, kThreads,
                                                           Lt::fwd, a, stream);
     case kBwdFused:
-      return launch_once<stream_bwd_fused_kernel<float, DP, B>>(
-          dim3(a.G), kThreadsFused, Lt::bwd3, a, stream);
+      return launch_once<stream_bwd_fused_kernel<float, DP, BB>>(
+          dim3(a.G), kThreadsFused, Layout<float, DP, BB>::bwd3, a, stream);
     case kDkv:
-      return launch_once<stream_dkv_kernel<float, DP, B>>(tiles, kThreads,
-                                                          Lt::bwd2, a, stream);
+      return launch_once<stream_dkv_kernel<float, DP, BB>>(
+          dim3(a.G, a.T / BB), kThreads, Layout<float, DP, BB>::bwd2, a,
+          stream);
     case kDq:
       return launch_once<stream_dq_kernel<float, DP, B>>(tiles, kThreads,
                                                          Lt::bwd2, a, stream);
@@ -1288,10 +1354,12 @@ int run(int which, const Args& a, cudaStream_t stream) {
         return run_bwd<T, DP, true>(a, stream);
       case kDkv:
         return run_bwd<T, DP, false>(a, stream);
-      case kDq:
+      case kDq: {
+        using S = DqSmem<DP>;
         return launch_once<stream_dq_wg_kernel<T, DP>>(
-            dim3(a.G * ((a.T + kFwdRows - 1) / kFwdRows)), kFwdThreads,
-            DqSmem<DP>::bytes, a, stream);
+            dim3(a.G * ((a.T + S::ROWS - 1) / S::ROWS)), S::THREADS, S::bytes,
+            a, stream);
+      }
     }
     return int(cudaErrorInvalidValue);
   }
@@ -1301,6 +1369,7 @@ template <typename T>
 int run_dp(int which, const Args& a, cudaStream_t stream) {
   if (a.d <= 64) return run<T, 64>(which, a, stream);
   if (a.d <= 128) return run<T, 128>(which, a, stream);
+  if (a.d <= 256) return run<T, 256>(which, a, stream);
   return int(cudaErrorInvalidValue);
 }
 
@@ -1328,7 +1397,7 @@ int dispatch(int dtype, int which, const Args& a, void* stream) {
 // zero before the first call; the kernel leaves them zero).
 // `stream` is a cudaStream_t.  Each function returns cudaGetLastError()
 // after its launch (0 = cudaSuccess), or cudaErrorInvalidValue for a shape
-// it does not take (d not a multiple of 8 or above 128, T not a multiple
+// it does not take (d not a multiple of 8 or above 256, T not a multiple
 // of the tile).
 
 extern "C" int dstt_stream_fwd(int dtype, const void* q, const void* k,

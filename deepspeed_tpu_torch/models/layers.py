@@ -432,11 +432,13 @@ def attention_plan(T, n, d, causal):
       becomes a whole-tile backward (no logsumexp).
 
     Where the JAX gate takes a shape and the CUDA kernels' gate refuses it
-    (only at head dims above 128: the whole-tile gates agree up to there,
-    the streaming ones take d up to 128), "auto" treats the kernel as
-    unsupported (the einsum path instead) and "1" raises
-    ``NotImplementedError``.  Off the card (the CPU tests) the plan is the
-    same, so the CPU runs the card's path in plain versions."""
+    (only at head dims above 128 for the whole-tile kernels and above 256
+    for the streaming ones: up to there each pair of gates agrees, so at
+    seq >= 256 and d <= 256 both modes take the streaming kernels, as the
+    JAX plan does), "auto" treats the kernel as unsupported (the einsum
+    path instead) and "1" raises ``NotImplementedError``.  Off the card
+    (the CPU tests) the plan is the same, so the CPU runs the card's path
+    in plain versions."""
     mode = _attn_mode()
     if mode == "0":
         return "xla", "xla"

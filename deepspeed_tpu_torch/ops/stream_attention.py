@@ -40,9 +40,9 @@ SOURCE = _build.CSRC / "stream_attention.cu"
 
 #: the stream gate's sequence granule (``pallas_attention.STREAM_TILE_MIN``)
 STREAM_TILE_MIN = 256
-#: the kernels stage the head dim in shared memory padded to 64 or 128
-#: (the port's own gate; the Pallas kernels have none)
-STREAM_MAX_HEAD_DIM = 128
+#: the kernels stage the head dim in shared memory padded to 64, 128 or
+#: 256 (the port's own gate; the Pallas kernels have none)
+STREAM_MAX_HEAD_DIM = 256
 #: query/kv rows per kernel tile: the sequence must be a multiple of it
 KERNEL_TILE = 64
 
@@ -139,8 +139,9 @@ STREAM_FUSED_SCRATCH_BUDGET = 0
 
 
 def _bwd_warps(T: int, d: int) -> int:
-    """``bwd_warps`` (csrc/stream_attention.cu): warps of 16 keys per
-    fused-backward block."""
+    """``bwd_warps`` (csrc/stream_attention.cu): groups of 16 keys per
+    fused-backward block (one warp each; two at head dims past 128, each
+    with half the columns of dK and dV, so the keys a block stay 64)."""
     return 8 if d <= 64 and T % 128 == 0 else 4
 
 
@@ -154,6 +155,13 @@ def fused_scratch_words(dtype, G: int, T: int, d: int):
         return gtd, 0
     counters = (G * (T // KERNEL_TILE) + 3) // 4 * 4
     return counters + T // (16 * _bwd_warps(T, d)) * gtd, counters
+
+
+def release_fused_scratch() -> None:
+    """Drop the fused backward's cached scratch on every device and
+    stream (the next fused call allocates it anew): at head dim 256 and
+    seq 2048 it is ``4 T / 64 G T d`` bytes, 2.1 GB at G = 32."""
+    _scratch.clear()
 
 
 def _fused_bwd_fits(dtype, G: int, T: int, d: int) -> bool:

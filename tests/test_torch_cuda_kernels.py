@@ -214,7 +214,8 @@ def attn_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T,d", [(256, 16), (256, 128), (512, 64)])
+@pytest.mark.parametrize("T,d", [(256, 16), (256, 128), (512, 64),
+                                 (256, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=str)
 def test_stream_attention_kernels_match_plain(dev, dtype, T, d, causal):
@@ -258,26 +259,34 @@ def _fwd_and_fused(q, k, v, do, mask, causal):
                               "stream_dkv": 0, "stream_dq": 0}
 
 
+#: head dims in (128, 256]: the DP-256 instantiations (the forward one
+#: block an SM, dq one warpgroup of 64 rows a block, dkv and the fused
+#: backward two warps to each 16 keys, each with 128 columns of dK and
+#: dV); d 136 and 200 zero-fill columns d..255
+D256_SHAPES = [(256, 256), (512, 256), (1024, 256), (256, 136), (512, 200)]
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("T,d", [(256, 16), (256, 64), (256, 128),
                                  (512, 16), (512, 64), (512, 128),
                                  (1024, 16), (1024, 64), (1024, 128),
-                                 (192, 64)])
+                                 (192, 64)] + D256_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_stream_hopper_kernels_match_plain(dev, dtype, T, d, causal):
     """The register-accumulator forward (wgmma) and fused backward
-    (mma.sync, dQ partials) over several kv tiles, both head-dim paddings
+    (mma.sync, dQ partials) over several kv tiles, every head-dim padding
     and a T that is not a multiple of the forward's 128-row block."""
     _fwd_and_fused(*attn_inputs(dev, dtype, T, d, seed=T + d), causal)
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
-def test_stream_kernels_fully_masked_row(dev, dtype):
+def test_stream_kernels_fully_masked_row(dev, dtype, d):
     """A batch row with every key masked scores -1e9 everywhere, so its
     attention is uniform over all T keys (non-causal: under causal the
     kernels, like the Pallas grid, visit only the tiles up to the query's,
     where the plain versions take the whole row)."""
-    B, n, T, d = 2, 2, 512, 64
+    B, n, T = 2, 2, 512
     q, k, v, do, _ = attn_inputs(dev, dtype, T, d, B=B, n=n, seed=9)
     mask = torch.ones((B, T), device=dev)
     mask[0] = 0.0
@@ -290,10 +299,11 @@ def test_stream_kernels_fully_masked_row(dev, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T,d", [(512, 64), (1024, 64), (1024, 128)])
+@pytest.mark.parametrize("T,d", [(512, 64), (1024, 64), (1024, 128),
+                                 (1024, 256)])
 def test_stream_fused_backward_is_deterministic(dev, T, d, causal):
     """Bitwise repeatable dQ, summed across kv blocks through partials and
-    tickets, with 128-key blocks (d 64) and 64-key blocks (d 128)."""
+    tickets, with 128-key blocks (d 64) and 64-key blocks (d 128, 256)."""
     q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, T, d, seed=4)
     o, lse = sattn.stream_fwd(q, k, v, mask, causal)
     delta = (do.float() * o.float()).sum(-1)[:, None, :]
@@ -317,11 +327,11 @@ def test_stream_fused_scratch_reused_across_shapes(dev):
         _fwd_and_fused(q, k, v, do, mask, True)
 
 
-#: the split pair's shapes: both head-dim paddings (d 40 and 64 in 64,
-#: d 128), one to 32 kv tiles, and a dq block whose second warpgroup lies
-#: past T (T 192)
+#: the split pair's shapes: every head-dim padding (d 40 and 64 in 64,
+#: d 128, D256_SHAPES), one to 32 kv tiles, and a dq block whose second
+#: warpgroup lies past T (T 192)
 SPLIT_SHAPES = [(T, d) for T in (256, 512, 1024, 2048) for d in (64, 128)
-                ] + [(192, 64), (256, 40)]
+                ] + [(192, 64), (256, 40)] + D256_SHAPES
 
 
 def _split_pair(q, k, v, do, mask, causal):
@@ -352,7 +362,8 @@ def test_stream_split_pair_hopper_kernels_match_plain(dev, dtype, T, d,
     attn_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("T,d", [(512, 64), (1024, 128), (192, 64)])
+@pytest.mark.parametrize("T,d", [(512, 64), (1024, 128), (192, 64),
+                                 (512, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_stream_split_pair_fully_masked_row(dev, dtype, T, d):
     """A batch row with every key masked (its lse that of an all -1e9 row)
@@ -370,7 +381,8 @@ def test_stream_split_pair_fully_masked_row(dev, dtype, T, d):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T,d", [(512, 64), (2048, 64), (1024, 128)])
+@pytest.mark.parametrize("T,d", [(512, 64), (2048, 64), (1024, 128),
+                                 (1024, 256)])
 def test_stream_split_pair_is_deterministic(dev, T, d, causal):
     """Bitwise repeatable dK, dV and dQ: every block owns its outputs."""
     q, k, v, do, mask = attn_inputs(dev, torch.bfloat16, T, d, seed=4)
@@ -389,7 +401,7 @@ def test_fused_scratch_mirror_matches_the_library(dev):
     for dtype, code in sattn._DTYPE_CODE.items():
         for G in (1, 3, 32, 128):
             for T in (64, 192, 256, 512, 1024, 2048, 8192):
-                for d in (8, 40, 64, 72, 128):
+                for d in (8, 40, 64, 72, 128, 136, 256):
                     counters = ctypes.c_longlong(-1)
                     words = lib.dstt_stream_bwd_fused_scratch(
                         code, G, T, d, ctypes.byref(counters))
@@ -477,6 +489,9 @@ def test_stream_wrappers_refuse_bad_inputs(dev):
         sattn.stream_fwd(q, k, v, mask.half(), False)
     with pytest.raises(ValueError, match="is on cpu"):
         sattn.stream_fwd(q, k.cpu(), v, mask, False)
+    wide = torch.zeros((4, 256, 264), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="up to 256"):
+        sattn.stream_fwd(wide, wide, wide, mask, False)
 
 
 # ------------------------------------------------------ whole-tile attention
